@@ -1,0 +1,556 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--out results.json]
+
+Serves ``llama3.2-1b`` at full width and depth, with weights drawn from
+``--seed`` on the card, through the port's own entry points under the
+``cuda-strict`` policy, so every op on the path runs a hand-written kernel.
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. device: the card's name and power limit; build the kernels from
+   ``src/repro_torch/csrc`` and print what ptxas reports for each.
+2. kernels: each kernel against its plain PyTorch version at the shapes the
+   serving path gives it, within the tolerance stated below (attention row
+   by row, beside what a planted fault reads by the same measure); timed with
+   CUDA events beside its plain version and one PyTorch library call, and
+   its bound (the larger of bytes / 3.35 TB/s and flops / peak rate).
+3. model: logits of the full model under ``cuda-strict`` against the
+   ``torch`` eager source on the same weights and prompts, for the calls the
+   engine makes: bucketed prefill, the first-token fixup, a batched decode.
+4. serve: ``ServeEngine(batch_slots=8, max_len=1024)``, 16 greedy requests
+   with prompts of 5 to 600 tokens and 32 new tokens each; every kernel's
+   launch count is read from this phase alone and checked against the
+   model calls the engine made.  Then the card's busy share over four
+   decode steps, from a torch.profiler trace.
+
+The last lines are the ``{"kernels": [...]}`` summary, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+Needs one CUDA card; exits non-zero without one.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_S = 3.35e12          # H100 SXM device memory
+BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's 1.98 GHz boost clock
+# matmul and rmsnorm vs their plain versions: bf16 outputs within about two
+# bf16 rounding steps of the O(1) values used (the kernels sum in another
+# order); f32 matmul outputs within f32 reordering of exact bf16 products.
+TOL_BF16 = (2e-2, 2e-2)
+TOL_F32 = (1e-3, 1e-3)
+# attention vs its plain version, per output row (one query head of one
+# token): ||got - want|| / ||want|| over the head dim.  An absolute limit
+# would be loose here: a row over n random keys has |o| of about n^-1/2, so
+# 2e-2 is a fifth of a 1024-key row.  The kernels' own rounding (P to bf16
+# for P V, the bf16 output) gives a few 1e-3; a kernel that drops one key
+# tile moves a row by about sqrt(tile / n), 0.18 for a 32-key tile of 1024.
+# Each check also reads such a planted fault and fails unless it lies beyond
+# the limit in every row it touches.
+ATTN_REL_L2_TOL = 1e-2
+# full model, cuda-strict vs the torch eager source: the sources round
+# differently (the eager source runs silu on bf16, the kernel on f32) and the
+# difference compounds over 16 layers; a wrong kernel gives errors of O(1).
+MODEL_REL_L2_TOL = 0.1
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, arg_sets, iters: int = 30, warmup: int = 3) -> tuple[float, float]:
+    """(device ms, host ms) of one call: CUDA events around ``iters`` calls
+    after a warm-up, cycling through ``arg_sets`` so the inputs come from
+    device memory rather than L2.  A spin kernel keeps the card busy while
+    the host queues the calls, so the events hold device time only; the
+    host's own time per call is returned beside it (when it exceeds the
+    spin, the device time includes host gaps and reads high)."""
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
+def n_sets(bytes_per_set: int) -> int:
+    return max(1, min(64, math.ceil(2 * L2_BYTES / bytes_per_set)))
+
+
+def bound(bytes_: float, flops: float, peak: float) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(torch, got, want, tol) -> dict:
+    """Largest |got - want|; raises if any element is outside atol + rtol·|want|."""
+    atol, rtol = tol
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output has non-finite values")
+    diff = (g - w).abs()
+    if bool((diff > atol + rtol * w.abs()).any()):
+        raise AssertionError(f"kernel disagrees with its plain version: max |diff| "
+                             f"{float(diff.max())} beyond atol={atol}, rtol={rtol}")
+    return {"max_abs_err": float(diff.max()), "tolerance": f"atol={atol} rtol={rtol}"}
+
+
+def row_rel_l2(torch, got, want):
+    """Per row of the last axis, ||got - want|| / ||want||."""
+    g, w = got.float(), want.float()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-12)
+
+
+def masked_attention(torch, q, k, v, mask):
+    """Attention of q [B,Hq,S,D] over k, v [B,Hkv,T,D] where ``mask``
+    (broadcast to [B,1,S,T]) is true, in f32, cast to bf16; a row that sees
+    no key is 0.  The plain versions' function with any mask, so a planted
+    fault can drop keys the kernel would keep."""
+    group = q.shape[1] // k.shape[1]
+    kg = k.float().repeat_interleave(group, 1)
+    vg = v.float().repeat_interleave(group, 1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kg) / math.sqrt(q.shape[-1])
+    s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    return (torch.einsum("bhst,bhtd->bhsd", p, vg) / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
+def flash_masks(torch, S: int, T: int, causal: bool, device):
+    """The keys [S, T] each query row sees (queries at the end of the keys),
+    and the planted fault's among them: keys 64..127, the kernel's second
+    64-key tile."""
+    kpos = torch.arange(T, device=device)[None, :]
+    sound = ((kpos <= torch.arange(S, device=device)[:, None] + (T - S)) if causal
+             else torch.ones((S, T), dtype=torch.bool, device=device))
+    return sound, sound & (kpos >= 64) & (kpos < 128)
+
+
+def decode_masks(torch, lengths, T: int):
+    """The valid keys [B, T] of each sequence, and the planted fault's among
+    them: the sequence's last full 32-key tile, where it has more keys."""
+    kpos = torch.arange(T, device=lengths.device)[None, :]
+    valid = kpos < lengths[:, None]
+    start = (lengths // 32 - 1)[:, None] * 32
+    return valid, valid & (lengths[:, None] > 32) & (kpos >= start) & (kpos < start + 32)
+
+
+def attention_err(torch, got, want, fault, touched) -> dict:
+    """Hold an attention kernel's output to its plain version, row by row,
+    within ATTN_REL_L2_TOL; ``fault`` is the output of the same function with
+    one key tile dropped, read by the same measure in the rows ``touched``
+    (those that lost the whole tile, broadcast to the rows' shape) to show
+    the limit would catch it in every one of them (raises otherwise).  A
+    shape where the fault touches no row reads None."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("kernel output has non-finite values")
+    rel = row_rel_l2(torch, got, want)
+    if float(rel.max()) > ATTN_REL_L2_TOL:
+        raise AssertionError(f"kernel disagrees with its plain version: row rel L2 "
+                             f"{float(rel.max())} beyond {ATTN_REL_L2_TOL}")
+    touched = touched.expand(rel.shape)
+    planted = float(row_rel_l2(torch, fault, want)[touched].min()) if touched.any() else None
+    if planted is not None and planted <= ATTN_REL_L2_TOL:
+        raise AssertionError(f"a dropped key tile reads {planted} in some row, within the "
+                             f"limit {ATTN_REL_L2_TOL}: the check cannot see it")
+    return {"max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_rel_l2": float(rel.max()), "planted_fault_min_rel_l2": planted,
+            "tolerance": f"row rel L2 <= {ATTN_REL_L2_TOL}"}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import rmsnorm as rms_k
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    rows: list[dict] = []
+    errs: dict[str, dict] = {}
+
+    def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak):
+        worst = errs.setdefault(name, {"max_abs_err": 0.0, "tolerance": check["tolerance"]})
+        worst["max_abs_err"] = max(worst["max_abs_err"], check["max_abs_err"])
+        if "max_rel_l2" in check:
+            worst["max_rel_l2"] = max(worst.get("max_rel_l2", 0.0), check["max_rel_l2"])
+            if check["planted_fault_min_rel_l2"] is not None:
+                worst["planted_fault_min_rel_l2"] = min(
+                    worst.get("planted_fault_min_rel_l2", math.inf),
+                    check["planted_fault_min_rel_l2"])
+        row = {"name": name, "shape": shape, **check}
+        if sets is not None:
+            row["ms"], row["host_ms"] = time_ms(torch, kernel, sets)
+            row["plain_ms"] = time_ms(torch, plain, sets)[0]
+            row["library_ms"] = time_ms(torch, library, sets)[0] if library else None
+            row["bound_ms"], row["bound_by"] = bound(bytes_, flops, peak)
+        rows.append(row)
+        print("  " + json.dumps(row))
+
+    # matmul at the four weight shapes: M = 1 (the first-token fixup), 8 (a
+    # decode step of 8 slots), 512 and 1024 (prefill of the largest buckets)
+    for M in (1, 8, 512, 1024):
+        for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
+            k_sets = n_sets(2 * (M * K + K * N))
+            sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(k_sets)]
+            x, w = sets[0]
+            for act in (None, "silu"):
+                for out in (torch.bfloat16, torch.float32):
+                    tol = TOL_F32 if out == torch.float32 else TOL_BF16
+                    check = max_err(torch, mm_k.matmul(x, w, activation=act, out_dtype=out),
+                                    mm_k.plain_matmul(x, w, activation=act, out_dtype=out), tol)
+                    timed = out == torch.bfloat16 and (act is None or N == 8192)
+                    record(
+                        "matmul", f"[{M},{K}]x[{K},{N}] act={act} out={str(out)[6:]}", check,
+                        sets if timed else None,
+                        lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
+                        lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
+                        (lambda a, b: torch.matmul(a, b)) if act is None else None,
+                        2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
+            del sets, x, w
+
+    # rmsnorm: fixup, decode and prefill rows at d_model 2048
+    for R in (1, 8, 512, 1024):
+        sets = [(randn((R, 2048)), randn((2048,))) for _ in range(n_sets(4 * R * 2048))]
+        check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
+        record("rmsnorm", f"[{R},2048]", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+               lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+               2 * (2 * R * 2048 + 2048), 4 * R * 2048, F32_FLOPS)
+
+    # flash attention: prefill of the 512- and 1024-token buckets (causal and
+    # not), the smallest bucket, and S < T.  The planted fault is read in
+    # the rows that see all 64 of its keys.
+    for S, T, causal in ((512, 512, True), (1024, 1024, True), (8, 8, True),
+                         (512, 512, False), (128, 512, True)):
+        per_set = 2 * (2 * 32 * S * 64 + 2 * 8 * T * 64)
+        sound, dropped = flash_masks(torch, S, T, causal, dev)
+        mask = sound if causal else None
+        sets = []
+        for _ in range(n_sets(per_set)):
+            q, k, v = randn((1, 32, S, 64)), randn((1, 8, T, 64)), randn((1, 8, T, 64))
+            sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1), mask))
+        q, k, v = sets[0][:3]
+        fault = masked_attention(torch, q, k, v, sound & ~dropped)
+        check = attention_err(torch, fa_k.flash_attention(q, k, v, causal=causal),
+                              fa_k.plain_flash_attention(q, k, v, causal=causal), fault,
+                              dropped.sum(dim=-1) == 64)
+        pairs = sum(min(T, T - S + i + 1) for i in range(S)) if causal else S * T
+        timed = (S, T) in ((512, 512), (1024, 1024))
+        record("flash_attention", f"q[1,32,{S},64] kv[1,8,{T},64] causal={causal}", check,
+               sets if timed else None,
+               lambda q, k, v, ke, ve, m, c=causal: fa_k.flash_attention(q, k, v, causal=c),
+               lambda q, k, v, ke, ve, m, c=causal: fa_k.plain_flash_attention(q, k, v, causal=c),
+               lambda q, k, v, ke, ve, m: F.scaled_dot_product_attention(q, ke, ve, attn_mask=m),
+               per_set, 4 * 32 * 64 * pairs, BF16_TC_FLOPS)
+        del sets, q, k, v, fault
+
+    # decode attention: 8 slots against a 1024-row cache with lengths 1 ..
+    # 1024 (a decode step), and one sequence against a cache cut to its
+    # prompt length n (the first-token fixup: T = n, not a multiple of the
+    # 32-key tile).
+    cases = [(torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev),
+              1024, "q[8,32,64] cache[8,8,1024,64] lengths 1..1024")]
+    cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n,
+               f"q[1,32,64] cache[1,8,{n},64] length {n}") for n in (5, 45, 600)]
+    for lengths, T, shape in cases:
+        B = lengths.numel()
+        valid, dropped = decode_masks(torch, lengths, T)
+        sets = []
+        for _ in range(n_sets(2 * 2 * B * 8 * T * 64)):
+            q, kc, vc = randn((B, 32, 64)), randn((B, 8, T, 64)), randn((B, 8, T, 64))
+            sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(4, 1),
+                         vc.repeat_interleave(4, 1)))
+        q, kc, vc = sets[0][:3]
+        fault = masked_attention(torch, q[:, :, None], kc, vc, (valid & ~dropped)[:, None, None])
+        check = attention_err(torch, dec_k.decode_attention(q, kc, vc, lengths),
+                              dec_k.plain_decode_attention(q, kc, vc, lengths), fault[:, :, 0],
+                              dropped.any(dim=-1)[:, None])
+        n_keys = int(lengths.sum())
+        record("decode_attention", shape, check, sets if T in (1024, 600) else None,
+               lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.decode_attention(q, kc, vc, n),
+               lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.plain_decode_attention(q, kc, vc, n),
+               lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
+                   q4, ke, ve, attn_mask=m[:, None, None, :]),
+               2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64), 4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
+        del sets, q, kc, vc, fault
+    return rows, errs
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the model and the server
+# ---------------------------------------------------------------------------
+
+
+def model_phase(torch, model, params, seed: int) -> dict:
+    """The full model under cuda-strict against the torch eager source, on
+    the calls the engine makes for four prompts: the prefill of each prompt
+    padded to its bucket (S = T = 8 .. 1024), the first-token fixup decode
+    step against the cache cut to the prompt (T = n), and one decode step of
+    the four as a batch at their own positions.  Each source runs every call
+    on its own caches; the compared logits come from the same tokens."""
+    from repro_torch.core import dispatch
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, vocab = model.device, model.cfg.vocab_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    lengths = (5, 64, 300, 600)
+    prompts = [torch.randint(0, vocab, (n,), generator=gen, device=dev) for n in lengths]
+    next_tokens = torch.randint(0, vocab, (len(lengths), 1), generator=gen, device=dev)
+    buckets = [ServeEngine.bucket_len(n, 1024) for n in lengths]
+    out: dict[str, dict[str, list]] = {}
+    for policy in ("torch", "cuda-strict"):
+        got: dict[str, list] = {"prefill": [], "fixup": [], "decode": []}
+        caches = []
+        with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+            for tokens, n, bucket in zip(prompts, lengths, buckets):
+                padded = torch.nn.functional.pad(tokens, (0, bucket - n))[None]
+                logits, cache = model.prefill(params, {"tokens": padded}, cache_len=1024)
+                got["prefill"].append(logits[0])
+                if bucket > n:
+                    fix = {"pos": torch.tensor([n - 1], dtype=torch.int32, device=dev),
+                           "k": cache["k"][:, :, :, :n].clone(),
+                           "v": cache["v"][:, :, :, :n].clone()}
+                    got["fixup"].append(model.decode_step(params, tokens[None, -1:], fix)[0][0])
+                caches.append(cache)
+            batch = {"pos": torch.tensor(lengths, dtype=torch.int32, device=dev),
+                     "k": torch.cat([c["k"] for c in caches], dim=1),
+                     "v": torch.cat([c["v"] for c in caches], dim=1)}
+            del caches
+            got["decode"] = list(model.decode_step(params, next_tokens, batch)[0])
+            del batch
+        out[policy] = got
+    res = {"prompt_lengths": list(lengths), "buckets": buckets,
+           "tolerance_rel_l2": MODEL_REL_L2_TOL}
+    for kind in ("prefill", "fixup", "decode"):
+        rel, agree = [], 0
+        for ref, g in zip(out["torch"][kind], out["cuda-strict"][kind]):
+            ref, g = ref.float(), g.float()
+            if not torch.isfinite(g).all() or g.shape != (vocab,):
+                raise AssertionError(f"{kind} logits of shape {tuple(g.shape)}, or not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+        res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    print("  " + json.dumps(res))
+    worst = max(max(res[kind]["rel_l2"]) for kind in ("prefill", "fixup", "decode"))
+    if worst > MODEL_REL_L2_TOL or len(res["fixup"]["rel_l2"]) != 3:
+        raise AssertionError(f"cuda-strict logits differ from the torch source: {res}")
+    return res
+
+
+def serve_phase(torch, model, params, kernels, seed: int) -> dict:
+    from repro_torch.core import dispatch
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    rng = torch.Generator().manual_seed(seed + 2)
+    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lengths]
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels:
+            mod.launches = 0
+        for p in prompts:
+            eng.submit(p, max_new_tokens=32)
+        done, decode_s, decode_tok, t0 = [], 0.0, 0, time.perf_counter()
+        for _ in range(1000):
+            calls, toks, ts = eng.prefill_calls, eng.decode_tokens, time.perf_counter()
+            done += eng.step()        # every step ends reading tokens back to the host
+            if eng.prefill_calls == calls:
+                decode_s += time.perf_counter() - ts
+                decode_tok += eng.decode_tokens - toks
+            if len(done) == len(prompts):
+                break
+        wall = time.perf_counter() - t0
+        launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(done) != len(prompts):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests completed")
+    for r in done:
+        if len(r.generated) != 32 or not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"request {r.uid}: bad tokens {r.generated}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the path never launched while serving: {launches}")
+    calls = eng.prefill_calls + eng.fixup_calls + eng.decode_calls
+    L = cfg.num_layers
+    want = {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
+            "flash_attention": L * eng.prefill_calls,
+            "decode_attention": L * (eng.fixup_calls + eng.decode_calls)}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want} from "
+                             f"{eng.prefill_calls} prefills, {eng.fixup_calls} fixups and "
+                             f"{eng.decode_calls} decode steps")
+    ttft = sorted(r.first_token_t - r.arrival_t for r in done)
+    res = {"requests": len(done), "new_tokens_each": 32, "prompt_lengths": lengths,
+           "prefill_calls": eng.prefill_calls, "fixup_calls": eng.fixup_calls,
+           "decode_calls": eng.decode_calls, "launches": launches,
+           "ttft_mean_s": sum(ttft) / len(ttft),
+           "ttft_p99_s": ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
+           "decode_tokens_per_s": decode_tok / decode_s, "decode_tokens": decode_tok,
+           "wall_s": wall, "max_memory_allocated_bytes": peak}
+    print("  " + json.dumps(res))
+    return res
+
+
+def busy_phase(torch, model, params, seed: int) -> dict:
+    """Where a decode step's time goes: the card's busy share over four
+    decode steps of 8 live slots (device kernel time from a torch.profiler
+    trace of CUDA activity, over the wall time of the steps) and the
+    kernels that take it.  A trace without device events reads as not
+    measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dispatch
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = torch.Generator().manual_seed(seed + 3)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device)
+        for n in (40, 90, 130, 200, 260, 300, 400, 500):
+            eng.submit(torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).tolist(),
+                       max_new_tokens=16)
+        eng.step()                    # the prefills, outside the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(4):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"decode_steps": 4, "wall_us": wall_us,
+           "device_busy_us": busy_us if events else None,
+           "device_busy_share": busy_us / wall_us if events else None,
+           "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
+    print("  " + json.dumps(res))
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None, help="write every measurement here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import native
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.models import build_model, init_params
+
+    kernels = (mm_k, rms_k, fa_k, dec_k)
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
+    print(f"[1/4] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    native.build_all()
+    print(f"  built {len(native.SOURCES)} kernels in {time.perf_counter() - t:.1f} s"
+          + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
+    for name, log in native.build_logs().items():
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    print(f"[2/4] kernels against their plain versions, on {card} ({smi})")
+    rows, errs = kernel_phase(torch, args.seed)
+
+    print("[3/4] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch source")
+    cfg = get_arch("llama3.2-1b")
+    model = build_model(cfg)
+    params = init_params(model.param_specs(), args.seed)
+    model_res = model_phase(torch, model, params, args.seed)
+
+    print("[4/4] serve: 16 greedy requests, 8 slots, max_len 1024, cuda-strict")
+    serve_res = serve_phase(torch, model, params, kernels, args.seed)
+    print(f"  on {card} ({smi}): TTFT mean {serve_res['ttft_mean_s']} s, "
+          f"p99 {serve_res['ttft_p99_s']} s; decode {serve_res['decode_tokens_per_s']} "
+          f"tokens/s; peak memory {serve_res['max_memory_allocated_bytes']} bytes")
+    print("  where a decode step's time goes (torch.profiler, CUDA activity):")
+    busy_res = busy_phase(torch, model, params, args.seed)
+
+    headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
+                "rmsnorm": "[8,2048]",
+                "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
+                "decode_attention": "q[8,32,64] cache[8,8,1024,64] lengths 1..1024"}
+    summary = []
+    for mod in kernels:
+        name = mod.__name__.rsplit(".", 1)[1]
+        row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
+        summary.append({
+            "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": mod.REPLACES,
+            "launches": serve_res["launches"][name], **errs[name],
+            "shape": row["shape"], "ms": row["ms"],
+            "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({
+            "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
+            "kernel_rows": rows, "model": model_res, "serve": serve_res, "busy": busy_res,
+            "summary": summary,
+            "total_s": time.perf_counter() - t_start}, indent=1))
+    print(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": summary}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

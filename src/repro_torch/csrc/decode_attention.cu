@@ -1,0 +1,198 @@
+// Decode attention for Hopper: one query token per sequence against a dense
+// KV cache.  q [B,Hq,D], k/v cache [B,Hkv,T,D] (bf16, D = 64), lengths
+// int32 [B]; positions >= lengths[b] are masked.
+//
+// Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::
+// decode_attention (_dec_kernel).  Per token almost no arithmetic happens and
+// the cache streams from device memory once, so the kernel is bound by bytes.
+// Its design:
+//   - one block per (kv head, sequence); the `group` query heads of that kv
+//     head ride as the rows of one 16-row tensor-core tile (rows past `group`
+//     are zero), so the cache is read once for all of them;
+//   - the block's four warps split the cache into 32-key tiles round-robin,
+//     each running the same online softmax as the flash kernel (mma.sync,
+//     f32 statistics, P rounded to bf16 for P V), and the four partial
+//     (max, denominator, accumulator) triples are merged in shared memory at
+//     the end — the split takes the place of the TPU's sequential KV axis;
+//   - tiles wholly at or past the sequence's length are skipped, so a short
+//     sequence reads only its own rows (and never touches rows no prefill or
+//     decode has written); the partial last tile is masked at -1e30;
+//   - l == 0 is guarded as in the Pallas kernel.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kD = 64;
+constexpr int kTile = 32;      // keys per warp tile
+constexpr int kWarps = 4;
+constexpr int kLd = kD + 8;    // padded smem row (bf16 elements)
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileElems = kTile * kLd;
+
+__global__ void __launch_bounds__(kThreads)
+    dec_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int T, float scale) {
+  // per warp: a K tile and a V tile; reused as the f32 [kWarps][16][kD] merge buffer
+  __shared__ __align__(16) __nv_bfloat16 kv_smem[kWarps * 2 * kTileElems];
+  __shared__ float m_s[kWarps][16], l_s[kWarps][16];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int group = Hq / Hkv;
+  const int len = min(max(lengths[b], 0), T);
+
+  const __nv_bfloat16* qh = q + ((size_t)b * Hq + (size_t)hk * group) * kD;  // [group, D]
+  const __nv_bfloat16* kb = k + ((size_t)b * Hkv + hk) * T * kD;
+  const __nv_bfloat16* vb = v + ((size_t)b * Hkv + hk) * T * kD;
+  __nv_bfloat16* ks = kv_smem + warp * 2 * kTileElems;
+  __nv_bfloat16* vs = ks + kTileElems;
+  const unsigned short* vsu = reinterpret_cast<const unsigned short*>(vs);
+
+  uint32_t qa[kD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    qa[kk][0] = g < group ? *reinterpret_cast<const uint32_t*>(qh + g * kD + c) : 0u;
+    qa[kk][1] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qh + (g + 8) * kD + c) : 0u;
+    qa[kk][2] = g < group ? *reinterpret_cast<const uint32_t*>(qh + g * kD + c + 8) : 0u;
+    qa[kk][3] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qh + (g + 8) * kD + c + 8) : 0u;
+  }
+
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.0f;
+
+  const int n_tiles = (len + kTile - 1) / kTile;
+  for (int j = warp; j < n_tiles; j += kWarps) {
+    const int k0 = j * kTile;
+    __syncwarp();  // this warp's previous tile is consumed
+    for (int c = lane; c < kTile * kD / 8; c += 32) {
+      int r = c / (kD / 8), col = (c % (kD / 8)) * 8;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + r < T) {
+        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kD + col);
+        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kD + col);
+      }
+      *reinterpret_cast<uint4*>(ks + r * kLd + col) = kv;
+      *reinterpret_cast<uint4*>(vs + r * kLd + col) = vv;
+    }
+    __syncwarp();
+
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const __nv_bfloat16* kr = ks + (nt * 8 + g) * kLd + kk * 16 + 2 * t;
+        mma_bf16_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                       *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+    }
+
+    float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
+        const float val = kpos < len ? s[nt][e] * scale : REPRO_NEG_INF;
+        s[nt][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - m[e >> 1]);
+        s[nt][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn) {
+      acc[dn][0] *= corr[0];
+      acc[dn][1] *= corr[0];
+      acc[dn][2] *= corr[1];
+      acc[dn][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int r0 = kk * 16 + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < kD / 8; ++dn) {
+        const int col = dn * 8 + g;
+        const uint32_t b0 = pack_raw(vsu[r0 * kLd + col], vsu[(r0 + 1) * kLd + col]);
+        const uint32_t b1 = pack_raw(vsu[(r0 + 8) * kLd + col], vsu[(r0 + 9) * kLd + col]);
+        mma_bf16_16816(acc[dn], pa, b0, b1);
+      }
+    }
+  }
+
+  // merge the four warps' partial softmax states
+  __syncthreads();  // every warp is done with its K/V tiles
+  float* os = reinterpret_cast<float*>(kv_smem);  // [kWarps][16][kD]
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    os[(warp * 16 + g) * kD + col] = acc[dn][0];
+    os[(warp * 16 + g) * kD + col + 1] = acc[dn][1];
+    os[(warp * 16 + g + 8) * kD + col] = acc[dn][2];
+    os[(warp * 16 + g + 8) * kD + col + 1] = acc[dn][3];
+  }
+  if (t == 0) {
+    m_s[warp][g] = m[0];
+    m_s[warp][g + 8] = m[1];
+    l_s[warp][g] = l[0];
+    l_s[warp][g + 8] = l[1];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < group * kD; idx += kThreads) {
+    const int r = idx / kD, d = idx % kD;
+    float mm = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, m_s[w][r]);
+    float ll = 0.0f, oo = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(m_s[w][r] - mm);
+      ll += l_s[w][r] * f;
+      oo += os[(w * 16 + r) * kD + d] * f;
+    }
+    o[((size_t)b * Hq + (size_t)hk * group + r) * kD + d] =
+        __float2bfloat16(oo / (ll == 0.0f ? 1.0f : ll));
+  }
+}
+
+}  // namespace
+
+// q [B,Hq,D], k/v [B,Hkv,T,D], o [B,Hq,D] bf16 contiguous, lengths int32 [B]
+// on the device, D = 64, Hq / Hkv <= 16.  Returns the cudaError_t.
+extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
+                                      const void* lengths, void* o, int B, int Hq, int Hkv,
+                                      int T, int D, float scale, void* stream) {
+  if (D != kD || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(Hkv, B);
+  dec_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(o), Hq, Hkv, T, scale);
+  return (int)cudaGetLastError();
+}

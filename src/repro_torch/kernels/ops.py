@@ -1,0 +1,136 @@
+"""Registered kernel implementations — the role catalogue.
+
+Importing this module populates ``GLOBAL_REGISTRY`` with three sources per op:
+
+  - ``reference``: the torch oracle (ref.py),
+  - ``torch``: the eager formulation, the counterpart of the JAX package's
+    ``xla`` source with the same casts (``repro/kernels/ops.py``),
+  - ``cuda``: the kernel written by hand for Hopper (the presynthesized role).
+
+Model code never imports these directly; it calls ``dispatch.op(name, ...)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.registry import GLOBAL_REGISTRY as REG
+from repro_torch.core.registry import KernelImpl
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import matmul as matmul_k
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rmsnorm_k
+
+# --------------------------------------------------------------------------
+# matmul
+# --------------------------------------------------------------------------
+
+
+def torch_matmul(x, w, *, out_dtype=None, activation=None):
+    """Emits the input dtype directly for bf16 inputs (f32 accumulation
+    inside the product either way), as ``xla_matmul`` does; silu then runs
+    in that dtype with an f32 sigmoid."""
+    target = out_dtype or x.dtype
+    if target == torch.float32:
+        acc = torch.matmul(x.float(), w.float())
+    else:
+        acc = torch.matmul(x, w)
+    if activation == "silu":
+        acc = acc * torch.sigmoid(acc.float()).to(acc.dtype)
+    elif activation == "gelu":
+        acc = torch.nn.functional.gelu(acc, approximate="tanh")
+    elif activation is not None:
+        raise ValueError(activation)
+    return acc.to(target)
+
+
+REG.register(KernelImpl(op="matmul", device_kind="any", source="reference", fn=ref.matmul))
+REG.register(KernelImpl(op="matmul", device_kind="any", source="torch", fn=torch_matmul))
+REG.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda", fn=matmul_k.matmul))
+
+# --------------------------------------------------------------------------
+# rmsnorm
+# --------------------------------------------------------------------------
+
+REG.register(KernelImpl(op="rmsnorm", device_kind="any", source="reference", fn=ref.rmsnorm))
+REG.register(KernelImpl(op="rmsnorm", device_kind="any", source="torch", fn=ref.rmsnorm))
+REG.register(KernelImpl(op="rmsnorm", device_kind="cuda", source="cuda", fn=rmsnorm_k.rmsnorm))
+
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+
+def torch_flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None, block_q: int = 512):
+    """Memory-efficient exact attention over query chunks, as
+    ``xla_flash_attention``: f32 logits and softmax statistics, probabilities
+    stored in the compute dtype for the P V product (f32 accumulation)."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(D)
+    bq = min(block_q, S)
+    while S % bq:
+        bq //= 2
+    kv_offset = T - S
+    kg = k.repeat_interleave(group, dim=1).float()
+    vg = v.repeat_interleave(group, dim=1).float()
+    kpos = torch.arange(T, device=q.device)[None, :]
+    outs = []
+    for i in range(S // bq):
+        qb = q[:, :, i * bq:(i + 1) * bq].float()
+        logits = torch.einsum("bhsd,bhtd->bhst", qb, kg) * scale_
+        qpos = (i * bq + torch.arange(bq, device=q.device) + kv_offset)[:, None]
+        mask = torch.ones((bq, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        logits = torch.where(mask, logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhst,bhtd->bhsd", probs.float(), vg))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+REG.register(KernelImpl(op="flash_attention", device_kind="any", source="reference",
+                        fn=ref.flash_attention))
+REG.register(KernelImpl(op="flash_attention", device_kind="any", source="torch",
+                        fn=torch_flash_attention))
+REG.register(KernelImpl(op="flash_attention", device_kind="cuda", source="cuda",
+                        fn=fa_k.flash_attention))
+
+# --------------------------------------------------------------------------
+# decode attention (single-token query over a padded KV cache)
+# --------------------------------------------------------------------------
+
+
+def torch_decode_attention(q, k_cache, v_cache, length, *, scale=None):
+    """Grouped-GQA decode attention as ``xla_decode_attention``: no
+    head-repeat materialization; f32 logits, probabilities in the cache dtype
+    for the P V product, normalized after it."""
+    B, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, group, D).float()
+    logits = torch.einsum("bkgd,bktd->bkgt", qg, k_cache.float()) * scale_
+    lengths = dec_k.lengths_vector(length, B, q.device)
+    valid = torch.arange(T, device=q.device)[None, None, None, :] < lengths[:, None, None, None]
+    logits = torch.where(valid, logits, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    probs = torch.exp(logits - m)
+    denom = probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgt,bktd->bkgd", probs.to(v_cache.dtype).float(), v_cache.float())
+    return (out / denom).reshape(B, Hq, D).to(q.dtype)
+
+
+REG.register(KernelImpl(op="decode_attention", device_kind="any", source="reference",
+                        fn=ref.decode_attention))
+REG.register(KernelImpl(op="decode_attention", device_kind="any", source="torch",
+                        fn=torch_decode_attention))
+REG.register(KernelImpl(op="decode_attention", device_kind="cuda", source="cuda",
+                        fn=dec_k.decode_attention))

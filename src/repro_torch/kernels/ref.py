@@ -1,0 +1,78 @@
+"""Torch oracles for the kernels on the port's path.
+
+These are the "reference" source in the registry: always correct, never
+hand-optimized — the counterparts of ``repro/kernels/ref.py``, with the
+same f32 arithmetic and -inf masks.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype: torch.dtype | None = None,
+           activation: str | None = None) -> torch.Tensor:
+    """[M, K] @ [K, N] with f32 accumulation."""
+    acc = torch.matmul(x.float(), w.float())
+    if activation == "silu":
+        acc = acc * torch.sigmoid(acc)
+    elif activation == "gelu":
+        acc = F.gelu(acc, approximate="tanh")   # jax.nn.gelu's default
+    elif activation is not None:
+        raise ValueError(f"unknown activation {activation!r}")
+    return acc.to(out_dtype or x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis, f32 statistics."""
+    xf = x.float()
+    rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return ((xf / rms) * weight.float()).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None) -> torch.Tensor:
+    """Exact attention oracle with GQA head grouping: q [B,Hq,S,D] over
+    k, v [B,Hkv,T,D], queries at the end of the kv axis."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kg = k.float().repeat_interleave(group, dim=1)
+    vg = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kg) * scale
+    qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs, vg).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """One-token attention over a (possibly padded) KV cache: q [B,Hq,D],
+    cache [B,Hkv,T,D], ``length`` scalar or [B]."""
+    B, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kg = k_cache.float().repeat_interleave(group, dim=1)
+    vg = v_cache.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhd,bhtd->bht", q.float(), kg) * scale
+    lengths = torch.as_tensor(length, device=q.device)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(B)
+    valid = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bht,bhtd->bhd", probs, vg).to(q.dtype)

@@ -1,0 +1,126 @@
+"""The dense decoder: ``DecoderLM`` of ``repro/models/model.py`` for the
+``dense`` family (llama3_2_1b, yi, granite: GQA attention + SwiGLU).
+
+Layers run in a Python loop (JAX scanned a stacked segment); parameters are
+one dict per layer.  The KV cache keeps JAX's stacked layout,
+``{"pos", "k": [L, B, Hkv, T, hd], "v": ...}`` (one segment, so no
+``segments`` list), and decode updates it in place where JAX returned a new
+one.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers
+from repro_torch.models.params import ParamSpec, resolve_device
+
+Params = Any
+
+
+def layer_specs(cfg: ArchConfig) -> Params:
+    d = cfg.d_model
+    return {
+        "ln1": layers.norm_spec(d),
+        "attn": layers.attention_specs(cfg),
+        "ln2": layers.norm_spec(d),
+        "mlp": layers.mlp_specs(cfg),
+    }
+
+
+def _pad_cache_time(cache: dict, cache_len: int) -> dict:
+    """Zero-pad the prefill KV caches along the time axis to ``cache_len``.
+    Zeros, not ``torch.empty``: decode attention multiplies masked rows' values
+    by a zero probability, and 0 * NaN would poison the product."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        x = cache[key]
+        cur = x.shape[-2]
+        if cur < cache_len:
+            padded = x.new_zeros((*x.shape[:-2], cache_len, x.shape[-1]))
+            padded[..., :cur, :] = x
+            out[key] = padded
+    return out
+
+
+class DecoderLM:
+    """Decoder-only LM, dense family."""
+
+    def __init__(self, cfg: ArchConfig, *, device: "str | torch.device" = "cuda"):
+        if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
+                or cfg.attn_window is not None):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs plain dense GQA decoders so far "
+                "(ROADMAP: MLA/MoE, SSM and windowed models come in later slices)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- parameters --------------------------------------------------------
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        return {
+            "embed": layers.embed_specs(cfg),
+            "layers": [layer_specs(cfg) for _ in range(cfg.num_layers)],
+            "ln_f": layers.norm_spec(cfg.d_model),
+        }
+
+    # -- prefill ------------------------------------------------------------
+
+    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
+        """``batch["tokens"]`` [B, S] -> (last-token logits [B, V] f32, cache).
+        ``cache_len`` pre-allocates the KV caches to the serving max length."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = layers.embed_tokens(params["embed"], tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        ks, vs = [], []
+        for p in params["layers"]:
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            a, k, v = layers.attention_full(p["attn"], h, cfg, positions=positions)
+            x = x + a
+            x = x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps))
+            ks.append(k)
+            vs.append(v)
+        h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = layers.unembed(params["embed"], h[:, -1:])
+        cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
+                 "k": torch.stack(ks), "v": torch.stack(vs)}
+        if cache_len is not None:
+            cache = _pad_cache_time(cache, cache_len)
+        return logits[:, 0], cache
+
+    # -- decode ---------------------------------------------------------------
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict):
+        """tokens [B, 1] -> (logits [B, V] f32, cache).  ``cache["pos"]`` is a
+        scalar or [B] (per-slot positions); this token's k/v are written into
+        ``cache["k"]``/``cache["v"]`` in place, and the returned cache holds
+        the same tensors with ``pos + 1``."""
+        cfg = self.cfg
+        x = layers.embed_tokens(params["embed"], tokens)
+        pos = cache["pos"]
+        for i, p in enumerate(params["layers"]):
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            x = x + layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+            x = x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps))
+        h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = layers.unembed(params["embed"], h)
+        return logits[:, 0], {"pos": pos + 1, "k": cache["k"], "v": cache["v"]}
+
+    # -- cache specs -------------------------------------------------------------
+
+    def cache_specs(self, batch: int, cache_len: int) -> dict:
+        cfg = self.cfg
+        kv = ParamSpec(shape=(cfg.num_layers, batch, cfg.num_kv_heads, cache_len, cfg.head_dim),
+                       dtype=layers.COMPUTE_DTYPE, init="zeros")
+        return {"pos": ParamSpec(shape=(), dtype=torch.int32, init="zeros"), "k": kv, "v": kv}
+
+
+def build_model(cfg: ArchConfig, *, device: "str | torch.device" = "cuda") -> DecoderLM:
+    return DecoderLM(cfg, device=device)

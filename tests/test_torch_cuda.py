@@ -1,0 +1,192 @@
+"""Hand-written Hopper kernels against their plain PyTorch versions, on the card.
+
+Run on a machine with an NVIDIA GPU (sm_90a: H100/H200):
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Everywhere else every test here skips.  Whether a card is present is decided
+inside the ``cuda`` fixture, never at import: pytest-xdist workers must all
+collect the same tests.  This file imports no JAX.
+
+Tolerances: matmul and rmsnorm bf16 outputs are held to 2e-2 (absolute and
+relative), a bit more than one bf16 rounding step of the O(1) values used
+here — the kernels sum in another order than the plain versions.  f32 matmul
+outputs are held to 1e-3: both sides accumulate exact bf16 products in f32.
+Attention outputs are held row by row (one query head of one token): the L2
+norm of the difference is at most 1e-2 of the plain row's.  A row over n
+random keys has |o| of about n^-1/2, so an absolute 2e-2 would pass a kernel
+that drops a key tile; the kernels' own rounding (P to bf16 for P V, the bf16
+output) reads a few 1e-3.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.core import dispatch
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import matmul as mm_k
+from repro_torch.kernels import rmsnorm as rms_k
+
+pytestmark = pytest.mark.gpu
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+ATTN_REL_L2_TOL = 1e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, device, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+
+def _gen(device, seed=0):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def _close(got, want, **tol):
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _attn_close(got, want):
+    """Every output row within ATTN_REL_L2_TOL of the plain row, relatively."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-12)
+    assert float(rel.max()) <= ATTN_REL_L2_TOL, f"row rel L2 {float(rel.max())}"
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 2048, 512), (8, 8192, 2048),
+                                   (512, 2048, 8192), (100, 256, 136), (1, 64, 8),
+                                   (1, 2048, 8192), (1, 8192, 2048),      # first-token fixup
+                                   (1024, 2048, 8192), (1024, 8192, 2048)])  # 1024 bucket
+@pytest.mark.parametrize("activation", [None, "silu", "gelu"])
+def test_matmul_matches_plain(cuda, m, k, n, activation):
+    g = _gen(cuda)
+    x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
+    _close(mm_k.matmul(x, w, activation=activation),
+           mm_k.plain_matmul(x, w, activation=activation), **BF16_TOL)
+    _close(mm_k.matmul(x, w, activation=activation, out_dtype=torch.float32),
+           mm_k.plain_matmul(x, w, activation=activation, out_dtype=torch.float32),
+           atol=1e-3, rtol=1e-3)
+
+
+def test_matmul_batched_leading_dims(cuda):
+    g = _gen(cuda, 1)
+    x, w = _randn(g, (2, 3, 256), cuda), _randn(g, (256, 64), cuda, scale=1 / 16)
+    got = mm_k.matmul(x, w)
+    assert got.shape == (2, 3, 64)
+    _close(got, mm_k.plain_matmul(x, w), **BF16_TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048), (512, 2048), (3, 5, 64)])
+def test_rmsnorm_matches_plain(cuda, shape):
+    g = _gen(cuda, 2)
+    x, w = _randn(g, shape, cuda), _randn(g, shape[-1:], cuda)
+    _close(rms_k.rmsnorm(x, w), rms_k.plain_rmsnorm(x, w), **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,causal,window", [
+    (1, 32, 8, 512, 512, True, None),
+    (1, 32, 8, 512, 512, False, None),
+    (1, 32, 8, 128, 512, True, None),      # S < T: queries at the kv tail
+    (2, 4, 2, 200, 200, True, None),       # ragged S and T
+    (1, 4, 1, 256, 256, True, 48),         # sliding window
+    (1, 32, 8, 8, 8, True, None),          # the smallest prompt bucket
+    (1, 32, 8, 1024, 1024, True, None),    # the largest prompt bucket
+])
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, s, t, causal, window):
+    g = _gen(cuda, 3)
+    q = _randn(g, (b, hq, s, 64), cuda)
+    k, v = _randn(g, (b, hkv, t, 64), cuda), _randn(g, (b, hkv, t, 64), cuda)
+    got = fa_k.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa_k.plain_flash_attention(q, k, v, causal=causal, window=window)
+    _attn_close(got, want)
+
+
+@pytest.mark.parametrize("lengths", [[1, 1024, 5, 600, 33, 64, 1000, 2], 77])
+def test_decode_attention_matches_plain(cuda, lengths):
+    g = _gen(cuda, 4)
+    q = _randn(g, (8, 32, 64), cuda)
+    kc, vc = _randn(g, (8, 8, 1024, 64), cuda), _randn(g, (8, 8, 1024, 64), cuda)
+    length = (torch.tensor(lengths, dtype=torch.int32, device=cuda)
+              if isinstance(lengths, list) else lengths)
+    got = dec_k.decode_attention(q, kc, vc, length)
+    _attn_close(got, dec_k.plain_decode_attention(q, kc, vc, length))
+
+
+@pytest.mark.parametrize("n", [5, 45, 600])
+def test_decode_attention_fixup_cache_matches_plain(cuda, n):
+    """The first-token fixup: one sequence against its cache cut to the
+    prompt's n rows, a length that is not a multiple of the 32-key tile."""
+    g = _gen(cuda, 8)
+    q = _randn(g, (1, 32, 64), cuda)
+    kc, vc = _randn(g, (1, 8, n, 64), cuda), _randn(g, (1, 8, n, 64), cuda)
+    length = torch.tensor([n], dtype=torch.int32, device=cuda)
+    _attn_close(dec_k.decode_attention(q, kc, vc, length),
+                dec_k.plain_decode_attention(q, kc, vc, length))
+
+
+def test_decode_attention_ignores_rows_past_length(cuda):
+    """Rows at or past a sequence's length never reach the output, even NaN."""
+    g = _gen(cuda, 5)
+    q = _randn(g, (2, 8, 64), cuda)
+    kc, vc = _randn(g, (2, 2, 256, 64), cuda), _randn(g, (2, 2, 256, 64), cuda)
+    lengths = torch.tensor([100, 129], dtype=torch.int32, device=cuda)
+    clean = dec_k.decode_attention(q, kc, vc, lengths)
+    for b, n in enumerate((100, 129)):
+        start = -(-n // 32) * 32          # first whole tile past the length
+        kc[b, :, start:] = float("nan")
+        vc[b, :, start:] = float("nan")
+    torch.testing.assert_close(dec_k.decode_attention(q, kc, vc, lengths), clean,
+                               atol=0, rtol=0)
+
+
+def test_wrappers_count_launches_and_refuse_bad_input(cuda):
+    g = _gen(cuda, 6)
+    x, w = _randn(g, (4, 64), cuda), _randn(g, (64, 64), cuda)
+    before = mm_k.launches
+    mm_k.matmul(x, w)
+    assert mm_k.launches == before + 1
+    with pytest.raises(TypeError):
+        mm_k.matmul(x.float(), w.float())
+    with pytest.raises(ValueError):
+        mm_k.matmul(x.t(), w)                        # not contiguous
+    with pytest.raises(ValueError):
+        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 32), cuda) for _ in range(3)))  # D != 64
+    assert mm_k.launches == before + 1
+
+
+def test_small_model_cuda_matches_torch_source(cuda):
+    """Prefill and decode of a small llama-shaped model (head_dim 64) under
+    ``cuda-strict`` against the torch eager source on the same weights.  The
+    tolerance is loose: the two sources round differently (the eager source
+    applies silu in bf16, the kernel in f32) and the error compounds over
+    layers."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=256, vocab=512)
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 40), generator=_gen(cuda, 7), device=cuda)
+    out = {}
+    for policy in ("torch", "cuda-strict"):
+        with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+            logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=64)
+            cache["pos"] = torch.tensor([40], dtype=torch.int32, device=cuda)
+            step, _ = model.decode_step(params, tokens[:, -1:], cache)
+        out[policy] = (logits, step)
+    for a, b in zip(out["torch"], out["cuda-strict"]):
+        assert torch.isfinite(b).all()
+        torch.testing.assert_close(b, a, atol=5e-2, rtol=5e-2)
