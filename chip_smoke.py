@@ -13,15 +13,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. kernels: each kernel against its plain PyTorch version at the shapes the
    serving path gives it, within the tolerance stated below (attention row
    by row, beside what a planted fault reads by the same measure); timed with
-   CUDA events beside its plain version and one PyTorch library call, and
-   its bound (the larger of bytes / 3.35 TB/s and flops / peak rate).
+   CUDA events beside its plain version and one PyTorch library call (for
+   paged attention, which no one call computes, a gather and SDPA), and its
+   bound (the larger of bytes / 3.35 TB/s and flops / peak rate).  The paged
+   kernel must also equal the dense kernel on the gathered cache bit for bit.
 3. model: logits of the full model under ``cuda-strict`` against the
    ``torch`` eager source on the same weights and prompts, for the calls the
-   engine makes: bucketed prefill, the first-token fixup, a batched decode.
-4. serve: ``ServeEngine(batch_slots=8, max_len=1024)``, 16 greedy requests
-   with prompts of 5 to 600 tokens and 32 new tokens each; every kernel's
-   launch count is read from this phase alone and checked against the
-   model calls the engine made.  Then the card's busy share over four
+   engine makes: bucketed prefill, the first-token fixup, a batched decode;
+   and chunked prefill (128-row chunks) against whole-prompt prefill, through
+   a staging cache and, bit for bit the same, through a page pool.
+4. serve: the same 16 greedy requests (prompts of 5 to 600 tokens, 32 new
+   tokens each, ``max_len`` 1024) through three engines: dense with 8
+   slots; paged (16-row pages) with 8 slots and the dense engine's memory,
+   whose streams must equal the dense ones; paged with chunked prefill
+   (128-row chunks) and 16 slots in that same KV memory (checked: the pool
+   is all it holds), which must run more than 8 requests at once.  Every kernel's launch count is read from each
+   run alone (counts set to 0 just before it) and checked against the model
+   calls the engine made.  Then the card's busy share over four dense
    decode steps, from a torch.profiler trace.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
@@ -160,6 +168,19 @@ def decode_masks(torch, lengths, T: int):
     return valid, valid & (lengths[:, None] > 32) & (kpos >= start) & (kpos < start + 32)
 
 
+def remap_one_page(table, lengths, ps: int):
+    """A planted fault for paged attention: in each sequence with a whole
+    page inside its length, the last such page remapped to another
+    sequence's first page (to the scratch page 0 if there is one sequence).
+    The faulted table [B, NP] and the sequences it touches [B]."""
+    faulted, touched = table.clone(), lengths >= ps
+    B = table.shape[0]
+    for b in range(B):
+        if touched[b]:
+            faulted[b, int(lengths[b]) // ps - 1] = table[(b + 1) % B, 0] if B > 1 else 0
+    return faulted, touched
+
+
 def attention_err(torch, got, want, fault, touched) -> dict:
     """Hold an attention kernel's output to its plain version, row by row,
     within ATTN_REL_L2_TOL; ``fault`` is the output of the same function with
@@ -194,7 +215,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import paged_decode_attention as paged_k
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels.ref import gather_kv_pages
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -215,6 +238,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                 worst["planted_fault_min_rel_l2"] = min(
                     worst.get("planted_fault_min_rel_l2", math.inf),
                     check["planted_fault_min_rel_l2"])
+        if check.get("bitwise_equal_dense_kernel"):
+            worst["bitwise_equal_dense_kernel"] = True
         row = {"name": name, "shape": shape, **check}
         if sets is not None:
             row["ms"], row["host_ms"] = time_ms(torch, kernel, sets)
@@ -224,9 +249,12 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         rows.append(row)
         print("  " + json.dumps(row))
 
-    # matmul at the four weight shapes: M = 1 (the first-token fixup), 8 (a
-    # decode step of 8 slots), 512 and 1024 (prefill of the largest buckets)
-    for M in (1, 8, 512, 1024):
+    # matmul at the four weight shapes, at every row count the serve runs
+    # give it: M = 1 (the first-token fixup), 8 (a decode step of 8 slots,
+    # and the 8-row bucket), 16 (a decode step of 16 slots), 64 .. 1024 (the
+    # prefill buckets; 64 and 128 are also the chunked run's chunks)
+    rows_used = (1, 8, 16, 64, 128, 256, 512, 1024)
+    for M in rows_used:
         for K, N in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
             k_sets = n_sets(2 * (M * K + K * N))
             sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(k_sets)]
@@ -246,19 +274,21 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                         2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
             del sets, x, w
 
-    # rmsnorm: fixup, decode and prefill rows at d_model 2048
-    for R in (1, 8, 512, 1024):
+    # rmsnorm: fixup, decode, chunk and prefill rows at d_model 2048
+    for R in rows_used:
         sets = [(randn((R, 2048)), randn((2048,))) for _ in range(n_sets(4 * R * 2048))]
         check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
         record("rmsnorm", f"[{R},2048]", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
                lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
                2 * (2 * R * 2048 + 2048), 4 * R * 2048, F32_FLOPS)
 
-    # flash attention: prefill of the 512- and 1024-token buckets (causal and
-    # not), the smallest bucket, and S < T.  The planted fault is read in
+    # flash attention: prefill of every bucket the serve runs fill (8 ..
+    # 1024 rows; 512 also non-causal), and S < T: the 128-row chunks of
+    # chunked prefill against 256 .. 1024 keys.  The planted fault is read in
     # the rows that see all 64 of its keys.
-    for S, T, causal in ((512, 512, True), (1024, 1024, True), (8, 8, True),
-                         (512, 512, False), (128, 512, True)):
+    buckets = [(S, S, True) for S in (8, 64, 128, 256, 512, 1024)] + [(512, 512, False)]
+    chunks = [(128, T, True) for T in range(256, 1025, 128)]
+    for S, T, causal in buckets + chunks:
         per_set = 2 * (2 * 32 * S * 64 + 2 * 8 * T * 64)
         sound, dropped = flash_masks(torch, S, T, causal, dev)
         mask = sound if causal else None
@@ -272,7 +302,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                               fa_k.plain_flash_attention(q, k, v, causal=causal), fault,
                               dropped.sum(dim=-1) == 64)
         pairs = sum(min(T, T - S + i + 1) for i in range(S)) if causal else S * T
-        timed = (S, T) in ((512, 512), (1024, 1024))
+        timed = (S, T) in ((512, 512), (1024, 1024), (128, 1024))
         record("flash_attention", f"q[1,32,{S},64] kv[1,8,{T},64] causal={causal}", check,
                sets if timed else None,
                lambda q, k, v, ke, ve, m, c=causal: fa_k.flash_attention(q, k, v, causal=c),
@@ -310,6 +340,58 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    q4, ke, ve, attn_mask=m[:, None, None, :]),
                2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64), 4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
         del sets, q, kc, vc, fault
+
+    # paged decode attention: the 8-slot decode step against a pool of
+    # 16-row pages through a shuffled table (table width 1024 / 16, the
+    # dense engine's memory plus the scratch page), the same with 64-row
+    # pages, the chunked run's 16 slots, and one sequence against a
+    # 600-row cache.  The planted fault remaps one whole page inside each
+    # sequence's length to another sequence's page.
+    heads = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
+    for lengths, ps, NP in ((heads, 16, 64), (heads, 64, 16), (heads.repeat(2), 16, 64),
+                            (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38)):
+        B = lengths.numel()
+        P = B * NP + 1
+        shape = f"q[{B},32,64] pool[{P},8,{ps},64] table[{B},{NP}] lengths {lengths.tolist()}"
+        n_keys = int(lengths.sum())
+        sets = []
+        for _ in range(n_sets(2 * 2 * 8 * n_keys * 64)):
+            q, kp, vp = randn((B, 32, 64)), randn((P, 8, ps, 64)), randn((P, 8, ps, 64))
+            table = (torch.randperm(P - 1, generator=gen, device=dev)[: B * NP] + 1)
+            table = table.reshape(B, NP).to(torch.int32)
+            # the yardstick's pool: heads expanded to 32 and rows before heads,
+            # so one index gather yields SDPA's [B, 32, T, 64] as a view
+            kvp = torch.stack([kp, vp]).repeat_interleave(4, 2).transpose(2, 3).contiguous()
+            sets.append((q, kp, vp, table, q[:, :, None], kvp, table.long()))
+        q, kp, vp, table = sets[0][:4]
+        valid = torch.arange(NP * ps, device=dev)[None, :] < lengths[:, None]
+        faulted, touched = remap_one_page(table, lengths, ps)
+        fault = paged_k.plain_paged_decode_attention(q, kp, vp, faulted, lengths)
+        got = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
+        check = attention_err(torch, got,
+                              paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths),
+                              fault, touched[:, None])
+        dense = dec_k.decode_attention(q, gather_kv_pages(kp, table), gather_kv_pages(vp, table),
+                                       lengths)
+        if not torch.equal(got, dense):
+            raise AssertionError(f"paged kernel differs from the dense kernel on the gathered "
+                                 f"cache at {shape}: max |diff| "
+                                 f"{float((got.float() - dense.float()).abs().max())}")
+        check["bitwise_equal_dense_kernel"] = True
+
+        def library(q, kp, vp, table, q4, kvp, tl, m=valid, B=B, T=NP * ps):
+            kv = kvp[:, tl].view(2, B, T, 32, 64).transpose(2, 3)
+            return F.scaled_dot_product_attention(q4, kv[0], kv[1], attn_mask=m[:, None, None, :])
+
+        record("paged_decode_attention", shape, check, sets if ps == 16 and NP == 64 else None,
+               lambda q, kp, vp, t, q4, kvp, tl, n=lengths:
+                   paged_k.paged_decode_attention(q, kp, vp, t, n),
+               lambda q, kp, vp, t, q4, kvp, tl, n=lengths:
+                   paged_k.plain_paged_decode_attention(q, kp, vp, t, n),
+               library,
+               2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64) + 4 * (B * NP + B),
+               4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
+        del sets, q, kp, vp, table, fault, got, dense
     return rows, errs
 
 
@@ -324,7 +406,9 @@ def model_phase(torch, model, params, seed: int) -> dict:
     padded to its bucket (S = T = 8 .. 1024), the first-token fixup decode
     step against the cache cut to the prompt (T = n), and one decode step of
     the four as a batch at their own positions.  Each source runs every call
-    on its own caches; the compared logits come from the same tokens."""
+    on its own caches; the compared logits come from the same tokens.  Then
+    chunked prefill of the three longer prompts against their whole-prompt
+    prefill (:func:`chunked_prefill_check`)."""
     from repro_torch.core import dispatch
     from repro_torch.serve.engine import ServeEngine
 
@@ -368,68 +452,203 @@ def model_phase(torch, model, params, seed: int) -> dict:
             rel.append(float((g - ref).norm() / ref.norm()))
             agree += int(g.argmax() == ref.argmax())
         res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    res["chunked"] = chunked_prefill_check(torch, model, params, prompts[1:], buckets[1:],
+                                           out["cuda-strict"]["prefill"][1:])
     print("  " + json.dumps(res))
-    worst = max(max(res[kind]["rel_l2"]) for kind in ("prefill", "fixup", "decode"))
+    worst = max(max(res[kind]["rel_l2"]) for kind in ("prefill", "fixup", "decode", "chunked"))
     if worst > MODEL_REL_L2_TOL or len(res["fixup"]["rel_l2"]) != 3:
-        raise AssertionError(f"cuda-strict logits differ from the torch source: {res}")
+        raise AssertionError(f"cuda-strict logits differ from the torch source or from "
+                             f"whole-prompt prefill: {res}")
     return res
 
 
-def serve_phase(torch, model, params, kernels, seed: int) -> dict:
+def chunked_prefill_check(torch, model, params, prompts, buckets, whole, chunk: int = 128):
+    """Chunked prefill under cuda-strict, as the engines run it: each
+    bucketed prompt in ``chunk``-row pieces through a 1024-row staging cache
+    (dense) and through a pool of 16-row pages behind a shuffled table
+    (paged).  The last chunk's logits against whole-prompt prefill's
+    (``whole``, same policy).  The paged form must equal the staging form
+    bit for bit wherever the engine reads it (the same rows reach the same
+    kernels): the logits of every chunk of prompt rows only, the prompt's
+    cache rows, and the first-token fixup's logits over them.  (A chunk that
+    ends on pad rows reads pad keys that differ: paged, those past the
+    prompt's pages share the scratch page.)  Each chunk is a flash attention
+    call with S = chunk < T = start + chunk."""
+    from repro_torch.core import dispatch
+    from repro_torch.serve.paged import gather_rows
+
+    dev, rel, agree = model.device, [], 0
+    ps, NP = 16, 1024 // 16
+    specs = model.cache_specs(1, 1024)
+    pool_specs = model.cache_specs(NP + 1, ps)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        for tokens, bucket, want in zip(prompts, buckets, whole):
+            n = tokens.numel()
+            padded = torch.nn.functional.pad(tokens, (0, bucket - n))[None]
+            staging = {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=dev)
+                       for key in ("k", "v")}
+            pool = {key: torch.zeros(pool_specs[key].shape, dtype=pool_specs[key].dtype,
+                                     device=dev) for key in ("k", "v")}
+            table = torch.zeros(1, NP, dtype=torch.int32, device=dev)      # scratch page 0
+            mapped = -(-n // ps)
+            table[0, :mapped] = (torch.randperm(NP, generator=gen, device=dev)[:mapped] + 1).int()
+            for start in range(0, bucket, chunk):
+                piece = padded[:, start:start + chunk]
+                logits, _ = model.prefill_chunk(params, piece, staging, start=start)
+                paged, _ = model.prefill_chunk(params, piece, {**pool, "block_table": table},
+                                               start=start)
+                if start + chunk <= n and not torch.equal(paged, logits):
+                    raise AssertionError(f"paged chunked prefill differs from staging at a "
+                                         f"{n}-token prompt, chunk at {start}")
+            rows = gather_rows(pool, table[0].tolist(), n, ps)
+            for key in ("k", "v"):
+                if not torch.equal(rows[key], staging[key][:, :, :, :n]):
+                    raise AssertionError(f"paged chunked prefill wrote other {key} rows than "
+                                         f"staging at a {n}-token prompt")
+            if bucket > n:
+                pos = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+                fix = [model.decode_step(params, tokens[None, -1:], {"pos": pos, **kv})[0]
+                       for kv in (rows, {key: staging[key][:, :, :, :n].clone()
+                                         for key in ("k", "v")})]
+                if not torch.equal(*fix):
+                    raise AssertionError(f"the first-token fixup differs between paged and "
+                                         f"staging chunked prefill at a {n}-token prompt")
+            del staging, pool, rows
+            g, ref = logits[0].float(), want.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError("chunked prefill logits are not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+    return {"prompt_lengths": [int(t.numel()) for t in prompts], "chunk": chunk,
+            "rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}",
+            "paged_equal_staging_bitwise": True}
+
+
+#: the serve phase's three engines, on the same requests: dense; paged with
+#: the dense engine's KV memory (its default pool); paged with chunked
+#: prefill, twice the slots in that same KV memory (paged chunks write and
+#: read the pool directly: no staging cache)
+SERVE_RUNS = (
+    ("dense", {"batch_slots": 8}),
+    ("paged", {"batch_slots": 8, "paged": True, "page_size": 16}),
+    ("paged_chunked", {"batch_slots": 16, "paged": True, "page_size": 16,
+                       "prefill_chunk": 128, "pool_pages": 8 * 1024 // 16 + 1}),
+)
+
+
+def expected_launches(eng, num_layers: int) -> dict[str, int]:
+    """Each kernel's launches implied by the engine's model calls: every
+    call runs 7 matmuls and 2 norms a layer and the final norm; prefills and
+    chunks run flash attention, the first-token fixups dense decode
+    attention, and decode steps dense or paged decode attention."""
+    L = num_layers
+    calls = eng.prefill_calls + eng.chunk_calls + eng.fixup_calls + eng.decode_calls
+    return {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
+            "flash_attention": L * (eng.prefill_calls + eng.chunk_calls),
+            "decode_attention": L * (eng.fixup_calls + (0 if eng.paged else eng.decode_calls)),
+            "paged_decode_attention": L * eng.decode_calls if eng.paged else 0}
+
+
+def serve_run(torch, model, params, kernels, prompts, **engine_kw):
+    """Serve ``prompts`` (32 new tokens each) through one engine under
+    cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
+    counts are set to 0 just before the run and read just after it."""
     from repro_torch.core import dispatch
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.paged import pool_token_bytes
 
-    cfg = model.cfg
-    rng = torch.Generator().manual_seed(seed + 2)
-    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lengths]
+    cuda = model.device.type == "cuda"
     with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
-        eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(model, params, max_len=1024, device=model.device, **engine_kw)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         for mod in kernels:
             mod.launches = 0
         for p in prompts:
             eng.submit(p, max_new_tokens=32)
         done, decode_s, decode_tok, t0 = [], 0.0, 0, time.perf_counter()
         for _ in range(1000):
-            calls, toks, ts = eng.prefill_calls, eng.decode_tokens, time.perf_counter()
+            calls = eng.prefill_calls + eng.chunk_calls
+            toks, ts = eng.decode_tokens, time.perf_counter()
             done += eng.step()        # every step ends reading tokens back to the host
-            if eng.prefill_calls == calls:
+            if eng.prefill_calls + eng.chunk_calls == calls:
                 decode_s += time.perf_counter() - ts
                 decode_tok += eng.decode_tokens - toks
             if len(done) == len(prompts):
                 break
         wall = time.perf_counter() - t0
         launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
-    peak = torch.cuda.max_memory_allocated()
-
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    vocab = model.cfg.vocab_size
     if len(done) != len(prompts):
         raise AssertionError(f"{len(done)} of {len(prompts)} requests completed")
     for r in done:
-        if len(r.generated) != 32 or not all(0 <= t < cfg.vocab_size for t in r.generated):
+        if len(r.generated) != 32 or not all(0 <= t < vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: bad tokens {r.generated}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched while serving: {launches}")
-    calls = eng.prefill_calls + eng.fixup_calls + eng.decode_calls
-    L = cfg.num_layers
-    want = {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
-            "flash_attention": L * eng.prefill_calls,
-            "decode_attention": L * (eng.fixup_calls + eng.decode_calls)}
+    want = expected_launches(eng, model.cfg.num_layers)
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want} from "
-                             f"{eng.prefill_calls} prefills, {eng.fixup_calls} fixups and "
-                             f"{eng.decode_calls} decode steps")
+        raise AssertionError(f"kernel launches {launches}, expected {want} from the engine's "
+                             f"{eng.prefill_calls} prefills, {eng.chunk_calls} chunks, "
+                             f"{eng.fixup_calls} fixups and {eng.decode_calls} decode steps")
+    path = [n for n in launches if eng.paged or n != "paged_decode_attention"]
+    if any(launches[n] == 0 for n in path):
+        raise AssertionError(f"a kernel of the path never launched while serving: {launches}")
     ttft = sorted(r.first_token_t - r.arrival_t for r in done)
-    res = {"requests": len(done), "new_tokens_each": 32, "prompt_lengths": lengths,
-           "prefill_calls": eng.prefill_calls, "fixup_calls": eng.fixup_calls,
-           "decode_calls": eng.decode_calls, "launches": launches,
+    # every KV tensor the engine holds: the batch cache or pool, and staging
+    kv_bytes = sum(c[key].numel() * c[key].element_size()
+                   for c in (eng._cache, *eng._staging.values()) for key in ("k", "v"))
+    res = {**engine_kw, "requests": len(done), "new_tokens_each": 32,
+           "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
+           "fixup_calls": eng.fixup_calls, "decode_calls": eng.decode_calls,
+           "launches": launches,
            "ttft_mean_s": sum(ttft) / len(ttft),
            "ttft_p99_s": ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
-           "decode_tokens_per_s": decode_tok / decode_s, "decode_tokens": decode_tok,
-           "wall_s": wall, "max_memory_allocated_bytes": peak}
-    print("  " + json.dumps(res))
-    return res
+           "decode_tokens_per_s": decode_tok / decode_s if decode_s else None,
+           "decode_tokens": decode_tok, "wall_s": wall, "max_memory_allocated_bytes": peak,
+           "kv_bytes": kv_bytes,
+           "peak_concurrency": eng.peak_concurrency,
+           "sustained_concurrency": eng.concurrency_stats()["sustained"],
+           # KV bytes the pool held mapped at its high-water mark (paged runs)
+           "kv_high_water_bytes": (eng.allocator.stats().high_water * eng.page_size
+                                   * pool_token_bytes(eng._cache)) if eng.paged else None}
+    return res, [r.generated for r in sorted(done, key=lambda r: r.uid)]
+
+
+def serve_phase(torch, model, params, kernels, seed: int) -> dict:
+    """The three runs of ``SERVE_RUNS`` on the same 16 prompts.  Paged
+    streams must equal dense streams token for token (the paged kernel is
+    bitwise the dense one over equal rows); the chunked 16-slot run must
+    complete everything with more than 8 requests live at once, holding no
+    more KV memory than the dense run (plus the pool's scratch page).  How many
+    of its streams equal the dense run's is printed, not gated: a chunk's
+    matmuls may sum in another order than a whole prompt's."""
+    cfg = model.cfg
+    rng = torch.Generator().manual_seed(seed + 2)
+    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lengths]
+    runs, streams = {}, {}
+    for name, kw in SERVE_RUNS:
+        runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts, **kw)
+        print("  " + json.dumps({"run": name, **runs[name]}))
+    if streams["paged"] != streams["dense"]:
+        differ = [i for i, (a, b) in enumerate(zip(streams["paged"], streams["dense"])) if a != b]
+        raise AssertionError(f"paged streams differ from dense streams in requests {differ}")
+    page_bytes = runs["dense"]["kv_bytes"] // (8 * 1024) * 16
+    if runs["paged_chunked"]["kv_bytes"] > runs["dense"]["kv_bytes"] + page_bytes:
+        raise AssertionError(f"the chunked 16-slot run holds {runs['paged_chunked']['kv_bytes']} "
+                             f"bytes of KV, more than the dense run's "
+                             f"{runs['dense']['kv_bytes']} and a scratch page")
+    if runs["paged_chunked"]["peak_concurrency"] <= 8:
+        raise AssertionError(f"the chunked 16-slot run peaked at "
+                             f"{runs['paged_chunked']['peak_concurrency']} live requests")
+    same = sum(a == b for a, b in zip(streams["paged_chunked"], streams["dense"]))
+    return {"prompt_lengths": lengths, "runs": runs, "paged_streams_equal_dense": True,
+            "chunked_streams_equal_dense": f"{same} of {len(prompts)}",
+            "launches": {name: sum(r["launches"][name] for r in runs.values())
+                         for name in runs["paged"]["launches"]}}
 
 
 def busy_phase(torch, model, params, seed: int) -> dict:
@@ -484,10 +703,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.kernels import native
+    from repro_torch.kernels import paged_decode_attention as paged_k
     from repro_torch.kernels import rmsnorm as rms_k
     from repro_torch.models import build_model, init_params
 
-    kernels = (mm_k, rms_k, fa_k, dec_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k)
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
@@ -497,7 +717,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     native.build_all()
-    print(f"  built {len(native.SOURCES)} kernels in {time.perf_counter() - t:.1f} s"
+    print(f"  built {len(native.SOURCES)} sources ({len(kernels)} kernels) in {time.perf_counter() - t:.1f} s"
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
         for line in log.splitlines():
@@ -507,35 +727,51 @@ def main() -> int:
     print(f"[2/4] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
 
-    print("[3/4] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch source")
+    print("[3/4] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+          "source; chunked vs whole-prompt prefill")
     cfg = get_arch("llama3.2-1b")
     model = build_model(cfg)
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
 
-    print("[4/4] serve: 16 greedy requests, 8 slots, max_len 1024, cuda-strict")
+    print("[4/4] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+          "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
-    print(f"  on {card} ({smi}): TTFT mean {serve_res['ttft_mean_s']} s, "
-          f"p99 {serve_res['ttft_p99_s']} s; decode {serve_res['decode_tokens_per_s']} "
-          f"tokens/s; peak memory {serve_res['max_memory_allocated_bytes']} bytes")
+    for name, run in serve_res["runs"].items():
+        print(f"  {name} on {card} ({smi}): TTFT mean {run['ttft_mean_s']} s, "
+              f"p99 {run['ttft_p99_s']} s; decode {run['decode_tokens_per_s']} tokens/s; "
+              f"peak memory {run['max_memory_allocated_bytes']} bytes; "
+              f"KV held {run['kv_bytes']} bytes; "
+              f"peak concurrency {run['peak_concurrency']}")
+    print(f"  paged streams equal dense: 16 of 16; chunked streams equal dense: "
+          f"{serve_res['chunked_streams_equal_dense']}")
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     busy_res = busy_phase(torch, model, params, args.seed)
 
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
-                "decode_attention": "q[8,32,64] cache[8,8,1024,64] lengths 1..1024"}
+                "decode_attention": "q[8,32,64] cache[8,8,1024,64] lengths 1..1024",
+                "paged_decode_attention": "q[8,32,64] pool[513,8,16,64] table[8,64] lengths "
+                                          "[1, 1024, 5, 600, 37, 256, 900, 64]"}
+    library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
+               "flash_attention": "F.scaled_dot_product_attention",
+               "decode_attention": "F.scaled_dot_product_attention",
+               "paged_decode_attention": "two calls: an index gather of the pages into a "
+                                         "dense copy, then F.scaled_dot_product_attention"}
     summary = []
     for mod in kernels:
         name = mod.__name__.rsplit(".", 1)[1]
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
         summary.append({
             "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": serve_res["launches"][name], **errs[name],
+            "launches": serve_res["launches"][name],
+            "launches_by_run": {run: r["launches"][name] for run, r in serve_res["runs"].items()},
+            **errs[name],
             "shape": row["shape"], "ms": row["ms"],
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "library": library[name],
         })
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

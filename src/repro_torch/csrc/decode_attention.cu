@@ -1,11 +1,16 @@
-// Decode attention for Hopper: one query token per sequence against a dense
-// KV cache.  q [B,Hq,D], k/v cache [B,Hkv,T,D] (bf16, D = 64), lengths
-// int32 [B]; positions >= lengths[b] are masked.
+// Decode attention for Hopper: one query token per sequence against its KV
+// cache, dense or paged.  q [B,Hq,D] (bf16, D = 64), lengths int32 [B];
+// positions >= lengths[b] are masked.  Two entry points share one kernel
+// body, a template over where key row t of sequence b, kv head hk lives:
+//   - dense, k/v [B,Hkv,T,D]:    base + ((b*Hkv + hk)*T + t)*D;
+//   - paged, k/v [P,Hkv,ps,D] with an int32 block table [B,NP]:
+//       pool + ((table[b, t/ps]*Hkv + hk)*ps + t%ps)*D.
 //
-// Replaces the Pallas TPU kernel repro/kernels/decode_attention.py::
-// decode_attention (_dec_kernel).  Per token almost no arithmetic happens and
-// the cache streams from device memory once, so the kernel is bound by bytes.
-// Its design:
+// Replaces the Pallas TPU kernels repro/kernels/decode_attention.py::
+// decode_attention (_dec_kernel) and ::paged_decode_attention
+// (_paged_kernel).  Per token almost no arithmetic happens and the cache
+// streams from device memory once, so the kernel is bound by bytes.  Its
+// design:
 //   - one block per (kv head, sequence); the `group` query heads of that kv
 //     head ride as the rows of one 16-row tensor-core tile (rows past `group`
 //     are zero), so the cache is read once for all of them;
@@ -14,10 +19,21 @@
 //     f32 statistics, P rounded to bf16 for P V), and the four partial
 //     (max, denominator, accumulator) triples are merged in shared memory at
 //     the end — the split takes the place of the TPU's sequential KV axis;
-//   - tiles wholly at or past the sequence's length are skipped, so a short
-//     sequence reads only its own rows (and never touches rows no prefill or
-//     decode has written); the partial last tile is masked at -1e30;
-//   - l == 0 is guarded as in the Pallas kernel.
+//   - tiles wholly at or past the sequence's length are skipped and rows at
+//     or past it are zero-filled, not read: a short sequence reads only its
+//     own rows, and a paged sequence never dereferences a table entry past
+//     its length (unmapped entries point at the scratch page); those rows
+//     are masked at -1e30, and so is a row whose table entry lies outside
+//     the pool (it is not read either): a corrupt table drops its rows from
+//     the softmax instead of reading out of bounds or passing off zeros as
+//     keys;
+//   - l == 0 is guarded as in the Pallas kernels.
+// The paged layout changes only the row address: tile order, masking and the
+// merge are one code path, so over equal KV rows the paged kernel is bitwise
+// equal to the dense one, for any page size (a 32-key tile may span pages;
+// a row is 128 contiguous bytes, so the 16-byte loads stay aligned).  The
+// page table is read per row from global memory (cached); TMA, wgmma and a
+// split of one sequence across SMs are later work.
 #include "common.cuh"
 
 namespace {
@@ -29,23 +45,46 @@ constexpr int kLd = kD + 8;    // padded smem row (bf16 elements)
 constexpr int kThreads = kWarps * 32;
 constexpr int kTileElems = kTile * kLd;
 
+// Row addressing of a dense cache [B,Hkv,T,D].
+struct DenseRows {
+  int Hkv, T;
+  __device__ __forceinline__ bool offset(int b, int hk, int t, size_t& off) const {
+    off = (((size_t)b * Hkv + hk) * T + t) * kD;
+    return true;
+  }
+};
+
+// Row addressing of a paged pool [P,Hkv,ps,D] through the block table
+// [B,NP]; false for a page index outside [0, P), which the kernel masks.
+struct PagedRows {
+  const int* table;
+  int Hkv, P, ps, NP, T;  // T = NP * ps, the rows the table can address
+  __device__ __forceinline__ bool offset(int b, int hk, int t, size_t& off) const {
+    const int page = table[(size_t)b * NP + t / ps];
+    off = (((size_t)page * Hkv + hk) * ps + t % ps) * kD;
+    return page >= 0 && page < P;
+  }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
     dec_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int T, float scale) {
+               const __nv_bfloat16* __restrict__ v, const Rows rows,
+               const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, int Hq,
+               float scale) {
   // per warp: a K tile and a V tile; reused as the f32 [kWarps][16][kD] merge buffer
   __shared__ __align__(16) __nv_bfloat16 kv_smem[kWarps * 2 * kTileElems];
   __shared__ float m_s[kWarps][16], l_s[kWarps][16];
+  // per warp: which rows of its current tile take part in the softmax
+  __shared__ bool row_ok[kWarps][kTile];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int group = Hq / Hkv;
-  const int len = min(max(lengths[b], 0), T);
+  const int group = Hq / rows.Hkv;
+  const int len = min(max(lengths[b], 0), rows.T);
 
   const __nv_bfloat16* qh = q + ((size_t)b * Hq + (size_t)hk * group) * kD;  // [group, D]
-  const __nv_bfloat16* kb = k + ((size_t)b * Hkv + hk) * T * kD;
-  const __nv_bfloat16* vb = v + ((size_t)b * Hkv + hk) * T * kD;
   __nv_bfloat16* ks = kv_smem + warp * 2 * kTileElems;
   __nv_bfloat16* vs = ks + kTileElems;
   const unsigned short* vsu = reinterpret_cast<const unsigned short*>(vs);
@@ -73,10 +112,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = lane; c < kTile * kD / 8; c += 32) {
       int r = c / (kD / 8), col = (c % (kD / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < T) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kD + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kD + col);
+      size_t off;
+      const bool ok = k0 + r < len && rows.offset(b, hk, k0 + r, off);
+      if (ok) {
+        kv = *reinterpret_cast<const uint4*>(k + off + col);
+        vv = *reinterpret_cast<const uint4*>(v + off + col);
       }
+      if (col == 0) row_ok[warp][r] = ok;
       *reinterpret_cast<uint4*>(ks + r * kLd + col) = kv;
       *reinterpret_cast<uint4*>(vs + r * kLd + col) = vv;
     }
@@ -99,8 +141,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
-        const float val = kpos < len ? s[nt][e] * scale : REPRO_NEG_INF;
+        const float val = row_ok[warp][nt * 8 + 2 * t + (e & 1)] ? s[nt][e] * scale
+                                                                 : REPRO_NEG_INF;
         s[nt][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -180,6 +222,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+bool bad_heads(int B, int Hq, int Hkv, int D) {
+  return D != kD || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16;
+}
+
 }  // namespace
 
 // q [B,Hq,D], k/v [B,Hkv,T,D], o [B,Hq,D] bf16 contiguous, lengths int32 [B]
@@ -187,12 +233,30 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* o, int B, int Hq, int Hkv,
                                       int T, int D, float scale, void* stream) {
-  if (D != kD || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16 || T <= 0)
+  if (bad_heads(B, Hq, Hkv, D) || T <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid(Hkv, B);
+  dec_kernel<DenseRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), DenseRows{Hkv, T},
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), Hq, scale);
+  return (int)cudaGetLastError();
+}
+
+// q [B,Hq,D], k/v pools [P,Hkv,ps,D], o [B,Hq,D] bf16 contiguous; block
+// table int32 [B,NP] and lengths int32 [B] on the device; D = 64,
+// Hq / Hkv <= 16.  Returns the cudaError_t.
+extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
+                                            const void* v_pool, const void* table,
+                                            const void* lengths, void* o, int B, int Hq,
+                                            int Hkv, int P, int ps, int NP, int D,
+                                            float scale, void* stream) {
+  if (bad_heads(B, Hq, Hkv, D) || P <= 0 || ps <= 0 || NP <= 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
-  dec_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(o), Hq, Hkv, T, scale);
+  dec_kernel<PagedRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
+      static_cast<const __nv_bfloat16*>(v_pool),
+      PagedRows{static_cast<const int*>(table), Hkv, P, ps, NP, NP * ps},
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), Hq, scale);
   return (int)cudaGetLastError();
 }

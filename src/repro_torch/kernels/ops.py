@@ -21,6 +21,7 @@ from repro_torch.core.registry import KernelImpl
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as matmul_k
+from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rmsnorm_k
 
@@ -134,3 +135,26 @@ REG.register(KernelImpl(op="decode_attention", device_kind="any", source="torch"
                         fn=torch_decode_attention))
 REG.register(KernelImpl(op="decode_attention", device_kind="cuda", source="cuda",
                         fn=dec_k.decode_attention))
+
+# --------------------------------------------------------------------------
+# paged decode attention (block-table KV gather)
+# --------------------------------------------------------------------------
+
+
+def torch_paged_decode_attention(q, k_pages, v_pages, block_table, length, *, scale=None):
+    """Gather-then-dense, as ``xla_paged_decode_attention``: the pages are
+    reassembled into the dense [B, Hkv, T, hd] layout, then
+    :func:`torch_decode_attention` runs unchanged — so the result is bitwise
+    equal to it over an equivalent dense cache, the property the paged
+    engine's equality with the dense engine rests on."""
+    kg = ref.gather_kv_pages(k_pages, block_table)
+    vg = ref.gather_kv_pages(v_pages, block_table)
+    return torch_decode_attention(q, kg, vg, length, scale=scale)
+
+
+REG.register(KernelImpl(op="paged_decode_attention", device_kind="any", source="reference",
+                        fn=ref.paged_decode_attention))
+REG.register(KernelImpl(op="paged_decode_attention", device_kind="any", source="torch",
+                        fn=torch_paged_decode_attention))
+REG.register(KernelImpl(op="paged_decode_attention", device_kind="cuda", source="cuda",
+                        fn=paged_k.paged_decode_attention))

@@ -76,3 +76,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bht,bhtd->bhd", probs, vg).to(q.dtype)
+
+
+def gather_kv_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Reassemble a per-sequence dense KV view from a paged pool.
+
+    ``pages`` [P, Hkv, ps, D] is the global block pool; ``block_table``
+    [B, NP] maps each sequence's page index to a pool page.  The result
+    [B, Hkv, NP*ps, D] holds position ``t`` of sequence ``b`` at
+    ``[b, :, t]`` — exactly the dense cache layout, so any dense decode
+    attention runs unchanged (and bitwise-identically) on the gather.
+    """
+    B, NP = block_table.shape
+    _, Hkv, ps, D = pages.shape
+    out = pages[block_table.long()]                      # [B, NP, Hkv, ps, D]
+    return out.transpose(1, 2).reshape(B, Hkv, NP * ps, D)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           block_table: torch.Tensor, length, *,
+                           scale: float | None = None) -> torch.Tensor:
+    """One-token attention over a paged KV cache: gather, then the dense
+    oracle.  Positions ``>= length`` (page tails, unmapped entries pointing
+    at the scratch page) are masked before the softmax."""
+    kg = gather_kv_pages(k_pages, block_table)
+    vg = gather_kv_pages(v_pages, block_table)
+    return decode_attention(q, kg, vg, length, scale=scale)

@@ -134,6 +134,75 @@ def attention_full(
     return y, k, v
 
 
+def _chunk_qkv(p: Params, x: torch.Tensor, start: int, cfg: ArchConfig):
+    """q, k [B, Sc, H, hd] roped at the chunk's absolute positions, and v."""
+    q, k, v = _qkv(p, x, cfg)
+    positions = start + torch.arange(x.shape[1], device=x.device)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _chunk_out(p: Params, q: torch.Tensor, keys: torch.Tensor,
+               values: torch.Tensor) -> torch.Tensor:
+    """The chunk's queries q [B, Sc, H, hd] against contiguous keys/values
+    [B, Hkv, T, hd] (rows [0, T), T >= Sc), then the output projection."""
+    B, Sc = q.shape[:2]
+    out = dispatch.op("flash_attention", q.transpose(1, 2).contiguous(), keys, values,
+                      causal=True)
+    return dispatch.op("matmul", out.transpose(1, 2).reshape(B, Sc, -1), p["wo"])
+
+
+def attention_prefill_chunk(
+    p: Params,
+    x: torch.Tensor,                   # [B, Sc, d]: prompt rows [start, start+Sc)
+    cache_k: torch.Tensor,             # [B, Hkv, Tc, hd] staging cache, written in place
+    cache_v: torch.Tensor,
+    start: int,                        # the chunk's absolute first position
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """One chunk of a split prefill against the partially filled staging
+    cache.  Writes the chunk's k/v into rows ``[start, start+Sc)`` in place
+    (JAX returned new caches) and returns y [B, Sc, d].
+
+    Row for row the same function as :func:`attention_full` over the whole
+    prompt, with no new kernel: qkv, rope at absolute positions and the
+    norms are row-local, and ``flash_attention`` aligns a short query block
+    to the *end* of its keys (``kv_offset = T - S``), so the chunk's queries
+    against rows ``[0, start+Sc)`` see exactly the causal mask the whole
+    prefill gave those rows.  The cache slice is copied contiguous for the
+    kernel."""
+    q, k, v = _chunk_qkv(p, x, start, cfg)
+    end = start + x.shape[1]
+    cache_k[:, :, start:end] = k.transpose(1, 2).to(cache_k.dtype)
+    cache_v[:, :, start:end] = v.transpose(1, 2).to(cache_v.dtype)
+    return _chunk_out(p, q, cache_k[:, :, :end].contiguous(), cache_v[:, :, :end].contiguous())
+
+
+def attention_prefill_chunk_paged(
+    p: Params,
+    x: torch.Tensor,                   # [1, Sc, d]: prompt rows [start, start+Sc)
+    k_pages: torch.Tensor,             # [P, Hkv, ps, hd] global pool, written in place
+    v_pages: torch.Tensor,
+    page: torch.Tensor,                # [start+Sc] long: pool page of rows [0, start+Sc)
+    offset: torch.Tensor,              # [start+Sc] long: their row within the page
+    start: int,
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """:func:`attention_prefill_chunk` with the pool as the cache: the
+    chunk's k/v go straight into the pages its rows map to, and the rows
+    ``[0, start+Sc)`` are gathered back, contiguous, for the kernel.  Over
+    the same rows the same function as the staging version, with no
+    staging cache held; rows the table leaves at the scratch page (pad
+    rows past the prompt's pages) land there.  The JAX engine prefills
+    into staging and scatters; this path needs no staging copy."""
+    q, k, v = _chunk_qkv(p, x, start, cfg)
+    paged_write_kv(k_pages, k[0], page[start:], offset[start:])
+    paged_write_kv(v_pages, v[0], page[start:], offset[start:])
+    keys = k_pages[page, :, offset].transpose(0, 1)[None].contiguous()   # [1, Hkv, T, hd]
+    values = v_pages[page, :, offset].transpose(0, 1)[None].contiguous()
+    return _chunk_out(p, q, keys, values)
+
+
 def decode_positions(pos: torch.Tensor) -> torch.Tensor:
     """Rope positions for one decode step: pos scalar -> [1], [B] -> [B, 1]."""
     return pos[None] if pos.dim() == 0 else pos[:, None]
@@ -174,6 +243,55 @@ def attention_decode(
     write_kv(cache_v, v, slot)
     length = torch.clamp(pos + 1, max=Tc)
     out = dispatch.op("decode_attention", q, cache_k, cache_v, length)
+    y = dispatch.op("matmul", out.reshape(B, -1), p["wo"])
+    return y[:, None, :]
+
+
+def paged_write_kv(pool: torch.Tensor, new: torch.Tensor, page: torch.Tensor,
+                   offset: torch.Tensor) -> None:
+    """Write rows of KV [N, H, hd] into the pool [P, H, ps, hd] at each
+    row's long ``(page[n], offset[n])`` — in place, where JAX rebuilt the
+    pool.  The advanced indices split by a slice give an [N, H, hd] target.
+    Live slots own disjoint pages, so their writes never collide; masked
+    slots are steered to the scratch page by their cleared table rows,
+    where colliding writes are harmless."""
+    pool[page, :, offset] = new.to(pool.dtype)
+
+
+def page_address(block_table: torch.Tensor, pos: torch.Tensor,
+                 page_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each sequence's row ``pos[b]`` lives in the pool: long
+    ``(page, offset)`` [B] through the block table [B, NP]."""
+    page = torch.gather(block_table, 1, (pos // page_size)[:, None].long())[:, 0]
+    return page.long(), (pos % page_size).long()
+
+
+def attention_decode_paged(
+    p: Params,
+    x: torch.Tensor,                   # [B, 1, d]
+    k_pages: torch.Tensor,             # [P, Hkv, ps, hd] global pool, written in place
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,         # [B, NP] int32: page index -> pool page
+    pos: torch.Tensor,                 # [B]: tokens already cached
+    page: torch.Tensor,                # [B] long: pool page of row pos (page_address)
+    offset: torch.Tensor,              # [B] long: its row within the page
+    lengths: torch.Tensor,             # [B] int32: pos + 1, the rows attended
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """Single-token decode against a paged KV cache.  The q/k/v/rope math
+    of :func:`attention_decode`; the new token's k/v go into the pool at
+    ``(page, offset)``, and attention runs through the
+    ``paged_decode_attention`` op over ``lengths`` rows.  Address and
+    lengths are the same for every layer of a step, so the caller derives
+    them once (JAX derived them in each layer).  Returns y [B, 1, d]."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rope_table(decode_positions(pos), cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)[:, 0]                     # [B, H, hd]
+    k = apply_rope(k, cos, sin)[:, 0]                     # [B, Hkv, hd]
+    paged_write_kv(k_pages, k, page, offset)
+    paged_write_kv(v_pages, v[:, 0], page, offset)
+    out = dispatch.op("paged_decode_attention", q, k_pages, v_pages, block_table, lengths)
     y = dispatch.op("matmul", out.reshape(B, -1), p["wo"])
     return y[:, None, :]
 

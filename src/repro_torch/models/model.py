@@ -95,19 +95,76 @@ class DecoderLM:
             cache = _pad_cache_time(cache, cache_len)
         return logits[:, 0], cache
 
+    # -- chunked prefill ------------------------------------------------------
+
+    def prefill_chunk(self, params: Params, tokens: torch.Tensor, cache: dict, *, start: int):
+        """One ``[B, Sc]`` prompt chunk at absolute positions ``[start,
+        start + Sc)`` -> (logits of the chunk's last row [B, V] f32, cache).
+
+        ``cache`` is a full-capacity staging cache (``k``/``v`` ``[L, B,
+        Hkv, max_len, hd]``): rows ``[0, start)`` hold the previous chunks'
+        KV, and this call writes rows ``[start, start + Sc)`` in place; the
+        returned cache holds the same tensors with ``pos = start + Sc``.  Row
+        for row the same function as :meth:`prefill` over the whole prompt,
+        which is what lets the engine interleave chunks with decode.
+
+        A ``cache["block_table"]`` ([1, NP] int32, one sequence) makes
+        ``k``/``v`` page pools ``[L, P, Hkv, ps, hd]`` instead: the chunk's
+        rows are written to, and rows ``[0, start + Sc)`` read from, the
+        pages the table maps them to, so no staging cache is needed."""
+        cfg = self.cfg
+        x = layers.embed_tokens(params["embed"], tokens)
+        end = start + tokens.shape[1]
+        table = cache.get("block_table")
+        if table is not None:
+            # the pool address of rows [0, end), looked up once for every layer
+            ps = cache["k"].shape[3]
+            rows = torch.arange(end, device=x.device)
+            page, offset = table[0, rows // ps].long(), rows % ps
+        for i, p in enumerate(params["layers"]):
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            if table is None:
+                a = layers.attention_prefill_chunk(p["attn"], h, cache["k"][i], cache["v"][i],
+                                                   start, cfg)
+            else:
+                a = layers.attention_prefill_chunk_paged(p["attn"], h, cache["k"][i],
+                                                         cache["v"][i], page, offset, start, cfg)
+            x = x + a
+            x = x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps))
+        h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = layers.unembed(params["embed"], h[:, -1:])
+        return logits[:, 0], {"pos": torch.tensor(end, dtype=torch.int32, device=x.device),
+                              "k": cache["k"], "v": cache["v"]}
+
     # -- decode ---------------------------------------------------------------
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict):
         """tokens [B, 1] -> (logits [B, V] f32, cache).  ``cache["pos"]`` is a
         scalar or [B] (per-slot positions); this token's k/v are written into
         ``cache["k"]``/``cache["v"]`` in place, and the returned cache holds
-        the same tensors with ``pos + 1``."""
+        the same tensors with ``pos + 1``.
+
+        A ``cache["block_table"]`` ([B, NP] int32) switches attention to the
+        paged KV path: ``k``/``v`` are then page pools ``[L, P, Hkv, ps,
+        hd]`` shared by the batch, written and read through the table.  The
+        table is the engine's and is not part of the returned cache."""
         cfg = self.cfg
         x = layers.embed_tokens(params["embed"], tokens)
         pos = cache["pos"]
+        table = cache.get("block_table")
+        if table is not None:
+            # each slot's write address and length, looked up once for every layer
+            posb = pos.expand(x.shape[0]) if pos.dim() == 0 else pos
+            page, offset = layers.page_address(table, posb, cache["k"].shape[3])
+            lengths = posb + 1
         for i, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
-            x = x + layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+            if table is None:
+                a = layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+            else:
+                a = layers.attention_decode_paged(p["attn"], h, cache["k"][i], cache["v"][i],
+                                                  table, posb, page, offset, lengths, cfg)
+            x = x + a
             x = x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps))
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
         logits = layers.unembed(params["embed"], h)

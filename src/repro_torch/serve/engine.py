@@ -1,4 +1,5 @@
-"""Serving: the batched dense engine, the dense slice of ``repro/serve/engine.py``.
+"""Serving: the batched engine — the dense, paged and chunked slices of
+``repro/serve/engine.py``.
 
 The :class:`ServeEngine` implements continuous-batching-lite over fixed
 slots: requests join free slots, each prompt is prefilled on its own, all
@@ -13,11 +14,29 @@ steps with on-device greedy sampling and per-slot masks, and the host reads
 the tokens back once per launch.  A slot whose budget runs out mid-launch
 freezes its position and token; its cache rows keep absorbing dummy writes
 at the frozen position, harmless because the next prefill into that slot
-replaces its whole ``max_len`` row range.
+replaces its whole ``max_len`` row range (dense) or its table row points at
+the scratch page (paged).
+
+**Paged KV cache** (``paged=True``): KV lives in a global page pool
+(:mod:`repro_torch.serve.paged`) addressed through per-slot block tables.
+Prefill scatters into freshly mapped pages, a decode launch maps each slot's
+next page before it crosses a page boundary, and a finished request's pages
+return to the pool at once.  Admission moves from "free slot?" to an
+:class:`AdmissionPolicy` over free pages and the projected growth of the
+requests already running.  Greedy streams equal the dense engine's.
+
+**Chunked prefill** (``prefill_chunk=``): prompts are prefilled in chunks,
+one chunk per prefilling slot per step, interleaved with the fused decode.
+Dense, each prefilling slot fills a staging cache that is then spliced into
+the batch cache; paged, each chunk writes into and attends through the
+slot's pages directly, so the pool is all the KV memory the engine holds
+(the JAX engine keeps a staging cache per slot there too).
 
 Greedy decoding only: temperature sampling needs the JAX engine's
 position-indexed threefry stream to match it token for token (ROADMAP
 item 8b).  Launches run directly, not through an HSA queue (ROADMAP item 6).
+Preemption (8f) is not ported: the default full-reserve admission never
+needs it, and an overcommitting policy is refused.
 """
 
 from __future__ import annotations
@@ -29,7 +48,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.hsa.clock import WallClock
+from repro_torch.core.policy import AdmissionPolicy
 from repro_torch.models.params import resolve_device
+from repro_torch.serve import paged as paged_mod
 
 
 @dataclasses.dataclass
@@ -46,11 +67,35 @@ class Request:
     finish_t: float | None = None
 
 
+@dataclasses.dataclass
+class _Prefilling:
+    """A request mid chunked-prefill: holds a slot (and, dense, a staging
+    cache).
+
+    ``tokens`` is the prompt padded to its bucket length — chunking runs
+    over the same padded token array the whole-prompt path prefills, so the
+    cache rows and the first-token fixup are those of the whole prompt.
+    """
+
+    req: Request
+    tokens: np.ndarray                 # [b] prompt padded to bucket length
+    n: int                             # real prompt length
+    staging: dict | None               # dense: the slot's staging {"k", "v"}
+    filled: int = 0                    # rows prefilled so far
+
+
+def _prompt_rows(cache: dict, n: int) -> dict:
+    """A copy of a one-slot dense cache's rows [0, n): the first-token
+    fixup's cache, which its decode step may write."""
+    return {key: cache[key][:, :, :, :n].clone() for key in ("k", "v")}
+
+
 class ServeTruncated(RuntimeError):
     """``run_to_completion`` exhausted ``max_steps`` with work still pending.
 
-    Carries the partial result — ``done`` and ``pending`` (active slots and
-    queued requests) — so callers can't mistake truncation for completion.
+    Carries the partial result — ``done`` and ``pending`` (active and
+    prefilling slots, then queued requests) — so callers can't mistake
+    truncation for completion.
     """
 
     def __init__(self, done: list[Request], pending: list[Request]) -> None:
@@ -62,11 +107,16 @@ class ServeTruncated(RuntimeError):
         )
 
 
+_PREEMPTION = ("preemption is ROADMAP item 8f, not ported: only it makes an "
+               "overcommitting admission (growth_reserve < 1) safe")
+
+
 class ServeEngine:
     """Fixed-slot batched greedy decoder with slot recycling.
 
-    The dense KV cache ``[L, slots, Hkv, max_len, hd]`` lives on ``device``
-    and is updated in place: prefill copies a request's cache into its slot,
+    The dense KV cache ``[L, slots, Hkv, max_len, hd]`` — or, paged, the
+    pool ``[L, pool_pages, Hkv, page_size, hd]`` — lives on ``device`` and
+    is updated in place: prefill copies or scatters a request's cache in,
     decode writes each new token's k/v at its slot's position.
     """
 
@@ -75,6 +125,9 @@ class ServeEngine:
 
     def __init__(self, model, params, *, batch_slots: int = 4, max_len: int = 256,
                  temperature: float = 0.0, decode_fusion: int = 1,
+                 paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
+                 admission: AdmissionPolicy | None = None,
+                 prefill_chunk: int | None = None,
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -100,9 +153,48 @@ class ServeEngine:
         self.clock = WallClock()
         # model calls by kind: the launch counts of a run follow from these
         self.prefill_calls = 0
+        self.chunk_calls = 0
         self.fixup_calls = 0
         self.decode_calls = 0
         self.decode_tokens = 0         # tokens committed by decode launches
+        # -- paged KV cache state ---------------------------------------------
+        self.paged = paged
+        self.page_size = page_size
+        self.admission = admission if admission is not None else AdmissionPolicy()
+        if paged:
+            if page_size < 1 or max_len % page_size:
+                raise ValueError(
+                    f"max_len={max_len} must be a multiple of page_size={page_size}"
+                )
+            if self.admission.overcommitted:
+                raise NotImplementedError(_PREEMPTION)
+            if pool_pages is None:
+                # match the dense engine's footprint (+ the scratch page)
+                pool_pages = batch_slots * (max_len // page_size) + 1
+            self.allocator = paged_mod.PageAllocator(pool_pages)
+            self.pool_pages = pool_pages
+            self.table_pages = max_len // page_size          # table width NP
+            # per-slot block tables on the host; unmapped entries point at the
+            # scratch page so masked dummy writes never touch a live page
+            self._table = np.full((batch_slots, self.table_pages),
+                                  paged_mod.TRASH_PAGE, np.int32)
+            self._mapped = np.zeros(batch_slots, np.int64)   # pages mapped/slot
+            self._projected: dict[int, int] = {}             # slot -> pages
+        else:
+            self.allocator = None
+        # concurrency trace: sustained (mean over decode launches) and peak
+        self._concurrency_sum = 0
+        self._concurrency_n = 0
+        self.peak_concurrency = 0
+        # -- chunked prefill: rows per chunk, fixed (a power of two, so over
+        # pow2-bucketed prompts every chunk boundary is aligned) ----------------
+        if prefill_chunk is not None and (not isinstance(prefill_chunk, int) or prefill_chunk < 1
+                                          or prefill_chunk & (prefill_chunk - 1)):
+            raise ValueError(f"prefill_chunk must be a power of two >= 1, got {prefill_chunk!r}")
+        self.prefill_chunk = prefill_chunk
+        self._prefilling: dict[int, _Prefilling] = {}
+        self._staging: dict[int, dict] = {}   # dense: slot -> reusable staging k/v
+        self._first_this_step: list[Request] = []
         # submit() may run on feeder threads while step() is mid-flight
         self._lock = threading.RLock()
 
@@ -110,12 +202,23 @@ class ServeEngine:
         """Queue a request; its uid."""
         with self._lock:
             if len(prompt) == 0 or len(prompt) + max_new_tokens > self.max_len:
+                # paged: the block table maps exactly max_len rows
                 raise ValueError(
                     f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) must "
                     f"fit max_len={self.max_len}, with a non-empty prompt"
                 )
             self._uid += 1
             req = Request(self._uid, np.asarray(prompt, np.int32), max_new_tokens)
+            if self.paged and self._never_fits(req):
+                # permanent rejection happens here: a request whose worst-case
+                # footprint exceeds the pool can never complete
+                worst = self.admission.worst_case_pages(
+                    len(req.prompt), max_new_tokens, self.page_size)
+                cap = self.allocator.total_pages - self.admission.watermark_pages
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool can ever "
+                    f"admit at most {cap} — it would block the queue forever"
+                )
             req.arrival_t = self.clock.now()
             self._queue.append(req)
             return self._uid
@@ -129,7 +232,129 @@ class ServeEngine:
             b *= 2
         return min(b, max_len)
 
-    # -- internals ------------------------------------------------------------
+    def concurrency_stats(self) -> dict[str, float]:
+        """Sustained (mean over decode launches) and peak concurrency."""
+        sustained = (self._concurrency_sum / self._concurrency_n
+                     if self._concurrency_n else 0.0)
+        return {"sustained": sustained, "peak": float(self.peak_concurrency)}
+
+    # -- paged KV cache internals -------------------------------------------------
+
+    def _projected_pages(self, req: Request) -> int:
+        return self.admission.projected_pages(
+            len(req.prompt), req.max_new_tokens, self.page_size)
+
+    def _never_fits(self, req: Request) -> bool:
+        """Permanently inadmissible: the request's worst-case footprint
+        exceeds what the pool can ever fund under the admission policy."""
+        worst = self.admission.worst_case_pages(
+            len(req.prompt), req.max_new_tokens, self.page_size)
+        return worst > self.allocator.total_pages - self.admission.watermark_pages
+
+    def _projected_growth(self) -> int:
+        """Pages the already-admitted requests are still projected to map;
+        chunk-prefilling slots' remaining prompt rows count too."""
+        live = list(self._active) + list(self._prefilling)
+        return sum(max(0, self._projected[slot] - int(self._mapped[slot])) for slot in live)
+
+    def _admit_paged(self, req: Request) -> bool:
+        return self.admission.admit(
+            free_pages=self.allocator.free_pages,
+            projected_growth_pages=self._projected_growth(),
+            request_pages=self._projected_pages(req),
+        )
+
+    def _launch_pages(self, slot: int, req: Request, k: int) -> int:
+        """Mapped-page target for ``slot`` to absorb a depth-``k`` launch
+        (through the last position the launch can write) — the one formula
+        behind both growth funding (:meth:`_fund_growth`) and mapping
+        (:meth:`_grow_to`)."""
+        rem = req.max_new_tokens - len(req.generated)
+        if rem <= 0:
+            return int(self._mapped[slot])
+        last_write = int(self._pos[slot]) + min(k, rem) - 1
+        return min(last_write // self.page_size + 1, self.table_pages)
+
+    def _grow_to(self, slot: int, need: int) -> None:
+        """Map pages up to the ``need`` target: a sequence gets its next page
+        exactly when a launch will carry it across a page boundary."""
+        have = int(self._mapped[slot])
+        if need <= have:
+            return
+        pages = self.allocator.allocate(self._active[slot].uid, need - have)
+        self._table[slot, have:need] = pages
+        self._mapped[slot] = need
+
+    def _release_slot(self, slot: int, req: Request) -> None:
+        """Finished or aborted request: its pages return to the pool."""
+        pages = [int(p) for p in self._table[slot, : int(self._mapped[slot])]]
+        if pages:
+            self.allocator.free(req.uid, pages)
+        self._table[slot] = paged_mod.TRASH_PAGE
+        self._mapped[slot] = 0
+        self._projected.pop(slot, None)
+
+    def _fund_growth(self, k: int) -> int:
+        """Make this launch's page growth allocatable; the funded depth.
+
+        On a shortfall the launch shrinks (k halves): a shallower launch
+        needs fewer pages ahead.  Where even k = 1 cannot be funded the JAX
+        engine preempts victims; that is ROADMAP 8f here, unreachable under
+        the full-reserve admission this engine accepts."""
+        while True:
+            needed = sum(max(0, self._launch_pages(slot, req, k) - int(self._mapped[slot]))
+                         for slot, req in self._active.items())
+            if needed <= self.allocator.free_pages:
+                return k
+            if k > 1:
+                k = (k + 1) // 2
+                continue
+            raise NotImplementedError(_PREEMPTION)
+
+    def _ensure_pool(self) -> None:
+        if self._cache is None:
+            # the cache layout with pages for rows: [L, pool_pages, Hkv, page_size, hd]
+            self._cache = self._zero_kv(self.allocator.num_pages, self.page_size)
+
+    def _zero_kv(self, batch: int, rows: int) -> dict:
+        """A zeroed k/v cache ``[L, batch, Hkv, rows, hd]`` on the device.
+        Zeros, not ``torch.empty``: attention multiplies masked rows' values
+        by a zero probability, and 0 * NaN would poison the product."""
+        specs = self.model.cache_specs(batch, rows)
+        return {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=self.device)
+                for key in ("k", "v")}
+
+    def _splice_dense(self, slot: int, slot_cache: dict) -> None:
+        """Copy a slot's cache into the batch cache: the slot's whole
+        ``max_len`` row range, which also erases the dummy writes a masked
+        slot absorbed during fused decode."""
+        if self._cache is None:
+            self._cache = self._zero_kv(self.slots, self.max_len)
+        for key in ("k", "v"):
+            self._cache[key][:, slot] = slot_cache[key][:, 0]
+
+    # -- prefill ----------------------------------------------------------------------
+
+    def _first_token(self, slot: int, req: Request, logits: torch.Tensor,
+                     rows: dict | None) -> None:
+        """Sample token 0 from the prefill's logits.  With end-padding they
+        sit at a pad position: one decode step of the last prompt token at
+        its true position re-derives them, against ``rows``, a copy of the
+        prompt's cache rows [0, n) (None when unpadded).  Decode writes row
+        n-1 in place, so it writes the copy, which is then dropped, and the
+        slot keeps the prefill's cache verbatim."""
+        n = len(req.prompt)
+        if rows is not None:
+            fix_cache = {"pos": torch.tensor([n - 1], dtype=torch.int32, device=self.device),
+                         **rows}
+            logits, _ = self.model.decode_step(
+                self.params, torch.as_tensor(req.prompt[-1:][None, :], device=self.device),
+                fix_cache,
+            )
+            self.fixup_calls += 1
+        tok = int(torch.argmax(logits[0]))
+        req.generated.append(tok)
+        self._slot_tok[slot] = tok
 
     def _prefill_slot(self, slot: int, req: Request) -> None:
         n = len(req.prompt)
@@ -140,45 +365,115 @@ class ServeEngine:
             cache_len=self.max_len,
         )
         self.prefill_calls += 1
-        if pad:
-            # end-padding is causally inert for the cached prompt positions
-            # (decode masks by pos), but prefill's logits sit at a pad
-            # position.  Re-derive the first token's logits with one decode
-            # step of the last prompt token at its true position, and keep
-            # the *prefill* cache verbatim: decode writes row n-1 in place, so
-            # it runs on a copy of rows [0, n) that is then dropped.
-            fix_cache = {
-                "pos": torch.tensor([n - 1], dtype=torch.int32, device=self.device),
-                "k": cache["k"][:, :, :, :n].clone(),
-                "v": cache["v"][:, :, :, :n].clone(),
-            }
-            logits, _ = self.model.decode_step(
-                self.params, torch.as_tensor(req.prompt[-1:][None, :], device=self.device),
-                fix_cache,
-            )
-            self.fixup_calls += 1
-        tok = int(torch.argmax(logits[0]))
-        req.generated.append(tok)
-        self._slot_tok[slot] = tok
-        if self._cache is None:
-            specs = self.model.cache_specs(self.slots, self.max_len)
-            self._cache = {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype,
-                                            device=self.device) for key in ("k", "v")}
-        # the slot's whole max_len row range: it also erases the dummy writes
-        # a masked slot absorbed during fused decode
-        for key in ("k", "v"):
-            self._cache[key][:, slot] = cache[key][:, 0]
+        self._first_token(slot, req, logits, _prompt_rows(cache, n) if pad else None)
         self._pos[slot] = n
+        if not self.paged:
+            self._splice_dense(slot, cache)
+            return
+        # map pages covering the prompt and scatter the prefill KV in; the
+        # page for the first decode write arrives via _grow_to
+        self._ensure_pool()
+        n_store = paged_mod.pages_for(n, self.page_size)
+        pages = self.allocator.allocate(req.uid, n_store)
+        self._table[slot] = paged_mod.TRASH_PAGE
+        self._table[slot, :n_store] = pages
+        self._mapped[slot] = n_store
+        self._projected[slot] = self._projected_pages(req)
+        paged_mod.scatter_prefill(self._cache, cache, pages, self.page_size)
+
+    # -- chunked prefill (continuous batching) ------------------------------------------
+
+    def _admit_chunked(self, req: Request) -> bool:
+        """Paged admission for a chunked prefill: charge the *first chunk's*
+        pages; the rest of the prompt is projected growth."""
+        first = paged_mod.pages_for(min(len(req.prompt), self.prefill_chunk), self.page_size)
+        return self.admission.admit(
+            free_pages=self.allocator.free_pages,
+            projected_growth_pages=self._projected_growth(),
+            request_pages=first,
+        )
+
+    def _start_chunked(self, slot: int, req: Request) -> None:
+        """Admit ``req`` into ``slot`` as a chunked prefill."""
+        n = len(req.prompt)
+        b = self.bucket_len(n, self.max_len)
+        tokens = np.pad(req.prompt, (0, b - n)) if b > n else req.prompt
+        staging = None
+        if self.paged:
+            self._ensure_pool()
+            self._table[slot] = paged_mod.TRASH_PAGE
+            self._mapped[slot] = 0
+            self._projected[slot] = self._projected_pages(req)
+        else:
+            # allocated once per slot and reused across occupants without
+            # re-zeroing: chunk c attends only rows [0, end) written by chunks
+            # before it, and decode masks rows >= pos, so stale rows are never
+            # read with nonzero weight
+            if slot not in self._staging:
+                self._staging[slot] = self._zero_kv(1, self.max_len)
+            staging = self._staging[slot]
+        self._prefilling[slot] = _Prefilling(req=req, tokens=tokens, n=n, staging=staging)
+
+    def _chunk_step(self, slot: int, entry: _Prefilling) -> int:
+        """Run one prefill chunk for ``slot``; rows processed (0 = stalled)."""
+        req = entry.req
+        b = len(entry.tokens)
+        start = entry.filled
+        size = min(self.prefill_chunk, b - start)
+        if self.paged:
+            # fund this chunk's pages: only rows < n need their own page (pad
+            # rows past them land on the scratch page).  A shortfall stalls
+            # the chunk — decode keeps running and frees pages
+            need = paged_mod.pages_for(min(start + size, entry.n), self.page_size)
+            have = int(self._mapped[slot])
+            if need > have:
+                if self.allocator.free_pages < need - have:
+                    return 0
+                self._table[slot, have:need] = self.allocator.allocate(req.uid, need - have)
+                self._mapped[slot] = need
+            cache = {**self._cache,
+                     "block_table": torch.as_tensor(self._table[slot:slot + 1], device=self.device)}
+        else:
+            cache = entry.staging
+        toks = torch.as_tensor(entry.tokens[None, start:start + size], device=self.device)
+        logits, _ = self.model.prefill_chunk(self.params, toks, cache, start=start)
+        self.chunk_calls += 1
+        entry.filled += size
+        if entry.filled >= b:
+            self._finish_chunked(slot, entry, logits)
+        return size
+
+    def _finish_chunked(self, slot: int, entry: _Prefilling, logits: torch.Tensor) -> None:
+        """Prompt fully prefilled: derive token 0 as the whole-prompt path
+        does (the fixup runs on a copy of the prompt's rows, so a dense
+        splice below copies the prefill's row n-1, not the fixup's), then
+        move the request into the decode batch."""
+        req, n = entry.req, entry.n
+        rows = None
+        if len(entry.tokens) > n:
+            rows = (paged_mod.gather_rows(self._cache, self._table[slot], n, self.page_size)
+                    if self.paged else _prompt_rows(entry.staging, n))
+        self._first_token(slot, req, logits, rows)
+        if not self.paged:
+            self._splice_dense(slot, entry.staging)
+        self._pos[slot] = n
+        del self._prefilling[slot]
+        self._active[slot] = req
+        self._first_this_step.append(req)
+
+    # -- decode ---------------------------------------------------------------------
 
     def _choose_fusion(self) -> int:
         remaining = [r.max_new_tokens - len(r.generated) for r in self._active.values()]
         # never run past every live slot's budget: those steps are all-masked
         return max(1, min(self.decode_fusion, max(remaining, default=1)))
 
-    def _fused_decode(self, k: int, active: np.ndarray, remaining: np.ndarray):
+    def _fused_decode(self, k: int, active: np.ndarray, remaining: np.ndarray,
+                      table: torch.Tensor | None):
         """``k`` masked decode steps over all slots with on-device greedy
         sampling; the tokens [k, slots] and their validity mask, read back
-        once."""
+        once.  A paged launch carries ``table`` unchanged through its steps:
+        page growth happens on the host between launches."""
         dev = self.device
         pos = torch.as_tensor(self._pos.astype(np.int32), device=dev)
         tok = torch.as_tensor(self._slot_tok, device=dev)
@@ -187,6 +482,8 @@ class ServeEngine:
         toks, valid = [], []
         for _ in range(k):
             cache = {"pos": pos, "k": self._cache["k"], "v": self._cache["v"]}
+            if table is not None:
+                cache["block_table"] = table
             logits, _ = self.model.decode_step(self.params, tok[:, None], cache)
             self.decode_calls += 1
             tok = torch.where(live, torch.argmax(logits, dim=-1).to(torch.int32), tok)
@@ -201,13 +498,33 @@ class ServeEngine:
 
     def _decode_locked(self) -> list[Request]:
         k = self._choose_fusion()
+        if self.paged:
+            k = self._fund_growth(k)
+        n_live = len(self._active)
+        self._concurrency_sum += n_live
+        self._concurrency_n += 1
+        self.peak_concurrency = max(self.peak_concurrency, n_live)
         remaining = np.zeros(self.slots, np.int32)
         active = np.zeros(self.slots, bool)
         for slot, req in self._active.items():
             self._slot_tok[slot] = req.generated[-1]
             remaining[slot] = req.max_new_tokens - len(req.generated)
             active[slot] = remaining[slot] > 0
-        toks, valid = self._fused_decode(k, active, remaining)
+            if self.paged and remaining[slot] > 0:
+                # map through the last position this launch can write (funded above)
+                self._grow_to(slot, self._launch_pages(slot, req, k))
+        table = None
+        if self.paged:
+            tbl = self._table
+            if self._prefilling:
+                # a mid-prefill slot has real pages mapped but is masked in this
+                # launch: its dummy writes at its stale position must land on the
+                # scratch page, not on the chunk rows already scattered
+                tbl = tbl.copy()
+                tbl[list(self._prefilling)] = paged_mod.TRASH_PAGE
+            # one upload of the whole table per launch, read by every layer
+            table = torch.as_tensor(tbl, device=self.device)
+        toks, valid = self._fused_decode(k, active, remaining, table)
         self.decode_tokens += int(valid.sum())
         finished = []
         for slot, req in list(self._active.items()):
@@ -215,35 +532,67 @@ class ServeEngine:
             if len(req.generated) >= req.max_new_tokens:
                 req.done = True
                 finished.append(req)
+                if self.paged:
+                    self._release_slot(slot, req)
                 del self._active[slot]
         return finished
 
     # -- public loop ------------------------------------------------------------
 
     def step(self) -> list[Request]:
-        """Admit queued requests into free slots (one prefill each), then
-        decode up to ``decode_fusion`` tokens for all live slots.
+        """Admit queued requests into free slots (a whole-prompt prefill
+        each, or a chunked prefill's start), run one prefill chunk per
+        chunk-prefilling slot, then decode up to ``decode_fusion`` tokens
+        for all live slots.
 
         Returns requests completed this step.
         """
         with self._lock:
-            first: list[Request] = []
+            self._first_this_step = []
+            chunked = self.prefill_chunk is not None
             for slot in range(self.slots):
-                if slot in self._active:
+                if slot in self._active or slot in self._prefilling:
                     continue
                 if not self._queue:
                     break
+                if self.paged:
+                    head = self._queue[0]
+                    if not (self._admit_chunked(head) if chunked else self._admit_paged(head)):
+                        # head-of-line blocking is deliberate: skipping ahead to
+                        # smaller requests would starve large ones forever
+                        break
                 req = self._queue.pop(0)
-                self._prefill_slot(slot, req)
-                self._active[slot] = req
-                first.append(req)
+                if chunked:
+                    self._start_chunked(slot, req)
+                else:
+                    self._prefill_slot(slot, req)
+                    self._active[slot] = req
+                    self._first_this_step.append(req)
+            if self._prefilling:
+                self._chunk_phase()
             finished = self._decode_locked() if self._active else []
             now = self.clock.now()
-            for req in first:
+            for req in self._first_this_step:
                 req.first_token_t = now
             for req in finished:
                 req.finish_t = now
             return finished
+
+    def _chunk_phase(self) -> None:
+        """One prefill chunk per prefilling slot, oldest first (uid order),
+        so under page pressure the senior prefill funds before junior ones."""
+        order = sorted(self._prefilling, key=lambda s: self._prefilling[s].req.uid)
+        rows = sum(self._chunk_step(slot, self._prefilling[slot]) for slot in order)
+        if self.paged and self._prefilling and rows == 0 and not self._active:
+            # every prefill stalled and nothing is decoding: no pages will free
+            # on their own.  Abort the youngest prefill back into the queue (uid
+            # order kept); its pages fund the senior ones
+            slot = max(self._prefilling, key=lambda s: self._prefilling[s].req.uid)
+            entry = self._prefilling.pop(slot)
+            self._release_slot(slot, entry.req)
+            idx = next((i for i, r in enumerate(self._queue) if r.uid > entry.req.uid),
+                       len(self._queue))
+            self._queue.insert(idx, entry.req)
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
         """Step until every submitted request finishes; the completed requests.
@@ -255,7 +604,9 @@ class ServeEngine:
         for _ in range(max_steps):
             done += self.step()
             with self._lock:
-                if not self._active and not self._queue:
+                if not self._active and not self._prefilling and not self._queue:
                     return done
         with self._lock:
-            raise ServeTruncated(done, list(self._active.values()) + list(self._queue))
+            pending = (list(self._active.values())
+                       + [e.req for e in self._prefilling.values()] + list(self._queue))
+            raise ServeTruncated(done, pending)

@@ -28,7 +28,9 @@ from repro_torch.core import dispatch
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as mm_k
+from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import rmsnorm as rms_k
+from repro_torch.kernels.ref import gather_kv_pages
 
 pytestmark = pytest.mark.gpu
 
@@ -69,7 +71,8 @@ def _attn_close(got, want):
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 2048, 512), (8, 8192, 2048),
                                    (512, 2048, 8192), (100, 256, 136), (1, 64, 8),
                                    (1, 2048, 8192), (1, 8192, 2048),      # first-token fixup
-                                   (1024, 2048, 8192), (1024, 8192, 2048)])  # 1024 bucket
+                                   (1024, 2048, 8192), (1024, 8192, 2048),   # 1024 bucket
+                                   (16, 2048, 8192), (128, 8192, 2048)])     # 16 slots, chunk
 @pytest.mark.parametrize("activation", [None, "silu", "gelu"])
 def test_matmul_matches_plain(cuda, m, k, n, activation):
     g = _gen(cuda)
@@ -104,6 +107,8 @@ def test_rmsnorm_matches_plain(cuda, shape):
     (1, 4, 1, 256, 256, True, 48),         # sliding window
     (1, 32, 8, 8, 8, True, None),          # the smallest prompt bucket
     (1, 32, 8, 1024, 1024, True, None),    # the largest prompt bucket
+    (1, 32, 8, 128, 1024, True, None),     # a chunk of chunked prefill, 1024 keys
+    (1, 32, 8, 128, 384, True, None),      # a chunk against keys no power of two
 ])
 def test_flash_attention_matches_plain(cuda, b, hq, hkv, s, t, causal, window):
     g = _gen(cuda, 3)
@@ -190,3 +195,163 @@ def test_small_model_cuda_matches_torch_source(cuda):
     for a, b in zip(out["torch"], out["cuda-strict"]):
         assert torch.isfinite(b).all()
         torch.testing.assert_close(b, a, atol=5e-2, rtol=5e-2)
+
+
+def _paged_pool(g, device, B, ps, T=1024, spare=1):
+    """A random pool [P, 8, ps, 64] (page 0 the scratch page) and a shuffled
+    table [B, T/ps] mapping every page but the scratch and ``spare`` ones."""
+    NP = T // ps
+    P = B * NP + 1 + spare
+    kp, vp = _randn(g, (P, 8, ps, 64), device), _randn(g, (P, 8, ps, 64), device)
+    perm = torch.randperm(P - 1, generator=g, device=device)[: B * NP] + 1
+    return kp, vp, perm.reshape(B, NP).to(torch.int32)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64])
+@pytest.mark.parametrize("lengths", [[1, 1024, 5, 600, 37, 256, 900, 64],
+                                     [3, 1000, 17, 16, 1024, 512, 9, 129] * 2, 77])
+def test_paged_decode_attention_matches_plain_and_dense_bitwise(cuda, ps, lengths):
+    """Against its plain version row by row, and bit for bit against the
+    dense kernel on the gathered cache: the design's promise, for page
+    sizes below, at and above the 32-key tile."""
+    g = _gen(cuda, 9)
+    B = len(lengths) if isinstance(lengths, list) else 8
+    q = _randn(g, (B, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, B, ps)
+    length = (torch.tensor(lengths, dtype=torch.int32, device=cuda)
+              if isinstance(lengths, list) else lengths)
+    got = paged_k.paged_decode_attention(q, kp, vp, table, length)
+    _attn_close(got, paged_k.plain_paged_decode_attention(q, kp, vp, table, length))
+    dense = dec_k.decode_attention(q, gather_kv_pages(kp, table), gather_kv_pages(vp, table),
+                                   length)
+    assert torch.equal(got, dense)
+
+
+def test_paged_decode_attention_reads_nothing_past_length(cuda):
+    """Rows at or past a sequence's length never reach the output: NaN in
+    every pool row past it — the page tail, and the scratch page that the
+    table entries past it point at — leaves the result bit for bit."""
+    g = _gen(cuda, 10)
+    q = _randn(g, (2, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 2, 16, T=256)
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=cuda)
+    clean = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
+    for b, n in enumerate((100, 37)):
+        table[b, -(-n // 16):] = 0                    # unmapped: the scratch page
+        for pool in (kp, vp):
+            pool[table[b, n // 16].long(), :, n % 16:] = float("nan")
+    kp[0], vp[0] = float("nan"), float("nan")
+    torch.testing.assert_close(paged_k.paged_decode_attention(q, kp, vp, table, lengths),
+                               clean, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("bad", [-1, 10_000])
+def test_paged_decode_attention_masks_pages_outside_the_pool(cuda, bad):
+    """A corrupt table entry inside the length (a page index outside the
+    pool) drops that page's rows from the softmax: the output is attention
+    over the other rows, not over zero rows standing in for them."""
+    g = _gen(cuda, 13)
+    q = _randn(g, (2, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 2, 16, T=256)
+    lengths = torch.tensor([100, 200], dtype=torch.int32, device=cuda)
+    corrupt = table.clone()
+    corrupt[1, 3] = bad                                   # rows 48..63 of sequence 1
+    got = paged_k.paged_decode_attention(q, kp, vp, corrupt, lengths)
+    keys = torch.arange(256, device=cuda)[None, :]
+    mask = keys < lengths[:, None]
+    mask[1, 48:64] = False
+    k, v = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
+    want = torch.softmax(
+        torch.where(mask[:, None], torch.einsum("bhd,bhtd->bht", q.float(),
+                                                k.float().repeat_interleave(4, 1)) / 8.0,
+                    float("-inf")), dim=-1)
+    want = torch.einsum("bht,bhtd->bhd", want, v.float().repeat_interleave(4, 1))
+    _attn_close(got, want.to(torch.bfloat16))
+    torch.testing.assert_close(got[0], paged_k.paged_decode_attention(q, kp, vp, table,
+                                                                      lengths)[0],
+                               atol=0, rtol=0)             # sequence 0 untouched
+
+
+def test_paged_prefill_chunk_equals_staging_under_cuda_strict(cuda):
+    """The paged engine's chunked prefill (chunks written into and read
+    from the pool) against the staging form, on the card's kernels: the
+    logits of each chunk of prompt rows only, the prompt's rows and the
+    first-token fixup's logits, bit for bit."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serve.paged import gather_rows
+
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=256, vocab=512)
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    g = _gen(cuda, 14)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 128), generator=g, device=cuda)
+    specs, pool_specs = model.cache_specs(1, 128), model.cache_specs(9, 16)
+    staging = {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=cuda)
+               for key in ("k", "v")}
+    pool = {key: torch.zeros(pool_specs[key].shape, dtype=pool_specs[key].dtype, device=cuda)
+            for key in ("k", "v")}
+    table = (torch.randperm(8, generator=g, device=cuda) + 1)[None].int()
+    table[0, 7] = 0                                       # 100 real rows: 7 pages
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        for start in range(0, 128, 32):
+            piece = tokens[:, start:start + 32]
+            want, _ = model.prefill_chunk(params, piece, staging, start=start)
+            got, _ = model.prefill_chunk(params, piece, {**pool, "block_table": table},
+                                         start=start)
+            assert torch.isfinite(got).all()
+            if start + 32 <= 100:
+                assert torch.equal(got, want), start
+        rows = gather_rows(pool, table[0].tolist(), 100, 16)
+        pos = torch.tensor([99], dtype=torch.int32, device=cuda)
+        for key in ("k", "v"):
+            assert torch.equal(rows[key], staging[key][:, :, :, :100])
+        # the fixup writes row 99 of the copies it is given
+        fix = [model.decode_step(params, tokens[:, 99:100], {"pos": pos, **kv})[0]
+               for kv in (rows, {key: staging[key][:, :, :, :100].clone() for key in ("k", "v")})]
+    assert torch.equal(*fix)
+
+
+def test_paged_wrapper_counts_launches_and_refuses_bad_input(cuda):
+    g = _gen(cuda, 11)
+    q = _randn(g, (2, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 2, 16, T=64)
+    before = paged_k.launches
+    paged_k.paged_decode_attention(q, kp, vp, table, 40)
+    assert paged_k.launches == before + 1
+    with pytest.raises(TypeError):
+        paged_k.paged_decode_attention(q, kp, vp, table.long(), 40)
+    with pytest.raises(ValueError, match="mixed devices"):
+        paged_k.paged_decode_attention(q, kp, vp, table.cpu(), 40)
+    with pytest.raises(ValueError):
+        paged_k.paged_decode_attention(q, kp, vp, table[:1], 40)      # B mismatch
+    assert paged_k.launches == before + 1
+
+
+def test_small_model_paged_decode_equals_dense_under_cuda_strict(cuda):
+    """A decode step over a pool with a shuffled table gives the dense
+    cache's logits bit for bit on the card's kernels."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=256, vocab=512)
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    g = _gen(cuda, 12)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 40), generator=g, device=cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        _, cache = model.prefill(params, {"tokens": tokens}, cache_len=64)
+        ps, NP = 16, 4
+        table = (torch.randperm(16, generator=g, device=cuda) + 1).reshape(4, NP).int()
+        pool = {}
+        for key in ("k", "v"):
+            L, B, H, T, hd = cache[key].shape
+            pool[key] = torch.zeros(L, 17, H, ps, hd, dtype=cache[key].dtype, device=cuda)
+            pool[key][:, table.reshape(-1).long()] = cache[key].reshape(
+                L, B, H, NP, ps, hd).transpose(2, 3).reshape(L, B * NP, H, ps, hd)
+        pos = torch.tensor([40, 33, 12, 40], dtype=torch.int32, device=cuda)
+        step = tokens[:, -1:]
+        want, _ = model.decode_step(params, step, {**cache, "pos": pos})
+        got, _ = model.decode_step(params, step, {**pool, "pos": pos, "block_table": table})
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)

@@ -22,12 +22,16 @@ import torch
 import repro.kernels  # noqa: F401  (registration)
 from repro.kernels import ops as jops
 from repro.kernels.decode_attention import decode_attention as pallas_decode_attention
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import paged_decode_attention as pallas_paged_decode_attention
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_decode_attention as paged_k
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as rms_k
 
 RNG = np.random.default_rng(2024)
@@ -147,19 +151,100 @@ def test_decode_attention_torch_source_matches_xla(length):
 
 
 # ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(B, hq, hkv, ps, n_pages, dtype, length, seed=0):
+    """q, a random pool with page 0 left as scratch, disjoint shuffled
+    per-sequence tables and lengths (scalar, or per slot from 1 to the whole
+    table) — each as a JAX array and a CPU torch tensor."""
+    rng = np.random.default_rng(seed)
+    pool_pages = B * n_pages + 3
+    q = _pair((B, hq, 32), dtype)
+    kp = _pair((pool_pages, hkv, ps, 32), dtype)
+    vp = _pair((pool_pages, hkv, ps, 32), dtype)
+    table = rng.permutation(np.arange(1, pool_pages))[: B * n_pages].reshape(B, n_pages)
+    table = table.astype(np.int32)
+    if length == "per_slot":
+        lengths = rng.integers(1, n_pages * ps + 1, size=B).astype(np.int32)
+        lengths[0] = n_pages * ps
+    else:
+        lengths = np.int32(n_pages * ps // 2 + 3)
+    return (q, kp, vp, (jnp.asarray(table), torch.from_numpy(table)),
+            (jnp.asarray(lengths), torch.tensor(lengths)))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("length", ["scalar", "per_slot"])
+@pytest.mark.parametrize("hq,hkv,ps,n_pages", [(8, 2, 16, 4), (8, 1, 8, 8), (4, 4, 16, 2)])
+def test_paged_decode_attention_plain_matches_pallas(dtype, length, hq, hkv, ps, n_pages):
+    """Page sizes 8 and 16 over shuffled tables, against the Pallas kernel
+    run in interpret mode as ``tests/test_kernels.py`` runs it."""
+    (qj, qt), (kj, kt), (vj, vt), (tj, tt), (lj, lt) = _paged_case(
+        3, hq, hkv, ps, n_pages, dtype, length)
+    got = paged_k.paged_decode_attention(qt, kt, vt, tt, lt)
+    want = pallas_paged_decode_attention(qj, kj, vj, tj, lj, interpret=True)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_plain_equals_dense_plain_on_gathered_cache(ps):
+    """The plain paged version is the plain dense version on the gathered
+    cache, bit for bit; the gather is the JAX gather, element for element."""
+    (qj, qt), (kj, kt), (vj, vt), (tj, tt), (lj, lt) = _paged_case(
+        3, 8, 2, ps, 64 // ps, "bf16", "per_slot", seed=1)
+    kg = tref.gather_kv_pages(kt, tt)
+    np.testing.assert_array_equal(kg.float().numpy(),
+                                  np.asarray(jref.gather_kv_pages(kj, tj), np.float32))
+    got = paged_k.plain_paged_decode_attention(qt, kt, vt, tt, lt)
+    want = dec_k.plain_decode_attention(qt, kg, tref.gather_kv_pages(vt, tt), lt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("length", ["scalar", "per_slot"])
+def test_paged_torch_source_matches_xla_and_equals_dense(length):
+    """The torch eager source against ``xla_paged_decode_attention``, and
+    bit for bit the dense torch source over the gathered cache — the
+    property the paged engine's equality with the dense one rests on."""
+    (qj, qt), (kj, kt), (vj, vt), (tj, tt), (lj, lt) = _paged_case(
+        3, 8, 2, 16, 4, "bf16", length, seed=2)
+    got = tops.torch_paged_decode_attention(qt, kt, vt, tt, lt)
+    _check(got, jops.xla_paged_decode_attention(qj, kj, vj, tj, lj), "bf16")
+    dense = tops.torch_decode_attention(qt, tref.gather_kv_pages(kt, tt),
+                                        tref.gather_kv_pages(vt, tt), lt)
+    assert torch.equal(got, dense)
+    _check(tref.paged_decode_attention(qt, kt, vt, tt, lt),
+           jref.paged_decode_attention(qj, kj, vj, tj, lj), "bf16")
+
+
+# ---------------------------------------------------------------------------
 # wrappers: the plain version only for CPU tensors, never a fallback
 # ---------------------------------------------------------------------------
 
 
 def test_wrappers_use_plain_version_on_cpu_without_counting():
-    counts = [m.launches for m in (mm_k, rms_k, fa_k, dec_k)]
+    mods = (mm_k, rms_k, fa_k, dec_k, paged_k)
+    counts = [m.launches for m in mods]
     x = torch.ones(4, 64, dtype=torch.bfloat16)
     mm_k.matmul(x, torch.ones(64, 64, dtype=torch.bfloat16))
     rms_k.rmsnorm(x, torch.ones(64, dtype=torch.bfloat16))
     q = torch.ones(1, 2, 8, 64, dtype=torch.bfloat16)
     fa_k.flash_attention(q, q, q)
     dec_k.decode_attention(q[:, :, 0], q, q, 3)
-    assert [m.launches for m in (mm_k, rms_k, fa_k, dec_k)] == counts
+    paged_k.paged_decode_attention(q[:, :, 0], q, q, torch.zeros(1, 1, dtype=torch.int32), 3)
+    assert [m.launches for m in mods] == counts
+
+
+def test_paged_plain_refuses_a_page_outside_the_pool():
+    """A table entry inside the length that names no pool page is a corrupt
+    table: the plain version's gather raises (the kernel masks the page's
+    rows, ``tests/test_torch_cuda.py``); it never reads it as zeros."""
+    q = torch.ones(1, 2, 64, dtype=torch.bfloat16)
+    pool = torch.ones(3, 2, 8, 64, dtype=torch.bfloat16)
+    table = torch.tensor([[1, 7]], dtype=torch.int32)               # page 7 of 3
+    with pytest.raises(IndexError):
+        paged_k.paged_decode_attention(q, pool, pool, table, 12)
 
 
 @pytest.mark.parametrize("call", [
@@ -167,6 +252,9 @@ def test_wrappers_use_plain_version_on_cpu_without_counting():
     lambda t: rms_k.rmsnorm(t((4, 64)), t((64,))),
     lambda t: fa_k.flash_attention(t((1, 2, 8, 64)), t((1, 2, 8, 64)), t((1, 2, 8, 64))),
     lambda t: dec_k.decode_attention(t((1, 2, 64)), t((1, 2, 8, 64)), t((1, 2, 8, 64)), 3),
+    lambda t: paged_k.paged_decode_attention(t((1, 2, 64)), t((3, 2, 8, 64)), t((3, 2, 8, 64)),
+                                             torch.ones(1, 2, dtype=torch.int32, device="meta"),
+                                             3),
 ])
 def test_wrappers_raise_off_cpu_without_cuda(call):
     """A tensor that is not on the CPU goes to the kernel path, which takes

@@ -35,6 +35,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.serve.engine, repro_torch.kernels.ops\n"
+        "import repro_torch.serve.paged, repro_torch.core.policy\n"
+        "import repro_torch.kernels.paged_decode_attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -67,7 +69,8 @@ def test_policy_flags_and_resolution():
         dispatch.policy_from_flag("pallas")
     with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
         assert {dispatch.resolve(op).source for op in
-                ("matmul", "rmsnorm", "flash_attention", "decode_attention")} == {"cuda"}
+                ("matmul", "rmsnorm", "flash_attention", "decode_attention",
+                 "paged_decode_attention")} == {"cuda"}
     with dispatch.use(prefer=("reference",)):
         assert dispatch.resolve("matmul").source == "reference"
 

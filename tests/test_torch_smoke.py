@@ -2,10 +2,13 @@
 
 The script holds each attention kernel to its plain version row by row
 (relative L2 over the head dim) and reads a planted fault — one key tile
-dropped — by the same measure; these tests show, at a small size, that the
-plain versions pass that check, that the planted fault lies beyond its limit
-and fails it, that the model phase runs the engine's calls, and that the
-script refuses to run without a card.  This file imports no JAX.
+dropped, or for paged attention one page remapped — by the same measure;
+these tests show, at a small size, that the plain versions pass that check,
+that the planted fault lies beyond its limit and fails it, that the model
+phase runs the engine's calls and chunked prefill, that the serve phase's
+three runs give the launch counts it checks (with the kernels' plain
+versions counted as launches), and that the script refuses to run without a
+card.  This file imports no JAX.
 """
 
 from __future__ import annotations
@@ -20,9 +23,14 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS, reduced
+from repro_torch.core import dispatch
+from repro_torch.core.registry import KernelImpl, KernelRegistry
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
+from repro_torch.kernels import matmul as mm_k
+from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rms_k
 from repro_torch.models import build_model, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,8 +68,35 @@ def _decode_case():
             dropped.any(dim=-1)[:, None])
 
 
+def _paged_case():
+    gen = torch.Generator().manual_seed(13)
+    ps, NP = 16, 64
+    lengths = torch.tensor([1, 1024, 5, 600, 37], dtype=torch.int32)
+    P = 5 * NP + 1
+    q, kp, vp = _randn(gen, 5, 8, 64), _randn(gen, P, 2, ps, 64), _randn(gen, P, 2, ps, 64)
+    table = (torch.randperm(P - 1, generator=gen)[: 5 * NP] + 1).reshape(5, NP).to(torch.int32)
+    faulted, touched = cs.remap_one_page(table, lengths, ps)
+    kg, vg = ref.gather_kv_pages(kp, table), ref.gather_kv_pages(vp, table)
+    valid = torch.arange(NP * ps)[None, :] < lengths[:, None]
+    masked = cs.masked_attention(torch, q[:, :, None], kg, vg, valid[:, None, None, :])[:, :, 0]
+    want = paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths)
+    fault = paged_k.plain_paged_decode_attention(q, kp, vp, faulted, lengths)
+    return (masked, ref.paged_decode_attention(q, kp, vp, table, lengths), want, fault,
+            touched[:, None])
+
+
 CASES = {"flash_causal": lambda: _flash_case(True), "flash_full": lambda: _flash_case(False),
-         "decode": _decode_case}
+         "decode": _decode_case, "paged": _paged_case}
+
+
+def test_remap_one_page_moves_the_last_whole_page_in_length():
+    table = torch.arange(1, 13, dtype=torch.int32).reshape(3, 4)
+    faulted, touched = cs.remap_one_page(table, torch.tensor([5, 16, 63]), 16)
+    assert touched.tolist() == [False, True, True]
+    assert (faulted != table).sum() == 2
+    assert faulted[1, 0] == table[2, 0] and faulted[2, 2] == table[0, 0]
+    one, _ = cs.remap_one_page(table[:1], torch.tensor([40]), 16)
+    assert one[0].tolist() == [1, 0, 3, 4]
 
 
 def test_fault_masks_drop_one_whole_tile():
@@ -102,8 +137,53 @@ def test_model_phase_runs_the_engine_calls_on_a_small_model():
     model = build_model(cfg, device="cpu")
     res = cs.model_phase(torch, model, init_params(model.param_specs(), 0, device="cpu"), 0)
     assert res["buckets"] == [8, 64, 512, 1024]
-    assert [len(res[k]["rel_l2"]) for k in ("prefill", "fixup", "decode")] == [4, 3, 4]
-    assert max(max(res[k]["rel_l2"]) for k in ("prefill", "fixup", "decode")) < 0.05
+    assert [len(res[k]["rel_l2"]) for k in ("prefill", "fixup", "decode", "chunked")] == \
+        [4, 3, 4, 3]
+    assert res["chunked"]["prompt_lengths"] == [64, 300, 600]
+    assert res["chunked"]["paged_equal_staging_bitwise"]
+    assert max(max(res[k]["rel_l2"]) for k in ("prefill", "fixup", "decode", "chunked")) < 0.05
+
+
+def _counting_registry() -> KernelRegistry:
+    """A registry whose cuda source for each op is the kernel's plain
+    version counted as a launch of its module, as the wrapper counts one."""
+    reg = KernelRegistry()
+    for mod, op, plain in ((mm_k, "matmul", mm_k.plain_matmul),
+                           (rms_k, "rmsnorm", rms_k.plain_rmsnorm),
+                           (fa_k, "flash_attention", fa_k.plain_flash_attention),
+                           (dec_k, "decode_attention", dec_k.plain_decode_attention),
+                           (paged_k, "paged_decode_attention",
+                            paged_k.plain_paged_decode_attention)):
+        def counted(*args, _mod=mod, _plain=plain, **kwargs):
+            _mod.launches += 1
+            return _plain(*args, **kwargs)
+
+        reg.register(KernelImpl(op=op, device_kind="cuda", source="cuda", fn=counted))
+    return reg
+
+
+def test_serve_phase_runs_three_engines_with_their_launch_counts():
+    """The serve phase on a small model: dense, paged and paged + chunked
+    runs complete, paged streams equal dense ones, the chunked run holds
+    more than 8 requests at once, and every run's launches match its model
+    calls — so on the card a miscount is the kernels', not the script's."""
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k)
+    with dispatch.use(registry=_counting_registry()):
+        res = cs.serve_phase(torch, model, params, kernels, 0)
+    runs = res["runs"]
+    assert list(runs) == ["dense", "paged", "paged_chunked"]
+    assert runs["dense"]["launches"]["paged_decode_attention"] == 0
+    assert runs["paged"]["launches"]["decode_attention"] == 2 * runs["paged"]["fixup_calls"]
+    chunked = runs["paged_chunked"]
+    assert chunked["prefill_calls"] == 0 and chunked["chunk_calls"] > 16
+    assert chunked["launches"]["flash_attention"] == 2 * chunked["chunk_calls"]
+    assert chunked["peak_concurrency"] == 16 and runs["dense"]["peak_concurrency"] == 8
+    # twice the slots in the dense run's KV memory: the pool alone, no staging
+    assert chunked["kv_bytes"] == runs["paged"]["kv_bytes"] < runs["dense"]["kv_bytes"] * 1.01
+    assert res["launches"]["matmul"] == sum(r["launches"]["matmul"] for r in runs.values())
 
 
 @pytest.mark.parametrize("alone", [False, True])
