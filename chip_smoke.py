@@ -3,34 +3,46 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
-Serves ``llama3.2-1b`` at full width and depth, with weights drawn from
-``--seed`` on the card, through the port's own entry points under the
-``cuda-strict`` policy, so every op on the path runs a hand-written kernel.
-Phases, in order; any failure raises and the script exits non-zero:
+Serves ``llama3.2-1b`` and ``mamba2-780m`` at full width and depth, with
+weights drawn from ``--seed`` on the card, through the port's own entry
+points under the ``cuda-strict`` policy, so every op on the path runs a
+hand-written kernel.  Phases, in order; any failure raises and the script
+exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` and print what ptxas reports for each.
+   ``src/repro_torch/csrc`` (five sources, six kernels) and print what
+   ptxas reports for each.
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving path gives it, within the tolerance stated below (attention row
-   by row, beside what a planted fault reads by the same measure); timed with
-   CUDA events beside its plain version and one PyTorch library call (for
-   paged attention, which no one call computes, a gather and SDPA), and its
-   bound (the larger of bytes / 3.35 TB/s and flops / peak rate).  The paged
-   kernel must also equal the dense kernel on the gathered cache bit for bit.
-3. model: logits of the full model under ``cuda-strict`` against the
-   ``torch`` eager source on the same weights and prompts, for the calls the
-   engine makes: bucketed prefill, the first-token fixup, a batched decode;
-   and chunked prefill (128-row chunks) against whole-prompt prefill, through
+   serving paths give it, within the tolerance stated below (attention row
+   by row, ssd per row and per head's state, each beside what a planted
+   fault reads by the same measure); timed with CUDA events beside its
+   plain version and one PyTorch library call where there is one (for
+   paged attention, which no one call computes, a gather and SDPA; for ssd
+   none), and its bound (the larger of bytes / 3.35 TB/s and flops / peak
+   rate).  The paged kernel must also equal the dense kernel on the
+   gathered cache bit for bit.
+3. model, llama3.2-1b: logits under ``cuda-strict`` against the ``torch``
+   eager source on the same weights and prompts, for the calls the engine
+   makes: bucketed prefill, the first-token fixup, a batched decode; and
+   chunked prefill (128-row chunks) against whole-prompt prefill, through
    a staging cache and, bit for bit the same, through a page pool.
-4. serve: the same 16 greedy requests (prompts of 5 to 600 tokens, 32 new
-   tokens each, ``max_len`` 1024) through three engines: dense with 8
-   slots; paged (16-row pages) with 8 slots and the dense engine's memory,
-   whose streams must equal the dense ones; paged with chunked prefill
-   (128-row chunks) and 16 slots in that same KV memory (checked: the pool
-   is all it holds), which must run more than 8 requests at once.  Every kernel's launch count is read from each
-   run alone (counts set to 0 just before it) and checked against the model
+4. serve, llama3.2-1b: the same 16 greedy requests (prompts of 5 to 600
+   tokens, 32 new tokens each, ``max_len`` 1024) through three engines:
+   dense with 8 slots; paged (16-row pages) with 8 slots and the dense
+   engine's memory, whose streams must equal the dense ones; paged with
+   chunked prefill (128-row chunks) and 16 slots in that same KV memory
+   (checked: the pool is all it holds), which must run more than 8
+   requests at once.  Every kernel's launch count is read from each run
+   alone (counts set to 0 just before it) and checked against the model
    calls the engine made.  Then the card's busy share over four dense
    decode steps, from a torch.profiler trace.
+5. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+   against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
+   their own length: an SSM prompt is not bucketed), then three decode
+   steps of the three as a batch.
+6. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+   32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
+   decode step, no fixups); then its busy share over four decode steps.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -40,6 +52,7 @@ Needs one CUDA card; exits non-zero without one.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -69,10 +82,29 @@ TOL_F32 = (1e-3, 1e-3)
 # Each check also reads such a planted fault and fails unless it lies beyond
 # the limit in every row it touches.
 ATTN_REL_L2_TOL = 1e-2
+# ssd vs its plain version: y per (sequence, row, head), ||got - want|| /
+# ||want|| over the head dim, and the final state per (sequence, head) over
+# its [P, N].  Both run the same f32 algebra over 16-row chunks and sum in
+# other orders (a few 1e-7 relative), and y is rounded to bf16 (one ulp,
+# 2^-8, flipped in a few of a row's 64 values reads about 5e-4).  The
+# planted fault is the plain version with the carried state zeroed at the
+# last chunk boundary before S; each check fails unless the fault reads
+# beyond both limits (in the rows after the boundary, and in the state).
+SSD_Y_REL_L2_TOL = 1e-2
+SSD_STATE_REL_L2_TOL = 1e-3
 # full model, cuda-strict vs the torch eager source: the sources round
 # differently (the eager source runs silu on bf16, the kernel on f32) and the
-# difference compounds over 16 layers; a wrong kernel gives errors of O(1).
+# difference compounds over the layers; a wrong kernel gives errors of O(1).
+# Mamba-2's SSD state is the sum its logits are read from: held per layer to
+# the same relative limit.  Over all 48 layers of random weights any two
+# sources part by rounding alone (see ssm_model_phase), so Mamba-2's path is
+# gated end to end at its first 8 layers, and each of the 48 layers' Mamba-2
+# block (norm, projections, ssd) on the same input within 1e-2 of output
+# and state: a few bf16 roundings (a wrong kernel reads O(1)).
 MODEL_REL_L2_TOL = 0.1
+SSM_STATE_REL_L2_TOL = 0.1
+SSM_LAYER_REL_L2_TOL = 1e-2
+SSM_GATED_DEPTH = 8
 
 
 def nvidia_smi() -> str:
@@ -204,6 +236,80 @@ def attention_err(torch, got, want, fault, touched) -> dict:
             "tolerance": f"row rel L2 <= {ATTN_REL_L2_TOL}"}
 
 
+def ssd_inputs(torch, S: int, gen, device, B: int = 1, H: int = 48, P: int = 64, G: int = 1,
+               N: int = 128):
+    """SSD inputs (x, a_log, b, c, dt) in the serving path's layout: x, b and
+    c are views of one [B, S, H*P + 2*G*N] bf16 tensor, as the Mamba-2 block
+    slices its conv output.  a = -uniform(1, 16), the model's init; dt
+    log-uniform in [1e-3, 1e-1], Mamba-2's dt range, so that some heads carry
+    their state across many chunks and a fault in the carry shows."""
+    conv = torch.randn((B, S, H * P + 2 * G * N), generator=gen, device=device)
+    conv = conv.to(torch.bfloat16)
+    x = conv[..., :H * P].reshape(B, S, H, P)
+    b = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    c = conv[..., H * P + G * N:].reshape(B, S, G, N)
+    a = -(1.0 + 15.0 * torch.rand(H, generator=gen, device=device))
+    u = torch.rand((B, S, H), generator=gen, device=device)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    return x, a, b, c, dt
+
+
+def ssd_fault(torch, plain, x, a, b, c, dt, chunk: int):
+    """A planted fault for ssd: the plain version with the carried state
+    zeroed at s0, the last ``chunk`` boundary before S, as (y, final state,
+    s0); None where S fits in one chunk."""
+    s0 = (x.shape[1] - 1) // chunk * chunk
+    if s0 == 0:
+        return None
+    y0 = plain(x[:, :s0], a, b[:, :s0], c[:, :s0], dt[:, :s0])
+    y1, h1 = plain(x[:, s0:], a, b[:, s0:], c[:, s0:], dt[:, s0:], return_state=True)
+    return torch.cat([y0, y1], dim=1), h1, s0
+
+
+def ssd_err(torch, got, want, fault) -> dict:
+    """Hold the ssd kernel's (y, state) to its plain version's: every y row
+    (one head of one token) within SSD_Y_REL_L2_TOL, every head's final
+    state within SSD_STATE_REL_L2_TOL, relatively.  ``fault`` (or None),
+    the planted fault's (y, state, s0), must read beyond the y limit in
+    every head's row s0, the first row without its carried state, and
+    beyond the state limit in some head (a head whose decay forgets a chunk
+    within the last one cannot show it); raises otherwise."""
+    (gy, gs), (wy, ws) = got, want
+    if not (torch.isfinite(gy.float()).all() and torch.isfinite(gs).all()):
+        raise AssertionError("kernel output has non-finite values")
+    rel_y = row_rel_l2(torch, gy, wy)
+    rel_s = row_rel_l2(torch, gs.flatten(2), ws.flatten(2))
+    if float(rel_y.max()) > SSD_Y_REL_L2_TOL or float(rel_s.max()) > SSD_STATE_REL_L2_TOL:
+        raise AssertionError(f"kernel disagrees with its plain version: y row rel L2 "
+                             f"{float(rel_y.max())} (limit {SSD_Y_REL_L2_TOL}), state rel L2 "
+                             f"{float(rel_s.max())} (limit {SSD_STATE_REL_L2_TOL})")
+    planted_y = planted_s = None
+    if fault is not None:
+        fy, fs, s0 = fault
+        planted_y = float(row_rel_l2(torch, fy[:, s0], wy[:, s0]).min())
+        planted_s = float(row_rel_l2(torch, fs.flatten(2), ws.flatten(2)).max())
+        if planted_y <= SSD_Y_REL_L2_TOL or planted_s <= SSD_STATE_REL_L2_TOL:
+            raise AssertionError(f"a state zeroed at a chunk boundary reads y {planted_y}, state "
+                                 f"{planted_s}, within the limits: the check cannot see it")
+    return {"max_abs_err": float((gy.float() - wy.float()).abs().max()),
+            "max_rel_l2": float(rel_y.max()), "state_max_rel_l2": float(rel_s.max()),
+            "planted_fault_min_rel_l2": planted_y, "planted_fault_state_rel_l2": planted_s,
+            "tolerance": f"y row rel L2 <= {SSD_Y_REL_L2_TOL}, state rel L2 <= "
+                         f"{SSD_STATE_REL_L2_TOL}"}
+
+
+def ssd_work(S: int, B: int = 1, H: int = 48, P: int = 64, G: int = 1, N: int = 128,
+             q: int = 16) -> tuple[int, int]:
+    """(bytes, flops) of one ssd call: x, b, c, dt, a_log read once, y and
+    the state written once; per chunk of q rows and head 2q²N (C·Bᵀ) + 2q²P
+    (its product with dt x) + 4qNP (C·hᵀ and the carry), at the kernel's
+    inner chunk q."""
+    bytes_ = 2 * B * S * H * P * 2 + 2 * B * S * G * N * 2 + B * S * H * 4 + H * 4 \
+        + B * H * P * N * 4
+    flops = B * H * -(-S // q) * (2 * q * q * N + 2 * q * q * P + 4 * q * N * P)
+    return bytes_, flops
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -217,6 +323,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.kernels import paged_decode_attention as paged_k
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd as ssd_k
     from repro_torch.kernels.ref import gather_kv_pages
 
     dev = torch.device("cuda")
@@ -231,13 +338,12 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
 
     def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak):
         worst = errs.setdefault(name, {"max_abs_err": 0.0, "tolerance": check["tolerance"]})
-        worst["max_abs_err"] = max(worst["max_abs_err"], check["max_abs_err"])
-        if "max_rel_l2" in check:
-            worst["max_rel_l2"] = max(worst.get("max_rel_l2", 0.0), check["max_rel_l2"])
-            if check["planted_fault_min_rel_l2"] is not None:
-                worst["planted_fault_min_rel_l2"] = min(
-                    worst.get("planted_fault_min_rel_l2", math.inf),
-                    check["planted_fault_min_rel_l2"])
+        for key in ("max_abs_err", "max_rel_l2", "state_max_rel_l2"):
+            if key in check:
+                worst[key] = max(worst.get(key, 0.0), check[key])
+        for key in ("planted_fault_min_rel_l2", "planted_fault_state_rel_l2"):
+            if check.get(key) is not None:
+                worst[key] = min(worst.get(key, math.inf), check[key])
         if check.get("bitwise_equal_dense_kernel"):
             worst["bitwise_equal_dense_kernel"] = True
         row = {"name": name, "shape": shape, **check}
@@ -246,6 +352,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
             row["plain_ms"] = time_ms(torch, plain, sets)[0]
             row["library_ms"] = time_ms(torch, library, sets)[0] if library else None
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops, peak)
+            if name == "ssd":
+                # its f32 work at the bf16 tensor-core rate, for comparison
+                row["bound_bf16_tc_ms"] = bound(bytes_, flops, BF16_TC_FLOPS)[0]
         rows.append(row)
         print("  " + json.dumps(row))
 
@@ -274,13 +383,32 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                         2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
             del sets, x, w
 
-    # rmsnorm: fixup, decode, chunk and prefill rows at d_model 2048
-    for R in rows_used:
-        sets = [(randn((R, 2048)), randn((2048,))) for _ in range(n_sets(4 * R * 2048))]
+    # mamba2-780m's two weight shapes (in_proj [1536, 6448], out_proj
+    # [3072, 1536]) at its row counts: 3 and 8 (decode steps of the model
+    # phase and of 8 slots) and prompts of 5, 37, 45 and 600 rows (no
+    # buckets: a Mamba-2 prompt prefills at its own length)
+    for M in (3, 5, 8, 37, 45, 600):
+        for K, N in ((1536, 6448), (3072, 1536)):
+            k_sets = n_sets(2 * (M * K + K * N))
+            sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(k_sets)]
+            x, w = sets[0]
+            check = max_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w), TOL_BF16)
+            record("matmul", f"[{M},{K}]x[{K},{N}] act=None out=bfloat16", check,
+                   sets if M in (8, 600) else None, mm_k.matmul, mm_k.plain_matmul,
+                   torch.matmul, 2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
+            del sets, x, w
+
+    # rmsnorm: fixup, decode, chunk and prefill rows at llama's d_model 2048;
+    # mamba2's ln1 and ln_f (1536) and gated norm (3072) at its row counts
+    widths = [(R, 2048) for R in rows_used]
+    widths += [(R, D) for D in (1536, 3072) for R in (3, 5, 8, 37, 600)]
+    for R, D in widths:
+        sets = [(randn((R, D)), randn((D,))) for _ in range(n_sets(4 * R * D))]
         check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
-        record("rmsnorm", f"[{R},2048]", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+        record("rmsnorm", f"[{R},{D}]", check,
+               sets if D == 2048 or R in (8, 600) else None, rms_k.rmsnorm, rms_k.plain_rmsnorm,
                lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
-               2 * (2 * R * 2048 + 2048), 4 * R * 2048, F32_FLOPS)
+               2 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
 
     # flash attention: prefill of every bucket the serve runs fill (8 ..
     # 1024 rows; 512 also non-causal), and S < T: the 128-row chunks of
@@ -392,6 +520,23 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64) + 4 * (B * NP + B),
                4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
         del sets, q, kp, vp, table, fault, got, dense
+
+    # ssd at the Mamba-2 serving shapes (H 48, P 64, N 128, G 1): a prompt
+    # within one inner chunk, one chunk of the config (256), the longest
+    # prompt of the serve run (600, ragged), and max_len (1024).  No one
+    # PyTorch call computes it: no library time.
+    for S in (5, 256, 600, 1024):
+        bytes_, flops = ssd_work(S)
+        sets = [ssd_inputs(torch, S, gen, dev) for _ in range(n_sets(bytes_))]
+        args = sets[0]
+        check = ssd_err(torch, ssd_k.ssd(*args, return_state=True),
+                        ssd_k.plain_ssd(*args, return_state=True),
+                        ssd_fault(torch, ssd_k.plain_ssd, *args, ssd_k.CHUNK))
+        record("ssd", f"x[1,{S},48,64] b,c[1,{S},1,128]", check, sets,
+               lambda *a: ssd_k.ssd(*a, return_state=True),
+               lambda *a: ssd_k.plain_ssd(*a, return_state=True), None,
+               bytes_, flops, F32_FLOPS)
+        del sets, args
     return rows, errs
 
 
@@ -526,6 +671,153 @@ def chunked_prefill_check(torch, model, params, prompts, buckets, whole, chunk: 
             "paged_equal_staging_bitwise": True}
 
 
+def ssm_end_to_end(torch, model, params, prompts, steps, policy: str) -> dict:
+    """The engine's calls under ``policy``: each prompt's prefill at its own
+    length, then ``steps`` decode steps of the prompts as a batch from the
+    prefills' caches.  Logits (prefill rows, then decode rows) and the SSD
+    state after the prefills and after the decode steps."""
+    from repro_torch.core import dispatch
+
+    dev = model.device
+    with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+        caches = [model.prefill(params, {"tokens": t[None]}) for t in prompts]
+        got = {"prefill": [logits[0] for logits, _ in caches], "decode": []}
+        batch = {"pos": torch.tensor([t.numel() for t in prompts], dtype=torch.int32,
+                                     device=dev),
+                 **{key: torch.cat([c[key] for _, c in caches], dim=1)
+                    for key in ("ssm_state", "conv_tail")}}
+        del caches
+        got["state_prefill"] = batch["ssm_state"].clone()
+        for tok in steps:
+            logits, batch = model.decode_step(params, tok, batch)
+            got["decode"] += list(logits)
+        got["state_decode"] = batch["ssm_state"]
+    return got
+
+
+def compare_end_to_end(torch, got, want, vocab: int) -> dict:
+    """Relative L2 and top-1 agreement of ``got``'s logits against
+    ``want``'s, and the largest per-layer relative L2 of the SSD state."""
+    res = {}
+    for kind in ("prefill", "decode"):
+        rel, agree = [], 0
+        for ref, g in zip(want[kind], got[kind]):
+            ref, g = ref.float(), g.float()
+            if not torch.isfinite(g).all() or g.shape != (vocab,):
+                raise AssertionError(f"{kind} logits of shape {tuple(g.shape)}, or not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+        res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    for kind in ("state_prefill", "state_decode"):
+        ref, g = want[kind], got[kind]
+        if not torch.isfinite(g).all() or g.shape != ref.shape:
+            raise AssertionError(f"{kind} of shape {tuple(g.shape)}, or not finite")
+        per_layer = (g - ref).flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)
+        res[kind] = {"max_rel_l2_over_layers": float(per_layer.max()), "shape": list(g.shape)}
+    return res
+
+
+def ssm_model_phase(torch, model, params, seed: int) -> dict:
+    """Mamba-2 under cuda-strict against the torch eager source on the same
+    weights, on the calls the engine makes for three prompts of 5, 37 and
+    600 tokens (their prefills at their own length: an SSM prompt is not
+    bucketed, and 600 is ragged against any chunk) and three decode steps of
+    the three as a batch.
+
+    At full depth (48 layers) two sources part by rounding alone: each
+    layer's bf16 roundings, flipped by another summation order, grow through
+    the random-weight stack, and the torch and reference sources (no
+    hand-written kernel in either) part as far as cuda-strict and torch do.
+    So the kernels are held where they act, layer by layer
+    (:func:`ssm_layer_walk`, each layer within SSM_LAYER_REL_L2_TOL), and the
+    path end to end at the first SSM_GATED_DEPTH layers of the same weights
+    (logits within MODEL_REL_L2_TOL, state within SSM_STATE_REL_L2_TOL); the
+    full-depth logits are reported beside the torch-against-reference
+    control."""
+    from repro_torch.models import build_model
+
+    dev, vocab = model.device, model.cfg.vocab_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 4)
+    lengths = (5, 37, 600)
+    prompts = [torch.randint(0, vocab, (n,), generator=gen, device=dev) for n in lengths]
+    steps = torch.randint(0, vocab, (3, len(lengths), 1), generator=gen, device=dev)
+    res = {"prompt_lengths": list(lengths), "decode_steps": len(steps),
+           "tolerance_rel_l2": MODEL_REL_L2_TOL, "state_tolerance_rel_l2": SSM_STATE_REL_L2_TOL,
+           "layer_tolerance_rel_l2": SSM_LAYER_REL_L2_TOL, "gated_depth": SSM_GATED_DEPTH}
+    walk = ssm_layer_walk(torch, model, params, prompts[-1], steps[0, -1, 0])
+    res["layers"] = {key: {"max": max(v), "by_layer": v} for key, v in walk.items()}
+    forced = max(max(walk[k]) for k in ("prefill_y", "prefill_state", "decode_y",
+                                        "decode_state"))
+    full = {p: ssm_end_to_end(torch, model, params, prompts, steps, p)
+            for p in ("torch", "cuda-strict", "reference")}
+    res["full_depth"] = compare_end_to_end(torch, full["cuda-strict"], full["torch"], vocab)
+    res["full_depth_control_torch_vs_reference"] = compare_end_to_end(
+        torch, full["torch"], full["reference"], vocab)
+    del full
+    depth = min(SSM_GATED_DEPTH, model.cfg.num_layers)
+    cut = build_model(dataclasses.replace(model.cfg, num_layers=depth), device=dev)
+    cut_params = {**params, "layers": params["layers"][:depth]}
+    short = {p: ssm_end_to_end(torch, cut, cut_params, prompts, steps, p)
+             for p in ("torch", "cuda-strict")}
+    res["gated_depth_end_to_end"] = compare_end_to_end(torch, short["cuda-strict"],
+                                                       short["torch"], vocab)
+    print("  " + json.dumps({k: v for k, v in res.items() if k != "layers"}))
+    print("  " + json.dumps({"layer_walk_max": {k: v["max"] for k, v in res["layers"].items()}}))
+    gated = res["gated_depth_end_to_end"]
+    worst = max(max(gated[kind]["rel_l2"]) for kind in ("prefill", "decode"))
+    state = max(gated[kind]["max_rel_l2_over_layers"] for kind in ("state_prefill",
+                                                                    "state_decode"))
+    if forced > SSM_LAYER_REL_L2_TOL or worst > MODEL_REL_L2_TOL or state > SSM_STATE_REL_L2_TOL:
+        raise AssertionError(f"cuda-strict differs from the torch source: layer by layer "
+                             f"{forced}, end to end at depth {SSM_GATED_DEPTH} {worst} (logits) "
+                             f"and {state} (state)")
+    return res
+
+
+def ssm_layer_walk(torch, model, params, tokens, next_token) -> dict:
+    """Mamba-2 layer by layer under the torch source and cuda-strict, on one
+    prompt ``tokens`` [S] and one decode token.  Teacher-forced: each
+    layer's input (the torch source's residual stream) goes through ln1 and
+    the Mamba-2 block under both sources, so the per-layer relative L2 of
+    the block's output and final state measures that layer's kernels alone;
+    the decode token then runs one block step from the torch source's
+    prefill state in every layer.  Free-running: each source's own residual
+    stream, whose last row's relative L2 after each layer shows how the
+    sources' rounding differences grow with depth."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import layers, ssm
+
+    cfg = model.cfg
+    policies = {name: dispatch.policy_from_flag(name) for name in ("torch", "cuda-strict")}
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    def block(policy, p, x, *state):
+        with dispatch.use(prefer=policies[policy]):
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            if state:
+                return ssm.ssm_decode(p["mamba"], h, *state, cfg)
+            return ssm.ssm_full(p["mamba"], h, cfg, return_state=True)
+
+    x = layers.embed_tokens(params["embed"], tokens[None])
+    xd = layers.embed_tokens(params["embed"], next_token[None, None])
+    free = {name: x for name in policies}
+    out = {"prefill_y": [], "prefill_state": [], "decode_y": [], "decode_state": [],
+           "free_running_last_row": []}
+    for p in params["layers"]:
+        pre = {name: block(name, p, x) for name in policies}
+        dec = {name: block(name, p, xd, pre["torch"][1], pre["torch"][2]) for name in policies}
+        for kind, res in (("prefill", pre), ("decode", dec)):
+            out[f"{kind}_y"].append(rel(res["cuda-strict"][0], res["torch"][0]))
+            out[f"{kind}_state"].append(rel(res["cuda-strict"][1], res["torch"][1]))
+        x, xd = x + pre["torch"][0], xd + dec["torch"][0]
+        free = {name: free[name] + block(name, p, free[name])[0] for name in policies}
+        out["free_running_last_row"].append(rel(free["cuda-strict"][:, -1], free["torch"][:, -1]))
+    return out
+
+
 #: the serve phase's three engines, on the same requests: dense; paged with
 #: the dense engine's KV memory (its default pool); paged with chunked
 #: prefill, twice the slots in that same KV memory (paged chunks write and
@@ -538,17 +830,25 @@ SERVE_RUNS = (
 )
 
 
-def expected_launches(eng, num_layers: int) -> dict[str, int]:
-    """Each kernel's launches implied by the engine's model calls: every
-    call runs 7 matmuls and 2 norms a layer and the final norm; prefills and
-    chunks run flash attention, the first-token fixups dense decode
-    attention, and decode steps dense or paged decode attention."""
-    L = num_layers
+def expected_launches(eng, cfg) -> dict[str, int]:
+    """Each kernel's launches implied by the engine's model calls.  Dense:
+    every call runs 7 matmuls and 2 norms a layer and the final norm;
+    prefills and chunks run flash attention, the first-token fixups dense
+    decode attention, and decode steps dense or paged decode attention.
+    Mamba-2: every call runs 2 matmuls (in_proj, out_proj) and 2 norms (ln1,
+    the gated norm) a layer and the final norm; prefills run ssd in every
+    layer, decode steps none (their single-token update is eager).  The tied
+    unembed is a plain f32 product, not a kernel."""
+    L = cfg.num_layers
     calls = eng.prefill_calls + eng.chunk_calls + eng.fixup_calls + eng.decode_calls
+    if cfg.family == "ssm":
+        return {"matmul": 2 * L * calls, "rmsnorm": (2 * L + 1) * calls, "flash_attention": 0,
+                "decode_attention": 0, "paged_decode_attention": 0,
+                "ssd": L * eng.prefill_calls}
     return {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (eng.prefill_calls + eng.chunk_calls),
             "decode_attention": L * (eng.fixup_calls + (0 if eng.paged else eng.decode_calls)),
-            "paged_decode_attention": L * eng.decode_calls if eng.paged else 0}
+            "paged_decode_attention": L * eng.decode_calls if eng.paged else 0, "ssd": 0}
 
 
 def serve_run(torch, model, params, kernels, prompts, **engine_kw):
@@ -588,18 +888,18 @@ def serve_run(torch, model, params, kernels, prompts, **engine_kw):
     for r in done:
         if len(r.generated) != 32 or not all(0 <= t < vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: bad tokens {r.generated}")
-    want = expected_launches(eng, model.cfg.num_layers)
+    want = expected_launches(eng, model.cfg)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} from the engine's "
                              f"{eng.prefill_calls} prefills, {eng.chunk_calls} chunks, "
                              f"{eng.fixup_calls} fixups and {eng.decode_calls} decode steps")
-    path = [n for n in launches if eng.paged or n != "paged_decode_attention"]
-    if any(launches[n] == 0 for n in path):
+    if any(launches[n] == 0 for n, v in want.items() if v):
         raise AssertionError(f"a kernel of the path never launched while serving: {launches}")
     ttft = sorted(r.first_token_t - r.arrival_t for r in done)
-    # every KV tensor the engine holds: the batch cache or pool, and staging
-    kv_bytes = sum(c[key].numel() * c[key].element_size()
-                   for c in (eng._cache, *eng._staging.values()) for key in ("k", "v"))
+    # every cache tensor the engine holds: the batch cache or pool, and
+    # staging: KV for attention models, the recurrent state for Mamba-2
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in (eng._cache, *eng._staging.values()) for t in c.values())
     res = {**engine_kw, "requests": len(done), "new_tokens_each": 32,
            "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
            "fixup_calls": eng.fixup_calls, "decode_calls": eng.decode_calls,
@@ -608,13 +908,35 @@ def serve_run(torch, model, params, kernels, prompts, **engine_kw):
            "ttft_p99_s": ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
            "decode_tokens_per_s": decode_tok / decode_s if decode_s else None,
            "decode_tokens": decode_tok, "wall_s": wall, "max_memory_allocated_bytes": peak,
-           "kv_bytes": kv_bytes,
+           ("state_bytes" if model.cfg.family == "ssm" else "kv_bytes"): cache_bytes,
            "peak_concurrency": eng.peak_concurrency,
            "sustained_concurrency": eng.concurrency_stats()["sustained"],
            # KV bytes the pool held mapped at its high-water mark (paged runs)
            "kv_high_water_bytes": (eng.allocator.stats().high_water * eng.page_size
                                    * pool_token_bytes(eng._cache)) if eng.paged else None}
     return res, [r.generated for r in sorted(done, key=lambda r: r.uid)]
+
+
+def serve_prompts(torch, vocab: int, seed: int) -> tuple[list[int], list[list[int]]]:
+    """The serve runs' 16 prompts: 5 to 600 tokens, evenly spaced, drawn
+    from ``seed`` in the model's vocabulary."""
+    rng = torch.Generator().manual_seed(seed + 2)
+    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
+    return lengths, [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in lengths]
+
+
+def ssm_serve_phase(torch, model, params, kernels, seed: int) -> dict:
+    """The ``ssm`` run: the 16 prompts through one engine of 8 slots,
+    unbucketed (no first-token fixup), its launches checked against its
+    model calls by :func:`serve_run`; the engine's recurrent state is 8
+    slots of every layer's [H, P, N] f32 state and conv tail."""
+    lengths, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+    res, _ = serve_run(torch, model, params, kernels, prompts, batch_slots=8)
+    if res["fixup_calls"] or res["prefill_calls"] != len(prompts):
+        raise AssertionError(f"an SSM prompt was bucketed: {res['prefill_calls']} prefills, "
+                             f"{res['fixup_calls']} fixups")
+    print("  " + json.dumps({"run": "ssm", **res}))
+    return {"prompt_lengths": lengths, "runs": {"ssm": res}}
 
 
 def serve_phase(torch, model, params, kernels, seed: int) -> dict:
@@ -625,10 +947,7 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
     more KV memory than the dense run (plus the pool's scratch page).  How many
     of its streams equal the dense run's is printed, not gated: a chunk's
     matmuls may sum in another order than a whole prompt's."""
-    cfg = model.cfg
-    rng = torch.Generator().manual_seed(seed + 2)
-    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in lengths]
+    lengths, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
     runs, streams = {}, {}
     for name, kw in SERVE_RUNS:
         runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts, **kw)
@@ -687,6 +1006,16 @@ def busy_phase(torch, model, params, seed: int) -> dict:
     return res
 
 
+def print_runs(runs: dict, card: str, smi: str) -> None:
+    for name, run in runs.items():
+        held = (f"recurrent state held {run['state_bytes']} bytes" if "state_bytes" in run
+                else f"KV held {run['kv_bytes']} bytes")
+        print(f"  {name} on {card} ({smi}): TTFT mean {run['ttft_mean_s']} s, "
+              f"p99 {run['ttft_p99_s']} s; decode {run['decode_tokens_per_s']} tokens/s; "
+              f"peak memory {run['max_memory_allocated_bytes']} bytes; {held}; "
+              f"peak concurrency {run['peak_concurrency']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -705,13 +1034,14 @@ def main() -> int:
     from repro_torch.kernels import native
     from repro_torch.kernels import paged_decode_attention as paged_k
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd as ssd_k
     from repro_torch.models import build_model, init_params
 
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/4] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/6] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -724,49 +1054,60 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print(f"[2/4] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/6] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
 
-    print("[3/4] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/6] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
-    cfg = get_arch("llama3.2-1b")
-    model = build_model(cfg)
+    model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
 
-    print("[4/4] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/6] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
-    for name, run in serve_res["runs"].items():
-        print(f"  {name} on {card} ({smi}): TTFT mean {run['ttft_mean_s']} s, "
-              f"p99 {run['ttft_p99_s']} s; decode {run['decode_tokens_per_s']} tokens/s; "
-              f"peak memory {run['max_memory_allocated_bytes']} bytes; "
-              f"KV held {run['kv_bytes']} bytes; "
-              f"peak concurrency {run['peak_concurrency']}")
+    print_runs(serve_res["runs"], card, smi)
     print(f"  paged streams equal dense: 16 of 16; chunked streams equal dense: "
           f"{serve_res['chunked_streams_equal_dense']}")
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     busy_res = busy_phase(torch, model, params, args.seed)
+    del model, params
+    torch.cuda.empty_cache()
 
+    print("[5/6] model: mamba2-780m prefill at the prompt's length and batched decode, "
+          "cuda-strict vs the torch source")
+    model = build_model(get_arch("mamba2-780m"))
+    params = init_params(model.param_specs(), args.seed)
+    ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
+
+    print("[6/6] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
+    print_runs(ssm_res["runs"], card, smi)
+    print("  where a decode step's time goes (torch.profiler, CUDA activity):")
+    ssm_busy_res = busy_phase(torch, model, params, args.seed)
+
+    runs = {**serve_res["runs"], **ssm_res["runs"]}
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
                 "decode_attention": "q[8,32,64] cache[8,8,1024,64] lengths 1..1024",
                 "paged_decode_attention": "q[8,32,64] pool[513,8,16,64] table[8,64] lengths "
-                                          "[1, 1024, 5, 600, 37, 256, 900, 64]"}
+                                          "[1, 1024, 5, 600, 37, 256, 900, 64]",
+                "ssd": "x[1,600,48,64] b,c[1,600,1,128]"}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",
                "decode_attention": "F.scaled_dot_product_attention",
                "paged_decode_attention": "two calls: an index gather of the pages into a "
-                                         "dense copy, then F.scaled_dot_product_attention"}
+                                         "dense copy, then F.scaled_dot_product_attention",
+               "ssd": "no single PyTorch call computes it"}
     summary = []
     for mod in kernels:
         name = mod.__name__.rsplit(".", 1)[1]
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
         summary.append({
             "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": serve_res["launches"][name],
-            "launches_by_run": {run: r["launches"][name] for run, r in serve_res["runs"].items()},
+            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
             **errs[name],
             "shape": row["shape"], "ms": row["ms"],
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
@@ -778,6 +1119,7 @@ def main() -> int:
         args.out.write_text(json.dumps({
             "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
             "kernel_rows": rows, "model": model_res, "serve": serve_res, "busy": busy_res,
+            "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"  total {time.perf_counter() - t_start:.1f} s")

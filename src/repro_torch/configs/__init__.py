@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import llama3_2_1b, mamba2_780m
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, reduced
 
-ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in (llama3_2_1b.CONFIG,)}
+ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in (llama3_2_1b.CONFIG, mamba2_780m.CONFIG)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -24,6 +24,7 @@ from repro_torch.kernels import matmul as matmul_k
 from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rmsnorm_k
+from repro_torch.kernels import ssd as ssd_k
 
 # --------------------------------------------------------------------------
 # matmul
@@ -158,3 +159,41 @@ REG.register(KernelImpl(op="paged_decode_attention", device_kind="any", source="
                         fn=torch_paged_decode_attention))
 REG.register(KernelImpl(op="paged_decode_attention", device_kind="cuda", source="cuda",
                         fn=paged_k.paged_decode_attention))
+
+# --------------------------------------------------------------------------
+# ssd (Mamba-2 state-space duality)
+# --------------------------------------------------------------------------
+
+
+def torch_ssd(x, a_log, b, c, dt, *, chunk: int = 256, initial_state=None,
+              return_state: bool = False):
+    """Chunked SSD in eager torch, as ``xla_ssd``: the chunk halves until it
+    divides S (a 600-row prompt at chunk 256 runs 75 chunks of 8), then the
+    chunked algebra in f32 with the state carried across chunks, y cast to
+    x's dtype."""
+    S = x.shape[1]
+    q = min(chunk, S)
+    while S % q:
+        q //= 2
+    return ssd_k.plain_ssd(x, a_log, b, c, dt, chunk=q, initial_state=initial_state,
+                           return_state=return_state)
+
+
+def ssd_step(h, x_t, a_log, b_t, c_t, dt_t):
+    """Single-token SSD update (the decode path, eager as in the JAX
+    package): h' = exp(dt·a)·h + dt·x ⊗ b; y = h'·c.  h [B,H,P,N] f32,
+    x_t [B,H,P], b_t, c_t [B,G,N], dt_t [B,H]; returns (h', y in x_t's dtype)."""
+    H, G = x_t.shape[1], b_t.shape[1]
+    rep = H // G
+    bf = b_t.float().repeat_interleave(rep, dim=1)
+    cf = c_t.float().repeat_interleave(rep, dim=1)
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * a_log.float()[None, :])                   # [B,H]
+    h = h * decay[..., None, None] + (dtf[..., None] * x_t.float())[..., None] * bf[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", h, cf).to(x_t.dtype)
+    return h, y
+
+
+REG.register(KernelImpl(op="ssd", device_kind="any", source="reference", fn=ref.ssd))
+REG.register(KernelImpl(op="ssd", device_kind="any", source="torch", fn=torch_ssd))
+REG.register(KernelImpl(op="ssd", device_kind="cuda", source="cuda", fn=ssd_k.ssd))

@@ -102,3 +102,38 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     kg = gather_kv_pages(k_pages, block_table)
     vg = gather_kv_pages(v_pages, block_table)
     return decode_attention(q, kg, vg, length, scale=scale)
+
+
+def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        dt: torch.Tensor, *, chunk: int | None = None,
+        initial_state: torch.Tensor | None = None, return_state: bool = False):
+    """Mamba-2 SSD oracle: the sequential state-space recurrence, in f32.
+
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * x_t ⊗ b_t ;  y_t = h_t · c_t
+
+    x [B,S,H,P], a_log [H] (the negative per-head decay a), b, c [B,S,G,N],
+    dt [B,S,H]; heads share b/c by group (``G`` divides ``H``).  y has x's
+    dtype; the final state [B,H,P,N] is f32.  ``chunk`` is the op's keyword
+    (the Mamba-2 block passes it) and has no meaning for the recurrence;
+    the JAX oracle refuses it, see ROADMAP §3.
+    """
+    del chunk
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if H % G:
+        raise ValueError(f"H={H} is not a multiple of G={G}")
+    rep = H // G
+    xf = x.float()
+    bf = b.float().repeat_interleave(rep, dim=2)                 # [B,S,H,N]
+    cf = c.float().repeat_interleave(rep, dim=2)
+    dtf = dt.float()
+    decay = torch.exp(dtf * a_log.float()[None, None, :])        # [B,S,H]
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        h = (h * decay[:, t, :, None, None]
+             + (dtf[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_state else y

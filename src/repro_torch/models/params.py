@@ -21,7 +21,7 @@ import torch
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"                     # normal | zeros | ones
+    init: str = "normal"                     # normal | zeros | ones | ssm_a
     scale: float = 0.02
 
 
@@ -55,6 +55,10 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> t
     if spec.init == "normal":
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
         return (x * spec.scale).to(spec.dtype)
+    if spec.init == "ssm_a":
+        # a_log of the SSD decay: -uniform(1, 16), stored negative
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        return -(1.0 + 15.0 * u).to(spec.dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 
@@ -83,7 +87,9 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
     JAX stacks a segment's layers as ``[L, ...]`` under
     ``tree["segments"][0]["0"]``; the port keeps one dict per layer.  Values
     travel through float32 (exact for bf16; ``torch.from_numpy`` rejects
-    numpy's bf16) and are cast back to their dtype on the torch side.
+    numpy's bf16) and are cast back to their dtype on the torch side, so a
+    Mamba-2 layer's ``mamba`` sub-tree keeps ``a_log``, ``skip_d`` and
+    ``dt_bias`` in f32 and the rest in bf16.
     """
     device = resolve_device(device)
 
@@ -93,7 +99,8 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
 
     segments = tree["segments"]
     if len(segments) != 1 or set(segments[0]) != {"0"}:
-        raise ValueError("params_from_jax takes a dense model: one segment of one layer kind")
+        raise ValueError("params_from_jax takes a dense or SSM model: one segment of one "
+                         "layer kind")
     stacked = tree_map(leaf, segments[0]["0"])
     layers = [tree_map(lambda t: t[i], stacked) for i in range(stacked["ln1"].shape[0])]
     return _with_unembed_copy({

@@ -8,14 +8,17 @@ live slots decode in lock-step, and finished slots are recycled.
 **Prompt bucketing**: prompts are end-padded to power-of-two lengths (as the
 JAX engine does to hit its jit trace cache), and one decode step of the last
 prompt token at its true position re-derives the first token's logits.
+Only where every cache leaf is position-indexed: a recurrent cache (Mamba-2's
+``ssm_state`` and ``conv_tail``) would fold the pads into its state, so for
+those models prompts prefill at their exact length and no fixup runs.
 
 **Fused multi-token decode** (``decode_fusion=K``): one launch runs K decode
 steps with on-device greedy sampling and per-slot masks, and the host reads
 the tokens back once per launch.  A slot whose budget runs out mid-launch
 freezes its position and token; its cache rows keep absorbing dummy writes
-at the frozen position, harmless because the next prefill into that slot
-replaces its whole ``max_len`` row range (dense) or its table row points at
-the scratch page (paged).
+at the frozen position (a recurrent state keeps absorbing dummy updates),
+harmless because the next prefill into that slot replaces its whole cache
+slice (dense) or its table row points at the scratch page (paged).
 
 **Paged KV cache** (``paged=True``): KV lives in a global page pool
 (:mod:`repro_torch.serve.paged`) addressed through per-slot block tables.
@@ -115,10 +118,14 @@ class ServeEngine:
     """Fixed-slot batched greedy decoder with slot recycling.
 
     The dense KV cache ``[L, slots, Hkv, max_len, hd]`` — or, paged, the
-    pool ``[L, pool_pages, Hkv, page_size, hd]`` — lives on ``device`` and
-    is updated in place: prefill copies or scatters a request's cache in,
-    decode writes each new token's k/v at its slot's position.
+    pool ``[L, pool_pages, Hkv, page_size, hd]``; for an SSM model the
+    recurrent state ``[L, slots, ...]`` — lives on ``device`` and is updated
+    in place: prefill copies or scatters a request's cache in, decode writes
+    each new token's k/v at its slot's position (or updates its state).
     """
+
+    #: cache leaves with no position mask: end-padding would fold into them
+    _RECURRENT_CACHE_KEYS = frozenset({"ssm_state", "conv_tail"})
 
     #: the smallest prompt bucket (buckets are powers of two up to max_len)
     MIN_BUCKET = 8
@@ -144,6 +151,8 @@ class ServeEngine:
         self.slots = batch_slots
         self.max_len = max_len
         self.decode_fusion = decode_fusion
+        self._cache_keys = set(model.cache_specs(1, 8)) - {"pos"}
+        self.bucket_prompts = self._bucketing_safe()
         self._queue: list[Request] = []
         self._active: dict[int, Request] = {}      # slot -> request
         self._uid = 0
@@ -162,6 +171,11 @@ class ServeEngine:
         self.page_size = page_size
         self.admission = admission if admission is not None else AdmissionPolicy()
         if paged:
+            if not self._cache_keys <= {"k", "v"}:
+                raise ValueError(
+                    "paged=True requires plain position-indexed GQA KV caches "
+                    "(no MLA latent, recurrent, windowed, or cross-attn leaves)"
+                )
             if page_size < 1 or max_len % page_size:
                 raise ValueError(
                     f"max_len={max_len} must be a multiple of page_size={page_size}"
@@ -191,6 +205,12 @@ class ServeEngine:
         if prefill_chunk is not None and (not isinstance(prefill_chunk, int) or prefill_chunk < 1
                                           or prefill_chunk & (prefill_chunk - 1)):
             raise ValueError(f"prefill_chunk must be a power of two >= 1, got {prefill_chunk!r}")
+        if prefill_chunk is not None and self._cache_keys != {"k", "v"}:
+            raise ValueError(
+                "prefill_chunk requires plain dense-attention layers with "
+                "GQA k/v caches (MoE routing and recurrent state are not "
+                "row-local across chunk boundaries)"
+            )
         self.prefill_chunk = prefill_chunk
         self._prefilling: dict[int, _Prefilling] = {}
         self._staging: dict[int, dict] = {}   # dense: slot -> reusable staging k/v
@@ -231,6 +251,12 @@ class ServeEngine:
         while b < n:
             b *= 2
         return min(b, max_len)
+
+    def _bucketing_safe(self) -> bool:
+        """True iff every cache leaf is position-indexed (decode masks by
+        ``pos``, so end-padding is causally inert).  Recurrent leaves have
+        no such mask."""
+        return not (self._cache_keys & self._RECURRENT_CACHE_KEYS)
 
     def concurrency_stats(self) -> dict[str, float]:
         """Sustained (mean over decode launches) and peak concurrency."""
@@ -314,23 +340,25 @@ class ServeEngine:
     def _ensure_pool(self) -> None:
         if self._cache is None:
             # the cache layout with pages for rows: [L, pool_pages, Hkv, page_size, hd]
-            self._cache = self._zero_kv(self.allocator.num_pages, self.page_size)
+            self._cache = self._zero_cache(self.allocator.num_pages, self.page_size)
 
-    def _zero_kv(self, batch: int, rows: int) -> dict:
-        """A zeroed k/v cache ``[L, batch, Hkv, rows, hd]`` on the device.
-        Zeros, not ``torch.empty``: attention multiplies masked rows' values
-        by a zero probability, and 0 * NaN would poison the product."""
+    def _zero_cache(self, batch: int, rows: int) -> dict:
+        """Every cache leaf but ``pos``, zeroed, for ``batch`` slots (or
+        pages) of ``rows`` rows on the device.  Zeros, not ``torch.empty``:
+        attention multiplies masked rows' values by a zero probability, and
+        0 * NaN would poison the product."""
         specs = self.model.cache_specs(batch, rows)
         return {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=self.device)
-                for key in ("k", "v")}
+                for key in self._cache_keys}
 
     def _splice_dense(self, slot: int, slot_cache: dict) -> None:
-        """Copy a slot's cache into the batch cache: the slot's whole
-        ``max_len`` row range, which also erases the dummy writes a masked
-        slot absorbed during fused decode."""
+        """Copy a slot's cache into the batch cache: every leaf's whole slot
+        slice (the ``max_len`` row range of k/v, a recurrent state), which
+        also erases the dummy writes a masked slot absorbed during fused
+        decode."""
         if self._cache is None:
-            self._cache = self._zero_kv(self.slots, self.max_len)
-        for key in ("k", "v"):
+            self._cache = self._zero_cache(self.slots, self.max_len)
+        for key in self._cache_keys:
             self._cache[key][:, slot] = slot_cache[key][:, 0]
 
     # -- prefill ----------------------------------------------------------------------
@@ -358,7 +386,7 @@ class ServeEngine:
 
     def _prefill_slot(self, slot: int, req: Request) -> None:
         n = len(req.prompt)
-        pad = max(0, self.bucket_len(n, self.max_len) - n)
+        pad = max(0, self.bucket_len(n, self.max_len) - n) if self.bucket_prompts else 0
         tokens = np.pad(req.prompt, (0, pad)) if pad else req.prompt
         logits, cache = self.model.prefill(
             self.params, {"tokens": torch.as_tensor(tokens[None, :], device=self.device)},
@@ -410,7 +438,7 @@ class ServeEngine:
             # before it, and decode masks rows >= pos, so stale rows are never
             # read with nonzero weight
             if slot not in self._staging:
-                self._staging[slot] = self._zero_kv(1, self.max_len)
+                self._staging[slot] = self._zero_cache(1, self.max_len)
             staging = self._staging[slot]
         self._prefilling[slot] = _Prefilling(req=req, tokens=tokens, n=n, staging=staging)
 
@@ -481,7 +509,7 @@ class ServeEngine:
         left = torch.as_tensor(remaining, device=dev)
         toks, valid = [], []
         for _ in range(k):
-            cache = {"pos": pos, "k": self._cache["k"], "v": self._cache["v"]}
+            cache = {"pos": pos, **self._cache}
             if table is not None:
                 cache["block_table"] = table
             logits, _ = self.model.decode_step(self.params, tok[:, None], cache)

@@ -16,7 +16,10 @@ Attention outputs are held row by row (one query head of one token): the L2
 norm of the difference is at most 1e-2 of the plain row's.  A row over n
 random keys has |o| of about n^-1/2, so an absolute 2e-2 would pass a kernel
 that drops a key tile; the kernels' own rounding (P to bf16 for P V, the bf16
-output) reads a few 1e-3.
+output) reads a few 1e-3.  The ssd kernel is held the same way: each y row
+(one head of one token) within 1e-2 relative L2 of the plain row, and each
+head's final f32 state within 1e-3 (both sides run the same f32 algebra and
+differ in summation order; y is rounded to bf16).
 """
 
 from __future__ import annotations
@@ -30,12 +33,14 @@ from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import rmsnorm as rms_k
+from repro_torch.kernels import ssd as ssd_k
 from repro_torch.kernels.ref import gather_kv_pages
 
 pytestmark = pytest.mark.gpu
 
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 ATTN_REL_L2_TOL = 1e-2
+SSD_STATE_REL_L2_TOL = 1e-3
 
 
 @pytest.fixture
@@ -355,3 +360,84 @@ def test_small_model_paged_decode_equals_dense_under_cuda_strict(cuda):
         got, _ = model.decode_step(params, step, {**pool, "pos": pos, "block_table": table})
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+def _ssd_args(g, device, B, S, H, P, G, N, strided=True):
+    """SSD inputs with Mamba-2's laws (a = -uniform(1, 16), dt log-uniform in
+    [1e-3, 1e-1]); x, b, c as views of one conv output when ``strided``."""
+    conv = _randn(g, (B, S, H * P + 2 * G * N), device)
+    x = conv[..., :H * P].reshape(B, S, H, P)
+    b = conv[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    c = conv[..., H * P + G * N:].reshape(B, S, G, N)
+    if not strided:
+        x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
+    a = -(1.0 + 15.0 * torch.rand(H, generator=g, device=device))
+    dt = torch.exp(-6.9078 + 4.6052 * torch.rand((B, S, H), generator=g, device=device))
+    return x, a, b, c, dt
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,strided", [
+    (1, 1, 48, 64, 1, 128, True), (1, 5, 48, 64, 1, 128, True), (1, 16, 48, 64, 1, 128, True),
+    (1, 17, 48, 64, 1, 128, True), (1, 256, 48, 64, 1, 128, True),
+    (1, 600, 48, 64, 1, 128, True), (1, 600, 48, 64, 1, 128, False),
+    (2, 64, 4, 16, 2, 32, False), (3, 37, 8, 16, 1, 16, True)])
+def test_ssd_matches_plain(cuda, B, S, H, P, G, N, strided):
+    g = _gen(cuda, S)
+    args = _ssd_args(g, cuda, B, S, H, P, G, N, strided)
+    y, state = ssd_k.ssd(*args, return_state=True)
+    want_y, want_state = ssd_k.plain_ssd(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert y.shape == (B, S, H, P) and y.dtype == torch.bfloat16
+    assert state.shape == (B, H, P, N) and state.dtype == torch.float32
+    _attn_close(y, want_y)
+    rel = (state - want_state).flatten(2).norm(dim=-1) / want_state.flatten(2).norm(dim=-1)
+    assert float(rel.max()) <= SSD_STATE_REL_L2_TOL, f"state rel L2 {float(rel.max())}"
+
+
+def test_ssd_wrapper_counts_launches_and_refuses_bad_input(cuda):
+    g = _gen(cuda, 3)
+    x, a, b, c, dt = _ssd_args(g, cuda, 1, 40, 8, 16, 1, 16)
+    before = ssd_k.launches
+    assert ssd_k.ssd(x, a, b, c, dt).shape == x.shape
+    assert ssd_k.launches == before + 1
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x.float(), a, b, c, dt)
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x, a, b, c, dt.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="mixed devices"):
+        ssd_k.ssd(x, a.cpu(), b, c, dt)
+    with pytest.raises(ValueError):
+        ssd_k.ssd(x.transpose(2, 3), a, b, c, dt)                 # [B,S,H,P] not packed
+    with pytest.raises(ValueError):
+        big = _randn(g, (1, 40, 1, 144), cuda)                     # N > 128
+        ssd_k.ssd(x, a, big, big, dt)
+    assert ssd_k.launches == before + 1
+
+
+def test_small_mamba_cuda_strict_matches_the_torch_source(cuda):
+    """A small Mamba-2 on the card's kernels against the torch source:
+    prefill at a ragged length and two decode steps, logits and state."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    cfg = reduced(ARCHS["mamba2-780m"], layers=2, d_model=256, vocab=512)
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    g = _gen(cuda, 15)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 45), generator=g, device=cuda)
+    steps = torch.randint(0, cfg.vocab_size, (2, 2, 1), generator=g, device=cuda)
+    out = {}
+    for policy in ("torch", "cuda-strict"):
+        with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+            logits, cache = model.prefill(params, {"tokens": tokens})
+            got = [logits]
+            cache["pos"] = torch.tensor([45, 45], dtype=torch.int32, device=cuda)
+            for tok in steps:
+                logits, cache = model.decode_step(params, tok, cache)
+                got.append(logits)
+        out[policy] = (got, cache["ssm_state"])
+    for want, got in zip(*(out[p][0] for p in ("torch", "cuda-strict"))):
+        assert torch.isfinite(got).all()
+        assert float((got - want).norm() / want.norm()) < 5e-2
+    want, got = out["torch"][1], out["cuda-strict"][1]
+    assert float((got - want).norm() / want.norm()) < 5e-2

@@ -2,13 +2,15 @@
 
 The script holds each attention kernel to its plain version row by row
 (relative L2 over the head dim) and reads a planted fault — one key tile
-dropped, or for paged attention one page remapped — by the same measure;
-these tests show, at a small size, that the plain versions pass that check,
-that the planted fault lies beyond its limit and fails it, that the model
-phase runs the engine's calls and chunked prefill, that the serve phase's
-three runs give the launch counts it checks (with the kernels' plain
-versions counted as launches), and that the script refuses to run without a
-card.  This file imports no JAX.
+dropped, or for paged attention one page remapped — by the same measure,
+and the ssd kernel per output row and per head's final state beside a
+planted fault that zeroes the carried state at a chunk boundary; these
+tests show, at a small size, that the plain versions pass those checks,
+that the planted faults lie beyond their limits and fail them, that the
+model phases run the engine's calls (and, for llama, chunked prefill), that
+the serve phases' runs give the launch counts they check (with the kernels'
+plain versions counted as launches), and that the script refuses to run
+without a card.  This file imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rms_k
+from repro_torch.kernels import ssd as ssd_k
 from repro_torch.models import build_model, init_params
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,9 +156,12 @@ def _counting_registry() -> KernelRegistry:
                            (fa_k, "flash_attention", fa_k.plain_flash_attention),
                            (dec_k, "decode_attention", dec_k.plain_decode_attention),
                            (paged_k, "paged_decode_attention",
-                            paged_k.plain_paged_decode_attention)):
+                            paged_k.plain_paged_decode_attention),
+                           (ssd_k, "ssd", ssd_k.plain_ssd)):
         def counted(*args, _mod=mod, _plain=plain, **kwargs):
             _mod.launches += 1
+            if _mod is ssd_k:
+                kwargs.pop("chunk")               # the wrapper's keyword, not the plain's
             return _plain(*args, **kwargs)
 
         reg.register(KernelImpl(op=op, device_kind="cuda", source="cuda", fn=counted))
@@ -170,7 +176,7 @@ def test_serve_phase_runs_three_engines_with_their_launch_counts():
     cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
     model = build_model(cfg, device="cpu")
     params = init_params(model.param_specs(), 0, device="cpu")
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
     with dispatch.use(registry=_counting_registry()):
         res = cs.serve_phase(torch, model, params, kernels, 0)
     runs = res["runs"]
@@ -184,6 +190,81 @@ def test_serve_phase_runs_three_engines_with_their_launch_counts():
     # twice the slots in the dense run's KV memory: the pool alone, no staging
     assert chunked["kv_bytes"] == runs["paged"]["kv_bytes"] < runs["dense"]["kv_bytes"] * 1.01
     assert res["launches"]["matmul"] == sum(r["launches"]["matmul"] for r in runs.values())
+    assert res["launches"]["ssd"] == 0
+
+
+SSM_CFG = reduced(ARCHS["mamba2-780m"], layers=2, d_model=64, vocab=128)
+
+
+def _ssd_case(S: int):
+    """The kernel phase's ssd check at a serving shape, with the plain
+    version standing for the kernel; the sequential oracle beside it."""
+    gen = torch.Generator().manual_seed(S)
+    args = cs.ssd_inputs(torch, S, gen, "cpu")
+    want = ssd_k.plain_ssd(*args, return_state=True)
+    oracle = ref.ssd(*args, return_state=True)
+    return oracle, want, cs.ssd_fault(torch, ssd_k.plain_ssd, *args, ssd_k.CHUNK)
+
+
+def test_ssd_inputs_are_views_of_one_conv_output():
+    x, a, b, c, dt = cs.ssd_inputs(torch, 20, torch.Generator().manual_seed(0), "cpu")
+    assert x.shape == (1, 20, 48, 64) and b.shape == c.shape == (1, 20, 1, 128)
+    assert x.data_ptr() == b.data_ptr() - 2 * 48 * 64 == c.data_ptr() - 2 * (48 * 64 + 128)
+    assert x.stride(1) == b.stride(1) == 48 * 64 + 256 and not x.is_contiguous()
+    assert bool(((a > -16) & (a < -1)).all()) and bool(((dt >= 1e-3) & (dt <= 1e-1)).all())
+    assert cs.ssd_work(512)[0] == 8_224_960       # about 8 MB at S = 512
+
+
+@pytest.mark.parametrize("S", [5, 256, 600])
+def test_ssd_check_passes_the_oracle_and_sees_a_zeroed_state(S):
+    oracle, want, fault = _ssd_case(S)
+    res = cs.ssd_err(torch, oracle, want, fault)
+    # bf16 roundings of y flipped by another summation order: a few 1e-3 at most
+    assert res["max_rel_l2"] <= cs.SSD_Y_REL_L2_TOL / 4 and res["state_max_rel_l2"] <= 1e-4
+    if S <= ssd_k.CHUNK:
+        assert fault is None and res["planted_fault_min_rel_l2"] is None
+        return
+    assert res["planted_fault_min_rel_l2"] > 5 * cs.SSD_Y_REL_L2_TOL
+    assert res["planted_fault_state_rel_l2"] > 5 * cs.SSD_STATE_REL_L2_TOL
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs.ssd_err(torch, fault[:2], want, fault)
+
+
+def test_ssd_check_refuses_a_blind_fault():
+    oracle, want, _ = _ssd_case(256)
+    with pytest.raises(AssertionError, match="cannot see it"):
+        cs.ssd_err(torch, oracle, want, (*want, 240))
+
+
+def test_ssm_model_phase_runs_the_engine_calls_on_a_small_model():
+    model = build_model(SSM_CFG, device="cpu")
+    res = cs.ssm_model_phase(torch, model, init_params(model.param_specs(), 0, device="cpu"), 0)
+    assert res["prompt_lengths"] == [5, 37, 600]
+    for run in ("full_depth", "full_depth_control_torch_vs_reference", "gated_depth_end_to_end"):
+        assert [len(res[run][k]["rel_l2"]) for k in ("prefill", "decode")] == [3, 9]
+        assert res[run]["state_decode"]["shape"] == [2, 3, 8, 16, 16]
+        assert max(max(res[run][k]["rel_l2"]) for k in ("prefill", "decode")) < 0.05
+    assert all(len(v["by_layer"]) == 2 for v in res["layers"].values())
+    assert max(v["max"] for v in res["layers"].values()) < cs.SSM_LAYER_REL_L2_TOL
+
+
+def test_ssm_serve_phase_counts_48_ssd_a_prefill_scaled_down():
+    """The ssm run on a small model: 16 unbucketed prefills, no fixups, and
+    every kernel's launches equal to what the model calls imply (2 layers:
+    2 ssd a prefill, 4 matmuls and 5 norms a call, no attention)."""
+    model = build_model(SSM_CFG, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    with dispatch.use(registry=_counting_registry()):
+        res = cs.ssm_serve_phase(torch, model, params, kernels, 0)
+    run = res["runs"]["ssm"]
+    calls = run["prefill_calls"] + run["decode_calls"]
+    assert run["prefill_calls"] == 16 and run["fixup_calls"] == 0 and run["chunk_calls"] == 0
+    assert run["launches"] == {"matmul": 4 * calls, "rmsnorm": 5 * calls, "flash_attention": 0,
+                               "decode_attention": 0, "paged_decode_attention": 0, "ssd": 32}
+    # 8 slots of 2 layers' [8, 16, 16] f32 state and [3, 160] bf16 conv tail
+    assert run["state_bytes"] == 8 * 2 * (8 * 16 * 16 * 4 + 3 * 160 * 2)
+    assert run["peak_concurrency"] == 8
 
 
 @pytest.mark.parametrize("alone", [False, True])
