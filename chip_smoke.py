@@ -6,21 +6,24 @@
 Serves ``llama3.2-1b`` and ``mamba2-780m`` at full width and depth, with
 weights drawn from ``--seed`` on the card, through the port's own entry
 points under the ``cuda-strict`` policy, so every op on the path runs a
-hand-written kernel.  Phases, in order; any failure raises and the script
-exits non-zero:
+hand-written kernel, and runs the paper's two tenants on the card through
+the port's HSA runtime.  Phases, in order; any failure raises and the
+script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (five sources, six kernels) and print what
+   ``src/repro_torch/csrc`` (six sources, eight kernels) and print what
    ptxas reports for each.
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving paths give it, within the tolerance stated below (attention row
-   by row, ssd per row and per head's state, each beside what a planted
+   serving paths and the paper's roles give it, within the tolerance stated
+   below (attention row by row, ssd per row and per head's state, conv2d
+   and the f32 matmul exactly or within 2e-4, each beside what a planted
    fault reads by the same measure); timed with CUDA events beside its
    plain version and one PyTorch library call where there is one (for
    paged attention, which no one call computes, a gather and SDPA; for ssd
-   none), and its bound (the larger of bytes / 3.35 TB/s and flops / peak
-   rate).  The paged kernel must also equal the dense kernel on the
-   gathered cache bit for bit.
+   and int16 conv2d none), and its bound (the larger of bytes / 3.35 TB/s
+   and operations / peak rate).  The paged kernel must also equal the dense
+   kernel on the gathered cache bit for bit, and the fixed-weight roles
+   (``matmul_fixed_weight``, ``conv2d_fixed_weight``) their generic kernels.
 3. model, llama3.2-1b: logits under ``cuda-strict`` against the ``torch``
    eager source on the same weights and prompts, for the calls the engine
    makes: bucketed prefill, the first-token fixup, a batched decode; and
@@ -36,11 +39,21 @@ exits non-zero:
    alone (counts set to 0 just before it) and checked against the model
    calls the engine made.  Then the card's busy share over four dense
    decode steps, from a torch.profiler trace.
-5. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+5. tenants: ``hsa_init(num_regions=2)`` on the card and its async
+   scheduler's worker thread; the "tf-serving" queue carries the 16
+   requests through a dense 8-slot engine (streams must equal phase 4's
+   dense run), the "opencl" queue the paper's four roles at §IV's shapes
+   (fixed-weight int16 conv frames, the FC roles, one behind a barrier-AND,
+   and the role the planner picks from FC costs measured on the card).
+   Prints Table II from the ledger, the reconfiguration split, per-queue
+   wait, exec and reconfiguration, residency, and TTFT and decode tokens/s
+   routed beside direct; checks every role packet against its plain
+   version and the launch counts against the packets.
+6. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
    against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
    their own length: an SSM prompt is not bucketed), then three decode
    steps of the three as a batch.
-6. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+7. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps.
 
@@ -66,6 +79,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+# int32 multiply-adds on the CUDA cores: an SM has 64 INT32 lanes against 128
+# FP32 lanes (NVIDIA's Hopper architecture white paper), so half the f32 rate
+INT32_OPS = F32_FLOPS / 2
 L2_BYTES = 50 * 2**20
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's 1.98 GHz boost clock
 # matmul and rmsnorm vs their plain versions: bf16 outputs within about two
@@ -73,6 +89,10 @@ SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's 1.98 GHz boost clock
 # order); f32 matmul outputs within f32 reordering of exact bf16 products.
 TOL_BF16 = (2e-2, 2e-2)
 TOL_F32 = (1e-3, 1e-3)
+# the paper roles' f32 kernels (conv2d, the f32 matmul) vs their plain
+# versions: both sum full-f32 products, in other orders; 2e-4 is the JAX
+# package's own tolerance for its f32 matmul at K = 256.  int16 conv2d is exact.
+TOL_ROLE_F32 = (2e-4, 2e-4)
 # attention vs its plain version, per output row (one query head of one
 # token): ||got - want|| / ||want|| over the head dim.  An absolute limit
 # would be loose here: a row over n random keys has |o| of about n^-1/2, so
@@ -310,6 +330,42 @@ def ssd_work(S: int, B: int = 1, H: int = 48, P: int = 64, G: int = 1, N: int = 
     return bytes_, flops
 
 
+def role_err(torch, got, want, fault, tol) -> dict:
+    """Hold a paper-role kernel (conv2d, the f32 matmul) to its plain version:
+    equal for integer outputs, within ``tol`` (atol, rtol) for f32.  ``fault``
+    is the plain version with a planted fault (a filter tap, or a K tile,
+    dropped); it must read beyond the same limit (raises otherwise)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"kernel gives {got.dtype} {tuple(got.shape)}, plain version "
+                             f"{want.dtype} {tuple(want.shape)}")
+    planted = float((fault.double() - want.double()).abs().max())
+    if want.dtype.is_floating_point:
+        check = max_err(torch, got, want, tol)
+        atol, rtol = tol
+        if not bool(((fault - want).abs() > atol + rtol * want.abs()).any()):
+            raise AssertionError(f"a planted fault reads {planted}, within the limit: the "
+                                 f"check cannot see it")
+    else:
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel differs from its plain version: max |diff| "
+                                 f"{float((got.double() - want.double()).abs().max())}")
+        if planted == 0:
+            raise AssertionError("a planted fault reads 0: the check cannot see it")
+        check = {"max_abs_err": 0.0, "tolerance": "exact"}
+    check["planted_fault_min_max_abs_err"] = planted
+    return check
+
+
+def conv_work(B: int, H: int, W: int, Cin: int, kh: int, kw: int, F: int,
+              itemsize: int) -> tuple[int, int]:
+    """(bytes, operations) of one conv2d call: x and w read once, the 4-byte
+    output written once; a multiply and an add per tap, channel and filter
+    of every output pixel."""
+    oh, ow = H - kh + 1, W - kw + 1
+    return ((B * H * W * Cin + kh * kw * Cin * F) * itemsize + B * oh * ow * F * 4,
+            2 * B * oh * ow * F * kh * kw * Cin)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -318,6 +374,7 @@ def ssd_work(S: int, B: int = 1, H: int = 48, P: int = 64, G: int = 1, N: int = 
 def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     import torch.nn.functional as F
 
+    from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
@@ -334,18 +391,23 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
     rows: list[dict] = []
-    errs: dict[str, dict] = {}
+    errs: dict[str, dict[str, dict]] = {}
 
     def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak):
-        worst = errs.setdefault(name, {"max_abs_err": 0.0, "tolerance": check["tolerance"]})
+        # the worst errors of a kernel's rows, one group for each tolerance
+        # (a kernel's types differ in tolerance: int16 conv exact, f32 not)
+        tol = check["tolerance"]
+        worst = errs.setdefault(name, {}).setdefault(tol, {"max_abs_err": 0.0, "tolerance": tol})
         for key in ("max_abs_err", "max_rel_l2", "state_max_rel_l2"):
             if key in check:
                 worst[key] = max(worst.get(key, 0.0), check[key])
-        for key in ("planted_fault_min_rel_l2", "planted_fault_state_rel_l2"):
+        for key in ("planted_fault_min_rel_l2", "planted_fault_state_rel_l2",
+                    "planted_fault_min_max_abs_err"):
             if check.get(key) is not None:
                 worst[key] = min(worst.get(key, math.inf), check[key])
-        if check.get("bitwise_equal_dense_kernel"):
-            worst["bitwise_equal_dense_kernel"] = True
+        for key in ("bitwise_equal_dense_kernel", "bitwise_equal_generic_kernel"):
+            if check.get(key):
+                worst[key] = True
         row = {"name": name, "shape": shape, **check}
         if sets is not None:
             row["ms"], row["host_ms"] = time_ms(torch, kernel, sets)
@@ -537,6 +599,84 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                lambda *a: ssd_k.plain_ssd(*a, return_state=True), None,
                bytes_, flops, F32_FLOPS)
         del sets, args
+
+    # conv2d (paper roles 3 and 4, kernel 7): the opencl tenant's frames (one
+    # 64x64 int16 frame through the 5x5 and the 3x3x2 filter), the f32 shapes
+    # of examples/multi_tenant.py, and 256 frames with the card full.  int16
+    # exactly, f32 within TOL_ROLE_F32, each beside a planted fault (one
+    # nonzero filter tap dropped); the fixed-weight role bitwise equal to the
+    # generic kernel.  Library time: F.conv2d for f32 (NCHW, TF32 off); no
+    # PyTorch call convolves int16.
+    conv_cases = [((1, 64, 64, 1), (5, 5, 1, 1), torch.int16),
+                  ((1, 64, 64, 1), (3, 3, 1, 2), torch.int16),
+                  ((1, 32, 32, 1), (5, 5, 1, 1), torch.float32),
+                  ((1, 32, 32, 1), (3, 3, 1, 1), torch.float32),
+                  ((256, 64, 64, 1), (3, 3, 1, 2), torch.int16)]
+    for xs, wsh, dt in conv_cases:
+        (B, H, W, Cin), (kh, kw, _, nf) = xs, wsh
+        bytes_, ops = conv_work(B, H, W, Cin, kh, kw, nf, 2 if dt == torch.int16 else 4)
+        sets = []
+        for _ in range(n_sets(bytes_)):
+            if dt == torch.int16:
+                x = torch.randint(-100, 100, xs, generator=gen, device=dev).to(dt)
+                w = torch.randint(-8, 8, wsh, generator=gen, device=dev).to(dt)
+            else:
+                x = torch.randn(xs, generator=gen, device=dev)
+                w = torch.randn(wsh, generator=gen, device=dev)
+            sets.append((x, w, x.permute(0, 3, 1, 2).contiguous(),
+                         w.permute(3, 2, 0, 1).contiguous()))
+        x, w = sets[0][:2]
+        faulted = w.clone()
+        tap = tuple(int(i) for i in (w != 0).nonzero()[0])
+        faulted[tap] = 0
+        got = conv_k.conv2d(x, w)
+        check = role_err(torch, got, conv_k.plain_conv2d(x, w), conv_k.plain_conv2d(x, faulted),
+                         TOL_ROLE_F32)
+        if not torch.equal(conv_k.conv2d_fixed_weight(w.cpu()).bind(dev)(x), got):
+            raise AssertionError(f"the fixed-weight conv role differs from the generic kernel "
+                                 f"at x{list(xs)} w{list(wsh)}")
+        check["bitwise_equal_generic_kernel"] = True
+        record("conv2d", f"x[{B},{H},{W},{Cin}] w[{kh},{kw},{Cin},{nf}] {str(dt)[6:]}", check,
+               sets, lambda x, w, xn, wn: conv_k.conv2d(x, w),
+               lambda x, w, xn, wn: conv_k.plain_conv2d(x, w),
+               (lambda x, w, xn, wn: F.conv2d(xn, wn)) if dt == torch.float32 else None,
+               bytes_, ops, F32_FLOPS if dt == torch.float32 else INT32_OPS)
+        del sets, x, w, got
+
+    # the f32 matmul (the FC roles, kernel 1 in f32) at the paper's 256 x 256
+    # and at 2048, with its epilogues at 256; the fixed-weight role (kernel
+    # 1b) bitwise equal to it and timed on its resident weight.  Within
+    # TOL_ROLE_F32, beside a planted fault (the K tile 16..31 dropped).
+    # Library time: torch.matmul in f32 with TF32 off.
+    for M in (256, 2048):
+        per_set = 4 * 3 * M * M
+        sets = [(torch.randn((M, M), generator=gen, device=dev),
+                 torch.randn((M, M), generator=gen, device=dev)) for _ in range(n_sets(per_set))]
+        x, w = sets[0]
+        xf = x.clone()
+        xf[:, 16:32] = 0
+        for act in ((None, "silu", "gelu") if M == 256 else (None,)):
+            check = role_err(torch, mm_k.matmul(x, w, activation=act),
+                             mm_k.plain_matmul(x, w, activation=act),
+                             mm_k.plain_matmul(xf, w, activation=act), TOL_ROLE_F32)
+            record("matmul_f32", f"[{M},{M}]x[{M},{M}] act={act} f32", check,
+                   sets if act is None else None,
+                   lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
+                   lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
+                   (lambda a, b: torch.matmul(a, b)) if act is None else None,
+                   per_set, 2 * M ** 3, F32_FLOPS)
+        fixed = mm_k.matmul_fixed_weight(w.cpu()).bind(dev)
+        got = fixed(x)
+        if not torch.equal(got, mm_k.matmul(x, w)):
+            raise AssertionError(f"matmul_fixed_weight differs from matmul at {M}")
+        check = role_err(torch, got, mm_k.plain_matmul(x, w), mm_k.plain_matmul(xf, w),
+                         TOL_ROLE_F32)
+        check["bitwise_equal_generic_kernel"] = True
+        wf = fixed.weight
+        record("matmul_fixed_weight", f"[{M},{M}]x[{M},{M}] fixed f32", check, sets,
+               lambda a, b: fixed(a), lambda a, b: mm_k.plain_matmul(a, wf),
+               lambda a, b: torch.matmul(a, wf), per_set, 2 * M ** 3, F32_FLOPS)
+        del sets, x, w, xf, fixed, wf, got
     return rows, errs
 
 
@@ -851,10 +991,12 @@ def expected_launches(eng, cfg) -> dict[str, int]:
             "paged_decode_attention": L * eng.decode_calls if eng.paged else 0, "ssd": 0}
 
 
-def serve_run(torch, model, params, kernels, prompts, **engine_kw):
+def serve_run(torch, model, params, kernels, prompts, before_step=None, **engine_kw):
     """Serve ``prompts`` (32 new tokens each) through one engine under
     cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
-    counts are set to 0 just before the run and read just after it."""
+    counts are set to 0 just before the run and read just after it.
+    ``before_step(i)``, if given, runs before the engine's step ``i`` (another
+    tenant's submissions)."""
     from repro_torch.core import dispatch
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.paged import pool_token_bytes
@@ -870,7 +1012,9 @@ def serve_run(torch, model, params, kernels, prompts, **engine_kw):
         for p in prompts:
             eng.submit(p, max_new_tokens=32)
         done, decode_s, decode_tok, t0 = [], 0.0, 0, time.perf_counter()
-        for _ in range(1000):
+        for step in range(1000):
+            if before_step is not None:
+                before_step(step)
             calls = eng.prefill_calls + eng.chunk_calls
             toks, ts = eng.decode_tokens, time.perf_counter()
             done += eng.step()        # every step ends reading tokens back to the host
@@ -900,7 +1044,8 @@ def serve_run(torch, model, params, kernels, prompts, **engine_kw):
     # staging: KV for attention models, the recurrent state for Mamba-2
     cache_bytes = sum(t.numel() * t.element_size()
                       for c in (eng._cache, *eng._staging.values()) for t in c.values())
-    res = {**engine_kw, "requests": len(done), "new_tokens_each": 32,
+    res = {**{k: v for k, v in engine_kw.items() if isinstance(v, (bool, int, float, str))},
+           "requests": len(done), "new_tokens_each": 32,
            "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
            "fixup_calls": eng.fixup_calls, "decode_calls": eng.decode_calls,
            "launches": launches,
@@ -965,9 +1110,334 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
                              f"{runs['paged_chunked']['peak_concurrency']} live requests")
     same = sum(a == b for a, b in zip(streams["paged_chunked"], streams["dense"]))
     return {"prompt_lengths": lengths, "runs": runs, "paged_streams_equal_dense": True,
+            "dense_streams": streams["dense"],
             "chunked_streams_equal_dense": f"{same} of {len(prompts)}",
             "launches": {name: sum(r["launches"][name] for r in runs.values())
                          for name in runs["paged"]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: two tenants on one card through the HSA runtime
+# ---------------------------------------------------------------------------
+
+
+def calibrate_fc(torch, sched, q, roles: dict, reps: int = 20) -> dict:
+    """The role planner's costs, measured on the card (the counterpart of the
+    JAX package's ``benchmarks/common.py`` ``calibrate_costs``): each FC
+    role's load (weight upload and warm-up launch) and exec (one launch to
+    completion, the median of ``reps``), and the dispatch overhead of a queue
+    round trip of the resident generic role less its exec.  ``roles`` maps
+    "generic" and "fixed" to (role, args).  The worker thread must be
+    running; every role is unloaded again."""
+    out = {}
+    for kind, (role, args) in roles.items():
+        role.unload()
+        t0 = time.perf_counter()
+        role.load()
+        load_s = time.perf_counter() - t0
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            role(*args)
+            if role.device.type == "cuda":
+                torch.cuda.synchronize(role.device)
+            times.append(time.perf_counter() - t0)
+        out[kind] = {"load_s": load_s, "exec_s": sorted(times)[reps // 2]}
+    role, args = roles["generic"]
+    sched.regions.ensure_resident(role)
+    trips = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pkt = q.dispatch(role.key, *args, producer="calibration")
+        if not pkt.completion.wait_eq(0, timeout=60) or pkt.out.error is not None:
+            raise AssertionError(f"a calibration packet failed: {pkt.out.error}")
+        trips.append(time.perf_counter() - t0)
+    out["round_trip_s"] = sorted(trips)[reps // 2]
+    out["dispatch_s"] = max(0.0, out["round_trip_s"] - out["generic"]["exec_s"])
+    for role, _ in roles.values():
+        role.unload()
+    sched.regions.flush()
+    return out
+
+
+def call_cost(torch, model, params, reps: int = 20) -> dict:
+    """Where a routed model call's extra host time goes: the median ms of
+    one 8-slot decode step (to a synchronise) run on this thread, on a plain
+    thread of its own, and as a call packet through an HSA queue whose
+    scheduler's worker thread runs it (submit to completion), under
+    cuda-strict."""
+    import contextvars
+    import threading
+
+    from repro_torch.core import dispatch, hsa
+    from repro_torch.core import ledger as L
+    from repro_torch.core.reconfig import RegionManager
+    from repro_torch.core.roles import RoleLibrary
+
+    dev = model.device
+    specs = model.cache_specs(8, 1024)
+    cache = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev) for k, v in specs.items()
+             if k != "pos"}
+    cache["pos"] = torch.arange(8, dtype=torch.int32, device=dev) * 100 + 5
+    tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        model.decode_step(params, tok, cache)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(run) -> float:
+        times = []
+        for i in range(reps + 3):
+            t0 = time.perf_counter()
+            run()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    out = {}
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        out["this_thread_ms"] = timed(step)
+        ctx = contextvars.copy_context()
+        box = {}
+        worker = threading.Thread(target=lambda: box.update(ms=ctx.run(timed, step)))
+        worker.start()
+        worker.join()
+        out["plain_thread_ms"] = box["ms"]
+        ledger = L.OverheadLedger()
+        sched = hsa.Scheduler(RegionManager(1, ledger=ledger), RoleLibrary(ledger=ledger),
+                              ledger=ledger)
+        q = sched.add_queue(hsa.Queue(None, 16, name="tf-serving"))
+        sched.start()
+        try:
+            def routed():
+                caller = contextvars.copy_context()      # the policy, for the worker thread
+                pkt = q.call(lambda: caller.run(step))
+                pkt.completion.wait_eq(0)
+                if pkt.out.error is not None:
+                    raise pkt.out.error
+            out["hsa_queue_ms"] = timed(routed)
+        finally:
+            sched.stop()
+        out["grant_mean_ms"] = ledger.stat(L.DISPATCH_GRANT).mean_us / 1e3
+    return out
+
+
+def tenants_phase(torch, model, params, kernels, seed: int, direct_streams: list) -> dict:
+    """The paper's two tenants on one card: ``hsa_init(num_regions=2)`` on
+    the card, its async scheduler (wall clock) with the worker thread
+    running, and two queues.  "tf-serving": the 16 requests of the serve
+    phase through a dense 8-slot ``ServeEngine`` under cuda-strict, every
+    model call a call packet.  "opencl": the paper's four roles at §IV's
+    shapes through the two regions — one fixed-weight int16 conv packet a
+    serving step on a fresh 64x64 frame (role 3 and role 4 in turn), and
+    every fourth step an FC packet: the role the planner chose for a 3-layer
+    FC stack, or role 2 behind a barrier-AND on the step's conv packet.  The
+    fixed-weight FC role (``matmul_fixed_weight``) runs at least once, bitwise
+    equal to the generic role on the same input.  What the queue costs is
+    read in turns, so that the host's drift does not pass for it: direct,
+    through a queue of its own, shared with the opencl tenant, direct again.
+    Checks: every run's streams equal the serve phase's dense run's; every
+    role packet equals its plain version; the conv2d and f32 matmul launch
+    counts equal the packets that reached them plus the loads' warm-up
+    launches; the ledger holds dispatch and exec records for both queues and
+    the engine's dispatch wait records for tf-serving; reconfigurations
+    equal the region manager's misses; opencl packets executed between
+    tf-serving packets."""
+    from repro_torch import paper_roles
+    from repro_torch.core import hsa, policy
+    from repro_torch.core import ledger as L
+    from repro_torch.core.reconfig import RegionManager
+    from repro_torch.core.registry import FIXED_WEIGHT
+    from repro_torch.kernels import conv2d as conv_k
+    from repro_torch.kernels import matmul as mm_k
+
+    dev = model.device
+    hsa.hsa_shut_down()
+    ledger = L.OverheadLedger()
+    sys_ = hsa.hsa_init(num_regions=2, ledger=ledger, device=dev)
+    try:
+        agent = sys_.default_agent
+        sched, rm = sys_.scheduler_of(agent), sys_.regions_of(agent)
+        q_tf = sys_.create_queue(agent, name="tf-serving")
+        q_cl = sys_.create_queue(agent, name="opencl")
+        roles = paper_roles.make_paper_roles(sys_.library, seed=seed, device=dev)
+        fc, (x_fc, w_fc) = roles["role1_fc"]
+        fixed = paper_roles.fc_fixed_role(sys_.library, w_fc, device=dev)
+        sys_.library.synthesize_all()
+        synth_us = {r.name: r.synthesis_s * 1e6 for r in sys_.library}
+        sched.start()
+
+        costs = calibrate_fc(torch, sched, q_cl, {"generic": (fc, (x_fc, w_fc)),
+                                                  "fixed": (fixed, (x_fc,))})
+        cost = policy.CostModel(
+            reconfig_s=(costs["generic"]["load_s"] + costs["fixed"]["load_s"]) / 2,
+            dispatch_s=costs["dispatch_s"], exec_generic_s={"fc": costs["generic"]["exec_s"]},
+            exec_fixed_s={"fc": costs["fixed"]["exec_s"]})
+        plans = {}
+        for n in (3, 8, 16):
+            plan = policy.plan_roles([policy.Invocation("fc", i) for i in range(n)], budget=4,
+                                     cost=cost)
+            plans[n] = {"assignment": plan.assignment["fc"],
+                        "predicted_step_s": plan.predicted.total_s,
+                        "hit_rate": plan.predicted.hit_rate}
+        planned = fixed if plans[3]["assignment"] == FIXED_WEIGHT else fc
+        print("  " + json.dumps({"calibration": costs, "plans_budget_4": plans,
+                                 "tenant_fc_role": planned.name}))
+
+        frames = torch.Generator(device=dev)
+        frames.manual_seed(seed + 4)
+        conv_roles = [roles["role3_conv5x5"][0], roles["role4_conv3x3"][0]]
+        opencl: list = []                  # (role, args, packet)
+        waiting: list = []                 # packets the opencl producer has not waited on
+
+        def submit(role, *args):
+            pkt = q_cl.dispatch(role.key, *args, producer="opencl")
+            opencl.append((role, args, pkt))
+            waiting.append(pkt)
+            return pkt
+
+        def wait_opencl():
+            for pkt in waiting:
+                t0 = time.perf_counter()
+                if not pkt.completion.wait_eq(0, timeout=120):
+                    raise AssertionError(f"an opencl packet never completed: {pkt.what}")
+                ledger.record(L.DISPATCH_WAIT, time.perf_counter() - t0, queue="opencl",
+                              producer="opencl", what=pkt.what)
+            waiting.clear()
+
+        def before_step(step: int) -> None:
+            wait_opencl()                  # last step's packets (done by now, mostly)
+            if step == 0:                  # the planner's alternative runs at least once
+                submit(fc, x_fc, w_fc)
+                submit(fixed, x_fc)
+            frame = torch.randint(-100, 100, (1, 64, 64, 1), generator=frames,
+                                  device=dev).to(torch.int16)
+            conv = submit(conv_roles[step % 2], frame)
+            if step % 4 == 0:
+                if (step // 4) % 2 == 0:
+                    submit(planned, *((x_fc,) if planned is fixed else (x_fc, w_fc)))
+                else:
+                    q_cl.barrier([conv.completion])
+                    submit(roles["role2_fc_barrier"][0], x_fc, w_fc)
+
+        cost = call_cost(torch, model, params)
+        print("  " + json.dumps({"decode_step_host_ms": cost}))
+        _, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+        direct_a, direct_a_streams = serve_run(torch, model, params, kernels, prompts,
+                                               batch_slots=8)
+        # the queue's own cost: the same requests through a queue of their
+        # own on a scheduler of their own (worker thread running), no tenant
+        alone_ledger = L.OverheadLedger()
+        alone_sched = hsa.Scheduler(RegionManager(2, ledger=alone_ledger), sys_.library,
+                                    ledger=alone_ledger)
+        q_alone = alone_sched.add_queue(hsa.Queue(agent, 256, name="tf-serving"))
+        alone_sched.start()
+        alone, alone_streams = serve_run(torch, model, params, kernels, prompts, batch_slots=8,
+                                         hsa_queue=q_alone, hsa_scheduler=alone_sched)
+        alone_sched.stop()
+        print("  " + json.dumps({"run": "routed_alone", **alone,
+                                 "dispatch_split": alone_ledger.dispatch_split()}))
+
+        loads0 = {r.name: r.load_count for r in sys_.library}
+        misses0, reconfig0 = rm.stats.misses, ledger.stat(L.RECONFIG).count
+        conv_k.launches = mm_k.f32_launches = mm_k.fixed_launches = 0
+        res, streams = serve_run(torch, model, params, kernels, prompts, before_step=before_step,
+                                 batch_slots=8, hsa_queue=q_tf, hsa_scheduler=sched,
+                                 ledger=ledger)
+        wait_opencl()
+        counts = {"conv2d": conv_k.launches, "matmul_f32": mm_k.f32_launches,
+                  "matmul_fixed_weight": mm_k.fixed_launches}
+        sched.stop()                       # re-raises an error that ended the worker
+        direct_b, direct_b_streams = serve_run(torch, model, params, kernels, prompts,
+                                               batch_slots=8)
+    finally:
+        hsa.hsa_shut_down()
+
+    # -- checks ------------------------------------------------------------
+    if not direct_streams == direct_a_streams == direct_b_streams == alone_streams:
+        raise AssertionError("streams of the direct runs, or through a queue of their own, "
+                             "differ from the serve phase's dense run")
+    if streams != direct_streams:
+        differ = [i for i, (a, b) in enumerate(zip(streams, direct_streams)) if a != b]
+        raise AssertionError(f"streams through the HSA queue differ from the direct dense "
+                             f"run in requests {differ}")
+    conv_pkts = fc_pkts = fixed_pkts = 0
+    outs = {}
+    for role, args, pkt in opencl:
+        if pkt.out.error is not None:
+            raise AssertionError(f"opencl packet {pkt.what} failed") from pkt.out.error
+        if role in conv_roles:
+            want = conv_k.plain_conv2d(args[0], role.impl.fn.weight.to(dev))
+            if not torch.equal(pkt.out.value, want):
+                raise AssertionError(f"{role.name} differs from its plain version")
+            conv_pkts += 1
+        else:
+            max_err(torch, pkt.out.value, mm_k.plain_matmul(x_fc, w_fc), TOL_ROLE_F32)
+            fc_pkts += 1
+            fixed_pkts += role is fixed
+            outs.setdefault(role.name, pkt.out.value)
+    if not torch.equal(outs[fixed.name], outs[fc.name]):
+        raise AssertionError("the fixed-weight FC role differs from the generic role")
+    loads = {r.name: r.load_count - loads0[r.name] for r in sys_.library}
+    conv_loads = sum(loads[r.name] for r in conv_roles)
+    fc_loads = sum(n for name, n in loads.items() if name not in {r.name for r in conv_roles})
+    want_counts = {"conv2d": conv_pkts + conv_loads, "matmul_f32": fc_pkts + fc_loads,
+                   "matmul_fixed_weight": fixed_pkts + loads[fixed.name]}
+    if counts != want_counts or not all(counts.values()):
+        raise AssertionError(f"paper-role launches {counts}, expected {want_counts} from "
+                             f"{conv_pkts} conv and {fc_pkts} FC packets and loads {loads}")
+    # the scheduler records dispatch and exec for both queues, the engine
+    # dispatch_wait for its own (the opencl producer's waits are this
+    # script's, recorded for the report and not checked)
+    breakdown = ledger.queue_breakdown()
+    for qname, cats in (("tf-serving", (L.DISPATCH, L.DISPATCH_WAIT, L.EXEC)),
+                        ("opencl", (L.DISPATCH, L.EXEC))):
+        have = {cat: breakdown.get(qname, {}).get(cat) for cat in cats}
+        if any(st is None or st.count == 0 for st in have.values()):
+            raise AssertionError(f"the ledger lacks some of {cats} records for {qname}: {have}")
+    misses, reconfigs = rm.stats.misses - misses0, ledger.stat(L.RECONFIG).count - reconfig0
+    if reconfigs != misses or misses == 0:
+        raise AssertionError(f"{reconfigs} reconfigurations against {misses} region misses")
+    log = sched.event_log()
+    tf_ends = [i for i, e in enumerate(log) if e.queue == "tf-serving" and e.kind == "exec_end"]
+    between = sum(1 for i, e in enumerate(log) if e.queue == "opencl" and e.kind == "exec_end"
+                  and tf_ends and tf_ends[0] < i < tf_ends[-1])
+    if between == 0:
+        raise AssertionError("no opencl packet executed between tf-serving packets")
+
+    report = sched.queue_report()
+    per_queue = {q: {cat: {"count": st.count, "mean_us": st.mean_us}
+                     for cat, st in cats.items() if st.count}
+                 for q, cats in breakdown.items()}
+    out = {"run": res, "routed_alone": alone, "direct_before": direct_a, "direct_after": direct_b,
+           "decode_step_host_ms": cost,
+           "routed_alone_dispatch_split": alone_ledger.dispatch_split(),
+           "ledger_by_queue": per_queue, "plans_budget_4": plans, "calibration": costs,
+           "tenant_fc_role": planned.name, "launches": counts,
+           "opencl_packets": {"conv": conv_pkts, "fc": fc_pkts, "fixed_fc": fixed_pkts},
+           "role_loads": loads, "opencl_exec_between_tf_packets": between,
+           "queues": {q: {k: report[q][k] for k in ("wait_s", "exec_s", "reconfig_s",
+                                                    "dispatched", "reconfigs")}
+                      for q in ("tf-serving", "opencl")},
+           "residency": dict(vars(rm.stats), hit_rate=rm.stats.hit_rate),
+           "reconfig_split": ledger.reconfig_split(), "dispatch_split": ledger.dispatch_split(),
+           "ledger_summary": ledger.summary(),
+           "role_synthesis_us": synth_us,
+           "role_load_us": {r.name: (r.load_s or 0.0) * 1e6 for r in sys_.library},
+           # in the order run: direct, a queue of its own, shared, direct
+           "routed_vs_direct": {
+               key: (direct_a[key], alone[key], res[key], direct_b[key])
+               for key in ("ttft_mean_s", "ttft_p99_s", "decode_tokens_per_s")}}
+    print("  Table II on the card (ledger.table()):")
+    for line in ledger.table().splitlines():
+        print("    " + line)
+    print("  " + json.dumps({k: out[k] for k in ("reconfig_split", "queues", "residency",
+                                                 "routed_vs_direct", "role_synthesis_us",
+                                                 "role_load_us", "launches", "opencl_packets",
+                                                 "opencl_exec_between_tf_packets",
+                                                 "ledger_by_queue")}))
+    return out
 
 
 def busy_phase(torch, model, params, seed: int) -> dict:
@@ -1028,6 +1498,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
@@ -1041,29 +1512,30 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/6] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/7] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     native.build_all()
-    print(f"  built {len(native.SOURCES)} sources ({len(kernels)} kernels) in {time.perf_counter() - t:.1f} s"
+    print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 2} kernels: the f32 matmul "
+          f"and conv2d beside these six) in {time.perf_counter() - t:.1f} s"
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print(f"[2/6] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/7] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
 
-    print("[3/6] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/7] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
 
-    print("[4/6] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/7] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -1071,44 +1543,67 @@ def main() -> int:
           f"{serve_res['chunked_streams_equal_dense']}")
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     busy_res = busy_phase(torch, model, params, args.seed)
+
+    print("[5/7] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+          "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
+          "paper's four roles through two regions")
+    tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
+                                serve_res.pop("dense_streams"))
+    print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     del model, params
     torch.cuda.empty_cache()
 
-    print("[5/6] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[6/7] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
 
-    print("[6/6] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[7/7] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     ssm_busy_res = busy_phase(torch, model, params, args.seed)
 
-    runs = {**serve_res["runs"], **ssm_res["runs"]}
+    runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"]}
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
                 "decode_attention": "q[8,32,64] cache[8,8,1024,64] lengths 1..1024",
                 "paged_decode_attention": "q[8,32,64] pool[513,8,16,64] table[8,64] lengths "
                                           "[1, 1024, 5, 600, 37, 256, 900, 64]",
-                "ssd": "x[1,600,48,64] b,c[1,600,1,128]"}
+                "ssd": "x[1,600,48,64] b,c[1,600,1,128]",
+                "matmul_f32": "[256,256]x[256,256] act=None f32",
+                "matmul_fixed_weight": "[256,256]x[256,256] fixed f32",
+                "conv2d": "x[1,64,64,1] w[5,5,1,1] int16"}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",
                "decode_attention": "F.scaled_dot_product_attention",
                "paged_decode_attention": "two calls: an index gather of the pages into a "
                                          "dense copy, then F.scaled_dot_product_attention",
-               "ssd": "no single PyTorch call computes it"}
+               "ssd": "no single PyTorch call computes it",
+               "matmul_f32": "torch.matmul, f32 with TF32 off",
+               "matmul_fixed_weight": "torch.matmul, f32 with TF32 off",
+               "conv2d": "none for int16 (F.conv2d, f32 and TF32 off, at the f32 shapes)"}
+    # the paper-role kernels run on the tenants phase's main path only
+    entries = [(mod.__name__.rsplit(".", 1)[1], mod, mod.REPLACES,
+                {run: r["launches"][mod.__name__.rsplit(".", 1)[1]] for run, r in runs.items()})
+               for mod in kernels]
+    entries += [(name, mod, replaces, {"tenants": tenants_res["launches"][name]})
+                for name, mod, replaces in (("matmul_f32", mm_k, mm_k.REPLACES),
+                                            ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
+                                            ("conv2d", conv_k, conv_k.REPLACES))]
     summary = []
-    for mod in kernels:
-        name = mod.__name__.rsplit(".", 1)[1]
+    for name, mod, replaces, by_run in entries:
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
+        # the errors of the headline row's tolerance; those of the kernel's
+        # other tolerances beside them
+        others = [e for tol, e in errs[name].items() if tol != row["tolerance"]]
         summary.append({
-            "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": sum(r["launches"][name] for r in runs.values()),
-            "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
-            **errs[name],
+            "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": replaces,
+            "launches": sum(by_run.values()), "launches_by_run": by_run,
+            **errs[name][row["tolerance"]],
+            **({"errors_at_other_tolerances": others} if others else {}),
             "shape": row["shape"], "ms": row["ms"],
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1119,6 +1614,7 @@ def main() -> int:
         args.out.write_text(json.dumps({
             "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
             "kernel_rows": rows, "model": model_res, "serve": serve_res, "busy": busy_res,
+            "tenants": tenants_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

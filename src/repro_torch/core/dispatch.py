@@ -24,6 +24,7 @@ class DispatchContext:
     device_kind: str = "cuda"
     prefer: tuple[str, ...] = ("torch", "reference")
     registry: KernelRegistry = GLOBAL_REGISTRY
+    trace: "DispatchTrace | None" = None
     # resolution memo: device_kind/prefer/registry are frozen per context, so
     # (op, specialization) fully determines the resolved impl.  Entries carry
     # the registry version so a late registration invalidates them.
@@ -44,6 +45,26 @@ class DispatchContext:
         return impl
 
 
+class DispatchTrace:
+    """Records the sequence of resolved ops (role keys) during a run.
+
+    The role planner (:mod:`repro_torch.core.policy`) consumes this to decide
+    the generic-vs-fixed-weight split under a region budget.
+    """
+
+    def __init__(self) -> None:
+        self.events: list[tuple[str, str]] = []   # (op, impl name)
+
+    def record(self, op: str, impl: KernelImpl) -> None:
+        self.events.append((op, impl.name))
+
+    def op_counts(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for op_name, _ in self.events:
+            counts[op_name] = counts.get(op_name, 0) + 1
+        return counts
+
+
 _DEFAULT = DispatchContext()
 _CTX: contextvars.ContextVar[DispatchContext] = contextvars.ContextVar(
     "repro_torch_dispatch_ctx", default=_DEFAULT
@@ -60,6 +81,7 @@ def use(
     device_kind: str | None = None,
     prefer: Sequence[str] | None = None,
     registry: KernelRegistry | None = None,
+    trace: DispatchTrace | None = None,
 ) -> Iterator[DispatchContext]:
     """Scoped dispatch policy, like the paper's device annotation in user code."""
     base = _CTX.get()
@@ -67,6 +89,7 @@ def use(
         device_kind=device_kind if device_kind is not None else base.device_kind,
         prefer=tuple(prefer) if prefer is not None else base.prefer,
         registry=registry if registry is not None else base.registry,
+        trace=trace if trace is not None else base.trace,
     )
     token = _CTX.set(ctx)
     try:
@@ -77,7 +100,10 @@ def use(
 
 def op(name: str, *args: Any, specialization: str | None = None, **kwargs: Any) -> Any:
     """Dispatch a logical op through the active context."""
-    impl = _CTX.get().resolve(name, specialization=specialization)
+    ctx = _CTX.get()
+    impl = ctx.resolve(name, specialization=specialization)
+    if ctx.trace is not None:
+        ctx.trace.record(name, impl)
     return impl.fn(*args, **kwargs)
 
 

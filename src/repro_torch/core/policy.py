@@ -1,17 +1,62 @@
-"""Serving policies: the one of ``repro/core/policy.py`` that the paged
-engine slice reads, copied as it is (a pure dataclass).
+"""Policies of ``repro/core/policy.py`` that the port's slices read, copied
+as they are (pure dataclasses and functions).
 
-The paged engine's :class:`AdmissionPolicy` admits a request against free
-pages minus the projected growth of the requests already running.  The rest
-of that file comes with the slices that read it: ``ChunkPolicy``'s tapers
-with ``FusionPolicy`` feedback (a fixed chunk size needs no policy), and the
-role planner, preemption, spill, integrity and prefix policies.
+- :class:`AdmissionPolicy`: the paged engine admits a request against free
+  pages minus the projected growth of the requests already running.
+- :class:`PrefetchPolicy` and :class:`RetryPolicy`: the HSA scheduler's
+  lookahead depth and fault recovery.
+- The role planner (:class:`Invocation`, :class:`CostModel`,
+  :func:`simulate_lru`, :func:`plan_roles`): the paper's generic-vs-fixed-
+  weight trade-off (§IV).  A generic role (weights as operands) is shared by
+  every layer that invokes the op, so it stays resident; fixing weights
+  yields one role per layer — each faster, but with more roles than regions
+  the LRU thrashes and every layer pays a reconfiguration.  The planner
+  simulates LRU residency for each assignment of {generic, fixed_weight} per
+  op type and picks the lowest predicted steady-state step time.
+
+The rest of that file comes with the slices that read it: ``ChunkPolicy``'s
+tapers with ``FusionPolicy`` feedback (a fixed chunk size needs no policy),
+and the preemption, spill, integrity and prefix policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+from collections import OrderedDict
+from typing import Hashable, Sequence
+
+from repro_torch.core.registry import FIXED_WEIGHT, GENERIC
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefetchPolicy:
+    """Lookahead-depth knob for the reconfiguration-prefetch pipeline.
+
+    ``lookahead`` is how many queued packets (per queue, from the head) the
+    scheduler scans for roles to load ahead of demand — the software ICAP
+    pipeline depth.  0 recovers the purely reactive scheduler.  The same
+    knob parameterizes :func:`simulate_lru`, so the role planner can predict
+    *exposed* (queue-stalling) rather than total reconfiguration cost when a
+    prefetching scheduler will run the plan.
+    """
+
+    lookahead: int = 0
+
+    def __post_init__(self) -> None:
+        if self.lookahead < 0:
+            raise ValueError(f"lookahead must be >= 0, got {self.lookahead}")
+
+    @classmethod
+    def of(cls, value: "PrefetchPolicy | int | None") -> "PrefetchPolicy":
+        if value is None:
+            return cls(0)
+        if isinstance(value, PrefetchPolicy):
+            return value
+        return cls(int(value))
+
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +120,285 @@ class AdmissionPolicy:
         summed unmapped remainder of already-admitted requests."""
         available = free_pages - projected_growth_pages - self.watermark_pages
         return request_pages <= available
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """How the runtime absorbs faults before the user ever sees one.
+
+    The paper's promise is a runtime that "hides the complexity of
+    controlling new hardware" — and real accelerator hardware faults: kernel
+    launches error, partial-bitstream loads abort, doorbells wedge.  This
+    policy spans the three recovery layers:
+
+      - **scheduler** — a faulted packet is retried in place (``requeue_head``,
+        so queue order is preserved) up to ``max_retries`` times with
+        exponential backoff (``backoff_s * backoff_factor**attempt``, capped
+        at ``max_backoff_s``); a launch whose completion never fires is
+        killed by a watchdog after :meth:`watchdog_deadline` of its expected
+        duration; a queue that faults ``quarantine_after`` consecutive times
+        is quarantined — its pending packets migrate to sibling queues;
+      - **reconfig** — a failed region load retries through the
+        ``abort_prefetch`` cleanup path instead of failing the head packet;
+      - **engine** — a launch that exhausts its packet budget (or faults
+        permanently) parks the affected requests via the preemption
+        machinery and resumes them by re-prefill replay, at most
+        ``max_request_recoveries`` times per request, keeping completed
+        streams bitwise-identical to fault-free runs.
+    """
+
+    max_retries: int = 3
+    backoff_s: float = 1e-3
+    backoff_factor: float = 2.0
+    max_backoff_s: float = 1.0
+    watchdog_factor: float = 8.0
+    watchdog_floor_s: float = 1e-3
+    quarantine_after: int = 3            # K consecutive faults; 0 disables
+    max_request_recoveries: int = 2      # engine-level park/replay budget
+
+    def __post_init__(self) -> None:
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.backoff_s < 0:
+            raise ValueError(f"backoff_s must be >= 0, got {self.backoff_s}")
+        if self.backoff_factor < 1.0:
+            raise ValueError(
+                f"backoff_factor must be >= 1, got {self.backoff_factor}"
+            )
+        if self.max_backoff_s < self.backoff_s:
+            raise ValueError(
+                f"max_backoff_s {self.max_backoff_s} < backoff_s {self.backoff_s}"
+            )
+        if self.watchdog_factor < 1.0:
+            raise ValueError(
+                f"watchdog_factor must be >= 1, got {self.watchdog_factor}"
+            )
+        if self.watchdog_floor_s < 0:
+            raise ValueError(
+                f"watchdog_floor_s must be >= 0, got {self.watchdog_floor_s}"
+            )
+        if self.quarantine_after < 0:
+            raise ValueError(
+                f"quarantine_after must be >= 0, got {self.quarantine_after}"
+            )
+        if self.max_request_recoveries < 0:
+            raise ValueError(
+                "max_request_recoveries must be >= 0, got "
+                f"{self.max_request_recoveries}"
+            )
+
+    @classmethod
+    def of(cls, value: "RetryPolicy | int | None") -> "RetryPolicy | None":
+        """``None`` keeps retries off (legacy fail-fast semantics); an int is
+        a plain ``max_retries`` with the other knobs at their defaults."""
+        if value is None or isinstance(value, RetryPolicy):
+            return value
+        return cls(max_retries=int(value))
+
+    def backoff(self, attempt: int) -> float:
+        """Backoff before retry number ``attempt`` (1-based: the delay
+        between the first fault and the second try is ``backoff(1)``)."""
+        if attempt < 1:
+            raise ValueError(f"attempt must be >= 1, got {attempt}")
+        return min(
+            self.max_backoff_s,
+            self.backoff_s * self.backoff_factor ** (attempt - 1),
+        )
+
+    def watchdog_deadline(self, expected_s: float) -> float:
+        """How long a launch may run before the watchdog declares it wedged.
+
+        Derived from the caller's expected duration (the engine's
+        ``step_time_model`` or a measured exec cost), floored so a
+        nominally-instant launch still gets a real window."""
+        return max(self.watchdog_floor_s, self.watchdog_factor * expected_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class Invocation:
+    """One op call site in a model step: (op type, site id e.g. layer index)."""
+
+    op: str
+    site: Hashable
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """Measured per-category costs in seconds (from the overhead ledger)."""
+
+    reconfig_s: float
+    dispatch_s: float
+    exec_generic_s: dict[str, float]       # op -> seconds
+    exec_fixed_s: dict[str, float]         # op -> seconds (faster: weights baked)
+
+    def exec_s(self, op: str, spec: str) -> float:
+        table = self.exec_fixed_s if spec == FIXED_WEIGHT else self.exec_generic_s
+        return table[op]
+
+
+@dataclasses.dataclass
+class SimResult:
+    total_s: float
+    hits: int
+    misses: int
+    distinct_roles: int
+    exposed_s: float = 0.0      # reconfig time the compute timeline waited on
+    hidden_s: float = 0.0       # reconfig time overlapped by lookahead prefetch
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+
+def role_sequence(
+    trace: Sequence[Invocation], assignment: dict[str, str]
+) -> list[Hashable]:
+    """Map invocations to role identities under an assignment.
+
+    Generic ops share one role per op type; fixed-weight ops get one role per
+    call site.
+    """
+    seq: list[Hashable] = []
+    for inv in trace:
+        spec = assignment.get(inv.op, GENERIC)
+        seq.append((inv.op, GENERIC) if spec == GENERIC else (inv.op, inv.site))
+    return seq
+
+
+def simulate_lru(
+    roles: Sequence[Hashable],
+    budget: int,
+    cost: CostModel,
+    spec_of: dict[Hashable, str],
+    op_of: dict[Hashable, str],
+    *,
+    repeats: int = 2,
+    lookahead: "PrefetchPolicy | int" = 0,
+) -> SimResult:
+    """Steady-state LRU simulation over ``repeats`` passes of the role sequence.
+
+    The first pass is compulsory-miss dominated; reporting the *last* pass
+    gives the steady-state step cost the planner optimizes.
+
+    With ``lookahead`` L > 0 the simulation models the prefetching scheduler's
+    two engines: a miss's load may start on the reconfiguration engine as soon
+    as the access entered the L-deep lookahead window, so only the part of the
+    load not overlapped by earlier compute is *exposed* on the compute
+    timeline, and the LRU victim search skips roles needed within the next L
+    accesses (the approximate Bélády oracle).  L = 0 reduces exactly to the
+    serial reactive model.
+    """
+    depth = PrefetchPolicy.of(lookahead).lookahead
+    resident: "OrderedDict[Hashable, None]" = OrderedDict()
+    last = SimResult(0.0, 0, 0, len(set(roles)))
+    for _ in range(max(1, repeats)):
+        compute_t = reconfig_free = 0.0
+        exposed = hidden = 0.0
+        hits, misses = 0, 0
+        starts: list[float] = []          # compute time when access i began
+        for i, r in enumerate(roles):
+            starts.append(compute_t)
+            if r in resident:
+                resident.move_to_end(r)
+                hits += 1
+            else:
+                misses += 1
+                if len(resident) >= budget:
+                    upcoming = roles[i + 1 : i + 1 + depth] if depth else ()
+                    window: dict[Hashable, int] = {}
+                    for j, rr in enumerate(upcoming):
+                        window.setdefault(rr, j)
+                    victim = next((k for k in resident if k not in window), None)
+                    if victim is None:
+                        # every region demanded soon: evict the one needed
+                        # furthest in the future (Bélády, as the scheduler does)
+                        victim = max(resident, key=lambda k: window[k])
+                    resident.pop(victim)
+                visible_t = starts[max(0, i - depth)]
+                load_start = max(reconfig_free, visible_t)
+                ready = load_start + cost.reconfig_s
+                exp = max(0.0, ready - compute_t)
+                exposed += exp
+                hidden += max(0.0, cost.reconfig_s - exp)
+                compute_t = max(compute_t, ready)
+                reconfig_free = ready
+                resident[r] = None
+            compute_t += cost.dispatch_s + cost.exec_s(op_of[r], spec_of[r])
+        last = SimResult(compute_t, hits, misses, len(set(roles)), exposed, hidden)
+    return last
+
+
+@dataclasses.dataclass
+class Plan:
+    assignment: dict[str, str]             # op -> GENERIC | FIXED_WEIGHT
+    predicted: SimResult
+    alternatives: list[tuple[dict[str, str], float]] = dataclasses.field(
+        default_factory=list
+    )
+
+
+def _evaluate(
+    trace: Sequence[Invocation],
+    assignment: dict[str, str],
+    budget: int,
+    cost: CostModel,
+    repeats: int,
+    lookahead: "PrefetchPolicy | int" = 0,
+) -> SimResult:
+    roles = role_sequence(trace, assignment)
+    spec_of = {}
+    op_of = {}
+    for inv, r in zip(trace, roles):
+        spec_of[r] = assignment.get(inv.op, GENERIC)
+        op_of[r] = inv.op
+    return simulate_lru(
+        roles, budget, cost, spec_of, op_of, repeats=repeats, lookahead=lookahead
+    )
+
+
+def plan_roles(
+    trace: Sequence[Invocation],
+    budget: int,
+    cost: CostModel,
+    *,
+    repeats: int = 2,
+    exhaustive_limit: int = 12,
+    lookahead: "PrefetchPolicy | int" = 0,
+) -> Plan:
+    """Choose generic vs fixed-weight per op type to minimize step latency.
+
+    ``lookahead`` predicts the plan under a prefetching scheduler of that
+    depth (exposed reconfiguration only) instead of the reactive one."""
+    ops = sorted({inv.op for inv in trace})
+    best: tuple[float, dict[str, str], SimResult] | None = None
+    alts: list[tuple[dict[str, str], float]] = []
+
+    if len(ops) <= exhaustive_limit:
+        choices = itertools.product((GENERIC, FIXED_WEIGHT), repeat=len(ops))
+        for combo in choices:
+            assignment = dict(zip(ops, combo))
+            sim = _evaluate(trace, assignment, budget, cost, repeats, lookahead)
+            alts.append((assignment, sim.total_s))
+            if best is None or sim.total_s < best[0]:
+                best = (sim.total_s, assignment, sim)
+    else:
+        # Greedy: start all-generic, flip the op with the best marginal gain.
+        assignment = {op: GENERIC for op in ops}
+        sim = _evaluate(trace, assignment, budget, cost, repeats, lookahead)
+        best = (sim.total_s, dict(assignment), sim)
+        improved = True
+        while improved:
+            improved = False
+            for op in ops:
+                trial = dict(assignment)
+                trial[op] = FIXED_WEIGHT if trial[op] == GENERIC else GENERIC
+                s = _evaluate(trace, trial, budget, cost, repeats, lookahead)
+                if s.total_s < best[0]:
+                    best = (s.total_s, trial, s)
+                    assignment = trial
+                    improved = True
+
+    assert best is not None
+    alts.sort(key=lambda p: p[1])
+    return Plan(assignment=best[1], predicted=best[2], alternatives=alts[:8])

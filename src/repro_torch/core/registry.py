@@ -24,6 +24,7 @@ from typing import Any, Callable, Sequence
 Sources = ("cuda", "triton", "torch", "reference")
 
 GENERIC = "generic"
+FIXED_WEIGHT = "fixed_weight"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +33,17 @@ class ResourceFootprint:
 
     ``smem_bytes`` is the shared memory a thread block claims and
     ``threads`` its threads per block — what decides how many blocks share
-    an SM.  Nothing reads it yet: the role planner that packs roles by it
-    (``core/policy.py``, ``core/roles.py`` of the JAX package) is still to port.
+    an SM.  A role reports it beside its argument bytes
+    (:meth:`repro_torch.core.roles.Role.footprint`).  Informational for the
+    reference and torch sources.
     """
 
     smem_bytes: int = 0
     threads: int = 0
+
+    def smem_fraction(self, smem_per_sm: int = 228 * 1024) -> float:
+        """Share of one SM's shared memory a block claims (H100: 228 KB)."""
+        return self.smem_bytes / float(smem_per_sm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +55,7 @@ class KernelImpl:
     source: str                      # one of Sources
     fn: Callable[..., Any]
     name: str = ""
-    specialization: str = GENERIC    # or a weight-specialised role
+    specialization: str = GENERIC    # GENERIC | FIXED_WEIGHT
     priority: int = 0                # higher wins within a source
     footprint: ResourceFootprint = ResourceFootprint()
 
@@ -62,7 +68,8 @@ class KernelImpl:
 
 class KernelRegistry:
     """Thread-safe registry of kernel implementations: ``register`` at
-    import time, ``resolve`` at op-dispatch time."""
+    import time, ``resolve`` at op-dispatch time.  ``snapshot``/``restore``
+    support hermetic tests."""
 
     def __init__(self) -> None:
         self._lock = threading.RLock()
@@ -90,6 +97,31 @@ class KernelRegistry:
             bucket.sort(key=lambda i: -i.priority)
             self._version += 1
         return impl
+
+    def define(
+        self,
+        op: str,
+        *,
+        device_kind: str = "cuda",
+        source: str,
+        name: str = "",
+        specialization: str = GENERIC,
+        priority: int = 0,
+        footprint: ResourceFootprint = ResourceFootprint(),
+        allow_override: bool = False,
+    ) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+        """Decorator form: ``@registry.define("matmul", source="cuda")``."""
+
+        def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
+            self.register(
+                KernelImpl(op=op, device_kind=device_kind, source=source, fn=fn, name=name,
+                           specialization=specialization, priority=priority,
+                           footprint=footprint),
+                allow_override=allow_override,
+            )
+            return fn
+
+        return deco
 
     def resolve(
         self,
@@ -125,4 +157,22 @@ class KernelRegistry:
         return None
 
 
+    def snapshot(self) -> dict[tuple[str, str], list[KernelImpl]]:
+        with self._lock:
+            return {k: list(v) for k, v in self._impls.items()}
+
+    def restore(self, snap: dict[tuple[str, str], list[KernelImpl]]) -> None:
+        with self._lock:
+            self._impls = {k: list(v) for k, v in snap.items()}
+            self._version += 1
+
+
 GLOBAL_REGISTRY = KernelRegistry()
+
+
+def register(impl: KernelImpl, **kw: Any) -> KernelImpl:
+    return GLOBAL_REGISTRY.register(impl, **kw)
+
+
+def define(op: str, **kw: Any) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    return GLOBAL_REGISTRY.define(op, **kw)

@@ -16,6 +16,17 @@
 // SMs, so the caller may split K across gridDim.z: each split writes its f32
 // partial tile to a workspace and a second kernel sums the splits in a fixed
 // order (deterministic) and applies the epilogue.
+//
+// The f32 path (repro_matmul_f32: f32 x and w, f32 out) computes in full f32
+// on the CUDA cores, as the Pallas kernel does for f32 inputs: not TF32, whose
+// 10-bit mantissa misses the 2e-4 the JAX package's own test holds at K = 256.
+// A block owns a 64x64 tile; 256 threads each accumulate a 4x4 register block
+// with FMAs over a two-stage cp.async ring of 64x16 A and 16x64 B tiles in
+// shared memory.  Ragged M, N and K are zero-filled on load, as above (K and N
+// multiples of 4: 16-byte rows); split-K and its fixed-order reduce are
+// shared with the bf16 path.  What bounds it: operations at the f32 rate (67
+// TFLOP/s) once the tiles fill the card; at the paper's 256 x 256 x 256 the
+// launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -164,6 +175,90 @@ __global__ void splitk_reduce(const float* __restrict__ ws, void* __restrict__ o
   store_out(out, i, epilogue(v, act), out_f32);
 }
 
+// ---- f32 path -------------------------------------------------------------
+
+constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
+constexpr int FLDA = FBK + 4;  // smem row strides (floats), padded, rows 16-byte aligned
+constexpr int FLDB = FBN + 4;
+constexpr int FA_STAGE = FBM * FLDA;
+constexpr int FB_STAGE = FBK * FLDB;
+
+__device__ __forceinline__ void load_tile_f32(float* as, float* bs, const float* x, const float* w,
+                                              int M, int N, int K, int m0, int n0, int k0) {
+  {  // A: 64 rows x 16 k = 256 chunks of 4 floats, one a thread
+    int c = threadIdx.x, r = c / (FBK / 4), col = (c % (FBK / 4)) * 4;
+    int gr = m0 + r, gc = k0 + col;
+    bool ok = gr < M && gc < K;
+    cp_async16(as + r * FLDA + col, ok ? x + (size_t)gr * K + gc : x, ok);
+  }
+  {  // B: 16 k x 64 cols = 256 chunks
+    int c = threadIdx.x, r = c / (FBN / 4), col = (c % (FBN / 4)) * 4;
+    int gr = k0 + r, gc = n0 + col;
+    bool ok = gr < K && gc < N;
+    cp_async16(bs + r * FLDB + col, ok ? w + (size_t)gr * N + gc : w, ok);
+  }
+}
+
+__global__ void __launch_bounds__(FTHREADS)
+    mm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
+                  float* __restrict__ ws, int M, int N, int K, int act, int per_split) {
+  __shared__ __align__(16) float as[2 * FA_STAGE];
+  __shared__ __align__(16) float bs[2 * FB_STAGE];
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN, split = blockIdx.z;
+  const int kt = (K + FBK - 1) / FBK;
+  const int kt0 = split * per_split;
+  const int nk = min(kt, kt0 + per_split) - kt0;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 4x4 block at (ty*4, tx*4)
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  if (nk > 0) load_tile_f32(as, bs, x, w, M, N, K, m0, n0, kt0 * FBK);
+  cp_async_commit();
+  for (int t = 0; t < nk; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < nk)
+      load_tile_f32(as + (cur ^ 1) * FA_STAGE, bs + (cur ^ 1) * FB_STAGE, x, w, M, N, K, m0, n0,
+                    (kt0 + t + 1) * FBK);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* a_t = as + cur * FA_STAGE + ty * 4 * FLDA;
+    const float* b_t = bs + cur * FB_STAGE + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(b_t + kk * FLDB);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = a_t[i * FLDA + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = m0 + ty * 4 + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gc = n0 + tx * 4 + j;
+      if (gc >= N) continue;
+      if (ws != nullptr)
+        ws[((size_t)split * M + gr) * N + gc] = acc[i][j];
+      else
+        out[(size_t)gr * N + gc] = epilogue(acc[i][j], act);
+    }
+  }
+}
+
 }  // namespace
 
 // x [M,K] bf16, w [K,N] bf16, out [M,N] bf16 (out_f32 = 0) or f32; ws holds
@@ -189,6 +284,32 @@ extern "C" int repro_matmul(const void* x, const void* w, void* out, void* ws, i
     unsigned blocks = (unsigned)((total + 255) / 256);
     splitk_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws), out, M, N, splits, act,
                                           out_f32);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x [M,K] f32, w [K,N] f32, out [M,N] f32; ws holds splits*M*N floats when
+// splits > 1, with ceil(kt / ceil(kt / splits)) == splits for kt = ceil(K / 16).
+// Returns the cudaError_t of the launches (0 on success).
+extern "C" int repro_matmul_f32(const void* x, const void* w, void* out, void* ws, int M, int N,
+                                int K, int act, int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 || splits < 1 || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  const int kt = (K + FBK - 1) / FBK;
+  const int per = (kt + splits - 1) / splits;
+  if ((kt + per - 1) / per != splits || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, splits);
+  mm_f32_kernel<<<grid, FTHREADS, 0, st>>>(static_cast<const float*>(x),
+                                           static_cast<const float*>(w), static_cast<float*>(out),
+                                           splits > 1 ? static_cast<float*>(ws) : nullptr, M, N, K,
+                                           act, per);
+  if (splits > 1) {
+    size_t total = (size_t)M * N;
+    unsigned blocks = (unsigned)((total + 255) / 256);
+    splitk_reduce<<<blocks, 256, 0, st>>>(static_cast<const float*>(ws), out, M, N, splits, act,
+                                          1);
   }
   return (int)cudaGetLastError();
 }

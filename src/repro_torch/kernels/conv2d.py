@@ -1,0 +1,133 @@
+"""Small-filter convolution written by hand for Hopper (``csrc/conv2d.cu``) —
+paper Table I roles 3 and 4.
+
+Replaces the Pallas TPU kernel ``repro/kernels/conv2d.py`` ``conv2d``
+(``_conv_kernel``) and its weight-specialised factory
+``conv2d_fixed_weight``: a VALID stride-1 convolution of NHWC ``x``
+[B, H, W, Cin] with HWIO ``w`` [kh, kw, Cin, F]; int16 inputs accumulate in
+int32 and return int32 (sums past 2^31 wrap, as XLA's int32 arithmetic
+does), f32 inputs accumulate and return f32.
+
+What bounds it on the H100: the paper's roles do 2·kh·kw·Cin·F operations a
+pixel (50 for the 5x5 one-filter role) on 2-byte inputs, so bytes bound it
+once the card is full; a single 64x64 frame is a few microseconds of
+launch.  Hopper's tensor cores have no int16 product, so the kernel runs on
+the CUDA cores: a block stages an 8 x 32 output tile's input rows (with the
+filter's halo) and the filter in shared memory, each thread accumulates its
+pixel for eight filters at a time, and the 5x5 and 3x3 taps are unrolled at
+compile time.  The fixed-weight role holds its filter on the card from load
+to unload and launches the same kernel, so it is bitwise equal to
+:func:`conv2d` on the same input.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.registry import ResourceFootprint
+from repro_torch.kernels import native
+
+ROUTE = "cuda"
+SOURCE = "src/repro_torch/csrc/conv2d.cu"
+REPLACES = "src/repro/kernels/conv2d.py:39"
+
+#: launches of the CUDA kernel, through :func:`conv2d` or a fixed-weight role
+launches = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_TR, _TC, _FC, _SMEM_BUDGET = 8, 32, 8, 48 * 1024
+
+
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """int32 for integer inputs, f32 otherwise (the Pallas kernel's rule)."""
+    return torch.float32 if dtype.is_floating_point else torch.int32
+
+
+def plain_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the kh·kw taps as shifted
+    elementwise products summed over Cin, in int32 (wrapping, as torch's
+    int32 arithmetic does) or f32.  It needs no integer ``matmul`` or
+    ``F.conv2d`` (the card has neither for int32)."""
+    B, H, W, Cin = x.shape
+    kh, kw, Cin2, F = w.shape
+    if Cin != Cin2:
+        raise ValueError(f"conv2d: x has {Cin} channels, w {Cin2}")
+    acc_t = accum_dtype(x.dtype)
+    xa, wa = x.to(acc_t), w.to(acc_t)
+    oh, ow = H - kh + 1, W - kw + 1
+    acc = torch.zeros((B, oh, ow, F), dtype=acc_t, device=x.device)
+    for di in range(kh):
+        for dj in range(kw):
+            patch = xa[:, di:di + oh, dj:dj + ow, :]           # [B, oh, ow, Cin]
+            for c in range(Cin):
+                acc += patch[..., c:c + 1] * wa[di, dj, c]       # [B, oh, ow, F]
+    return acc
+
+
+def _channels_per_chunk(Cin: int, kh: int, kw: int) -> int:
+    per_channel = ((_TR + kh - 1) * (_TC + kw - 1) + kh * kw * _FC) * 4
+    return min(Cin, _SMEM_BUDGET // per_channel)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID stride-1 conv ``x [B,H,W,Cin]`` (*) ``w [kh,kw,Cin,F]``: the plain
+    version for CPU tensors, else the CUDA kernel (int16 or f32 inputs of one
+    type)."""
+    if native.on_cpu(x, w):
+        return plain_conv2d(x, w)
+    global launches
+    if x.dtype not in (torch.int16, torch.float32):
+        raise TypeError(f"conv2d: the CUDA kernel takes int16 or f32, got {x.dtype}")
+    native.check("conv2d", {"x": x, "w": w}, x.dtype)
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"conv2d: x must be [B,H,W,Cin] and w [kh,kw,Cin,F], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    B, H, W, Cin = x.shape
+    kh, kw, Cin2, F = w.shape
+    if Cin != Cin2:
+        raise ValueError(f"conv2d: x has {Cin} channels, w {Cin2}")
+    if H < kh or W < kw:
+        raise ValueError(f"conv2d: a {kh}x{kw} filter does not fit a {H}x{W} image")
+    if not 1 <= B <= 65535 or _channels_per_chunk(Cin, kh, kw) < 1:
+        raise ValueError(f"conv2d: the kernel takes 1 to 65535 images and filters whose one "
+                         f"channel fits its shared memory, got B={B}, {kh}x{kw}")
+    out = torch.empty((B, H - kh + 1, W - kw + 1, F), dtype=accum_dtype(x.dtype),
+                      device=x.device)
+    fn = native.function("conv2d", "repro_conv2d", _ARGTYPES)
+    err = fn(native.ptr(x), native.ptr(w), native.ptr(out), B, H, W, Cin, kh, kw, F,
+             int(x.dtype == torch.float32), native.stream(x.device))
+    native.raise_on_error("conv2d", err)
+    launches += 1
+    return out
+
+
+class FixedWeightConv2d:
+    """A conv role with its filter fixed: a callable of ``x`` alone, named as
+    the JAX package names it.  :meth:`bind` puts the filter on a device
+    (uploaded once, held until the bound role is dropped)."""
+
+    def __init__(self, w: torch.Tensor) -> None:
+        self.weight = w
+        self.__name__ = f"conv2d_fixed_{w.shape[0]}x{w.shape[1]}x{w.shape[3]}"
+
+    def bind(self, device: "str | torch.device") -> "FixedWeightConv2d":
+        return FixedWeightConv2d(self.weight.to(device))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight)
+
+
+def conv2d_fixed_weight(w: torch.Tensor) -> FixedWeightConv2d:
+    """Weight-specialized conv role (paper roles 3/4: 'fixed weights')."""
+    return FixedWeightConv2d(w)
+
+
+def footprint(cin: int = 1, kh: int = 3, kw: int = 3) -> ResourceFootprint:
+    """Shared memory and threads of one block: the staged input tile with its
+    halo and the filter slab, in 4-byte accumulator words."""
+    cc = _channels_per_chunk(cin, kh, kw)
+    return ResourceFootprint(
+        smem_bytes=((_TR + kh - 1) * (_TC + kw - 1) + kh * kw * _FC) * cc * 4,
+        threads=_TR * _TC)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.registry import GLOBAL_REGISTRY as REG
 from repro_torch.core.registry import KernelImpl
+from repro_torch.kernels import conv2d as conv2d_k
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as matmul_k
@@ -51,7 +52,8 @@ def torch_matmul(x, w, *, out_dtype=None, activation=None):
 
 REG.register(KernelImpl(op="matmul", device_kind="any", source="reference", fn=ref.matmul))
 REG.register(KernelImpl(op="matmul", device_kind="any", source="torch", fn=torch_matmul))
-REG.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda", fn=matmul_k.matmul))
+REG.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda", fn=matmul_k.matmul,
+                        footprint=matmul_k.footprint()))
 
 # --------------------------------------------------------------------------
 # rmsnorm
@@ -197,3 +199,12 @@ def ssd_step(h, x_t, a_log, b_t, c_t, dt_t):
 REG.register(KernelImpl(op="ssd", device_kind="any", source="reference", fn=ref.ssd))
 REG.register(KernelImpl(op="ssd", device_kind="any", source="torch", fn=torch_ssd))
 REG.register(KernelImpl(op="ssd", device_kind="cuda", source="cuda", fn=ssd_k.ssd))
+
+# --------------------------------------------------------------------------
+# conv2d (paper Table I roles 3 and 4)
+# --------------------------------------------------------------------------
+
+REG.register(KernelImpl(op="conv2d", device_kind="any", source="reference", fn=ref.conv2d))
+REG.register(KernelImpl(op="conv2d", device_kind="any", source="torch", fn=ref.conv2d))
+REG.register(KernelImpl(op="conv2d", device_kind="cuda", source="cuda", fn=conv2d_k.conv2d,
+                        footprint=conv2d_k.footprint()))

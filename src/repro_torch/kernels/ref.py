@@ -137,3 +137,15 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         ys.append(torch.einsum("bhpn,bhn->bhp", h, cf[:, t]))
     y = torch.stack(ys, dim=1).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID conv, stride 1, NHWC x HWIO (paper roles 3/4).  Integer inputs
+    give int32, wrapping past 2^31 as XLA's int32 convolution does (summed
+    exactly in float64, then reduced mod 2^32); floats accumulate in f32."""
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)      # NCHW, OIHW
+    if x.dtype.is_floating_point:
+        return F.conv2d(xn.float(), wn.float()).permute(0, 2, 3, 1).contiguous()
+    exact = F.conv2d(xn.double(), wn.double()).round().to(torch.int64)
+    wrapped = torch.remainder(exact + 2**31, 2**32) - 2**31
+    return wrapped.to(torch.int32).permute(0, 2, 3, 1).contiguous()

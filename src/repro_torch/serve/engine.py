@@ -35,21 +35,30 @@ the batch cache; paged, each chunk writes into and attends through the
 slot's pages directly, so the pool is all the KV memory the engine holds
 (the JAX engine keeps a staging cache per slot there too).
 
+**HSA routing** (``hsa_queue=``, ``hsa_scheduler=``): every model call —
+prefill, prefill chunk, first-token fixup, fused decode launch — becomes an
+AQL call packet on a shared queue, so serving shares the card with other
+producers under the async scheduler (the paper's multi-tenancy).  The packet
+carries the producer's dispatch context, so a ``cuda-strict`` policy holds
+on the scheduler's worker thread too.
+
 Greedy decoding only: temperature sampling needs the JAX engine's
 position-indexed threefry stream to match it token for token (ROADMAP
-item 8b).  Launches run directly, not through an HSA queue (ROADMAP item 6).
-Preemption (8f) is not ported: the default full-reserve admission never
-needs it, and an overcommitting policy is refused.
+item 8b).  Preemption (8f) is not ported: the default full-reserve admission
+never needs it, and an overcommitting policy is refused.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import ledger as ledger_mod
 from repro_torch.core.hsa.clock import WallClock
 from repro_torch.core.policy import AdmissionPolicy
 from repro_torch.models.params import resolve_device
@@ -135,6 +144,8 @@ class ServeEngine:
                  paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
                  admission: AdmissionPolicy | None = None,
                  prefill_chunk: int | None = None,
+                 hsa_queue=None, hsa_scheduler=None, producer: str = "tf-serving",
+                 ledger: "ledger_mod.OverheadLedger | None" = None,
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -160,6 +171,18 @@ class ServeEngine:
         self._pos = np.zeros(batch_slots, np.int64)
         self._slot_tok = np.zeros(batch_slots, np.int32)
         self.clock = WallClock()
+        # optional HSA routing: model calls become queue packets so serving
+        # shares the agent with other producers (paper multi-tenancy)
+        if (hsa_queue is None) != (hsa_scheduler is None):
+            raise ValueError("hsa_queue and hsa_scheduler must be given together")
+        self._hsa_queue = hsa_queue
+        self._hsa_scheduler = hsa_scheduler
+        self._producer = producer
+        # explicit ledger for memory accounting (falls back to the queue's)
+        self.ledger = ledger if ledger is not None else (
+            hsa_queue.ledger if hsa_queue is not None else None
+        )
+        self._token_bytes = 0          # KV bytes a position, set at cache build
         # model calls by kind: the launch counts of a run follow from these
         self.prefill_calls = 0
         self.chunk_calls = 0
@@ -217,6 +240,64 @@ class ServeEngine:
         self._first_this_step: list[Request] = []
         # submit() may run on feeder threads while step() is mid-flight
         self._lock = threading.RLock()
+
+    def _launch(self, name: str, fn, *args, **kwargs):
+        """Run a model call directly, or as an AQL call packet named ``name``
+        through the HSA queue.  The packet runs ``fn`` in a copy of this
+        thread's context (the dispatch policy), on whichever thread consumes
+        the queue: with the scheduler's worker running this waits for the
+        packet's completion, else it drains only this engine's queue.  The
+        blocked time is recorded as ``DISPATCH_WAIT``; a packet's error is
+        re-raised here."""
+        if self._hsa_queue is None:
+            return fn(*args, **kwargs)
+        ctx = contextvars.copy_context()
+
+        def call(*a):
+            return ctx.run(fn, *a, **kwargs)
+
+        call.__name__ = name
+        pkt = self._hsa_queue.call(call, *args, producer=self._producer)
+        t0 = time.perf_counter_ns()
+        sched = self._hsa_scheduler
+        if getattr(sched, "running", False):
+            # the worker thread owns the consume side: never run the
+            # cooperative loop concurrently, just wait for completion (and
+            # give up if the worker itself dies)
+            while not pkt.completion.wait_eq(0, timeout=0.5):
+                if sched.worker_error is not None:
+                    raise RuntimeError("the HSA scheduler's worker thread died "
+                                       "under a serving launch") from sched.worker_error
+        else:
+            # drain only our queue: another tenant's dep-blocked packet must
+            # not wedge (or deadlock) a decode step
+            sched.drain(self._hsa_queue)
+        if self._hsa_queue.ledger is not None:
+            # the producer-blocked leg of the packet round trip (overlaps the
+            # device execution it waits on; subtract EXEC for pure overhead)
+            self._hsa_queue.ledger.record(
+                ledger_mod.DISPATCH_WAIT, (time.perf_counter_ns() - t0) * 1e-9,
+                queue=self._hsa_queue.name, producer=self._producer, what=name,
+            )
+        if pkt.out.error is not None:
+            raise pkt.out.error
+        return pkt.out.value
+
+    def _record_memory(self) -> None:
+        """Reserved and used KV bytes into the ledger (dense: every live
+        slot's ``max_len`` rows; paged: its mapped pages), as the JAX engine
+        records them; none for a recurrent cache.  The host arena's half
+        waits for its slice (8f)."""
+        if self._token_bytes == 0 and self._cache is not None and self._cache_keys == {"k", "v"}:
+            self._token_bytes = paged_mod.pool_token_bytes(self._cache)
+        if self.ledger is None or self._token_bytes == 0:
+            return
+        used = sum(int(self._pos[s]) for s in self._active) * self._token_bytes
+        if self.paged:
+            reserved = int(self._mapped.sum()) * self.page_size * self._token_bytes
+        else:
+            reserved = len(self._active) * self.max_len * self._token_bytes
+        self.ledger.record_memory(reserved_bytes=reserved, used_bytes=used)
 
     def submit(self, prompt: list[int], max_new_tokens: int = 32) -> int:
         """Queue a request; its uid."""
@@ -375,9 +456,9 @@ class ServeEngine:
         if rows is not None:
             fix_cache = {"pos": torch.tensor([n - 1], dtype=torch.int32, device=self.device),
                          **rows}
-            logits, _ = self.model.decode_step(
-                self.params, torch.as_tensor(req.prompt[-1:][None, :], device=self.device),
-                fix_cache,
+            logits, _ = self._launch(
+                "prefill_fixup", self.model.decode_step, self.params,
+                torch.as_tensor(req.prompt[-1:][None, :], device=self.device), fix_cache,
             )
             self.fixup_calls += 1
         tok = int(torch.argmax(logits[0]))
@@ -388,8 +469,9 @@ class ServeEngine:
         n = len(req.prompt)
         pad = max(0, self.bucket_len(n, self.max_len) - n) if self.bucket_prompts else 0
         tokens = np.pad(req.prompt, (0, pad)) if pad else req.prompt
-        logits, cache = self.model.prefill(
-            self.params, {"tokens": torch.as_tensor(tokens[None, :], device=self.device)},
+        logits, cache = self._launch(
+            "prefill", self.model.prefill, self.params,
+            {"tokens": torch.as_tensor(tokens[None, :], device=self.device)},
             cache_len=self.max_len,
         )
         self.prefill_calls += 1
@@ -464,7 +546,8 @@ class ServeEngine:
         else:
             cache = entry.staging
         toks = torch.as_tensor(entry.tokens[None, start:start + size], device=self.device)
-        logits, _ = self.model.prefill_chunk(self.params, toks, cache, start=start)
+        logits, _ = self._launch("prefill_chunk", self.model.prefill_chunk, self.params, toks,
+                                 cache, start=start)
         self.chunk_calls += 1
         entry.filled += size
         if entry.filled >= b:
@@ -552,7 +635,9 @@ class ServeEngine:
                 tbl[list(self._prefilling)] = paged_mod.TRASH_PAGE
             # one upload of the whole table per launch, read by every layer
             table = torch.as_tensor(tbl, device=self.device)
-        toks, valid = self._fused_decode(k, active, remaining, table)
+        # one packet a fused launch, named as the JAX engine names it
+        name = f"decode_fused_k{k}" + ("_paged" if self.paged else "")
+        toks, valid = self._launch(name, self._fused_decode, k, active, remaining, table)
         self.decode_tokens += int(valid.sum())
         finished = []
         for slot, req in list(self._active.items()):
@@ -602,8 +687,17 @@ class ServeEngine:
             now = self.clock.now()
             for req in self._first_this_step:
                 req.first_token_t = now
+                if self.ledger is not None:
+                    self.ledger.record(ledger_mod.TTFT, now - req.arrival_t,
+                                       producer=self._producer, uid=req.uid)
             for req in finished:
                 req.finish_t = now
+                if self.ledger is not None:
+                    self.ledger.record(
+                        ledger_mod.TPOT,
+                        (req.finish_t - req.first_token_t) / max(1, len(req.generated) - 1),
+                        producer=self._producer, uid=req.uid)
+            self._record_memory()
             return finished
 
     def _chunk_phase(self) -> None:

@@ -19,7 +19,9 @@ returned a new tree; a chunked prefill writes the pool from inside the model
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
+import numpy as np
 import torch
 
 TRASH_PAGE = 0
@@ -288,3 +290,40 @@ def pool_token_bytes(cache: dict) -> int:
         leaf = cache[key]
         total += leaf.numel() // (leaf.shape[1] * leaf.shape[-2]) * leaf.element_size()
     return total
+
+
+def _leaves(tree) -> list:
+    """The array leaves of a nested dict/list/tuple, in ``jax.tree.leaves``
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        # numpy has no bfloat16: digest and flip its raw 16-bit words
+        return (leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    return np.asarray(leaf)
+
+
+def tree_digest(tree) -> bytes:
+    """Content digest of a whole tree of tensors (a KV snapshot or any
+    payload), leaf-order dependent like the tree itself."""
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in _leaves(tree):
+        h.update(_host(leaf).tobytes())
+    return h.digest()
+
+
+def flip_tree(tree):
+    """Copy of ``tree``'s leaves on the host with one byte flipped in the
+    first leaf — the injector's model of a DMA that completes but delivers
+    wrong bytes."""
+    out = [_host(leaf).copy() for leaf in _leaves(tree)]
+    if out:
+        out[0].view(np.uint8).reshape(-1)[0] ^= 0xFF
+    return out

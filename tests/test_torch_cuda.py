@@ -19,7 +19,11 @@ that drops a key tile; the kernels' own rounding (P to bf16 for P V, the bf16
 output) reads a few 1e-3.  The ssd kernel is held the same way: each y row
 (one head of one token) within 1e-2 relative L2 of the plain row, and each
 head's final f32 state within 1e-3 (both sides run the same f32 algebra and
-differ in summation order; y is rounded to bf16).
+differ in summation order; y is rounded to bf16).  conv2d is held exactly
+for int16 inputs (int32 sums, wrapping past 2^31 on both sides) and within
+2e-4 for f32; the f32 matmul within 2e-4 (full f32 FMAs against torch's f32
+product with TF32 off: reordering only).  Fixed-weight roles are held
+bitwise to their generic kernels: they launch the same kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.kernels import conv2d as conv_k
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as mm_k
@@ -169,7 +174,7 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     mm_k.matmul(x, w)
     assert mm_k.launches == before + 1
     with pytest.raises(TypeError):
-        mm_k.matmul(x.float(), w.float())
+        mm_k.matmul(x.float(), w)                    # f32 with bf16: no kernel takes the mix
     with pytest.raises(ValueError):
         mm_k.matmul(x.t(), w)                        # not contiguous
     with pytest.raises(ValueError):
@@ -441,3 +446,147 @@ def test_small_mamba_cuda_strict_matches_the_torch_source(cuda):
         assert float((got - want).norm() / want.norm()) < 5e-2
     want, got = out["torch"][1], out["cuda-strict"][1]
     assert float((got - want).norm() / want.norm()) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# conv2d (paper roles 3 and 4) and the f32 matmul (the FC roles)
+# ---------------------------------------------------------------------------
+
+F32_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def _conv_inputs(gen, device, B, H, W, Cin, kh, kw, F, dtype, hi=100):
+    if dtype == torch.int16:
+        whi = 8 if hi <= 100 else hi          # the paper's small filter taps, or extremes
+        x = torch.randint(-hi, hi, (B, H, W, Cin), generator=gen, device=device)
+        w = torch.randint(-whi, whi, (kh, kw, Cin, F), generator=gen, device=device)
+        return x.to(torch.int16), w.to(torch.int16)
+    return (torch.randn((B, H, W, Cin), generator=gen, device=device),
+            torch.randn((kh, kw, Cin, F), generator=gen, device=device))
+
+
+@pytest.mark.parametrize("B,H,W,Cin,kh,kw,F,dtype", [
+    (1, 64, 64, 1, 5, 5, 1, torch.int16), (1, 64, 64, 1, 3, 3, 2, torch.int16),
+    (256, 64, 64, 1, 3, 3, 2, torch.int16), (2, 20, 20, 4, 3, 3, 8, torch.float32),
+    (1, 32, 32, 1, 5, 5, 1, torch.float32), (3, 17, 45, 3, 2, 4, 11, torch.int16),
+    (2, 40, 70, 70, 3, 3, 9, torch.float32), (1, 9, 9, 2, 7, 7, 1, torch.float32),
+])
+def test_conv2d_matches_plain(cuda, B, H, W, Cin, kh, kw, F, dtype):
+    x, w = _conv_inputs(_gen(cuda), cuda, B, H, W, Cin, kh, kw, F, dtype)
+    got, want = conv_k.conv2d(x, w), conv_k.plain_conv2d(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.int16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def test_conv2d_int32_sums_wrap(cuda):
+    x, w = _conv_inputs(_gen(cuda, 1), cuda, 1, 16, 16, 1, 5, 5, 2, torch.int16, hi=32767)
+    exact = conv_k.plain_conv2d(x.long(), w.long())
+    assert exact.abs().max() > 2**31
+    assert torch.equal(conv_k.conv2d(x, w), conv_k.plain_conv2d(x, w))
+
+
+@pytest.mark.parametrize("kh,F", [(5, 1), (3, 2)])
+def test_conv2d_fixed_weight_is_bitwise_generic(cuda, kh, F):
+    x, w = _conv_inputs(_gen(cuda, 2), cuda, 4, 64, 64, 1, kh, kh, F, torch.int16)
+    fixed = conv_k.conv2d_fixed_weight(w.cpu()).bind(cuda)
+    assert fixed.weight.device.type == "cuda"
+    assert torch.equal(fixed(x), conv_k.conv2d(x, w))
+
+
+def test_conv2d_wrapper_counts_launches_and_refuses_bad_input(cuda):
+    x, w = _conv_inputs(_gen(cuda), cuda, 1, 16, 16, 1, 3, 3, 2, torch.int16)
+    before = conv_k.launches
+    conv_k.conv2d(x, w)
+    assert conv_k.launches == before + 1
+    with pytest.raises(TypeError):
+        conv_k.conv2d(x.to(torch.int32), w.to(torch.int32))
+    with pytest.raises(TypeError):
+        conv_k.conv2d(x, w.float())
+    with pytest.raises(ValueError):
+        conv_k.conv2d(x[:, :2], w)
+    assert conv_k.launches == before + 1
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (2048, 2048, 2048), (100, 260, 132),
+                                   (1, 64, 8), (8, 4096, 12), (300, 20, 4)])
+@pytest.mark.parametrize("activation", [None, "silu", "gelu"])
+def test_f32_matmul_matches_plain(cuda, m, k, n, activation):
+    g = _gen(cuda, m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    before = mm_k.f32_launches
+    got = mm_k.matmul(x, w, activation=activation)
+    want = mm_k.plain_matmul(x, w, activation=activation)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and mm_k.f32_launches == before + 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def test_matmul_fixed_weight_is_bitwise_matmul(cuda):
+    g = _gen(cuda, 9)
+    x = torch.randn((256, 256), generator=g, device=cuda)
+    w = torch.randn((256, 256), generator=g, device=cuda)
+    fixed = mm_k.matmul_fixed_weight(w.cpu()).bind(cuda)
+    before = (mm_k.fixed_launches, mm_k.f32_launches)
+    assert torch.equal(fixed(x), mm_k.matmul(x, w))
+    assert (mm_k.fixed_launches, mm_k.f32_launches) == (before[0] + 1, before[1] + 2)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    assert torch.equal(mm_k.matmul_fixed_weight(wb.cpu()).bind(cuda)(xb), mm_k.matmul(xb, wb))
+    with pytest.raises(TypeError):
+        mm_k.matmul(x, w, out_dtype=torch.bfloat16)
+
+
+def test_matmul_fixed_weight_counts_no_launch_for_empty_rows(cuda):
+    """M == 0 launches nothing, so no launch counter moves, the fixed role's
+    included."""
+    w = torch.randn((256, 128), generator=_gen(cuda, 10), device=cuda)
+    fixed = mm_k.matmul_fixed_weight(w.cpu()).bind(cuda)
+    before = (mm_k.fixed_launches, mm_k.f32_launches)
+    out = fixed(torch.empty((0, 256), device=cuda))
+    assert out.shape == (0, 128) and out.dtype == torch.float32
+    assert (mm_k.fixed_launches, mm_k.f32_launches) == before
+
+
+def test_paper_roles_on_the_card_through_the_hsa_queue(cuda):
+    """hsa_init on the card (its default), the four paper roles through two
+    regions with the worker thread running: outputs equal their plain
+    versions and the launch counters equal the packets plus the loads'
+    warm-up launches."""
+    from repro_torch import paper_roles
+    from repro_torch.core import hsa
+    from repro_torch.core.ledger import OverheadLedger
+
+    hsa.hsa_shut_down()
+    sys_ = hsa.hsa_init(num_regions=2, ledger=OverheadLedger())
+    try:
+        agent = sys_.default_agent
+        assert agent.kind == "gpu" and agent.regions[0].size_bytes > 0
+        roles = paper_roles.make_paper_roles(sys_.library, seed=0)
+        sys_.library.synthesize_all()
+        sched = sys_.scheduler_of(agent)
+        q = sys_.queue_of(agent)
+        sched.start()
+        before = (conv_k.launches, mm_k.f32_launches)
+        order = ["role1_fc", "role3_conv5x5", "role4_conv3x3", "role2_fc_barrier",
+                 "role3_conv5x5", "role1_fc"]
+        pkts = [(n, q.dispatch(roles[n][0].key, *roles[n][1], producer="opencl")) for n in order]
+        for n, pkt in pkts:
+            assert pkt.completion.wait_eq(0, timeout=60) and pkt.out.error is None, n
+        sched.stop()
+        for n, pkt in pkts:
+            role, args = roles[n]
+            if n.startswith("role3") or n.startswith("role4"):
+                assert torch.equal(pkt.out.value, conv_k.plain_conv2d(args[0], role.impl.fn.weight.to(cuda)))
+            else:
+                torch.testing.assert_close(pkt.out.value, mm_k.plain_matmul(*args), **F32_TOL)
+        loads = {n: roles[n][0].load_count for n in roles}
+        conv_pkts = sum(n.startswith("role3") or n.startswith("role4") for n in order)
+        assert conv_k.launches - before[0] == conv_pkts + loads["role3_conv5x5"] + loads["role4_conv3x3"]
+        assert mm_k.f32_launches - before[1] == len(order) - conv_pkts + loads["role1_fc"] \
+            + loads["role2_fc_barrier"]
+    finally:
+        hsa.hsa_shut_down()

@@ -38,6 +38,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.serve.paged, repro_torch.core.policy\n"
         "import repro_torch.kernels.paged_decode_attention, repro_torch.kernels.ssd\n"
         "import repro_torch.models.ssm, repro_torch.configs.mamba2_780m\n"
+        "import repro_torch.core, repro_torch.core.hsa, repro_torch.core.ledger\n"
+        "import repro_torch.core.roles, repro_torch.core.reconfig\n"
+        "import repro_torch.core.hsa.scheduler, repro_torch.core.hsa.runtime\n"
+        "import repro_torch.kernels.conv2d, repro_torch.paper_roles\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -191,3 +195,28 @@ def test_bucket_len_is_the_next_power_of_two_capped():
     assert [ServeEngine.bucket_len(n, 1024) for n in (1, 5, 8, 9, 64, 300, 600, 1024)] == \
         [8, 8, 8, 16, 64, 512, 1024, 1024]
     assert ServeEngine.bucket_len(700, 512) == 512
+
+
+def test_hsa_runtime_raises_without_a_card_unless_given_the_cpu():
+    """``hsa_init()`` and ``Agent.discover()`` run on the card by default;
+    without one they raise, and the CPU runs them only when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core import hsa
+
+    hsa.hsa_shut_down()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hsa.Agent.discover()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hsa.hsa_init()
+    with pytest.raises(RuntimeError, match="hsa_init"):
+        hsa.hsa_system()
+    (agent,) = hsa.Agent.discover(device="cpu")
+    assert agent.kind == "cpu" and agent.name == "cpu:0"
+    assert agent.regions[0].kind == "global" and agent.regions[0].bandwidth_bps == 0.0
+    sys_ = hsa.hsa_init(num_regions=2, device="cpu")
+    try:
+        assert hsa.hsa_system() is sys_ and sys_.default_agent is sys_.agents[0]
+        assert sys_.queue_of(sys_.default_agent).name == "cpu:0/q0"
+    finally:
+        hsa.hsa_shut_down()

@@ -4,13 +4,16 @@ The script holds each attention kernel to its plain version row by row
 (relative L2 over the head dim) and reads a planted fault — one key tile
 dropped, or for paged attention one page remapped — by the same measure,
 and the ssd kernel per output row and per head's final state beside a
-planted fault that zeroes the carried state at a chunk boundary; these
+planted fault that zeroes the carried state at a chunk boundary, and the
+paper-role kernels (conv2d, the f32 matmul) exactly or within 2e-4 beside
+a planted fault (a filter tap or a K tile dropped); these
 tests show, at a small size, that the plain versions pass those checks,
 that the planted faults lie beyond their limits and fail them, that the
 model phases run the engine's calls (and, for llama, chunked prefill), that
 the serve phases' runs give the launch counts they check (with the kernels'
-plain versions counted as launches), and that the script refuses to run
-without a card.  This file imports no JAX.
+plain versions counted as launches), that the tenants phase serves through
+the HSA queue beside the paper's four roles with every check it makes on
+the card passing, and that the script refuses to run without a card.  This file imports no JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import dispatch
 from repro_torch.core.registry import KernelImpl, KernelRegistry
+from repro_torch.kernels import conv2d as conv_k
 from repro_torch.kernels import decode_attention as dec_k
 from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import matmul as mm_k
@@ -278,3 +282,93 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          timeout=120, cwd=script.parent)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the paper-role kernels' checks and the tenants phase
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_role_check_passes_plain_conv_and_sees_a_dropped_tap(dtype):
+    gen = torch.Generator().manual_seed(21)
+    if dtype == torch.int16:
+        x = torch.randint(-100, 100, (1, 64, 64, 1), generator=gen).to(dtype)
+        w = torch.randint(-8, 8, (5, 5, 1, 1), generator=gen).to(dtype)
+    else:
+        x, w = torch.randn((1, 32, 32, 1), generator=gen), torch.randn((3, 3, 1, 1), generator=gen)
+    faulted = w.clone()
+    faulted[tuple(int(i) for i in (w != 0).nonzero()[0])] = 0
+    want, fault = conv_k.plain_conv2d(x, w), conv_k.plain_conv2d(x, faulted)
+    check = cs.role_err(torch, ref.conv2d(x, w), want, fault, cs.TOL_ROLE_F32)
+    assert check["planted_fault_min_max_abs_err"] > 0
+    with pytest.raises(AssertionError, match="differs|disagrees"):
+        cs.role_err(torch, fault, want, fault, cs.TOL_ROLE_F32)
+    with pytest.raises(AssertionError, match="cannot see"):
+        cs.role_err(torch, want, want, want.clone(), cs.TOL_ROLE_F32)
+
+
+def test_role_check_sees_a_dropped_k_tile_in_the_f32_matmul():
+    gen = torch.Generator().manual_seed(22)
+    x, w = torch.randn((256, 256), generator=gen), torch.randn((256, 256), generator=gen)
+    xf = x.clone()
+    xf[:, 16:32] = 0
+    want = mm_k.plain_matmul(x, w)
+    check = cs.role_err(torch, mm_k.matmul(x, w), want, mm_k.plain_matmul(xf, w),
+                        cs.TOL_ROLE_F32)
+    assert check["max_abs_err"] <= 1e-3 and check["planted_fault_min_max_abs_err"] > 1
+    assert cs.conv_work(1, 64, 64, 1, 5, 5, 1, 2) == ((64 * 64 + 25) * 2 + 60 * 60 * 4,
+                                                      2 * 60 * 60 * 25)
+
+
+def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
+    """The tenants phase on a small model on the CPU: the engine's streams
+    through the tf-serving queue equal a direct run's, the opencl tenant's
+    role packets equal their plain versions, the planner runs on measured
+    costs, and the launch counts it checks hold (plain versions counted as
+    launches: through the engine's registry for its kernels, through the
+    wrappers for the paper roles)."""
+    from repro_torch.core.registry import GLOBAL_REGISTRY
+
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    plain_conv = conv_k.conv2d
+
+    def counted_conv(x, w):
+        conv_k.launches += 1
+        return plain_conv(x, w)
+
+    def counted_f32(x, w, **kw):
+        mm_k.f32_launches += 1
+        return mm_k.plain_matmul(x, w, **kw)
+
+    def counted_fixed(self, x):
+        mm_k.fixed_launches += 1
+        return counted_f32(x, self.weight, out_dtype=self.out_dtype, activation=self.activation)
+
+    monkeypatch.setattr(conv_k, "conv2d", counted_conv)
+    monkeypatch.setattr(mm_k.FixedWeightMatmul, "__call__", counted_fixed)
+    snap = GLOBAL_REGISTRY.snapshot()
+    GLOBAL_REGISTRY.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda",
+                                        fn=counted_f32), allow_override=True)
+    try:
+        with dispatch.use(registry=_counting_registry()):
+            _, prompts = cs.serve_prompts(torch, cfg.vocab_size, 0)
+            direct, streams = cs.serve_run(torch, model, params, kernels, prompts[:6],
+                                           batch_slots=8)
+            monkeypatch.setattr(cs, "serve_prompts", lambda *a: (None, prompts[:6]))
+            res = cs.tenants_phase(torch, model, params, kernels, 0, streams)
+    finally:
+        GLOBAL_REGISTRY.restore(snap)
+    assert set(res["plans_budget_4"]) == {3, 8, 16}
+    assert res["opencl_packets"]["conv"] >= 6 and res["opencl_packets"]["fixed_fc"] >= 1
+    assert res["launches"]["conv2d"] >= res["opencl_packets"]["conv"]
+    assert res["queues"]["tf-serving"]["dispatched"] == (
+        res["run"]["prefill_calls"] + res["run"]["fixup_calls"] + res["run"]["decode_calls"])
+    assert res["residency"]["misses"] > 0 and res["opencl_exec_between_tf_packets"] > 0
+    assert res["run"]["launches"] == res["routed_alone"]["launches"] == direct["launches"] \
+        == res["direct_before"]["launches"] == res["direct_after"]["launches"]
+    assert len(res["routed_vs_direct"]["decode_tokens_per_s"]) == 4
+    assert set(res["ledger_by_queue"]) >= {"tf-serving", "opencl"}
