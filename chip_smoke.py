@@ -12,12 +12,14 @@ script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (six sources, eight kernels) and print what
-   ptxas reports for each.
+   ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
+   instructions in each bf16 matmul kernel (``cuobjdump``; none fails).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
    serving paths and the paper's roles give it, within the tolerance stated
    below (attention row by row, ssd per row and per head's state, conv2d
-   and the f32 matmul exactly or within 2e-4, each beside what a planted
-   fault reads by the same measure); timed with CUDA events beside its
+   and the f32 matmul exactly or within 2e-4, the bf16 matmul within 2e-2,
+   each beside what a planted fault reads by the same measure; rmsnorm in
+   bf16 and f32); timed with CUDA events beside its
    plain version and one PyTorch library call where there is one (for
    paged attention, which no one call computes, a gather and SDPA; for ssd
    and int16 conv2d none), and its bound (the larger of bytes / 3.35 TB/s
@@ -38,7 +40,9 @@ script exits non-zero:
    requests at once.  Every kernel's launch count is read from each run
    alone (counts set to 0 just before it) and checked against the model
    calls the engine made.  Then the card's busy share over four dense
-   decode steps, from a torch.profiler trace.
+   decode steps, and over one step that prefills a 600-token prompt (the
+   1024 bucket) with the bf16 matmul kernels' part, from torch.profiler
+   traces.
 5. tenants: ``hsa_init(num_regions=2)`` on the card and its async
    scheduler's worker thread; the "tf-serving" queue carries the 16
    requests through a dense 8-slot engine (streams must equal phase 4's
@@ -68,6 +72,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +183,28 @@ def max_err(torch, got, want, tol) -> dict:
         raise AssertionError(f"kernel disagrees with its plain version: max |diff| "
                              f"{float(diff.max())} beyond atol={atol}, rtol={rtol}")
     return {"max_abs_err": float(diff.max()), "tolerance": f"atol={atol} rtol={rtol}"}
+
+
+def drop_last_k_tile(x, bk: int = 64):
+    """x with its last ``bk``-deep K slice zeroed: fed to the bf16 matmul,
+    its output is the kernel's with its last K tile dropped."""
+    xf = x.clone()
+    xf[..., (x.shape[-1] - 1) // bk * bk:] = 0
+    return xf
+
+
+def matmul_err(torch, got, want, fault, tol) -> dict:
+    """``max_err`` of a bf16 matmul, beside its planted fault (the output
+    with the last K tile dropped), which must lie beyond the limit in some
+    element: 64 of K = 2048 terms move an O(1) output by about 0.18."""
+    check = max_err(torch, got, want, tol)
+    atol, rtol = tol
+    diff = (fault.float() - want.float()).abs()
+    if not bool((diff > atol + rtol * want.float().abs()).any()):
+        raise AssertionError(f"a dropped last K tile reads {float(diff.max())}, within the "
+                             "limit: the check cannot see it")
+    check["planted_fault_min_max_abs_err"] = float(diff.max())
+    return check
 
 
 def row_rel_l2(torch, got, want):
@@ -430,11 +457,15 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
             k_sets = n_sets(2 * (M * K + K * N))
             sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(k_sets)]
             x, w = sets[0]
+            fault = mm_k.matmul(drop_last_k_tile(x), w)
             for act in (None, "silu"):
                 for out in (torch.bfloat16, torch.float32):
                     tol = TOL_F32 if out == torch.float32 else TOL_BF16
-                    check = max_err(torch, mm_k.matmul(x, w, activation=act, out_dtype=out),
-                                    mm_k.plain_matmul(x, w, activation=act, out_dtype=out), tol)
+                    got = mm_k.matmul(x, w, activation=act, out_dtype=out)
+                    want = mm_k.plain_matmul(x, w, activation=act, out_dtype=out)
+                    check = (matmul_err(torch, got, want, fault, tol)
+                             if act is None and out == torch.bfloat16 else
+                             max_err(torch, got, want, tol))
                     timed = out == torch.bfloat16 and (act is None or N == 8192)
                     record(
                         "matmul", f"[{M},{K}]x[{K},{N}] act={act} out={str(out)[6:]}", check,
@@ -443,7 +474,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                         lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
                         (lambda a, b: torch.matmul(a, b)) if act is None else None,
                         2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
-            del sets, x, w
+            del sets, x, w, fault
 
     # mamba2-780m's two weight shapes (in_proj [1536, 6448], out_proj
     # [3072, 1536]) at its row counts: 3 and 8 (decode steps of the model
@@ -454,7 +485,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
             k_sets = n_sets(2 * (M * K + K * N))
             sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(k_sets)]
             x, w = sets[0]
-            check = max_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w), TOL_BF16)
+            check = matmul_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
+                               mm_k.matmul(drop_last_k_tile(x), w), TOL_BF16)
             record("matmul", f"[{M},{K}]x[{K},{N}] act=None out=bfloat16", check,
                    sets if M in (8, 600) else None, mm_k.matmul, mm_k.plain_matmul,
                    torch.matmul, 2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
@@ -471,6 +503,18 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                sets if D == 2048 or R in (8, 600) else None, rms_k.rmsnorm, rms_k.plain_rmsnorm,
                lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
                2 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
+
+    # rmsnorm in f32 (the kernel's f32 instantiation; the Pallas kernel takes
+    # any dtype) at llama's decode rows, within the f32 tolerance of the JAX
+    # package's own test
+    R, D = 8, 2048
+    sets = [(torch.randn((R, D), generator=gen, device=dev),
+             torch.randn((D,), generator=gen, device=dev)) for _ in range(n_sets(8 * R * D))]
+    check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_ROLE_F32)
+    record("rmsnorm", f"[{R},{D}] f32", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+           lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+           4 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
+    del sets
 
     # flash attention: prefill of every bucket the serve runs fill (8 ..
     # 1024 rows; 512 also non-causal), and S < T: the 128-row chunks of
@@ -1476,6 +1520,74 @@ def busy_phase(torch, model, params, seed: int) -> dict:
     return res
 
 
+def prefill_busy(torch, model, params, seed: int) -> dict:
+    """Where one prefill's time goes: a 600-token prompt (the 1024 bucket)
+    into an idle 1-slot engine, after one such prefill as a warm-up; device
+    kernel time from a torch.profiler trace of the step that prefills it
+    (the prefill, its first-token fixup and one decode), the bf16 matmul
+    kernels' share of it, and the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dispatch
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = torch.Generator().manual_seed(seed + 4)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        eng = ServeEngine(model, params, batch_slots=1, max_len=1024, device=model.device)
+        for rep in range(2):
+            eng.submit(torch.randint(0, model.cfg.vocab_size, (600,), generator=rng).tolist(),
+                       max_new_tokens=2)
+            torch.cuda.synchronize()
+            if rep == 0:
+                while eng.step() == []:
+                    pass
+                continue
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    mm_us = sum(e.self_device_time_total for e in events
+                if "mm_tile_kernel" in e.key or "mm_stream_kernel" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    res = {"prompt": 600, "bucket": 1024, "wall_us": wall_us,
+           "device_busy_us": busy_us if events else None,
+           "bf16_matmul_device_us": mm_us if events else None,
+           "device_busy_share": busy_us / wall_us if events else None,
+           "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
+    print("  " + json.dumps(res))
+    return res
+
+
+def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
+    """The count of wgmma (HGMMA) and TMA load (UTMALDG) instructions in each
+    bf16 matmul kernel of the built library, from ``cuobjdump --dump-sass``
+    (the one beside nvcc); raises unless every one has both."""
+    lib = native.build_all()["matmul"]
+    cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            # _ZN..mm_tile_kernelILi128ELi256EEEv.. -> mm_tile_kernel<128,256>
+            m = re.search(r"(mm_(?:tile|stream)_kernel)I((?:Li\d+E)+)", line)
+            fn = None
+            if m:
+                fn = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += op in line
+    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
+        raise AssertionError(f"bf16 matmul kernels without wgmma or TMA loads: {counts}")
+    return counts
+
+
 def print_runs(runs: dict, card: str, smi: str) -> None:
     for name, run in runs.items():
         held = (f"recurrent state held {run['state_bytes']} bytes" if "state_bytes" in run
@@ -1523,8 +1635,11 @@ def main() -> int:
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = bf16_matmul_sass(native)
+    for fn, counts in sass.items():
+        print(f"  matmul SASS {fn}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
 
     print(f"[2/7] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
@@ -1543,6 +1658,8 @@ def main() -> int:
           f"{serve_res['chunked_streams_equal_dense']}")
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     busy_res = busy_phase(torch, model, params, args.seed)
+    print("  where a 1024-bucket prefill's time goes (torch.profiler, CUDA activity):")
+    prefill_res = prefill_busy(torch, model, params, args.seed)
 
     print("[5/7] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
@@ -1593,6 +1710,9 @@ def main() -> int:
                 for name, mod, replaces in (("matmul_f32", mm_k, mm_k.REPLACES),
                                             ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
                                             ("conv2d", conv_k, conv_k.REPLACES))]
+    # the bf16 matmul's prefill row beside its decode headline
+    prefill_row = next(r for r in rows if r["name"] == "matmul"
+                       and r["shape"] == "[1024,2048]x[2048,8192] act=None out=bfloat16")
     summary = []
     for name, mod, replaces, by_run in entries:
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
@@ -1608,12 +1728,16 @@ def main() -> int:
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": library[name],
+            **({"prefill": {k: prefill_row[k] for k in (
+                "shape", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "sass": sass} if name == "matmul" else {}),
         })
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
             "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
-            "kernel_rows": rows, "model": model_res, "serve": serve_res, "busy": busy_res,
+            "kernel_rows": rows, "matmul_sass": sass, "model": model_res, "serve": serve_res,
+            "busy": busy_res, "prefill_busy": prefill_res,
             "tenants": tenants_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "summary": summary,

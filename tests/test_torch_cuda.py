@@ -82,7 +82,10 @@ def _attn_close(got, want):
                                    (512, 2048, 8192), (100, 256, 136), (1, 64, 8),
                                    (1, 2048, 8192), (1, 8192, 2048),      # first-token fixup
                                    (1024, 2048, 8192), (1024, 8192, 2048),   # 1024 bucket
-                                   (16, 2048, 8192), (128, 8192, 2048)])     # 16 slots, chunk
+                                   (16, 2048, 8192), (128, 8192, 2048),      # 16 slots, chunk
+                                   (600, 1536, 6448), (600, 3072, 1536),     # mamba2 prefill
+                                   (8, 1536, 6448), (37, 3072, 1536),        # mamba2 decode, prompt
+                                   (64, 2048, 8192), (256, 8192, 2048)])     # chunk, bucket
 @pytest.mark.parametrize("activation", [None, "silu", "gelu"])
 def test_matmul_matches_plain(cuda, m, k, n, activation):
     g = _gen(cuda)
@@ -100,6 +103,65 @@ def test_matmul_batched_leading_dims(cuda):
     got = mm_k.matmul(x, w)
     assert got.shape == (2, 3, 64)
     _close(got, mm_k.plain_matmul(x, w), **BF16_TOL)
+
+
+# shapes whose plan splits K: the split partials are summed in the same launch
+SPLIT_SHAPES = [(8, 8192, 2048), (1, 2048, 512), (37, 3072, 1536), (128, 8192, 2048)]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_matmul_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
+    """A split shape is summed in split order by the last block to finish,
+    so two calls agree bit for bit; and it is one launch: the launch count
+    moves by one a call, and a profiler trace of a call holds one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert mm_k.plan(m, n, k).splits > 1
+    g = _gen(cuda, 7)
+    x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
+    before = mm_k.launches
+    first = mm_k.matmul(x, w, activation="silu")
+    assert mm_k.launches == before + 1
+    second = mm_k.matmul(x, w, activation="silu")
+    assert mm_k.launches == before + 2
+    assert torch.equal(first, second)
+    _close(first, mm_k.plain_matmul(x, w, activation="silu"), **BF16_TOL)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mm_k.matmul(x, w)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "mm_" in kernels[0].name
+
+
+def test_matmul_refuses_a_misaligned_input_before_any_launch(cuda):
+    m, k, n = 8, 2048, 512
+    g = _gen(cuda, 8)
+    x = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)[1:].view(m, k)
+    x.copy_(_randn(g, (m, k), cuda))
+    w = _randn(g, (k, n), cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    before = mm_k.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mm_k.matmul(x, w)
+    assert mm_k.launches == before
+
+
+@pytest.mark.parametrize("shape", [(8, 2048), (512, 2048), (3, 5, 64)])
+def test_rmsnorm_f32_matches_plain(cuda, shape):
+    """The f32 instantiation: f32 x and weight, f32 statistics, within the
+    f32 tolerance of tests/test_kernels.py (2e-4)."""
+    g = _gen(cuda, 9)
+    x = torch.randn(shape, generator=g, device=cuda)
+    w = torch.randn(shape[-1:], generator=g, device=cuda)
+    before = rms_k.launches
+    got = rms_k.rmsnorm(x, w)
+    assert got.dtype == torch.float32 and rms_k.launches == before + 1
+    _close(got, rms_k.plain_rmsnorm(x, w), atol=2e-4, rtol=2e-4)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        assert torch.equal(dispatch.op("rmsnorm", x, w), got)
 
 
 @pytest.mark.parametrize("shape", [(8, 2048), (512, 2048), (3, 5, 64)])

@@ -321,6 +321,59 @@ def test_role_check_sees_a_dropped_k_tile_in_the_f32_matmul():
                                                       2 * 60 * 60 * 25)
 
 
+@pytest.mark.parametrize("K", [2048, 1536, 136])
+def test_matmul_check_sees_the_last_k_tile_dropped(K):
+    gen = torch.Generator().manual_seed(23)
+    x, w = _randn(gen, 8, K), (torch.randn(K, 512, generator=gen) * K ** -0.5).to(torch.bfloat16)
+    xf = cs.drop_last_k_tile(x)
+    last = (K - 1) // 64 * 64
+    assert torch.equal(xf[:, :last], x[:, :last]) and not xf[:, last:].any()
+    want = mm_k.plain_matmul(x, w)
+    fault = mm_k.plain_matmul(xf, w)
+    check = cs.matmul_err(torch, mm_k.matmul(x, w), want, fault, cs.TOL_BF16)
+    assert check["max_abs_err"] == 0 and check["planted_fault_min_max_abs_err"] > 0.1
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs.matmul_err(torch, fault, want, fault, cs.TOL_BF16)
+    with pytest.raises(AssertionError, match="cannot see"):
+        cs.matmul_err(torch, want, want, want.clone(), cs.TOL_BF16)
+
+
+def test_sass_count_reads_each_bf16_kernel_and_refuses_one_without_wgmma(monkeypatch):
+    sass = """
+        Function : _ZN41_GLOBAL__N__1_matmul_cu_2_14mm_tile_kernelILi128ELi256EEEv14CUtensorMap_st
+        /*0100*/ UTMALDG.2D [UR8], [UR4] ;
+        /*0200*/ HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], RZ ;
+        /*0210*/ HGMMA.64x256x16.F32.BF16 R24, gdesc[UR12], R24 ;
+        Function : _ZN41_GLOBAL__N__1_matmul_cu_2_16mm_stream_kernelILi8EEEv14CUtensorMap_st
+        /*0100*/ UTMALDG.2D [UR8], [UR4] ;
+        /*0200*/ HGMMA.64x8x16.F32.BF16 R24, gdesc[UR8], RZ ;
+        Function : _ZN41_GLOBAL__N__1_matmul_cu_2_13mm_f32_kernelEPKfS1_PfS2_iiiii
+        /*0100*/ FFMA R1, R2, R3, R1 ;
+"""
+
+    class Native:
+        def build_all(self):
+            return {"matmul": Path("libmatmul.so")}
+
+        def _nvcc(self):
+            return "/cuda/bin/nvcc"
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr="")
+
+    monkeypatch.setattr(cs.subprocess, "run", run)
+    counts = cs.bf16_matmul_sass(Native())
+    assert calls[0][:2] == ["/cuda/bin/cuobjdump", "--dump-sass"]
+    assert counts == {"mm_tile_kernel<128,256>": {"HGMMA": 2, "UTMALDG": 1},
+                      "mm_stream_kernel<8>": {"HGMMA": 1, "UTMALDG": 1}}
+    sass = sass.replace("HGMMA.64x8x16", "HMMA.16816")
+    with pytest.raises(AssertionError, match="without wgmma"):
+        cs.bf16_matmul_sass(Native())
+
+
 def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
     """The tenants phase on a small model on the CPU: the engine's streams
     through the tf-serving queue equal a direct run's, the opencl tenant's
