@@ -3,29 +3,34 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
-Serves ``llama3.2-1b`` and ``mamba2-780m`` at full width and depth, with
-weights drawn from ``--seed`` on the card, through the port's own entry
-points under the ``cuda-strict`` policy, so every op on the path runs a
-hand-written kernel, and runs the paper's two tenants on the card through
-the port's HSA runtime.  Phases, in order; any failure raises and the
-script exits non-zero:
+Serves ``llama3.2-1b`` and ``mamba2-780m`` at full width and depth, and
+runs ``granite-3-8b`` (head_dim 128, an untied unembed over 49155 tokens) at
+full width and GRANITE_DEPTH layers, with weights drawn from ``--seed`` on
+the card, through the port's own entry points under the ``cuda-strict``
+policy, so every op on the path runs a hand-written kernel, and runs the
+paper's two tenants on the card through the port's HSA runtime.  Phases, in
+order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (six sources, eight kernels) and print what
+   ``src/repro_torch/csrc`` (six sources, nine kernels) and print what
    ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in each bf16 matmul kernel (``cuobjdump``; none fails).
+   instructions in each bf16 matmul kernel and each flash attention
+   instance (``cuobjdump``; none fails).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving paths and the paper's roles give it, within the tolerance stated
-   below (attention row by row, ssd per row and per head's state, conv2d
-   and the f32 matmul exactly or within 2e-4, the bf16 matmul within 2e-2,
-   each beside what a planted fault reads by the same measure; rmsnorm in
-   bf16 and f32); timed with CUDA events beside its
-   plain version and one PyTorch library call where there is one (for
-   paged attention, which no one call computes, a gather and SDPA; for ssd
-   and int16 conv2d none), and its bound (the larger of bytes / 3.35 TB/s
-   and operations / peak rate).  The paged kernel must also equal the dense
-   kernel on the gathered cache bit for bit, and the fixed-weight roles
-   (``matmul_fixed_weight``, ``conv2d_fixed_weight``) their generic kernels.
+   serving paths and the paper's roles give it, the attention kernels at
+   head_dim 64 and 128 (flash also split over 2-4 blocks a tile, under a
+   window, ragged), within the tolerance stated below (attention row by
+   row, ssd per row and per head's state, conv2d and the f32 matmul
+   exactly or within 2e-4, the bf16 matmul within 2e-2, each beside what a
+   planted fault reads by the same measure; rmsnorm in bf16 and f32; the
+   matmul edge kernel at the untied unembeds' shapes, N not a multiple of
+   8); timed with CUDA events beside its plain version and one PyTorch
+   library call where there is one (for paged attention, which no one call
+   computes, a gather and SDPA; for ssd and int16 conv2d none), and its
+   bound (the larger of bytes / 3.35 TB/s and operations / peak rate).  The
+   paged kernel must also equal the dense kernel on the gathered cache bit
+   for bit, and the fixed-weight roles (``matmul_fixed_weight``,
+   ``conv2d_fixed_weight``) their generic kernels.
 3. model, llama3.2-1b: logits under ``cuda-strict`` against the ``torch``
    eager source on the same weights and prompts, for the calls the engine
    makes: bucketed prefill, the first-token fixup, a batched decode; and
@@ -53,11 +58,18 @@ script exits non-zero:
    wait, exec and reconfiguration, residency, and TTFT and decode tokens/s
    routed beside direct; checks every role packet against its plain
    version and the launch counts against the packets.
-6. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+6. model, granite-3-8b at full width and GRANITE_DEPTH layers: 8 prompts'
+   bucketed prefills (8 .. 512), their first-token fixups, a batched
+   decode over the dense cache and over a page pool (bitwise equal), and a
+   512-token prompt in 128-row chunks through staging and a pool (bitwise
+   equal), under ``cuda-strict`` against the ``torch`` source; launches
+   counted from 0 and checked against the calls (flash, decode and paged
+   attention at D = 128 and the edge matmul each run).
+7. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
    against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
    their own length: an SSM prompt is not bucketed), then three decode
    steps of the three as a batch.
-7. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+8. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps.
 
@@ -130,6 +142,16 @@ MODEL_REL_L2_TOL = 0.1
 SSM_STATE_REL_L2_TOL = 0.1
 SSM_LAYER_REL_L2_TOL = 1e-2
 SSM_GATED_DEPTH = 8
+# the untied unembeds at a decode step of 8 slots, [M, K] x [K, N] with N not
+# a multiple of 8: granite-3-8b, hymba-1.5b, whisper large-v3
+UNEMBEDS = ((8, 4096, 49155), (8, 1600, 32001), (8, 1280, 51866))
+# granite-3-8b at full width, cut to this many layers (about 1.6 GB of bf16
+# weights from --seed): every head_dim 128 kernel and the edge matmul of its
+# untied [4096, 49155] unembed on the path a server runs
+GRANITE_DEPTH = 2
+# the granite phase's 8 prompt lengths (buckets 8 .. 512); the kernel phase
+# holds decode and paged attention against their plain versions at them too
+GRANITE_LENGTHS = (5, 45, 130, 260, 300, 400, 470, 500)
 
 
 def nvidia_smi() -> str:
@@ -228,13 +250,15 @@ def masked_attention(torch, q, k, v, mask):
     return (torch.einsum("bhst,bhtd->bhsd", p, vg) / torch.where(l == 0, 1.0, l)).to(q.dtype)
 
 
-def flash_masks(torch, S: int, T: int, causal: bool, device):
+def flash_masks(torch, S: int, T: int, causal: bool, device, window: int | None = None):
     """The keys [S, T] each query row sees (queries at the end of the keys),
     and the planted fault's among them: keys 64..127, the kernel's second
     64-key tile."""
     kpos = torch.arange(T, device=device)[None, :]
-    sound = ((kpos <= torch.arange(S, device=device)[:, None] + (T - S)) if causal
-             else torch.ones((S, T), dtype=torch.bool, device=device))
+    qpos = torch.arange(S, device=device)[:, None] + (T - S)
+    sound = (kpos <= qpos) if causal else torch.ones((S, T), dtype=torch.bool, device=device)
+    if window is not None:
+        sound = sound & (kpos > qpos - window)
     return sound, sound & (kpos >= 64) & (kpos < 128)
 
 
@@ -400,6 +424,7 @@ def conv_work(B: int, H: int, W: int, Cin: int, kh: int, kw: int, F: int,
 
 def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
     from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
@@ -516,51 +541,73 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
            4 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
     del sets
 
-    # flash attention: prefill of every bucket the serve runs fill (8 ..
-    # 1024 rows; 512 also non-causal), and S < T: the 128-row chunks of
-    # chunked prefill against 256 .. 1024 keys.  The planted fault is read in
-    # the rows that see all 64 of its keys.
-    buckets = [(S, S, True) for S in (8, 64, 128, 256, 512, 1024)] + [(512, 512, False)]
-    chunks = [(128, T, True) for T in range(256, 1025, 128)]
-    for S, T, causal in buckets + chunks:
-        per_set = 2 * (2 * 32 * S * 64 + 2 * 8 * T * 64)
-        sound, dropped = flash_masks(torch, S, T, causal, dev)
-        mask = sound if causal else None
-        sets = []
-        for _ in range(n_sets(per_set)):
-            q, k, v = randn((1, 32, S, 64)), randn((1, 8, T, 64)), randn((1, 8, T, 64))
-            sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1), mask))
-        q, k, v = sets[0][:3]
-        fault = masked_attention(torch, q, k, v, sound & ~dropped)
-        check = attention_err(torch, fa_k.flash_attention(q, k, v, causal=causal),
-                              fa_k.plain_flash_attention(q, k, v, causal=causal), fault,
-                              dropped.sum(dim=-1) == 64)
-        pairs = sum(min(T, T - S + i + 1) for i in range(S)) if causal else S * T
-        timed = (S, T) in ((512, 512), (1024, 1024), (128, 1024))
-        record("flash_attention", f"q[1,32,{S},64] kv[1,8,{T},64] causal={causal}", check,
-               sets if timed else None,
-               lambda q, k, v, ke, ve, m, c=causal: fa_k.flash_attention(q, k, v, causal=c),
-               lambda q, k, v, ke, ve, m, c=causal: fa_k.plain_flash_attention(q, k, v, causal=c),
-               lambda q, k, v, ke, ve, m: F.scaled_dot_product_attention(q, ke, ve, attn_mask=m),
-               per_set, 4 * 32 * 64 * pairs, BF16_TC_FLOPS)
-        del sets, q, k, v, fault
+    # flash attention at D = 64 (llama's 32/8 heads) and D = 128 (granite's
+    # and yi's heads of 128, 32/8): prefill of every bucket the serve runs
+    # fill (8 .. 1024 rows; 512 also non-causal); S < T: the 128-row chunks
+    # of chunked prefill against 256 .. 1024 keys, which split their key
+    # range over 2-4 blocks a tile (split-KV); a sliding window of 48; a
+    # ragged 200.  The planted fault is read in the rows that see all 64 of
+    # its keys (none under the window).
+    buckets = [(S, S, True, None) for S in (8, 64, 128, 256, 512, 1024)]
+    buckets += [(512, 512, False, None)]
+    chunks = [(128, T, True, None) for T in range(256, 1025, 128)]
+    others = [(256, 256, True, 48), (200, 200, True, None)]
+    for D in fa_k.HEAD_DIMS:
+        for S, T, causal, window in buckets + chunks + others:
+            per_set = 2 * (2 * 32 * S * D + 2 * 8 * T * D)
+            sound, dropped = flash_masks(torch, S, T, causal, dev, window)
+            # the library call: SDPA's own causal masks where they compute
+            # the kernel's (top-left is_causal at S = T, the lower-right bias
+            # for a chunk), an explicit mask under the window
+            mask = (sound if window else causal_lower_right(S, T) if causal and S < T
+                    else None)
+            sets = []
+            for _ in range(n_sets(per_set)):
+                q, k, v = randn((1, 32, S, D)), randn((1, 8, T, D)), randn((1, 8, T, D))
+                sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1), mask))
+            q, k, v = sets[0][:3]
+            fault = masked_attention(torch, q, k, v, sound & ~dropped)
+            kw = dict(causal=causal, window=window)
+            check = attention_err(torch, fa_k.flash_attention(q, k, v, **kw),
+                                  fa_k.plain_flash_attention(q, k, v, **kw), fault,
+                                  dropped.sum(dim=-1) == 64)
+            check["splits"] = fa_k.split_kv(1, 32, S, T, causal, window, D)
+            timed = (S, T) in ((512, 512), (1024, 1024), (128, 1024)) and window is None
+            record("flash_attention", f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={causal}"
+                   + (f" window={window}" if window else ""), check,
+                   sets if timed else None,
+                   lambda q, k, v, ke, ve, m, kw=kw: fa_k.flash_attention(q, k, v, **kw),
+                   lambda q, k, v, ke, ve, m, kw=kw: fa_k.plain_flash_attention(q, k, v, **kw),
+                   lambda q, k, v, ke, ve, m, c=causal and S == T and not window:
+                       F.scaled_dot_product_attention(q, ke, ve, attn_mask=m, is_causal=c),
+                   per_set, 4 * 32 * D * int(sound.sum()), BF16_TC_FLOPS)
+            del sets, q, k, v, fault
 
     # decode attention: 8 slots against a 1024-row cache with lengths 1 ..
     # 1024 (a decode step), and one sequence against a cache cut to its
     # prompt length n (the first-token fixup: T = n, not a multiple of the
-    # 32-key tile).
-    cases = [(torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev),
-              1024, "q[8,32,64] cache[8,8,1024,64] lengths 1..1024")]
-    cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n,
-               f"q[1,32,64] cache[1,8,{n},64] length {n}") for n in (5, 45, 600)]
-    for lengths, T, shape in cases:
-        B = lengths.numel()
+    # 32-key tile); at D = 64 with llama's 8 kv heads, at D = 128 with yi's
+    # 4 (a group of 8 query heads) and with granite's 8 (a group of 4) at
+    # the granite phase's shapes: its decode step of 8 slots against a
+    # 512-row cache (each prompt's length plus the new token) and fixups.
+    slots = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
+    granite = torch.tensor([n + 1 for n in GRANITE_LENGTHS], dtype=torch.int32, device=dev)
+    cases = []
+    for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 600)),
+                                       (128, 4, slots, 1024, (5, 45, 600)),
+                                       (128, 8, granite, 512, (5, 45, 500))):
+        cases += [(lengths, T, D, hkv, f"q[8,32,{D}] cache[8,{hkv},{T},{D}] lengths "
+                   f"{int(lengths.min())}..{int(lengths.max())}")]
+        cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n, D, hkv,
+                   f"q[1,32,{D}] cache[1,{hkv},{n},{D}] length {n}") for n in fixups]
+    for lengths, T, D, hkv, shape in cases:
+        B, group = lengths.numel(), 32 // hkv
         valid, dropped = decode_masks(torch, lengths, T)
         sets = []
-        for _ in range(n_sets(2 * 2 * B * 8 * T * 64)):
-            q, kc, vc = randn((B, 32, 64)), randn((B, 8, T, 64)), randn((B, 8, T, 64))
-            sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(4, 1),
-                         vc.repeat_interleave(4, 1)))
+        for _ in range(n_sets(2 * 2 * B * hkv * T * D)):
+            q, kc, vc = randn((B, 32, D)), randn((B, hkv, T, D)), randn((B, hkv, T, D))
+            sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(group, 1),
+                         vc.repeat_interleave(group, 1)))
         q, kc, vc = sets[0][:3]
         fault = masked_attention(torch, q[:, :, None], kc, vc, (valid & ~dropped)[:, None, None])
         check = attention_err(torch, dec_k.decode_attention(q, kc, vc, lengths),
@@ -572,30 +619,37 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.plain_decode_attention(q, kc, vc, n),
                lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
                    q4, ke, ve, attn_mask=m[:, None, None, :]),
-               2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64), 4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
+               2 * (2 * B * 32 * D + 2 * hkv * n_keys * D), 4 * 32 * D * n_keys, BF16_TC_FLOPS)
         del sets, q, kc, vc, fault
 
     # paged decode attention: the 8-slot decode step against a pool of
     # 16-row pages through a shuffled table (table width 1024 / 16, the
     # dense engine's memory plus the scratch page), the same with 64-row
     # pages, the chunked run's 16 slots, and one sequence against a
-    # 600-row cache.  The planted fault remaps one whole page inside each
-    # sequence's length to another sequence's page.
-    heads = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
-    for lengths, ps, NP in ((heads, 16, 64), (heads, 64, 16), (heads.repeat(2), 16, 64),
-                            (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38)):
-        B = lengths.numel()
+    # 600-row cache; at D = 128 (yi's 4 kv heads) the 8 slots with 16- and
+    # 64-row pages, and the granite phase's paged step (8 kv heads, a pool
+    # of 16-row pages behind a table 512 / 16 wide).  The planted fault
+    # remaps one whole page inside each sequence's length to another
+    # sequence's page.
+    paged_cases = [(slots, 16, 64, 64, 8), (slots, 64, 16, 64, 8),
+                   (slots.repeat(2), 16, 64, 64, 8),
+                   (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38, 64, 8),
+                   (slots, 16, 64, 128, 4), (slots, 64, 16, 128, 4),
+                   (granite, 16, 32, 128, 8)]
+    for lengths, ps, NP, D, hkv in paged_cases:
+        B, group = lengths.numel(), 32 // hkv
         P = B * NP + 1
-        shape = f"q[{B},32,64] pool[{P},8,{ps},64] table[{B},{NP}] lengths {lengths.tolist()}"
+        shape = (f"q[{B},32,{D}] pool[{P},{hkv},{ps},{D}] table[{B},{NP}] "
+                 f"lengths {lengths.tolist()}")
         n_keys = int(lengths.sum())
         sets = []
-        for _ in range(n_sets(2 * 2 * 8 * n_keys * 64)):
-            q, kp, vp = randn((B, 32, 64)), randn((P, 8, ps, 64)), randn((P, 8, ps, 64))
+        for _ in range(n_sets(2 * 2 * hkv * n_keys * D)):
+            q, kp, vp = randn((B, 32, D)), randn((P, hkv, ps, D)), randn((P, hkv, ps, D))
             table = (torch.randperm(P - 1, generator=gen, device=dev)[: B * NP] + 1)
             table = table.reshape(B, NP).to(torch.int32)
             # the yardstick's pool: heads expanded to 32 and rows before heads,
-            # so one index gather yields SDPA's [B, 32, T, 64] as a view
-            kvp = torch.stack([kp, vp]).repeat_interleave(4, 2).transpose(2, 3).contiguous()
+            # so one index gather yields SDPA's [B, 32, T, D] as a view
+            kvp = torch.stack([kp, vp]).repeat_interleave(group, 2).transpose(2, 3).contiguous()
             sets.append((q, kp, vp, table, q[:, :, None], kvp, table.long()))
         q, kp, vp, table = sets[0][:4]
         valid = torch.arange(NP * ps, device=dev)[None, :] < lengths[:, None]
@@ -613,8 +667,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                  f"{float((got.float() - dense.float()).abs().max())}")
         check["bitwise_equal_dense_kernel"] = True
 
-        def library(q, kp, vp, table, q4, kvp, tl, m=valid, B=B, T=NP * ps):
-            kv = kvp[:, tl].view(2, B, T, 32, 64).transpose(2, 3)
+        def library(q, kp, vp, table, q4, kvp, tl, m=valid, B=B, T=NP * ps, D=D):
+            kv = kvp[:, tl].view(2, B, T, 32, D).transpose(2, 3)
             return F.scaled_dot_product_attention(q4, kv[0], kv[1], attn_mask=m[:, None, None, :])
 
         record("paged_decode_attention", shape, check, sets if ps == 16 and NP == 64 else None,
@@ -623,8 +677,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                lambda q, kp, vp, t, q4, kvp, tl, n=lengths:
                    paged_k.plain_paged_decode_attention(q, kp, vp, t, n),
                library,
-               2 * (2 * B * 32 * 64 + 2 * 8 * n_keys * 64) + 4 * (B * NP + B),
-               4 * 32 * 64 * n_keys, BF16_TC_FLOPS)
+               2 * (2 * B * 32 * D + 2 * hkv * n_keys * D) + 4 * (B * NP + B),
+               4 * 32 * D * n_keys, BF16_TC_FLOPS)
         del sets, q, kp, vp, table, fault, got, dense
 
     # ssd at the Mamba-2 serving shapes (H 48, P 64, N 128, G 1): a prompt
@@ -721,6 +775,50 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                lambda a, b: fixed(a), lambda a, b: mm_k.plain_matmul(a, wf),
                lambda a, b: torch.matmul(a, wf), per_set, 2 * M ** 3, F32_FLOPS)
         del sets, x, w, xf, fixed, wf, got
+
+    # the matmul edge kernel (shapes and operands TMA cannot take: guarded
+    # loads, mma.sync; in f32 the f32 kernel's guarded-load instance) at the
+    # untied unembeds' decode shapes: granite-3-8b, hymba-1.5b, whisper
+    # large-v3.  bf16 in and f32 out, as the unembed runs it (timed), bf16
+    # out, and f32 in; then x 2 bytes off a 16-byte boundary at an aligned
+    # shape.  Each beside the planted fault of the bf16 rows (the last 64
+    # of K dropped).  Library time: torch.matmul (bf16 out: the same weight
+    # bytes), f32 with TF32 off.
+    for M, K, N in UNEMBEDS:
+        sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(n_sets(2 * K * N))]
+        x, w = sets[0]
+        f32 = torch.float32
+        fault = mm_k.matmul(drop_last_k_tile(x), w, out_dtype=f32)
+        check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=f32),
+                           mm_k.plain_matmul(x, w, out_dtype=f32), fault, TOL_F32)
+        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=None out=float32", check, sets,
+               lambda a, b: mm_k.matmul(a, b, out_dtype=f32),
+               lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
+               lambda a, b: torch.matmul(a, b),
+               2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS)
+        check = matmul_err(torch, mm_k.matmul(x, w, activation="silu"),
+                           mm_k.plain_matmul(x, w, activation="silu"),
+                           mm_k.matmul(drop_last_k_tile(x), w, activation="silu"), TOL_BF16)
+        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=silu out=bfloat16", check, None,
+               None, None, None, 0, 0, BF16_TC_FLOPS)
+        del sets, x, w, fault
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        xf = drop_last_k_tile(x)
+        check = role_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
+                         mm_k.plain_matmul(xf, w), TOL_ROLE_F32)
+        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=None f32", check, [(x, w)],
+               mm_k.matmul, mm_k.plain_matmul, torch.matmul,
+               4 * (M * K + K * N + M * N), 2 * M * N * K, F32_FLOPS)
+        del x, w, xf
+    M, K, N = 8, 2048, 512
+    x = torch.empty(M * K + 1, dtype=torch.bfloat16, device=dev)[1:].view(M, K)
+    x.copy_(randn((M, K)))
+    w = randn((K, N), K ** -0.5)
+    check = matmul_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
+                       mm_k.matmul(drop_last_k_tile(x), w), TOL_BF16)
+    record("matmul_edge", f"[{M},{K}]x[{K},{N}] x 2 bytes off 16-byte alignment", check, None,
+           None, None, None, 0, 0, BF16_TC_FLOPS)
     return rows, errs
 
 
@@ -853,6 +951,124 @@ def chunked_prefill_check(torch, model, params, prompts, buckets, whole, chunk: 
     return {"prompt_lengths": [int(t.numel()) for t in prompts], "chunk": chunk,
             "rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}",
             "paged_equal_staging_bitwise": True}
+
+
+def pages_of(torch, kv, table, ps: int):
+    """The page pool [L, P, Hkv, ps, hd] holding a dense cache kv [L, B, Hkv,
+    T, hd] through ``table`` [B, T / ps] (page 0 and unmapped pages zero)."""
+    L, B, H, T, hd = kv.shape
+    NP = T // ps
+    pool = kv.new_zeros((L, int(table.max()) + 1, H, ps, hd))
+    pool[:, table.reshape(-1).long()] = kv.reshape(L, B, H, NP, ps, hd).transpose(2, 3).reshape(
+        L, B * NP, H, ps, hd)
+    return pool
+
+
+def granite_phase(torch, model, params, kernels, seed: int) -> dict:
+    """granite-3-8b at full width (d_model 4096, 32/8 heads of 128, d_ff
+    12800, vocab 49155, an untied unembed) and its first GRANITE_DEPTH
+    layers, weights from ``seed``, under cuda-strict against the torch eager
+    source on the same weights, on the calls an engine of 8 slots and
+    ``max_len`` 512 makes: each of 8 prompts prefilled at its bucket (8 ..
+    512), its first-token fixup against the cache cut to the prompt, one
+    decode step of the 8 as a batch — over the dense cache, and over a pool
+    of 16-row pages behind a shuffled table, whose logits must equal the
+    dense step's bit for bit — and a 512-token prompt in four 128-row
+    chunks through a staging cache and through a page pool (bitwise equal;
+    the last chunk is flash attention of S = 128 against T = 512).  Logits
+    within MODEL_REL_L2_TOL of the torch source's.  The cuda-strict pass's
+    launches are counted from 0 and must equal what its calls imply:
+    flash, decode and paged attention at D = 128 and the edge matmul (the
+    unembed, N = 49155) each run."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, cfg = model.device, model.cfg
+    vocab, L = cfg.vocab_size, cfg.num_layers
+    max_len, ps, chunk = 512, 16, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    lengths = GRANITE_LENGTHS
+    prompts = [torch.randint(0, vocab, (n,), generator=gen, device=dev) for n in lengths]
+    next_tokens = torch.randint(0, vocab, (len(lengths), 1), generator=gen, device=dev)
+    long_prompt = torch.randint(0, vocab, (1, max_len), generator=gen, device=dev)
+    buckets = [ServeEngine.bucket_len(n, max_len) for n in lengths]
+    B, NP = len(lengths), max_len // ps
+    table = (torch.randperm(B * NP, generator=gen, device=dev) + 1).reshape(B, NP).int()
+    chunk_table = (torch.randperm(NP, generator=gen, device=dev) + 1)[None].int()
+    specs, pool_specs = model.cache_specs(1, max_len), model.cache_specs(NP + 1, ps)
+    out, launches = {}, {}
+    for policy in ("torch", "cuda-strict"):
+        for mod in kernels:
+            mod.launches = 0
+        mm_k.edge_launches = 0
+        got: dict[str, list] = {k: [] for k in ("prefill", "fixup", "decode", "decode_paged",
+                                                "chunk", "chunk_paged")}
+        with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+            caches = []
+            for tokens, n, bucket in zip(prompts, lengths, buckets):
+                padded = torch.nn.functional.pad(tokens, (0, bucket - n))[None]
+                logits, cache = model.prefill(params, {"tokens": padded}, cache_len=max_len)
+                got["prefill"].append(logits[0])
+                if bucket > n:
+                    fix = {"pos": torch.tensor([n - 1], dtype=torch.int32, device=dev),
+                           "k": cache["k"][:, :, :, :n].clone(),
+                           "v": cache["v"][:, :, :, :n].clone()}
+                    got["fixup"].append(model.decode_step(params, tokens[None, -1:], fix)[0][0])
+                caches.append(cache)
+            kv = {key: torch.cat([c[key] for c in caches], dim=1) for key in ("k", "v")}
+            del caches
+            pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            pool = {key: pages_of(torch, kv[key], table, ps) for key in ("k", "v")}
+            got["decode_paged"] = list(model.decode_step(
+                params, next_tokens, {**pool, "pos": pos, "block_table": table})[0])
+            got["decode"] = list(model.decode_step(params, next_tokens, {**kv, "pos": pos})[0])
+            del kv, pool
+            staging = {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=dev)
+                       for key in ("k", "v")}
+            paged = {key: torch.zeros(pool_specs[key].shape, dtype=pool_specs[key].dtype,
+                                      device=dev) for key in ("k", "v")}
+            for start in range(0, max_len, chunk):
+                piece = long_prompt[:, start:start + chunk]
+                last, _ = model.prefill_chunk(params, piece, staging, start=start)
+                last_paged, _ = model.prefill_chunk(
+                    params, piece, {**paged, "block_table": chunk_table}, start=start)
+            got["chunk"], got["chunk_paged"] = [last[0]], [last_paged[0]]
+            del staging, paged
+        launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+        launches["matmul_edge"] = mm_k.edge_launches
+        out[policy] = got
+    strict = out["cuda-strict"]
+    for a, b in (("decode_paged", "decode"), ("chunk_paged", "chunk")):
+        if not all(torch.equal(x, y) for x, y in zip(strict[a], strict[b])):
+            raise AssertionError(f"granite: {a} logits differ from {b} logits under cuda-strict")
+    res = {"arch": cfg.name, "layers": L, "prompt_lengths": list(lengths), "buckets": buckets,
+           "tolerance_rel_l2": MODEL_REL_L2_TOL, "paged_equal_dense_bitwise": True}
+    for kind in got:
+        rel, agree = [], 0
+        for ref, g in zip(out["torch"][kind], strict[kind]):
+            ref, g = ref.float(), g.float()
+            if not torch.isfinite(g).all() or g.shape != (vocab,):
+                raise AssertionError(f"granite {kind} logits of shape {tuple(g.shape)}, or "
+                                     f"not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+        res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    # one unembed a model call; 7 matmuls and 2 norms a layer, the final norm
+    calls = len(lengths) + len(got["fixup"]) + 2 + 2 * max_len // chunk
+    want = {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
+            "flash_attention": L * (len(lengths) + 2 * max_len // chunk),
+            "decode_attention": L * (len(got["fixup"]) + 1), "paged_decode_attention": L,
+            "ssd": 0, "matmul_edge": calls}
+    res["launches"] = launches
+    print("  " + json.dumps(res))
+    if launches != want:
+        raise AssertionError(f"granite: kernel launches {launches}, expected {want}")
+    worst = max(max(res[kind]["rel_l2"]) for kind in got)
+    if worst > MODEL_REL_L2_TOL or len(got["fixup"]) != len(lengths):
+        raise AssertionError(f"granite: cuda-strict logits differ from the torch source: {res}")
+    return res
 
 
 def ssm_end_to_end(torch, model, params, prompts, steps, policy: str) -> dict:
@@ -1561,20 +1777,21 @@ def prefill_busy(torch, model, params, seed: int) -> dict:
     return res
 
 
-def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
+def sass_counts(native, lib: str, kernel_re: str) -> dict[str, dict[str, int]]:
     """The count of wgmma (HGMMA) and TMA load (UTMALDG) instructions in each
-    bf16 matmul kernel of the built library, from ``cuobjdump --dump-sass``
-    (the one beside nvcc); raises unless every one has both."""
-    lib = native.build_all()["matmul"]
+    instance of the kernels whose name matches ``kernel_re`` in the built
+    library of ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` (the one
+    beside nvcc); raises unless every one has both."""
+    path = native.build_all()[lib]
     cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(path)], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     counts: dict[str, dict[str, int]] = {}
     fn = None
     for line in out.splitlines():
         if "Function :" in line:
             # _ZN..mm_tile_kernelILi128ELi256EEEv.. -> mm_tile_kernel<128,256>
-            m = re.search(r"(mm_(?:tile|stream)_kernel)I((?:Li\d+E)+)", line)
+            m = re.search(rf"({kernel_re})I((?:Li\d+E)+)", line)
             fn = None
             if m:
                 fn = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
@@ -1584,8 +1801,18 @@ def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
             for op in ("HGMMA", "UTMALDG"):
                 counts[fn][op] += op in line
     if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
-        raise AssertionError(f"bf16 matmul kernels without wgmma or TMA loads: {counts}")
+        raise AssertionError(f"{lib} kernels without wgmma or TMA loads: {counts}")
     return counts
+
+
+def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the bf16 matmul's tile and streaming kernels."""
+    return sass_counts(native, "matmul", r"mm_(?:tile|stream)_kernel")
+
+
+def flash_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the flash attention kernel's instances (D = 64, 128)."""
+    return sass_counts(native, "flash_attention", r"fa_kernel")
 
 
 def print_runs(runs: dict, card: str, smi: str) -> None:
@@ -1624,33 +1851,35 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/7] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/8] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     native.build_all()
-    print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 2} kernels: the f32 matmul "
-          f"and conv2d beside these six) in {time.perf_counter() - t:.1f} s"
+    print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 3} kernels: the f32 matmul, "
+          f"the matmul edge kernel and conv2d beside these six) in "
+          f"{time.perf_counter() - t:.1f} s"
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
-    sass = bf16_matmul_sass(native)
-    for fn, counts in sass.items():
-        print(f"  matmul SASS {fn}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+    sass = {"matmul": bf16_matmul_sass(native), "flash_attention": flash_sass(native)}
+    for lib, fns in sass.items():
+        for fn, counts in fns.items():
+            print(f"  {lib} SASS {fn}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
 
-    print(f"[2/7] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/8] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
 
-    print("[3/7] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/8] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
 
-    print("[4/7] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/8] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -1661,7 +1890,7 @@ def main() -> int:
     print("  where a 1024-bucket prefill's time goes (torch.profiler, CUDA activity):")
     prefill_res = prefill_busy(torch, model, params, args.seed)
 
-    print("[5/7] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/8] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -1670,19 +1899,29 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    print("[6/7] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print(f"[6/8] model: granite-3-8b at full width, {GRANITE_DEPTH} layers (head_dim 128, "
+          f"untied unembed N = 49155): prefill, fixup, decode dense and paged, chunked "
+          f"staging and paged, cuda-strict vs the torch source")
+    model = build_model(dataclasses.replace(get_arch("granite-3-8b"), num_layers=GRANITE_DEPTH))
+    params = init_params(model.param_specs(), args.seed)
+    granite_res = granite_phase(torch, model, params, kernels, args.seed)
+    del model, params
+    torch.cuda.empty_cache()
+
+    print("[7/8] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
 
-    print("[7/7] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[8/8] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     ssm_busy_res = busy_phase(torch, model, params, args.seed)
 
-    runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"]}
+    runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
+            "granite": {"launches": granite_res["launches"]}}
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
@@ -1692,7 +1931,23 @@ def main() -> int:
                 "ssd": "x[1,600,48,64] b,c[1,600,1,128]",
                 "matmul_f32": "[256,256]x[256,256] act=None f32",
                 "matmul_fixed_weight": "[256,256]x[256,256] fixed f32",
-                "conv2d": "x[1,64,64,1] w[5,5,1,1] int16"}
+                "conv2d": "x[1,64,64,1] w[5,5,1,1] int16",
+                "matmul_edge": "[8,4096]x[4096,49155] act=None out=float32"}
+    # the rows beside each headline: the bf16 matmul's prefill, flash
+    # attention's other timed rows at D = 64 and its D = 128 rows, the
+    # decode kernels at D = 128, the other unembeds
+    beside = {"matmul": ["[1024,2048]x[2048,8192] act=None out=bfloat16"],
+              "flash_attention": [f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={c}"
+                                  for D in fa_k.HEAD_DIMS
+                                  for S, T, c in ((512, 512, True), (512, 512, False),
+                                                  (128, 1024, True), (1024, 1024, True))
+                                  if (D, S, T, c) != (64, 512, 512, True)],
+              "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024"],
+              "paged_decode_attention": ["q[8,32,128] pool[513,4,16,128] table[8,64] lengths "
+                                         "[1, 1024, 5, 600, 37, 256, 900, 64]"],
+              "matmul_edge": [f"[{M},{K}]x[{K},{N}] act=None out=float32"
+                              for M, K, N in UNEMBEDS[1:]]
+                             + ["[8,4096]x[4096,49155] act=None f32"]}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",
                "decode_attention": "F.scaled_dot_product_attention",
@@ -1701,8 +1956,10 @@ def main() -> int:
                "ssd": "no single PyTorch call computes it",
                "matmul_f32": "torch.matmul, f32 with TF32 off",
                "matmul_fixed_weight": "torch.matmul, f32 with TF32 off",
-               "conv2d": "none for int16 (F.conv2d, f32 and TF32 off, at the f32 shapes)"}
-    # the paper-role kernels run on the tenants phase's main path only
+               "conv2d": "none for int16 (F.conv2d, f32 and TF32 off, at the f32 shapes)",
+               "matmul_edge": "torch.matmul (bf16 out; f32 with TF32 off at the f32 row)"}
+    # the paper-role kernels run on the tenants phase's main path only, the
+    # edge kernel on the granite phase's
     entries = [(mod.__name__.rsplit(".", 1)[1], mod, mod.REPLACES,
                 {run: r["launches"][mod.__name__.rsplit(".", 1)[1]] for run, r in runs.items()})
                for mod in kernels]
@@ -1710,15 +1967,17 @@ def main() -> int:
                 for name, mod, replaces in (("matmul_f32", mm_k, mm_k.REPLACES),
                                             ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
                                             ("conv2d", conv_k, conv_k.REPLACES))]
-    # the bf16 matmul's prefill row beside its decode headline
-    prefill_row = next(r for r in rows if r["name"] == "matmul"
-                       and r["shape"] == "[1024,2048]x[2048,8192] act=None out=bfloat16")
+    entries += [("matmul_edge", mm_k, mm_k.REPLACES,
+                 {"granite": granite_res["launches"]["matmul_edge"]})]
+    timing = ("shape", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []
     for name, mod, replaces, by_run in entries:
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
         # the errors of the headline row's tolerance; those of the kernel's
         # other tolerances beside them
         others = [e for tol, e in errs[name].items() if tol != row["tolerance"]]
+        more = [{k: r[k] for k in timing} for shape in beside.get(name, ())
+                for r in rows if r["name"] == name and r["shape"] == shape]
         summary.append({
             "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": replaces,
             "launches": sum(by_run.values()), "launches_by_run": by_run,
@@ -1728,17 +1987,16 @@ def main() -> int:
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": library[name],
-            **({"prefill": {k: prefill_row[k] for k in (
-                "shape", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                "sass": sass} if name == "matmul" else {}),
+            **({"other_rows": more} if more else {}),
+            **({"sass": sass[name]} if name in sass else {}),
         })
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
             "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
-            "kernel_rows": rows, "matmul_sass": sass, "model": model_res, "serve": serve_res,
+            "kernel_rows": rows, "sass": sass, "model": model_res, "serve": serve_res,
             "busy": busy_res, "prefill_busy": prefill_res,
-            "tenants": tenants_res,
+            "tenants": tenants_res, "granite": granite_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

@@ -39,6 +39,16 @@ __device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short h
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
+// 2^x on the special-function unit, denormal results flushed to zero: one
+// MUFU.EX2 where exp2f adds a range fix-up around it.  The attention
+// softmax's probabilities and rescale factors, where a result below 2^-126
+// is as good as zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

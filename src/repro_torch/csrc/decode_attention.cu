@@ -1,5 +1,5 @@
 // Decode attention for Hopper: one query token per sequence against its KV
-// cache, dense or paged.  q [B,Hq,D] (bf16, D = 64), lengths int32 [B];
+// cache, dense or paged.  q [B,Hq,D] (bf16, D = 64 or 128), lengths int32 [B];
 // positions >= lengths[b] are masked.  Two entry points share one kernel
 // body, a template over where key row t of sequence b, kv head hk lives:
 //   - dense, k/v [B,Hkv,T,D]:    base + ((b*Hkv + hk)*T + t)*D;
@@ -31,25 +31,36 @@
 // The paged layout changes only the row address: tile order, masking and the
 // merge are one code path, so over equal KV rows the paged kernel is bitwise
 // equal to the dense one, for any page size (a 32-key tile may span pages;
-// a row is 128 contiguous bytes, so the 16-byte loads stay aligned).  The
-// page table is read per row from global memory (cached); TMA, wgmma and a
-// split of one sequence across SMs are later work.
+// a row is 128 or 256 contiguous bytes, so the 16-byte loads stay aligned).
+// The head dim D is a template parameter, 64 or 128: at 128 the tiles and
+// their padding take 4 x 2 x 32 x 136 x 2 = 69,632 bytes of shared memory
+// and the merge buffer 32 KB of it, so the tiles live in dynamic shared
+// memory (its limit raised once an instance).  The page table is read per
+// row from global memory (cached); TMA, wgmma and a split of one sequence
+// across SMs are later work.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kD = 64;
 constexpr int kTile = 32;      // keys per warp tile
 constexpr int kWarps = 4;
-constexpr int kLd = kD + 8;    // padded smem row (bf16 elements)
 constexpr int kThreads = kWarps * 32;
-constexpr int kTileElems = kTile * kLd;
 
-// Row addressing of a dense cache [B,Hkv,T,D].
+template <int D>
+struct DecCfg {
+  static constexpr int LD = D + 8;              // padded smem row (bf16 elements)
+  static constexpr int TILE_ELEMS = kTile * LD;
+  // per warp a K and a V tile; reused as the f32 [kWarps][16][D] merge buffer
+  static constexpr int SMEM = kWarps * 2 * TILE_ELEMS * 2;
+  static_assert(kWarps * 16 * D * 4 <= SMEM, "the merge buffer fits in the tiles' space");
+};
+
+// Row addressing of a dense cache [B,Hkv,T,D]: the element offset of row t.
 struct DenseRows {
   int Hkv, T;
+  template <int D>
   __device__ __forceinline__ bool offset(int b, int hk, int t, size_t& off) const {
-    off = (((size_t)b * Hkv + hk) * T + t) * kD;
+    off = (((size_t)b * Hkv + hk) * T + t) * D;
     return true;
   }
 };
@@ -59,21 +70,24 @@ struct DenseRows {
 struct PagedRows {
   const int* table;
   int Hkv, P, ps, NP, T;  // T = NP * ps, the rows the table can address
+  template <int D>
   __device__ __forceinline__ bool offset(int b, int hk, int t, size_t& off) const {
     const int page = table[(size_t)b * NP + t / ps];
-    off = (((size_t)page * Hkv + hk) * ps + t % ps) * kD;
+    off = (((size_t)page * Hkv + hk) * ps + t % ps) * D;
     return page >= 0 && page < P;
   }
 };
 
-template <class Rows>
+template <int D, class Rows>
 __global__ void __launch_bounds__(kThreads)
     dec_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, const Rows rows,
                const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, int Hq,
                float scale) {
-  // per warp: a K tile and a V tile; reused as the f32 [kWarps][16][kD] merge buffer
-  __shared__ __align__(16) __nv_bfloat16 kv_smem[kWarps * 2 * kTileElems];
+  using C = DecCfg<D>;
+  constexpr int kD = D, kLd = C::LD, kTileElems = C::TILE_ELEMS;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  __nv_bfloat16* kv_smem = reinterpret_cast<__nv_bfloat16*>(dec_smem);
   __shared__ float m_s[kWarps][16], l_s[kWarps][16];
   // per warp: which rows of its current tile take part in the softmax
   __shared__ bool row_ok[kWarps][kTile];
@@ -113,7 +127,7 @@ __global__ void __launch_bounds__(kThreads)
       int r = c / (kD / 8), col = (c % (kD / 8)) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
       size_t off;
-      const bool ok = k0 + r < len && rows.offset(b, hk, k0 + r, off);
+      const bool ok = k0 + r < len && rows.template offset<D>(b, hk, k0 + r, off);
       if (ok) {
         kv = *reinterpret_cast<const uint4*>(k + off + col);
         vv = *reinterpret_cast<const uint4*>(v + off + col);
@@ -223,27 +237,40 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool bad_heads(int B, int Hq, int Hkv, int D) {
-  return D != kD || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16;
+  return (D != 64 && D != 128) || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16;
+}
+
+// One launch of the instance for D: grid (Hkv, B), its shared memory limit
+// raised on first use.
+template <int D, class Rows>
+cudaError_t launch(const void* q, const void* k, const void* v, const Rows& rows,
+                   const void* lengths, void* o, int B, int Hq, float scale, void* stream) {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      dec_kernel<D, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, DecCfg<D>::SMEM);
+  if (set != cudaSuccess) return set;
+  dim3 grid(rows.Hkv, B);
+  dec_kernel<D, Rows><<<grid, kThreads, DecCfg<D>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), rows, static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(o), Hq, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B,Hq,D], k/v [B,Hkv,T,D], o [B,Hq,D] bf16 contiguous, lengths int32 [B]
-// on the device, D = 64, Hq / Hkv <= 16.  Returns the cudaError_t.
+// on the device, D = 64 or 128, Hq / Hkv <= 16.  Returns the cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* o, int B, int Hq, int Hkv,
                                       int T, int D, float scale, void* stream) {
   if (bad_heads(B, Hq, Hkv, D) || T <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  dec_kernel<DenseRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), DenseRows{Hkv, T},
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), Hq, scale);
-  return (int)cudaGetLastError();
+  const DenseRows rows{Hkv, T};
+  return (int)(D == 64 ? launch<64>(q, k, v, rows, lengths, o, B, Hq, scale, stream)
+                       : launch<128>(q, k, v, rows, lengths, o, B, Hq, scale, stream));
 }
 
 // q [B,Hq,D], k/v pools [P,Hkv,ps,D], o [B,Hq,D] bf16 contiguous; block
-// table int32 [B,NP] and lengths int32 [B] on the device; D = 64,
+// table int32 [B,NP] and lengths int32 [B] on the device; D = 64 or 128,
 // Hq / Hkv <= 16.  Returns the cudaError_t.
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const void* table,
@@ -252,11 +279,7 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
                                             float scale, void* stream) {
   if (bad_heads(B, Hq, Hkv, D) || P <= 0 || ps <= 0 || NP <= 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  dec_kernel<PagedRows><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      PagedRows{static_cast<const int*>(table), Hkv, P, ps, NP, NP * ps},
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(o), Hq, scale);
-  return (int)cudaGetLastError();
+  const PagedRows rows{static_cast<const int*>(table), Hkv, P, ps, NP, NP * ps};
+  return (int)(D == 64 ? launch<64>(q, k_pool, v_pool, rows, lengths, o, B, Hq, scale, stream)
+                       : launch<128>(q, k_pool, v_pool, rows, lengths, o, B, Hq, scale, stream));
 }

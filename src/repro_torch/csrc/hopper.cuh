@@ -1,5 +1,7 @@
-// Hopper building blocks for the bf16 matmul kernels: mbarriers, TMA tile
-// loads, wgmma descriptors and the wgmma.mma_async products (sm_90a).
+// Hopper building blocks for the bf16 matmul and flash attention kernels
+// (sm_90a): mbarriers, 2-D and 3-D TMA tile loads, wgmma descriptors and the
+// wgmma.mma_async products (A from shared memory or from registers); on the
+// host, tensor maps (encoded and cached) and programmatic dependent launch.
 //
 // Shared-memory operands are 128-byte swizzled tiles, as TMA writes them
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16), the 16-byte
@@ -20,11 +22,19 @@
 // Accumulator layout of m64nNk16 (f32), thread t of the warpgroup, warp
 // w = t / 32, lane l: d[4j + 0..1] = D[16w + l/4][8j + 2(l%4) + 0..1] and
 // d[4j + 2..3] = D[16w + l/4 + 8][8j + 2(l%4) + 0..1], j < N / 8.
+// A register A operand (wgmma_rs: A [64, 16] bf16, four 32-bit registers of
+// two values each, the lower column in the low half) has the same rows:
+// a[0] = A[16w + l/4][2(l%4)..+1], a[1] = A[16w + l/4 + 8][2(l%4)..+1],
+// a[2] and a[3] the same rows at columns + 8.  So the accumulator of a
+// k16 slice of columns (d[8i..8i+7]) re-packs in place as an A operand.
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -82,6 +92,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same at (c0 innermost, c1, c2) of a 3-D map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Programmatic dependent launch: wait until the grid this one depends on has
 // completed and its memory is visible; let the grid that depends on this one
 // begin launching.  Both are no-ops for a grid launched without the
@@ -136,6 +156,20 @@ template <int n>
 __device__ __forceinline__ void fence_regs(float (&d)[n]) {
 #pragma unroll
   for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int n>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[n][4]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// The dynamic shared memory rounded up to a 1024-byte boundary of the shared
+// window (swizzle atoms must start there).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // D[64, N] (+)= A[64, 16] B[16, N], bf16 in, f32 accumulate; TA, TB the
@@ -304,4 +338,165 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
     static_assert(N == 256, "wgmma: N of 8, 16, 64, 128 or 256");
     wgmma_n256<TA, TB>(d, da, db, scale_d);
   }
+}
+
+// D[64, N] += A[64, 16] B[16, N] with A in registers (the layout in the note
+// above) and B a shared-memory descriptor; TB its transpose bit.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      " %32, %33, %34, %35, %36, %37, %38, %39,\n"
+      " %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      " %48, %49, %50, %51, %52, %53, %54, %55,\n"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db);
+  else {
+    static_assert(N == 128, "wgmma_rs: N of 64 or 128");
+    wgmma_rs_n128<TB>(d, a, db);
+  }
+}
+
+// ---- host side --------------------------------------------------------------
+
+// cuTensorMapEncodeTiled is a driver-API symbol: fetched through the runtime,
+// so a library links no libcuda of its own.  Null if the driver lacks it.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  });
+  return fn;
+}
+
+// A bf16 tensor map over [d2][d1][d0] (rank 3) or [d1][d0] (rank 2, d2 = 1)
+// at ptr, d0 contiguous, in boxes of b1 rows of b0 values (of one d2 slice),
+// 128-byte swizzled; reads past the tensor give zeros.  A map is a pure
+// function of these arguments: encoded maps are kept in a small
+// direct-mapped cache (one a library), so a weight's or a KV cache's map is
+// encoded once.  False if the driver cannot encode it.
+inline bool tensor_map(CUtensorMap* out, int rank, const void* ptr, uint64_t d0, uint64_t d1,
+                       uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapL2promotion l2) {
+  struct Entry {
+    const void* ptr;
+    uint64_t d0, d1, d2;
+    uint32_t b0, b1;
+    int rank;
+    CUtensorMapL2promotion l2;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 512;
+  static Entry cache[SLOTS];
+  static std::mutex mutex;
+  size_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
+  h = (h ^ (d0 * 0x9E3779B1u) ^ (d1 * 0x85EBCA77u) ^ (d2 * 0xC2B2AE3Du) ^ (b1 * 0x27D4EB2Fu)) %
+      SLOTS;
+  std::lock_guard<std::mutex> lock(mutex);
+  Entry& e = cache[h];
+  if (e.ptr == ptr && e.d0 == d0 && e.d1 == d1 && e.d2 == d2 && e.b0 == b0 && e.b1 == b1 &&
+      e.rank == rank && e.l2 == l2) {
+    *out = e.map;
+    return true;
+  }
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {d0, d1, d2};
+  cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  cuuint32_t box[3] = {b0, b1, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return false;
+  e = Entry{ptr, d0, d1, d2, b0, b1, rank, l2, *out};
+  return true;
+}
+
+// A launch that may begin while the previous kernel on the stream finishes
+// (programmatic dependent launch): the kernel sets up its barriers and
+// prefetches its tensor maps, then waits for that kernel to complete before
+// touching global memory (grid_dependency_wait), and at once lets the next
+// one do the same (whose blocks then wait on free SMs, never on this
+// kernel's: all of its blocks have started by then).
+template <typename... Params, typename... Args>
+cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                              cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }

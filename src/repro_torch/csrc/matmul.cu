@@ -40,15 +40,17 @@
 // it touches global memory.  Ragged shapes are
 // handled here: TMA reads zeros past M, N and K, and stores are masked.  K
 // and N must be multiples of 8 (16-byte rows, as TMA needs), x and w
-// 16-byte aligned.
+// 16-byte aligned; the caller sends any other shape or operand to the edge
+// kernel (mm_edge_kernel, repro_matmul_edge: guarded loads, mma.sync).
 //
 // The f32 path (repro_matmul_f32: f32 x and w, f32 out) computes in full f32
 // on the CUDA cores, as the Pallas kernel does for f32 inputs: not TF32, whose
 // 10-bit mantissa misses the 2e-4 the JAX package's own test holds at K = 256.
 // A block owns a 64x64 tile; 256 threads each accumulate a 4x4 register block
 // with FMAs over a two-stage cp.async ring of 64x16 A and 16x64 B tiles in
-// shared memory.  Ragged M, N and K are zero-filled on load (K and N
-// multiples of 4: 16-byte rows); where the tiles are too few for the card,
+// shared memory.  Ragged M, N and K are zero-filled on load (16-byte loads
+// for K and N multiples of 4 and aligned operands, guarded 4-byte loads in
+// the edge instance otherwise); where the tiles are too few for the card,
 // K is split across blocks and a second kernel sums the splits in a fixed
 // order.  What bounds it: operations at the f32 rate (67 TFLOP/s) once the
 // tiles fill the card; at the paper's 256 x 256 x 256 the launch.
@@ -58,8 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -128,12 +129,6 @@ struct StreamCfg {
   static constexpr int SMEM = 1024 + BODY + 2 * STAGES * 8 + 16;
   static constexpr int THREADS = 160;  // one consumer warpgroup, then the producer warp
 };
-
-// The dynamic shared memory rounded up to a 1024-byte boundary of the shared
-// window (swizzle atoms must start there).
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 __device__ __forceinline__ void store8(void* out, size_t i, const float (&v)[8], int out_f32) {
   if (out_f32) {
@@ -442,22 +437,38 @@ constexpr int FLDB = FBN + 4;
 constexpr int FA_STAGE = FBM * FLDA;
 constexpr int FB_STAGE = FBK * FLDB;
 
+// Four floats at (gr, gc..gc+3) of the [R, C] tensor p into smem, zero
+// past its edge: one 16-byte cp.async (kVec: C a multiple of 4 and p
+// 16-byte aligned), else four guarded 4-byte loads (the edge kernel).
+template <bool kVec>
+__device__ __forceinline__ void load4_f32(float* dst, const float* p, int R, int C, int gr,
+                                          int gc) {
+  if constexpr (kVec) {
+    const bool ok = gr < R && gc < C;
+    cp_async16(dst, ok ? p + (size_t)gr * C + gc : p, ok);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dst[j] = gr < R && gc + j < C ? p[(size_t)gr * C + gc + j] : 0.0f;
+  }
+}
+
+template <bool kVec>
 __device__ __forceinline__ void load_tile_f32(float* as, float* bs, const float* x, const float* w,
                                               int M, int N, int K, int m0, int n0, int k0) {
   {  // A: 64 rows x 16 k = 256 chunks of 4 floats, one a thread
     int c = threadIdx.x, r = c / (FBK / 4), col = (c % (FBK / 4)) * 4;
-    int gr = m0 + r, gc = k0 + col;
-    bool ok = gr < M && gc < K;
-    cp_async16(as + r * FLDA + col, ok ? x + (size_t)gr * K + gc : x, ok);
+    load4_f32<kVec>(as + r * FLDA + col, x, M, K, m0 + r, k0 + col);
   }
   {  // B: 16 k x 64 cols = 256 chunks
     int c = threadIdx.x, r = c / (FBN / 4), col = (c % (FBN / 4)) * 4;
-    int gr = k0 + r, gc = n0 + col;
-    bool ok = gr < K && gc < N;
-    cp_async16(bs + r * FLDB + col, ok ? w + (size_t)gr * N + gc : w, ok);
+    load4_f32<kVec>(bs + r * FLDB + col, w, K, N, k0 + r, n0 + col);
   }
 }
 
+// kVec false: the edge instance, for K or N not a multiple of 4 or an
+// operand not 16-byte aligned (guarded 4-byte loads; the rest unchanged)
+template <bool kVec>
 __global__ void __launch_bounds__(FTHREADS)
     mm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out,
                   float* __restrict__ ws, int M, int N, int K, int act, int per_split) {
@@ -475,13 +486,13 @@ __global__ void __launch_bounds__(FTHREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  if (nk > 0) load_tile_f32(as, bs, x, w, M, N, K, m0, n0, kt0 * FBK);
+  if (nk > 0) load_tile_f32<kVec>(as, bs, x, w, M, N, K, m0, n0, kt0 * FBK);
   cp_async_commit();
   for (int t = 0; t < nk; ++t) {
     const int cur = t & 1;
     if (t + 1 < nk)
-      load_tile_f32(as + (cur ^ 1) * FA_STAGE, bs + (cur ^ 1) * FB_STAGE, x, w, M, N, K, m0, n0,
-                    (kt0 + t + 1) * FBK);
+      load_tile_f32<kVec>(as + (cur ^ 1) * FA_STAGE, bs + (cur ^ 1) * FB_STAGE, x, w, M, N, K,
+                          m0, n0, (kt0 + t + 1) * FBK);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -519,93 +530,118 @@ __global__ void __launch_bounds__(FTHREADS)
 }
 
 
-// ---- host side of the bf16 path ----------------------------------------------
+// ---- bf16 edge kernel: any K and N, any operand alignment --------------------
+//
+// TMA needs 16-byte global strides and bases, so a [4096, 49155] weight (a
+// 98,310-byte row) cannot be its source as stored, and padding a copy each
+// call would move the whole weight again.  This kernel loads with plain
+// guarded 2-byte loads instead (a row of an odd width is 2-byte aligned
+// only) and multiplies on mma.sync m16n8k16, bf16 in, f32 accumulate.  A
+// block of four warps owns a 32 x 128 output tile and walks K in 32-deep
+// slices: thread t loads column n0 + t of w (32 rows; a warp's loads of one
+// row are 64 contiguous bytes) and 8 values of x into registers for the
+// next slice while the warps multiply the current one from shared memory,
+// where w is stored transposed ([n][k]) so that a B fragment is one 32-bit
+// read.  Warp w computes all 32 rows x columns 32w..32w+31.  Bound at the
+// untied unembeds' decode shapes by the bytes of w; simple first, with its
+// times in PERF.md.
 
-// cuTensorMapEncodeTiled is a driver-API symbol: fetched through the runtime,
-// so the library links no libcuda of its own.
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  });
-  return fn;
-}
+constexpr int EBM = 32, EBN = 128, EBK = 32, ETHREADS = 128;
+constexpr int ELD = EBK + 8;  // smem row stride (bf16) of xs and wt: 80-byte rows
 
-// A tensor map is a pure function of (pointer, shape, box): encoded maps are
-// kept in a small direct-mapped cache, so a weight's map is encoded once.
-struct MapEntry {
-  const void* ptr;
-  uint64_t d0, d1;
-  uint32_t b0, b1;
-  CUtensorMap map;
-};
-constexpr int MAP_CACHE = 512;
-MapEntry map_cache[MAP_CACHE];
-std::mutex map_mutex;
+__global__ void __launch_bounds__(ETHREADS)
+    mm_edge_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
+                   void* __restrict__ out, int M, int N, int K, int act, int out_f32) {
+  __shared__ __align__(16) unsigned short xs[EBM * ELD];
+  __shared__ __align__(16) unsigned short wt[EBN * ELD];
+  const int m0 = blockIdx.y * EBM, n0 = blockIdx.x * EBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int gn = n0 + tid;
 
-// The 2-D bf16 tensor [d1][d0] (d0 contiguous) at ptr, in boxes of b1 rows of
-// b0 = 64 values, 128-byte swizzled; reads past the tensor give zeros.
-bool tensor_map(CUtensorMap* out, const void* ptr, uint64_t d0, uint64_t d1, uint32_t b0,
-                uint32_t b1) {
-  size_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
-  h = (h ^ (d0 * 0x9E3779B1u) ^ (d1 * 0x85EBCA77u) ^ (b1 * 0xC2B2AE3Du)) % MAP_CACHE;
-  std::lock_guard<std::mutex> lock(map_mutex);
-  MapEntry& e = map_cache[h];
-  if (e.ptr == ptr && e.d0 == d0 && e.d1 == d1 && e.b0 == b0 && e.b1 == b1) {
-    *out = e.map;
-    return true;
+  uint32_t wr[EBK / 2];   // the next slice's w column, rows in pairs
+  unsigned short xr[EBM * EBK / ETHREADS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < EBK; r += 2) {
+      unsigned short lo = 0, hi = 0;
+      if (gn < N) {
+        if (k0 + r < K) lo = w[(size_t)(k0 + r) * N + gn];
+        if (k0 + r + 1 < K) hi = w[(size_t)(k0 + r + 1) * N + gn];
+      }
+      wr[r / 2] = pack_raw(lo, hi);
+    }
+#pragma unroll
+    for (int i = 0; i < EBM * EBK / ETHREADS; ++i) {
+      const int e = tid + i * ETHREADS, gr = m0 + e / EBK, gc = k0 + e % EBK;
+      xr[i] = gr < M && gc < K ? x[(size_t)gr * K + gc] : 0;
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  grid_dependency_wait();  // the previous kernel on the stream is done with x, w, out
+  launch_dependents();
+  const int nk = (K + EBK - 1) / EBK;
+  load(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    __syncthreads();  // the previous slice's products have read xs and wt
+    uint4* wdst = reinterpret_cast<uint4*>(wt + tid * ELD);
+#pragma unroll
+    for (int q = 0; q < EBK / 8; ++q)
+      wdst[q] = make_uint4(wr[4 * q], wr[4 * q + 1], wr[4 * q + 2], wr[4 * q + 3]);
+#pragma unroll
+    for (int i = 0; i < EBM * EBK / ETHREADS; ++i) {
+      const int e = tid + i * ETHREADS;
+      xs[(e / EBK) * ELD + e % EBK] = xr[i];
+    }
+    __syncthreads();
+    if (kt + 1 < nk) load((kt + 1) * EBK);  // in flight during the products
+#pragma unroll
+    for (int kk = 0; kk < EBK / 16; ++kk) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const unsigned short* r0 = xs + (mt * 16 + g) * ELD + kk * 16 + 2 * t;
+        a[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[mt][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ELD);
+        a[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+        a[mt][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ELD + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const unsigned short* c0 = wt + (warp * 32 + nt * 8 + g) * ELD + kk * 16 + 2 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(c0);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(c0 + 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
+      }
+    }
   }
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {d0, d1};
-  cuuint64_t strides[1] = {d0 * 2};
-  cuuint32_t box[2] = {b0, b1};
-  cuuint32_t elem[2] = {1, 1};
-  CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return false;
-  e = MapEntry{ptr, d0, d1, b0, b1, *out};
-  return true;
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + mt * 16 + g + (e >> 1) * 8;
+        const int col = n0 + warp * 32 + nt * 8 + 2 * t + (e & 1);
+        if (row < M && col < N)
+          store_out(out, (size_t)row * N + col, epilogue(acc[mt][nt][e], act), out_f32);
+      }
 }
+
+// ---- host side of the bf16 path ----------------------------------------------
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel k, int bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// A launch that may begin while the previous kernel on the stream finishes
-// (programmatic dependent launch): the kernel sets up its barriers and
-// prefetches its tensor maps, then waits for that kernel to complete before
-// touching global memory, and at once lets the next one do the same (whose
-// blocks then wait on free SMs, never on this kernel's: all of its blocks
-// have started by then).
-template <typename... Params, typename... Args>
-cudaError_t launch_overlapped(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                              cudaStream_t st, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int BM, int BN>
@@ -661,8 +697,9 @@ extern "C" int repro_matmul(const void* x, const void* w, void* out, void* ws, v
       kernel == 1 && block_n == STREAM_BN && M <= block_m && (block_m == 8 || block_m == 16);
   if (!tile && !strm) return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  if (!tensor_map(&tx, x, K, M, BK, block_m) ||
-      !tensor_map(&tw, w, N, K, BOX, BK))
+  // x [M][K] in boxes of block_m rows of 64, w [K][N] in boxes of 64 rows
+  if (!tensor_map(&tx, 2, x, K, M, 1, BK, block_m, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+      !tensor_map(&tw, 2, w, N, K, 1, BOX, BK, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
@@ -683,10 +720,15 @@ extern "C" int repro_matmul(const void* x, const void* w, void* out, void* ws, v
 
 // x [M,K] f32, w [K,N] f32, out [M,N] f32; ws holds splits*M*N floats when
 // splits > 1, with ceil(kt / ceil(kt / splits)) == splits for kt = ceil(K / 16).
-// Returns the cudaError_t of the launches (0 on success).
+// edge 0: K and N multiples of 4, x and w 16-byte aligned (16-byte cp.async
+// loads); edge 1: any K, N and alignment (guarded 4-byte loads).  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int repro_matmul_f32(const void* x, const void* w, void* out, void* ws, int M, int N,
-                                int K, int act, int splits, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 4 || N % 4 || splits < 1 || act < 0 || act > 2)
+                                int K, int act, int splits, int edge, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  if (!edge && (K % 4 || N % 4 ||
+                (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16))
     return (int)cudaErrorInvalidValue;
   const int kt = (K + FBK - 1) / FBK;
   const int per = (kt + splits - 1) / splits;
@@ -694,10 +736,11 @@ extern "C" int repro_matmul_f32(const void* x, const void* w, void* out, void* w
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, splits);
-  mm_f32_kernel<<<grid, FTHREADS, 0, st>>>(static_cast<const float*>(x),
-                                           static_cast<const float*>(w), static_cast<float*>(out),
-                                           splits > 1 ? static_cast<float*>(ws) : nullptr, M, N, K,
-                                           act, per);
+  auto kernel = edge ? mm_f32_kernel<false> : mm_f32_kernel<true>;
+  kernel<<<grid, FTHREADS, 0, st>>>(static_cast<const float*>(x), static_cast<const float*>(w),
+                                    static_cast<float*>(out),
+                                    splits > 1 ? static_cast<float*>(ws) : nullptr, M, N, K, act,
+                                    per);
   if (splits > 1) {
     size_t total = (size_t)M * N;
     unsigned blocks = (unsigned)((total + 255) / 256);
@@ -705,4 +748,17 @@ extern "C" int repro_matmul_f32(const void* x, const void* w, void* out, void* w
                                           1);
   }
   return (int)cudaGetLastError();
+}
+
+// x [M,K] bf16, w [K,N] bf16, out [M,N] bf16 (out_f32 = 0) or f32: any K and
+// N, x and w 2-byte aligned (the edge kernel; out as the caller allocates
+// it).  One launch.  Returns the cudaError_t (0 on success).
+extern "C" int repro_matmul_edge(const void* x, const void* w, void* out, int M, int N, int K,
+                                 int act, int out_f32, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + EBN - 1) / EBN, (M + EBM - 1) / EBM);
+  return (int)launch_overlapped(mm_edge_kernel, grid, ETHREADS, 0,
+                                static_cast<cudaStream_t>(stream),
+                                static_cast<const unsigned short*>(x),
+                                static_cast<const unsigned short*>(w), out, M, N, K, act, out_f32);
 }

@@ -12,7 +12,8 @@ sequence), carries the kv head's whole query group as the rows of one
 tensor-core tile so the cache is read once for all of them, splits the
 sequence's tiles over four warps whose softmax states merge at the end, and
 skips every tile at or past the sequence's length, so a short sequence reads
-only its own rows.  D = 64, Hq / Hkv <= 16.
+only its own rows.  D = 64 or 128 (yi's and granite's heads), Hq / Hkv <= 16;
+any other D is refused (MLA's 192 will need an instance of its own).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ REPLACES = "src/repro/kernels/decode_attention.py:69"
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -70,7 +71,7 @@ def plain_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length, *,
                      scale: float | None = None) -> torch.Tensor:
     """One-token attention over a dense cache: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D = 64, Hq / Hkv <= 16)."""
+    tensors, else the CUDA kernel (bf16, D = 64 or 128, Hq / Hkv <= 16)."""
     if native.on_cpu(q, k_cache, v_cache):
         return plain_decode_attention(q, k_cache, v_cache, length, scale=scale)
     global launches
@@ -82,8 +83,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
-    if D != HEAD_DIM or Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"decode_attention: needs D == {HEAD_DIM} and Hq / Hkv a whole "
+    if D not in HEAD_DIMS or Hq % Hkv or Hq // Hkv > 16:
+        raise ValueError(f"decode_attention: needs D in {HEAD_DIMS} and Hq / Hkv a whole "
                          f"number <= 16; got D={D} Hq={Hq} Hkv={Hkv}")
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

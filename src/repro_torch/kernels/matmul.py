@@ -36,6 +36,16 @@ wrapper flattens leading dimensions as ``pallas_matmul`` did and allocates
 the split workspace and the tiles' counters (one buffer per CUDA stream,
 which the kernel leaves zeroed); the kernels mask ragged M, N and K
 themselves.  The f32 kernel keeps its 64x64 tiles and its two-pass split-K.
+
+Both TMA (the bf16 kernels) and 16-byte ``cp.async`` loads (the f32 kernel)
+need 16-byte rows and bases.  Any other shape or operand — K or N not a
+multiple of 8 in bf16 or of 4 in f32, or an operand not 16-byte aligned,
+such as the untied unembeds of granite-3-8b ``[4096, 49155]``, hymba
+``[1600, 32001]`` and whisper ``[1280, 51866]`` — takes the edge kernel
+(:func:`tma_ready` decides): guarded 2-byte loads and ``mma.sync`` in bf16,
+the f32 kernel's guarded-load instance in f32, the same epilogues, one
+launch, no padded copy of the weight.  So the wrapper takes every shape
+``pallas_matmul`` takes, as it falls back to a single block.
 """
 
 from __future__ import annotations
@@ -62,12 +72,14 @@ launches = 0
 f32_launches = 0
 #: launches made through a fixed-weight role (:func:`matmul_fixed_weight`)
 fixed_launches = 0
+#: launches of the edge kernel (bf16 or f32; shapes and operands TMA cannot take)
+edge_launches = 0
 
 _ACTIVATIONS = {None: 0, "silu": 1, "gelu": 2}
-_SMS = 132
 _F32_BM, _F32_BN, _F32_BK = 64, 64, 16
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_EDGE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 #: the kernel's function in plain PyTorch (f32 product, f32 epilogue, cast):
 #: the oracle itself
@@ -124,7 +136,7 @@ def cost(M: int, N: int, K: int, p: Plan) -> float:
     rates, not the card's peaks), not to predict a time."""
     rows, cols = p.block_m, p.block_n
     step = max(2 * BK * (rows + cols) / _SM_BYTES_S, 2 * BK * rows * cols / _SM_FLOPS_S)
-    t = max(math.ceil(p.blocks / _SMS) * p.per_split * step,
+    t = max(math.ceil(p.blocks / native.sm_count()) * p.per_split * step,
             2 * (M * K + K * N + M * N) / _HBM_BYTES_S)
     if p.splits > 1:
         t += ((2 * p.splits - 1) * 4 * M * N / _SPLIT_BYTES_S + _SPLIT_S
@@ -140,7 +152,8 @@ def plan(M: int, N: int, K: int) -> Plan:
     :data:`TILE_SHAPES`.  Of those, the block and the split (every split
     non-empty) of least :func:`cost`, the fewest splits and largest block on
     a tie.  Raises ``ValueError`` for K or N not a multiple of 8 (16-byte
-    rows)."""
+    rows, as TMA needs): :func:`matmul` sends those shapes to the edge
+    kernel and never asks."""
     if M <= 0 or N <= 0 or K <= 0:
         raise ValueError(f"matmul: empty shape M={M} N={N} K={K}")
     if K % 8 or N % 8:
@@ -172,25 +185,20 @@ def split_k(M: int, N: int, K: int) -> int:
     non-empty (the C side checks)."""
     tiles = math.ceil(M / _F32_BM) * math.ceil(N / _F32_BN)
     kt = math.ceil(K / _F32_BK)
-    if tiles >= _SMS:
+    if tiles >= native.sm_count():
         return 1
-    splits = max(1, min(math.ceil(2 * _SMS / tiles), kt // 4))
+    splits = max(1, min(math.ceil(2 * native.sm_count() / tiles), kt // 4))
     per = math.ceil(kt / splits)
     return math.ceil(kt / per)
 
 
-# one counter buffer per (device, CUDA stream): the kernels leave it zeroed,
-# and two streams never share one
-_counters: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _tile_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
+def tma_ready(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether x [.., K] and w [K, N] suit the TMA and ``cp.async`` kernels:
+    16-byte rows (K and N multiples of 8 in bf16, of 4 in f32) and 16-byte
+    aligned bases.  Otherwise the edge kernel takes them."""
+    lanes = 16 // x.element_size()
+    return (x.shape[-1] % lanes == 0 and w.shape[1] % lanes == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype: torch.dtype | None = None,
@@ -215,26 +223,38 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype | None,
         raise TypeError(f"matmul: f32 inputs give an f32 output, not {out_dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"matmul: out_dtype must be bf16 or f32, got {out_dtype}")
-    native.check("matmul", {"x": x, "w": w}, torch.float32 if f32 else torch.bfloat16)
+    native.check("matmul", {"x": x, "w": w}, torch.float32 if f32 else torch.bfloat16,
+                 aligned=False)
     *lead, K = x.shape
     if w.dim() != 2 or w.shape[0] != K:
         raise ValueError(f"matmul: shapes {tuple(x.shape)} x {tuple(w.shape)} do not chain")
     M, N = math.prod(lead), w.shape[1]
     if M == 0:
         return torch.empty((*lead, N), dtype=out_dtype, device=x.device)
+    global edge_launches
+    edge = not tma_ready(x, w)
     if f32:
         global f32_launches
-        if K % 4 or N % 4:
-            raise ValueError(f"matmul: K={K} and N={N} must be multiples of 4")
         out = torch.empty((M, N), dtype=out_dtype, device=x.device)
         splits = split_k(M, N, K)
         ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
               if splits > 1 else None)
         fn = native.function("matmul", "repro_matmul_f32", _F32_ARGTYPES)
         err = fn(native.ptr(x), native.ptr(w), native.ptr(out), native.ptr(ws), M, N, K,
-                 _ACTIVATIONS[activation], splits, native.stream(x.device))
+                 _ACTIVATIONS[activation], splits, int(edge), native.stream(x.device))
         native.raise_on_error("matmul", err)
-        f32_launches += 1
+        if edge:
+            edge_launches += 1
+        else:
+            f32_launches += 1
+    elif edge:
+        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+        fn = native.function("matmul", "repro_matmul_edge", _EDGE_ARGTYPES)
+        err = fn(native.ptr(x), native.ptr(w), native.ptr(out), M, N, K,
+                 _ACTIVATIONS[activation], int(out_dtype == torch.float32),
+                 native.stream(x.device))
+        native.raise_on_error("matmul", err)
+        edge_launches += 1
     else:
         out = _launch_bf16(x, w, plan(M, N, K), out_dtype, activation, M, N, K)
     if fixed:
@@ -253,7 +273,7 @@ def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dty
     ws = counters = None
     if p.splits > 1:
         ws = torch.empty((p.splits, M, N), dtype=torch.float32, device=x.device)
-        counters = _tile_counters(x.device, stream, p.tiles)
+        counters = native.tile_counters("matmul", x.device, stream, p.tiles)
     fn = native.function("matmul", "repro_matmul", _ARGTYPES)
     err = fn(native.ptr(x), native.ptr(w), native.ptr(out), native.ptr(ws), native.ptr(counters),
              M, N, K, _ACTIVATIONS[activation], int(out_dtype == torch.float32),

@@ -15,6 +15,7 @@ machine need not have ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +33,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: streaming multiprocessors of the H100 SXM: the count the launch rules
+#: (matmul's plan, flash attention's split) assume where no card is visible
+H100_SMS = 132
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -113,6 +118,15 @@ def function(lib: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+@functools.cache
+def sm_count() -> int:
+    """Streaming multiprocessors of the current card, read once; the H100's
+    132 where no card is visible."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the wrappers then run their
     plain version.  A mix of CPU and other devices is refused."""
@@ -124,9 +138,10 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def check(op: str, tensors: dict[str, torch.Tensor], dtype: torch.dtype | None = None) -> None:
+def check(op: str, tensors: dict[str, torch.Tensor], dtype: torch.dtype | None = None, *,
+          aligned: bool = True) -> None:
     """Refuse what the kernels do not take: tensors off one CUDA device, of
-    another dtype, not contiguous, or not 16-byte aligned."""
+    another dtype, not contiguous, or (``aligned``) not 16-byte aligned."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{op}: the CUDA kernel needs all tensors on one CUDA device, "
@@ -136,8 +151,25 @@ def check(op: str, tensors: dict[str, torch.Tensor], dtype: torch.dtype | None =
             raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+# one counter buffer per (kernel, device, CUDA stream): a kernel that splits
+# its work across blocks leaves its counters zeroed, and two streams never
+# share one
+_counters: dict[tuple[str, int, int], torch.Tensor] = {}
+
+
+def tile_counters(op: str, device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for ``op``'s launches on
+    ``stream`` (a ``cuda_stream`` handle)."""
+    key = (op, device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -18,7 +18,7 @@ a sequence's length, so table entries past it (the scratch page) are never
 dereferenced, and it makes no dense copy of the pages.  A table entry inside
 the length that lies outside the pool is a corrupt table: the kernel masks
 that page's rows out of the softmax (it cannot raise without a sync; the
-plain version's gather raises for an index past the pool).  D = 64,
+plain version's gather raises for an index past the pool).  D = 64 or 128,
 Hq / Hkv <= 16.
 """
 
@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels import native
 from repro_torch.kernels.decode_attention import (
-    HEAD_DIM,
+    HEAD_DIMS,
     lengths_vector,
     plain_decode_attention,
 )
@@ -61,7 +61,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                            block_table: torch.Tensor, length, *,
                            scale: float | None = None) -> torch.Tensor:
     """One-token attention over a paged pool: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D = 64, Hq / Hkv <= 16, an int32
+    tensors, else the CUDA kernel (bf16, D = 64 or 128, Hq / Hkv <= 16, an int32
     block table on the card)."""
     if native.on_cpu(q, k_pages, v_pages, block_table):
         return plain_paged_decode_attention(q, k_pages, v_pages, block_table, length,
@@ -81,8 +81,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                          f"{tuple(block_table.shape)} do not match")
     P, Hkv, ps = k_pages.shape[:3]
     NP = block_table.shape[1]
-    if D != HEAD_DIM or Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"paged_decode_attention: needs D == {HEAD_DIM} and Hq / Hkv a "
+    if D not in HEAD_DIMS or Hq % Hkv or Hq // Hkv > 16:
+        raise ValueError(f"paged_decode_attention: needs D in {HEAD_DIMS} and Hq / Hkv a "
                          f"whole number <= 16; got D={D} Hq={Hq} Hkv={Hkv}")
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

@@ -137,16 +137,54 @@ def test_matmul_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
 
 
 def test_matmul_refuses_a_misaligned_input_before_any_launch(cuda):
+    """An operand TMA cannot take (here x 2 bytes off a 16-byte boundary) is
+    no longer refused: it goes to the edge kernel, one launch, and matches
+    the plain version; the TMA kernels launch nothing."""
     m, k, n = 8, 2048, 512
     g = _gen(cuda, 8)
     x = torch.empty(m * k + 1, dtype=torch.bfloat16, device=cuda)[1:].view(m, k)
     x.copy_(_randn(g, (m, k), cuda))
-    w = _randn(g, (k, n), cuda)
+    w = _randn(g, (k, n), cuda, scale=k ** -0.5)
     assert x.is_contiguous() and x.data_ptr() % 16 == 2
-    before = mm_k.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        mm_k.matmul(x, w)
-    assert mm_k.launches == before
+    before = (mm_k.launches, mm_k.edge_launches)
+    got = mm_k.matmul(x, w)
+    assert (mm_k.launches, mm_k.edge_launches) == (before[0], before[1] + 1)
+    _close(got, mm_k.plain_matmul(x, w), **BF16_TOL)
+
+
+# the untied unembeds of granite-3-8b, hymba and whisper at a decode step (N
+# odd or not a multiple of 8), and small shapes with K, N or both ragged
+EDGE_SHAPES = [(8, 4096, 49155), (8, 1600, 32001), (8, 1280, 51866), (1, 4096, 49155),
+               (8, 36, 49), (6, 100, 131), (70, 130, 200), (33, 2048, 517)]
+
+
+@pytest.mark.parametrize("m,k,n", EDGE_SHAPES)
+@pytest.mark.parametrize("activation", [None, "silu", "gelu"])
+def test_matmul_edge_matches_plain(cuda, m, k, n, activation):
+    """K or N not a multiple of 8: the edge kernel (guarded loads,
+    mma.sync), bf16 and f32 outputs, every epilogue, one launch each."""
+    g = _gen(cuda, m + k + n)
+    x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
+    before = (mm_k.launches, mm_k.edge_launches)
+    got = mm_k.matmul(x, w, activation=activation)
+    got32 = mm_k.matmul(x, w, activation=activation, out_dtype=torch.float32)
+    assert (mm_k.launches, mm_k.edge_launches) == (before[0], before[1] + 2)
+    assert got.shape == (m, n) and got32.dtype == torch.float32
+    _close(got, mm_k.plain_matmul(x, w, activation=activation), **BF16_TOL)
+    _close(got32, mm_k.plain_matmul(x, w, activation=activation, out_dtype=torch.float32),
+           atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 49155), (8, 36, 49), (6, 100, 131), (5, 18, 7)])
+def test_f32_matmul_edge_matches_plain(cuda, m, k, n):
+    """f32 with K or N not a multiple of 4: the f32 kernel's edge instance."""
+    g = _gen(cuda, m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda) * k ** -0.5
+    before = (mm_k.f32_launches, mm_k.edge_launches)
+    got = mm_k.matmul(x, w, activation="silu")
+    assert (mm_k.f32_launches, mm_k.edge_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, mm_k.plain_matmul(x, w, activation="silu"), **F32_TOL)
 
 
 @pytest.mark.parametrize("shape", [(8, 2048), (512, 2048), (3, 5, 64)])
@@ -171,6 +209,7 @@ def test_rmsnorm_matches_plain(cuda, shape):
     _close(rms_k.rmsnorm(x, w), rms_k.plain_rmsnorm(x, w), **BF16_TOL)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("b,hq,hkv,s,t,causal,window", [
     (1, 32, 8, 512, 512, True, None),
     (1, 32, 8, 512, 512, False, None),
@@ -181,44 +220,91 @@ def test_rmsnorm_matches_plain(cuda, shape):
     (1, 32, 8, 1024, 1024, True, None),    # the largest prompt bucket
     (1, 32, 8, 128, 1024, True, None),     # a chunk of chunked prefill, 1024 keys
     (1, 32, 8, 128, 384, True, None),      # a chunk against keys no power of two
+    (1, 8, 2, 100, 300, False, 70),        # window without the causal mask, S < T
 ])
-def test_flash_attention_matches_plain(cuda, b, hq, hkv, s, t, causal, window):
+def test_flash_attention_matches_plain(cuda, b, hq, hkv, s, t, causal, window, d):
     g = _gen(cuda, 3)
-    q = _randn(g, (b, hq, s, 64), cuda)
-    k, v = _randn(g, (b, hkv, t, 64), cuda), _randn(g, (b, hkv, t, 64), cuda)
+    q = _randn(g, (b, hq, s, d), cuda)
+    k, v = _randn(g, (b, hkv, t, d), cuda), _randn(g, (b, hkv, t, d), cuda)
     got = fa_k.flash_attention(q, k, v, causal=causal, window=window)
     want = fa_k.plain_flash_attention(q, k, v, causal=causal, window=window)
     _attn_close(got, want)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,t,causal", [(128, 1024, True), (128, 768, True), (64, 2048, False),
+                                        (100, 1200, True)])
+def test_flash_attention_split_is_one_launch_and_bitwise_repeatable(cuda, s, t, causal, d):
+    """A shape whose q tiles and heads leave SMs idle splits its key range:
+    the splits are merged in split order by the last block of a tile, so two
+    calls agree bit for bit; it is one launch (the count moves by one a call,
+    and a profiler trace of a call holds one kernel); and it matches the
+    plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert fa_k.split_kv(1, 32, s, t, causal, head_dim=d) > 1
+    g = _gen(cuda, 17)
+    q = _randn(g, (1, 32, s, d), cuda)
+    k, v = _randn(g, (1, 8, t, d), cuda), _randn(g, (1, 8, t, d), cuda)
+    before = fa_k.launches
+    first = fa_k.flash_attention(q, k, v, causal=causal)
+    second = fa_k.flash_attention(q, k, v, causal=causal)
+    assert fa_k.launches == before + 2
+    assert torch.equal(first, second)
+    _attn_close(first, fa_k.plain_flash_attention(q, k, v, causal=causal))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fa_k.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    assert len(kernels) == 1 and "fa_kernel" in kernels[0].name, [e.name for e in kernels]
+
+
+def test_flash_attention_ignores_rows_past_t_and_other_heads(cuda):
+    """Keys of one kv head never reach another's output: NaN planted in kv
+    head 1 leaves the rows of the query heads reading kv head 0 bit for bit
+    (the tensor maps read zeros past T, not the next head's rows)."""
+    g = _gen(cuda, 18)
+    q = _randn(g, (1, 4, 100, 128), cuda)
+    k, v = _randn(g, (1, 2, 100, 128), cuda), _randn(g, (1, 2, 100, 128), cuda)
+    clean = fa_k.flash_attention(q, k, v)
+    k[:, 1], v[:, 1] = float("nan"), float("nan")
+    got = fa_k.flash_attention(q, k, v)
+    assert torch.equal(got[:, :2], clean[:, :2]) and torch.isnan(got[:, 2:]).all()
+
+
+@pytest.mark.parametrize("d,hkv", [(64, 8), (128, 4), (128, 8)])
 @pytest.mark.parametrize("lengths", [[1, 1024, 5, 600, 33, 64, 1000, 2], 77])
-def test_decode_attention_matches_plain(cuda, lengths):
+def test_decode_attention_matches_plain(cuda, lengths, d, hkv):
     g = _gen(cuda, 4)
-    q = _randn(g, (8, 32, 64), cuda)
-    kc, vc = _randn(g, (8, 8, 1024, 64), cuda), _randn(g, (8, 8, 1024, 64), cuda)
+    q = _randn(g, (8, 32, d), cuda)
+    kc, vc = _randn(g, (8, hkv, 1024, d), cuda), _randn(g, (8, hkv, 1024, d), cuda)
     length = (torch.tensor(lengths, dtype=torch.int32, device=cuda)
               if isinstance(lengths, list) else lengths)
     got = dec_k.decode_attention(q, kc, vc, length)
     _attn_close(got, dec_k.plain_decode_attention(q, kc, vc, length))
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n", [5, 45, 600])
-def test_decode_attention_fixup_cache_matches_plain(cuda, n):
+def test_decode_attention_fixup_cache_matches_plain(cuda, n, d):
     """The first-token fixup: one sequence against its cache cut to the
     prompt's n rows, a length that is not a multiple of the 32-key tile."""
     g = _gen(cuda, 8)
-    q = _randn(g, (1, 32, 64), cuda)
-    kc, vc = _randn(g, (1, 8, n, 64), cuda), _randn(g, (1, 8, n, 64), cuda)
+    q = _randn(g, (1, 32, d), cuda)
+    kc, vc = _randn(g, (1, 8, n, d), cuda), _randn(g, (1, 8, n, d), cuda)
     length = torch.tensor([n], dtype=torch.int32, device=cuda)
     _attn_close(dec_k.decode_attention(q, kc, vc, length),
                 dec_k.plain_decode_attention(q, kc, vc, length))
 
 
-def test_decode_attention_ignores_rows_past_length(cuda):
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_attention_ignores_rows_past_length(cuda, d):
     """Rows at or past a sequence's length never reach the output, even NaN."""
     g = _gen(cuda, 5)
-    q = _randn(g, (2, 8, 64), cuda)
-    kc, vc = _randn(g, (2, 2, 256, 64), cuda), _randn(g, (2, 2, 256, 64), cuda)
+    q = _randn(g, (2, 8, d), cuda)
+    kc, vc = _randn(g, (2, 2, 256, d), cuda), _randn(g, (2, 2, 256, d), cuda)
     lengths = torch.tensor([100, 129], dtype=torch.int32, device=cuda)
     clean = dec_k.decode_attention(q, kc, vc, lengths)
     for b, n in enumerate((100, 129)):
@@ -240,7 +326,10 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         mm_k.matmul(x.t(), w)                        # not contiguous
     with pytest.raises(ValueError):
-        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 32), cuda) for _ in range(3)))  # D != 64
+        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 32), cuda) for _ in range(3)))  # D = 32
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        dec_k.decode_attention(_randn(g, (1, 2, 96), cuda), *(_randn(g, (1, 2, 8, 96), cuda)
+                                                              for _ in range(2)), 3)
     assert mm_k.launches == before + 1
 
 
@@ -269,27 +358,71 @@ def test_small_model_cuda_matches_torch_source(cuda):
         torch.testing.assert_close(b, a, atol=5e-2, rtol=5e-2)
 
 
-def _paged_pool(g, device, B, ps, T=1024, spare=1):
-    """A random pool [P, 8, ps, 64] (page 0 the scratch page) and a shuffled
+def test_small_head_dim_128_model_cuda_matches_torch_source(cuda):
+    """A small granite-shaped model (head_dim 128, an untied unembed over an
+    odd vocabulary, so the edge matmul) under ``cuda-strict`` against the
+    torch source: prefill, a batched decode step and a paged one (bitwise
+    the dense one), at the tolerance of the head_dim 64 model above."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    cfg = dataclasses.replace(reduced(ARCHS["granite-3-8b"], layers=2, d_model=256, vocab=517),
+                              head_dim=128)
+    model = build_model(cfg, device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(cuda, 19), device=cuda)
+    out = {}
+    for policy in ("torch", "cuda-strict"):
+        with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+            before = (fa_k.launches, dec_k.launches, paged_k.launches, mm_k.edge_launches)
+            logits = [model.prefill(params, {"tokens": tokens[i:i + 1]}, cache_len=64)
+                      for i in range(2)]
+            cache = {key: torch.cat([c[key] for _, c in logits], dim=1) for key in ("k", "v")}
+            pos = torch.tensor([40, 40], dtype=torch.int32, device=cuda)
+            table = torch.tensor([[3, 1, 4, 2], [6, 8, 5, 7]], dtype=torch.int32, device=cuda)
+            pool = {}
+            for key in ("k", "v"):
+                L, B, H, T, hd = cache[key].shape
+                pool[key] = torch.zeros(L, 9, H, 16, hd, dtype=cache[key].dtype, device=cuda)
+                pool[key][:, table.reshape(-1).long()] = cache[key].reshape(
+                    L, B, H, 4, 16, hd).transpose(2, 3).reshape(L, B * 4, H, 16, hd)
+            paged, _ = model.decode_step(params, tokens[:, -1:],
+                                         {**pool, "pos": pos, "block_table": table})
+            step, _ = model.decode_step(params, tokens[:, -1:], {**cache, "pos": pos})
+            counts = (fa_k.launches, dec_k.launches, paged_k.launches, mm_k.edge_launches)
+        out[policy] = (torch.cat([lg for lg, _ in logits]), step, paged)
+        if policy == "cuda-strict":
+            assert torch.equal(paged, step)
+            assert [a - b for a, b in zip(counts, before)] == [4, 2, 2, 4]
+    for a, b in zip(out["torch"], out["cuda-strict"]):
+        assert torch.isfinite(b).all() and b.shape[-1] == 517
+        torch.testing.assert_close(b, a, atol=5e-2, rtol=5e-2)
+
+
+def _paged_pool(g, device, B, ps, T=1024, spare=1, d=64, hkv=8):
+    """A random pool [P, hkv, ps, d] (page 0 the scratch page) and a shuffled
     table [B, T/ps] mapping every page but the scratch and ``spare`` ones."""
     NP = T // ps
     P = B * NP + 1 + spare
-    kp, vp = _randn(g, (P, 8, ps, 64), device), _randn(g, (P, 8, ps, 64), device)
+    kp, vp = _randn(g, (P, hkv, ps, d), device), _randn(g, (P, hkv, ps, d), device)
     perm = torch.randperm(P - 1, generator=g, device=device)[: B * NP] + 1
     return kp, vp, perm.reshape(B, NP).to(torch.int32)
 
 
+@pytest.mark.parametrize("d,hkv", [(64, 8), (128, 4)])
 @pytest.mark.parametrize("ps", [8, 16, 64])
 @pytest.mark.parametrize("lengths", [[1, 1024, 5, 600, 37, 256, 900, 64],
                                      [3, 1000, 17, 16, 1024, 512, 9, 129] * 2, 77])
-def test_paged_decode_attention_matches_plain_and_dense_bitwise(cuda, ps, lengths):
+def test_paged_decode_attention_matches_plain_and_dense_bitwise(cuda, ps, lengths, d, hkv):
     """Against its plain version row by row, and bit for bit against the
     dense kernel on the gathered cache: the design's promise, for page
     sizes below, at and above the 32-key tile."""
     g = _gen(cuda, 9)
     B = len(lengths) if isinstance(lengths, list) else 8
-    q = _randn(g, (B, 32, 64), cuda)
-    kp, vp, table = _paged_pool(g, cuda, B, ps)
+    q = _randn(g, (B, 32, d), cuda)
+    kp, vp, table = _paged_pool(g, cuda, B, ps, d=d, hkv=hkv)
     length = (torch.tensor(lengths, dtype=torch.int32, device=cuda)
               if isinstance(lengths, list) else lengths)
     got = paged_k.paged_decode_attention(q, kp, vp, table, length)
@@ -299,13 +432,14 @@ def test_paged_decode_attention_matches_plain_and_dense_bitwise(cuda, ps, length
     assert torch.equal(got, dense)
 
 
-def test_paged_decode_attention_reads_nothing_past_length(cuda):
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_attention_reads_nothing_past_length(cuda, d):
     """Rows at or past a sequence's length never reach the output: NaN in
     every pool row past it — the page tail, and the scratch page that the
     table entries past it point at — leaves the result bit for bit."""
     g = _gen(cuda, 10)
-    q = _randn(g, (2, 32, 64), cuda)
-    kp, vp, table = _paged_pool(g, cuda, 2, 16, T=256)
+    q = _randn(g, (2, 32, d), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 2, 16, T=256, d=d)
     lengths = torch.tensor([100, 37], dtype=torch.int32, device=cuda)
     clean = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
     for b, n in enumerate((100, 37)):

@@ -74,6 +74,23 @@ def test_matmul_plain_matches_pallas(dtype, out, activation, lead, k, n):
     _check(got, want, "bf16" if dtype == "bf16" and not out else "f32")
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("out", [None, "f32"])
+@pytest.mark.parametrize("activation", [None, "silu"])
+@pytest.mark.parametrize("m,k,n", [(8, 36, 49), (6, 100, 131), (3, 64, 517)])
+def test_matmul_plain_matches_pallas_at_any_k_and_n(dtype, out, activation, m, k, n):
+    """K and N not multiples of 8 (the edge kernel's shapes on the card):
+    ``pallas_matmul`` falls back to a single block there, and the plain
+    version takes them as they are."""
+    (xj, xt), (wj, wt) = _pair((m, k), dtype), _pair((k, n), dtype, scale=k ** -0.5)
+    got = mm_k.matmul(xt, wt, activation=activation,
+                      out_dtype=torch.float32 if out else None)
+    want = jops.pallas_matmul(xj, wj, activation=activation,
+                              out_dtype=jnp.float32 if out else None, interpret=True)
+    assert got.shape == (m, n)
+    _check(got, want, "bf16" if dtype == "bf16" and not out else "f32")
+
+
 @pytest.mark.parametrize("activation", [None, "silu"])
 def test_matmul_torch_source_matches_xla(activation):
     (xj, xt), (wj, wt) = _pair((8, 64), "bf16"), _pair((64, 32), "bf16", scale=0.125)
@@ -115,6 +132,22 @@ def test_flash_attention_plain_matches_pallas(dtype, hq, hkv, s, t, causal, wind
     _check(got, want, dtype)
 
 
+@pytest.mark.parametrize("hq,hkv,s,t,causal,window", [
+    (4, 2, 64, 64, True, None),
+    (4, 2, 64, 64, False, None),       # non-causal
+    (2, 1, 128, 128, True, 48),        # sliding window
+    (4, 1, 32, 128, True, None),       # S < T: queries at the kv tail
+])
+def test_flash_attention_plain_matches_pallas_at_head_dim_128(hq, hkv, s, t, causal, window):
+    """head_dim 128, the width of yi's, granite's and internvl2's heads."""
+    (qj, qt) = _pair((1, hq, s, 128), "bf16")
+    (kj, kt), (vj, vt) = _pair((1, hkv, t, 128), "bf16"), _pair((1, hkv, t, 128), "bf16")
+    got = fa_k.flash_attention(qt, kt, vt, causal=causal, window=window)
+    want = pallas_flash_attention(qj, kj, vj, causal=causal, window=window,
+                                  block_q=32, block_k=32, interpret=True)
+    _check(got, want, "bf16")
+
+
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=24)])
 def test_flash_attention_torch_source_matches_xla(kw):
@@ -143,6 +176,17 @@ def test_decode_attention_plain_matches_pallas(dtype, length):
 
 
 @pytest.mark.parametrize("length", [37, [1, 64, 17]])
+def test_decode_attention_plain_matches_pallas_at_head_dim_128(length):
+    """head_dim 128 with yi's group of 8 query heads a kv head."""
+    (qj, qt) = _pair((3, 16, 128), "bf16")
+    (kj, kt), (vj, vt) = _pair((3, 2, 64, 128), "bf16"), _pair((3, 2, 64, 128), "bf16")
+    got = dec_k.decode_attention(qt, kt, vt, torch.tensor(length, dtype=torch.int32))
+    want = pallas_decode_attention(qj, kj, vj, jnp.asarray(length, jnp.int32), block_k=16,
+                                   interpret=True)
+    _check(got, want, "bf16")
+
+
+@pytest.mark.parametrize("length", [37, [1, 64, 17]])
 def test_decode_attention_torch_source_matches_xla(length):
     (qj, qt) = _pair((3, 8, 32), "bf16")
     (kj, kt), (vj, vt) = _pair((3, 2, 64, 32), "bf16"), _pair((3, 2, 64, 32), "bf16")
@@ -155,15 +199,15 @@ def test_decode_attention_torch_source_matches_xla(length):
 # ---------------------------------------------------------------------------
 
 
-def _paged_case(B, hq, hkv, ps, n_pages, dtype, length, seed=0):
+def _paged_case(B, hq, hkv, ps, n_pages, dtype, length, seed=0, hd=32):
     """q, a random pool with page 0 left as scratch, disjoint shuffled
     per-sequence tables and lengths (scalar, or per slot from 1 to the whole
     table) — each as a JAX array and a CPU torch tensor."""
     rng = np.random.default_rng(seed)
     pool_pages = B * n_pages + 3
-    q = _pair((B, hq, 32), dtype)
-    kp = _pair((pool_pages, hkv, ps, 32), dtype)
-    vp = _pair((pool_pages, hkv, ps, 32), dtype)
+    q = _pair((B, hq, hd), dtype)
+    kp = _pair((pool_pages, hkv, ps, hd), dtype)
+    vp = _pair((pool_pages, hkv, ps, hd), dtype)
     table = rng.permutation(np.arange(1, pool_pages))[: B * n_pages].reshape(B, n_pages)
     table = table.astype(np.int32)
     if length == "per_slot":
@@ -186,6 +230,20 @@ def test_paged_decode_attention_plain_matches_pallas(dtype, length, hq, hkv, ps,
     got = paged_k.paged_decode_attention(qt, kt, vt, tt, lt)
     want = pallas_paged_decode_attention(qj, kj, vj, tj, lj, interpret=True)
     _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("length", ["scalar", "per_slot"])
+@pytest.mark.parametrize("ps,n_pages", [(16, 4), (64, 1), (8, 8)])
+def test_paged_decode_attention_plain_matches_pallas_at_head_dim_128(length, ps, n_pages):
+    """head_dim 128 over page sizes 8, 16 and 64, and bit for bit the plain
+    dense version over the gathered cache."""
+    (qj, qt), (kj, kt), (vj, vt), (tj, tt), (lj, lt) = _paged_case(
+        3, 8, 1, ps, n_pages, "bf16", length, seed=3, hd=128)
+    got = paged_k.paged_decode_attention(qt, kt, vt, tt, lt)
+    _check(got, pallas_paged_decode_attention(qj, kj, vj, tj, lj, interpret=True), "bf16")
+    dense = dec_k.plain_decode_attention(qt, tref.gather_kv_pages(kt, tt),
+                                         tref.gather_kv_pages(vt, tt), lt)
+    assert torch.equal(got, dense)
 
 
 @pytest.mark.parametrize("ps", [8, 16])

@@ -12,6 +12,7 @@ import math
 import pytest
 
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels import native
 
 # (M, K, N): llama3.2-1b's four weights at the serve runs' row counts, and
 # mamba2-780m's two at its own; then ragged shapes
@@ -71,7 +72,7 @@ def test_plan_is_least_cost_and_fills_the_card_where_k_allows(M, K, N):
     alts = _alternatives(M, N, K)
     assert p in alts
     assert all(mm.cost(M, N, K, p) <= mm.cost(M, N, K, a) * (1 + 1e-9) for a in alts)
-    if p.blocks < mm._SMS // 2:
+    if p.blocks < native.sm_count() // 2:
         more = [a for a in alts if a.blocks > p.blocks]
         assert all(mm.cost(M, N, K, a) > mm.cost(M, N, K, p) for a in more)
 

@@ -151,10 +151,17 @@ def test_model_phase_runs_the_engine_calls_on_a_small_model():
     assert max(max(res[k]["rel_l2"]) for k in ("prefill", "fixup", "decode", "chunked")) < 0.05
 
 
-def _counting_registry() -> KernelRegistry:
+def _counting_registry(*, with_others: bool = False) -> KernelRegistry:
     """A registry whose cuda source for each op is the kernel's plain
-    version counted as a launch of its module, as the wrapper counts one."""
+    version counted as a launch of its module, as the wrapper counts one (a
+    matmul TMA cannot take counted as the edge kernel's); ``with_others``
+    keeps the global registry's torch and reference sources beside them."""
+    from repro_torch.core.registry import GLOBAL_REGISTRY
+
     reg = KernelRegistry()
+    if with_others:
+        reg.restore({key: [i for i in impls if i.source != "cuda"]
+                     for key, impls in GLOBAL_REGISTRY.snapshot().items()})
     for mod, op, plain in ((mm_k, "matmul", mm_k.plain_matmul),
                            (rms_k, "rmsnorm", rms_k.plain_rmsnorm),
                            (fa_k, "flash_attention", fa_k.plain_flash_attention),
@@ -163,7 +170,10 @@ def _counting_registry() -> KernelRegistry:
                             paged_k.plain_paged_decode_attention),
                            (ssd_k, "ssd", ssd_k.plain_ssd)):
         def counted(*args, _mod=mod, _plain=plain, **kwargs):
-            _mod.launches += 1
+            if _mod is mm_k and not mm_k.tma_ready(*args[:2]):
+                mm_k.edge_launches += 1
+            else:
+                _mod.launches += 1
             if _mod is ssd_k:
                 kwargs.pop("chunk")               # the wrapper's keyword, not the plain's
             return _plain(*args, **kwargs)
@@ -195,6 +205,47 @@ def test_serve_phase_runs_three_engines_with_their_launch_counts():
     assert chunked["kv_bytes"] == runs["paged"]["kv_bytes"] < runs["dense"]["kv_bytes"] * 1.01
     assert res["launches"]["matmul"] == sum(r["launches"]["matmul"] for r in runs.values())
     assert res["launches"]["ssd"] == 0
+
+
+def test_granite_phase_runs_the_head_dim_128_calls_on_a_small_model():
+    """The granite phase on a small granite-shaped model (head_dim 128, 4
+    query heads a kv head, an untied unembed over an odd vocabulary): the
+    calls run, the paged decode and paged chunks equal the dense and staging
+    ones bit for bit, the logits agree with the torch source, and the launch
+    counts it checks hold (plain versions counted as launches; the unembed
+    as the edge kernel's)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(ARCHS["granite-3-8b"], layers=2, d_model=64, vocab=131),
+                              head_dim=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.granite_phase(torch, model, params, kernels, 0)
+    assert res["buckets"] == [8, 64, 256, 512, 512, 512, 512, 512]
+    assert res["launches"] == {"matmul": 364, "rmsnorm": 130, "flash_attention": 32,
+                               "decode_attention": 18, "paged_decode_attention": 2, "ssd": 0,
+                               "matmul_edge": 26}
+    assert res["paged_equal_dense_bitwise"]
+    kinds = ("prefill", "fixup", "decode", "decode_paged", "chunk", "chunk_paged")
+    assert [len(res[k]["rel_l2"]) for k in kinds] == [8, 8, 8, 8, 1, 1]
+    assert max(max(res[k]["rel_l2"]) for k in kinds) < 0.05
+
+
+def test_flash_split_rule_fills_the_card_only_where_tiles_are_few():
+    """The split-KV rule: no split where the (q tile, head) blocks fill the
+    132 SMs or walk few keys; where they do not, one split for every 384
+    keys the longest walk sees, up to one block an SM and four splits."""
+    assert fa_k.split_kv(1, 32, 512, 512) == 1                    # 256 blocks
+    assert fa_k.split_kv(1, 32, 128, 1024) == 2                   # 64 blocks: two an SM
+    assert fa_k.split_kv(1, 32, 128, 768) == 2
+    assert fa_k.split_kv(1, 32, 128, 640) == 1                    # 640 keys
+    assert fa_k.split_kv(1, 32, 8, 8) == 1
+    assert fa_k.split_kv(1, 32, 64, 2048) == 4                    # 32 blocks
+    assert fa_k.split_kv(1, 32, 64, 1024, head_dim=128) == 2
+    assert fa_k.split_kv(1, 8, 100, 1200, False, 400) == 1        # the window leaves 640 keys
+    assert fa_k.split_kv(1, 8, 100, 1200) == 3
 
 
 SSM_CFG = reduced(ARCHS["mamba2-780m"], layers=2, d_model=64, vocab=128)
