@@ -12,22 +12,31 @@ paper's two tenants on the card through the port's HSA runtime.  Phases, in
 order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (six sources, nine kernels) and print what
+   ``src/repro_torch/csrc`` (six sources, eleven kernels) and print what
    ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
    instructions in each bf16 matmul kernel and each flash attention
-   instance (``cuobjdump``; none fails).
+   instance, wgmma in the f32 (3xTF32) kernel, and mma.sync (HMMA) in the
+   bf16 edge and f32 streaming kernels for M <= 16, with TMA loads in their
+   TMA instances (``cuobjdump``; none fails).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
    serving paths and the paper's roles give it, the attention kernels at
    head_dim 64 and 128 (flash also split over 2-4 blocks a tile, under a
-   window, ragged), within the tolerance stated below (attention row by
-   row, ssd per row and per head's state, conv2d and the f32 matmul
+   window, ragged) and 96, within the tolerance stated below (attention
+   row by row, ssd per row and per head's state, conv2d and the f32 matmul
    exactly or within 2e-4, the bf16 matmul within 2e-2, each beside what a
    planted fault reads by the same measure; rmsnorm in bf16 and f32; the
-   matmul edge kernel at the untied unembeds' shapes, N not a multiple of
-   8); timed with CUDA events beside its plain version and one PyTorch
-   library call where there is one (for paged attention, which no one call
-   computes, a gather and SDPA; for ssd and int16 conv2d none), and its
-   bound (the larger of bytes / 3.35 TB/s and operations / peak rate).  The
+   matmul edge kernels at the untied unembeds' shapes, N not a multiple of
+   8, at M = 1, 8 and 16, and at M = 17 and 64, w off a 16-byte boundary
+   and K not a multiple of 8, so that every instance of the matmul kernels
+   built is held against the plain version: each row names the instance it
+   ran, and a built instance that no row ran fails the phase); timed with
+   CUDA events beside its plain version and one PyTorch library call where
+   there is one (for paged attention, which no one call computes, a gather
+   and SDPA; for ssd and int16 conv2d none), the earlier kernel where it is
+   still built (the mma.sync edge kernel that M <= 16 used before the
+   streaming one), and its bound (the larger of bytes / 3.35 TB/s and
+   operations / peak rate; the f32 kernel's three TF32 products at the
+   TF32 rate, the f32 rate's beside it).  The
    paged kernel must also equal the dense kernel on the gathered cache bit
    for bit, and the fixed-weight roles (``matmul_fixed_weight``,
    ``conv2d_fixed_weight``) their generic kernels.
@@ -95,6 +104,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+TF32_TC_FLOPS = 495e12         # H100 SXM dense tf32 tensor cores
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # int32 multiply-adds on the CUDA cores: an SM has 64 INT32 lanes against 128
 # FP32 lanes (NVIDIA's Hopper architecture white paper), so half the f32 rate
@@ -143,8 +153,15 @@ SSM_STATE_REL_L2_TOL = 0.1
 SSM_LAYER_REL_L2_TOL = 1e-2
 SSM_GATED_DEPTH = 8
 # the untied unembeds at a decode step of 8 slots, [M, K] x [K, N] with N not
-# a multiple of 8: granite-3-8b, hymba-1.5b, whisper large-v3
+# a multiple of 8: granite-3-8b, hymba-1.5b, whisper large-v3; the kernel
+# phase also runs them at the first-token fixup's M = 1 and 16 slots' M = 16
 UNEMBEDS = ((8, 4096, 49155), (8, 1600, 32001), (8, 1280, 51866))
+EDGE_ROWS = (1, 8, 16)
+# the edge rows that reach the other edge instances: M above the streaming
+# kernels' 16 (a 17-row and a 64-row batch), and a K that is not a multiple
+# of 8 with 63 values in its last 64-deep slice (the planted fault drops them)
+EDGE_TILE_ROWS = (17, 64)
+EDGE_RAGGED_K = 1599
 # granite-3-8b at full width, cut to this many layers (about 1.6 GB of bf16
 # weights from --seed): every head_dim 128 kernel and the edge matmul of its
 # untied [4096, 49155] unembed on the path a server runs
@@ -445,7 +462,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     rows: list[dict] = []
     errs: dict[str, dict[str, dict]] = {}
 
-    def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak):
+    def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak,
+               previous=None, f32_rate_flops=None, instance=None):
         # the worst errors of a kernel's rows, one group for each tolerance
         # (a kernel's types differ in tolerance: int16 conv exact, f32 not)
         tol = check["tolerance"]
@@ -460,12 +478,18 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         for key in ("bitwise_equal_dense_kernel", "bitwise_equal_generic_kernel"):
             if check.get(key):
                 worst[key] = True
-        row = {"name": name, "shape": shape, **check}
+        # a matmul row names the CUDA kernel instance it ran
+        row = {"name": name, "shape": shape, **({"instance": instance} if instance else {}),
+               **check}
         if sets is not None:
             row["ms"], row["host_ms"] = time_ms(torch, kernel, sets)
             row["plain_ms"] = time_ms(torch, plain, sets)[0]
             row["library_ms"] = time_ms(torch, library, sets)[0] if library else None
             row["bound_ms"], row["bound_by"] = bound(bytes_, flops, peak)
+            if previous is not None:  # the earlier kernel for these shapes, same inputs
+                row["previous_ms"] = time_ms(torch, previous, sets)[0]
+            if f32_rate_flops is not None:  # the f32 product at the CUDA cores' rate
+                row["bound_f32_rate_ms"] = bound(bytes_, f32_rate_flops, F32_FLOPS)[0]
             if name == "ssd":
                 # its f32 work at the bf16 tensor-core rate, for comparison
                 row["bound_bf16_tc_ms"] = bound(bytes_, flops, BF16_TC_FLOPS)[0]
@@ -498,7 +522,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                         lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
                         lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
                         (lambda a, b: torch.matmul(a, b)) if act is None else None,
-                        2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
+                        2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS,
+                        instance=mm_k.kernel_instance(x, w))
             del sets, x, w, fault
 
     # mamba2-780m's two weight shapes (in_proj [1536, 6448], out_proj
@@ -514,7 +539,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                mm_k.matmul(drop_last_k_tile(x), w), TOL_BF16)
             record("matmul", f"[{M},{K}]x[{K},{N}] act=None out=bfloat16", check,
                    sets if M in (8, 600) else None, mm_k.matmul, mm_k.plain_matmul,
-                   torch.matmul, 2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS)
+                   torch.matmul, 2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS,
+                   instance=mm_k.kernel_instance(x, w))
             del sets, x, w
 
     # rmsnorm: fixup, decode, chunk and prefill rows at llama's d_model 2048;
@@ -546,14 +572,18 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # fill (8 .. 1024 rows; 512 also non-causal); S < T: the 128-row chunks
     # of chunked prefill against 256 .. 1024 keys, which split their key
     # range over 2-4 blocks a tile (split-KV); a sliding window of 48; a
-    # ragged 200.  The planted fault is read in the rows that see all 64 of
-    # its keys (none under the window).
+    # ragged 200.  And D = 96 (a head_dim the D = 128 instance takes, its
+    # columns past 96 read as zeros) at causal 512, a chunk and ragged 200.
+    # The planted fault is read in the rows that see all 64 of its keys
+    # (none under the window).
     buckets = [(S, S, True, None) for S in (8, 64, 128, 256, 512, 1024)]
     buckets += [(512, 512, False, None)]
     chunks = [(128, T, True, None) for T in range(256, 1025, 128)]
     others = [(256, 256, True, 48), (200, 200, True, None)]
-    for D in fa_k.HEAD_DIMS:
-        for S, T, causal, window in buckets + chunks + others:
+    every = buckets + chunks + others
+    d96 = [(512, 512, True, None), (128, 1024, True, None), (200, 200, True, None)]
+    for D, flash_cases in ((64, every), (128, every), (96, d96)):
+        for S, T, causal, window in flash_cases:
             per_set = 2 * (2 * 32 * S * D + 2 * 8 * T * D)
             sound, dropped = flash_masks(torch, S, T, causal, dev, window)
             # the library call: SDPA's own causal masks where they compute
@@ -572,7 +602,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                   fa_k.plain_flash_attention(q, k, v, **kw), fault,
                                   dropped.sum(dim=-1) == 64)
             check["splits"] = fa_k.split_kv(1, 32, S, T, causal, window, D)
-            timed = (S, T) in ((512, 512), (1024, 1024), (128, 1024)) and window is None
+            timed = ((S, T) in ((512, 512), (1024, 1024), (128, 1024)) and window is None
+                     and (D != 96 or (S, T, causal) == (512, 512, True)))
             record("flash_attention", f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={causal}"
                    + (f" window={window}" if window else ""), check,
                    sets if timed else None,
@@ -589,13 +620,15 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # 32-key tile); at D = 64 with llama's 8 kv heads, at D = 128 with yi's
     # 4 (a group of 8 query heads) and with granite's 8 (a group of 4) at
     # the granite phase's shapes: its decode step of 8 slots against a
-    # 512-row cache (each prompt's length plus the new token) and fixups.
+    # 512-row cache (each prompt's length plus the new token) and fixups; at
+    # D = 96 (an instance of its own) with 8 kv heads.
     slots = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
     granite = torch.tensor([n + 1 for n in GRANITE_LENGTHS], dtype=torch.int32, device=dev)
     cases = []
     for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 600)),
                                        (128, 4, slots, 1024, (5, 45, 600)),
-                                       (128, 8, granite, 512, (5, 45, 500))):
+                                       (128, 8, granite, 512, (5, 45, 500)),
+                                       (96, 8, slots, 1024, (5, 45))):
         cases += [(lengths, T, D, hkv, f"q[8,32,{D}] cache[8,{hkv},{T},{D}] lengths "
                    f"{int(lengths.min())}..{int(lengths.max())}")]
         cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n, D, hkv,
@@ -628,14 +661,14 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # pages, the chunked run's 16 slots, and one sequence against a
     # 600-row cache; at D = 128 (yi's 4 kv heads) the 8 slots with 16- and
     # 64-row pages, and the granite phase's paged step (8 kv heads, a pool
-    # of 16-row pages behind a table 512 / 16 wide).  The planted fault
-    # remaps one whole page inside each sequence's length to another
-    # sequence's page.
+    # of 16-row pages behind a table 512 / 16 wide); at D = 96 the 8 slots
+    # with 16-row pages.  The planted fault remaps one whole page inside each
+    # sequence's length to another sequence's page.
     paged_cases = [(slots, 16, 64, 64, 8), (slots, 64, 16, 64, 8),
                    (slots.repeat(2), 16, 64, 64, 8),
                    (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38, 64, 8),
                    (slots, 16, 64, 128, 4), (slots, 64, 16, 128, 4),
-                   (granite, 16, 32, 128, 8)]
+                   (granite, 16, 32, 128, 8), (slots, 16, 64, 96, 8)]
     for lengths, ps, NP, D, hkv in paged_cases:
         B, group = lengths.numel(), 32 // hkv
         P = B * NP + 1
@@ -741,11 +774,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                bytes_, ops, F32_FLOPS if dt == torch.float32 else INT32_OPS)
         del sets, x, w, got
 
-    # the f32 matmul (the FC roles, kernel 1 in f32) at the paper's 256 x 256
-    # and at 2048, with its epilogues at 256; the fixed-weight role (kernel
-    # 1b) bitwise equal to it and timed on its resident weight.  Within
-    # TOL_ROLE_F32, beside a planted fault (the K tile 16..31 dropped).
-    # Library time: torch.matmul in f32 with TF32 off.
+    # the f32 matmul (the FC roles, kernel 1 in f32: 3xTF32 on the tensor
+    # cores) at the paper's 256 x 256 and at 2048, with its epilogues at 256;
+    # the fixed-weight role (kernel 1b) bitwise equal to it and timed on its
+    # resident weight.  Within TOL_ROLE_F32, beside a planted fault (the K
+    # values 16..31 dropped).  Library time: torch.matmul in f32 with TF32
+    # off.  Bound: three TF32 products at the TF32 rate, the f32 rate's
+    # beside it.
     for M in (256, 2048):
         per_set = 4 * 3 * M * M
         sets = [(torch.randn((M, M), generator=gen, device=dev),
@@ -762,7 +797,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
                    lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
                    (lambda a, b: torch.matmul(a, b)) if act is None else None,
-                   per_set, 2 * M ** 3, F32_FLOPS)
+                   per_set, 3 * 2 * M ** 3, TF32_TC_FLOPS, f32_rate_flops=2 * M ** 3,
+                   instance=mm_k.kernel_instance(x, w))
         fixed = mm_k.matmul_fixed_weight(w.cpu()).bind(dev)
         got = fixed(x)
         if not torch.equal(got, mm_k.matmul(x, w)):
@@ -773,35 +809,46 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         wf = fixed.weight
         record("matmul_fixed_weight", f"[{M},{M}]x[{M},{M}] fixed f32", check, sets,
                lambda a, b: fixed(a), lambda a, b: mm_k.plain_matmul(a, wf),
-               lambda a, b: torch.matmul(a, wf), per_set, 2 * M ** 3, F32_FLOPS)
+               lambda a, b: torch.matmul(a, wf), per_set, 3 * 2 * M ** 3, TF32_TC_FLOPS,
+               f32_rate_flops=2 * M ** 3, instance=mm_k.kernel_instance(x, wf))
         del sets, x, w, xf, fixed, wf, got
 
-    # the matmul edge kernel (shapes and operands TMA cannot take: guarded
-    # loads, mma.sync; in f32 the f32 kernel's guarded-load instance) at the
-    # untied unembeds' decode shapes: granite-3-8b, hymba-1.5b, whisper
-    # large-v3.  bf16 in and f32 out, as the unembed runs it (timed), bf16
-    # out, and f32 in; then x 2 bytes off a 16-byte boundary at an aligned
-    # shape.  Each beside the planted fault of the bf16 rows (the last 64
-    # of K dropped).  Library time: torch.matmul (bf16 out: the same weight
+    # the matmul edge kernels (shapes and operands TMA cannot take) at the
+    # untied unembeds' shapes: granite-3-8b, hymba-1.5b, whisper large-v3, at
+    # M = 1 (the first-token fixup), 8 and 16 (decode steps): the streaming
+    # edge kernel, bf16 in and f32 out as the unembed runs it, timed beside
+    # the mma.sync edge kernel it replaced at these M (previous_ms); at M = 8
+    # also bf16 out under silu, and f32 in (the f32 kernel's 4-byte-load
+    # instance); then x 2 bytes off a 16-byte boundary at an aligned shape.
+    # Each beside the planted fault of the bf16 rows (the last 64 of K
+    # dropped).  Library time: torch.matmul (bf16 out: the same weight
     # bytes), f32 with TF32 off.
-    for M, K, N in UNEMBEDS:
-        sets = [(randn((M, K)), randn((K, N), K ** -0.5)) for _ in range(n_sets(2 * K * N))]
-        x, w = sets[0]
-        f32 = torch.float32
-        fault = mm_k.matmul(drop_last_k_tile(x), w, out_dtype=f32)
-        check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=f32),
-                           mm_k.plain_matmul(x, w, out_dtype=f32), fault, TOL_F32)
-        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=None out=float32", check, sets,
-               lambda a, b: mm_k.matmul(a, b, out_dtype=f32),
-               lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
-               lambda a, b: torch.matmul(a, b),
-               2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS)
-        check = matmul_err(torch, mm_k.matmul(x, w, activation="silu"),
-                           mm_k.plain_matmul(x, w, activation="silu"),
-                           mm_k.matmul(drop_last_k_tile(x), w, activation="silu"), TOL_BF16)
-        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=silu out=bfloat16", check, None,
-               None, None, None, 0, 0, BF16_TC_FLOPS)
-        del sets, x, w, fault
+    f32 = torch.float32
+    for _, K, N in UNEMBEDS:
+        w = randn((K, N), K ** -0.5)
+        for M in EDGE_ROWS:
+            x = randn((M, K))
+            fault = mm_k.matmul(drop_last_k_tile(x), w, out_dtype=f32)
+            check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=f32),
+                               mm_k.plain_matmul(x, w, out_dtype=f32), fault, TOL_F32)
+            check["splits"] = mm_k.edge_splits(M, N, K)
+            record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=None out=float32", check, [(x, w)],
+                   lambda a, b: mm_k.matmul(a, b, out_dtype=f32),
+                   lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
+                   lambda a, b: torch.matmul(a, b),
+                   2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
+                   previous=lambda a, b: mm_k.matmul_edge(a, b, kernel=0, out_dtype=f32),
+                   instance=mm_k.kernel_instance(x, w))
+            if M == 8:
+                check = matmul_err(torch, mm_k.matmul(x, w, activation="silu"),
+                                   mm_k.plain_matmul(x, w, activation="silu"),
+                                   mm_k.matmul(drop_last_k_tile(x), w, activation="silu"),
+                                   TOL_BF16)
+                record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=silu out=bfloat16", check, None,
+                       None, None, None, 0, 0, BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w))
+            del x, fault
+        del w
+        M = 8
         x = torch.randn((M, K), generator=gen, device=dev)
         w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
         xf = drop_last_k_tile(x)
@@ -809,7 +856,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                          mm_k.plain_matmul(xf, w), TOL_ROLE_F32)
         record("matmul_edge", f"[{M},{K}]x[{K},{N}] act=None f32", check, [(x, w)],
                mm_k.matmul, mm_k.plain_matmul, torch.matmul,
-               4 * (M * K + K * N + M * N), 2 * M * N * K, F32_FLOPS)
+               4 * (M * K + K * N + M * N), 3 * 2 * M * N * K, TF32_TC_FLOPS,
+               f32_rate_flops=2 * M * N * K, instance=mm_k.kernel_instance(x, w))
         del x, w, xf
     M, K, N = 8, 2048, 512
     x = torch.empty(M * K + 1, dtype=torch.bfloat16, device=dev)[1:].view(M, K)
@@ -818,8 +866,94 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     check = matmul_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
                        mm_k.matmul(drop_last_k_tile(x), w), TOL_BF16)
     record("matmul_edge", f"[{M},{K}]x[{K},{N}] x 2 bytes off 16-byte alignment", check, None,
-           None, None, None, 0, 0, BF16_TC_FLOPS)
+           None, None, None, 0, 0, BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w))
+    del x, w
+    edge_instance_rows(torch, mm_k, gen, record)
     return rows, errs
+
+
+def offset_copy(torch, t):
+    """A copy of ``t`` whose data starts one element (2 bytes in bf16, 4 in
+    f32) past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def edge_instance_rows(torch, mm_k, gen, record) -> None:
+    """The edge kernels' instances that the unembed rows do not reach, each
+    held to the plain version beside a planted fault (the last K slice
+    dropped), at the unembeds' shapes, bf16 in and f32 out as the unembed
+    runs it, and in f32: M = 17 and 64 (the bf16 ``mma.sync`` edge kernel;
+    the f32 tile kernel's edge instance at 128² tiles); M = 8 and 16 with w
+    2 bytes (f32: 4 bytes) off a 16-byte boundary (the instances that copy
+    w by ``cp.async``; bf16 timed beside the ``mma.sync`` edge kernel on the
+    same operands as previous_ms); f32 at M = 16 on the aligned w (the f32
+    streaming kernel's 16-row TMA instance); then K not a multiple of 8
+    (cp.async, ragged K) and the f32 edge instance at 64² tiles."""
+    dev, f32 = torch.device("cuda"), torch.float32
+
+    def randn(shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def bf16_row(x, w, shape, timed=True):
+        M, K, N = x.shape[0], x.shape[1], w.shape[1]
+        check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=f32),
+                           mm_k.plain_matmul(x, w, out_dtype=f32),
+                           mm_k.matmul(drop_last_k_tile(x), w, out_dtype=f32), TOL_F32)
+        record("matmul_edge", shape, check, [(x, w)] if timed else None,
+               lambda a, b: mm_k.matmul(a, b, out_dtype=f32),
+               lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
+               lambda a, b: torch.matmul(a, b),
+               2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
+               previous=((lambda a, b: mm_k.matmul_edge(a, b, kernel=0, out_dtype=f32))
+                         if M <= mm_k.STREAM_MAX_M else None),
+               instance=mm_k.kernel_instance(x, w))
+
+    def f32_row(x, w, shape, timed=True):
+        M, K, N = x.shape[0], x.shape[1], w.shape[1]
+        check = role_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
+                         mm_k.plain_matmul(drop_last_k_tile(x), w), TOL_ROLE_F32)
+        record("matmul_edge", shape, check, [(x, w)] if timed else None,
+               mm_k.matmul, mm_k.plain_matmul, torch.matmul,
+               4 * (M * K + K * N + M * N), 3 * 2 * M * N * K, TF32_TC_FLOPS,
+               f32_rate_flops=2 * M * N * K, instance=mm_k.kernel_instance(x, w))
+
+    off = "w {} bytes off 16-byte alignment"
+    for _, K, N in UNEMBEDS:
+        w = randn((K, N), K ** -0.5)
+        w_off = offset_copy(torch, w)
+        for M, wt, note in ([(M, w, "") for M in EDGE_TILE_ROWS]
+                            + [(M, w_off, " " + off.format(2)) for M in (8, 16)]):
+            bf16_row(randn((M, K)), wt, f"[{M},{K}]x[{K},{N}] act=None out=float32{note}")
+        del w, w_off
+        w = randn((K, N), K ** -0.5, f32)
+        w_off = offset_copy(torch, w)
+        for M, wt, note in ([(16, w, ""), (64, w, "")]
+                            + [(M, w_off, " " + off.format(4)) for M in (8, 16)]):
+            f32_row(randn((M, K), dtype=f32), wt, f"[{M},{K}]x[{K},{N}] act=None f32{note}")
+        del w, w_off
+    K, N = EDGE_RAGGED_K, UNEMBEDS[1][2]
+    bf16_row(randn((5, K)), randn((K, N), K ** -0.5), f"[5,{K}]x[{K},{N}] act=None out=float32",
+             timed=False)
+    f32_row(randn((16, K), dtype=f32), randn((K, N), K ** -0.5, f32),
+            f"[16,{K}]x[{K},{N}] act=None f32", timed=False)
+    f32_row(randn((255, 257), dtype=f32), randn((257, 255), dtype=f32),
+            "[255,257]x[257,255] act=None f32", timed=False)
+
+
+def check_instances(rows: list[dict], sass: dict) -> set[str]:
+    """Raise unless every instance of the matmul kernels built (the ones
+    ``cuobjdump`` lists, and the ``mma.sync`` edge kernel) ran in some
+    kernel-phase row, held against the plain version; the instances run."""
+    ran = {r["instance"] for r in rows if "instance" in r}
+    built = {fn for lib in ("matmul", "matmul_edge", "matmul_f32") for fn in sass[lib]}
+    missing = (built | {"mm_edge_kernel"}) - ran
+    if missing:
+        raise AssertionError(f"matmul kernel instances never held against their plain "
+                             f"version: {sorted(missing)}")
+    return ran
 
 
 # ---------------------------------------------------------------------------
@@ -1777,11 +1911,14 @@ def prefill_busy(torch, model, params, seed: int) -> dict:
     return res
 
 
-def sass_counts(native, lib: str, kernel_re: str) -> dict[str, dict[str, int]]:
-    """The count of wgmma (HGMMA) and TMA load (UTMALDG) instructions in each
-    instance of the kernels whose name matches ``kernel_re`` in the built
-    library of ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` (the one
-    beside nvcc); raises unless every one has both."""
+def sass_counts(native, lib: str, kernel_re: str,
+                need: tuple[str, ...] = ("HGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
+    """The count of wgmma (HGMMA) and TMA load (UTMALDG) instructions, and of
+    any other opcode in ``need`` (HMMA: mma.sync), in each instance of the
+    kernels whose name matches ``kernel_re`` in the built library of
+    ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` (the one beside nvcc);
+    raises unless every one has those in ``need``."""
+    ops = tuple(dict.fromkeys(("HGMMA", "UTMALDG") + need))
     path = native.build_all()[lib]
     cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(cuobjdump), "--dump-sass", str(path)], capture_output=True,
@@ -1791,23 +1928,48 @@ def sass_counts(native, lib: str, kernel_re: str) -> dict[str, dict[str, int]]:
     for line in out.splitlines():
         if "Function :" in line:
             # _ZN..mm_tile_kernelILi128ELi256EEEv.. -> mm_tile_kernel<128,256>
-            m = re.search(rf"({kernel_re})I((?:Li\d+E)+)", line)
+            m = re.search(rf"({kernel_re})I((?:L[ib]\d+E)+)", line)
             fn = None
             if m:
-                fn = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                fn = m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 counts[fn][op] += op in line
-    if not counts or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values()):
-        raise AssertionError(f"{lib} kernels without wgmma or TMA loads: {counts}")
+    if not counts or any(c[op] == 0 for c in counts.values() for op in need):
+        what = " or ".join({"HGMMA": "wgmma", "UTMALDG": "TMA loads", "HMMA": "mma.sync"}[op]
+                           for op in need)
+        raise AssertionError(f"{lib} kernels without {what}: {counts}")
     return counts
 
 
 def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
     """:func:`sass_counts` of the bf16 matmul's tile and streaming kernels."""
     return sass_counts(native, "matmul", r"mm_(?:tile|stream)_kernel")
+
+
+def edge_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the bf16 edge kernel for M <= 16 (mma.sync on
+    tiles its own threads realign, no wgmma; TMA copies in the instances
+    with TMA = 1)."""
+    counts = sass_counts(native, "matmul", r"mm_edge_stream_kernel", need=("HMMA",))
+    if not all(c["UTMALDG"] for fn, c in counts.items() if fn.endswith(",1>")):
+        raise AssertionError(f"the edge kernel's TMA instances without TMA loads: {counts}")
+    return counts
+
+
+def f32_matmul_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the f32 (3xTF32) kernels' instances: wgmma on
+    tiles the converter warpgroup writes (no TMA); mma.sync in the streaming
+    kernel for M <= 16 (TMA loads in its TMA instances)."""
+    counts = {**sass_counts(native, "matmul", r"mm_f32_kernel", need=("HGMMA",)),
+              **sass_counts(native, "matmul", r"mm_f32_stream_kernel", need=("HMMA",))}
+    if not all(c["UTMALDG"] for fn, c in counts.items()
+               if fn.startswith("mm_f32_stream") and fn.endswith(",1>")):
+        raise AssertionError(f"the f32 streaming kernel's TMA instances without TMA loads: "
+                             f"{counts}")
+    return counts
 
 
 def flash_sass(native) -> dict[str, dict[str, int]]:
@@ -1857,21 +2019,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t = time.perf_counter()
     native.build_all()
-    print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 3} kernels: the f32 matmul, "
-          f"the matmul edge kernel and conv2d beside these six) in "
+    print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 5} kernels: the two f32 "
+          f"matmul kernels, the two matmul edge kernels and conv2d beside these six) in "
           f"{time.perf_counter() - t:.1f} s"
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
-    sass = {"matmul": bf16_matmul_sass(native), "flash_attention": flash_sass(native)}
+    sass = {"matmul": bf16_matmul_sass(native), "flash_attention": flash_sass(native),
+            "matmul_edge": edge_sass(native), "matmul_f32": f32_matmul_sass(native)}
     for lib, fns in sass.items():
         for fn, counts in fns.items():
-            print(f"  {lib} SASS {fn}: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+            print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
 
     print(f"[2/8] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
+    print(f"  every matmul instance built was held against the plain version: "
+          f"{sorted(check_instances(rows, sass))}")
 
     print("[3/8] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
@@ -1934,20 +2099,48 @@ def main() -> int:
                 "conv2d": "x[1,64,64,1] w[5,5,1,1] int16",
                 "matmul_edge": "[8,4096]x[4096,49155] act=None out=float32"}
     # the rows beside each headline: the bf16 matmul's prefill, flash
-    # attention's other timed rows at D = 64 and its D = 128 rows, the
-    # decode kernels at D = 128, the other unembeds
+    # attention's other timed rows at D = 64 and its D = 128 and 96 rows, the
+    # decode kernels at D = 128 and 96, the other unembeds and row counts,
+    # the f32 kernel at 2048
+    lengths = "[1, 1024, 5, 600, 37, 256, 900, 64]"
+    off2, off4 = "w 2 bytes off 16-byte alignment", "w 4 bytes off 16-byte alignment"
     beside = {"matmul": ["[1024,2048]x[2048,8192] act=None out=bfloat16"],
               "flash_attention": [f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={c}"
-                                  for D in fa_k.HEAD_DIMS
+                                  for D in (64, 128)
                                   for S, T, c in ((512, 512, True), (512, 512, False),
                                                   (128, 1024, True), (1024, 1024, True))
-                                  if (D, S, T, c) != (64, 512, 512, True)],
-              "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024"],
-              "paged_decode_attention": ["q[8,32,128] pool[513,4,16,128] table[8,64] lengths "
-                                         "[1, 1024, 5, 600, 37, 256, 900, 64]"],
-              "matmul_edge": [f"[{M},{K}]x[{K},{N}] act=None out=float32"
-                              for M, K, N in UNEMBEDS[1:]]
-                             + ["[8,4096]x[4096,49155] act=None f32"]}
+                                  if (D, S, T, c) != (64, 512, 512, True)]
+                                 + ["q[1,32,512,96] kv[1,8,512,96] causal=True"],
+              "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024",
+                                   "q[8,32,96] cache[8,8,1024,96] lengths 1..1024"],
+              "paged_decode_attention": [f"q[8,32,128] pool[513,4,16,128] table[8,64] lengths "
+                                         f"{lengths}",
+                                         f"q[8,32,96] pool[513,8,16,96] table[8,64] lengths "
+                                         f"{lengths}"],
+              "matmul_edge": [f"[{M},{K}]x[{K},{N}] act=None out=float32{note}"
+                              for _, K, N in UNEMBEDS
+                              for M, note in ([(M, "") for M in EDGE_ROWS + EDGE_TILE_ROWS]
+                                              + [(M, f" {off2}") for M in (8, 16)])
+                              if (M, K, note) != (8, 4096, "")]
+                             + [f"[{M},{K}]x[{K},{N}] act=None f32{note}" for _, K, N in UNEMBEDS
+                                for M, note in ((8, ""), (16, ""), (64, ""), (8, f" {off4}"),
+                                                (16, f" {off4}"))],
+              "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32"],
+              "matmul_fixed_weight": ["[2048,2048]x[2048,2048] fixed f32"]}
+    # the CUDA functions behind each entry
+    cuda_fn = {"matmul": "mm_tile_kernel<BM,BN>, mm_stream_kernel<MP>",
+               "rmsnorm": "rmsnorm_kernel, rmsnorm_f32_kernel",
+               "flash_attention": "fa_kernel<64|128>",
+               "decode_attention": "dec_kernel<D, DenseRows>",
+               "paged_decode_attention": "dec_kernel<D, PagedRows>", "ssd": "ssd_kernel",
+               "matmul_f32": "mm_f32_kernel<1,B,B> (3xTF32 on wgmma; M <= 16: "
+                             "mm_f32_stream_kernel<8|16,TMA>, 3xTF32 on mma.sync)",
+               "matmul_fixed_weight": "the f32 kernels on a resident weight",
+               "conv2d": "conv_kernel<Tin,Acc,Tout,KH,KW>",
+               "matmul_edge": "mm_edge_stream_kernel<8|16,TMA> (M <= 16; TMA = 1 where K "
+                              "% 8 == 0 and w is aligned, else cp.async copies), "
+                              "mm_edge_kernel (M > 16); f32: mm_f32_stream_kernel<8|16,TMA> "
+                              "(M <= 16), mm_f32_kernel<0,B,B> (M > 16)"}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",
                "decode_attention": "F.scaled_dot_product_attention",
@@ -1969,17 +2162,19 @@ def main() -> int:
                                             ("conv2d", conv_k, conv_k.REPLACES))]
     entries += [("matmul_edge", mm_k, mm_k.REPLACES,
                  {"granite": granite_res["launches"]["matmul_edge"]})]
-    timing = ("shape", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timing = ("shape", "instance", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "previous_ms", "bound_f32_rate_ms")
     summary = []
     for name, mod, replaces, by_run in entries:
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
         # the errors of the headline row's tolerance; those of the kernel's
         # other tolerances beside them
         others = [e for tol, e in errs[name].items() if tol != row["tolerance"]]
-        more = [{k: r[k] for k in timing} for shape in beside.get(name, ())
+        more = [{k: r[k] for k in timing if k in r} for shape in beside.get(name, ())
                 for r in rows if r["name"] == name and r["shape"] == shape]
         summary.append({
-            "name": name, "route": mod.ROUTE, "source": mod.SOURCE, "replaces": replaces,
+            "name": name, "kernel": cuda_fn[name], "route": mod.ROUTE, "source": mod.SOURCE,
+            "replaces": replaces,
             "launches": sum(by_run.values()), "launches_by_run": by_run,
             **errs[name][row["tolerance"]],
             **({"errors_at_other_tolerances": others} if others else {}),
@@ -1987,6 +2182,7 @@ def main() -> int:
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": library[name],
+            **{k: row[k] for k in ("previous_ms", "bound_f32_rate_ms") if k in row},
             **({"other_rows": more} if more else {}),
             **({"sass": sass[name]} if name in sass else {}),
         })

@@ -1,5 +1,6 @@
 // Decode attention for Hopper: one query token per sequence against its KV
-// cache, dense or paged.  q [B,Hq,D] (bf16, D = 64 or 128), lengths int32 [B];
+// cache, dense or paged.  q [B,Hq,D] (bf16, D a multiple of 16 from 16 to
+// 128), lengths int32 [B];
 // positions >= lengths[b] are masked.  Two entry points share one kernel
 // body, a template over where key row t of sequence b, kv head hk lives:
 //   - dense, k/v [B,Hkv,T,D]:    base + ((b*Hkv + hk)*T + t)*D;
@@ -32,12 +33,13 @@
 // merge are one code path, so over equal KV rows the paged kernel is bitwise
 // equal to the dense one, for any page size (a 32-key tile may span pages;
 // a row is 128 or 256 contiguous bytes, so the 16-byte loads stay aligned).
-// The head dim D is a template parameter, 64 or 128: at 128 the tiles and
-// their padding take 4 x 2 x 32 x 136 x 2 = 69,632 bytes of shared memory
-// and the merge buffer 32 KB of it, so the tiles live in dynamic shared
-// memory (its limit raised once an instance).  The page table is read per
-// row from global memory (cached); TMA, wgmma and a split of one sequence
-// across SMs are later work.
+// The head dim D is a template parameter, every multiple of 16 from 16 to
+// 128 (the mma.sync fragments step D in 16s; a row of 2D bytes keeps the
+// 16-byte loads aligned): at 128 the tiles and their padding take 4 x 2 x
+// 32 x 136 x 2 = 69,632 bytes of shared memory and the merge buffer 32 KB of
+// it, so the tiles live in dynamic shared memory (its limit raised once an
+// instance).  The page table is read per row from global memory (cached);
+// TMA, wgmma and a split of one sequence across SMs are later work.
 #include "common.cuh"
 
 namespace {
@@ -237,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool bad_heads(int B, int Hq, int Hkv, int D) {
-  return (D != 64 && D != 128) || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16;
+  return D < 16 || D > 128 || D % 16 || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq / Hkv > 16;
 }
 
 // One launch of the instance for D: grid (Hkv, B), its shared memory limit
@@ -256,22 +258,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const Rows& rows
   return cudaGetLastError();
 }
 
+// The instance for head dim D (checked by bad_heads).
+template <class Rows>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const Rows& rows,
+                     const void* lengths, void* o, int B, int Hq, float scale, void* stream) {
+  switch (D) {
+    case 16: return launch<16>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 32: return launch<32>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 48: return launch<48>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 64: return launch<64>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 80: return launch<80>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 96: return launch<96>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    case 112: return launch<112>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+    default: return launch<128>(q, k, v, rows, lengths, o, B, Hq, scale, stream);
+  }
+}
+
 }  // namespace
 
 // q [B,Hq,D], k/v [B,Hkv,T,D], o [B,Hq,D] bf16 contiguous, lengths int32 [B]
-// on the device, D = 64 or 128, Hq / Hkv <= 16.  Returns the cudaError_t.
+// on the device, D a multiple of 16 from 16 to 128, Hq / Hkv <= 16.  Returns
+// the cudaError_t.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* lengths, void* o, int B, int Hq, int Hkv,
                                       int T, int D, float scale, void* stream) {
   if (bad_heads(B, Hq, Hkv, D) || T <= 0) return (int)cudaErrorInvalidValue;
   const DenseRows rows{Hkv, T};
-  return (int)(D == 64 ? launch<64>(q, k, v, rows, lengths, o, B, Hq, scale, stream)
-                       : launch<128>(q, k, v, rows, lengths, o, B, Hq, scale, stream));
+  return (int)launch_d(D, q, k, v, rows, lengths, o, B, Hq, scale, stream);
 }
 
 // q [B,Hq,D], k/v pools [P,Hkv,ps,D], o [B,Hq,D] bf16 contiguous; block
-// table int32 [B,NP] and lengths int32 [B] on the device; D = 64 or 128,
-// Hq / Hkv <= 16.  Returns the cudaError_t.
+// table int32 [B,NP] and lengths int32 [B] on the device; D a multiple of 16
+// from 16 to 128, Hq / Hkv <= 16.  Returns the cudaError_t.
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
                                             const void* v_pool, const void* table,
                                             const void* lengths, void* o, int B, int Hq,
@@ -280,6 +298,5 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* k_pool,
   if (bad_heads(B, Hq, Hkv, D) || P <= 0 || ps <= 0 || NP <= 0)
     return (int)cudaErrorInvalidValue;
   const PagedRows rows{static_cast<const int*>(table), Hkv, P, ps, NP, NP * ps};
-  return (int)(D == 64 ? launch<64>(q, k_pool, v_pool, rows, lengths, o, B, Hq, scale, stream)
-                       : launch<128>(q, k_pool, v_pool, rows, lengths, o, B, Hq, scale, stream));
+  return (int)launch_d(D, q, k_pool, v_pool, rows, lengths, o, B, Hq, scale, stream);
 }

@@ -1,6 +1,10 @@
-// Flash attention for Hopper: online-softmax attention of q [B,Hq,S,D] over
-// k, v [B,Hkv,T,D] (bf16, D = 64 or 128), GQA head h reading kv head
-// h / (Hq/Hkv).
+// Flash attention for Hopper: online-softmax attention of q [B,Hq,S,d] over
+// k, v [B,Hkv,T,d] (bf16, d a multiple of 16 from 16 to 128), GQA head h
+// reading kv head h / (Hq/Hkv).  Two instances, D = 64 and 128, take every
+// d up to their own: the tensor maps span the true d, so a 64-wide TMA box
+// reads zeros in columns d..D-1 of Q, K and V (their products add nothing,
+// and the output's padded columns are never stored), and the wrapper passes
+// the softmax scale of the true d.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_fa_kernel).  The TPU carried the running max,
@@ -85,7 +89,7 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
     fa_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
               float* __restrict__ ws, int* __restrict__ counters, int Hq, int Hkv, int S, int T,
-              float scale_log2, int causal, int window, int splits) {
+              int d, float scale_log2, int causal, int window, int splits) {
   using C = FaCfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -316,64 +320,66 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
 
   const float l0 = l[0] == 0.0f ? 1.0f : l[0];
   const float l1 = l[1] == 0.0f ? 1.0f : l[1];
-  __nv_bfloat16* ob = o + bh * S * D;
+  __nv_bfloat16* ob = o + bh * S * d;
   const int row0 = q0 + r0, row1 = row0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t4;
+    const int col = 8 * j + 2 * t4;  // even, and d a multiple of 16: both or neither stored
+    if (col >= d) continue;
     if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * d + col) =
           __floats2bfloat162_rn(acc[4 * j] / l0, acc[4 * j + 1] / l0);
     if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * d + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] / l1, acc[4 * j + 3] / l1);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* ws,
-                   void* counters, int B, int Hq, int Hkv, int S, int T, float scale, int causal,
-                   int window, int splits, cudaStream_t st) {
+                   void* counters, int B, int Hq, int Hkv, int S, int T, int d, float scale,
+                   int causal, int window, int splits, cudaStream_t st) {
   using C = FaCfg<D>;
   static const cudaError_t set =
       cudaFuncSetAttribute(fa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (set != cudaSuccess) return set;
   CUtensorMap tq, tk, tv;
-  // [B·H][rows][D] in boxes of one head's rows by 64 values: rows past S or T
-  // read zeros, never the next head's
+  // [B·H][rows][d] in boxes of one head's rows by 64 values: rows past S or T,
+  // and columns past d, read zeros, never the next row's or head's
   constexpr CUtensorMapL2promotion L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
-  if (!tensor_map(&tq, 3, q, D, S, (uint64_t)B * Hq, BOX, BQ, L2) ||
-      !tensor_map(&tk, 3, k, D, T, (uint64_t)B * Hkv, BOX, C::BK, L2) ||
-      !tensor_map(&tv, 3, v, D, T, (uint64_t)B * Hkv, BOX, C::BK, L2))
+  if (!tensor_map(&tq, 3, q, d, S, (uint64_t)B * Hq, BOX, BQ, L2) ||
+      !tensor_map(&tk, 3, k, d, T, (uint64_t)B * Hkv, BOX, C::BK, L2) ||
+      !tensor_map(&tv, 3, v, d, T, (uint64_t)B * Hkv, BOX, C::BK, L2))
     return cudaErrorInvalidValue;
   dim3 grid(Hq * splits, (S + BQ - 1) / BQ, B);
   return launch_overlapped(fa_kernel<D>, grid, THREADS, C::SMEM, st, tq, tk, tv,
                            static_cast<__nv_bfloat16*>(o), static_cast<float*>(ws),
-                           static_cast<int*>(counters), Hq, Hkv, S, T, scale * LOG2E, causal,
+                           static_cast<int*>(counters), Hq, Hkv, S, T, d, scale * LOG2E, causal,
                            window, splits);
 }
 
 }  // namespace
 
 // q [B,Hq,S,D], k/v [B,Hkv,T,D], o [B,Hq,S,D], all bf16, contiguous and
-// 16-byte aligned, D = 64 or 128, S <= T, Hq % Hkv == 0.  window <= 0 means
-// no window.  splits: key-range splits a (q tile, head), 1-4; with splits >
-// 1, ws holds splits * B * Hq * 64 ceil(S / 64) * (D + 2) floats and
+// 16-byte aligned, D a multiple of 16 from 16 to 128, S <= T, Hq % Hkv ==
+// 0.  window <= 0 means no window.  splits: key-range splits a (q tile,
+// head), 1-4; with splits > 1, ws holds splits * B * Hq * 64 ceil(S / 64) *
+// (Di + 2) floats (Di = 64 for D <= 64, else 128: the instance) and
 // counters B * Hq * ceil(S / 64) zeroed ints used by no other stream.  One
 // launch.  Returns the cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      void* ws, void* counters, int B, int Hq, int Hkv, int S,
                                      int T, int D, float scale, int causal, int window,
                                      int splits, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T ||
+  if (D < 16 || D > 128 || D % 16 || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T ||
       splits < 1 || splits > 4 || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(D == 64 ? launch<64>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, scale, causal,
+  return (int)(D <= 64 ? launch<64>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, D, scale, causal,
                                     window, splits, st)
-                       : launch<128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, scale, causal,
-                                     window, splits, st));
+                       : launch<128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, D, scale,
+                                     causal, window, splits, st));
 }

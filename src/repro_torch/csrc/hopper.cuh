@@ -1,7 +1,8 @@
-// Hopper building blocks for the bf16 matmul and flash attention kernels
+// Hopper building blocks for the matmul and flash attention kernels
 // (sm_90a): mbarriers, 2-D and 3-D TMA tile loads, wgmma descriptors and the
-// wgmma.mma_async products (A from shared memory or from registers); on the
-// host, tensor maps (encoded and cached) and programmatic dependent launch.
+// wgmma.mma_async products (bf16 with A from shared memory or from
+// registers; tf32 for the f32 matmul), the async-proxy fence; on the host,
+// tensor maps (encoded and cached) and programmatic dependent launch.
 //
 // Shared-memory operands are 128-byte swizzled tiles, as TMA writes them
 // with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16), the 16-byte
@@ -328,6 +329,88 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64, 128] (+)= A[64, 8] B[8, 128], tf32 in (f32 bit patterns whose low 13
+// mantissa bits are zero), f32 accumulate; both operands K-major (tf32 has
+// no transpose bits); scale_d 0 overwrites D.  A k8 slice is 32 bytes of a
+// 128-byte swizzled row, as a k16 slice of bf16 is.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      " %32, %33, %34, %35, %36, %37, %38, %39,\n"
+      " %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      " %48, %49, %50, %51, %52, %53, %54, %55,\n"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same at N = 64.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 64) wgmma_tf32_n64(d, da, db, scale_d);
+  else {
+    static_assert(N == 128, "wgmma_tf32: N of 64 or 128");
+    wgmma_tf32_n128(d, da, db, scale_d);
+  }
+}
+
+// Order this thread's ordinary shared-memory writes before later reads of
+// the same memory by the async proxy (wgmma operands written by threads,
+// not by TMA): each writer fences, then the threads synchronise.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 8) wgmma_n8<TA, TB>(d, da, db, scale_d);
@@ -435,20 +518,26 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map over [d2][d1][d0] (rank 3) or [d1][d0] (rank 2, d2 = 1)
-// at ptr, d0 contiguous, in boxes of b1 rows of b0 values (of one d2 slice),
-// 128-byte swizzled; reads past the tensor give zeros.  A map is a pure
+// A tensor map over [d2][d1][d0] (rank 3) or [d1][d0] (rank 2, d2 = 1) of
+// bf16 (or `dtype`) at ptr, d0 contiguous, in boxes of b1 rows of b0 values
+// (of one d2 slice), 128-byte swizzled unless `swizzle` says otherwise;
+// reads past the tensor give zeros.  A box's first value in d0 must lie on
+// a 16-byte boundary.  A map is a pure
 // function of these arguments: encoded maps are kept in a small
 // direct-mapped cache (one a library), so a weight's or a KV cache's map is
 // encoded once.  False if the driver cannot encode it.
 inline bool tensor_map(CUtensorMap* out, int rank, const void* ptr, uint64_t d0, uint64_t d1,
-                       uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapL2promotion l2) {
+                       uint64_t d2, uint32_t b0, uint32_t b1, CUtensorMapL2promotion l2,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                       CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   struct Entry {
     const void* ptr;
     uint64_t d0, d1, d2;
     uint32_t b0, b1;
     int rank;
     CUtensorMapL2promotion l2;
+    CUtensorMapSwizzle swizzle;
+    CUtensorMapDataType dtype;
     CUtensorMap map;
   };
   constexpr int SLOTS = 512;
@@ -460,21 +549,22 @@ inline bool tensor_map(CUtensorMap* out, int rank, const void* ptr, uint64_t d0,
   std::lock_guard<std::mutex> lock(mutex);
   Entry& e = cache[h];
   if (e.ptr == ptr && e.d0 == d0 && e.d1 == d1 && e.d2 == d2 && e.b0 == b0 && e.b1 == b1 &&
-      e.rank == rank && e.l2 == l2) {
+      e.rank == rank && e.l2 == l2 && e.swizzle == swizzle && e.dtype == dtype) {
     *out = e.map;
     return true;
   }
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  const uint64_t size = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   cuuint64_t dims[3] = {d0, d1, d2};
-  cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  cuuint64_t strides[2] = {d0 * size, d0 * d1 * size};
   cuuint32_t box[3] = {b0, b1, 1};
   cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(out, dtype, rank, const_cast<void*>(ptr), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return false;
-  e = Entry{ptr, d0, d1, d2, b0, b1, rank, l2, *out};
+  e = Entry{ptr, d0, d1, d2, b0, b1, rank, l2, swizzle, dtype, *out};
   return true;
 }
 

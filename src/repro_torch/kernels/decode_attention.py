@@ -12,8 +12,9 @@ sequence), carries the kv head's whole query group as the rows of one
 tensor-core tile so the cache is read once for all of them, splits the
 sequence's tiles over four warps whose softmax states merge at the end, and
 skips every tile at or past the sequence's length, so a short sequence reads
-only its own rows.  D = 64 or 128 (yi's and granite's heads), Hq / Hkv <= 16;
-any other D is refused (MLA's 192 will need an instance of its own).
+only its own rows.  D any multiple of 16 from 16 to 128 (an instance each),
+Hq / Hkv <= 16; any other D raises (MLA's 192 will need instances of its
+own).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels import native
+from repro_torch.kernels.flash_attention import check_head_dim
 
 ROUTE = "cuda"
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
@@ -33,7 +35,6 @@ REPLACES = "src/repro/kernels/decode_attention.py:69"
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -71,7 +72,8 @@ def plain_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length, *,
                      scale: float | None = None) -> torch.Tensor:
     """One-token attention over a dense cache: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D = 64 or 128, Hq / Hkv <= 16)."""
+    tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128, Hq / Hkv
+    <= 16)."""
     if native.on_cpu(q, k_cache, v_cache):
         return plain_decode_attention(q, k_cache, v_cache, length, scale=scale)
     global launches
@@ -83,9 +85,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
-    if D not in HEAD_DIMS or Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"decode_attention: needs D in {HEAD_DIMS} and Hq / Hkv a whole "
-                         f"number <= 16; got D={D} Hq={Hq} Hkv={Hkv}")
+    check_head_dim("decode_attention", D)
+    if Hq % Hkv or Hq // Hkv > 16:
+        raise ValueError(f"decode_attention: needs Hq / Hkv a whole number <= 16; got "
+                         f"Hq={Hq} Hkv={Hkv}")
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)

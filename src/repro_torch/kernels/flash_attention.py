@@ -5,7 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 q [B, Hq, S, D] over k, v [B, Hkv, T, D], GQA head h reading kv head
 h // (Hq // Hkv), causal and sliding-window masks at -1e30 with the queries
 aligned to the end of the keys (``kv_offset = T - S``), a non-causal mode and
-an l == 0 guard.  D = 64 or 128.
+an l == 0 guard.  Any head dim D that is a multiple of 16 from 16 to 128:
+two instances, D = 64 and 128, each take every D up to their own (its tensor
+maps read zeros in the columns past D, and the softmax scale is the true
+D's); any other D raises.
 
 What bounds it on the H100: operations at prefill lengths in principle — a
 causal 512 x 512 head does about 90 flops per byte it must move — but at
@@ -47,13 +50,26 @@ REPLACES = "src/repro/kernels/flash_attention.py:101"
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
-#: query rows a tile of the kernel, and keys a tile at each head dim
+#: the head dims the kernel takes: multiples of 16 up to 128
+HEAD_DIMS = tuple(range(16, 129, 16))
+#: query rows a tile of the kernel, and keys a tile of each instance
 BLOCK_Q = 64
 BLOCK_K = {64: 128, 128: 64}
 MAX_SPLITS = 4
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def instance(head_dim: int) -> int:
+    """The kernel instance (64 or 128) that runs head dim ``head_dim``."""
+    return 64 if head_dim <= 64 else 128
+
+
+def check_head_dim(op: str, D: int) -> None:
+    """Raise, naming ``D``, unless the kernels take it (:data:`HEAD_DIMS`)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{op}: head_dim {D} is not taken: the CUDA kernel takes multiples "
+                         f"of 16 from 16 to 128")
 
 
 def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
@@ -69,7 +85,7 @@ def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
     tiles, sms = B * Hq * math.ceil(S / BLOCK_Q), native.sm_count()
     if tiles >= sms:
         return 1
-    bk = BLOCK_K[head_dim]
+    bk = BLOCK_K[instance(head_dim)]
     q_first = (math.ceil(S / BLOCK_Q) - 1) * BLOCK_Q + T - S   # the last q tile's first row
     lo = max(0, q_first - window + 1) // bk if window else 0
     visible = (math.ceil(T / bk) - lo) * bk
@@ -106,7 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     window: int | None = None, scale: float | None = None,
                     splits: int | None = None) -> torch.Tensor:
     """Attention of q [B,Hq,S,D] over k, v [B,Hkv,T,D]: the plain version for
-    CPU tensors, else the CUDA kernel (bf16, D = 64 or 128, S <= T) with
+    CPU tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128,
+    S <= T) with
     ``splits`` key-range splits, :func:`split_kv`'s choice unless given
     (``kernels/flash_sweep.py`` times the others)."""
     if native.on_cpu(q, k, v):
@@ -117,9 +134,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     Hkv, T = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS or Hq % Hkv or not 0 < S <= T:
-        raise ValueError(f"flash_attention: needs D in {HEAD_DIMS}, Hq % Hkv == 0 and "
-                         f"0 < S <= T; got D={D} Hq={Hq} Hkv={Hkv} S={S} T={T}")
+    check_head_dim("flash_attention", D)
+    if Hq % Hkv or not 0 < S <= T:
+        raise ValueError(f"flash_attention: needs Hq % Hkv == 0 and 0 < S <= T; got "
+                         f"Hq={Hq} Hkv={Hkv} S={S} T={T}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if splits is None:
@@ -141,7 +159,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, caus
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if splits > 1:
         q_tiles = math.ceil(S / BLOCK_Q)
-        ws = torch.empty(splits * B * Hq * q_tiles * BLOCK_Q * (D + 2), dtype=torch.float32,
+        ws = torch.empty(splits * B * Hq * q_tiles * BLOCK_Q * (instance(D) + 2),
+                         dtype=torch.float32,
                          device=q.device)
         counters = native.tile_counters("flash_attention", q.device, stream, B * Hq * q_tiles)
     fn = native.function("flash_attention", "repro_flash_attention", _ARGTYPES)

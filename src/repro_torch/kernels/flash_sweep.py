@@ -116,7 +116,7 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)} ({smi})")
     out = {"card": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     tables = args.tables.split(",")
-    for D in fa.HEAD_DIMS:
+    for D in fa.BLOCK_K:  # one head dim each instance
         if "serve" in tables:
             out[f"serve_d{D}"] = sweep(SERVE, D, all_splits=True)
         if "walk" in tables:

@@ -4,9 +4,12 @@ f32, and its fixed-weight role.
 Replaces the Pallas TPU kernel ``repro/kernels/matmul.py`` ``matmul``
 (``_mm_kernel``, entered through ``repro/kernels/ops.py`` ``pallas_matmul``):
 [M, K] x [K, N] with an f32 accumulator, an optional silu or tanh-gelu
-epilogue in f32, and a bf16 or f32 output.  f32 inputs take the f32 kernel
-(full f32 FMAs on the CUDA cores, not TF32), as the Pallas kernel computes
-f32 inputs in f32; it serves the paper's fully connected roles.
+epilogue in f32, and a bf16 or f32 output.  f32 inputs take the f32 kernel,
+which computes the f32 product on the tensor cores by error-compensated
+TF32 ("3xTF32", :func:`split_tf32`, :func:`matmul_3xtf32`): each operand is
+split into a TF32 part and a TF32 remainder, and three TF32 products are
+summed in f32, within the 2e-4 the JAX package holds its f32 matmul to; it
+serves the paper's fully connected roles.
 :func:`matmul_fixed_weight` replaces ``matmul_fixed_weight``
 (``repro/kernels/matmul.py:98``), the weight-specialised role of paper §IV:
 the same kernel with its weight held on the card from load to unload, as
@@ -35,15 +38,30 @@ of a tile to finish reduces), so a result depends on the shape alone.  The
 wrapper flattens leading dimensions as ``pallas_matmul`` did and allocates
 the split workspace and the tiles' counters (one buffer per CUDA stream,
 which the kernel leaves zeroed); the kernels mask ragged M, N and K
-themselves.  The f32 kernel keeps its 64x64 tiles and its two-pass split-K.
+themselves.  The f32 kernel has 128 x 128 tiles, or 64 x 64 for small
+products (:func:`f32_plan`): a converter warpgroup splits and transposes
+each 32-deep slice into shared memory for one wgmma warpgroup per 64 rows;
+the same in-launch split-K.
 
 Both TMA (the bf16 kernels) and 16-byte ``cp.async`` loads (the f32 kernel)
 need 16-byte rows and bases.  Any other shape or operand — K or N not a
 multiple of 8 in bf16 or of 4 in f32, or an operand not 16-byte aligned,
 such as the untied unembeds of granite-3-8b ``[4096, 49155]``, hymba
 ``[1600, 32001]`` and whisper ``[1280, 51866]`` — takes the edge kernel
-(:func:`tma_ready` decides): guarded 2-byte loads and ``mma.sync`` in bf16,
-the f32 kernel's guarded-load instance in f32, the same epilogues, one
+(:func:`tma_ready` decides), as :func:`edge_plan` picks.  In bf16 at M up to
+:data:`STREAM_MAX_M` (every decode-step unembed), a weight-streaming kernel
+fetches each 64-row slice of a 128-column strip of w, realigns its rows in
+shared memory and multiplies on ``mma.sync``.  With K a multiple of 8 and w
+16-byte aligned it fetches by TMA, reading w as [K/8, 8N] "superrows" (16N
+bytes apart: a legal TMA source), eight boxes a slice whose rows each share
+one offset, the slice's rows permuted and x's columns permuted to match;
+otherwise each row's aligned superset by 16-byte ``cp.async`` copies.  At
+larger M, guarded 2-byte loads and ``mma.sync``.  In f32 at M up to
+:data:`STREAM_MAX_M`, aligned or not, a streaming kernel (w as [K/4, 4N]
+superrows by TMA, or rows' aligned supersets by ``cp.async``; 3xTF32 on
+``mma.sync`` with fragments read at each row's offset); at larger M the
+f32 kernel's instance that copies rows' aligned supersets.  The same
+epilogues, one
 launch, no padded copy of the weight.  So the wrapper takes every shape
 ``pallas_matmul`` takes, as it falls back to a single block.
 """
@@ -76,14 +94,43 @@ fixed_launches = 0
 edge_launches = 0
 
 _ACTIVATIONS = {None: 0, "silu": 1, "gelu": 2}
-_F32_BM, _F32_BN, _F32_BK = 64, 64, 16
+#: the f32 kernel's square output tiles, largest first, and its K slice
+F32_BLOCKS, F32_BK = (128, 64), 32
+#: columns of w a block of the bf16 edge streaming kernel, and of the f32
+#: streaming kernel (M up to STREAM_MAX_M)
+EDGE_BN, F32_STREAM_BN = 128, 64
+#: blocks of the edge streaming kernel an SM holds (its shared memory)
+EDGE_BLOCKS_PER_SM = 2
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_F32_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_EDGE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_EDGE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 #: the kernel's function in plain PyTorch (f32 product, f32 epilogue, cast):
 #: the oracle itself
 plain_matmul = ref.matmul
+
+_TF32_MASK = -(1 << 13)   # 0xffffe000 as an int32: clears the low 13 mantissa bits
+
+
+def split_tf32(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's split of an f32 tensor into two TF32 parts: ``big``
+    is ``a`` with the low 13 mantissa bits cleared, ``small`` is ``a - big``
+    (exact) with them cleared too; ``a - big - small`` is below 2^-21 |a|."""
+    big = (a.float().view(torch.int32) & _TF32_MASK).view(torch.float32)
+    small = ((a.float() - big).view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return big, small
+
+
+def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor, *,
+                  activation: str | None = None) -> torch.Tensor:
+    """The f32 kernel's arithmetic in plain PyTorch: ``xs wb + xb ws + xb wb``
+    of :func:`split_tf32`'s parts (each product of two TF32 values exact in
+    f32), summed in f32, then the epilogue; the kernel sums in another
+    order.  A model of the kernel for the CPU tests: the wrappers' plain
+    version stays :func:`plain_matmul`, the full f32 product."""
+    (xb, xs), (wb, wsm) = split_tf32(x), split_tf32(w)
+    acc = torch.matmul(xs, wb) + torch.matmul(xb, wsm) + torch.matmul(xb, wb)
+    return ref.epilogue(acc, activation)
 
 #: K a stage of the bf16 kernels (one 128-byte row of bf16)
 BK = 64
@@ -178,18 +225,67 @@ def plan(M: int, N: int, K: int) -> Plan:
     return best
 
 
-def split_k(M: int, N: int, K: int) -> int:
-    """K splits for an f32 launch (64x64 tiles, 16-deep K tiles): enough
-    blocks for two per SM when the output tiles alone are fewer than the
-    SMs, at least four K tiles per split.  Returned so that every split is
-    non-empty (the C side checks)."""
-    tiles = math.ceil(M / _F32_BM) * math.ceil(N / _F32_BN)
-    kt = math.ceil(K / _F32_BK)
-    if tiles >= native.sm_count():
-        return 1
-    splits = max(1, min(math.ceil(2 * native.sm_count() / tiles), kt // 4))
-    per = math.ceil(kt / splits)
+def _whole_splits(kt: int, splits: int) -> int:
+    """``splits`` cut down so that every split of ``kt`` slices is non-empty
+    (the C side checks)."""
+    per = math.ceil(kt / max(1, splits))
     return math.ceil(kt / per)
+
+
+def f32_plan(M: int, N: int, K: int) -> tuple[int, int]:
+    """The f32 kernel's square output tile (128 or 64, or 0: the streaming
+    kernel, for M up to :data:`STREAM_MAX_M`, 64-column strips in 64-deep
+    slices, unsplit where the strips fill the card's block slots, as at the
+    unembeds (a split measured slower at all three), else split as
+    :func:`edge_splits` splits few strips) and K splits (32-deep slices):
+    128 x 128 tiles where there are at least 32 of them, else 64 x
+    64 (a 128 x 128 tile has a fixed cost: one SM stores 64 KB of f32, and
+    a slice of three TF32 products takes about a microsecond); then, where
+    the tiles are fewer than the SMs, enough splits for a block every two
+    SMs, at least two slices a split.  Read from the sweep's f32 table
+    (PERF.md)."""
+    sms, kt = native.sm_count(), math.ceil(K / F32_BK)
+    if M <= STREAM_MAX_M:
+        strips = math.ceil(N / F32_STREAM_BN)
+        return 0, (1 if strips >= EDGE_BLOCKS_PER_SM * sms
+                   else edge_splits(M, N, K, F32_STREAM_BN))
+    big = F32_BLOCKS[0]
+    block = big if math.ceil(M / big) * math.ceil(N / big) >= 32 else F32_BLOCKS[1]
+    tiles = math.ceil(M / block) * math.ceil(N / block)
+    if tiles >= sms:
+        return block, 1
+    return block, _whole_splits(kt, min(kt // 2, math.ceil(sms / (2 * tiles))))
+
+
+def edge_plan(M: int, N: int, K: int, w_aligned: bool) -> tuple[int, int]:
+    """The bf16 edge kernel and its K splits for ``[M,K] x [K,N]``: at M up
+    to :data:`STREAM_MAX_M` the streaming edge kernel with
+    :func:`edge_splits`' split, copying w by TMA as [K/8, 8N] superrows
+    (kernel 2) where K is a multiple of 8 and w 16-byte aligned, by
+    ``cp.async`` otherwise (kernel 1); above it (0, 1), the ``mma.sync``
+    kernel."""
+    if M > STREAM_MAX_M:
+        return 0, 1
+    return (2 if K % 8 == 0 and w_aligned else 1), edge_splits(M, N, K)
+
+
+def edge_splits(M: int, N: int, K: int, strip: int = EDGE_BN) -> int:
+    """K splits for the bf16 edge streaming kernel (M up to
+    :data:`STREAM_MAX_M`, 128-column strips, or ``strip``, 64-row slices,
+    two blocks an SM).  Where the strips are fewer than the blocks the card holds, up to
+    that many blocks, at least four slices a split; else the split of 1 or
+    2 whose waves of blocks, each wave's work shrinking with the split, end
+    soonest (1 on a tie): granite's 385 strips take 2 (2.9 waves of half
+    strips, not 1.5 of whole ones: the sweep's edge table, PERF.md),
+    hymba's 251 and whisper's 406 take 1."""
+    if M > STREAM_MAX_M:
+        return 1
+    strips, slots = math.ceil(N / strip), EDGE_BLOCKS_PER_SM * native.sm_count()
+    kt = math.ceil(K / BK)
+    if strips < slots:
+        return _whole_splits(kt, min(slots // strips, kt // 4))
+    best = min((1, 2), key=lambda s: (math.ceil(strips * s / slots) / s, s))
+    return _whole_splits(kt, best)
 
 
 def tma_ready(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -199,6 +295,27 @@ def tma_ready(x: torch.Tensor, w: torch.Tensor) -> bool:
     lanes = 16 // x.element_size()
     return (x.shape[-1] % lanes == 0 and w.shape[1] % lanes == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def kernel_instance(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The CUDA kernel instance (its name as ``cuobjdump`` demangles it) that
+    :func:`matmul` launches for x [M, K] and w [K, N] on the card, as the C
+    entries dispatch: :func:`plan`, :func:`edge_plan` or :func:`f32_plan`,
+    and whether TMA or 16-byte copies can take the operands."""
+    (M, K), N = x.shape, w.shape[1]
+    w_aligned = w.data_ptr() % 16 == 0
+    if x.dtype == torch.float32:
+        block, _ = f32_plan(M, N, K)
+        if block == 0:
+            return f"mm_f32_stream_kernel<{8 if M <= 8 else 16},{int(K % 4 == 0 and w_aligned)}>"
+        return f"mm_f32_kernel<{int(tma_ready(x, w))},{block},{block}>"
+    if tma_ready(x, w):
+        p = plan(M, N, K)
+        return (f"mm_stream_kernel<{p.block_m}>" if p.kernel == "stream"
+                else f"mm_tile_kernel<{p.block_m},{p.block_n}>")
+    kernel, _ = edge_plan(M, N, K, w_aligned)
+    return ("mm_edge_kernel" if kernel == 0
+            else f"mm_edge_stream_kernel<{8 if M <= 8 else 16},{int(kernel == 2)}>")
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype: torch.dtype | None = None,
@@ -231,36 +348,89 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype | None,
     M, N = math.prod(lead), w.shape[1]
     if M == 0:
         return torch.empty((*lead, N), dtype=out_dtype, device=x.device)
-    global edge_launches
     edge = not tma_ready(x, w)
     if f32:
-        global f32_launches
-        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-        splits = split_k(M, N, K)
-        ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-              if splits > 1 else None)
-        fn = native.function("matmul", "repro_matmul_f32", _F32_ARGTYPES)
-        err = fn(native.ptr(x), native.ptr(w), native.ptr(out), native.ptr(ws), M, N, K,
-                 _ACTIVATIONS[activation], splits, int(edge), native.stream(x.device))
-        native.raise_on_error("matmul", err)
-        if edge:
-            edge_launches += 1
-        else:
-            f32_launches += 1
+        out = _launch_f32(x, w, f32_plan(M, N, K), edge, activation, M, N, K)
     elif edge:
-        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-        fn = native.function("matmul", "repro_matmul_edge", _EDGE_ARGTYPES)
-        err = fn(native.ptr(x), native.ptr(w), native.ptr(out), M, N, K,
-                 _ACTIVATIONS[activation], int(out_dtype == torch.float32),
-                 native.stream(x.device))
-        native.raise_on_error("matmul", err)
-        edge_launches += 1
+        out = _launch_edge(x, w, *edge_plan(M, N, K, w.data_ptr() % 16 == 0), out_dtype,
+                           activation, M, N, K)
     else:
         out = _launch_bf16(x, w, plan(M, N, K), out_dtype, activation, M, N, K)
     if fixed:
         global fixed_launches
         fixed_launches += 1
     return out.reshape(*lead, N)
+
+
+def _launch_split(x: torch.Tensor, w: torch.Tensor, symbol: str, argtypes: list, splits: int,
+                  tiles: int, M: int, N: int, K: int, out_dtype: torch.dtype,
+                  activation: str | None, flags: tuple) -> torch.Tensor:
+    """One launch of the f32 or the edge entry (``symbol``), its arguments in
+    the C side's order: x, w, out, the split workspace and the tiles'
+    counters, M, N, K, the epilogue, ``flags``, ``splits``, the stream; the
+    [M, N] output."""
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+        counters = native.tile_counters("matmul", x.device, stream, tiles)
+    fn = native.function("matmul", symbol, argtypes)
+    err = fn(native.ptr(x), native.ptr(w), native.ptr(out), native.ptr(ws), native.ptr(counters),
+             M, N, K, _ACTIVATIONS[activation], *flags, splits, ctypes.c_void_p(stream))
+    native.raise_on_error("matmul", err)
+    return out
+
+
+def _launch_f32(x: torch.Tensor, w: torch.Tensor, plan_: tuple[int, int], edge: bool,
+                activation: str | None, M: int, N: int, K: int) -> torch.Tensor:
+    """One launch of the f32 kernel at :func:`f32_plan`'s (block, splits),
+    counted as an edge launch where ``edge`` (TMA could not take the
+    operands), else as an f32 launch."""
+    global edge_launches, f32_launches
+    block, splits = plan_
+    tiles = (math.ceil(N / F32_STREAM_BN) if block == 0
+             else math.ceil(M / block) * math.ceil(N / block))
+    out = _launch_split(x, w, "repro_matmul_f32", _F32_ARGTYPES, splits, tiles, M, N, K,
+                        torch.float32, activation, (int(edge), block))
+    if edge:
+        edge_launches += 1
+    else:
+        f32_launches += 1
+    return out
+
+
+def matmul_f32_planned(x: torch.Tensor, w: torch.Tensor, plan_: tuple[int, int]) -> torch.Tensor:
+    """``x [M, K] @ w [K, N]`` in f32 at (block, splits) ``plan_`` (which need
+    not be :func:`f32_plan`'s choice; the C side refuses one that does not
+    fit the shape): for timing the alternatives."""
+    native.check("matmul", {"x": x, "w": w}, torch.float32, aligned=False)
+    (M, K), N = x.shape, w.shape[1]
+    return _launch_f32(x, w, plan_, not tma_ready(x, w), None, M, N, K)
+
+
+def _launch_edge(x: torch.Tensor, w: torch.Tensor, kernel: int, splits: int,
+                 out_dtype: torch.dtype, activation: str | None, M: int, N: int,
+                 K: int) -> torch.Tensor:
+    """One launch of a bf16 edge kernel (:func:`edge_plan`'s numbering)."""
+    global edge_launches
+    out = _launch_split(x, w, "repro_matmul_edge", _EDGE_ARGTYPES, splits,
+                        math.ceil(N / EDGE_BN), M, N, K, out_dtype, activation,
+                        (int(out_dtype == torch.float32), kernel))
+    edge_launches += 1
+    return out
+
+
+def matmul_edge(x: torch.Tensor, w: torch.Tensor, *, kernel: int, splits: int = 1,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x [M, K] @ w [K, N]`` in bf16 on the edge kernel ``kernel`` with
+    ``splits`` K splits (:func:`edge_plan`'s numbering: 2 and 1 take M up to
+    :data:`STREAM_MAX_M`, 2 also K a multiple of 8 and w 16-byte aligned; 0
+    takes one split), whatever :func:`edge_plan` would pick: for timing one
+    beside another."""
+    native.check("matmul", {"x": x, "w": w}, torch.bfloat16, aligned=False)
+    (M, K), N = x.shape, w.shape[1]
+    return _launch_edge(x, w, kernel, splits, out_dtype or torch.bfloat16, None, M, N, K)
 
 
 def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dtype,
@@ -328,11 +498,17 @@ def _smem(stages: int, stage_bytes: int, staging: int) -> int:
 
 
 def footprint(f32: bool = False, p: Plan | None = None) -> ResourceFootprint:
-    """Shared memory and threads of one block: the f32 kernel's two-stage
-    64x16 and 16x64 tiles; for bf16, the block of plan ``p``, or of the
-    largest bf16 block (the 128 x 256 tile kernel) when none is given."""
+    """Shared memory and threads of one block: the f32 kernel's (its largest
+    tile's) two stages of split x and w^T slices and three raw ones; for
+    bf16, the block of plan ``p``, or of the largest bf16 block (the 128 x
+    256 tile kernel) when none is given."""
     if f32:
-        return ResourceFootprint(smem_bytes=4 * 2 * (64 * 20 + 16 * 68), threads=256)
+        # csrc/matmul.cu F32Cfg<1, 128, 128>::SMEM: four 16 KB parts a split
+        # stage (two), two a raw one (three), an mbarrier a raw stage and two a
+        # split one, a flag
+        part = F32_BLOCKS[0] * F32_BK * 4
+        return ResourceFootprint(smem_bytes=1024 + 2 * 4 * part + 3 * 2 * part + 7 * 8 + 16,
+                                 threads=384)
     p = p or Plan("tile", 128, 256, 1, 1, 1)
     if p.kernel == "tile":
         stages = {64: 8, 128: 6, 256: 4}[p.block_n]

@@ -18,8 +18,8 @@ a sequence's length, so table entries past it (the scratch page) are never
 dereferenced, and it makes no dense copy of the pages.  A table entry inside
 the length that lies outside the pool is a corrupt table: the kernel masks
 that page's rows out of the softmax (it cannot raise without a sync; the
-plain version's gather raises for an index past the pool).  D = 64 or 128,
-Hq / Hkv <= 16.
+plain version's gather raises for an index past the pool).  D a multiple of
+16 from 16 to 128, Hq / Hkv <= 16.
 """
 
 from __future__ import annotations
@@ -30,11 +30,8 @@ import math
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.decode_attention import (
-    HEAD_DIMS,
-    lengths_vector,
-    plain_decode_attention,
-)
+from repro_torch.kernels.decode_attention import lengths_vector, plain_decode_attention
+from repro_torch.kernels.flash_attention import check_head_dim
 from repro_torch.kernels.ref import gather_kv_pages
 
 ROUTE = "cuda"
@@ -61,8 +58,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                            block_table: torch.Tensor, length, *,
                            scale: float | None = None) -> torch.Tensor:
     """One-token attention over a paged pool: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D = 64 or 128, Hq / Hkv <= 16, an int32
-    block table on the card)."""
+    tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128, Hq / Hkv
+    <= 16, an int32 block table on the card)."""
     if native.on_cpu(q, k_pages, v_pages, block_table):
         return plain_paged_decode_attention(q, k_pages, v_pages, block_table, length,
                                             scale=scale)
@@ -81,9 +78,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                          f"{tuple(block_table.shape)} do not match")
     P, Hkv, ps = k_pages.shape[:3]
     NP = block_table.shape[1]
-    if D not in HEAD_DIMS or Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"paged_decode_attention: needs D in {HEAD_DIMS} and Hq / Hkv a "
-                         f"whole number <= 16; got D={D} Hq={Hq} Hkv={Hkv}")
+    check_head_dim("paged_decode_attention", D)
+    if Hq % Hkv or Hq // Hkv > 16:
+        raise ValueError(f"paged_decode_attention: needs Hq / Hkv a whole number <= 16; "
+                         f"got Hq={Hq} Hkv={Hkv}")
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)

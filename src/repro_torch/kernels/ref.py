@@ -16,14 +16,18 @@ import torch.nn.functional as F
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype: torch.dtype | None = None,
            activation: str | None = None) -> torch.Tensor:
     """[M, K] @ [K, N] with f32 accumulation."""
-    acc = torch.matmul(x.float(), w.float())
+    return epilogue(torch.matmul(x.float(), w.float()), activation).to(out_dtype or x.dtype)
+
+
+def epilogue(acc: torch.Tensor, activation: str | None) -> torch.Tensor:
+    """The matmul's f32 epilogue: none, silu or tanh-gelu."""
     if activation == "silu":
-        acc = acc * torch.sigmoid(acc)
-    elif activation == "gelu":
-        acc = F.gelu(acc, approximate="tanh")   # jax.nn.gelu's default
-    elif activation is not None:
+        return acc * torch.sigmoid(acc)
+    if activation == "gelu":
+        return F.gelu(acc, approximate="tanh")   # jax.nn.gelu's default
+    if activation is not None:
         raise ValueError(f"unknown activation {activation!r}")
-    return acc.to(out_dtype or x.dtype)
+    return acc
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -21,9 +21,11 @@ output) reads a few 1e-3.  The ssd kernel is held the same way: each y row
 head's final f32 state within 1e-3 (both sides run the same f32 algebra and
 differ in summation order; y is rounded to bf16).  conv2d is held exactly
 for int16 inputs (int32 sums, wrapping past 2^31 on both sides) and within
-2e-4 for f32; the f32 matmul within 2e-4 (full f32 FMAs against torch's f32
-product with TF32 off: reordering only).  Fixed-weight roles are held
-bitwise to their generic kernels: they launch the same kernel.
+2e-4 for f32; the f32 matmul within 2e-4 (3xTF32 on the tensor cores
+against torch's f32 product with TF32 off: each operand is split into two
+TF32 parts, so a product misses f32's by below 2^-20 of its terms, and the
+sums are reordered).  Fixed-weight roles are held bitwise to their generic
+kernels: they launch the same kernel.
 """
 
 from __future__ import annotations
@@ -325,10 +327,10 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         mm_k.matmul(x.float(), w)                    # f32 with bf16: no kernel takes the mix
     with pytest.raises(ValueError):
         mm_k.matmul(x.t(), w)                        # not contiguous
-    with pytest.raises(ValueError):
-        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 32), cuda) for _ in range(3)))  # D = 32
-    with pytest.raises(ValueError, match=r"\(64, 128\)"):
-        dec_k.decode_attention(_randn(g, (1, 2, 96), cuda), *(_randn(g, (1, 2, 8, 96), cuda)
+    with pytest.raises(ValueError, match="head_dim 144"):
+        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 144), cuda) for _ in range(3)))
+    with pytest.raises(ValueError, match="head_dim 40"):
+        dec_k.decode_attention(_randn(g, (1, 2, 40), cuda), *(_randn(g, (1, 2, 8, 40), cuda)
                                                               for _ in range(2)), 3)
     assert mm_k.launches == before + 1
 
@@ -786,3 +788,169 @@ def test_paper_roles_on_the_card_through_the_hsa_queue(cuda):
             + loads["role2_fc_barrier"]
     finally:
         hsa.hsa_shut_down()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 edge kernels, the 3xTF32 f32 kernel, head dims 16..128
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("x_offset", [0, 1])
+@pytest.mark.parametrize("k", [1280, 1600, 4096, 4099])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 64])
+def test_matmul_edge_every_row_offset_matches_plain(cuda, m, k, x_offset):
+    """N = 1..7 (mod 8), so a row of w starts at every offset from its
+    16-byte boundary; x 0 or 2 bytes off one; every epilogue, bf16 and f32
+    out, against the plain version.  M up to 16 takes the streaming edge
+    kernel, above it the mma.sync one: one edge launch a call either way."""
+    g = _gen(cuda, m * k + x_offset)
+    for n in range(257, 264):
+        x = torch.empty(m * k + x_offset, dtype=torch.bfloat16, device=cuda)[x_offset:]
+        x = x.view(m, k)
+        x.copy_(_randn(g, (m, k), cuda))
+        w = _randn(g, (k, n), cuda, scale=k ** -0.5)
+        for activation in (None, "silu", "gelu"):
+            before = (mm_k.launches, mm_k.edge_launches)
+            got = mm_k.matmul(x, w, activation=activation)
+            got32 = mm_k.matmul(x, w, activation=activation, out_dtype=torch.float32)
+            assert (mm_k.launches, mm_k.edge_launches) == (before[0], before[1] + 2)
+            _close(got, mm_k.plain_matmul(x, w, activation=activation), **BF16_TOL)
+            _close(got32, mm_k.plain_matmul(x, w, activation=activation,
+                                            out_dtype=torch.float32), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4099, 131), (1, 4096, 517), (16, 1600, 1001),
+                                   (5, 8192, 2049)])
+def test_matmul_edge_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
+    """An edge shape with few strips splits K: the last block of a strip sums
+    the splits in split order, so two calls agree bit for bit, one launch
+    each; and every edge kernel that takes the shape (the streaming one with
+    TMA or cp.async copies, split and unsplit, the mma.sync one) agrees with
+    the plain version."""
+    g = _gen(cuda, 21)
+    x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
+    kernel, splits = mm_k.edge_plan(m, n, k, w.data_ptr() % 16 == 0)
+    assert splits > 1 and kernel == (1 if k % 8 else 2)
+    before = mm_k.edge_launches
+    first = mm_k.matmul(x, w, out_dtype=torch.float32)
+    second = mm_k.matmul(x, w, out_dtype=torch.float32)
+    assert mm_k.edge_launches == before + 2 and torch.equal(first, second)
+    want = mm_k.plain_matmul(x, w, out_dtype=torch.float32)
+    _close(first, want, atol=1e-3, rtol=1e-3)
+    runs = [(1, 1), (1, splits), (0, 1)] + ([] if k % 8 else [(2, 1)])
+    for kern, s in runs:
+        _close(mm_k.matmul_edge(x, w, kernel=kern, splits=s, out_dtype=torch.float32), want,
+               atol=1e-3, rtol=1e-3)
+
+
+def test_matmul_edge_ignores_values_past_k_and_n(cuda):
+    """The edge kernel's cp.async copy reads each row's aligned superset, so
+    bytes just past w's end, and its TMA copy boxes past the strip's
+    columns: NaN planted past x's and w's ends leaves the output finite and
+    bit for bit the same, K split here, so rows past each split's end are
+    dropped too; and the cp.async copy likewise."""
+    g = _gen(cuda, 22)
+    m, k, n = 8, 1000, 333
+    assert mm_k.edge_plan(m, n, k, True)[1] > 1
+    xbuf = _randn(g, (m * k + 8,), cuda)
+    wbuf = _randn(g, ((k + 3) * n,), cuda, scale=k ** -0.5)
+    x, w = xbuf[: m * k].view(m, k), wbuf[: k * n].view(k, n)
+    clean = mm_k.matmul(x, w, out_dtype=torch.float32)
+    xbuf[m * k:], wbuf[k * n:] = float("nan"), float("nan")
+    got = mm_k.matmul(x, w, out_dtype=torch.float32)
+    assert torch.isfinite(got).all() and torch.equal(got, clean)
+    _close(got, mm_k.plain_matmul(x, w, out_dtype=torch.float32), atol=1e-3, rtol=1e-3)
+    realigned = mm_k.matmul_edge(x, w, kernel=1, splits=mm_k.edge_splits(m, n, k),
+                                 out_dtype=torch.float32)
+    assert torch.isfinite(realigned).all()
+    _close(realigned, got, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (2048, 2048, 2048), (130, 2048, 250),
+                                   (129, 256, 131), (1000, 2047, 1000), (8, 4096, 3000),
+                                   (37, 255, 129), (8, 4099, 131), (5, 4096, 517),
+                                   (16, 1280, 51866), (1, 4096, 49155)])
+def test_f32_matmul_3xtf32_matches_plain_and_is_repeatable(cuda, m, k, n):
+    """The f32 kernels (3xTF32) at ragged M, N and K, K 256 and 2048, split
+    and unsplit, their edge instances (K or N not a multiple of 4), and the
+    streaming kernel at M <= 16 with its TMA and cp.async copies: within
+    2e-4 of the full f32 product, two calls bit for bit, one launch a call
+    on the counter its instance implies."""
+    g = _gen(cuda, m + 3 * k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda)
+    edge = not mm_k.tma_ready(x, w)
+    before = (mm_k.f32_launches, mm_k.edge_launches, mm_k.launches)
+    first, second = mm_k.matmul(x, w), mm_k.matmul(x, w)
+    after = (mm_k.f32_launches, mm_k.edge_launches, mm_k.launches)
+    assert after == (before[0] + 2 * (not edge), before[1] + 2 * edge, before[2])
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, mm_k.plain_matmul(x, w), **F32_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (2048, 2048, 2048), (100, 260, 132)])
+def test_f32_fixed_weight_is_bitwise_the_generic_kernel(cuda, m, k, n):
+    g = _gen(cuda, 23)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda)
+    fixed = mm_k.matmul_fixed_weight(w.cpu(), activation="gelu").bind(cuda)
+    before = (mm_k.fixed_launches, mm_k.f32_launches)
+    assert torch.equal(fixed(x), mm_k.matmul(x, w, activation="gelu"))
+    assert (mm_k.fixed_launches, mm_k.f32_launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
+@pytest.mark.parametrize("s,t,causal,window", [(512, 512, True, None), (200, 200, False, None),
+                                               (128, 1024, True, None), (256, 256, True, 48)])
+def test_flash_attention_takes_every_head_dim_to_128(cuda, s, t, causal, window, d):
+    """Head dims other than 64 and 128 (multiples of 16) under cuda-strict,
+    split (the 128 x 1024 chunk) and not, against the plain version; two
+    calls bit for bit."""
+    g = _gen(cuda, 24 + d)
+    q = _randn(g, (1, 32, s, d), cuda)
+    k, v = _randn(g, (1, 8, t, d), cuda), _randn(g, (1, 8, t, d), cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        before = fa_k.launches
+        got = dispatch.op("flash_attention", q, k, v, causal=causal, window=window)
+        assert fa_k.launches == before + 1
+    _attn_close(got, fa_k.plain_flash_attention(q, k, v, causal=causal, window=window))
+    assert torch.equal(got, fa_k.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
+def test_decode_and_paged_attention_take_every_head_dim_to_128(cuda, d):
+    """Decode attention at 8 slots against 1024 rows and a fixup cache, and
+    paged attention bitwise the dense kernel on the gathered cache, under
+    cuda-strict, at head dims other than 64 and 128."""
+    g = _gen(cuda, 25 + d)
+    lengths = torch.tensor([1, 1024, 5, 600, 33, 64, 1000, 2], dtype=torch.int32, device=cuda)
+    q = _randn(g, (8, 32, d), cuda)
+    kc, vc = _randn(g, (8, 8, 1024, d), cuda), _randn(g, (8, 8, 1024, d), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 8, 16, d=d)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        before = (dec_k.launches, paged_k.launches)
+        got = dispatch.op("decode_attention", q, kc, vc, lengths)
+        paged = dispatch.op("paged_decode_attention", q, kp, vp, table, lengths)
+        assert (dec_k.launches, paged_k.launches) == (before[0] + 1, before[1] + 1)
+    _attn_close(got, dec_k.plain_decode_attention(q, kc, vc, lengths))
+    _attn_close(paged, paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths))
+    dense = dec_k.decode_attention(q, gather_kv_pages(kp, table), gather_kv_pages(vp, table),
+                                   lengths)
+    assert torch.equal(paged, dense)
+    fix = torch.tensor([45], dtype=torch.int32, device=cuda)
+    _attn_close(dec_k.decode_attention(q[:1], kc[:1, :, :45].contiguous(),
+                                       vc[:1, :, :45].contiguous(), fix),
+                dec_k.plain_decode_attention(q[:1], kc[:1, :, :45], vc[:1, :, :45], fix))
+
+
+@pytest.mark.parametrize("d", [8, 24, 136, 192])
+def test_attention_refuses_a_head_dim_it_does_not_take_naming_it(cuda, d):
+    g = _gen(cuda, 26)
+    q4, kv4 = _randn(g, (1, 4, 16, d), cuda), _randn(g, (1, 2, 16, d), cuda)
+    q3 = _randn(g, (1, 4, d), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 1, 16, T=32, d=d, hkv=2)
+    for call in (lambda: fa_k.flash_attention(q4, kv4, kv4),
+                 lambda: dec_k.decode_attention(q3, kv4, kv4, 8),
+                 lambda: paged_k.paged_decode_attention(q3, kp, vp, table, 8)):
+        with pytest.raises(ValueError, match=f"head_dim {d} "):
+            call()

@@ -476,3 +476,21 @@ def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
         == res["direct_before"]["launches"] == res["direct_after"]["launches"]
     assert len(res["routed_vs_direct"]["decode_tokens_per_s"]) == 4
     assert set(res["ledger_by_queue"]) >= {"tf-serving", "opencl"}
+
+
+def test_instance_check_refuses_a_built_matmul_instance_no_row_ran():
+    """Every matmul instance ``cuobjdump`` lists, and the mma.sync edge
+    kernel, must have run in some kernel-phase row."""
+    sass = {"matmul": {"mm_stream_kernel<8>": {}},
+            "matmul_edge": {"mm_edge_stream_kernel<8,0>": {}},
+            "matmul_f32": {"mm_f32_kernel<0,64,64>": {}}}
+    rows = [{"name": "matmul", "instance": "mm_stream_kernel<8>"},
+            {"name": "matmul_edge", "instance": "mm_edge_stream_kernel<8,0>"},
+            {"name": "matmul_edge", "instance": "mm_edge_kernel"},
+            {"name": "matmul_f32", "instance": "mm_f32_kernel<0,64,64>"},
+            {"name": "rmsnorm"}]
+    assert cs.check_instances(rows, sass) == {"mm_stream_kernel<8>", "mm_edge_stream_kernel<8,0>",
+                                              "mm_edge_kernel", "mm_f32_kernel<0,64,64>"}
+    for drop in range(4):
+        with pytest.raises(AssertionError, match="never held against"):
+            cs.check_instances(rows[:drop] + rows[drop + 1:], sass)
