@@ -17,7 +17,8 @@ order; any failure raises and the script exits non-zero:
    instructions in each bf16 matmul kernel and each flash attention
    instance, wgmma in the f32 (3xTF32) kernel, and mma.sync (HMMA) in the
    bf16 edge and f32 streaming kernels for M <= 16, with TMA loads in their
-   TMA instances (``cuobjdump``; none fails).
+   TMA instances, and in every decode attention instance and the ssd
+   kernel (``cuobjdump``; none fails).
 2. kernels: each kernel against its plain PyTorch version at the shapes the
    serving paths and the paper's roles give it, the attention kernels at
    head_dim 64 and 128 (flash also split over 2-4 blocks a tile, under a
@@ -29,14 +30,18 @@ order; any failure raises and the script exits non-zero:
    8, at M = 1, 8 and 16, and at M = 17 and 64, w off a 16-byte boundary
    and K not a multiple of 8, so that every instance of the matmul kernels
    built is held against the plain version: each row names the instance it
-   ran, and a built instance that no row ran fails the phase); timed with
+   ran, and a built instance that no row ran fails the phase, as does a
+   built decode attention instance or the ssd kernel; the decode kernels
+   also at every key-range split count their rule picks at the served
+   shapes, and ssd at two sequences and two groups); timed with
    CUDA events beside its plain version and one PyTorch library call where
    there is one (for paged attention, which no one call computes, a gather
    and SDPA; for ssd and int16 conv2d none), the earlier kernel where it is
    still built (the mma.sync edge kernel that M <= 16 used before the
    streaming one), and its bound (the larger of bytes / 3.35 TB/s and
-   operations / peak rate; the f32 kernel's three TF32 products at the
-   TF32 rate, the f32 rate's beside it).  The
+   operations / peak rate; the f32 kernels' (the f32 matmul's, ssd's)
+   f32 products as three TF32 products at the TF32 rate, the f32 rate's
+   beside it).  The
    paged kernel must also equal the dense kernel on the gathered cache bit
    for bit, and the fixed-weight roles (``matmul_fixed_weight``,
    ``conv2d_fixed_weight``) their generic kernels.
@@ -54,9 +59,9 @@ order; any failure raises and the script exits non-zero:
    requests at once.  Every kernel's launch count is read from each run
    alone (counts set to 0 just before it) and checked against the model
    calls the engine made.  Then the card's busy share over four dense
-   decode steps, and over one step that prefills a 600-token prompt (the
-   1024 bucket) with the bf16 matmul kernels' part, from torch.profiler
-   traces.
+   decode steps (with decode attention's device time a step), and over one
+   step that prefills a 600-token prompt (the 1024 bucket) with the bf16
+   matmul kernels' part, from torch.profiler traces.
 5. tenants: ``hsa_init(num_regions=2)`` on the card and its async
    scheduler's worker thread; the "tf-serving" queue carries the 16
    requests through a dense 8-slot engine (streams must equal phase 4's
@@ -80,7 +85,9 @@ order; any failure raises and the script exits non-zero:
    steps of the three as a batch.
 8. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
-   decode step, no fixups); then its busy share over four decode steps.
+   decode step, no fixups); then its busy share over four decode steps,
+   and one 600-token prompt's prefill into an idle engine by kernel (the
+   ssd kernel's part).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -169,6 +176,10 @@ GRANITE_DEPTH = 2
 # the granite phase's 8 prompt lengths (buckets 8 .. 512); the kernel phase
 # holds decode and paged attention against their plain versions at them too
 GRANITE_LENGTHS = (5, 45, 130, 260, 300, 400, 470, 500)
+# the decode attention instances no served config runs (llama and granite
+# take 64 and 128, and 96 has timed rows): held against the plain versions
+# untimed, so that every instance built runs in some row
+OTHER_HEAD_DIMS = (16, 32, 48, 80, 112)
 
 
 def nvidia_smi() -> str:
@@ -398,6 +409,24 @@ def ssd_work(S: int, B: int = 1, H: int = 48, P: int = 64, G: int = 1, N: int = 
     return bytes_, flops
 
 
+def ssd_kernel_work(S: int, B: int = 1, H: int = 48, P: int = 64, N: int = 128,
+                    q: int = 64) -> int:
+    """The tensor-core flops the chunk-parallel ssd kernel issues (bf16
+    mma.sync, f32 sums), per head and chunk of q rows whose t 16-row tiles
+    hold rows inside S: C·Bᵀ and its decayed product with x over the
+    t(t + 1)/2 causal tile pairs, the product in two bf16 passes; the
+    carry's xᵀ(wB) in two passes over 16t rows; C·hᵀ in two passes in every
+    chunk after the first.  Heads share no product, so the group count does
+    not enter."""
+    flops = 0
+    for s0 in range(0, S, q):
+        t = -(-min(q, S - s0) // 16)
+        flops += t * (t + 1) // 2 * 2 * 16 * 16 * (N + 2 * P) + 2 * 2 * 16 * t * N * P
+        if s0 > 0:
+            flops += 2 * 2 * 16 * t * N * P
+    return B * H * flops
+
+
 def role_err(torch, got, want, fault, tol) -> dict:
     """Hold a paper-role kernel (conv2d, the f32 matmul) to its plain version:
     equal for integer outputs, within ``tol`` (atol, rtol) for f32.  ``fault``
@@ -490,9 +519,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                 row["previous_ms"] = time_ms(torch, previous, sets)[0]
             if f32_rate_flops is not None:  # the f32 product at the CUDA cores' rate
                 row["bound_f32_rate_ms"] = bound(bytes_, f32_rate_flops, F32_FLOPS)[0]
-            if name == "ssd":
-                # its f32 work at the bf16 tensor-core rate, for comparison
-                row["bound_bf16_tc_ms"] = bound(bytes_, flops, BF16_TC_FLOPS)[0]
+            if name == "ssd":  # the flops the kernel issues (its bf16 passes)
+                row["bound_kernel_tc_ms"] = bound(bytes_, check["kernel_flops"],
+                                                  BF16_TC_FLOPS)[0]
         rows.append(row)
         print("  " + json.dumps(row))
 
@@ -617,18 +646,21 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # decode attention: 8 slots against a 1024-row cache with lengths 1 ..
     # 1024 (a decode step), and one sequence against a cache cut to its
     # prompt length n (the first-token fixup: T = n, not a multiple of the
-    # 32-key tile); at D = 64 with llama's 8 kv heads, at D = 128 with yi's
-    # 4 (a group of 8 query heads) and with granite's 8 (a group of 4) at
-    # the granite phase's shapes: its decode step of 8 slots against a
-    # 512-row cache (each prompt's length plus the new token) and fixups; at
-    # D = 96 (an instance of its own) with 8 kv heads.
+    # 32-key tile; n = 300, 400 and 600 for the split counts 3, 4 and 5 that
+    # the serve runs' fixups reach); at D = 64 with llama's 8 kv heads, at D =
+    # 128 with yi's 4 (a group of 8 query heads) and with granite's 8 (a
+    # group of 4) at the granite phase's shapes: its decode step of 8 slots
+    # against a 512-row cache (each prompt's length plus the new token) and
+    # fixups; at D = 96 with 8 kv heads; and every other instance (D = 16,
+    # 32, 48, 80, 112) at the 8 slots, untimed.
     slots = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
     granite = torch.tensor([n + 1 for n in GRANITE_LENGTHS], dtype=torch.int32, device=dev)
     cases = []
-    for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 600)),
+    for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 300, 400, 600)),
                                        (128, 4, slots, 1024, (5, 45, 600)),
                                        (128, 8, granite, 512, (5, 45, 500)),
-                                       (96, 8, slots, 1024, (5, 45))):
+                                       (96, 8, slots, 1024, (5, 45)),
+                                       *((D, 8, slots, 1024, ()) for D in OTHER_HEAD_DIMS)):
         cases += [(lengths, T, D, hkv, f"q[8,32,{D}] cache[8,{hkv},{T},{D}] lengths "
                    f"{int(lengths.min())}..{int(lengths.max())}")]
         cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n, D, hkv,
@@ -646,13 +678,16 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         check = attention_err(torch, dec_k.decode_attention(q, kc, vc, lengths),
                               dec_k.plain_decode_attention(q, kc, vc, lengths), fault[:, :, 0],
                               dropped.any(dim=-1)[:, None])
+        check["splits"] = dec_k.last_splits
         n_keys = int(lengths.sum())
-        record("decode_attention", shape, check, sets if T in (1024, 600) else None,
+        record("decode_attention", shape, check,
+               sets if T in (1024, 600) and D not in OTHER_HEAD_DIMS else None,
                lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.decode_attention(q, kc, vc, n),
                lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.plain_decode_attention(q, kc, vc, n),
                lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
                    q4, ke, ve, attn_mask=m[:, None, None, :]),
-               2 * (2 * B * 32 * D + 2 * hkv * n_keys * D), 4 * 32 * D * n_keys, BF16_TC_FLOPS)
+               2 * (2 * B * 32 * D + 2 * hkv * n_keys * D), 4 * 32 * D * n_keys, BF16_TC_FLOPS,
+               instance=f"dec_kernel<{D},DenseRows>")
         del sets, q, kc, vc, fault
 
     # paged decode attention: the 8-slot decode step against a pool of
@@ -662,13 +697,15 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # 600-row cache; at D = 128 (yi's 4 kv heads) the 8 slots with 16- and
     # 64-row pages, and the granite phase's paged step (8 kv heads, a pool
     # of 16-row pages behind a table 512 / 16 wide); at D = 96 the 8 slots
-    # with 16-row pages.  The planted fault remaps one whole page inside each
-    # sequence's length to another sequence's page.
+    # with 16-row pages, and every other instance untimed.  The planted fault
+    # remaps one whole page inside each sequence's length to another
+    # sequence's page.
     paged_cases = [(slots, 16, 64, 64, 8), (slots, 64, 16, 64, 8),
                    (slots.repeat(2), 16, 64, 64, 8),
                    (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38, 64, 8),
                    (slots, 16, 64, 128, 4), (slots, 64, 16, 128, 4),
-                   (granite, 16, 32, 128, 8), (slots, 16, 64, 96, 8)]
+                   (granite, 16, 32, 128, 8), (slots, 16, 64, 96, 8),
+                   *((slots, 16, 64, D, 8) for D in OTHER_HEAD_DIMS)]
     for lengths, ps, NP, D, hkv in paged_cases:
         B, group = lengths.numel(), 32 // hkv
         P = B * NP + 1
@@ -689,6 +726,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         faulted, touched = remap_one_page(table, lengths, ps)
         fault = paged_k.plain_paged_decode_attention(q, kp, vp, faulted, lengths)
         got = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
+        splits = paged_k.last_splits
         check = attention_err(torch, got,
                               paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths),
                               fault, touched[:, None])
@@ -699,36 +737,45 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                  f"cache at {shape}: max |diff| "
                                  f"{float((got.float() - dense.float()).abs().max())}")
         check["bitwise_equal_dense_kernel"] = True
+        check["splits"] = splits
 
         def library(q, kp, vp, table, q4, kvp, tl, m=valid, B=B, T=NP * ps, D=D):
             kv = kvp[:, tl].view(2, B, T, 32, D).transpose(2, 3)
             return F.scaled_dot_product_attention(q4, kv[0], kv[1], attn_mask=m[:, None, None, :])
 
-        record("paged_decode_attention", shape, check, sets if ps == 16 and NP == 64 else None,
+        record("paged_decode_attention", shape, check,
+               sets if ps == 16 and NP == 64 and D not in OTHER_HEAD_DIMS else None,
                lambda q, kp, vp, t, q4, kvp, tl, n=lengths:
                    paged_k.paged_decode_attention(q, kp, vp, t, n),
                lambda q, kp, vp, t, q4, kvp, tl, n=lengths:
                    paged_k.plain_paged_decode_attention(q, kp, vp, t, n),
                library,
                2 * (2 * B * 32 * D + 2 * hkv * n_keys * D) + 4 * (B * NP + B),
-               4 * 32 * D * n_keys, BF16_TC_FLOPS)
+               4 * 32 * D * n_keys, BF16_TC_FLOPS, instance=f"dec_kernel<{D},PagedRows>")
         del sets, q, kp, vp, table, fault, got, dense
 
     # ssd at the Mamba-2 serving shapes (H 48, P 64, N 128, G 1): a prompt
-    # within one inner chunk, one chunk of the config (256), the longest
-    # prompt of the serve run (600, ragged), and max_len (1024).  No one
-    # PyTorch call computes it: no library time.
-    for S in (5, 256, 600, 1024):
-        bytes_, flops = ssd_work(S)
-        sets = [ssd_inputs(torch, S, gen, dev) for _ in range(n_sets(bytes_))]
+    # within one chunk, one row past the kernel's chunk, one chunk of the
+    # config (256), the longest prompt of the serve run (600, ragged), and
+    # max_len (1024); and two sequences of two groups.  The bound's flops
+    # stay the f32 count at 16-row chunks (``ssd_work``), the yardstick
+    # every earlier ssd row was read against, taken as f32 work is for the
+    # f32 matmul: three TF32 products at the TF32 rate (the CUDA cores' f32
+    # rate and the kernel's own bf16 passes beside it).  No one PyTorch
+    # call computes it: no library time.
+    for S, B, G in ((5, 1, 1), (ssd_k.CHUNK + 1, 1, 1), (256, 1, 1), (600, 1, 1), (1024, 1, 1),
+                    (600, 2, 2)):
+        bytes_, flops = ssd_work(S, B=B, G=G)
+        sets = [ssd_inputs(torch, S, gen, dev, B=B, G=G) for _ in range(n_sets(bytes_))]
         args = sets[0]
         check = ssd_err(torch, ssd_k.ssd(*args, return_state=True),
                         ssd_k.plain_ssd(*args, return_state=True),
                         ssd_fault(torch, ssd_k.plain_ssd, *args, ssd_k.CHUNK))
-        record("ssd", f"x[1,{S},48,64] b,c[1,{S},1,128]", check, sets,
+        check["kernel_flops"] = ssd_kernel_work(S, B=B, q=ssd_k.CHUNK)
+        record("ssd", f"x[{B},{S},48,64] b,c[{B},{S},{G},128]", check, sets,
                lambda *a: ssd_k.ssd(*a, return_state=True),
                lambda *a: ssd_k.plain_ssd(*a, return_state=True), None,
-               bytes_, flops, F32_FLOPS)
+               bytes_, 3 * flops, TF32_TC_FLOPS, f32_rate_flops=flops, instance="ssd_kernel")
         del sets, args
 
     # conv2d (paper roles 3 and 4, kernel 7): the opencl tenant's frames (one
@@ -944,15 +991,44 @@ def edge_instance_rows(torch, mm_k, gen, record) -> None:
 
 
 def check_instances(rows: list[dict], sass: dict) -> set[str]:
-    """Raise unless every instance of the matmul kernels built (the ones
-    ``cuobjdump`` lists, and the ``mma.sync`` edge kernel) ran in some
-    kernel-phase row, held against the plain version; the instances run."""
+    """Raise unless every instance built of the matmul, decode attention
+    and ssd kernels (the ones ``cuobjdump`` lists, and the ``mma.sync`` edge
+    kernel) ran in some kernel-phase row, held against the plain version;
+    the instances run."""
     ran = {r["instance"] for r in rows if "instance" in r}
-    built = {fn for lib in ("matmul", "matmul_edge", "matmul_f32") for fn in sass[lib]}
+    built = {fn for lib in ("matmul", "matmul_edge", "matmul_f32", "decode_attention", "ssd")
+             for fn in sass.get(lib, {})}
     missing = (built | {"mm_edge_kernel"}) - ran
     if missing:
-        raise AssertionError(f"matmul kernel instances never held against their plain "
-                             f"version: {sorted(missing)}")
+        raise AssertionError(f"kernel instances never held against their plain version: "
+                             f"{sorted(missing)}")
+    return ran
+
+
+def served_decode_splits(dec_k, prompt_lengths) -> dict[str, set[int]]:
+    """The key-range split counts ``split_kv`` picks at the shapes the serve
+    and granite phases give the decode kernels (8 kv heads): the dense
+    kernel at 8-slot decode steps (llama 1024 rows at D = 64, granite 512
+    at D = 128), 16 slots' (the chunked run's gathered rows) and every
+    first-token fixup (one sequence against its prompt's n rows); the paged
+    kernel at 8 and 16 slots of 1024 rows and granite's 512."""
+    steps = ((8, 1024, 64), (16, 1024, 64), (8, 512, 128))
+    fixups = ({(n, 64) for n in prompt_lengths} | {(n, 128) for n in GRANITE_LENGTHS})
+    return {"decode_attention": {dec_k.split_kv(B, 8, T, D) for B, T, D in steps}
+            | {dec_k.split_kv(1, 8, n, D) for n, D in fixups},
+            "paged_decode_attention": {dec_k.split_kv(B, 8, T, D) for B, T, D in steps}}
+
+
+def check_decode_splits(rows: list[dict], served: dict[str, set[int]]) -> dict[str, list[int]]:
+    """Raise unless every split count in ``served`` ran in some row of its
+    kernel; the split counts each kernel's rows ran."""
+    ran = {name: sorted({r["splits"] for r in rows if r["name"] == name and "splits" in r})
+           for name in served}
+    missing = {name: sorted(want - set(ran[name])) for name, want in served.items()
+               if want - set(ran[name])}
+    if missing:
+        raise AssertionError(f"decode split counts the rule picks at served shapes that no "
+                             f"row ran: {missing}")
     return ran
 
 
@@ -1862,20 +1938,23 @@ def busy_phase(torch, model, params, seed: int) -> dict:
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    dec_us = sum(e.self_device_time_total for e in events if "dec_kernel" in e.key)
     res = {"decode_steps": 4, "wall_us": wall_us,
            "device_busy_us": busy_us if events else None,
            "device_busy_share": busy_us / wall_us if events else None,
+           "decode_attention_device_us_a_step": dec_us / 4 if events else None,
            "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
     print("  " + json.dumps(res))
     return res
 
 
 def prefill_busy(torch, model, params, seed: int) -> dict:
-    """Where one prefill's time goes: a 600-token prompt (the 1024 bucket)
-    into an idle 1-slot engine, after one such prefill as a warm-up; device
-    kernel time from a torch.profiler trace of the step that prefills it
-    (the prefill, its first-token fixup and one decode), the bf16 matmul
-    kernels' share of it, and the step's wall time."""
+    """Where one prefill's time goes: a 600-token prompt (llama: the 1024
+    bucket; Mamba-2: its own length) into an idle 1-slot engine, after one
+    such prefill as a warm-up; device kernel time from a torch.profiler
+    trace of the step that prefills it (the prefill, llama's first-token
+    fixup, and one decode), by kernel, the bf16 matmul kernels' and the ssd
+    kernel's parts of it, and the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import dispatch
@@ -1901,23 +1980,44 @@ def prefill_busy(torch, model, params, seed: int) -> dict:
     busy_us = sum(e.self_device_time_total for e in events)
     mm_us = sum(e.self_device_time_total for e in events
                 if "mm_tile_kernel" in e.key or "mm_stream_kernel" in e.key)
+    ssd_us = sum(e.self_device_time_total for e in events if "ssd_kernel" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    res = {"prompt": 600, "bucket": 1024, "wall_us": wall_us,
+    res = {"prompt": 600, "bucket": None if model.cfg.family == "ssm" else 1024,
+           "wall_us": wall_us,
            "device_busy_us": busy_us if events else None,
            "bf16_matmul_device_us": mm_us if events else None,
+           "ssd_device_us": ssd_us if events else None,
+           "ssd_share": ssd_us / busy_us if events else None,
            "device_busy_share": busy_us / wall_us if events else None,
            "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
     print("  " + json.dumps(res))
     return res
 
 
+def template_name(kernel_re: str):
+    """The instance name of a ``Function :`` line of ``cuobjdump`` whose
+    kernel matches ``kernel_re``, from its int template arguments
+    (``_ZN..mm_tile_kernelILi128ELi256EEEv..`` -> ``mm_tile_kernel<128,256>``);
+    None for any other function."""
+    def name(line: str) -> str | None:
+        m = re.search(rf"({kernel_re})I((?:L[ib]\d+E)+)", line)
+        if m is None:
+            return None
+        return m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+    return name
+
+
 def sass_counts(native, lib: str, kernel_re: str,
-                need: tuple[str, ...] = ("HGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
+                need: tuple[str, ...] = ("HGMMA", "UTMALDG"),
+                name=None) -> dict[str, dict[str, int]]:
     """The count of wgmma (HGMMA) and TMA load (UTMALDG) instructions, and of
     any other opcode in ``need`` (HMMA: mma.sync), in each instance of the
     kernels whose name matches ``kernel_re`` in the built library of
     ``csrc/<lib>.cu``, from ``cuobjdump --dump-sass`` (the one beside nvcc);
-    raises unless every one has those in ``need``."""
+    raises unless every one has those in ``need``.  ``name`` maps a
+    function's line to its instance name (:func:`template_name` unless
+    given)."""
+    name = name or template_name(kernel_re)
     ops = tuple(dict.fromkeys(("HGMMA", "UTMALDG") + need))
     path = native.build_all()[lib]
     cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
@@ -1927,11 +2027,7 @@ def sass_counts(native, lib: str, kernel_re: str,
     fn = None
     for line in out.splitlines():
         if "Function :" in line:
-            # _ZN..mm_tile_kernelILi128ELi256EEEv.. -> mm_tile_kernel<128,256>
-            m = re.search(rf"({kernel_re})I((?:L[ib]\d+E)+)", line)
-            fn = None
-            if m:
-                fn = m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+            fn = name(line)
             if fn:
                 counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
@@ -1975,6 +2071,29 @@ def f32_matmul_sass(native) -> dict[str, dict[str, int]]:
 def flash_sass(native) -> dict[str, dict[str, int]]:
     """:func:`sass_counts` of the flash attention kernel's instances (D = 64, 128)."""
     return sass_counts(native, "flash_attention", r"fa_kernel")
+
+
+def decode_instance(line: str) -> str | None:
+    """``dec_kernel<D,DenseRows>`` or ``dec_kernel<D,PagedRows>`` for a
+    ``cuobjdump`` function line of the decode kernel (the row type is the
+    second template argument, in the anonymous namespace)."""
+    m = re.search(r"dec_kernelILi(\d+)E\w*?(Dense|Paged)Rows", line)
+    return f"dec_kernel<{m.group(1)},{m.group(2)}Rows>" if m else None
+
+
+def decode_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the decode attention kernel's instances (D =
+    16 .. 128, dense and paged): mma.sync, no wgmma."""
+    return sass_counts(native, "decode_attention", r"dec_kernel", need=("HMMA",),
+                       name=decode_instance)
+
+
+def ssd_sass(native) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of the ssd kernel: every product on the tensor
+    cores (mma.sync)."""
+    return sass_counts(native, "ssd", r"ssd_kernel", need=("HMMA",),
+                       name=lambda line: "ssd_kernel" if re.search(r"\d+ssd_kernelE", line)
+                       else None)
 
 
 def print_runs(runs: dict, card: str, smi: str) -> None:
@@ -2028,15 +2147,19 @@ def main() -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
     sass = {"matmul": bf16_matmul_sass(native), "flash_attention": flash_sass(native),
-            "matmul_edge": edge_sass(native), "matmul_f32": f32_matmul_sass(native)}
+            "matmul_edge": edge_sass(native), "matmul_f32": f32_matmul_sass(native),
+            "decode_attention": decode_sass(native), "ssd": ssd_sass(native)}
     for lib, fns in sass.items():
         for fn, counts in fns.items():
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
 
     print(f"[2/8] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
-    print(f"  every matmul instance built was held against the plain version: "
-          f"{sorted(check_instances(rows, sass))}")
+    print(f"  every matmul, decode attention and ssd instance built was held against the "
+          f"plain version: {sorted(check_instances(rows, sass))}")
+    decode_splits = check_decode_splits(
+        rows, served_decode_splits(dec_k, serve_prompts(torch, 128, args.seed)[0]))
+    print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
 
     print("[3/8] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
@@ -2084,6 +2207,8 @@ def main() -> int:
     print_runs(ssm_res["runs"], card, smi)
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     ssm_busy_res = busy_phase(torch, model, params, args.seed)
+    print("  where a 600-token prefill's time goes, by kernel (torch.profiler, CUDA activity):")
+    ssm_prefill_res = prefill_busy(torch, model, params, args.seed)
 
     runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
             "granite": {"launches": granite_res["launches"]}}
@@ -2112,9 +2237,15 @@ def main() -> int:
                                   if (D, S, T, c) != (64, 512, 512, True)]
                                  + ["q[1,32,512,96] kv[1,8,512,96] causal=True"],
               "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024",
-                                   "q[8,32,96] cache[8,8,1024,96] lengths 1..1024"],
+                                   "q[8,32,96] cache[8,8,1024,96] lengths 1..1024",
+                                   "q[1,32,64] cache[1,8,600,64] length 600"],
+              "ssd": [f"x[{B},{S},48,64] b,c[{B},{S},{G},128]"
+                      for S, B, G in ((5, 1, 1), (65, 1, 1), (256, 1, 1), (1024, 1, 1),
+                                      (600, 2, 2))],
               "paged_decode_attention": [f"q[8,32,128] pool[513,4,16,128] table[8,64] lengths "
                                          f"{lengths}",
+                                         f"q[16,32,64] pool[1025,8,16,64] table[16,64] lengths "
+                                         f"{[1, 1024, 5, 600, 37, 256, 900, 64] * 2}",
                                          f"q[8,32,96] pool[513,8,16,96] table[8,64] lengths "
                                          f"{lengths}"],
               "matmul_edge": [f"[{M},{K}]x[{K},{N}] act=None out=float32{note}"
@@ -2162,8 +2293,10 @@ def main() -> int:
                                             ("conv2d", conv_k, conv_k.REPLACES))]
     entries += [("matmul_edge", mm_k, mm_k.REPLACES,
                  {"granite": granite_res["launches"]["matmul_edge"]})]
-    timing = ("shape", "instance", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms", "previous_ms", "bound_f32_rate_ms")
+    # the line holds what this run measured, and bound_ms: the other bounds
+    # (bound_f32_rate_ms, ssd's bound_kernel_tc_ms) stay in the rows and --out
+    timing = ("shape", "instance", "splits", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "previous_ms")
     summary = []
     for name, mod, replaces, by_run in entries:
         row = next(r for r in rows if r["name"] == name and r["shape"] == headline[name])
@@ -2182,7 +2315,7 @@ def main() -> int:
             "kernel_ms": row["ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": library[name],
-            **{k: row[k] for k in ("previous_ms", "bound_f32_rate_ms") if k in row},
+            **{k: row[k] for k in ("splits", "previous_ms") if k in row},
             **({"other_rows": more} if more else {}),
             **({"sass": sass[name]} if name in sass else {}),
         })
@@ -2194,6 +2327,7 @@ def main() -> int:
             "busy": busy_res, "prefill_busy": prefill_res,
             "tenants": tenants_res, "granite": granite_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
+            "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,7 @@
-// Shared device helpers for the attention kernels: the bf16 warp-level
-// tensor-core product (mma.sync m16n8k16, f32 accumulate) and bf16 packing.
+// Shared device helpers of the attention, matmul and ssd kernels: the bf16
+// warp-level tensor-core product (mma.sync m16n8k16, f32 accumulate), its
+// fragments loaded from shared memory (ldmatrix), bf16 packing and the
+// 16-byte cp.async copy.
 //
 // Fragment layouts of m16n8k16 (PTX ISA, "Matrix fragments for mma.m16n8k16"),
 // with g = lane / 4 and t = lane % 4:
@@ -57,4 +59,36 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Four 8x8 bf16 matrices from shared memory (lane l gives a row address of
+// matrix l / 8; rows 16-byte aligned), transposed or not, in the mma.sync
+// fragment layout: register i holds matrix i's (row l/4, columns 2(l%4)..+1),
+// or with .trans its (rows 2(l%4)..+1, column l/4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+
+// A 16-byte copy from device to shared memory that the thread does not wait
+// for; invalid: nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

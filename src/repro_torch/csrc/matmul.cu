@@ -79,12 +79,6 @@ __device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
 // The 16-byte aligned address at or below p.
 __device__ __forceinline__ uintptr_t align_down16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(15);
@@ -97,13 +91,6 @@ __device__ __forceinline__ uintptr_t align_down16(const void* p) {
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // ---- bf16 path: TMA + wgmma -----------------------------------------------
@@ -1126,20 +1113,6 @@ __device__ __forceinline__ uint4 shift16(const uint4& lo, const uint4& hi, unsig
   const unsigned b = (sh & 3) * 8;
   return make_uint4(__funnelshift_r(z[0], z[1], b), __funnelshift_r(z[1], z[2], b),
                     __funnelshift_r(z[2], z[3], b), __funnelshift_r(z[3], z[4], b));
-}
-
-// Four 8x8 bf16 matrices from shared memory (lane l gives a row address of
-// matrix l / 8), transposed or not, in the mma.sync fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
 }
 
 // grid (N strips of 128, splits); M <= MP.  Warp q multiplies columns

@@ -13,22 +13,27 @@ exponent clamp keeps the upper triangle from overflowing ``exp`` (0·inf is
 NaN).  Heads share B/C by group (``h // (H/G)``).
 
 What bounds it on the H100: at the serving shapes (H 48, P 64, N 128, G 1)
-the inputs are a few MB, read once, while the body does some 39 thousand
-f32 flops per (row, head) — it is bound by operations.  The body runs in f32
-on the CUDA cores, the precision the Pallas kernel keeps; the design:
+the inputs are a few MB, read once, and the products some 2.4 GFLOP at
+S = 600, a few µs on the tensor cores; what is left is the carry from
+chunk to chunk, the one sequential part.  The design (one launch):
 
-- one block per (sequence, head, 16 of the head's P columns): the rows of
-  the state are independent (y[:, p] needs only x[:, p] and h[p, :]), so
-  one prompt gives 48 x 4 = 192 blocks for 132 SMs instead of 48;
-- the kernel's own inner chunk of 16 rows (the algebra is the same for any
-  chunk up to rounding; a short chunk keeps the quadratic C·Bᵀ term small,
-  which every P-slice of a head recomputes);
-- B, C and the chunk's x in shared memory, the [16, N] state tile in
-  registers, mirrored to shared memory (double-buffered) for the next
-  chunk's C·hᵀ;
+- chunk-parallel: a block for each (chunk of :data:`CHUNK` rows, sequence,
+  head, slice of up to 64 head-dim columns), 480 blocks for a 600-row
+  prompt.  A block first computes what needs no earlier chunk (its chunk's
+  own state contribution, C·Bᵀ and the intra-chunk output), then waits for
+  the previous chunk's state, publishes its own for the next, and adds the
+  inter-chunk output;
+- the carry is a chained scan: the state passes through a slot in device
+  memory beside a flag (release / acquire), and blocks take their chunk from
+  an atomic ticket counter in chunk order, so no block waits on one that is
+  not running.  The counter and flags are left zeroed: calls repeat bitwise
+  and can be captured in a CUDA graph;
+- every product on the tensor cores (``mma.sync``), each f32 operand split
+  in two bf16 parts against the bf16-exact B, C and x (about 16 bits of
+  mantissa; one bf16 pass would round the state by about 1e-3);
 - any S: rows past S in the last chunk are dt = 0 rows, which neither decay
   the state nor add to it; the kernel never reads or writes past S (the
-  Pallas kernel raises when the chunk does not divide S).
+  Pallas kernel raises when its chunk does not divide S).
 
 x, b and c may be views with any batch and row strides (the model passes
 slices of one conv output): only the (H, P) and (G, N) dims must be packed.
@@ -51,12 +56,13 @@ REPLACES = "src/repro/kernels/ssd.py:82"
 #: launches of the CUDA kernel
 launches = 0
 
-#: rows of the kernel's inner chunk, and head-dim columns per block
-CHUNK = 16
-P_SLICE = 16
+#: rows of the kernel's chunk
+CHUNK = 64
+#: head-dim columns of a block, at most: a head of more takes several blocks
+P_SLICE = 64
 MAX_STATE = 128
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
              + [ctypes.c_void_p])
 
 
@@ -120,9 +126,10 @@ def _check_rows(name: str, t: torch.Tensor, inner: int) -> None:
 
 def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         dt: torch.Tensor, *, chunk: int = 256, return_state: bool = False):
-    """The SSD scan: the plain version for CPU tensors, else the CUDA kernel
-    (x, b, c bf16; a_log, dt f32; P a multiple of 16; N a multiple of 16 up
-    to 128).  ``chunk`` is the Pallas kernel's and is not used."""
+    """The SSD scan: the plain version for CPU tensors, else the CUDA kernel,
+    one launch (x, b, c bf16; a_log, dt f32; P a multiple of 16; N a
+    multiple of 16 up to 128).  ``chunk`` is the Pallas kernel's and is not
+    used."""
     del chunk
     if native.on_cpu(x, a_log, b, c, dt):
         return plain_ssd(x, a_log, b, c, dt, return_state=return_state)
@@ -133,8 +140,8 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             or a_log.shape != (H,) or H % G):
         raise ValueError(f"ssd: x {tuple(x.shape)}, a_log {tuple(a_log.shape)}, b "
                          f"{tuple(b.shape)}, c {tuple(c.shape)}, dt {tuple(dt.shape)} do not match")
-    if P % P_SLICE or N % 16 or N > MAX_STATE or S < 1:
-        raise ValueError(f"ssd: needs P a multiple of {P_SLICE}, N a multiple of 16 up to "
+    if P % 16 or N % 16 or N > MAX_STATE or S < 1:
+        raise ValueError(f"ssd: needs P a multiple of 16, N a multiple of 16 up to "
                          f"{MAX_STATE} and S >= 1; got P={P} N={N} S={S}")
     native.check("ssd", {"a_log": a_log, "dt": dt}, torch.float32)
     if len({t.device for t in (x, a_log, b, c, dt)}) != 1:
@@ -146,11 +153,17 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         _check_rows(name, t, inner)
     y = torch.empty((B, S, H, P), dtype=torch.bfloat16, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # the carry's slot (h of the chunk last published) and the ticket counter
+    # with one flag a (sequence, head, slice)
+    slot = torch.empty_like(state)
+    handle = torch.cuda.current_stream(x.device).cuda_stream
+    counters = native.tile_counters("ssd", x.device, handle, 1 + B * H * -(-P // P_SLICE))
     fn = native.function("ssd", "repro_ssd", _ARGTYPES)
     err = fn(native.ptr(x), native.ptr(a_log), native.ptr(b), native.ptr(c), native.ptr(dt),
-             native.ptr(y), native.ptr(state), B, S, H, P, G, N,
+             native.ptr(y), native.ptr(state), native.ptr(slot), native.ptr(counters),
+             B, S, H, P, G, N,
              x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-             native.stream(x.device))
+             ctypes.c_void_p(handle))
     native.raise_on_error("ssd", err)
     launches += 1
     return (y, state) if return_state else y

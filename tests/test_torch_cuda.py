@@ -72,6 +72,49 @@ def _close(got, want, **tol):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+def _profiled_kernels(call) -> list[str]:
+    """The names of the CUDA kernels a torch.profiler trace of ``call()``
+    lists (copies and fills left out).  A trace that lists no kernel at all
+    is taken once more: on the card the profiler has now and then come back
+    empty; a trace with the wrong kernels is returned as it is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names: list[str] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        if names:
+            break
+    return names
+
+
+def _graph_replays(fn):
+    """(eager result, the result of the same call captured in a CUDA graph
+    and replayed twice), each a tuple of tensors; the replays must agree bit
+    for bit with each other."""
+    as_tuple = lambda r: tuple(r) if isinstance(r, (tuple, list)) else (r,)  # noqa: E731
+    eager = tuple(t.clone() for t in as_tuple(fn()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        as_tuple(fn())                    # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = as_tuple(fn())
+    graph.replay()
+    torch.cuda.synchronize()
+    first = tuple(t.clone() for t in out)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, out))
+    return eager, first
+
+
 def _attn_close(got, want):
     """Every output row within ATTN_REL_L2_TOL of the plain row, relatively."""
     g, w = got.float(), want.float()
@@ -116,8 +159,6 @@ def test_matmul_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
     """A split shape is summed in split order by the last block to finish,
     so two calls agree bit for bit; and it is one launch: the launch count
     moves by one a call, and a profiler trace of a call holds one kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     assert mm_k.plan(m, n, k).splits > 1
     g = _gen(cuda, 7)
     x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
@@ -128,14 +169,9 @@ def test_matmul_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
     assert mm_k.launches == before + 2
     assert torch.equal(first, second)
     _close(first, mm_k.plain_matmul(x, w, activation="silu"), **BF16_TOL)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mm_k.matmul(x, w)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-    assert len(kernels) == 1, [e.name for e in kernels]
-    assert "mm_" in kernels[0].name
+    kernels = _profiled_kernels(lambda: mm_k.matmul(x, w))
+    assert len(kernels) == 1, kernels
+    assert "mm_" in kernels[0]
 
 
 def test_matmul_refuses_a_misaligned_input_before_any_launch(cuda):
@@ -242,8 +278,6 @@ def test_flash_attention_split_is_one_launch_and_bitwise_repeatable(cuda, s, t, 
     calls agree bit for bit; it is one launch (the count moves by one a call,
     and a profiler trace of a call holds one kernel); and it matches the
     plain version."""
-    from torch.profiler import ProfilerActivity, profile
-
     assert fa_k.split_kv(1, 32, s, t, causal, head_dim=d) > 1
     g = _gen(cuda, 17)
     q = _randn(g, (1, 32, s, d), cuda)
@@ -254,13 +288,8 @@ def test_flash_attention_split_is_one_launch_and_bitwise_repeatable(cuda, s, t, 
     assert fa_k.launches == before + 2
     assert torch.equal(first, second)
     _attn_close(first, fa_k.plain_flash_attention(q, k, v, causal=causal))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fa_k.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-    assert len(kernels) == 1 and "fa_kernel" in kernels[0].name, [e.name for e in kernels]
+    kernels = _profiled_kernels(lambda: fa_k.flash_attention(q, k, v, causal=causal))
+    assert len(kernels) == 1 and "fa_kernel" in kernels[0], kernels
 
 
 def test_flash_attention_ignores_rows_past_t_and_other_heads(cuda):
@@ -536,6 +565,102 @@ def test_paged_wrapper_counts_launches_and_refuses_bad_input(cuda):
     assert paged_k.launches == before + 1
 
 
+def _boundary_lengths(T: int, splits: int, B: int = 8) -> list[int]:
+    """B lengths at and across the split boundaries of a T-row cache: T, 1,
+    and each inner boundary, one row before and one after it, in turn."""
+    bounds = [lo for lo, _ in dec_k.split_ranges(T, splits)[1:]]
+    near = [n for lo in bounds for n in (lo, lo - 1, lo + 1)] or [T // 2, T // 2 + 1]
+    return ([T, 1] + [near[i % len(near)] for i in range(max(0, B - 2))])[:B]
+
+
+@pytest.mark.parametrize("d,hkv", [(64, 8), (128, 4)])
+@pytest.mark.parametrize("splits", range(1, dec_k.MAX_SPLITS + 1))
+def test_decode_and_paged_every_split_count(cuda, splits, d, hkv):
+    """Each split count on a 1024-row cache, lengths at and across the
+    split boundaries: against the plain versions, split and unsplit, and
+    paged bitwise the dense kernel with the same splits."""
+    g = _gen(cuda, 50 + splits)
+    T = 1024
+    lengths = torch.tensor(_boundary_lengths(T, splits), dtype=torch.int32, device=cuda)
+    q = _randn(g, (8, 32, d), cuda)
+    kc, vc = _randn(g, (8, hkv, T, d), cuda), _randn(g, (8, hkv, T, d), cuda)
+    got = dec_k.decode_attention(q, kc, vc, lengths, splits=splits)
+    _attn_close(got, dec_k.plain_decode_attention(q, kc, vc, lengths))
+    _attn_close(got, dec_k.plain_split_decode_attention(q, kc, vc, lengths, splits))
+    kp, vp, table = _paged_pool(g, cuda, 8, 16, T=T, d=d, hkv=hkv)
+    paged = paged_k.paged_decode_attention(q, kp, vp, table, lengths, splits=splits)
+    _attn_close(paged, paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths))
+    dense = dec_k.decode_attention(q, gather_kv_pages(kp, table), gather_kv_pages(vp, table),
+                                   lengths, splits=splits)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.parametrize("B,hkv,T,ps", [(8, 8, 1024, 16), (8, 4, 1024, 64), (16, 8, 1024, 16),
+                                        (1, 8, 608, 16), (8, 8, 512, 16), (1, 8, 48, 16)])
+def test_decode_and_paged_at_the_split_rule_pick(cuda, B, hkv, T, ps):
+    """The served shapes at split_kv's own pick (no splits given), lengths at
+    and across its boundaries, paged bitwise dense."""
+    splits = dec_k.split_kv(B, hkv, T)
+    g = _gen(cuda, 60 + B + T)
+    lengths = torch.tensor(_boundary_lengths(T, splits, B), dtype=torch.int32, device=cuda)
+    q = _randn(g, (B, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, B, ps, T=T, hkv=hkv)
+    kc, vc = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
+    dense = dec_k.decode_attention(q, kc, vc, lengths)
+    assert dec_k.last_splits == splits
+    _attn_close(dense, dec_k.plain_decode_attention(q, kc, vc, lengths))
+    assert torch.equal(dense, dec_k.decode_attention(q, kc, vc, lengths, splits=splits))
+    assert torch.equal(paged_k.paged_decode_attention(q, kp, vp, table, lengths), dense)
+
+
+def test_decode_blocks_per_sm_reads_the_built_kernel(cuda):
+    """The occupancy the split rule reads, from the built kernel: at least
+    one block an SM, fewer as the ring grows with D, one where the ring
+    takes more than half of the SM's shared memory (D = 112 and 128); and
+    the kernel refuses more splits than the rule's cap."""
+    got = [dec_k.blocks_per_sm(d) for d in range(16, 129, 16)]
+    assert all(n >= 1 for n in got) and got == sorted(got, reverse=True), got
+    assert got[-2:] == [1, 1], got
+    g = _gen(cuda, 49)
+    q, kc = _randn(g, (1, 32, 64), cuda), _randn(g, (1, 8, 1024, 64), cuda)
+    with pytest.raises(ValueError, match="splits must be"):
+        dec_k.decode_attention(q, kc, kc, 1024, splits=dec_k.MAX_SPLITS + 1)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_split_is_one_launch_and_bitwise_repeatable(cuda, paged):
+    """A split call is one launch (the count moves by one, a trace holds one
+    kernel) and repeats bit for bit: the last block merges in split order."""
+    g = _gen(cuda, 70)
+    lengths = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=cuda)
+    q = _randn(g, (8, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 8, 16)
+    kc, vc = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
+    assert dec_k.split_kv(8, 8, 1024) > 1
+    mod = paged_k if paged else dec_k
+    call = ((lambda: paged_k.paged_decode_attention(q, kp, vp, table, lengths)) if paged
+            else (lambda: dec_k.decode_attention(q, kc, vc, lengths)))
+    before = mod.launches
+    first, second = call(), call()
+    assert mod.launches == before + 2
+    assert torch.equal(first, second)
+    kernels = _profiled_kernels(call)
+    assert len(kernels) == 1 and "dec_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_in_a_cuda_graph_equals_the_eager_call(cuda, paged):
+    g = _gen(cuda, 71)
+    lengths = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=cuda)
+    q = _randn(g, (8, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 8, 16)
+    kc, vc = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
+    call = ((lambda: paged_k.paged_decode_attention(q, kp, vp, table, lengths)) if paged
+            else (lambda: dec_k.decode_attention(q, kc, vc, lengths)))
+    eager, replayed = _graph_replays(call)
+    assert torch.equal(eager[0], replayed[0])
+
+
 def test_small_model_paged_decode_equals_dense_under_cuda_strict(cuda):
     """A decode step over a pool with a shuffled table gives the dense
     cache's logits bit for bit on the card's kernels."""
@@ -615,6 +740,61 @@ def test_ssd_wrapper_counts_launches_and_refuses_bad_input(cuda):
         big = _randn(g, (1, 40, 1, 144), cuda)                     # N > 128
         ssd_k.ssd(x, a, big, big, dt)
     assert ssd_k.launches == before + 1
+
+
+def _ssd_close(got, want):
+    """y row by row within ATTN_REL_L2_TOL, each head's state within
+    SSD_STATE_REL_L2_TOL, relatively."""
+    (y, state), (want_y, want_state) = got, want
+    _attn_close(y, want_y)
+    rel = (state - want_state).flatten(2).norm(dim=-1) / want_state.flatten(2).norm(dim=-1)
+    assert float(rel.max()) <= SSD_STATE_REL_L2_TOL, f"state rel L2 {float(rel.max())}"
+
+
+@pytest.mark.parametrize("B,S,G", [(1, ssd_k.CHUNK - 1, 1), (1, ssd_k.CHUNK, 1),
+                                   (1, ssd_k.CHUNK + 1, 1), (2, 2 * ssd_k.CHUNK + 3, 2),
+                                   (2, 600, 1), (1, 1024, 1), (2, 600, 2), (2, 1024, 2)])
+def test_ssd_chunk_parallel_matches_plain(cuda, B, S, G):
+    """The chunk-parallel kernel at the serving widths (H 48, P 64, N 128) on
+    strided views of one conv output: one chunk less a row, one chunk, one
+    row over, several chunks, the serve run's longest prompt and max_len,
+    two sequences and two groups."""
+    g = _gen(cuda, 100 + S + G)
+    args = _ssd_args(g, cuda, B, S, 48, 64, G, 128)
+    got = ssd_k.ssd(*args, return_state=True)
+    torch.cuda.synchronize()
+    _ssd_close(got, ssd_k.plain_ssd(*args, return_state=True))
+
+
+@pytest.mark.parametrize("P", [80, 128])
+def test_ssd_takes_a_head_wider_than_a_block(cuda, P):
+    """Heads of more than 64 columns run as several slices, each with its
+    own carry."""
+    g = _gen(cuda, 30 + P)
+    args = _ssd_args(g, cuda, 2, 2 * ssd_k.CHUNK + 5, 4, P, 2, 64)
+    _ssd_close(ssd_k.ssd(*args, return_state=True), ssd_k.plain_ssd(*args, return_state=True))
+
+
+@pytest.mark.parametrize("S", [ssd_k.CHUNK + 1, 600])
+def test_ssd_is_one_launch_and_bitwise_repeatable(cuda, S):
+    """One launch a call (the count moves by one, a trace holds one kernel),
+    and the carry's chained scan gives the same bits every call."""
+    g = _gen(cuda, 40 + S)
+    args = _ssd_args(g, cuda, 1, S, 48, 64, 1, 128)
+    before = ssd_k.launches
+    first = ssd_k.ssd(*args, return_state=True)
+    second = ssd_k.ssd(*args, return_state=True)
+    assert ssd_k.launches == before + 2
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    kernels = _profiled_kernels(lambda: ssd_k.ssd(*args, return_state=True))
+    assert len(kernels) == 1 and "ssd_kernel" in kernels[0], kernels
+
+
+def test_ssd_in_a_cuda_graph_equals_the_eager_call(cuda):
+    g = _gen(cuda, 41)
+    args = _ssd_args(g, cuda, 2, 300, 48, 64, 1, 128)
+    eager, replayed = _graph_replays(lambda: ssd_k.ssd(*args, return_state=True))
+    assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
 
 
 def test_small_mamba_cuda_strict_matches_the_torch_source(cuda):

@@ -194,6 +194,71 @@ def test_decode_attention_torch_source_matches_xla(length):
            jops.xla_decode_attention(qj, kj, vj, jnp.asarray(length, jnp.int32)), "bf16")
 
 
+def _split_lengths(T: int, splits: int) -> list[int]:
+    """Lengths 1 and T, and on, before and after each inner split boundary."""
+    bounds = [lo for lo, _ in dec_k.split_ranges(T, splits)[1:]]
+    return [1, T] + [n for lo in bounds for n in (lo, lo - 1, lo + 1)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_decode_plain_matches_unsplit_and_pallas(splits, dtype):
+    """The kernel's split-and-merge in plain PyTorch over a 256-row cache (8
+    tiles), lengths on and off the split boundaries: the unsplit plain
+    version's function (1e-4 in f32: the merge reorders f32 sums; bf16
+    outputs as above) and the Pallas kernel's in interpret mode."""
+    T = 256
+    lengths = _split_lengths(T, splits)
+    B = len(lengths)
+    (qj, qt) = _pair((B, 8, 32), dtype)
+    (kj, kt), (vj, vt) = _pair((B, 2, T, 32), dtype), _pair((B, 2, T, 32), dtype)
+    lt = torch.tensor(lengths, dtype=torch.int32)
+    got = dec_k.plain_split_decode_attention(qt, kt, vt, lt, splits)
+    _check(got, dec_k.plain_decode_attention(qt, kt, vt, lt).float().numpy(), dtype)
+    want = pallas_decode_attention(qj, kj, vj, jnp.asarray(lengths, jnp.int32), block_k=32,
+                                   interpret=True)
+    _check(got, want, dtype)
+
+
+#: the blocks an SM each decode instance holds, as the built kernel reported
+#: them on the H100 (``kernels/decode_sweep.py``)
+CARD_OCCUPANCY = {16: 4, 32: 4, 48: 3, 64: 3, 80: 2, 96: 2, 112: 1, 128: 1}
+
+
+def _card_occupancy(monkeypatch):
+    monkeypatch.setattr(dec_k, "blocks_per_sm", CARD_OCCUPANCY.__getitem__)
+
+
+def test_split_ranges_deal_whole_tiles_and_cover_the_cache(monkeypatch):
+    """Each split a run of whole 32-key tiles, in order, covering [0, T);
+    the split rule picks from shapes alone and never leaves a split empty
+    of the cache."""
+    _card_occupancy(monkeypatch)
+    for T in (1, 31, 32, 45, 600, 608, 1024, 4096):
+        for splits in range(1, -(-T // 32) + 1):
+            ranges = dec_k.split_ranges(T, splits)
+            assert ranges[0][0] == 0 and ranges[-1][1] == T
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(lo % 32 == 0 for lo, hi in ranges if hi > lo)
+    for B, hkv, T in ((8, 8, 1024), (8, 4, 1024), (16, 8, 1024), (1, 8, 608), (8, 8, 512),
+                      (1, 8, 48), (32, 8, 4096)):
+        for D in range(16, 129, 16):
+            splits = dec_k.split_kv(B, hkv, T, D)
+            assert 1 <= splits <= dec_k.MAX_SPLITS
+            assert all(hi > lo for lo, hi in dec_k.split_ranges(T, splits))
+            # one wave: every block of the launch resident at once
+            assert B * hkv * splits <= max(B * hkv, dec_k.blocks_per_sm(D) * 132)
+    # llama's decode step: three D = 64 blocks an SM; yi's D = 128 blocks fit
+    # one an SM; 16 slots fill the card with three splits
+    assert dec_k.split_kv(8, 8, 1024, 64) == 4 and dec_k.split_kv(8, 4, 1024, 128) == 4
+    assert dec_k.split_kv(16, 8, 1024, 64) == 3 and dec_k.split_kv(8, 8, 512, 128) == 2
+    assert dec_k.split_kv(1, 8, 48) == 1
+    # a lone sequence: one tile a warp (19 tiles: 5 splits, 10 tiles: 3),
+    # at most MAX_SPLITS
+    assert dec_k.split_kv(1, 8, 600) == 5 and dec_k.split_kv(1, 8, 300) == 3
+    assert dec_k.split_kv(1, 8, 1024) == dec_k.split_kv(1, 8, 4096) == dec_k.MAX_SPLITS
+
+
 # ---------------------------------------------------------------------------
 # paged decode attention
 # ---------------------------------------------------------------------------
@@ -274,6 +339,21 @@ def test_paged_torch_source_matches_xla_and_equals_dense(length):
     assert torch.equal(got, dense)
     _check(tref.paged_decode_attention(qt, kt, vt, tt, lt),
            jref.paged_decode_attention(qj, kj, vj, tj, lj), "bf16")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_split_plain_matches_pallas_and_equals_dense_split(splits, ps):
+    """The paged split plain version against the Pallas paged kernel in
+    interpret mode, and bit for bit the dense split plain version on the
+    gathered cache at the same splits (8 tiles of 32 keys)."""
+    (qj, qt), (kj, kt), (vj, vt), (tj, tt), (lj, lt) = _paged_case(
+        3, 8, 2, ps, 256 // ps, "bf16", "per_slot", seed=4)
+    got = paged_k.plain_split_paged_decode_attention(qt, kt, vt, tt, lt, splits)
+    _check(got, pallas_paged_decode_attention(qj, kj, vj, tj, lj, interpret=True), "bf16")
+    dense = dec_k.plain_split_decode_attention(qt, tref.gather_kv_pages(kt, tt),
+                                               tref.gather_kv_pages(vt, tt), lt, splits)
+    assert torch.equal(got, dense)
 
 
 # ---------------------------------------------------------------------------

@@ -494,3 +494,81 @@ def test_instance_check_refuses_a_built_matmul_instance_no_row_ran():
     for drop in range(4):
         with pytest.raises(AssertionError, match="never held against"):
             cs.check_instances(rows[:drop] + rows[drop + 1:], sass)
+
+
+def test_instance_check_refuses_a_built_decode_or_ssd_instance_no_row_ran():
+    """The decode attention instances and the ssd kernel that ``cuobjdump``
+    lists are held the same way as the matmul's."""
+    sass = {"matmul": {}, "matmul_edge": {}, "matmul_f32": {},
+            "decode_attention": {"dec_kernel<64,DenseRows>": {}, "dec_kernel<64,PagedRows>": {}},
+            "ssd": {"ssd_kernel": {}}}
+    rows = [{"name": "matmul_edge", "instance": "mm_edge_kernel"},
+            {"name": "decode_attention", "instance": "dec_kernel<64,DenseRows>"},
+            {"name": "paged_decode_attention", "instance": "dec_kernel<64,PagedRows>"},
+            {"name": "ssd", "instance": "ssd_kernel"}]
+    cs.check_instances(rows, sass)
+    for drop in range(1, 4):
+        with pytest.raises(AssertionError, match="never held against"):
+            cs.check_instances(rows[:drop] + rows[drop + 1:], sass)
+
+
+def test_sass_names_each_decode_instance_and_the_ssd_kernel(monkeypatch):
+    """``cuobjdump``'s mangled names of the decode kernel's dense and paged
+    instances and of the ssd kernel, and the mma.sync each must hold."""
+    sass = """
+        Function : _ZN52_GLOBAL__N__676c91e2_19_decode_attention_cu_34d849a810dec_kernelILi128ENS_9DenseRowsEEEvPK13__nv_bfloat16S4_S4_T0_PKiPS2_Pf
+        /*0100*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        Function : _ZN52_GLOBAL__N__676c91e2_19_decode_attention_cu_34d849a810dec_kernelILi16ENS_9PagedRowsEEEvPK13__nv_bfloat16S4_S4_T0_PKiPS2_Pf
+        /*0100*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        Function : _ZN38_GLOBAL__N__00549f64_6_ssd_cu_9aa38bd610ssd_kernelEPK13__nv_bfloat16PKfS2_S2_S4_PS0_Pf
+        /*0100*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+    class Native:
+        def build_all(self):
+            return {"decode_attention": Path("libdec.so"), "ssd": Path("libssd.so")}
+
+        def _nvcc(self):
+            return "/cuda/bin/nvcc"
+
+    monkeypatch.setattr(cs.subprocess, "run",
+                        lambda cmd, **kw: subprocess.CompletedProcess(cmd, 0, stdout=sass))
+    assert cs.decode_sass(Native()) == {
+        "dec_kernel<128,DenseRows>": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
+        "dec_kernel<16,PagedRows>": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 2}}
+    assert cs.ssd_sass(Native()) == {"ssd_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1}}
+    sass = sass.replace("HMMA", "FFMA")
+    with pytest.raises(AssertionError, match="without mma.sync"):
+        cs.ssd_sass(Native())
+
+
+def test_decode_split_check_needs_every_served_split_count(monkeypatch):
+    """The split counts the rule picks at the served shapes (decode steps of
+    8 and 16 slots, every fixup) must each run in some row of the kernel."""
+    # the blocks an SM the built kernel reports on the H100
+    monkeypatch.setattr(dec_k, "blocks_per_sm", {16: 4, 32: 4, 48: 3, 64: 3, 80: 2, 96: 2, 112: 1, 128: 1}.__getitem__)
+    lengths, _ = cs.serve_prompts(torch, 128, 0)
+    served = cs.served_decode_splits(dec_k, lengths)
+    assert served == {"decode_attention": {1, 2, 3, 4, 5}, "paged_decode_attention": {2, 3, 4}}
+    rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4, 5)]
+            + [{"name": "paged_decode_attention", "splits": n} for n in (2, 3, 4)])
+    assert cs.check_decode_splits(rows, served) == {"decode_attention": [1, 2, 3, 4, 5],
+                                                    "paged_decode_attention": [2, 3, 4]}
+    with pytest.raises(AssertionError, match="no row ran"):
+        cs.check_decode_splits(rows[1:], served)
+
+
+def test_ssd_kernel_work_counts_the_bf16_passes():
+    """The kernel's own tensor-core flops: one C·Bᵀ pass and two for each
+    product with an f32 operand, over the 16-row tiles it runs: the causal
+    tile pairs of a chunk's live tiles, C·hᵀ only after the first chunk."""
+    N, P = 128, 64
+    pair = 2 * 16 * 16 * (N + 2 * P)          # C·Bᵀ and M'x on one tile pair
+    rows = 2 * 2 * 16 * N * P                 # xᵀ(wB) or C·hᵀ on one 16-row tile
+    assert cs.ssd_kernel_work(5) == 48 * (pair + rows)
+    assert cs.ssd_kernel_work(64) == 48 * (10 * pair + 4 * rows)
+    # 600 rows: nine full chunks and one of 24 rows (two tiles)
+    assert cs.ssd_kernel_work(600) == 48 * (9 * (10 * pair + 4 * rows) + 3 * pair + 2 * rows
+                                            + 8 * 4 * rows + 2 * rows)
+    assert cs.ssd_kernel_work(600, B=2) == 2 * cs.ssd_kernel_work(600)

@@ -148,9 +148,9 @@ def test_torch_ssd_carries_an_initial_state_as_xla_ssd():
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("chunk", [16, 32, 64])
 def test_plain_ssd_matches_pallas_interpret(chunk, dtype):
-    """The kernel's plain version (16-row chunks whatever ``chunk`` says)
-    against the Pallas kernel at its chunk; through the wrapper, which runs
-    the plain version for CPU tensors."""
+    """The kernel's plain version (``ssd_k.CHUNK``-row chunks whatever
+    ``chunk`` says) against the Pallas kernel at its chunk; through the
+    wrapper, which runs the plain version for CPU tensors."""
     jx, tx = _ssd_inputs(dtype=dtype)
     want, wstate = pallas_ssd(*jx, chunk=chunk, return_state=True, interpret=True)
     got, gstate = ssd_k.ssd(*tx, chunk=chunk, return_state=True)
@@ -169,6 +169,40 @@ def test_plain_ssd_takes_any_length(S):
     assert got.shape == (1, S, 4, 16)
     np.testing.assert_allclose(_np(got), _np(want), **F32)
     np.testing.assert_allclose(_np(gstate), _np(wstate), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [ssd_k.CHUNK - 1, ssd_k.CHUNK, ssd_k.CHUNK + 1,
+                               2 * ssd_k.CHUNK + 3])
+def test_plain_ssd_at_the_kernel_chunk_matches_jax(S, dtype):
+    """The plain version at the kernel's chunk, B 2 and G 2, around and
+    across chunk boundaries: against JAX's sequential oracle, and against
+    the Pallas kernel in interpret mode where its chunk divides S (one
+    chunk of ``CHUNK`` rows, or a chunk of S rows).  Tolerances as above:
+    f32 sums in other orders, or bf16 roundings of y."""
+    jx, tx = _ssd_inputs(S=S, B=2, G=2, seed=S, dtype=dtype)
+    tol = BF16 if dtype == "bf16" else F32
+    got, gstate = ssd_k.plain_ssd(*tx, return_state=True)
+    assert got.shape == (2, S, 4, 16) and got.dtype == tx[0].dtype
+    want, wstate = jref.ssd(*jx, return_state=True)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(gstate), _np(wstate), **tol)
+    pchunk = ssd_k.CHUNK if S % ssd_k.CHUNK == 0 else S
+    pwant, pstate = pallas_ssd(*jx, chunk=pchunk, return_state=True, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pwant), **tol)
+    np.testing.assert_allclose(_np(gstate), _np(pstate), **tol)
+
+
+@pytest.mark.parametrize("S", [5, 64, 200])
+def test_plain_ssd_chunk_16_equals_the_kernel_chunk_within_f32_rounding(S):
+    """The chunk is the kernel's choice, not the function's: 16-row chunks
+    and the kernel's ``CHUNK`` give the same y and state up to the
+    order of f32 sums (1e-5 relative and absolute on O(1) values)."""
+    _, tx = _ssd_inputs(S=S, B=2, G=2, seed=7)
+    y16, h16 = ssd_k.plain_ssd(*tx, chunk=16, return_state=True)
+    y, h = ssd_k.plain_ssd(*tx, return_state=True)
+    torch.testing.assert_close(y, y16, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h16, rtol=1e-5, atol=1e-5)
 
 
 def test_plain_ssd_split_at_a_chunk_boundary_carries_the_state():
