@@ -19,13 +19,17 @@ order; any failure raises and the script exits non-zero:
    bf16 edge and f32 streaming kernels for M <= 16, with TMA loads in their
    TMA instances, and in every decode attention instance and the ssd
    kernel (``cuobjdump``; none fails).
-2. kernels: each kernel against its plain PyTorch version at the shapes the
+2. kernels: first the per-launch floor (``torch.cuda._sleep(0)`` timed back
+   to back, the least a launch takes), then each kernel against its plain
+   PyTorch version at the shapes the
    serving paths and the paper's roles give it, the attention kernels at
    head_dim 64 and 128 (flash also split over 2-4 blocks a tile, under a
    window, ragged) and 96, within the tolerance stated below (attention
    row by row, ssd per row and per head's state, conv2d and the f32 matmul
    exactly or within 2e-4, the bf16 matmul within 2e-2, each beside what a
-   planted fault reads by the same measure; rmsnorm in bf16 and f32; the
+   planted fault reads by the same measure; rmsnorm in bf16, f16 and f32,
+   at an odd D, and bitwise row-invariant (a row's output the same in a
+   launch of 1, 3, 8, 128 or 600 rows and under a permutation); the
    matmul edge kernels at the untied unembeds' shapes, N not a multiple of
    8, at M = 1, 8 and 16, and at M = 17 and 64, w off a 16-byte boundary
    and K not a multiple of 8, so that every instance of the matmul kernels
@@ -211,6 +215,13 @@ def time_ms(torch, fn, arg_sets, iters: int = 30, warmup: int = 3) -> tuple[floa
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host
+
+
+def launch_floor_ms(torch, iters: int = 200) -> float:
+    """Device ms of one launch of ``torch.cuda._sleep(0)`` (a kernel that
+    does nothing), timed back to back like a kernel row: the least any
+    launch takes on this card, which a decode-size row is read against."""
+    return time_ms(torch, lambda: torch.cuda._sleep(0), [()], iters=iters)[0]
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -453,6 +464,25 @@ def role_err(torch, got, want, fault, tol) -> dict:
     return check
 
 
+ROW_INVARIANCE_ROWS = (1, 3, 8, 128)
+
+
+def row_invariance(torch, fn, x, w, perm) -> dict:
+    """Hold a row-wise kernel ``fn(x, w)`` to its own output on all of x's
+    rows: the rows of a launch of x[:k] for k in ROW_INVARIANCE_ROWS, and of
+    a launch of x[perm], must be bitwise the full launch's rows (raises
+    otherwise)."""
+    full = fn(x, w)
+    for k in ROW_INVARIANCE_ROWS:
+        if not torch.equal(fn(x[:k], w), full[:k]):
+            raise AssertionError(f"the rows of a {k}-row launch differ from the same rows of "
+                                 f"a {x.shape[0]}-row launch")
+    if not torch.equal(fn(x[perm], w), full[perm]):
+        raise AssertionError("a permutation of the rows does not permute the output bitwise")
+    return {"D": x.shape[-1], "rows": x.shape[0], "launch_rows": list(ROW_INVARIANCE_ROWS),
+            "permuted": True}
+
+
 def conv_work(B: int, H: int, W: int, Cin: int, kh: int, kw: int, F: int,
               itemsize: int) -> tuple[int, int]:
     """(bytes, operations) of one conv2d call: x and w read once, the 4-byte
@@ -490,6 +520,10 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
 
     rows: list[dict] = []
     errs: dict[str, dict[str, dict]] = {}
+    floor = launch_floor_ms(torch)
+    rows.append({"name": "launch_floor", "shape": "torch.cuda._sleep(0)", "ms": floor})
+    print(f"  per-launch floor: {floor} ms a launch of torch.cuda._sleep(0), back to back "
+          f"(CUDA events)")
 
     def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak,
                previous=None, f32_rate_flops=None, instance=None):
@@ -572,21 +606,39 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    instance=mm_k.kernel_instance(x, w))
             del sets, x, w
 
+    # rmsnorm's row invariance first: a row normalised in a launch of 1, 3, 8
+    # or 128 rows, or moved by a permutation, is bitwise the row of a 600-row
+    # launch (chunked and whole-prompt prefill must not part); at llama's
+    # width, mamba2's and an odd one (rows off 16-byte boundaries)
+    invariance = []
+    for D in (2048, 1536, 1000):
+        x, w = randn((600, D)), randn((D,))
+        perm = torch.randperm(600, generator=gen, device=dev)
+        invariance.append(row_invariance(torch, rms_k.rmsnorm, x, w, perm))
+    print(f"  rmsnorm row invariance holds: {invariance}")
+
     # rmsnorm: fixup, decode, chunk and prefill rows at llama's d_model 2048;
-    # mamba2's ln1 and ln_f (1536) and gated norm (3072) at its row counts
-    widths = [(R, 2048) for R in rows_used]
-    widths += [(R, D) for D in (1536, 3072) for R in (3, 5, 8, 37, 600)]
-    for R, D in widths:
-        sets = [(randn((R, D)), randn((D,))) for _ in range(n_sets(4 * R * D))]
+    # mamba2's ln1 and ln_f (1536) and gated norm (3072) at its row counts;
+    # granite's and yi's 4096 at a decode step and a prefill bucket; f16 and
+    # an odd D (the ragged last chunk: 1000 is not a multiple of 8) at llama's
+    # decode rows
+    widths = [(R, 2048, torch.bfloat16) for R in rows_used]
+    widths += [(R, D, torch.bfloat16) for D in (1536, 3072) for R in (3, 5, 8, 37, 600)]
+    widths += [(8, 4096, torch.bfloat16), (512, 4096, torch.bfloat16),
+               (8, 2048, torch.float16), (8, 1000, torch.bfloat16)]
+    for R, D, dt in widths:
+        sets = [(randn((R, D)).to(dt), randn((D,)).to(dt)) for _ in range(n_sets(4 * R * D))]
         check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
-        record("rmsnorm", f"[{R},{D}]", check,
-               sets if D == 2048 or R in (8, 600) else None, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+        if (R, D, dt) == (8, 2048, torch.bfloat16):
+            check["row_invariant"] = invariance
+        timed = D not in (1536, 3072) or R in (8, 600)
+        record("rmsnorm", f"[{R},{D}]" + ("" if dt == torch.bfloat16 else f" {str(dt)[6:]}"),
+               check, sets if timed else None, rms_k.rmsnorm, rms_k.plain_rmsnorm,
                lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
                2 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
 
-    # rmsnorm in f32 (the kernel's f32 instantiation; the Pallas kernel takes
-    # any dtype) at llama's decode rows, within the f32 tolerance of the JAX
-    # package's own test
+    # rmsnorm in f32 (the Pallas kernel takes any dtype) at llama's decode
+    # rows, within the f32 tolerance of the JAX package's own test
     R, D = 8, 2048
     sets = [(torch.randn((R, D), generator=gen, device=dev),
              torch.randn((D,), generator=gen, device=dev)) for _ in range(n_sets(8 * R * D))]
@@ -780,7 +832,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
 
     # conv2d (paper roles 3 and 4, kernel 7): the opencl tenant's frames (one
     # 64x64 int16 frame through the 5x5 and the 3x3x2 filter), the f32 shapes
-    # of examples/multi_tenant.py, and 256 frames with the card full.  int16
+    # of examples/multi_tenant.py, and 256 and 1024 frames with the card full.  int16
     # exactly, f32 within TOL_ROLE_F32, each beside a planted fault (one
     # nonzero filter tap dropped); the fixed-weight role bitwise equal to the
     # generic kernel.  Library time: F.conv2d for f32 (NCHW, TF32 off); no
@@ -789,7 +841,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                   ((1, 64, 64, 1), (3, 3, 1, 2), torch.int16),
                   ((1, 32, 32, 1), (5, 5, 1, 1), torch.float32),
                   ((1, 32, 32, 1), (3, 3, 1, 1), torch.float32),
-                  ((256, 64, 64, 1), (3, 3, 1, 2), torch.int16)]
+                  ((256, 64, 64, 1), (3, 3, 1, 2), torch.int16),
+                  ((1024, 64, 64, 1), (3, 3, 1, 2), torch.int16)]
     for xs, wsh, dt in conv_cases:
         (B, H, W, Cin), (kh, kw, _, nf) = xs, wsh
         bytes_, ops = conv_work(B, H, W, Cin, kh, kw, nf, 2 if dt == torch.int16 else 4)
@@ -814,6 +867,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
             raise AssertionError(f"the fixed-weight conv role differs from the generic kernel "
                                  f"at x{list(xs)} w{list(wsh)}")
         check["bitwise_equal_generic_kernel"] = True
+        if dt == torch.float32:  # the F.conv2d yardstick's precision, as it ran
+            check["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
         record("conv2d", f"x[{B},{H},{W},{Cin}] w[{kh},{kw},{Cin},{nf}] {str(dt)[6:]}", check,
                sets, lambda x, w, xn, wn: conv_k.conv2d(x, w),
                lambda x, w, xn, wn: conv_k.plain_conv2d(x, w),
@@ -2257,17 +2312,26 @@ def main() -> int:
                                 for M, note in ((8, ""), (16, ""), (64, ""), (8, f" {off4}"),
                                                 (16, f" {off4}"))],
               "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32"],
+              "rmsnorm": ["[512,2048]", "[8,1536]", "[600,1536]", "[8,3072]", "[600,3072]",
+                          "[8,4096]", "[512,4096]", "[8,2048] float16", "[8,1000]",
+                          "[8,2048] f32"],
+              "conv2d": ["x[1,64,64,1] w[3,3,1,2] int16", "x[1,32,32,1] w[5,5,1,1] float32",
+                         "x[1,32,32,1] w[3,3,1,1] float32", "x[256,64,64,1] w[3,3,1,2] int16",
+                         "x[1024,64,64,1] w[3,3,1,2] int16"],
               "matmul_fixed_weight": ["[2048,2048]x[2048,2048] fixed f32"]}
     # the CUDA functions behind each entry
     cuda_fn = {"matmul": "mm_tile_kernel<BM,BN>, mm_stream_kernel<MP>",
-               "rmsnorm": "rmsnorm_kernel, rmsnorm_f32_kernel",
+               "rmsnorm": "rmsnorm_warp_kernel<E,NC> (a warp a row, NC 16-byte chunks a "
+                          "lane), rmsnorm_block_kernel<E,NC,RESIDENT> (a block a row); E "
+                          "bf16, f16 or f32",
                "flash_attention": "fa_kernel<64|128>",
                "decode_attention": "dec_kernel<D, DenseRows>",
                "paged_decode_attention": "dec_kernel<D, PagedRows>", "ssd": "ssd_kernel",
                "matmul_f32": "mm_f32_kernel<1,B,B> (3xTF32 on wgmma; M <= 16: "
                              "mm_f32_stream_kernel<8|16,TMA>, 3xTF32 on mma.sync)",
                "matmul_fixed_weight": "the f32 kernels on a resident weight",
-               "conv2d": "conv_kernel<Tin,Acc,Tout,KH,KW>",
+               "conv2d": "conv_kernel<Tin,Acc,KH,KW,FCH,ONE_CH> (persistent, a cp.async "
+                         "ring, a strip of 4 pixels a thread, FCH filters a chunk)",
                "matmul_edge": "mm_edge_stream_kernel<8|16,TMA> (M <= 16; TMA = 1 where K "
                               "% 8 == 0 and w is aligned, else cp.async copies), "
                               "mm_edge_kernel (M > 16); f32: mm_f32_stream_kernel<8|16,TMA> "
@@ -2318,6 +2382,7 @@ def main() -> int:
             **{k: row[k] for k in ("splits", "previous_ms") if k in row},
             **({"other_rows": more} if more else {}),
             **({"sass": sass[name]} if name in sass else {}),
+            **({"row_invariant": row["row_invariant"]} if "row_invariant" in row else {}),
         })
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -2328,6 +2393,7 @@ def main() -> int:
             "tenants": tenants_res, "granite": granite_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
+            "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -10,14 +10,16 @@ does), f32 inputs accumulate and return f32.
 
 What bounds it on the H100: the paper's roles do 2·kh·kw·Cin·F operations a
 pixel (50 for the 5x5 one-filter role) on 2-byte inputs, so bytes bound it
-once the card is full; a single 64x64 frame is a few microseconds of
-launch.  Hopper's tensor cores have no int16 product, so the kernel runs on
-the CUDA cores: a block stages an 8 x 32 output tile's input rows (with the
-filter's halo) and the filter in shared memory, each thread accumulates its
-pixel for eight filters at a time, and the 5x5 and 3x3 taps are unrolled at
-compile time.  The fixed-weight role holds its filter on the card from load
-to unload and launches the same kernel, so it is bitwise equal to
-:func:`conv2d` on the same input.
+once the card is full; a single 64x64 frame is a few microseconds of launch
+and one memory trip.  Hopper's tensor cores have no int16 product, so the
+kernel runs on the CUDA cores: each thread computes a strip of ``P``
+output pixels of a row, sliding the filter window through registers, with
+the filter chunk sized to F (1, 2, 4 or 8) and, for the roles, the taps in
+registers; persistent blocks walk (frame, tile, filter chunk) work items,
+staging the next item's input rows with a two-slot ``cp.async`` ring, so
+any number of frames is one launch.  The fixed-weight role holds its filter
+on the card from load to unload and launches the same kernel, so it is
+bitwise equal to :func:`conv2d` on the same input.
 """
 
 from __future__ import annotations
@@ -36,8 +38,13 @@ REPLACES = "src/repro/kernels/conv2d.py:39"
 #: launches of the CUDA kernel, through :func:`conv2d` or a fixed-weight role
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_TR, _TC, _FC, _SMEM_BUDGET = 8, 32, 8, 48 * 1024
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
+# the kernel's tile (csrc/conv2d.cu): 256 threads, a strip of 4 output pixels
+# each, 16 strips across and 16 rows down; the channels of a staged chunk
+# fill at most 48 KB, and one channel may take up to 227 KB
+_THREADS, _TC, _TY = 256, 64, 16
+_SMEM_SMALL, _SMEM_MAX = 48 * 1024, 227 * 1024
 
 
 def accum_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -66,9 +73,29 @@ def plain_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _channels_per_chunk(Cin: int, kh: int, kw: int) -> int:
-    per_channel = ((_TR + kh - 1) * (_TC + kw - 1) + kh * kw * _FC) * 4
-    return min(Cin, _SMEM_BUDGET // per_channel)
+def _filter_chunk(F: int) -> int:
+    """Filters a chunk: 1, 2, 4 or 8, the least that holds F (8 above)."""
+    return next(c for c in (1, 2, 4, 8) if F <= c or c == 8)
+
+
+def _smem(cin: int, kh: int, kw: int, f: int, itemsize: int) -> tuple[int, int]:
+    """(channels a staged chunk, shared-memory bytes of a block), as the
+    kernel computes them: two ring slots of the input tile with its halo in
+    the input's type, rows padded to 16 bytes, and the filter slab in 4-byte
+    words; 0 channels when not even one fits."""
+    def r16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    def size(cc: int) -> int:
+        return (2 * (_TY + kh - 1) * r16((_TC + kw - 1) * cc * itemsize)
+                + r16(kh * kw * cc * _filter_chunk(f) * 4))
+
+    if size(1) > _SMEM_MAX:
+        return 0, size(1)
+    cc = min(cin, max(1, _SMEM_SMALL // size(1)))
+    while cc > 1 and size(cc) > _SMEM_SMALL:
+        cc -= 1
+    return cc, size(cc)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -80,7 +107,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global launches
     if x.dtype not in (torch.int16, torch.float32):
         raise TypeError(f"conv2d: the CUDA kernel takes int16 or f32, got {x.dtype}")
-    native.check("conv2d", {"x": x, "w": w}, x.dtype)
+    native.check("conv2d", {"x": x, "w": w}, x.dtype, aligned=False)
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv2d: x must be [B,H,W,Cin] and w [kh,kw,Cin,F], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -90,11 +117,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv2d: x has {Cin} channels, w {Cin2}")
     if H < kh or W < kw:
         raise ValueError(f"conv2d: a {kh}x{kw} filter does not fit a {H}x{W} image")
-    if not 1 <= B <= 65535 or _channels_per_chunk(Cin, kh, kw) < 1:
-        raise ValueError(f"conv2d: the kernel takes 1 to 65535 images and filters whose one "
-                         f"channel fits its shared memory, got B={B}, {kh}x{kw}")
+    if _smem(Cin, kh, kw, F, x.element_size())[0] < 1:
+        raise ValueError(f"conv2d: the kernel takes filters whose one-channel tile fits its "
+                         f"shared memory, got {kh}x{kw}")
     out = torch.empty((B, H - kh + 1, W - kw + 1, F), dtype=accum_dtype(x.dtype),
                       device=x.device)
+    if B == 0:
+        return out
     fn = native.function("conv2d", "repro_conv2d", _ARGTYPES)
     err = fn(native.ptr(x), native.ptr(w), native.ptr(out), B, H, W, Cin, kh, kw, F,
              int(x.dtype == torch.float32), native.stream(x.device))
@@ -124,10 +153,9 @@ def conv2d_fixed_weight(w: torch.Tensor) -> FixedWeightConv2d:
     return FixedWeightConv2d(w)
 
 
-def footprint(cin: int = 1, kh: int = 3, kw: int = 3) -> ResourceFootprint:
-    """Shared memory and threads of one block: the staged input tile with its
-    halo and the filter slab, in 4-byte accumulator words."""
-    cc = _channels_per_chunk(cin, kh, kw)
-    return ResourceFootprint(
-        smem_bytes=((_TR + kh - 1) * (_TC + kw - 1) + kh * kw * _FC) * cc * 4,
-        threads=_TR * _TC)
+def footprint(cin: int = 1, kh: int = 3, kw: int = 3, f: int = 2,
+              itemsize: int = 2) -> ResourceFootprint:
+    """Shared memory and threads of one block: the two-slot ring of the
+    input tile with its halo, in the input's type, and the filter slab in
+    4-byte words (defaults: paper role 4, 3x3x1x2 int16)."""
+    return ResourceFootprint(smem_bytes=_smem(cin, kh, kw, f, itemsize)[1], threads=_THREADS)

@@ -2,15 +2,17 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py`` ``rmsnorm``
 (``_rmsnorm_kernel``): ``x * rsqrt(mean(x^2) + eps) * w`` with f32
-statistics and one write.  It is written in CUDA like the other three
-kernels, so the port builds one way.
+statistics and one rounding to x's dtype, for any D and for bf16, f16 and
+f32 (the weight in x's dtype), as the Pallas kernel takes any float dtype.
 
 What bounds it on the H100: bytes — a row reduction and an elementwise
-scale, a few flops per element and no tensor-core work.  The design reads
-each row with 16-byte loads in one block per row, reduces in registers and
-shared memory, and writes the result once; the second read of the row comes
-from L1.  f32 rows (the weight in x's dtype, as the Pallas kernel computes
-any dtype) take a kernel of their own of the same design.
+scale, a few flops per element and no tensor-core work — and, at decode
+rows, the latency of one memory trip.  The design holds a row in the
+registers of one block (1, 2, 4 or 8 warps, the fewest that hold it at one
+16-byte chunk a thread), starts the loads of x and w together and reduces
+with warp shuffles, so a row costs one trip.  A row's sum is taken in an
+order fixed by D alone, so its output is bitwise the same whatever launch
+it comes in.
 """
 
 from __future__ import annotations
@@ -29,34 +31,49 @@ REPLACES = "src/repro/kernels/rmsnorm.py:27"
 #: launches of the CUDA kernel
 launches = 0
 
-_SYMBOLS = {torch.bfloat16: "repro_rmsnorm", torch.float32: "repro_rmsnorm_f32"}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+#: the dtypes the kernel takes, by the code its C entry reads
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
+#: warps a row the kernel takes (``warps=``); None is its rule's count
+WARPS = (1, 2, 4, 8)
 
 
 #: the kernel's function in plain PyTorch (f32 statistics, one cast): the oracle
 plain_rmsnorm = ref.rmsnorm
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+def rule_warps(D: int, dtype: torch.dtype) -> int:
+    """The warps a row the kernel's rule gives a row of D (read from the
+    built kernel: needs the card)."""
+    fn = native.function("rmsnorm", "repro_rmsnorm_warps", [ctypes.c_int] * 2)
+    return fn(D, _DTYPES[dtype])
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
+            warps: int | None = None) -> torch.Tensor:
     """RMS norm over the last axis: the plain version for CPU tensors, else
-    the CUDA kernel (bf16 or f32; the weight in x's dtype)."""
+    the CUDA kernel (bf16, f16 or f32, the weight in x's dtype; any D).
+    ``warps`` overrides the rule's warps a row (``kernels/rmsnorm_sweep.py``);
+    a row's output then depends on it."""
     if native.on_cpu(x, weight):
         return plain_rmsnorm(x, weight, eps=eps)
     global launches
-    if x.dtype not in _SYMBOLS:
-        raise TypeError(f"rmsnorm: x must be bf16 or f32, got {x.dtype}")
-    native.check("rmsnorm", {"x": x, "weight": weight}, x.dtype)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm: x must be bf16, f16 or f32, got {x.dtype}")
+    native.check("rmsnorm", {"x": x, "weight": weight}, x.dtype, aligned=False)
     D = x.shape[-1]
-    if weight.shape != (D,) or D % 8:
-        raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} vs x {tuple(x.shape)}; "
-                         "D must be a multiple of 8")
+    if weight.shape != (D,):
+        raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} vs x {tuple(x.shape)}")
+    if warps not in (None, *WARPS):
+        raise ValueError(f"rmsnorm: warps must be one of {WARPS}, got {warps}")
     rows = math.prod(x.shape[:-1])
     out = torch.empty_like(x)
-    if rows == 0:
+    if rows == 0 or D == 0:
         return out
-    fn = native.function("rmsnorm", _SYMBOLS[x.dtype], _ARGTYPES)
+    fn = native.function("rmsnorm", "repro_rmsnorm", _ARGTYPES)
     err = fn(native.ptr(x), native.ptr(weight), native.ptr(out), rows, D, float(eps),
-             native.stream(x.device))
+             _DTYPES[x.dtype], warps or 0, native.stream(x.device))
     native.raise_on_error("rmsnorm", err)
     launches += 1
     return out

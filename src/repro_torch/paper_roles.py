@@ -61,7 +61,7 @@ def make_paper_roles(lib: RoleLibrary, *, seed: int = 0,
         impl = KernelImpl(
             op=name, device_kind="any", source=fc_impl.source,
             fn=conv2d_k.conv2d_fixed_weight(wfix), specialization=FIXED_WEIGHT,
-            footprint=conv2d_k.footprint(1, wfix.shape[0], wfix.shape[1]),
+            footprint=conv2d_k.footprint(1, wfix.shape[0], wfix.shape[1], wfix.shape[3]),
         )
         GLOBAL_REGISTRY.register(impl, allow_override=True)
         roles[name] = (lib.make_role(impl, (xa,), name=name, device=device), (xi,))

@@ -247,6 +247,73 @@ def test_rmsnorm_matches_plain(cuda, shape):
     _close(rms_k.rmsnorm(x, w), rms_k.plain_rmsnorm(x, w), **BF16_TOL)
 
 
+# the widths the served configs give rmsnorm (llama 2048, mamba2 1536 and
+# 3072, hymba 1600, granite and yi 4096, deepseek 7168, internvl2 8192),
+# odd widths (the ragged last chunk), and rows past the register-resident
+# instances (40000: segmented)
+RMS_WIDTHS = [1536, 1600, 2048, 3072, 4096, 7168, 8192, 100, 1000, 4100, 40000]
+RMS_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _rms_inputs(g, device, rows, d, dtype, offset=0):
+    """x [rows, d] and w [d] of ``dtype``, each a contiguous view that
+    starts ``offset`` elements into its storage (offset 1: rows off a
+    16-byte boundary)."""
+    xs = torch.randn(rows * d + offset, generator=g, device=device).to(dtype)
+    ws = torch.randn(d + offset, generator=g, device=device).to(dtype)
+    return xs[offset:].view(rows, d), ws[offset:]
+
+
+def _rms_tol(dtype):
+    """bf16 and f16 within BF16_TOL, f32 within the JAX package's 2e-4."""
+    return dict(atol=2e-4, rtol=2e-4) if dtype == torch.float32 else BF16_TOL
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", RMS_DTYPES, ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+def test_rmsnorm_every_width_and_dtype_matches_plain(cuda, d, dtype, offset):
+    x, w = _rms_inputs(_gen(cuda, d), cuda, 7, d, dtype, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
+    before = rms_k.launches
+    got = rms_k.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and rms_k.launches == before + 1
+    _close(got, rms_k.plain_rmsnorm(x, w), **_rms_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("d", [2048, 1600, 100, 8192, 40000])
+def test_rmsnorm_is_row_invariant(cuda, d, dtype):
+    """A row's output is bitwise the same in a launch of 1, 3, 8, 128 or 600
+    rows, and wherever the row sits: a permutation of the rows permutes the
+    output bit for bit (at D = 100 rows alternate their 16-byte alignment)."""
+    g = _gen(cuda, 11)
+    x, w = _rms_inputs(g, cuda, 600, d, dtype)
+    full = rms_k.rmsnorm(x, w)
+    for k in (1, 3, 8, 128):
+        assert torch.equal(rms_k.rmsnorm(x[:k], w), full[:k]), k
+    perm = torch.randperm(600, generator=g, device=cuda)
+    assert torch.equal(rms_k.rmsnorm(x[perm], w), full[perm])
+
+
+def test_rmsnorm_counts_launches_and_refuses_bad_input(cuda):
+    g = _gen(cuda, 12)
+    x, w = _randn(g, (4, 100), cuda), _randn(g, (100,), cuda)
+    before = rms_k.launches
+    rms_k.rmsnorm(x, w)
+    assert rms_k.launches == before + 1
+    with pytest.raises(TypeError):
+        rms_k.rmsnorm(x.double(), w.double())        # no f64 instance
+    with pytest.raises(TypeError):
+        rms_k.rmsnorm(x, w.float())                  # the weight in x's dtype
+    with pytest.raises(ValueError):
+        rms_k.rmsnorm(x, w[:99])
+    with pytest.raises(ValueError):
+        rms_k.rmsnorm(x.t(), _randn(g, (4,), cuda))  # not contiguous
+    assert rms_k.launches == before + 1
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("b,hq,hkv,s,t,causal,window", [
     (1, 32, 8, 512, 512, True, None),
@@ -875,6 +942,53 @@ def test_conv2d_fixed_weight_is_bitwise_generic(cuda, kh, F):
     assert torch.equal(fixed(x), conv_k.conv2d(x, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("kh,F", [(5, 1), (3, 2)])
+def test_conv2d_frame_does_not_depend_on_the_batch(cuda, kh, F, dtype):
+    """Frame b of a 256-frame call is bitwise the 1-frame call on that
+    frame (as a view into the batch and as a copy of its own)."""
+    x, w = _conv_inputs(_gen(cuda, 4), cuda, 256, 64, 64, 1, kh, kh, F, dtype)
+    full = conv_k.conv2d(x, w)
+    for b in (0, 1, 137, 255):
+        assert torch.equal(conv_k.conv2d(x[b:b + 1], w), full[b:b + 1]), b
+        assert torch.equal(conv_k.conv2d(x[b:b + 1].clone(), w), full[b:b + 1]), b
+
+
+def test_conv2d_takes_any_number_of_frames(cuda):
+    """70000 frames: more than a grid's 65535 in y or z, one launch."""
+    x, w = _conv_inputs(_gen(cuda, 5), cuda, 70000, 8, 8, 1, 3, 3, 2, torch.int16)
+    before = conv_k.launches
+    got = conv_k.conv2d(x, w)
+    assert conv_k.launches == before + 1
+    assert torch.equal(got, conv_k.plain_conv2d(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("B,H,W,Cin,kh,kw", [(2, 19, 37, 1, 3, 3), (1, 23, 45, 1, 5, 5),
+                                             (2, 11, 29, 3, 3, 3)])
+@pytest.mark.parametrize("F", range(1, 12))
+def test_conv2d_every_filter_count_and_odd_widths(cuda, F, B, H, W, Cin, kh, kw, dtype):
+    """F = 1..11 (every filter chunk, and F above 8 in chunks) at widths
+    whose output rows are not a multiple of the 4-pixel strip."""
+    x, w = _conv_inputs(_gen(cuda, F), cuda, B, H, W, Cin, kh, kw, F, dtype)
+    got, want = conv_k.conv2d(x, w), conv_k.plain_conv2d(x, w)
+    if dtype == torch.int16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_conv2d_takes_an_input_off_a_16_byte_boundary(cuda, offset):
+    """x a view that starts `offset` int16 elements into its storage: the
+    kernel stages it with 2-, 4-, 8- or 16-byte copies, the same outputs."""
+    g = _gen(cuda, 6)
+    xs = torch.randint(-100, 100, (2 * 64 * 64 + offset,), generator=g, device=cuda)
+    x = xs.to(torch.int16)[offset:].view(2, 64, 64, 1)
+    w = torch.randint(-8, 8, (3, 3, 1, 2), generator=g, device=cuda).to(torch.int16)
+    assert torch.equal(conv_k.conv2d(x, w), conv_k.plain_conv2d(x, w))
+
+
 def test_conv2d_wrapper_counts_launches_and_refuses_bad_input(cuda):
     x, w = _conv_inputs(_gen(cuda), cuda, 1, 16, 16, 1, 3, 3, 2, torch.int16)
     before = conv_k.launches
@@ -886,6 +1000,9 @@ def test_conv2d_wrapper_counts_launches_and_refuses_bad_input(cuda):
         conv_k.conv2d(x, w.float())
     with pytest.raises(ValueError):
         conv_k.conv2d(x[:, :2], w)
+    big = torch.zeros((68, 68, 1, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):   # one channel's tile: 235616 bytes
+        conv_k.conv2d(torch.zeros((1, 70, 70, 1), device=cuda), big)
     assert conv_k.launches == before + 1
 
 

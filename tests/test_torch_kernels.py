@@ -8,8 +8,8 @@ same way.
 
 Tolerances: 2e-2 absolute and relative for bf16 data (about two bf16
 rounding steps of the O(1) values used: the two sides round intermediate
-results at different places); 1e-4 for f32 data, where only the order of f32
-sums differs.
+results at different places), and for f16 data (finer steps, the same
+limit); 1e-4 for f32 data, where only the order of f32 sums differs.
 """
 
 from __future__ import annotations
@@ -35,11 +35,12 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as rms_k
 
 RNG = np.random.default_rng(2024)
-DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+          "f16": (jnp.float16, torch.float16)}
 
 
 def _tol(dtype: str) -> dict:
-    return dict(rtol=2e-2, atol=2e-2) if dtype == "bf16" else dict(rtol=1e-4, atol=1e-4)
+    return dict(rtol=1e-4, atol=1e-4) if dtype == "f32" else dict(rtol=2e-2, atol=2e-2)
 
 
 def _pair(shape, dtype: str, scale: float = 1.0):
@@ -103,9 +104,11 @@ def test_matmul_torch_source_matches_xla(activation):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 64)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 64), (4, 100), (3, 5, 36), (2, 1000)])
 def test_rmsnorm_plain_matches_pallas(dtype, shape):
+    """Any D, as the Pallas kernel takes (the CUDA kernel's ragged last
+    chunk: D not a multiple of 8), and every float dtype the kernel takes."""
     (xj, xt), (wj, wt) = _pair(shape, dtype), _pair(shape[-1:], dtype)
     _check(rms_k.rmsnorm(xt, wt), pallas_rmsnorm(xj, wj, block_rows=8, interpret=True), dtype)
 

@@ -143,6 +143,12 @@ CONV_CASES = [
     (1, 32, 32, 1, 5, 5, 1, "float32"),      # examples/multi_tenant.py's f32 roles
     (1, 32, 32, 1, 3, 3, 1, "float32"),
     (2, 17, 23, 3, 2, 4, 3, "int16"),        # a filter outside the unrolled sizes
+    # the kernel's strip (4 pixels) and filter-chunk (1, 2, 4, 8) edges:
+    # W - kw + 1 not a multiple of 4, F = 3 and 5
+    (2, 13, 19, 1, 3, 3, 3, "int16"),
+    (1, 21, 30, 1, 5, 5, 5, "float32"),
+    (3, 9, 70, 2, 3, 3, 5, "int16"),
+    (2, 18, 67, 1, 3, 3, 3, "float32"),
 ]
 
 

@@ -478,6 +478,22 @@ def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
     assert set(res["ledger_by_queue"]) >= {"tf-serving", "opencl"}
 
 
+def test_row_invariance_check_reads_launch_size_and_position():
+    """The rmsnorm row-invariance check: a row-wise function passes; one
+    whose rows depend on the launch's row count, or on where a row sits,
+    fails."""
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn(600, 64, generator=g), torch.randn(64, generator=g)
+    perm = torch.randperm(600, generator=g)
+    res = cs.row_invariance(torch, lambda a, b: (a * b).cumsum(-1), x, w, perm)
+    assert res == {"D": 64, "rows": 600, "launch_rows": [1, 3, 8, 128], "permuted": True}
+    with pytest.raises(AssertionError, match="1-row launch"):
+        cs.row_invariance(torch, lambda a, b: a * b + a.shape[0] * 1e-3, x, w, perm)
+    at_row = lambda a, b: a * b + torch.arange(a.shape[0])[:, None] * 1e-3  # noqa: E731
+    with pytest.raises(AssertionError, match="permutation"):
+        cs.row_invariance(torch, at_row, x, w, perm)
+
+
 def test_instance_check_refuses_a_built_matmul_instance_no_row_ran():
     """Every matmul instance ``cuobjdump`` lists, and the mma.sync edge
     kernel, must have run in some kernel-phase row."""
