@@ -12,7 +12,7 @@ paper's two tenants on the card through the port's HSA runtime.  Phases, in
 order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (six sources, eleven kernels) and print what
+   ``src/repro_torch/csrc`` (seven sources, twelve kernels) and print what
    ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
    instructions in each bf16 matmul kernel and each flash attention
    instance, wgmma in the f32 (3xTF32) kernel, and mma.sync (HMMA) in the
@@ -48,7 +48,15 @@ order; any failure raises and the script exits non-zero:
    beside it).  The
    paged kernel must also equal the dense kernel on the gathered cache bit
    for bit, and the fixed-weight roles (``matmul_fixed_weight``,
-   ``conv2d_fixed_weight``) their generic kernels.
+   ``conv2d_fixed_weight``) their generic kernels.  The sampler (``sample``,
+   JAX's position-indexed categorical draw) at every [B, V] the sampled
+   serve runs give it ([1, 128256], [8, 128256], [16, 128256], [1, 50280],
+   [8, 50280]) and at granite's [8, 49155]: its random bits exactly the
+   plain version's and a numpy Threefry's (a key word flipped moves them
+   all), its tokens the plain version's wherever the two best scores lie
+   more than 4 ulps apart; its bound its integer operations.  After the
+   serve runs, every [B, V] a sampled run gave it, and every split count
+   its rule picks there, must have run in one of these rows.
 3. model, llama3.2-1b: logits under ``cuda-strict`` against the ``torch``
    eager source on the same weights and prompts, for the calls the engine
    makes: bucketed prefill, the first-token fixup, a batched decode; and
@@ -62,10 +70,20 @@ order; any failure raises and the script exits non-zero:
    (checked: the pool is all it holds), which must run more than 8
    requests at once.  Every kernel's launch count is read from each run
    alone (counts set to 0 just before it) and checked against the model
-   calls the engine made.  Then the card's busy share over four dense
-   decode steps (with decode attention's device time a step), and over one
-   step that prefills a 600-token prompt (the 1024 bucket) with the bf16
-   matmul kernels' part, from torch.profiler traces.
+   calls the engine made.  Decode steps run as replays of one captured CUDA
+   graph; a replay counts the captured step's launches.  Then the card's
+   busy share over four dense decode steps (with decode attention's device
+   time a step), and over one step that prefills a 600-token prompt (the
+   1024 bucket) with the bf16 matmul kernels' part, from torch.profiler
+   traces.  Then graph against loop: the dense run again, as graph replays
+   and as the eager loop in turns (graph, loop, graph, loop), streams equal
+   to the first dense run's, with decode tokens/s, TTFT and the busy share
+   of four decode steps at T = 0.7 for each arm (the trace must list every
+   decode-path kernel, the sampler's too, as often as the counters moved);
+   the paged and chunked runs as the loop, streams equal to the graphs'.
+   Then temperature 0.7, seed 3: dense and paged at K 1 and 4, graph and
+   loop, and a ``FusionPolicy(max_fusion=8)`` run, every stream equal;
+   chunked at K 4, graph equal to loop.
 5. tenants: ``hsa_init(num_regions=2)`` on the card and its async
    scheduler's worker thread; the "tf-serving" queue carries the 16
    requests through a dense 8-slot engine (streams must equal phase 4's
@@ -75,7 +93,8 @@ order; any failure raises and the script exits non-zero:
    Prints Table II from the ledger, the reconfiguration split, per-queue
    wait, exec and reconfiguration, residency, and TTFT and decode tokens/s
    routed beside direct; checks every role packet against its plain
-   version and the launch counts against the packets.
+   version and the launch counts against the packets, and that the routed
+   engines' decode graphs were captured on the scheduler's worker thread.
 6. model, granite-3-8b at full width and GRANITE_DEPTH layers: 8 prompts'
    bucketed prefills (8 .. 512), their first-token fixups, a batched
    decode over the dense cache and over a page pool (bitwise equal), and a
@@ -91,7 +110,8 @@ order; any failure raises and the script exits non-zero:
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps,
    and one 600-token prompt's prefill into an idle engine by kernel (the
-   ssd kernel's part).
+   ssd kernel's part); graph against loop as for llama; and T = 0.7 at K 4,
+   graph equal to loop.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -107,6 +127,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -120,6 +141,22 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 # int32 multiply-adds on the CUDA cores: an SM has 64 INT32 lanes against 128
 # FP32 lanes (NVIDIA's Hopper architecture white paper), so half the f32 rate
 INT32_OPS = F32_FLOPS / 2
+# int32 adds, xors and shifts: one a lane a clock, half the multiply-add count
+INT32_LANE_OPS = INT32_OPS / 2
+# the sampler's integer operations an element: Threefry-2x32's 20 rounds of
+# an add, a rotate and a xor, its 2 + 5 x 2 key additions, and the uniform's
+# xor, shift and or (the two logs and the division not counted)
+SAMPLE_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
+# the sampler's shapes: every shape the sampled serve runs give it (a decode
+# step of 8 slots (dense, paged) and of 16 (chunked) over llama's
+# vocabulary, Mamba-2's step of 8, and the first token of each, one slot);
+# then granite's vocabulary, a width not a multiple of the block's (granite
+# is never sampled)
+SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155))
+# the sampler against its plain version: the random bits exactly (and a
+# numpy Threefry's), the token wherever the two best scores lie more than
+# this many ulps apart (the kernel's logf and PyTorch's may part by an ulp)
+SAMPLE_TIE_ULPS = 4
 L2_BYTES = 50 * 2**20
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's 1.98 GHz boost clock
 # matmul and rmsnorm vs their plain versions: bf16 outputs within about two
@@ -971,7 +1008,110 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
            None, None, None, 0, 0, BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w))
     del x, w
     edge_instance_rows(torch, mm_k, gen, record)
+    sample_rows(torch, gen, record)
     return rows, errs
+
+
+def np_threefry(np, k0, k1, x0, x1):
+    """Threefry-2x32 in numpy uint32 (wrapping), written apart from the port's:
+    the yardstick of the sampler's random bits."""
+    def rotl(v, r):
+        return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+    k0, k1, x0, x1 = (np.asarray(v, dtype=np.uint32) for v in (k0, k1, x0, x1))
+    ks = [k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA)]
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for g in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[g % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return x0, x1
+
+
+def np_bits(np, keys, counts, V: int):
+    """The random bits [B, V] of each slot's draw t = counts[b]: y0 ^ y1 of
+    Threefry under fold_in(key, t), over the counts (0, i)."""
+    s0, s1 = np_threefry(np, keys[:, 0], keys[:, 1], np.zeros(len(keys), np.uint32), counts)
+    i = np.arange(V, dtype=np.uint32)
+    y0, y1 = np_threefry(np, s0[:, None], s1[:, None], np.zeros_like(i), i)
+    return y0 ^ y1
+
+
+def sample_err(torch, tok, bits, want_scores, want_bits, np_want_bits, fault_bits) -> dict:
+    """The sampler's check: its bits equal the plain version's and numpy's
+    exactly, and a planted fault's bits (a key word flipped) differ in
+    (nearly) every element; its tokens equal the plain version's wherever
+    the two best scores lie more than SAMPLE_TIE_ULPS ulps apart (at least
+    one row must)."""
+    import numpy as np
+
+    got = bits.long() & 0xFFFFFFFF
+    if not torch.equal(got, want_bits):
+        raise AssertionError(f"sample bits differ from the plain version's in "
+                             f"{int((got != want_bits).sum())} elements")
+    if not np.array_equal(bits.cpu().numpy().view(np.uint32), np_want_bits):
+        raise AssertionError("sample bits differ from the numpy Threefry's")
+    differ = float((fault_bits != bits).float().mean())
+    if differ < 0.99:
+        raise AssertionError(f"the planted fault (a key word flipped) moves only {differ} of "
+                             f"the bits: the check cannot see it")
+    top = want_scores.topk(2, dim=-1).values
+    best = top[:, 0].abs()
+    gap = (top[:, 0] - top[:, 1]) / (torch.nextafter(best, best + 1) - best)
+    clear = gap > SAMPLE_TIE_ULPS
+    want = torch.argmax(want_scores, dim=-1).to(torch.int32)
+    if not bool(clear.any()):
+        raise AssertionError("no row's two best scores lie apart: nothing checked")
+    if not torch.equal(tok[clear], want[clear]):
+        raise AssertionError(f"sample tokens {tok.tolist()} disagree with the plain version's "
+                             f"{want.tolist()} where the best scores lie apart")
+    return {"max_abs_err": 0.0, "tolerance": f"bits exact; tokens exact where the best two "
+                                             f"scores lie > {SAMPLE_TIE_ULPS} ulps apart",
+            "rows_compared": int(clear.sum()), "rows": len(tok),
+            "bits_equal_numpy_threefry": True, "planted_fault_bits_differ_share": differ}
+
+
+def sample_rows(torch, gen, record) -> None:
+    """The sampler at its served shapes, against its plain version and a
+    numpy Threefry, beside a planted fault (one key word flipped); timed
+    beside its plain version (no single PyTorch call draws JAX's stream)."""
+    import numpy as np
+
+    from repro_torch.kernels import sample as sample_k
+    from repro_torch.serve import sampling
+
+    dev = torch.device("cuda")
+    T = 0.7
+    for B, V in SAMPLE_SHAPES:
+        def inputs():
+            logits = torch.randn((B, V), generator=gen, device=dev) * 2
+            keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            counts = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+            live = torch.ones(B, dtype=torch.int32, device=dev)
+            return logits, keys, counts, live, torch.zeros(B, dtype=torch.int32, device=dev)
+
+        sets = [inputs() for _ in range(n_sets(4 * B * V))]
+        logits, keys, counts, live, tok = sets[0]
+        bits = torch.zeros((B, V), dtype=torch.int32, device=dev)
+        sample_k.sample(logits, keys, counts, live, tok, T, bits=bits)
+        flipped = keys.clone()
+        flipped[:, 0] ^= 1 << 7
+        fault_bits = torch.zeros_like(bits)
+        sample_k.sample(logits, flipped, counts, live, tok.clone(), T, bits=fault_bits)
+        torch.cuda.synchronize()
+        want_bits = sampling.random_bits_32(sampling.fold_in(keys, counts), V)
+        np_want = np_bits(np, keys.cpu().numpy().view(np.uint32),
+                          counts.cpu().numpy().astype(np.uint32), V)
+        check = sample_err(torch, tok, bits, sampling.scores(keys, counts, logits, T), want_bits,
+                           np_want, fault_bits)
+        check["splits"] = sample_k.splits_for(B, V)
+        record("sample", f"[{B},{V}]", check, sets,
+               lambda *a: sample_k.sample(*a, T), lambda *a: sampling.plain_sample(*a, T), None,
+               4 * B * V + 6 * 4 * B, SAMPLE_INT_OPS * B * V, INT32_LANE_OPS)
+        del sets, logits, bits, fault_bits, want_bits
 
 
 def offset_copy(torch, t):
@@ -1074,17 +1214,33 @@ def served_decode_splits(dec_k, prompt_lengths) -> dict[str, set[int]]:
             "paged_decode_attention": {dec_k.split_kv(B, 8, T, D) for B, T, D in steps}}
 
 
-def check_decode_splits(rows: list[dict], served: dict[str, set[int]]) -> dict[str, list[int]]:
-    """Raise unless every split count in ``served`` ran in some row of its
-    kernel; the split counts each kernel's rows ran."""
+def check_splits(rows: list[dict], served: dict[str, set[int]]) -> dict[str, list[int]]:
+    """Raise unless every split count in ``served`` (kernel -> the counts its
+    rule picks at served shapes) ran in some row of its kernel; the split
+    counts each kernel's rows ran."""
     ran = {name: sorted({r["splits"] for r in rows if r["name"] == name and "splits" in r})
            for name in served}
     missing = {name: sorted(want - set(ran[name])) for name, want in served.items()
                if want - set(ran[name])}
     if missing:
-        raise AssertionError(f"decode split counts the rule picks at served shapes that no "
-                             f"row ran: {missing}")
+        raise AssertionError(f"split counts the rule picks at served shapes that no row "
+                             f"ran: {missing}")
     return ran
+
+
+def check_sample_shapes(rows: list[dict], runs, sample_k) -> dict:
+    """Raise unless every [B, V] a sampled serve run of ``runs`` gave the
+    sampler has a ``sample`` row (held against the plain version) and every
+    split count :func:`sample.splits_for` picks there ran in some row; the
+    shapes and the split counts."""
+    served = sorted({tuple(shape) for r in runs for shape in r["sample_shapes"]})
+    ran = {r["shape"] for r in rows if r["name"] == "sample"}
+    missing = [shape for shape in served if f"[{shape[0]},{shape[1]}]" not in ran]
+    if not served or missing:
+        raise AssertionError(f"sampler shapes the serve runs gave it that no row held against "
+                             f"the plain version: {missing} (served: {served})")
+    splits = check_splits(rows, {"sample": {sample_k.splits_for(*shape) for shape in served}})
+    return {"served_shapes": served, "splits": splits["sample"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1325,7 +1481,7 @@ def granite_phase(torch, model, params, kernels, seed: int) -> dict:
     want = {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (len(lengths) + 2 * max_len // chunk),
             "decode_attention": L * (len(got["fixup"]) + 1), "paged_decode_attention": L,
-            "ssd": 0, "matmul_edge": calls}
+            "ssd": 0, "sample": 0, "matmul_edge": calls}
     res["launches"] = launches
     print("  " + json.dumps(res))
     if launches != want:
@@ -1503,25 +1659,31 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     Mamba-2: every call runs 2 matmuls (in_proj, out_proj) and 2 norms (ln1,
     the gated norm) a layer and the final norm; prefills run ssd in every
     layer, decode steps none (their single-token update is eager).  The tied
-    unembed is a plain f32 product, not a kernel."""
+    unembed is a plain f32 product, not a kernel.  At a temperature above 0
+    the sampler runs once for each first token and each decode step
+    (``sample_calls``).  A decode step counts alike whether it ran eagerly or
+    as a graph's replay: a replay adds the captured step's launches."""
     L = cfg.num_layers
     calls = eng.prefill_calls + eng.chunk_calls + eng.fixup_calls + eng.decode_calls
     if cfg.family == "ssm":
         return {"matmul": 2 * L * calls, "rmsnorm": (2 * L + 1) * calls, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd": L * eng.prefill_calls}
+                "ssd": L * eng.prefill_calls, "sample": eng.sample_calls}
     return {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (eng.prefill_calls + eng.chunk_calls),
             "decode_attention": L * (eng.fixup_calls + (0 if eng.paged else eng.decode_calls)),
-            "paged_decode_attention": L * eng.decode_calls if eng.paged else 0, "ssd": 0}
+            "paged_decode_attention": L * eng.decode_calls if eng.paged else 0, "ssd": 0,
+            "sample": eng.sample_calls}
 
 
-def serve_run(torch, model, params, kernels, prompts, before_step=None, **engine_kw):
+def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=True,
+              **engine_kw):
     """Serve ``prompts`` (32 new tokens each) through one engine under
     cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
     counts are set to 0 just before the run and read just after it.
     ``before_step(i)``, if given, runs before the engine's step ``i`` (another
-    tenant's submissions)."""
+    tenant's submissions).  ``graphed=False`` runs the decode steps as the
+    eager loop (a comparison arm: the engine serves through graphs)."""
     from repro_torch.core import dispatch
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.paged import pool_token_bytes
@@ -1529,6 +1691,10 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, **engine
     cuda = model.device.type == "cuda"
     with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
         eng = ServeEngine(model, params, max_len=1024, device=model.device, **engine_kw)
+        if not graphed:
+            # the eager loop on the card, for the graph-against-loop
+            # comparison only: no public knob turns graphs off
+            eng._graphed = False
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1569,7 +1735,19 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, **engine
     # staging: KV for attention models, the recurrent state for Mamba-2
     cache_bytes = sum(t.numel() * t.element_size()
                       for c in (eng._cache, *eng._staging.values()) for t in c.values())
+    graph = eng._graph
+    if eng._graphed != (graph is not None) or (graph is not None and graph.captures != 1):
+        raise AssertionError(f"graphed={eng._graphed}: {graph and graph.captures} captures")
     res = {**{k: v for k, v in engine_kw.items() if isinstance(v, (bool, int, float, str))},
+           **({"decode_fusion": repr(engine_kw["decode_fusion"])}
+              if not isinstance(engine_kw.get("decode_fusion", 1), int) else {}),
+           "graphed": eng._graphed,
+           "graph": ({"captures": graph.captures, "replays": graph.replays,
+                      "captured_on_thread": graph.captured_on} if graph is not None else None),
+           "sample_calls": eng.sample_calls,
+           # the sampler's [B, V]: one slot's first token, the engine's slots
+           # at a decode step
+           "sample_shapes": sorted({(1, vocab), (eng.slots, vocab)}) if eng.sample_calls else [],
            "requests": len(done), "new_tokens_each": 32,
            "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
            "fixup_calls": eng.fixup_calls, "decode_calls": eng.decode_calls,
@@ -1601,12 +1779,12 @@ def ssm_serve_phase(torch, model, params, kernels, seed: int) -> dict:
     model calls by :func:`serve_run`; the engine's recurrent state is 8
     slots of every layer's [H, P, N] f32 state and conv tail."""
     lengths, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
-    res, _ = serve_run(torch, model, params, kernels, prompts, batch_slots=8)
+    res, streams = serve_run(torch, model, params, kernels, prompts, batch_slots=8)
     if res["fixup_calls"] or res["prefill_calls"] != len(prompts):
         raise AssertionError(f"an SSM prompt was bucketed: {res['prefill_calls']} prefills, "
                              f"{res['fixup_calls']} fixups")
     print("  " + json.dumps({"run": "ssm", **res}))
-    return {"prompt_lengths": lengths, "runs": {"ssm": res}}
+    return {"prompt_lengths": lengths, "runs": {"ssm": res}, "streams": streams}
 
 
 def serve_phase(torch, model, params, kernels, seed: int) -> dict:
@@ -1635,7 +1813,7 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
                              f"{runs['paged_chunked']['peak_concurrency']} live requests")
     same = sum(a == b for a, b in zip(streams["paged_chunked"], streams["dense"]))
     return {"prompt_lengths": lengths, "runs": runs, "paged_streams_equal_dense": True,
-            "dense_streams": streams["dense"],
+            "dense_streams": streams["dense"], "streams": streams,
             "chunked_streams_equal_dense": f"{same} of {len(prompts)}",
             "launches": {name: sum(r["launches"][name] for r in runs.values())
                          for name in runs["paged"]["launches"]}}
@@ -1880,6 +2058,15 @@ def tenants_phase(torch, model, params, kernels, seed: int, direct_streams: list
         hsa.hsa_shut_down()
 
     # -- checks ------------------------------------------------------------
+    # routed with the worker thread running, the decode graph is captured
+    # and replayed on the worker, beside this thread's own CUDA work
+    for name, run in (("shared", res), ("alone", alone)):
+        graph = run["graph"]
+        if dev.type != "cuda":
+            continue                       # no graphs on the CPU
+        if graph is None or graph["captured_on_thread"] == threading.main_thread().name:
+            raise AssertionError(f"routed {name}: the decode graph was not captured on the "
+                                 f"scheduler's worker thread: {graph}")
     if not direct_streams == direct_a_streams == direct_b_streams == alone_streams:
         raise AssertionError("streams of the direct runs, or through a queue of their own, "
                              "differ from the serve phase's dense run")
@@ -1965,42 +2152,264 @@ def tenants_phase(torch, model, params, kernels, seed: int, direct_streams: list
     return out
 
 
-def busy_phase(torch, model, params, seed: int) -> dict:
+#: the decode path's kernels in a profiler trace: a kernel counter's name ->
+#: a test of the traced kernel's name
+TRACE_KERNELS = {
+    "matmul": lambda k: "mm_tile_kernel" in k or "mm_stream_kernel" in k,
+    "rmsnorm": lambda k: "rmsnorm_kernel" in k,
+    "decode_attention": lambda k: "dec_kernel" in k and "DenseRows" in k,
+    "paged_decode_attention": lambda k: "dec_kernel" in k and "PagedRows" in k,
+    "sample": lambda k: "sample_kernel" in k,
+}
+
+
+def device_kernels(prof) -> list:
+    """The device events of a trace (kernels and copies), the marker kernel
+    left out, by start time."""
+    return sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")
+                   and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+
+
+def union_us(events) -> float:
+    """µs in which at least one of ``events`` (sorted by start) ran: kernels
+    launched with programmatic dependent launch begin before the one ahead
+    ends, so their spans overlap and their sum counts the overlap twice."""
+    total, end = 0.0, -math.inf
+    for e in events:
+        start, stop = e.time_range.start, e.time_range.end
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def trace_steps(prof, kinds, steps: int) -> list[dict]:
+    """Each kind's kernels in each of the last ``steps`` segments of a trace,
+    a segment being what ran after one marker kernel (``spin_kernel``, a
+    ``torch.cuda._sleep(0)`` launched before each step) and before the
+    next."""
+    events = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+    segments: list[dict] = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            segments.append({k: 0 for k in kinds})
+        elif segments:
+            for kind, match in kinds.items():
+                if match(e.name):
+                    segments[-1][kind] += 1
+    return segments[-steps:]
+
+
+#: marker kernels that open a trace: a trace's first records have gone
+#: missing (in traces of the Mamba-2 graph replays, after many earlier
+#: traces in the process), and these absorb what a trace drops first
+TRACE_OPENING_MARKERS = 8
+
+
+def busy_phase(torch, model, params, seed: int, graphed: bool = True,
+               temperature: float = 0.0) -> dict:
     """Where a decode step's time goes: the card's busy share over four
     decode steps of 8 live slots (device kernel time from a torch.profiler
     trace of CUDA activity, over the wall time of the steps) and the
-    kernels that take it.  A trace without device events reads as not
-    measured (None)."""
+    kernels that take it, the steps run as graph replays or (``graphed``
+    False) as the eager loop.  The profiler costs host time of its own, so
+    four steps just before the traced ones are also timed untraced, and the
+    busy share is also read against their wall time.
+
+    A marker kernel opens each traced step, so the trace splits into steps:
+    each of the four must list every kernel exactly as often as its launch
+    counter moved a step (a replay adds the captured step's launches), and
+    every kernel the decode path runs.  A trace without device events reads
+    as not measured (None)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import dispatch
+    from repro_torch.kernels import launch_counters
     from repro_torch.serve.engine import ServeEngine
 
+    path = {"matmul", "rmsnorm"} | ({"sample"} if temperature > 0 else set()) | (
+        set() if model.cfg.family == "ssm" else {"decode_attention"})
     rng = torch.Generator().manual_seed(seed + 3)
     with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
-        eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device)
+        eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device,
+                          temperature=temperature, seed=3)
+        if not graphed:
+            eng._graphed = False      # the comparison arm: the eager loop on the card
         for n in (40, 90, 130, 200, 260, 300, 400, 500):
             eng.submit(torch.randint(0, model.cfg.vocab_size, (n,), generator=rng).tolist(),
-                       max_new_tokens=16)
-        eng.step()                    # the prefills, outside the window
+                       max_new_tokens=32)
+        eng.step()                    # the prefills (and the graph's capture), outside the window
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            eng.step()
+        torch.cuda.synchronize()
+        untraced_us = (time.perf_counter() - t0) * 1e6
+        before = launch_counters()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_OPENING_MARKERS):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
             t0 = time.perf_counter()
             for _ in range(4):
+                torch.cuda._sleep(0)      # the marker that opens a step
                 eng.step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        after = launch_counters()
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+    moved = {name: after[(name, attr)] - v for (name, attr), v in before.items()
+             if attr == "launches" and after[(name, attr)] != v}
+    per_step = {k: v // 4 for k, v in moved.items()}
+    steps = [{k: v for k, v in st.items() if v} for st in trace_steps(prof, TRACE_KERNELS, 4)]
+    if events:
+        if any(v % 4 for v in moved.values()) or len(steps) != 4 or any(
+                st != per_step for st in steps):
+            raise AssertionError(f"the traced decode steps list other kernels than the launch "
+                                 f"counters moved a step: steps {steps}, counted {moved} in "
+                                 f"four steps")
+        if not all(per_step.get(k) for k in path):
+            raise AssertionError(f"a decode-path kernel is missing from the steps: {per_step}, "
+                                 f"the path {sorted(path)}")
     busy_us = sum(e.self_device_time_total for e in events)
+    union = union_us(device_kernels(prof))
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     dec_us = sum(e.self_device_time_total for e in events if "dec_kernel" in e.key)
-    res = {"decode_steps": 4, "wall_us": wall_us,
+    smp_us = sum(e.self_device_time_total for e in events if "sample_kernel" in e.key)
+    traced = {name: sum(e.count for e in events if match(e.key))
+              for name, match in TRACE_KERNELS.items()}
+    res = {"decode_steps": 4, "graphed": graphed, "temperature": temperature,
+           "wall_us": wall_us, "untraced_wall_us": untraced_us,
            "device_busy_us": busy_us if events else None,
            "device_busy_share": busy_us / wall_us if events else None,
+           "device_busy_share_of_untraced_wall": busy_us / untraced_us if events else None,
+           # the time some kernel ran: overlapping spans counted once
+           "device_union_us": union if events else None,
+           "device_union_share_of_untraced_wall": union / untraced_us if events else None,
            "decode_attention_device_us_a_step": dec_us / 4 if events else None,
+           "sample_device_us_a_step": smp_us / 4 if events else None,
+           "kernel_launches_traced": traced if events else None, "launches_counted": moved,
+           "launches_a_step": per_step,
            "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
     print("  " + json.dumps(res))
     return res
+
+
+def graph_against_loop(torch, model, params, kernels, seed: int, want: list,
+                       temperature: float = 0.7) -> dict:
+    """The decode steps as graph replays against the eager loop, read in
+    turns (graph, loop, graph, loop): 8 slots serving the 16 prompts
+    greedily (every stream must equal ``want``, the serve phase's), then the
+    busy share of four decode steps at ``temperature`` (the trace lists the
+    sampler).  Decode tokens/s and TTFT of each arm are printed beside the
+    busy share."""
+    lengths, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+    arms: dict = {"graph": [], "loop": []}
+    busy: dict = {"graph": [], "loop": []}
+    for graphed in (True, False, True, False):
+        arm = "graph" if graphed else "loop"
+        res, streams = serve_run(torch, model, params, kernels, prompts, graphed=graphed,
+                                 batch_slots=8)
+        if streams != want:
+            differ = [i for i, (a, b) in enumerate(zip(streams, want)) if a != b]
+            raise AssertionError(f"{arm} streams differ from the serve phase's graphed run "
+                                 f"in requests {differ}")
+        arms[arm].append(res)
+    for graphed in (True, False, True, False):
+        busy["graph" if graphed else "loop"].append(
+            busy_phase(torch, model, params, seed, graphed=graphed, temperature=temperature))
+    out = {"in_turns": "graph, loop, graph, loop", "streams_equal": True}
+    for arm in ("graph", "loop"):
+        out[arm] = {key: [r[key] for r in arms[arm]]
+                    for key in ("decode_tokens_per_s", "ttft_mean_s", "ttft_p99_s", "wall_s")}
+        out[arm]["busy_share"] = [b["device_busy_share"] for b in busy[arm]]
+        out[arm]["busy_share_of_untraced_wall"] = [b["device_busy_share_of_untraced_wall"]
+                                                   for b in busy[arm]]
+        out[arm]["union_share_of_untraced_wall"] = [
+            b["device_union_share_of_untraced_wall"] for b in busy[arm]]
+        out[arm]["busy_device_us"] = [b["device_busy_us"] for b in busy[arm]]
+        out[arm]["union_device_us"] = [b["device_union_us"] for b in busy[arm]]
+        out[arm]["busy_wall_us"] = [b["wall_us"] for b in busy[arm]]
+        out[arm]["untraced_wall_us"] = [b["untraced_wall_us"] for b in busy[arm]]
+        print(f"  {model.cfg.name if hasattr(model.cfg, 'name') else ''} {arm}: " + json.dumps(
+            out[arm]))
+    out["busy"] = busy
+    return out
+
+
+def loop_streams_equal(torch, model, params, kernels, seed: int, graphed_streams: dict,
+                       runs) -> dict:
+    """Each of ``runs`` (name, engine keywords) served once more as the
+    eager loop: its streams must equal the graphed run's bit for bit."""
+    _, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+    out = {}
+    for name, kw in runs:
+        res, streams = serve_run(torch, model, params, kernels, prompts, graphed=False, **kw)
+        if streams != graphed_streams[name]:
+            differ = [i for i, (a, b) in enumerate(zip(streams, graphed_streams[name]))
+                      if a != b]
+            raise AssertionError(f"{name}: the loop's streams differ from the graph's in "
+                                 f"requests {differ}")
+        out[name] = res
+        print("  " + json.dumps({"run": f"{name}_loop", **res}))
+    return out
+
+
+#: the temperature phase's runs (T = 0.7, seed 3): each graphed unless
+#: named ``_loop``; every stream must equal ``dense_k1``'s
+TEMPERATURE_RUNS = (
+    ("dense_k1", {"batch_slots": 8, "decode_fusion": 1}),
+    ("dense_k4", {"batch_slots": 8, "decode_fusion": 4}),
+    ("dense_k4_loop", {"batch_slots": 8, "decode_fusion": 4}),
+    ("paged_k1", {"batch_slots": 8, "decode_fusion": 1, "paged": True, "page_size": 16}),
+    ("paged_k4", {"batch_slots": 8, "decode_fusion": 4, "paged": True, "page_size": 16}),
+    ("paged_k4_loop", {"batch_slots": 8, "decode_fusion": 4, "paged": True, "page_size": 16}),
+    ("paged_chunked_k4", {"batch_slots": 16, "decode_fusion": 4, "paged": True,
+                          "page_size": 16, "prefill_chunk": 128,
+                          "pool_pages": 8 * 1024 // 16 + 1}),
+    ("paged_chunked_k4_loop", {"batch_slots": 16, "decode_fusion": 4, "paged": True,
+                               "page_size": 16, "prefill_chunk": 128,
+                               "pool_pages": 8 * 1024 // 16 + 1}),
+    ("dense_policy", {"batch_slots": 8, "decode_fusion": "FusionPolicy(max_fusion=8)"}),
+)
+
+
+def temperature_phase(torch, model, params, kernels, seed: int, runs=TEMPERATURE_RUNS) -> dict:
+    """Seeded temperature sampling (T = 0.7, seed 3) through ``runs``: the
+    streams are equal across fusion depths and a FusionPolicy's, dense and
+    paged, graph against loop (a request's stream depends only on its key
+    and its logits).  The chunked run's streams equal its own loop's and
+    are compared with the dense ones, not gated (a chunk's matmuls may sum
+    in another order than a whole prompt's)."""
+    from repro_torch.core.policy import FusionPolicy
+
+    _, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+    out, streams = {}, {}
+    for name, kw in runs:
+        kw = dict(kw)
+        if isinstance(kw.get("decode_fusion"), str):
+            kw["decode_fusion"] = FusionPolicy(max_fusion=8)
+        out[name], streams[name] = serve_run(torch, model, params, kernels, prompts,
+                                             graphed=not name.endswith("_loop"),
+                                             temperature=0.7, seed=3, **kw)
+        print("  " + json.dumps({"run": f"t0.7_{name}", **out[name]}))
+    base = streams[runs[0][0]]
+    for name, _ in runs:
+        if name.startswith("paged_chunked"):
+            continue
+        if streams[name] != base:
+            differ = [i for i, (a, b) in enumerate(zip(streams[name], base)) if a != b]
+            raise AssertionError(f"T = 0.7: {name}'s streams differ from {runs[0][0]}'s in "
+                                 f"requests {differ}")
+    chunked = [n for n, _ in runs if n.startswith("paged_chunked")]
+    if chunked and streams[chunked[0]] != streams[chunked[-1]]:
+        raise AssertionError("T = 0.7: the chunked run's graph and loop streams differ")
+    same = sum(a == b for a, b in zip(streams[chunked[0]], base)) if chunked else None
+    return {"runs": out, "streams_equal_across_k_and_graph_loop": True,
+            "chunked_streams_equal_dense": f"{same} of {len(prompts)}" if chunked else None}
 
 
 def prefill_busy(torch, model, params, seed: int) -> dict:
@@ -2172,18 +2581,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
+    from repro_torch import kernels as kernel_pkg
     from repro_torch.configs import get_arch
     from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
-    from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.kernels import native
-    from repro_torch.kernels import paged_decode_attention as paged_k
-    from repro_torch.kernels import rmsnorm as rms_k
-    from repro_torch.kernels import ssd as ssd_k
+    from repro_torch.kernels import sample as sample_k
     from repro_torch.models import build_model, init_params
 
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    # the kernels of the serve paths: every counted module but conv2d, which
+    # only the tenants phase runs (and counts on its own)
+    kernels = tuple(mod for mod in kernel_pkg.modules() if mod is not conv_k)
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
@@ -2194,7 +2603,7 @@ def main() -> int:
     t = time.perf_counter()
     native.build_all()
     print(f"  built {len(native.SOURCES)} sources ({len(kernels) + 5} kernels: the two f32 "
-          f"matmul kernels, the two matmul edge kernels and conv2d beside these six) in "
+          f"matmul kernels, the two matmul edge kernels and conv2d beside these seven) in "
           f"{time.perf_counter() - t:.1f} s"
           + ("" if native.build_logs() else " (found built under build/: no ptxas report)"))
     for name, log in native.build_logs().items():
@@ -2212,7 +2621,7 @@ def main() -> int:
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
-    decode_splits = check_decode_splits(
+    decode_splits = check_splits(
         rows, served_decode_splits(dec_k, serve_prompts(torch, 128, args.seed)[0]))
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
 
@@ -2232,6 +2641,16 @@ def main() -> int:
     busy_res = busy_phase(torch, model, params, args.seed)
     print("  where a 1024-bucket prefill's time goes (torch.profiler, CUDA activity):")
     prefill_res = prefill_busy(torch, model, params, args.seed)
+    print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
+          f"({smi}): dense 8 slots, then four decode steps' busy share at T = 0.7")
+    graph_res = {"dense": graph_against_loop(torch, model, params, kernels, args.seed,
+                                             serve_res["dense_streams"])}
+    print("  the paged and chunked runs as the eager loop: streams equal the graphs'")
+    graph_res["loop_runs"] = loop_streams_equal(torch, model, params, kernels, args.seed,
+                                                serve_res.pop("streams"), SERVE_RUNS[1:])
+    print("  temperature 0.7, seed 3: dense and paged at K 1 and 4, graph and loop, a "
+          "FusionPolicy(max_fusion=8), chunked K 4")
+    temp_res = temperature_phase(torch, model, params, kernels, args.seed)
 
     print("[5/8] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
@@ -2260,13 +2679,28 @@ def main() -> int:
     print("[8/8] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
+    print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
+          f"({smi})")
+    graph_res["ssm"] = graph_against_loop(torch, model, params, kernels, args.seed,
+                                          ssm_res.pop("streams"))
+    print("  temperature 0.7, seed 3: K 4, graph and loop")
+    ssm_temp_res = temperature_phase(
+        torch, model, params, kernels, args.seed,
+        runs=(("ssm_k4", {"batch_slots": 8, "decode_fusion": 4}),
+              ("ssm_k4_loop", {"batch_slots": 8, "decode_fusion": 4})))
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     ssm_busy_res = busy_phase(torch, model, params, args.seed)
     print("  where a 600-token prefill's time goes, by kernel (torch.profiler, CUDA activity):")
     ssm_prefill_res = prefill_busy(torch, model, params, args.seed)
 
     runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
-            "granite": {"launches": granite_res["launches"]}}
+            "granite": {"launches": granite_res["launches"]},
+            **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
+            **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()}}
+    sample_shapes = check_sample_shapes(rows, [r for n, r in runs.items() if n != "granite"],
+                                        sample_k)
+    print(f"  every [B, V] the sampled runs gave the sampler, and every split count there, was "
+          f"held against the plain version: {sample_shapes}")
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
@@ -2277,7 +2711,8 @@ def main() -> int:
                 "matmul_f32": "[256,256]x[256,256] act=None f32",
                 "matmul_fixed_weight": "[256,256]x[256,256] fixed f32",
                 "conv2d": "x[1,64,64,1] w[5,5,1,1] int16",
-                "matmul_edge": "[8,4096]x[4096,49155] act=None out=float32"}
+                "matmul_edge": "[8,4096]x[4096,49155] act=None out=float32",
+                "sample": "[8,128256]"}
     # the rows beside each headline: the bf16 matmul's prefill, flash
     # attention's other timed rows at D = 64 and its D = 128 and 96 rows, the
     # decode kernels at D = 128 and 96, the other unembeds and row counts,
@@ -2318,12 +2753,12 @@ def main() -> int:
               "conv2d": ["x[1,64,64,1] w[3,3,1,2] int16", "x[1,32,32,1] w[5,5,1,1] float32",
                          "x[1,32,32,1] w[3,3,1,1] float32", "x[256,64,64,1] w[3,3,1,2] int16",
                          "x[1024,64,64,1] w[3,3,1,2] int16"],
-              "matmul_fixed_weight": ["[2048,2048]x[2048,2048] fixed f32"]}
+              "matmul_fixed_weight": ["[2048,2048]x[2048,2048] fixed f32"],
+              "sample": [f"[{B},{V}]" for B, V in SAMPLE_SHAPES[1:]]}
     # the CUDA functions behind each entry
     cuda_fn = {"matmul": "mm_tile_kernel<BM,BN>, mm_stream_kernel<MP>",
-               "rmsnorm": "rmsnorm_warp_kernel<E,NC> (a warp a row, NC 16-byte chunks a "
-                          "lane), rmsnorm_block_kernel<E,NC,RESIDENT> (a block a row); E "
-                          "bf16, f16 or f32",
+               "rmsnorm": "rmsnorm_kernel<E,WARPS,NC,RESIDENT> (a block of 1-8 warps a "
+                          "row, NC 16-byte chunks a thread; E bf16, f16 or f32)",
                "flash_attention": "fa_kernel<64|128>",
                "decode_attention": "dec_kernel<D, DenseRows>",
                "paged_decode_attention": "dec_kernel<D, PagedRows>", "ssd": "ssd_kernel",
@@ -2332,6 +2767,8 @@ def main() -> int:
                "matmul_fixed_weight": "the f32 kernels on a resident weight",
                "conv2d": "conv_kernel<Tin,Acc,KH,KW,FCH,ONE_CH> (persistent, a cp.async "
                          "ring, a strip of 4 pixels a thread, FCH filters a chunk)",
+               "sample": "sample_kernel (grid (splits, B): a slot's vocabulary over splits "
+                         "blocks, merged by the last to arrive)",
                "matmul_edge": "mm_edge_stream_kernel<8|16,TMA> (M <= 16; TMA = 1 where K "
                               "% 8 == 0 and w is aligned, else cp.async copies), "
                               "mm_edge_kernel (M > 16); f32: mm_f32_stream_kernel<8|16,TMA> "
@@ -2345,7 +2782,8 @@ def main() -> int:
                "matmul_f32": "torch.matmul, f32 with TF32 off",
                "matmul_fixed_weight": "torch.matmul, f32 with TF32 off",
                "conv2d": "none for int16 (F.conv2d, f32 and TF32 off, at the f32 shapes)",
-               "matmul_edge": "torch.matmul (bf16 out; f32 with TF32 off at the f32 row)"}
+               "matmul_edge": "torch.matmul (bf16 out; f32 with TF32 off at the f32 row)",
+               "sample": "no single PyTorch call draws JAX's Threefry stream"}
     # the paper-role kernels run on the tenants phase's main path only, the
     # edge kernel on the granite phase's
     entries = [(mod.__name__.rsplit(".", 1)[1], mod, mod.REPLACES,
@@ -2393,6 +2831,9 @@ def main() -> int:
             "tenants": tenants_res, "granite": granite_res,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
+            "sample_shapes": sample_shapes,
+            "graph_against_loop": graph_res, "temperature": temp_res,
+            "ssm_temperature": ssm_temp_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

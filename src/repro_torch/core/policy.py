@@ -3,6 +3,9 @@ as they are (pure dataclasses and functions).
 
 - :class:`AdmissionPolicy`: the paged engine admits a request against free
   pages minus the projected growth of the requests already running.
+- :class:`FusionPolicy`: the serving engine's decode fusion depth K a launch,
+  from foreign queue depth, the remaining request length and, in feedback
+  mode, the observed foreign ``dispatch_wait``.
 - :class:`PrefetchPolicy` and :class:`RetryPolicy`: the HSA scheduler's
   lookahead depth and fault recovery.
 - The role planner (:class:`Invocation`, :class:`CostModel`,
@@ -15,8 +18,8 @@ as they are (pure dataclasses and functions).
   op type and picks the lowest predicted steady-state step time.
 
 The rest of that file comes with the slices that read it: ``ChunkPolicy``'s
-tapers with ``FusionPolicy`` feedback (a fixed chunk size needs no policy),
-and the preemption, spill, integrity and prefix policies.
+tapers (a fixed chunk size needs no policy), and the preemption, spill,
+integrity and prefix policies.
 """
 
 from __future__ import annotations
@@ -57,6 +60,88 @@ class PrefetchPolicy:
         return cls(int(value))
 
 
+@dataclasses.dataclass(frozen=True)
+class FusionPolicy:
+    """Pick the decode fusion depth K for a serving engine.
+
+    One fused launch generates up to K tokens per slot in a single packet
+    round trip, amortizing the per-packet invocation overhead (Table II row
+    3) K-fold.  The trade-offs the policy balances:
+
+      - **mean request length** caps useful depth: scanning past every live
+        slot's remaining budget burns masked (wasted) decode steps;
+      - **queue depth** (packets other tenants have pending on the shared
+        device) argues for *smaller* K: one fused launch occupies the compute
+        engine for K tokens, so deep foreign backlogs halve K per
+        ``fairness_depth`` pending packets — the batch-vs-latency knob the
+        toolflow surveys frame as launch amortization vs responsiveness.
+
+    **Feedback mode** (``feedback=True``) closes the loop the launch-time
+    queue depth only approximates: instead of guessing how much a deep
+    backlog *will* hurt the other tenants, it reads how much serving
+    already *is* hurting them — the ledger's observed p99 foreign
+    ``dispatch_wait`` (the producer-blocked leg of their packet round
+    trips).  K halves once per doubling of the observed p99 over
+    ``target_wait_s``, so a foreign tenant whose waits blow past the target
+    pulls fusion down even when its queue happens to be shallow at launch
+    time, and an idle ledger lets K ride at the amortization optimum.
+
+    The result is rounded down to a power of two, as the JAX engine's, whose
+    jitted fused-decode trace cache it keeps small (a distinct K is a
+    distinct trace); the port replays one captured decode step K times, so
+    there any K costs the same.
+    """
+
+    max_fusion: int = 8
+    min_fusion: int = 1
+    fairness_depth: int = 8
+    feedback: bool = False
+    target_wait_s: float = 1e-3          # foreign p99 dispatch_wait budget
+
+    def __post_init__(self) -> None:
+        if self.min_fusion < 1:
+            raise ValueError(f"min_fusion must be >= 1, got {self.min_fusion}")
+        if self.max_fusion < self.min_fusion:
+            raise ValueError(
+                f"max_fusion {self.max_fusion} < min_fusion {self.min_fusion}"
+            )
+        if self.fairness_depth < 0:
+            raise ValueError(f"fairness_depth must be >= 0, got {self.fairness_depth}")
+        if self.target_wait_s <= 0:
+            raise ValueError(f"target_wait_s must be > 0, got {self.target_wait_s}")
+
+    @classmethod
+    def of(cls, value: "FusionPolicy | int | None") -> "FusionPolicy":
+        if value is None:
+            return cls(1, 1)
+        if isinstance(value, FusionPolicy):
+            return value
+        k = int(value)
+        return cls(max_fusion=max(1, k), min_fusion=max(1, k))
+
+    def choose_k(self, *, queue_depth: int = 0,
+                 mean_request_len: float = 0.0,
+                 observed_wait_s: float | None = None) -> int:
+        k = self.max_fusion
+        if mean_request_len > 0:
+            k = min(k, max(self.min_fusion, int(mean_request_len)))
+        if self.feedback and observed_wait_s is not None:
+            # measured-contention feedback: halve K per doubling of the
+            # observed foreign p99 wait over target.  Takes precedence over
+            # the queue-depth guess when a measurement exists.
+            over = observed_wait_s / self.target_wait_s
+            while over > 1.0 and k > 1:
+                k >>= 1
+                over /= 2.0
+        elif self.fairness_depth > 0 and queue_depth > 0:
+            # halve once per fairness_depth foreign packets pending (capped so
+            # the shift below stays defined for absurd backlogs)
+            k >>= min(queue_depth // self.fairness_depth, k.bit_length())
+        k = max(self.min_fusion, min(k, self.max_fusion))
+        p = 1
+        while p * 2 <= k:
+            p *= 2
+        return max(self.min_fusion, p)     # the floor wins over pow2 rounding
 
 
 @dataclasses.dataclass(frozen=True)

@@ -518,6 +518,34 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled fails in a thread that has no current CUDA context
+// (a thread whose first CUDA work is one of these kernels: the runtime binds
+// the primary context only at its first call that needs one).  Bind the
+// runtime's current device's primary context there (cudaSetDevice does since
+// CUDA 12).  A thread that captures a graph always has its context, so this
+// never runs inside a capture.
+inline void bind_thread_context() {
+  static PFN_cuCtxGetCurrent_v4000 get = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 4000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      get = reinterpret_cast<PFN_cuCtxGetCurrent_v4000>(p);
+  });
+  CUcontext ctx = nullptr;
+  int dev = 0;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx == nullptr &&
+      cudaGetDevice(&dev) == cudaSuccess)
+    cudaSetDevice(dev);
+}
+
 // A tensor map over [d2][d1][d0] (rank 3) or [d1][d0] (rank 2, d2 = 1) of
 // bf16 (or `dtype`) at ptr, d0 contiguous, in boxes of b1 rows of b0 values
 // (of one d2 slice), 128-byte swizzled unless `swizzle` says otherwise;
@@ -555,6 +583,7 @@ inline bool tensor_map(CUtensorMap* out, int rank, const void* ptr, uint64_t d0,
   }
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  bind_thread_context();
   const uint64_t size = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   cuuint64_t dims[3] = {d0, d1, d2};
   cuuint64_t strides[2] = {d0 * size, d0 * d1 * size};

@@ -171,7 +171,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     unless given (``kernels/decode_sweep.py`` times each count)."""
     if native.on_cpu(q, k_cache, v_cache):
         return plain_decode_attention(q, k_cache, v_cache, length, scale=scale)
-    global launches, last_splits
+    global last_splits
     native.check("decode_attention", {"q": q, "k_cache": k_cache, "v_cache": v_cache},
                  torch.bfloat16)
     B, Hq, D = q.shape
@@ -194,7 +194,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
              native.ptr(out), native.ptr(ws), native.ptr(counters), B, Hq, Hkv, T, D, splits,
              float(scale), stream)
     native.raise_on_error("decode_attention", err)
-    launches += 1
+    native.count_launch(__name__)
     last_splits = splits
     return out
 

@@ -150,7 +150,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, causal: bool,
             window: int | None, scale: float | None) -> torch.Tensor:
     """One launch of the kernel on checked inputs; the output."""
-    global launches
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -168,5 +167,5 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, caus
              native.ptr(counters), B, Hq, Hkv, S, T, D, float(scale), int(causal),
              int(window or 0), splits, ctypes.c_void_p(stream))
     native.raise_on_error("flash_attention", err)
-    launches += 1
+    native.count_launch(__name__)
     return out

@@ -357,8 +357,7 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype | None,
     else:
         out = _launch_bf16(x, w, plan(M, N, K), out_dtype, activation, M, N, K)
     if fixed:
-        global fixed_launches
-        fixed_launches += 1
+        native.count_launch(__name__, "fixed_launches")
     return out.reshape(*lead, N)
 
 
@@ -387,16 +386,15 @@ def _launch_f32(x: torch.Tensor, w: torch.Tensor, plan_: tuple[int, int], edge: 
     """One launch of the f32 kernel at :func:`f32_plan`'s (block, splits),
     counted as an edge launch where ``edge`` (TMA could not take the
     operands), else as an f32 launch."""
-    global edge_launches, f32_launches
     block, splits = plan_
     tiles = (math.ceil(N / F32_STREAM_BN) if block == 0
              else math.ceil(M / block) * math.ceil(N / block))
     out = _launch_split(x, w, "repro_matmul_f32", _F32_ARGTYPES, splits, tiles, M, N, K,
                         torch.float32, activation, (int(edge), block))
     if edge:
-        edge_launches += 1
+        native.count_launch(__name__, "edge_launches")
     else:
-        f32_launches += 1
+        native.count_launch(__name__, "f32_launches")
     return out
 
 
@@ -413,11 +411,10 @@ def _launch_edge(x: torch.Tensor, w: torch.Tensor, kernel: int, splits: int,
                  out_dtype: torch.dtype, activation: str | None, M: int, N: int,
                  K: int) -> torch.Tensor:
     """One launch of a bf16 edge kernel (:func:`edge_plan`'s numbering)."""
-    global edge_launches
     out = _launch_split(x, w, "repro_matmul_edge", _EDGE_ARGTYPES, splits,
                         math.ceil(N / EDGE_BN), M, N, K, out_dtype, activation,
                         (int(out_dtype == torch.float32), kernel))
-    edge_launches += 1
+    native.count_launch(__name__, "edge_launches")
     return out
 
 
@@ -437,7 +434,6 @@ def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dty
                 activation: str | None, M: int, N: int, K: int) -> torch.Tensor:
     """One launch of the bf16 kernel ``p`` names, on checked inputs; the
     [M, N] output."""
-    global launches
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ws = counters = None
@@ -450,7 +446,7 @@ def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dty
              int(p.kernel == "stream"), p.block_m, p.block_n, p.splits,
              ctypes.c_void_p(stream))
     native.raise_on_error("matmul", err)
-    launches += 1
+    native.count_launch(__name__)
     return out
 
 

@@ -14,12 +14,14 @@ machine need not have ``nvcc`` or a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -27,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("matmul", "rmsnorm", "flash_attention", "decode_attention", "ssd", "conv2d")
+SOURCES = ("matmul", "rmsnorm", "flash_attention", "decode_attention", "ssd", "conv2d",
+           "sample")
 HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -161,14 +164,64 @@ def check(op: str, tensors: dict[str, torch.Tensor], dtype: torch.dtype | None =
 _counters: dict[tuple[str, int, int], torch.Tensor] = {}
 
 
+class _GraphScope(threading.local):
+    """What a CUDA graph being warmed up or captured on this thread changes:
+    the buffers :func:`tile_counters` hands out (the graph's own), and, while
+    it captures, where :func:`count_launch` counts (the capture's tally)."""
+    counters: dict | None = None
+    tally: dict | None = None
+
+
+_scope = _GraphScope()
+_count_lock = threading.Lock()     # counters are bumped from several threads
+
+
+@contextlib.contextmanager
+def graph_scope(counters: dict, tally: dict | None = None):
+    """On this thread, for the ``with`` block: :func:`tile_counters` keeps its
+    buffers in ``counters`` (a graph's own dict, so that no other graph or
+    stream shares the counters the graph freezes), and, where ``tally`` is
+    given (a capture, which launches nothing), :func:`count_launch` adds to
+    ``tally`` instead of the kernels' counters.  Other threads count as
+    before."""
+    saved = _scope.counters, _scope.tally
+    _scope.counters, _scope.tally = counters, tally
+    try:
+        yield
+    finally:
+        _scope.counters, _scope.tally = saved
+
+
+def count_launch(module: str, counter: str = "launches") -> None:
+    """One launch of a kernel: adds one to the module-level ``counter`` of
+    ``module`` (a wrapper passes its ``__name__``), or, while this thread
+    captures a graph, to the capture's tally, which each replay adds."""
+    tally = _scope.tally
+    if tally is not None:
+        tally[(module, counter)] = tally.get((module, counter), 0) + 1
+    else:
+        add_launches({(module, counter): 1})
+
+
+def add_launches(tally: dict[tuple[str, str], int]) -> None:
+    """Add ``tally`` (``(module, counter) -> launches``) to the kernels'
+    counters: a capture's tally at each replay."""
+    with _count_lock:
+        for (module, counter), n in tally.items():
+            mod = sys.modules[module]
+            setattr(mod, counter, getattr(mod, counter) + n)
+
+
 def tile_counters(op: str, device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters for ``op``'s launches on
-    ``stream`` (a ``cuda_stream`` handle)."""
+    ``stream`` (a ``cuda_stream`` handle); inside :func:`graph_scope`, the
+    graph's own."""
+    cache = _scope.counters if _scope.counters is not None else _counters
     key = (op, device.index, stream)
-    buf = _counters.get(key)
+    buf = cache.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _counters[key] = buf
+        cache[key] = buf
     return buf
 
 

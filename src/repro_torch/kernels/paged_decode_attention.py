@@ -83,7 +83,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if native.on_cpu(q, k_pages, v_pages, block_table):
         return plain_paged_decode_attention(q, k_pages, v_pages, block_table, length,
                                             scale=scale)
-    global launches, last_splits
+    global last_splits
     native.check("paged_decode_attention", {"q": q, "k_pages": k_pages, "v_pages": v_pages},
                  torch.bfloat16)
     native.check("paged_decode_attention", {"q": q, "block_table": block_table})
@@ -112,6 +112,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
              native.ptr(lengths), native.ptr(out), native.ptr(ws), native.ptr(counters),
              B, Hq, Hkv, P, ps, NP, D, splits, float(scale), stream)
     native.raise_on_error("paged_decode_attention", err)
-    launches += 1
+    native.count_launch(__name__)
     last_splits = splits
     return out

@@ -58,7 +58,6 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     a row's output then depends on it."""
     if native.on_cpu(x, weight):
         return plain_rmsnorm(x, weight, eps=eps)
-    global launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm: x must be bf16, f16 or f32, got {x.dtype}")
     native.check("rmsnorm", {"x": x, "weight": weight}, x.dtype, aligned=False)
@@ -75,5 +74,5 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     err = fn(native.ptr(x), native.ptr(weight), native.ptr(out), rows, D, float(eps),
              _DTYPES[x.dtype], warps or 0, native.stream(x.device))
     native.raise_on_error("rmsnorm", err)
-    launches += 1
+    native.count_launch(__name__)
     return out

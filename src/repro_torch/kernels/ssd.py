@@ -133,7 +133,6 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     del chunk
     if native.on_cpu(x, a_log, b, c, dt):
         return plain_ssd(x, a_log, b, c, dt, return_state=return_state)
-    global launches
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if (b.shape != c.shape or b.shape[:2] != (B, S) or dt.shape != (B, S, H)
@@ -165,5 +164,5 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
              ctypes.c_void_p(handle))
     native.raise_on_error("ssd", err)
-    launches += 1
+    native.count_launch(__name__)
     return (y, state) if return_state else y

@@ -12,13 +12,27 @@ Only where every cache leaf is position-indexed: a recurrent cache (Mamba-2's
 ``ssm_state`` and ``conv_tail``) would fold the pads into its state, so for
 those models prompts prefill at their exact length and no fixup runs.
 
-**Fused multi-token decode** (``decode_fusion=K``): one launch runs K decode
-steps with on-device greedy sampling and per-slot masks, and the host reads
-the tokens back once per launch.  A slot whose budget runs out mid-launch
-freezes its position and token; its cache rows keep absorbing dummy writes
-at the frozen position (a recurrent state keeps absorbing dummy updates),
-harmless because the next prefill into that slot replaces its whole cache
-slice (dense) or its table row points at the scratch page (paged).
+**Fused multi-token decode** (``decode_fusion=K``, or a
+:class:`FusionPolicy` choosing K a launch): one launch runs K decode steps
+with on-device sampling and per-slot masks, and the host reads the tokens
+back once per launch.  A step is a function over static device buffers
+(positions, tokens, budgets, token counts, keys, the block table, and the
+tokens out): the host copies its state into them before a launch and reads
+them back after it.  On the card the step is captured once as a CUDA graph
+(:mod:`repro_torch.serve.graph`) and replayed K times, the counterpart of
+the JAX engine's jitted ``lax.scan``; on the CPU it is called K times.  A
+slot whose budget runs out mid-launch freezes its position and token; its
+cache rows keep absorbing dummy writes at the frozen position (a recurrent
+state keeps absorbing dummy updates), harmless because the next prefill
+into that slot replaces its whole cache slice (dense) or its table row
+points at the scratch page (paged).
+
+**Sampling** is greedy at ``temperature=0``, else position-indexed as the
+JAX engine's: token t of request uid is
+``categorical(fold_in(fold_in(PRNGKey(seed), uid), t), logits / T)``
+(:mod:`repro_torch.serve.sampling`; on the card the ``sample`` kernel), so
+a request's stream depends only on (seed, uid, logits), never on admission
+order or fusion depth, and equals the JAX engine's.
 
 **Paged KV cache** (``paged=True``): KV lives in a global page pool
 (:mod:`repro_torch.serve.paged`) addressed through per-slot block tables.
@@ -42,10 +56,8 @@ producers under the async scheduler (the paper's multi-tenancy).  The packet
 carries the producer's dispatch context, so a ``cuda-strict`` policy holds
 on the scheduler's worker thread too.
 
-Greedy decoding only: temperature sampling needs the JAX engine's
-position-indexed threefry stream to match it token for token (ROADMAP
-item 8b).  Preemption (8f) is not ported: the default full-reserve admission
-never needs it, and an overcommitting policy is refused.
+Preemption (8f) is not ported: the default full-reserve admission never
+needs it, and an overcommitting policy is refused.
 """
 
 from __future__ import annotations
@@ -60,9 +72,12 @@ import torch
 
 from repro_torch.core import ledger as ledger_mod
 from repro_torch.core.hsa.clock import WallClock
-from repro_torch.core.policy import AdmissionPolicy
+from repro_torch.core.policy import AdmissionPolicy, FusionPolicy
+from repro_torch.kernels import sample as sample_k
 from repro_torch.models.params import resolve_device
+from repro_torch.serve import graph as graph_mod
 from repro_torch.serve import paged as paged_mod
+from repro_torch.serve import sampling
 
 
 @dataclasses.dataclass
@@ -102,6 +117,60 @@ def _prompt_rows(cache: dict, n: int) -> dict:
     return {key: cache[key][:, :, :, :n].clone() for key in ("k", "v")}
 
 
+class _DecodeBuffers:
+    """The decode step's static device buffers, which keep their addresses
+    for the engine's life (a CUDA graph captures them).
+
+    ``state`` holds, [slots] each, the position, the last token, the budget
+    left, the token count (the sampler's t) and the live flag, then the
+    slots' keys [slots, 2] (uint32 bits in int32): one host-to-device copy a
+    launch.  ``out`` [2, max K, slots] holds each step's token and validity,
+    written at row ``step``; ``table`` [slots, NP] the block table (paged).
+    """
+
+    ROWS = 7                           # pos, tok, left, count, live, keys (2)
+
+    def __init__(self, slots: int, max_k: int, table_pages: int | None,
+                 device: torch.device):
+        self.slots = slots
+        self.state = torch.zeros(self.ROWS * slots, dtype=torch.int32, device=device)
+        self.pos, self.tok, self.left, self.count, self.live = self.state[:5 * slots].view(5, slots)
+        self.keys = self.state[5 * slots:].view(slots, 2)
+        self.out = torch.zeros((2, max_k, slots), dtype=torch.int32, device=device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=device)
+        self.table = (torch.zeros((slots, table_pages), dtype=torch.int32, device=device)
+                      if table_pages is not None else None)
+        pin = device.type == "cuda"
+        # host staging: pinned on the card, so each upload is one async copy
+        self.host_state = torch.zeros(self.state.shape, dtype=torch.int32, pin_memory=pin)
+        self.host_table = (torch.zeros(self.table.shape, dtype=torch.int32, pin_memory=pin)
+                           if self.table is not None else None)
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [t for t in (self.state, self.out, self.step, self.table) if t is not None]
+
+    def upload(self, pos, tok, left, count, live, keys, table) -> None:
+        """The host's numpy state into the buffers: one copy (two, paged)."""
+        h = self.host_state.numpy()
+        S = self.slots
+        for i, v in enumerate((pos, tok, left, count, live)):
+            h[i * S:(i + 1) * S] = v
+        h[5 * S:] = np.ascontiguousarray(keys, np.uint32).view(np.int32).reshape(-1)
+        self.state.copy_(self.host_state, non_blocking=True)
+        if table is not None:
+            self.host_table.copy_(table)
+            self.table.copy_(self.host_table, non_blocking=True)
+        self.step.zero_()
+
+    def read(self, k: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(tokens [k, slots], validity [k, slots] bool, positions, tokens):
+        one device-to-host copy."""
+        S = self.slots
+        flat = torch.cat((self.out[:, :k].reshape(-1), self.pos, self.tok)).cpu().numpy()
+        toks, valid = flat[:2 * k * S].reshape(2, k, S)
+        return toks, valid.astype(bool), flat[2 * k * S:2 * k * S + S], flat[-S:]
+
+
 class ServeTruncated(RuntimeError):
     """``run_to_completion`` exhausted ``max_steps`` with work still pending.
 
@@ -124,7 +193,8 @@ _PREEMPTION = ("preemption is ROADMAP item 8f, not ported: only it makes an "
 
 
 class ServeEngine:
-    """Fixed-slot batched greedy decoder with slot recycling.
+    """Fixed-slot batched decoder with slot recycling: greedy, or seeded
+    temperature sampling.
 
     The dense KV cache ``[L, slots, Hkv, max_len, hd]`` — or, paged, the
     pool ``[L, pool_pages, Hkv, page_size, hd]``; for an SSM model the
@@ -140,7 +210,8 @@ class ServeEngine:
     MIN_BUCKET = 8
 
     def __init__(self, model, params, *, batch_slots: int = 4, max_len: int = 256,
-                 temperature: float = 0.0, decode_fusion: int = 1,
+                 temperature: float = 0.0, seed: int = 0,
+                 decode_fusion: "int | FusionPolicy" = 1,
                  paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
                  admission: AdmissionPolicy | None = None,
                  prefill_chunk: int | None = None,
@@ -150,18 +221,26 @@ class ServeEngine:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
-        if temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling is ROADMAP item 8b (position-indexed "
-                "threefry sampling to match the JAX engine); serve greedily"
-            )
-        if not isinstance(decode_fusion, int) or decode_fusion < 1:
-            raise ValueError(f"decode_fusion must be an int >= 1, got {decode_fusion!r}")
+        if not isinstance(decode_fusion, FusionPolicy) and (
+                not isinstance(decode_fusion, int) or decode_fusion < 1):
+            raise ValueError(f"decode_fusion must be an int >= 1 or a FusionPolicy, "
+                             f"got {decode_fusion!r}")
+        if not 0 <= seed <= sampling.MASK:
+            raise ValueError(f"seed must be in [0, 2^32), got {seed}")
         self.model = model
         self.params = params
         self.slots = batch_slots
         self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        # fused multi-token decode: K tokens a launch (int) or a FusionPolicy
+        # choosing K a launch from contention and the remaining lengths
         self.decode_fusion = decode_fusion
+        # token t of request uid is drawn with fold_in(key_of(seed, uid), t):
+        # each slot keeps its request's key
+        self._slot_key = np.zeros((batch_slots, 2), np.uint32)
+        # feedback FusionPolicy: per foreign producer, (sample count, launches stale)
+        self._wait_freshness: dict[str, tuple[int, int]] = {}
         self._cache_keys = set(model.cache_specs(1, 8)) - {"pos"}
         self.bucket_prompts = self._bucketing_safe()
         self._queue: list[Request] = []
@@ -189,6 +268,7 @@ class ServeEngine:
         self.fixup_calls = 0
         self.decode_calls = 0
         self.decode_tokens = 0         # tokens committed by decode launches
+        self.sample_calls = 0          # sampler calls (first tokens, decode steps) at T > 0
         # -- paged KV cache state ---------------------------------------------
         self.paged = paged
         self.page_size = page_size
@@ -240,6 +320,13 @@ class ServeEngine:
         self._first_this_step: list[Request] = []
         # submit() may run on feeder threads while step() is mid-flight
         self._lock = threading.RLock()
+        # -- the decode step's static buffers; on the card, its CUDA graph ----
+        self._dec = _DecodeBuffers(batch_slots, FusionPolicy.of(decode_fusion).max_fusion,
+                                   self.table_pages if paged else None, self.device)
+        # the step runs as a replayed graph wherever there is a card; the
+        # eager calls of the step are the CPU's (and a comparison's)
+        self._graphed = self.device.type == "cuda"
+        self._graph: graph_mod.StepGraph | None = None
 
     def _launch(self, name: str, fn, *args, **kwargs):
         """Run a model call directly, or as an AQL call packet named ``name``
@@ -446,7 +533,8 @@ class ServeEngine:
 
     def _first_token(self, slot: int, req: Request, logits: torch.Tensor,
                      rows: dict | None) -> None:
-        """Sample token 0 from the prefill's logits.  With end-padding they
+        """Sample token 0 from the prefill's logits, with the sampler the
+        decode steps use (t = 0 under the request's key).  With end-padding they
         sit at a pad position: one decode step of the last prompt token at
         its true position re-derives them, against ``rows``, a copy of the
         prompt's cache rows [0, n) (None when unpadded).  Decode writes row
@@ -461,7 +549,20 @@ class ServeEngine:
                 torch.as_tensor(req.prompt[-1:][None, :], device=self.device), fix_cache,
             )
             self.fixup_calls += 1
-        tok = int(torch.argmax(logits[0]))
+        key = sampling.key_of(self.seed, req.uid)
+        self._slot_key[slot] = key
+        if self.temperature > 0:
+            dev = logits.device
+            tok_t = torch.zeros(1, dtype=torch.int32, device=dev)
+            sample_k.sample(logits[:1].float().contiguous(),
+                            torch.from_numpy(key.view(np.int32)[None].copy()).to(dev),
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            torch.ones(1, dtype=torch.int32, device=dev), tok_t,
+                            self.temperature)
+            self.sample_calls += 1
+            tok = int(tok_t[0])
+        else:
+            tok = int(torch.argmax(logits[0]))
         req.generated.append(tok)
         self._slot_tok[slot] = tok
 
@@ -574,38 +675,134 @@ class ServeEngine:
 
     # -- decode ---------------------------------------------------------------------
 
+    #: launches without a new foreign sample before that producer's stale
+    #: p99 stops throttling K (a tenant that left must not pin fusion low)
+    FEEDBACK_STALE_LAUNCHES = 8
+
+    def _contention_ledger(self):
+        """Where foreign ``dispatch_wait`` samples land: the shared queue's
+        ledger when routed through HSA (an explicit ``ledger=`` only carries
+        this engine's memory accounting), else the explicit one."""
+        if self._hsa_queue is not None and self._hsa_queue.ledger is not None:
+            return self._hsa_queue.ledger
+        return self.ledger
+
+    def _observed_foreign_wait(self) -> float | None:
+        """Worst recent p99 ``dispatch_wait`` among other producers on the
+        shared ledger: the feedback FusionPolicy's contention signal.  A
+        producer whose sample count has not moved for
+        ``FEEDBACK_STALE_LAUNCHES`` launches in a row is ignored (the
+        quantile window is count-bounded, so a tenant that burst and went
+        silent would otherwise hold K down forever)."""
+        led = self._contention_ledger()
+        if led is None:
+            return None
+        worst = None
+        for prod, cats in led.producer_breakdown().items():
+            if prod == self._producer:
+                continue
+            stat = cats.get(ledger_mod.DISPATCH_WAIT)
+            if stat is None or stat.count == 0:
+                continue
+            last, stale = self._wait_freshness.get(prod, (-1, 0))
+            stale = stale + 1 if stat.count == last else 0
+            self._wait_freshness[prod] = (stat.count, stale)
+            if stale >= self.FEEDBACK_STALE_LAUNCHES:
+                continue
+            q = led.quantile(ledger_mod.DISPATCH_WAIT, 0.99, producer=prod)
+            if q is not None and (worst is None or q > worst):
+                worst = q
+        return worst
+
     def _choose_fusion(self) -> int:
+        """This launch's depth: the fixed K, or the policy's pick from the
+        foreign packets pending on the shared scheduler (or, in feedback
+        mode, the observed foreign p99 ``dispatch_wait``) and the mean
+        remaining budget of the live slots."""
         remaining = [r.max_new_tokens - len(r.generated) for r in self._active.values()]
+        if isinstance(self.decode_fusion, FusionPolicy):
+            depth = 0
+            if self._hsa_scheduler is not None:
+                depth = sum(q.pending() for q in self._hsa_scheduler.queues
+                            if q is not self._hsa_queue)
+            observed = self._observed_foreign_wait() if self.decode_fusion.feedback else None
+            k = self.decode_fusion.choose_k(
+                queue_depth=depth,
+                mean_request_len=sum(remaining) / max(1, len(remaining)),
+                observed_wait_s=observed)
+        else:
+            k = self.decode_fusion
         # never run past every live slot's budget: those steps are all-masked
-        return max(1, min(self.decode_fusion, max(remaining, default=1)))
+        return max(1, min(k, max(remaining, default=1)))
+
+    def _decode_step(self) -> None:
+        """One decode step over the static buffers (the function a CUDA graph
+        captures): every slot decodes its token at its position; live slots
+        take the sampled token, advance, and stop when their budget is
+        spent, and row ``step`` of ``out`` records each slot's token and
+        whether it was live.  A paged step carries the table unchanged: page
+        growth happens on the host between launches."""
+        b = self._dec
+        cache = {"pos": b.pos, **self._cache}
+        if self.paged:
+            cache["block_table"] = b.table
+        logits, _ = self.model.decode_step(self.params, b.tok[:, None], cache)
+        live = b.live != 0
+        if self.temperature > 0:
+            sample_k.sample(logits, b.keys, b.count, b.live, b.tok, self.temperature)
+        else:
+            b.tok.copy_(torch.where(live, torch.argmax(logits, dim=-1).to(torch.int32), b.tok))
+        b.out[0].index_copy_(0, b.step, b.tok[None])
+        b.out[1].index_copy_(0, b.step, b.live[None])
+        inc = live.to(torch.int32)
+        b.pos.add_(inc)
+        b.count.add_(inc)
+        b.left.sub_(inc)
+        b.live.copy_(live & (b.left > 0))
+        b.step.add_(1)
+
+    def _graph_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a decode step reads or writes by address: the cache
+        or pool, the weights, the static buffers."""
+        leaves, todo = [], [self.params]
+        while todo:
+            node = todo.pop()
+            if isinstance(node, torch.Tensor):
+                leaves.append(node)
+            elif isinstance(node, dict):
+                todo.extend(node.values())
+            elif isinstance(node, (list, tuple)):
+                todo.extend(node)
+        return [*self._cache.values(), *leaves, *self._dec.tensors()]
 
     def _fused_decode(self, k: int, active: np.ndarray, remaining: np.ndarray,
                       table: torch.Tensor | None):
-        """``k`` masked decode steps over all slots with on-device greedy
-        sampling; the tokens [k, slots] and their validity mask, read back
-        once.  A paged launch carries ``table`` unchanged through its steps:
-        page growth happens on the host between launches."""
-        dev = self.device
-        pos = torch.as_tensor(self._pos.astype(np.int32), device=dev)
-        tok = torch.as_tensor(self._slot_tok, device=dev)
-        live = torch.as_tensor(active, device=dev)
-        left = torch.as_tensor(remaining, device=dev)
-        toks, valid = [], []
-        for _ in range(k):
-            cache = {"pos": pos, **self._cache}
-            if table is not None:
-                cache["block_table"] = table
-            logits, _ = self.model.decode_step(self.params, tok[:, None], cache)
-            self.decode_calls += 1
-            tok = torch.where(live, torch.argmax(logits, dim=-1).to(torch.int32), tok)
-            toks.append(tok)
-            valid.append(live)
-            pos = torch.where(live, pos + 1, pos)
-            left = torch.where(live, left - 1, left)
-            live = live & (left > 0)
-        self._pos = pos.cpu().numpy().astype(np.int64)
-        self._slot_tok = tok.cpu().numpy()
-        return torch.stack(toks).cpu().numpy(), torch.stack(valid).cpu().numpy()
+        """``k`` masked decode steps over all slots with on-device sampling:
+        the host state into the static buffers (each live request's token
+        count is its sampler's t), the steps (a graph's replays on the
+        card), and the tokens [k, slots] and their validity mask read back
+        once."""
+        b = self._dec
+        counts = np.zeros(self.slots, np.int32)
+        for slot, req in self._active.items():
+            counts[slot] = len(req.generated)
+        b.upload(self._pos.astype(np.int32), self._slot_tok, remaining, counts,
+                 active.astype(np.int32), self._slot_key, table)
+        if self._graphed:
+            if self._graph is None:
+                self._graph = graph_mod.StepGraph(self._decode_step, self.device,
+                                                  self._graph_tensors)
+            self._graph.run(k)
+        else:
+            for _ in range(k):
+                self._decode_step()
+        self.decode_calls += k
+        if self.temperature > 0:
+            self.sample_calls += k
+        toks, valid, pos, tok = b.read(k)
+        self._pos = pos.astype(np.int64)
+        self._slot_tok = tok.astype(np.int32)
+        return toks, valid
 
     def _decode_locked(self) -> list[Request]:
         k = self._choose_fusion()
@@ -626,15 +823,14 @@ class ServeEngine:
                 self._grow_to(slot, self._launch_pages(slot, req, k))
         table = None
         if self.paged:
-            tbl = self._table
+            table = self._table
             if self._prefilling:
                 # a mid-prefill slot has real pages mapped but is masked in this
                 # launch: its dummy writes at its stale position must land on the
                 # scratch page, not on the chunk rows already scattered
-                tbl = tbl.copy()
-                tbl[list(self._prefilling)] = paged_mod.TRASH_PAGE
-            # one upload of the whole table per launch, read by every layer
-            table = torch.as_tensor(tbl, device=self.device)
+                table = table.copy()
+                table[list(self._prefilling)] = paged_mod.TRASH_PAGE
+            table = torch.from_numpy(table)     # on the host: the launch uploads it
         # one packet a fused launch, named as the JAX engine names it
         name = f"decode_fused_k{k}" + ("_paged" if self.paged else "")
         toks, valid = self._launch(name, self._fused_decode, k, active, remaining, table)

@@ -1251,3 +1251,282 @@ def test_attention_refuses_a_head_dim_it_does_not_take_naming_it(cuda, d):
                  lambda: paged_k.paged_decode_attention(q3, kp, vp, table, 8)):
         with pytest.raises(ValueError, match=f"head_dim {d} "):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the sampler, and the fused decode as a replayed CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _np_threefry(k0, k1, x0, x1):
+    """Threefry-2x32 in numpy uint32 (wrapping), written apart from the port."""
+    import numpy as np
+
+    def rotl(v, r):
+        return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+    k0, k1, x0, x1 = (np.asarray(v, dtype=np.uint32) for v in (k0, k1, x0, x1))
+    ks = [k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA)]
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for g in range(5):
+        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[g % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return x0, x1
+
+
+def _sample_inputs(cuda, B, V, seed=0):
+    g = _gen(cuda, seed)
+    logits = torch.randn((B, V), generator=g, device=cuda) * 3
+    keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=g, device=cuda, dtype=torch.int32)
+    counts = torch.randint(0, 1000, (B,), generator=g, device=cuda, dtype=torch.int32)
+    return logits, keys, counts
+
+
+def _ulp_gap(scores):
+    """The gap between each row's two best scores, in ulps of the best."""
+    top = scores.topk(2, dim=-1).values
+    best = top[:, 0].abs()
+    return (top[:, 0] - top[:, 1]) / (torch.nextafter(best, best + 1) - best)
+
+
+@pytest.mark.parametrize("B,V", [(8, 128256), (8, 49155), (1, 50280), (3, 1000)])
+def test_sample_matches_plain_and_numpy_threefry(cuda, B, V):
+    """The kernel's random bits are the plain version's and a numpy Threefry's
+    exactly; its tokens equal the plain version's wherever the top two
+    scores lie more than 4 ulps apart; a flipped key word changes the bits."""
+    import numpy as np
+
+    from repro_torch.kernels import sample as sample_k
+    from repro_torch.serve import sampling
+
+    logits, keys, counts = _sample_inputs(cuda, B, V)
+    live = torch.ones(B, dtype=torch.int32, device=cuda)
+    tok = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    bits = torch.zeros((B, V), dtype=torch.int32, device=cuda)
+    sample_k.sample(logits, keys, counts, live, tok, 0.7, bits=bits)
+    torch.cuda.synchronize()
+    sub = sampling.fold_in(keys, counts)
+    want_bits = sampling.random_bits_32(sub, V)
+    assert torch.equal(bits.long() & sampling.MASK, want_bits)
+    k = keys.cpu().numpy().view(np.uint32)
+    s0, s1 = _np_threefry(k[:, 0], k[:, 1], np.zeros(B, np.uint32),
+                          counts.cpu().numpy().astype(np.uint32))
+    i = np.arange(V, dtype=np.uint32)
+    y0, y1 = _np_threefry(s0[:, None], s1[:, None], np.zeros_like(i), i)
+    assert np.array_equal(bits.cpu().numpy().view(np.uint32), y0 ^ y1)
+    scores = sampling.scores(keys, counts, logits, 0.7)
+    want = torch.argmax(scores, dim=-1).to(torch.int32)
+    clear = _ulp_gap(scores) > 4
+    assert torch.equal(tok[clear], want[clear]) and bool(clear.any())
+    flipped = keys.clone()
+    flipped[:, 1] ^= 1
+    fault_bits = torch.zeros_like(bits)
+    sample_k.sample(logits, flipped, counts, live, tok.clone(), 0.7, bits=fault_bits)
+    assert bool((fault_bits != bits).any(dim=-1).all())
+
+
+def test_sample_splits_agree_and_dead_slots_keep_their_token(cuda):
+    """Any split of the vocabulary gives the same tokens (the merge takes the
+    maximum and the smaller index on ties); a slot whose live flag is 0
+    keeps its token; one launch a call."""
+    from repro_torch.kernels import sample as sample_k
+
+    logits, keys, counts = _sample_inputs(cuda, 8, 128256, seed=1)
+    logits[3, 100:200] = 50.0                      # a slot whose draw lies in one split
+    live = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=cuda)
+    outs = []
+    for splits in (1, 2, 7, 33, 64):
+        tok = torch.full((8,), -5, dtype=torch.int32, device=cuda)
+        before = sample_k.launches
+        sample_k.sample(logits, keys, counts, live, tok, 0.7, splits=splits)
+        assert sample_k.launches == before + 1
+        outs.append(tok)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    assert outs[0][1] == -5 and outs[0][4] == -5
+    with pytest.raises(ValueError):
+        sample_k.sample(logits, keys, counts, live, outs[0], 0.0)
+    with pytest.raises(ValueError):
+        sample_k.sample(logits, keys[:4], counts, live, outs[0], 0.7)
+    with pytest.raises(TypeError):
+        sample_k.sample(logits, keys, counts.long(), live, outs[0], 0.7)
+
+
+def _small(kind, cuda):
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    arch = "mamba2-780m" if kind == "ssm" else "llama3.2-1b"
+    model = build_model(reduced(ARCHS[arch], layers=2, d_model=256, vocab=512), device=cuda)
+    return model, init_params(model.param_specs(), 0, device=cuda)
+
+
+def _serve(model, params, prompts, *, graphed=True, max_len=128, **kw):
+    from repro_torch.serve.engine import ServeEngine
+
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        eng = ServeEngine(model, params, batch_slots=4, max_len=max_len, device=model.device,
+                          **kw)
+        # the eager loop, on the card for this comparison only
+        eng._graphed = graphed
+        for p in prompts:
+            eng.submit(p, max_new_tokens=9)
+        done = sorted(eng.run_to_completion(), key=lambda r: r.uid)
+    return [r.generated for r in done], eng
+
+
+_PROMPTS = [[3, 14, 15, 92, 65], [7, 8], list(range(1, 40)), [42], [5] * 17, [9, 9, 9]]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("kind", ["dense", "paged", "ssm"])
+def test_graph_replays_equal_the_eager_loop_bitwise(cuda, kind, k, temperature):
+    """The decode step as a replayed CUDA graph gives the eager loop's
+    streams token for token (the same kernels on the same buffers), and its
+    replays count as launches: each kernel's count equals the loop's."""
+    from repro_torch.kernels import launch_counters
+
+    model, params = _small(kind, cuda)
+    kw = dict(decode_fusion=k, temperature=temperature, seed=3,
+              paged=kind == "paged", page_size=16)
+    counts = {}
+    for graphed in (True, False):
+        before = launch_counters()
+        streams, eng = _serve(model, params, _PROMPTS, graphed=graphed, **kw)
+        after = launch_counters()
+        counts[graphed] = {key: after[key] - v for key, v in before.items()}
+        if graphed:
+            graphed_streams = streams
+            assert eng._graph.captures == 1 and eng._graph.replays == eng.decode_calls - 1
+        else:
+            assert eng._graph is None
+    assert graphed_streams == streams
+    assert counts[True] == counts[False]
+    assert all(len(s) == 9 for s in streams)
+
+
+def test_graph_is_captured_on_the_hsa_worker_thread(cuda):
+    """Routed through an HSA queue whose scheduler's worker thread runs the
+    packets, the decode graph is captured and replayed there (thread-local
+    capture), while this thread keeps launching a counted kernel of its
+    own; the streams equal the direct run's, and the counters hold the
+    other thread's launches and the engine's own, no more and no fewer."""
+    import threading
+
+    from repro_torch.core import hsa
+    from repro_torch.core import ledger as L
+    from repro_torch.core.reconfig import RegionManager
+    from repro_torch.core.roles import RoleLibrary
+    from repro_torch.kernels import matmul as mm
+
+    model, params = _small("dense", cuda)
+    # 512 cache rows: decode attention splits its keys, and keeps counters
+    kw = dict(decode_fusion=4, temperature=0.7, max_len=512)
+    want, direct = _serve(model, params, _PROMPTS, **kw)
+    ledger = L.OverheadLedger()
+    sched = hsa.Scheduler(RegionManager(1, ledger=ledger), RoleLibrary(ledger=ledger),
+                          ledger=ledger)
+    q = sched.add_queue(hsa.Queue(None, 64, name="tf-serving"))
+    sched.start()
+    stop, other = threading.Event(), []
+    g = _gen(cuda, 12)
+    x, w = _randn(g, (8, 512), cuda), _randn(g, (512, 512), cuda, 512 ** -0.5)
+
+    def other_tenant():
+        while not stop.is_set():
+            other.append(float(mm.matmul(x, w).float().sum()))
+
+    before = mm.launches
+    t = threading.Thread(target=other_tenant)
+    t.start()
+    try:
+        got, eng = _serve(model, params, _PROMPTS, hsa_queue=q, hsa_scheduler=sched, **kw)
+    finally:
+        stop.set()
+        t.join()
+        sched.stop()
+    assert got == want and other
+    assert eng._graph.captures == 1 and eng._graph.replays > 0
+    assert eng._graph.captured_on != threading.main_thread().name
+    calls = eng.prefill_calls + eng.chunk_calls + eng.fixup_calls + eng.decode_calls
+    assert mm.launches - before == len(other) + 14 * calls
+    # the two engines' graphs keep counter buffers of their own
+    ours = {b.data_ptr() for b in eng._graph._tile_counters.values()}
+    theirs = {b.data_ptr() for b in direct._graph._tile_counters.values()}
+    assert ours and theirs and not ours & theirs
+
+
+def test_a_fresh_thread_s_first_cuda_work_can_be_a_tensor_map_kernel(cuda):
+    """A thread whose first CUDA work is a kernel that encodes tensor maps
+    (the bf16 matmul on operands it has not seen) launches it: the encoder
+    needs a current context, which no runtime call has bound there yet."""
+    import threading
+
+    from repro_torch.kernels import matmul as mm
+
+    g = _gen(cuda, 11)
+    pairs = [(_randn(g, (8, 512), cuda), _randn(g, (512, 512), cuda, 512 ** -0.5))
+             for _ in range(2)]
+    got, errors = [], []
+
+    def first_work(x, w):
+        try:
+            got.append(mm.matmul(x, w))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(repr(e))
+
+    for x, w in pairs:
+        t = threading.Thread(target=first_work, args=(x, w))
+        t.start()
+        t.join()
+    assert not errors
+    for out, (x, w) in zip(got, pairs):
+        _close(out, mm.plain_matmul(x, w), **BF16_TOL)
+
+
+def test_engine_refuses_a_reallocated_captured_buffer(cuda):
+    """Once the decode graph is captured, a cache replaced under it (as a
+    re-zeroed cache for a new batch would be) makes the next launch raise
+    instead of replaying into freed memory."""
+    from repro_torch.serve.engine import ServeEngine
+
+    model, params = _small("dense", cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        eng = ServeEngine(model, params, batch_slots=2, max_len=64, decode_fusion=2,
+                          device=cuda)
+        eng.submit([1, 2, 3], max_new_tokens=8)
+        eng.step()
+        eng.step()
+        assert eng._graph.captures == 1
+        eng._cache = {key: t.clone() for key, t in eng._cache.items()}
+        with pytest.raises(RuntimeError, match="reallocated"):
+            eng.step()
+
+
+def test_graph_counts_each_kernel_once_a_replay(cuda):
+    """A replay adds the capture's launches to every kernel counter: a
+    dense step of a 2-layer model is 14 matmuls, 5 norms, 2 decode
+    attentions and, sampling, one sample launch."""
+    from repro_torch.kernels import launch_counters
+
+    model, params = _small("dense", cuda)
+    streams, eng = _serve(model, params, [[1, 2, 3]], decode_fusion=8, temperature=0.7)
+    g = eng._graph
+    assert g._counts == {("repro_torch.kernels.matmul", "launches"): 14,
+                         ("repro_torch.kernels.rmsnorm", "launches"): 5,
+                         ("repro_torch.kernels.decode_attention", "launches"): 2,
+                         ("repro_torch.kernels.sample", "launches"): 1}
+    eng._dec.step.zero_()              # the launch's first output row, as an upload sets it
+    before = launch_counters()
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        g.run(3)                       # three replays: every slot is done, all masked
+    after = launch_counters()
+    assert g.captures == 1
+    assert after[("matmul", "launches")] - before[("matmul", "launches")] == 42
+    assert after[("sample", "launches")] - before[("sample", "launches")] == 3
+    assert {k: after[k] - v for k, v in before.items() if after[k] != v} == {
+        ("matmul", "launches"): 42, ("rmsnorm", "launches"): 15,
+        ("decode_attention", "launches"): 6, ("sample", "launches"): 3}

@@ -148,11 +148,18 @@ def test_fixup_leaves_the_prefill_cache_verbatim(tiny):
 
 
 def test_engine_refuses_what_the_slice_lacks(tiny):
+    """Temperature sampling serves (it was refused before the sampler was
+    ported); a fusion depth below 1, a seed outside uint32 and a request
+    past ``max_len`` are refused."""
     model, params = tiny
-    with pytest.raises(NotImplementedError, match="8b"):
-        ServeEngine(model, params, temperature=0.7, device="cpu")
+    eng = ServeEngine(model, params, temperature=0.7, seed=3, device="cpu")
+    eng.submit([5, 9, 2], max_new_tokens=4)
+    (req,) = eng.run_to_completion()
+    assert len(req.generated) == 4 and eng.sample_calls == 4
     with pytest.raises(ValueError):
         ServeEngine(model, params, decode_fusion=0, device="cpu")
+    with pytest.raises(ValueError, match="seed"):
+        ServeEngine(model, params, seed=-1, device="cpu")
     eng = ServeEngine(model, params, max_len=16, device="cpu")
     with pytest.raises(ValueError):
         eng.submit([1] * 10, max_new_tokens=7)

@@ -37,6 +37,7 @@ from repro_torch.kernels import matmul as mm_k
 from repro_torch.kernels import paged_decode_attention as paged_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rms_k
+from repro_torch.kernels import sample as sample_k
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.models import build_model, init_params
 
@@ -190,7 +191,7 @@ def test_serve_phase_runs_three_engines_with_their_launch_counts():
     cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
     model = build_model(cfg, device="cpu")
     params = init_params(model.param_specs(), 0, device="cpu")
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
     with dispatch.use(registry=_counting_registry()):
         res = cs.serve_phase(torch, model, params, kernels, 0)
     runs = res["runs"]
@@ -220,13 +221,13 @@ def test_granite_phase_runs_the_head_dim_128_calls_on_a_small_model():
                               head_dim=128)
     model = build_model(cfg, device="cpu")
     params = init_params(model.param_specs(), 0, device="cpu")
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
     with dispatch.use(registry=_counting_registry(with_others=True)):
         res = cs.granite_phase(torch, model, params, kernels, 0)
     assert res["buckets"] == [8, 64, 256, 512, 512, 512, 512, 512]
     assert res["launches"] == {"matmul": 364, "rmsnorm": 130, "flash_attention": 32,
                                "decode_attention": 18, "paged_decode_attention": 2, "ssd": 0,
-                               "matmul_edge": 26}
+                               "sample": 0, "matmul_edge": 26}
     assert res["paged_equal_dense_bitwise"]
     kinds = ("prefill", "fixup", "decode", "decode_paged", "chunk", "chunk_paged")
     assert [len(res[k]["rel_l2"]) for k in kinds] == [8, 8, 8, 8, 1, 1]
@@ -309,14 +310,15 @@ def test_ssm_serve_phase_counts_48_ssd_a_prefill_scaled_down():
     2 ssd a prefill, 4 matmuls and 5 norms a call, no attention)."""
     model = build_model(SSM_CFG, device="cpu")
     params = init_params(model.param_specs(), 0, device="cpu")
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
     with dispatch.use(registry=_counting_registry()):
         res = cs.ssm_serve_phase(torch, model, params, kernels, 0)
     run = res["runs"]["ssm"]
     calls = run["prefill_calls"] + run["decode_calls"]
     assert run["prefill_calls"] == 16 and run["fixup_calls"] == 0 and run["chunk_calls"] == 0
     assert run["launches"] == {"matmul": 4 * calls, "rmsnorm": 5 * calls, "flash_attention": 0,
-                               "decode_attention": 0, "paged_decode_attention": 0, "ssd": 32}
+                               "decode_attention": 0, "paged_decode_attention": 0, "ssd": 32,
+                               "sample": 0}
     # 8 slots of 2 layers' [8, 16, 16] f32 state and [3, 160] bf16 conv tail
     assert run["state_bytes"] == 8 * 2 * (8 * 16 * 16 * 4 + 3 * 160 * 2)
     assert run["peak_concurrency"] == 8
@@ -437,7 +439,7 @@ def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
     cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
     model = build_model(cfg, device="cpu")
     params = init_params(model.param_specs(), 0, device="cpu")
-    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
     plain_conv = conv_k.conv2d
 
     def counted_conv(x, w):
@@ -569,10 +571,10 @@ def test_decode_split_check_needs_every_served_split_count(monkeypatch):
     assert served == {"decode_attention": {1, 2, 3, 4, 5}, "paged_decode_attention": {2, 3, 4}}
     rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4, 5)]
             + [{"name": "paged_decode_attention", "splits": n} for n in (2, 3, 4)])
-    assert cs.check_decode_splits(rows, served) == {"decode_attention": [1, 2, 3, 4, 5],
-                                                    "paged_decode_attention": [2, 3, 4]}
+    assert cs.check_splits(rows, served) == {"decode_attention": [1, 2, 3, 4, 5],
+                                             "paged_decode_attention": [2, 3, 4]}
     with pytest.raises(AssertionError, match="no row ran"):
-        cs.check_decode_splits(rows[1:], served)
+        cs.check_splits(rows[1:], served)
 
 
 def test_ssd_kernel_work_counts_the_bf16_passes():
@@ -588,3 +590,160 @@ def test_ssd_kernel_work_counts_the_bf16_passes():
     assert cs.ssd_kernel_work(600) == 48 * (9 * (10 * pair + 4 * rows) + 3 * pair + 2 * rows
                                             + 8 * 4 * rows + 2 * rows)
     assert cs.ssd_kernel_work(600, B=2) == 2 * cs.ssd_kernel_work(600)
+
+
+# ---------------------------------------------------------------------------
+# the sampler's check, and the temperature and graph-against-loop phases
+# ---------------------------------------------------------------------------
+
+
+def _sample_case(B=3, V=500, seed=0):
+    import numpy as np
+
+    from repro_torch.serve import sampling
+
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((B, V), generator=g) * 2
+    keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=g, dtype=torch.int32)
+    counts = torch.randint(0, 1000, (B,), generator=g, dtype=torch.int32)
+    live = torch.ones(B, dtype=torch.int32)
+    tok, bits = torch.zeros(B, dtype=torch.int32), torch.zeros((B, V), dtype=torch.int32)
+    sample_k.sample(logits, keys, counts, live, tok, 0.7, bits=bits)
+    flipped = keys.clone()
+    flipped[:, 0] ^= 1 << 7
+    fault_bits = torch.zeros_like(bits)
+    sample_k.sample(logits, flipped, counts, live, tok.clone(), 0.7, bits=fault_bits)
+    want_bits = sampling.random_bits_32(sampling.fold_in(keys, counts), V)
+    np_want = cs.np_bits(np, keys.numpy().view(np.uint32), counts.numpy().astype(np.uint32), V)
+    return tok, bits, sampling.scores(keys, counts, logits, 0.7), want_bits, np_want, fault_bits
+
+
+def test_sample_check_passes_the_plain_version_and_sees_a_flipped_key():
+    """The sampler's check on the CPU, the plain version standing for the
+    kernel: its bits are the numpy Threefry's, its tokens the scores'
+    argmax; a bit changed, a token changed or a fault the check cannot see
+    fails it."""
+    tok, bits, scores, want_bits, np_want, fault_bits = _sample_case()
+    res = cs.sample_err(torch, tok, bits, scores, want_bits, np_want, fault_bits)
+    assert res["rows_compared"] == 3 and res["planted_fault_bits_differ_share"] > 0.99
+    bad = bits.clone()
+    bad[1, 7] ^= 1
+    with pytest.raises(AssertionError, match="plain version's in 1 elements"):
+        cs.sample_err(torch, tok, bad, scores, want_bits, np_want, fault_bits)
+    with pytest.raises(AssertionError, match="disagree"):
+        cs.sample_err(torch, (tok + 1) % 500, bits, scores, want_bits, np_want, fault_bits)
+    with pytest.raises(AssertionError, match="cannot see it"):
+        cs.sample_err(torch, tok, bits, scores, want_bits, np_want, bits.clone())
+    assert cs.SAMPLE_INT_OPS == 75
+
+
+def test_sample_shape_check_needs_every_served_shape_and_split():
+    """Every [B, V] a sampled run gave the sampler needs a row, and every
+    split count its rule picks there must have run; the script's rows
+    cover the shapes its sampled runs give (llama's and Mamba-2's
+    vocabularies, first tokens and every engine's slots)."""
+    runs = [{"sample_shapes": [(1, 128256), (8, 128256)]}, {"sample_shapes": []},
+            {"sample_shapes": [(1, 128256), (16, 128256)]},
+            {"sample_shapes": [(1, 50280), (8, 50280)]}]
+    rows = [{"name": "sample", "shape": f"[{B},{V}]", "splits": sample_k.splits_for(B, V)}
+            for B, V in cs.SAMPLE_SHAPES] + [{"name": "rmsnorm", "shape": "[1,50280]"}]
+    res = cs.check_sample_shapes(rows, runs, sample_k)
+    assert res["served_shapes"] == [(1, 50280), (1, 128256), (8, 50280), (8, 128256),
+                                    (16, 128256)]
+    assert res["splits"] == sorted({r["splits"] for r in rows if r["name"] == "sample"})
+    assert {sample_k.splits_for(*shape) for shape in res["served_shapes"]} == {17, 33, 50, 64}
+    with pytest.raises(AssertionError, match=r"no row held .*\(16, 128256\)"):
+        cs.check_sample_shapes([r for r in rows if r["shape"] != "[16,128256]"], runs, sample_k)
+    wrong = [{**r, "splits": 1} if r["shape"] == "[1,50280]" else r for r in rows]
+    with pytest.raises(AssertionError, match="no row ran"):
+        cs.check_sample_shapes(wrong, runs, sample_k)
+    with pytest.raises(AssertionError, match="no row held"):
+        cs.check_sample_shapes(rows, [{"sample_shapes": []}], sample_k)
+    vocab = {"llama3.2-1b": 128256, "mamba2-780m": 50280}
+    slots = {kw["batch_slots"] for _, kw in cs.TEMPERATURE_RUNS} | {8}   # and busy_phase's
+    served = {(B, vocab["llama3.2-1b"]) for B in slots | {1}} | {(1, 50280), (8, 50280)}
+    assert served <= set(cs.SAMPLE_SHAPES)
+    assert ARCHS["llama3.2-1b"].vocab_size == vocab["llama3.2-1b"]
+    assert ARCHS["mamba2-780m"].vocab_size == vocab["mamba2-780m"]
+
+
+def _counted_sample(monkeypatch):
+    plain = sample_k.sample
+
+    def counted(*args, **kwargs):
+        sample_k.launches += 1
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(sample_k, "sample", counted)
+
+
+def test_temperature_phase_streams_equal_across_k_graph_loop_and_policy(monkeypatch):
+    """The temperature phase on a small model: T = 0.7 streams equal across
+    K 1 and 4, a FusionPolicy, dense and paged and the loop arms (on the
+    CPU every arm is the step function called K times), and the sampler's
+    launches are one a first token and one a decode step."""
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    with dispatch.use(registry=_counting_registry()):
+        res = cs.temperature_phase(torch, model, params, kernels, 0)
+    runs = res["runs"]
+    assert list(runs) == [name for name, _ in cs.TEMPERATURE_RUNS]
+    assert res["streams_equal_across_k_and_graph_loop"]
+    for run in runs.values():
+        assert run["launches"]["sample"] == run["sample_calls"] == 16 + run["decode_calls"]
+        assert run["graph"] is None                  # no graphs on the CPU
+        assert run["sample_shapes"] == [(1, 128), (run["batch_slots"], 128)]
+    assert runs["dense_k4"]["decode_calls"] == runs["dense_k1"]["decode_calls"]
+    assert runs["dense_policy"]["decode_fusion"].startswith("FusionPolicy(max_fusion=8")
+
+
+def test_loop_runs_give_the_graphed_runs_streams_on_a_small_model():
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    with dispatch.use(registry=_counting_registry()):
+        serve = cs.serve_phase(torch, model, params, kernels, 0)
+        res = cs.loop_streams_equal(torch, model, params, kernels, 0, serve["streams"],
+                                    cs.SERVE_RUNS[1:])
+        streams = dict(serve["streams"])
+        streams["paged"] = [s[:-1] + [(s[-1] + 1) % 128] for s in streams["paged"]]
+        with pytest.raises(AssertionError, match="paged: the loop's streams differ"):
+            cs.loop_streams_equal(torch, model, params, kernels, 0, streams, cs.SERVE_RUNS[1:2])
+    assert set(res) == {"paged", "paged_chunked"}
+    assert all(not r["graphed"] for r in res.values())
+
+
+def test_union_counts_overlapping_kernel_spans_once():
+    """Kernels launched with programmatic dependent launch overlap the one
+    ahead; the busy union counts such time once, the sum twice."""
+    from types import SimpleNamespace as NS
+
+    def ev(start, end):
+        return NS(time_range=NS(start=start, end=end))
+
+    spans = [ev(0, 10), ev(8, 12), ev(12, 15), ev(20, 21), ev(20.5, 20.8)]
+    assert cs.union_us(spans) == 16
+    assert cs.union_us([]) == 0
+
+
+def test_trace_steps_split_at_the_marker_kernels():
+    """A trace splits into steps at each ``spin_kernel`` (the marker
+    launched before a step); kernels before the first marker, and the
+    markers themselves, count in no step."""
+    from types import SimpleNamespace as NS
+
+    def ev(t, name):
+        return NS(device_type="DeviceType.CUDA", name=name, time_range=NS(start=t, end=t + 1))
+
+    names = ["mm_stream_kernel<8>", "spin_kernel", "rmsnorm_kernel<>", "mm_stream_kernel<8>",
+             "sample_kernel", "spin_kernel", "rmsnorm_kernel<>", "spin_kernel",
+             "mm_tile_kernel<1,2>", "dec_kernel<64, DenseRows>"]
+    prof = NS(events=lambda: [ev(t, n) for t, n in reversed(list(enumerate(names)))])
+    steps = cs.trace_steps(prof, cs.TRACE_KERNELS, 2)
+    assert [{k: v for k, v in st.items() if v} for st in steps] == [
+        {"rmsnorm": 1}, {"matmul": 1, "decode_attention": 1}]
+    assert len(cs.trace_steps(prof, cs.TRACE_KERNELS, 5)) == 3
