@@ -29,7 +29,12 @@ order; any failure raises and the script exits non-zero:
    exactly or within 2e-4, the bf16 matmul within 2e-2, each beside what a
    planted fault reads by the same measure; rmsnorm in bf16, f16 and f32,
    at an odd D, and bitwise row-invariant (a row's output the same in a
-   launch of 1, 3, 8, 128 or 600 rows and under a permutation); the
+   launch of 1, 3, 8, 128 or 600 rows and under a permutation); the bf16
+   matmul bitwise row-invariant too, at every (K, N) a served prefill runs
+   (a row's bits the same in a launch of 1, 3, 8, 16, 17, 128 or 1024
+   rows, streaming kernel or tile, and under a permutation), and flash
+   attention's chunked rows bitwise the whole prompt's (16- and 128-row
+   chunks at 0, 16, 128 and 512 of a 1024-row prompt, at every split); the
    matmul edge kernels at the untied unembeds' shapes, N not a multiple of
    8, at M = 1, 8 and 16, and at M = 17 and 64, w off a 16-byte boundary
    and K not a multiple of 8, so that every instance of the matmul kernels
@@ -68,7 +73,7 @@ order; any failure raises and the script exits non-zero:
    engine's memory, whose streams must equal the dense ones; paged with
    chunked prefill (128-row chunks) and 16 slots in that same KV memory
    (checked: the pool is all it holds), which must run more than 8
-   requests at once.  Every kernel's launch count is read from each run
+   requests at once and whose streams must equal the dense ones, all 16.  Every kernel's launch count is read from each run
    alone (counts set to 0 just before it) and checked against the model
    calls the engine made.  Decode steps run as replays of one captured CUDA
    graph; a replay counts the captured step's launches.  Then the card's
@@ -82,8 +87,8 @@ order; any failure raises and the script exits non-zero:
    decode-path kernel, the sampler's too, as often as the counters moved);
    the paged and chunked runs as the loop, streams equal to the graphs'.
    Then temperature 0.7, seed 3: dense and paged at K 1 and 4, graph and
-   loop, and a ``FusionPolicy(max_fusion=8)`` run, every stream equal;
-   chunked at K 4, graph equal to loop.
+   loop, a ``FusionPolicy(max_fusion=8)`` run, and chunked at K 4, graph
+   and loop: every stream equal.
 5. tenants: ``hsa_init(num_regions=2)`` on the card and its async
    scheduler's worker thread; the "tf-serving" queue carries the 16
    requests through a dense 8-slot engine (streams must equal phase 4's
@@ -112,6 +117,17 @@ order; any failure raises and the script exits non-zero:
    and one 600-token prompt's prefill into an idle engine by kernel (the
    ssd kernel's part); graph against loop as for llama; and T = 0.7 at K 4,
    graph equal to loop.
+9. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
+   ``repro_torch.bench.table9_traffic``): the poisson, bursty and
+   longtail traces through a 6-slot engine at K 4, chunked (16-row
+   chunks) and whole, on a virtual
+   clock: every row (TTFT and TPOT p50/p99, makespan, throughput,
+   requests) must equal the JAX package's, and every chunked stream its
+   whole stream; a tapered ``ChunkPolicy`` (16 to 64 rows) on the bursty
+   trace, streams equal to whole; then the bursty trace on the wall clock,
+   chunked and whole in turns, its TTFT, TPOT and tokens/s printed,
+   and where its wall time went (steps that prefilled, steps that only
+   decoded).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -502,22 +518,53 @@ def role_err(torch, got, want, fault, tol) -> dict:
 
 
 ROW_INVARIANCE_ROWS = (1, 3, 8, 128)
+#: the bf16 matmul's launches held to a 1024-row launch: a fixup, a decode
+#: step of 8 slots and of 16 (the streaming kernel), the tile kernel's
+#: smallest launch, a 128-row chunk
+MATMUL_INVARIANCE_ROWS = (1, 3, 8, 16, 17, 128)
+#: the (K, N) pairs the served prefills run: llama3.2-1b's four weights,
+#: mamba2-780m's two
+MATMUL_SERVED_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536, 6448),
+                    (3072, 1536))
+#: where the chunks start, and their rows, that flash attention's rows are
+#: held at against a 1024-row prompt's
+FLASH_CHUNK_STARTS = (0, 16, 128, 512)
+FLASH_CHUNK_ROWS = (16, 128)
 
 
-def row_invariance(torch, fn, x, w, perm) -> dict:
+def row_invariance(torch, fn, x, w, perm, rows=ROW_INVARIANCE_ROWS) -> dict:
     """Hold a row-wise kernel ``fn(x, w)`` to its own output on all of x's
-    rows: the rows of a launch of x[:k] for k in ROW_INVARIANCE_ROWS, and of
-    a launch of x[perm], must be bitwise the full launch's rows (raises
-    otherwise)."""
+    rows: the rows of a launch of x[:k] for k in ``rows``, and of a launch
+    of x[perm], must be bitwise the full launch's rows (raises otherwise)."""
     full = fn(x, w)
-    for k in ROW_INVARIANCE_ROWS:
+    for k in rows:
         if not torch.equal(fn(x[:k], w), full[:k]):
             raise AssertionError(f"the rows of a {k}-row launch differ from the same rows of "
                                  f"a {x.shape[0]}-row launch")
     if not torch.equal(fn(x[perm], w), full[perm]):
         raise AssertionError("a permutation of the rows does not permute the output bitwise")
-    return {"D": x.shape[-1], "rows": x.shape[0], "launch_rows": list(ROW_INVARIANCE_ROWS),
-            "permuted": True}
+    return {"D": x.shape[-1], "rows": x.shape[0], "launch_rows": list(rows), "permuted": True}
+
+
+def flash_chunk_invariance(torch, flash, q, k, v, splits) -> dict:
+    """Hold flash attention's chunked rows to the whole prompt's: the
+    queries of a chunk of each of FLASH_CHUNK_ROWS rows at each of
+    FLASH_CHUNK_STARTS, against the keys up to the chunk's end, at the
+    split rule's pick (None) and at each of ``splits``, must be bitwise the
+    rows of one causal launch over all of q (raises otherwise)."""
+    whole = flash(q, k, v, causal=True)
+    for start in FLASH_CHUNK_STARTS:
+        for size in FLASH_CHUNK_ROWS:
+            end = start + size
+            qc = q[:, :, start:end].contiguous()
+            kc, vc = k[:, :, :end].contiguous(), v[:, :, :end].contiguous()
+            for s in (None, *splits):
+                if not torch.equal(flash(qc, kc, vc, causal=True, splits=s),
+                                   whole[:, :, start:end]):
+                    raise AssertionError(f"a {size}-row chunk at {start} (splits {s}) differs "
+                                         f"from the whole prompt's rows")
+    return {"D": q.shape[-1], "rows": q.shape[2], "chunk_starts": list(FLASH_CHUNK_STARTS),
+            "chunk_rows": list(FLASH_CHUNK_ROWS), "splits": ["rule", *splits]}
 
 
 def conv_work(B: int, H: int, W: int, Cin: int, kh: int, kw: int, F: int,
@@ -596,6 +643,25 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         rows.append(row)
         print("  " + json.dumps(row))
 
+    # the bf16 matmul's row invariance first: a row of x gives the same bits
+    # in a launch of 1, 3, 8, 16 or 17 rows (the streaming kernel, the tile
+    # kernel's smallest launch) or 128 (a chunk), or moved by a permutation,
+    # as in a 1024-row launch (the largest bucket), at every (K, N) a served
+    # prefill runs, with and without the silu epilogue: each row's K is
+    # summed in groups(N, K)'s order whatever the kernel, block or split, so
+    # chunked and whole-prompt prefill cannot part here
+    mm_invariance = []
+    for K, N in MATMUL_SERVED_KN:
+        x, w = randn((1024, K)), randn((K, N), K ** -0.5)
+        perm = torch.randperm(1024, generator=gen, device=dev)
+        for act in (None, "silu"):
+            res = row_invariance(torch, lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
+                                 x, w, perm, rows=MATMUL_INVARIANCE_ROWS)
+        mm_invariance.append({**res, "N": N, "groups": list(mm_k.groups(N, K)),
+                              "activations": [None, "silu"]})
+        del x, w
+    print(f"  matmul row invariance holds: {mm_invariance}")
+
     # matmul at the four weight shapes, at every row count the serve runs
     # give it: M = 1 (the first-token fixup), 8 (a decode step of 8 slots,
     # and the 8-row bucket), 16 (a decode step of 16 slots), 64 .. 1024 (the
@@ -615,6 +681,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                     check = (matmul_err(torch, got, want, fault, tol)
                              if act is None and out == torch.bfloat16 else
                              max_err(torch, got, want, tol))
+                    if (M, K, N, act, out) == (8, 2048, 8192, None, torch.bfloat16):
+                        check["row_invariant"] = mm_invariance
                     timed = out == torch.bfloat16 and (act is None or N == 8192)
                     record(
                         "matmul", f"[{M},{K}]x[{K},{N}] act={act} out={str(out)[6:]}", check,
@@ -694,9 +762,23 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # columns past 96 read as zeros) at causal 512, a chunk and ragged 200.
     # The planted fault is read in the rows that see all 64 of its keys
     # (none under the window).
+    # flash attention's chunk invariance first: a chunk's queries (16 or
+    # 128 rows at 0, 16, 128 and 512) against the keys up to its end give
+    # the rows of one causal launch over the 1024-row prompt bitwise, at the
+    # split rule's pick and at every split 1-4: a row's keys are folded in
+    # key groups fixed by the key index alone
+    fa_invariance = []
+    for D in (64, 128):
+        q, k, v = randn((1, 32, 1024, D)), randn((1, 8, 1024, D)), randn((1, 8, 1024, D))
+        fa_invariance.append(flash_chunk_invariance(torch, fa_k.flash_attention, q, k, v,
+                                                    tuple(range(1, fa_k.MAX_SPLITS + 1))))
+        del q, k, v
+    print(f"  flash attention chunk invariance holds: {fa_invariance}")
+
     buckets = [(S, S, True, None) for S in (8, 64, 128, 256, 512, 1024)]
     buckets += [(512, 512, False, None)]
     chunks = [(128, T, True, None) for T in range(256, 1025, 128)]
+    chunks += [(16, 256, True, None), (64, 256, True, None)]  # the traffic phase's chunks
     others = [(256, 256, True, 48), (200, 200, True, None)]
     every = buckets + chunks + others
     d96 = [(512, 512, True, None), (128, 1024, True, None), (200, 200, True, None)]
@@ -720,6 +802,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                   fa_k.plain_flash_attention(q, k, v, **kw), fault,
                                   dropped.sum(dim=-1) == 64)
             check["splits"] = fa_k.split_kv(1, 32, S, T, causal, window, D)
+            if (S, T, causal, window, D) == (512, 512, True, None, 64):
+                check["row_invariant"] = fa_invariance
             timed = ((S, T) in ((512, 512), (1024, 1024), (128, 1024)) and window is None
                      and (D != 96 or (S, T, causal) == (512, 512, True)))
             record("flash_attention", f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={causal}"
@@ -740,17 +824,21 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # 128 with yi's 4 (a group of 8 query heads) and with granite's 8 (a
     # group of 4) at the granite phase's shapes: its decode step of 8 slots
     # against a 512-row cache (each prompt's length plus the new token) and
-    # fixups; at D = 96 with 8 kv heads; and every other instance (D = 16,
-    # 32, 48, 80, 112) at the 8 slots, untimed.
+    # fixups; at D = 96 with 8 kv heads; the traffic phase's decode step (6
+    # slots against 256 rows); and every other instance (D = 16, 32, 48, 80,
+    # 112) at the 8 slots, untimed.
     slots = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
+    traffic = torch.tensor([1, 256, 5, 100, 37, 232], dtype=torch.int32, device=dev)
     granite = torch.tensor([n + 1 for n in GRANITE_LENGTHS], dtype=torch.int32, device=dev)
     cases = []
     for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 300, 400, 600)),
                                        (128, 4, slots, 1024, (5, 45, 600)),
                                        (128, 8, granite, 512, (5, 45, 500)),
                                        (96, 8, slots, 1024, (5, 45)),
+                                       (64, 8, traffic, 256, ()),
                                        *((D, 8, slots, 1024, ()) for D in OTHER_HEAD_DIMS)):
-        cases += [(lengths, T, D, hkv, f"q[8,32,{D}] cache[8,{hkv},{T},{D}] lengths "
+        B = lengths.numel()
+        cases += [(lengths, T, D, hkv, f"q[{B},32,{D}] cache[{B},{hkv},{T},{D}] lengths "
                    f"{int(lengths.min())}..{int(lengths.max())}")]
         cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n, D, hkv,
                    f"q[1,32,{D}] cache[1,{hkv},{n},{D}] length {n}") for n in fixups]
@@ -778,6 +866,26 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                2 * (2 * B * 32 * D + 2 * hkv * n_keys * D), 4 * 32 * D * n_keys, BF16_TC_FLOPS,
                instance=f"dec_kernel<{D},DenseRows>")
         del sets, q, kc, vc, fault
+
+    # decode attention's batch invariance: a sequence's output bits are the
+    # same in a launch of 16 sequences (the chunked run's decode step), of 8
+    # (the dense run's) and alone (a fixup's rows): the split follows the
+    # cache's rows, never the batch
+    q, kc, vc = randn((16, 32, 64)), randn((16, 8, 1024, 64)), randn((16, 8, 1024, 64))
+    lengths = torch.tensor([1 + (67 * i) % 1024 for i in range(16)], dtype=torch.int32,
+                           device=dev)
+    full = dec_k.decode_attention(q, kc, vc, lengths)
+    for n in (8, 1):
+        if not torch.equal(dec_k.decode_attention(q[:n], kc[:n], vc[:n], lengths[:n]), full[:n]):
+            raise AssertionError(f"decode attention: a {n}-sequence launch's rows differ from "
+                                 f"a 16-sequence launch's")
+    dec_invariance = {"D": 64, "T": 1024, "launch_sequences": [16, 8, 1],
+                      "splits": dec_k.split_kv(1024)}
+    print(f"  decode attention batch invariance holds: {dec_invariance}")
+    next(r for r in rows if r["name"] == "decode_attention"
+         and r["shape"] == "q[8,32,64] cache[8,8,1024,64] lengths 1..1024")[
+             "row_invariant"] = dec_invariance
+    del q, kc, vc, full
 
     # paged decode attention: the 8-slot decode step against a pool of
     # 16-row pages through a shuffled table (table width 1024 / 16, the
@@ -1201,17 +1309,16 @@ def check_instances(rows: list[dict], sass: dict) -> set[str]:
 
 
 def served_decode_splits(dec_k, prompt_lengths) -> dict[str, set[int]]:
-    """The key-range split counts ``split_kv`` picks at the shapes the serve
-    and granite phases give the decode kernels (8 kv heads): the dense
-    kernel at 8-slot decode steps (llama 1024 rows at D = 64, granite 512
-    at D = 128), 16 slots' (the chunked run's gathered rows) and every
-    first-token fixup (one sequence against its prompt's n rows); the paged
-    kernel at 8 and 16 slots of 1024 rows and granite's 512."""
-    steps = ((8, 1024, 64), (16, 1024, 64), (8, 512, 128))
-    fixups = ({(n, 64) for n in prompt_lengths} | {(n, 128) for n in GRANITE_LENGTHS})
-    return {"decode_attention": {dec_k.split_kv(B, 8, T, D) for B, T, D in steps}
-            | {dec_k.split_kv(1, 8, n, D) for n, D in fixups},
-            "paged_decode_attention": {dec_k.split_kv(B, 8, T, D) for B, T, D in steps}}
+    """The key-range split counts ``split_kv`` picks (a function of the
+    cache's rows) at the shapes the serve, traffic and granite phases give
+    the decode kernels: the dense kernel at decode steps over 1024 rows
+    (llama's 8 and 16 slots), 512 (granite) and 256 (the traffic phase's 6
+    slots) and every first-token fixup (one sequence against its prompt's n
+    rows); the paged kernel at 1024 and 512 rows."""
+    fixups = set(prompt_lengths) | set(GRANITE_LENGTHS)
+    return {"decode_attention": {dec_k.split_kv(T) for T in (1024, 512, 256)}
+            | {dec_k.split_kv(n) for n in fixups},
+            "paged_decode_attention": {dec_k.split_kv(T) for T in (1024, 512)}}
 
 
 def check_splits(rows: list[dict], served: dict[str, set[int]]) -> dict[str, list[int]]:
@@ -1792,9 +1899,11 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
     streams must equal dense streams token for token (the paged kernel is
     bitwise the dense one over equal rows); the chunked 16-slot run must
     complete everything with more than 8 requests live at once, holding no
-    more KV memory than the dense run (plus the pool's scratch page).  How many
-    of its streams equal the dense run's is printed, not gated: a chunk's
-    matmuls may sum in another order than a whole prompt's."""
+    more KV memory than the dense run (plus the pool's scratch page), and
+    its streams must equal the dense run's, all 16 (raises otherwise): the
+    matmul sums a row's K, and flash attention a row's keys, in an order
+    that does not depend on the rows a launch carries, so a chunk's rows
+    are the whole prompt's bit for bit."""
     lengths, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
     runs, streams = {}, {}
     for name, kw in SERVE_RUNS:
@@ -1811,12 +1920,90 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
     if runs["paged_chunked"]["peak_concurrency"] <= 8:
         raise AssertionError(f"the chunked 16-slot run peaked at "
                              f"{runs['paged_chunked']['peak_concurrency']} live requests")
-    same = sum(a == b for a, b in zip(streams["paged_chunked"], streams["dense"]))
+    if streams["paged_chunked"] != streams["dense"]:
+        differ = [i for i, (a, b) in enumerate(zip(streams["paged_chunked"], streams["dense"]))
+                  if a != b]
+        raise AssertionError(f"chunked streams differ from dense streams in requests {differ} "
+                             f"(prompt lengths {[lengths[i] for i in differ]})")
     return {"prompt_lengths": lengths, "runs": runs, "paged_streams_equal_dense": True,
             "dense_streams": streams["dense"], "streams": streams,
-            "chunked_streams_equal_dense": f"{same} of {len(prompts)}",
+            "chunked_streams_equal_dense": True,
             "launches": {name: sum(r["launches"][name] for r in runs.values())
                          for name in runs["paged"]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: live traffic (Table IX's trace arm)
+# ---------------------------------------------------------------------------
+
+#: the tapered ChunkPolicy of the traffic phase: 64-row chunks, halved for
+#: every two live slots and every two fused steps, at least 16
+TRAFFIC_TAPER = dict(max_chunk=64, min_chunk=16, decode_taper=2, fusion_taper=2)
+#: the traffic phase's kernels: a dense engine's (greedy: no sampler)
+TRAFFIC_KERNELS = ("matmul", "rmsnorm", "flash_attention", "decode_attention")
+
+
+def traffic_phase(torch, model, params, kernels, n: int = 64) -> dict:
+    """Table IX's trace arm (``repro_torch.bench.table9_traffic``) through
+    the port's engine under cuda-strict, three arms:
+
+    - virtual clock, gated: the three traces (poisson and longtail of ``n``
+      requests, bursty of 128), chunked (16-row chunks) and whole; every
+      chunked stream must equal its whole stream, and every row's TTFT and
+      TPOT p50/p99, makespan, throughput and requests must equal the JAX
+      package's (``table9_traffic.EXPECTED``, at n = 64): schedule
+      properties, not the model's or the device's;
+    - a tapered ``ChunkPolicy`` on the bursty trace, gated: its streams must
+      equal the whole run's (its chunks, 16 to 64 rows, follow the traffic);
+    - wall clock, printed, not gated: the bursty trace delivered at its
+      real arrival times, chunked and whole in turns (chunked, whole,
+      chunked, whole); TTFT p50/p99, TPOT p99 and tokens/s from the
+      ledger's ``traffic_split()``; streams must equal the virtual runs'.
+
+    The kernels' launch counts are set to 0 before the arms and read after
+    them: every kernel of the dense path must have launched."""
+    from repro_torch.bench import table9_traffic as t9
+    from repro_torch.core import dispatch
+    from repro_torch.core.policy import ChunkPolicy
+
+    res: dict = {}
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        for mod in kernels:
+            mod.launches = 0
+        t = time.perf_counter()
+        rows, results = t9.run(model, params, n)
+        res["virtual_s"] = time.perf_counter() - t
+        for row in rows:
+            print(f"  {row}")
+        res["virtual"] = {f"{name}_{mode}": t9.table_row(r) for (name, mode), r in results.items()}
+        res["virtual_rows_equal_jax"] = n == 64
+        res["chunked_streams_equal_whole"] = True
+        bursty = t9.make_traces(n)["bursty"]
+        t = time.perf_counter()
+        tapered = t9.replay(model, params, bursty, chunk=ChunkPolicy(**TRAFFIC_TAPER))
+        if tapered["streams"] != results[("bursty", "whole")]["streams"]:
+            raise AssertionError("the tapered ChunkPolicy's streams differ from the whole run's")
+        res["tapered"] = {"policy": TRAFFIC_TAPER, **t9.table_row(tapered),
+                          "streams_equal_whole": True, "s": time.perf_counter() - t}
+        print("  " + json.dumps({"arm": "tapered ChunkPolicy, bursty, virtual clock",
+                                 **res["tapered"]}))
+        wall = []
+        for mode, chunk in (("chunked", t9.CHUNK), ("whole", None)) * 2:
+            r = t9.replay_wall(model, params, bursty, chunk=chunk)
+            if r["streams"] != results[("bursty", mode)]["streams"]:
+                raise AssertionError(f"wall clock, {mode}: streams differ from the virtual run's")
+            row = {"mode": mode, "requests": r["requests"],
+                   "ttft_p50_ms": r["ttft_p50"] * 1e3, "ttft_p99_ms": r["ttft_p99"] * 1e3,
+                   "tpot_p99_ms": r["tpot_p99"] * 1e3, "tokens_per_s": r["throughput"],
+                   "makespan_s": r["makespan"], "steps": r["steps"], "calls": r["calls"]}
+            wall.append(row)
+            print("  " + json.dumps({"arm": "bursty, wall clock", **row}))
+        res["wall"] = wall
+        launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+    res["launches"] = launches
+    if any(launches[name] == 0 for name in TRAFFIC_KERNELS):
+        raise AssertionError(f"a kernel of the path never launched under traffic: {launches}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2380,10 +2567,9 @@ TEMPERATURE_RUNS = (
 def temperature_phase(torch, model, params, kernels, seed: int, runs=TEMPERATURE_RUNS) -> dict:
     """Seeded temperature sampling (T = 0.7, seed 3) through ``runs``: the
     streams are equal across fusion depths and a FusionPolicy's, dense and
-    paged, graph against loop (a request's stream depends only on its key
-    and its logits).  The chunked run's streams equal its own loop's and
-    are compared with the dense ones, not gated (a chunk's matmuls may sum
-    in another order than a whole prompt's)."""
+    paged, chunked and whole-prompt, graph against loop (a request's stream
+    depends only on its key and its logits, and a chunk's rows are the
+    whole prompt's bit for bit); raises otherwise."""
     from repro_torch.core.policy import FusionPolicy
 
     _, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
@@ -2398,18 +2584,13 @@ def temperature_phase(torch, model, params, kernels, seed: int, runs=TEMPERATURE
         print("  " + json.dumps({"run": f"t0.7_{name}", **out[name]}))
     base = streams[runs[0][0]]
     for name, _ in runs:
-        if name.startswith("paged_chunked"):
-            continue
         if streams[name] != base:
             differ = [i for i, (a, b) in enumerate(zip(streams[name], base)) if a != b]
             raise AssertionError(f"T = 0.7: {name}'s streams differ from {runs[0][0]}'s in "
                                  f"requests {differ}")
-    chunked = [n for n, _ in runs if n.startswith("paged_chunked")]
-    if chunked and streams[chunked[0]] != streams[chunked[-1]]:
-        raise AssertionError("T = 0.7: the chunked run's graph and loop streams differ")
-    same = sum(a == b for a, b in zip(streams[chunked[0]], base)) if chunked else None
+    chunked = any(n.startswith("paged_chunked") for n, _ in runs)
     return {"runs": out, "streams_equal_across_k_and_graph_loop": True,
-            "chunked_streams_equal_dense": f"{same} of {len(prompts)}" if chunked else None}
+            "chunked_streams_equal_dense": True if chunked else None}
 
 
 def prefill_busy(torch, model, params, seed: int) -> dict:
@@ -2596,7 +2777,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/8] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/9] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2617,7 +2798,7 @@ def main() -> int:
         for fn, counts in fns.items():
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
 
-    print(f"[2/8] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/9] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -2625,18 +2806,17 @@ def main() -> int:
         rows, served_decode_splits(dec_k, serve_prompts(torch, 128, args.seed)[0]))
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
 
-    print("[3/8] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/9] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
 
-    print("[4/8] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/9] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
-    print(f"  paged streams equal dense: 16 of 16; chunked streams equal dense: "
-          f"{serve_res['chunked_streams_equal_dense']}")
+    print("  paged streams equal dense: 16 of 16; chunked streams equal dense: 16 of 16")
     print("  where a decode step's time goes (torch.profiler, CUDA activity):")
     busy_res = busy_phase(torch, model, params, args.seed)
     print("  where a 1024-bucket prefill's time goes (torch.profiler, CUDA activity):")
@@ -2652,7 +2832,8 @@ def main() -> int:
           "FusionPolicy(max_fusion=8), chunked K 4")
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
 
-    print("[5/8] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+
+    print("[5/9] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -2661,7 +2842,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    print(f"[6/8] model: granite-3-8b at full width, {GRANITE_DEPTH} layers (head_dim 128, "
+    print(f"[6/9] model: granite-3-8b at full width, {GRANITE_DEPTH} layers (head_dim 128, "
           f"untied unembed N = 49155): prefill, fixup, decode dense and paged, chunked "
           f"staging and paged, cuda-strict vs the torch source")
     model = build_model(dataclasses.replace(get_arch("granite-3-8b"), num_layers=GRANITE_DEPTH))
@@ -2670,13 +2851,13 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    print("[7/8] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[7/9] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
 
-    print("[8/8] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[8/9] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -2692,12 +2873,24 @@ def main() -> int:
     ssm_busy_res = busy_phase(torch, model, params, args.seed)
     print("  where a 600-token prefill's time goes, by kernel (torch.profiler, CUDA activity):")
     ssm_prefill_res = prefill_busy(torch, model, params, args.seed)
+    del model, params
+    torch.cuda.empty_cache()
 
-    runs = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
+    print(f"[9/9] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+          f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
+          f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
+          f"clock, in turns")
+    model = build_model(get_arch("llama3.2-1b"))
+    params = init_params(model.param_specs(), args.seed)
+    traffic_res = traffic_phase(torch, model, params, kernels)
+
+    runs = {**serve_res["runs"], "traffic": {"launches": traffic_res["launches"]},
+            "tenants": tenants_res["run"], **ssm_res["runs"],
             "granite": {"launches": granite_res["launches"]},
             **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
             **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()}}
-    sample_shapes = check_sample_shapes(rows, [r for n, r in runs.items() if n != "granite"],
+    sample_shapes = check_sample_shapes(rows, [r for n, r in runs.items()
+                                               if n not in ("granite", "traffic")],
                                         sample_k)
     print(f"  every [B, V] the sampled runs gave the sampler, and every split count there, was "
           f"held against the plain version: {sample_shapes}")
@@ -2832,7 +3025,7 @@ def main() -> int:
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
             "sample_shapes": sample_shapes,
-            "graph_against_loop": graph_res, "temperature": temp_res,
+            "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
             "ssm_temperature": ssm_temp_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,

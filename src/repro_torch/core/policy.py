@@ -6,6 +6,9 @@ as they are (pure dataclasses and functions).
 - :class:`FusionPolicy`: the serving engine's decode fusion depth K a launch,
   from foreign queue depth, the remaining request length and, in feedback
   mode, the observed foreign ``dispatch_wait``.
+- :class:`ChunkPolicy`: the serving engine's prefill chunk a request, fixed
+  at its prefill's start, tapered by the live decode slots and the last
+  launch's fusion depth.
 - :class:`PrefetchPolicy` and :class:`RetryPolicy`: the HSA scheduler's
   lookahead depth and fault recovery.
 - The role planner (:class:`Invocation`, :class:`CostModel`,
@@ -17,9 +20,8 @@ as they are (pure dataclasses and functions).
   simulates LRU residency for each assignment of {generic, fixed_weight} per
   op type and picks the lowest predicted steady-state step time.
 
-The rest of that file comes with the slices that read it: ``ChunkPolicy``'s
-tapers (a fixed chunk size needs no policy), and the preemption, spill,
-integrity and prefix policies.
+The rest of that file comes with the slices that read it: the preemption,
+spill, integrity and prefix policies.
 """
 
 from __future__ import annotations
@@ -142,6 +144,69 @@ class FusionPolicy:
         while p * 2 <= k:
             p *= 2
         return max(self.min_fusion, p)     # the floor wins over pow2 rounding
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPolicy:
+    """Pick the prefill chunk size for continuous batching.
+
+    Whole-prompt prefill makes one monolithic launch per admission: a long
+    prompt monopolizes the compute engine for its full length, so every
+    other request's first token (and every in-flight request's next token)
+    waits behind it — the paper's "simultaneously from other sources" fails
+    exactly at admission time.  Chunked prefill splits the prompt into
+    ``chunk``-token pieces that interleave with the fused decode launches,
+    bounding how long any single prefill piece can occupy the device.
+
+    The trade-off mirrors :class:`FusionPolicy` from the other side: decode
+    fusion makes decode launches *longer* to amortize packet overhead, while
+    prefill chunking makes prefill launches *shorter* to bound latency — and
+    the two meet in the step loop, where one step carries one chunk per
+    prefilling slot plus one fused decode.  ``decode_taper`` shrinks the
+    chunk as live decode slots pile up (their TPOT is what a fat chunk
+    stretches); ``fusion_taper`` shrinks it under deep decode fusion (the
+    step is already long, so the prefill share must not double it).
+
+    Chunk sizes are powers of two for the same reason fusion depths are:
+    every distinct (chunk, start) pair is a distinct jitted trace, and pow2
+    chunks over pow2-bucketed prompts keep the trace count at
+    ``log2(max_len)``-ish instead of per-prompt-length.
+    """
+
+    max_chunk: int = 64
+    min_chunk: int = 16
+    decode_taper: int = 0        # halve chunk per this many live decode slots
+    fusion_taper: int = 0        # halve chunk per this many fused decode steps
+
+    def __post_init__(self) -> None:
+        for name in ("max_chunk", "min_chunk"):
+            v = getattr(self, name)
+            if v < 1 or (v & (v - 1)):
+                raise ValueError(f"{name} must be a power of two >= 1, got {v}")
+        if self.max_chunk < self.min_chunk:
+            raise ValueError(
+                f"max_chunk {self.max_chunk} < min_chunk {self.min_chunk}"
+            )
+        if self.decode_taper < 0 or self.fusion_taper < 0:
+            raise ValueError("tapers must be >= 0")
+
+    @classmethod
+    def of(cls, value: "ChunkPolicy | int | None") -> "ChunkPolicy | None":
+        if value is None or isinstance(value, ChunkPolicy):
+            return value
+        c = int(value)
+        return cls(max_chunk=c, min_chunk=c)
+
+    def choose_chunk(self, *, live_decode: int = 0, fusion_k: int = 1) -> int:
+        """Chunk size for one request, fixed at its prefill start (a chunk
+        that changed mid-prefill would fragment the trace cache for no
+        latency gain — the knob reacts at admission granularity)."""
+        c = self.max_chunk
+        if self.decode_taper > 0 and live_decode > 0:
+            c >>= min(live_decode // self.decode_taper, c.bit_length() - 1)
+        if self.fusion_taper > 0 and fusion_k > 1:
+            c >>= min(fusion_k // self.fusion_taper, c.bit_length() - 1)
+        return max(self.min_chunk, c)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,13 +17,12 @@
 // waiting on its table entry before its load, leaves that bandwidth idle.
 // This design:
 //   - split-KV (flash-decoding): grid (Hkv, B, splits), 1 to 8 splits.  The
-//     host picks `splits` from the cache's T (dense rows, or table width x
-//     page size), B * Hkv, the SM count and the blocks an SM holds (read
-//     from this kernel by repro_decode_blocks_per_sm), never from the
-//     lengths: no host sync, and a grid fixed for CUDA-graph capture (the
-//     rule, kernels/decode_attention.py split_kv, is read from the timed
-//     table of kernels/decode_sweep.py, where no served shape ran fastest
-//     above 8).  Split s owns key tiles [s per, (s+1) per); a split that
+//     host picks `splits` from the cache's T alone (dense rows, or table
+//     width x page size: one split every 8 tiles, kernels/decode_attention.py
+//     split_kv), never from the lengths (no host sync, and a grid fixed for
+//     CUDA-graph capture) nor from B (a row's split, and so its rounding, is
+//     the same in a launch of any number of sequences).  Split s owns key
+//     tiles [s per, (s+1) per); a split that
 //     starts at or past its sequence's length contributes an empty
 //     partial (m = -1e30, l = 0);
 //   - inside a block, the kv head's `group` query heads ride as the rows of

@@ -35,15 +35,25 @@
 //     non-causal mode; tiles no row of the block sees are never loaded; the
 //     softmax runs in base 2 on the special-function unit (the scale folded
 //     with log2 e); l == 0 is guarded at the end.
+// Key groups: a query row's keys are summed in a fixed order that depends on
+// the key index alone, never on S, B or the grid.  The keys fall into groups
+// of GROUP_KEYS; a row's online softmax runs over each group's tiles from
+// fresh (m, l, O), and the groups' states are folded in key order into a
+// running (M, L, A) by one function (`fold`, rounding pinned: no
+// contraction).  A tile or a group that a row cannot see is an exact no-op
+// for it (its probabilities are exp2(-1e30 - m) = 0, its correction 1), so a
+// chunk's query rows, whatever their offset in a q tile, give the whole
+// prompt's rows bit for bit.
 // Split-KV: where the (q tile, head) blocks alone would leave SMs idle, the
-// wrapper splits each block's visible key tiles over `splits` blocks.  Each
-// writes its partial (m, l, unnormalised O) in f32 to a workspace, and the
-// block that arrives last at the tile's counter (an acq_rel atomic; one
-// counter buffer per CUDA stream, left zeroed) merges the splits in split
-// order and stores, so the result depends on the shape alone and the work is
-// one launch.  Blocks of causal q tiles that see the most keys start first
-// (the q tile index runs backwards over the grid), and the kernel is a
-// programmatic dependent launch.
+// wrapper splits each q tile's groups over `splits` blocks (whole groups a
+// block).  A split block writes each of its groups' (m, l, unnormalised O)
+// in f32 to a workspace; the block that arrives last at the tile's counter
+// (an acq_rel atomic; one counter buffer per CUDA stream, left zeroed) folds
+// the groups in key order and stores, so the split changes the time, never
+// a bit, and the work is one launch.  Unsplit, a block folds each group as it
+// ends.  Blocks of causal q tiles that see the most keys start first (the q
+// tile index runs backwards over the grid), and the kernel is a programmatic
+// dependent launch.
 // Bound on the H100: operations at the serve runs' lengths, but at these
 // sizes (S = T = 512: 1.1 GFLOP, 1.1 us at the bf16 rate) a block's serial
 // walk over its key tiles and the card's fill set the time, which is what
@@ -61,10 +71,12 @@ constexpr int BOX = 64;              // head-dim values a TMA box (128 bytes)
 constexpr int Q_BOX_BYTES = BQ * 128;
 constexpr int THREADS = 160;         // the consumer warpgroup, then the producer warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int GROUP_KEYS = 512;      // keys a group: the fixed order of a row's sum
 
 template <int D>
 struct FaCfg {
   static constexpr int BK = D == 64 ? 128 : 64;   // keys a tile
+  static constexpr int TPG = GROUP_KEYS / BK;     // key tiles a group
   static constexpr int BOXES = D / BOX;           // 1 or 2 boxes a row
   static constexpr int KV_BOX_BYTES = BK * 128;
   static constexpr int Q_BYTES = BOXES * Q_BOX_BYTES;
@@ -79,11 +91,37 @@ struct FaCfg {
   static constexpr int MIN_BLOCKS = 2;
 };
 
+// Fold one key group's softmax state (m, l) and unnormalised O of a
+// thread's two rows into the running (M, L, A): M' = max(M, m), L' = L
+// 2^(M-M') + l 2^(m-M'), and A likewise, element j of O read as o(j).  The
+// one place groups meet, whichever memory holds them, with the roundings
+// spelled out.  FRESH: A holds nothing yet and is taken as 0 (+0.0f, as a
+// zeroed A holds), so A may be the very registers o reads.
+template <int D, bool FRESH = false, typename O>
+__device__ __forceinline__ void fold(float (&M)[2], float (&L)[2], float (&A)[D / 2],
+                                     const float (&m)[2], const float (&l)[2], O o) {
+  float fa[2], fb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(M[r], m[r]);
+    fa[r] = ex2(M[r] - mn);
+    fb[r] = ex2(m[r] - mn);
+    M[r] = mn;
+    L[r] = __fmaf_rn(L[r], fa[r], __fmul_rn(l[r], fb[r]));
+  }
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) {
+    const int r = (j % 4) / 2;  // registers 4i, 4i+1: row r0; 4i+2, 4i+3: row r0 + 8
+    const float v = o(j);
+    A[j] = __fmaf_rn(FRESH ? 0.0f : A[j], fa[r], __fmul_rn(v, fb[r]));
+  }
+}
+
 // grid (Hq * splits, q tiles, B): block (h + Hq * split, y, b) owns query
 // rows 64 qt.. of head h, qt = q tiles - 1 - y, and its split's share of the
-// key tiles.  With splits > 1, ws holds splits x [B*Hq, 64 q tiles, D] f32
-// partials, then splits x [B*Hq, 64 q tiles, 2] (m, l); counters one zeroed
-// int a (b, h, q tile).
+// q tile's key groups.  With splits > 1, ws holds groups x [B*Hq, 64 q
+// tiles, D] f32 partials, then groups x [B*Hq, 64 q tiles, 2] (m, l), groups
+// = ceil(ceil(T / BK) / TPG); counters one zeroed int a (b, h, q tile).
 template <int D>
 __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
     fa_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -109,12 +147,16 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
   const int q0 = qt * BQ, kv_offset = T - S;
   const int q_first = q0 + kv_offset;                   // block's first query position
   const int q_last = min(q0 + BQ, S) - 1 + kv_offset;  // block's last real query position
-  // the key tiles some row of the block sees, [lo, hi), and this split's share
+  // the key tiles some row of the block sees, [lo, hi), their groups [g_lo,
+  // g_hi), and this split's share: whole groups, their tiles [t0, t0 + n)
+  constexpr int TPG = C::TPG;
   const int kt = (T + BK - 1) / BK;
   const int hi = causal ? min(kt, q_last / BK + 1) : kt;
   const int lo = window > 0 ? max(0, q_first - window + 1) / BK : 0;
-  const int per = (hi - lo + splits - 1) / splits;
-  const int t0 = min(hi, lo + split * per), n = min(hi, t0 + per) - t0;
+  const int g_lo = lo / TPG, g_hi = (hi + TPG - 1) / TPG;
+  const int per = (g_hi - g_lo + splits - 1) / splits;
+  const int ga = min(g_hi, g_lo + split * per), gb = min(g_hi, ga + per);
+  const int t0 = max(lo, ga * TPG), n = max(0, min(hi, gb * TPG) - t0);
 
   if (threadIdx.x == 0) {
     prefetch_tensormap(&tq);
@@ -164,99 +206,25 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
   const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
   const int r0 = (tid / 32) * 16 + lane / 4;
   const int qpos[2] = {q0 + r0 + kv_offset, q0 + r0 + 8 + kv_offset};
-  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
-  float l[2] = {0.0f, 0.0f};
+  // (m, l, acc): the current group's state; every group but an unsplit
+  // block's last goes to the workspace when it ends, and at the end they are
+  // folded in key order into (M, L, A), A in acc's registers
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, M[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+  float l[2] = {0.0f, 0.0f}, L[2] = {0.0f, 0.0f};
   float acc[D / 2], sc[BK / 2];
 #pragma unroll
   for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
 #pragma unroll
   for (int j = 0; j < BK / 2; ++j) sc[j] = 0.0f;
 
-  if (n > 0) mbar_wait(qbar, 0);
-  for (int i = 0; i < n; ++i) {
-    const int s = i % C::STAGES, phase = (i / C::STAGES) & 1, k0 = (t0 + i) * BK;
-    const unsigned char* st = ring + s * C::STAGE_BYTES;
-    mbar_wait(full_k + s, phase);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma<BK, 0, 0>(sc, wgmma_desc(qs + (kk / 4) * Q_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
-                      wgmma_desc(st + (kk / 4) * C::KV_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
-                      kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    if (lane == 0) mbar_arrive(empty_k + s);       // this warp is done with K
-
-    // a mask can bite only in the tile holding T, the block's diagonal and
-    // the window's edge: uniform over the block
-    const bool masked = k0 + BK > T || (causal && k0 + BK - 1 > q_first) ||
-                        (window > 0 && k0 <= q_last - window);
-    float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = sc[4 * j + e] * scale_log2;
-        if (masked) {
-          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1), qp = qpos[e >> 1];
-          bool ok = kpos < T;
-          if (causal) ok = ok && kpos <= qp;
-          if (window > 0) ok = ok && kpos > qp - window;
-          val = ok ? val : REPRO_NEG_INF;
-        }
-        sc[4 * j + e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float corr[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-    }
-    // P rounded to bf16 as the A fragments of P V: keys 16 (j/2) + 8 (j%2)
-    // + 2 t4 of rows r0 and r0 + 8 are registers 2 (j%2) and 2 (j%2) + 1
-    // of the k16 slice j / 2
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float p0 = ex2(sc[4 * j] - m[0]), p1 = ex2(sc[4 * j + 1] - m[0]);
-      const float p2 = ex2(sc[4 * j + 2] - m[1]), p3 = ex2(sc[4 * j + 3] - m[1]);
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
-      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= corr[0];
-      acc[4 * j + 1] *= corr[0];
-      acc[4 * j + 2] *= corr[1];
-      acc[4 * j + 3] *= corr[1];
-    }
-
-    mbar_wait(full_v + s, phase);
-    const uint64_t dv = wgmma_desc(st + C::TILE_BYTES, C::KV_BOX_BYTES, 1024);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, 1>(acc, pa[kk], dv + 128 * kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);                                 // live until the product has read them
-    if (lane == 0) mbar_arrive(empty_v + s);       // and with V
-  }
-
   const size_t bh = (size_t)b * Hq + h;
-  if (splits > 1) {
-    // the partial: unnormalised O, then (m, l) a row, in [B*Hq, S_pad] rows
-    const size_t rows = gridDim.z * (size_t)Hq * n_qt * BQ;
-    const size_t row = bh * n_qt * BQ + q0 + r0;
-    float* const mls = ws + splits * rows * D;  // (m, l) of split sp's row r at (sp rows + r) 2
-    float* part = ws + split * rows * D;
+  // the rows of ws, this thread's first row, where (m, l) begin
+  const size_t rows = gridDim.z * (size_t)Hq * n_qt * BQ;
+  const size_t row = bh * n_qt * BQ + q0 + r0;
+  float* const mls = ws + (size_t)(kt + TPG - 1) / TPG * rows * D;
+  // group g's state into the workspace, and the next group from fresh
+  const auto store_group = [&](int g) {
+    float* part = ws + (size_t)g * rows * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * t4;
@@ -266,12 +234,118 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
              make_float2(acc[4 * j + 2], acc[4 * j + 3]));
     }
     if (t4 == 0) {
-      __stcg(reinterpret_cast<float2*>(mls + (split * rows + row) * 2), make_float2(m[0], l[0]));
-      __stcg(reinterpret_cast<float2*>(mls + (split * rows + row + 8) * 2),
-             make_float2(m[1], l[1]));
+      __stcg(reinterpret_cast<float2*>(mls + (g * rows + row) * 2), make_float2(m[0], l[0]));
+      __stcg(reinterpret_cast<float2*>(mls + (g * rows + row + 8) * 2), make_float2(m[1], l[1]));
     }
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
+    m[0] = m[1] = REPRO_NEG_INF;
+    l[0] = l[1] = 0.0f;
+  };
+  // fold group g from the workspace (its m, l a row, then O streamed)
+  const auto fold_stored = [&](int g) {
+    const float* ps = ws + (size_t)g * rows * D;
+    float mg[2], lg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(mls + (g * rows + row + 8 * r) * 2));
+      mg[r] = v.x, lg[r] = v.y;
+    }
+    fold<D>(M, L, acc, mg, lg, [&](int j) {
+      const int col = 8 * (j / 4) + 2 * t4 + (j % 2);
+      return __ldcg(ps + (row + 8 * ((j % 4) / 2)) * D + col);
+    });
+  };
+
+  if (n > 0) mbar_wait(qbar, 0);
+  // group by group: a group that ends before the walk does goes to the
+  // workspace between the groups' tile loops, never inside one
+  for (int i = 0, g = t0 / TPG; i < n; ++g) {
+    const int i_end = min(n, (g + 1) * TPG - t0);
+    if (i > 0) store_group(g - 1);
+    for (; i < i_end; ++i) {
+      const int s = i % C::STAGES, phase = (i / C::STAGES) & 1, k0 = (t0 + i) * BK;
+      const unsigned char* st = ring + s * C::STAGE_BYTES;
+      mbar_wait(full_k + s, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma<BK, 0, 0>(sc, wgmma_desc(qs + (kk / 4) * Q_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
+                        wgmma_desc(st + (kk / 4) * C::KV_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (lane == 0) mbar_arrive(empty_k + s);       // this warp is done with K
+
+      // a mask can bite only in the tile holding T, the block's diagonal and
+      // the window's edge: uniform over the block
+      const bool masked = k0 + BK > T || (causal && k0 + BK - 1 > q_first) ||
+                          (window > 0 && k0 <= q_last - window);
+      float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float val = sc[4 * j + e] * scale_log2;
+          if (masked) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1), qp = qpos[e >> 1];
+            bool ok = kpos < T;
+            if (causal) ok = ok && kpos <= qp;
+            if (window > 0) ok = ok && kpos > qp - window;
+            val = ok ? val : REPRO_NEG_INF;
+          }
+          sc[4 * j + e] = val;
+          mx[e >> 1] = fmaxf(mx[e >> 1], val);
+        }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // P rounded to bf16 as the A fragments of P V: keys 16 (j/2) + 8 (j%2)
+      // + 2 t4 of rows r0 and r0 + 8 are registers 2 (j%2) and 2 (j%2) + 1
+      // of the k16 slice j / 2
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = ex2(sc[4 * j] - m[0]), p1 = ex2(sc[4 * j + 1] - m[0]);
+        const float p2 = ex2(sc[4 * j + 2] - m[1]), p3 = ex2(sc[4 * j + 3] - m[1]);
+        sum[0] += p0 + p1;
+        sum[1] += p2 + p3;
+        pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
+        pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+
+      mbar_wait(full_v + s, phase);
+      const uint64_t dv = wgmma_desc(st + C::TILE_BYTES, C::KV_BOX_BYTES, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, 1>(acc, pa[kk], dv + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);                                 // live until the product has read them
+      if (lane == 0) mbar_arrive(empty_v + s);       // and with V
+    }
+  }
+
+  const int g_last = (t0 + n - 1) / TPG;  // the block's last group (n > 0)
+  if (splits > 1) {
+    if (n > 0) store_group(g_last);
     __threadfence();
-    // the barrier orders every thread's partial before thread 0's release;
+    // the barrier orders every thread's partials before thread 0's release;
     // its acquire orders the other splits' partials before the reads below
     bar_sync_first<128>();
     int* counter = counters + bh * n_qt + qt;
@@ -285,41 +359,28 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
     }
     bar_sync_first<128>();
     if (!*flag) return;
-    // the last block: merge the splits in split order 0..splits-1, its own
-    // included, from the workspace (the same floats whichever block is last)
-    float mm[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
-    for (int sp = 0; sp < splits; ++sp)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) mm[r] = fmaxf(mm[r], __ldcg(mls + (sp * rows + row + 8 * r) * 2));
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
-    l[0] = l[1] = 0.0f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float* ps = ws + sp * rows * D;
-      float f[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float2 v =
-            __ldcg(reinterpret_cast<const float2*>(mls + (sp * rows + row + 8 * r) * 2));
-        f[r] = ex2(v.x - mm[r]);
-        l[r] += v.y * f[r];
-      }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        const float2 a = __ldcg(reinterpret_cast<const float2*>(ps + row * D + col));
-        const float2 c = __ldcg(reinterpret_cast<const float2*>(ps + (row + 8) * D + col));
-        acc[4 * j] += a.x * f[0];
-        acc[4 * j + 1] += a.y * f[0];
-        acc[4 * j + 2] += c.x * f[1];
-        acc[4 * j + 3] += c.y * f[1];
-      }
-    }
+    // the last block: fold the q tile's groups in key order from the
+    // workspace (the same floats whichever block is last)
+    for (int g = g_lo; g < g_hi; ++g) fold_stored(g);
     if (tid == 0) *counter = 0;  // for the next launch on this stream
+  } else if (n > 0 && t0 / TPG == g_last) {
+    // one group: fold it from its registers (the first fold, into zero)
+    fold<D, true>(M, L, acc, m, l, [&](int j) { return acc[j]; });
+  } else if (n > 0) {
+    // the last group waits in the ring, free now (every tile is consumed),
+    // each thread's values its own (element j of thread tid at j * 128 +
+    // tid), while its registers fold the stored groups and then it
+    float* last = reinterpret_cast<float*>(ring);
+    bar_sync_first<128>();  // every warp's last product has read V from the ring
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) last[j * 128 + tid] = acc[j], acc[j] = 0.0f;
+    const float ml[2] = {m[0], m[1]}, ll[2] = {l[0], l[1]};
+    for (int g = t0 / TPG; g < g_last; ++g) fold_stored(g);
+    fold<D>(M, L, acc, ml, ll, [&](int j) { return last[j * 128 + tid]; });
   }
 
-  const float l0 = l[0] == 0.0f ? 1.0f : l[0];
-  const float l1 = l[1] == 0.0f ? 1.0f : l[1];
+  const float l0 = L[0] == 0.0f ? 1.0f : L[0];
+  const float l1 = L[1] == 0.0f ? 1.0f : L[1];
   __nv_bfloat16* ob = o + bh * S * d;
   const int row0 = q0 + r0, row1 = row0 + 8;
 #pragma unroll
@@ -363,8 +424,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* w
 // q [B,Hq,S,D], k/v [B,Hkv,T,D], o [B,Hq,S,D], all bf16, contiguous and
 // 16-byte aligned, D a multiple of 16 from 16 to 128, S <= T, Hq % Hkv ==
 // 0.  window <= 0 means no window.  splits: key-range splits a (q tile,
-// head), 1-4; with splits > 1, ws holds splits * B * Hq * 64 ceil(S / 64) *
-// (Di + 2) floats (Di = 64 for D <= 64, else 128: the instance) and
+// head), 1-4.  With splits > 1 or T > 512, ws holds groups * B * Hq * 64
+// ceil(S / 64) * (Di + 2) floats (Di = 64 for D <= 64, else 128: the
+// instance; groups = ceil(T / 512), the key groups); with splits > 1,
 // counters B * Hq * ceil(S / 64) zeroed ints used by no other stream.  One
 // launch.  Returns the cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -372,7 +434,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int T, int D, float scale, int causal, int window,
                                      int splits, void* stream) {
   if (D < 16 || D > 128 || D % 16 || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T ||
-      splits < 1 || splits > 4 || (splits > 1 && (ws == nullptr || counters == nullptr)))
+      splits < 1 || splits > 4 || (splits > 1 && counters == nullptr) ||
+      ((splits > 1 || T > GROUP_KEYS) && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)

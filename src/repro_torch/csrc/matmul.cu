@@ -25,12 +25,20 @@
 // its share of K through a ring of six 16 KB stages (two blocks an SM: up to
 // 192 KB in flight an SM), one producer warp and one consumer warpgroup.
 //
-// Both kernels split K across blocks where the output tiles alone cannot
-// fill the card.  The partials are summed in the same launch: each split
-// writes its f32 tile to a workspace, and the block that arrives last at
-// the tile's counter sums the splits in split order 0..s-1 (so the result
-// depends on the shape alone, never on timing), applies the epilogue,
-// stores, and resets the counter to 0 for the next launch on the stream.
+// A row's K is summed in a fixed order that depends on (N, K) alone, never
+// on M, the tile or the kernel: K's 64-deep slices fall into groups (the
+// caller's `group` slices each, kernels/matmul.py groups()), each group is
+// summed from zero on the tensor cores, and the groups' sums are added in
+// order, ((0 + G0) + G1) + ...  So a prompt's row comes out bitwise the
+// same whether the prompt is prefilled whole or in chunks of any size.
+// Where the output tiles alone cannot fill the card, K is split across
+// blocks one group a block: each writes its group's f32 tile to a
+// workspace, and the block that arrives last at the tile's counter adds
+// them in group order 0..s-1 (never in arrival order), applies the
+// epilogue, stores, and resets the counter to 0 for the next launch on the
+// stream.  Unsplit, a tile kernel block adds each group into a running
+// total in registers as it ends (the 128 x 256 tile has no registers for
+// one, so it runs only where K is one group).
 //
 // The epilogue runs from an f32 copy of the tile in shared memory (the
 // ring's space, once every product has read it): silu or tanh-gelu in f32,
@@ -235,13 +243,17 @@ __device__ __forceinline__ void finish_tile(const float* stg, void* out, float* 
 }
 
 // Tile kernel: grid (N tiles, M tiles, splits); block (n, m, s) owns rows
-// BM m.., columns BN n.. and K slices [s per_split, (s+1) per_split).
+// BM m.., columns BN n.. and K slices [s per_split, (s+1) per_split): one
+// group of `group` slices a block when split, else every group in turn.
 template <int BM, int BN>
 __global__ void __launch_bounds__(TileCfg<BM, BN>::THREADS, 1)
     mm_tile_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                    void* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                   int M, int N, int K, int act, int out_f32, int per_split) {
+                   int M, int N, int K, int act, int out_f32, int per_split, int group) {
   using C = TileCfg<BM, BN>;
+  // a running total of the groups beside the accumulator: up to 128 x 128
+  // (64 + 64 registers a thread); the caller never gives 128 x 256 two groups
+  constexpr bool TOTAL = BN <= 128;
   constexpr int NC = 128 * C::CONSUMERS;  // consumer threads
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -287,25 +299,50 @@ __global__ void __launch_bounds__(TileCfg<BM, BN>::THREADS, 1)
     // (384 threads at the 168 registers ptxas gives them: 128 x 128 freed
     // by the producer pay for 256 x 64 more; one consumer needs no more)
     if constexpr (C::CONSUMERS == 2) setmaxnreg_inc<232>();
-    float acc[BN / 2];
+    float acc[BN / 2], tot[TOTAL ? BN / 2 : 1];
 #pragma unroll
     for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
-    for (int i = 0; i < nk; ++i) {
-      const int s = i % C::STAGES;
-      mbar_wait(full + s, (i / C::STAGES) & 1);
-      const unsigned char* st = smem + s * C::STAGE_BYTES;
-      const uint64_t da = wgmma_desc(st + wg * 64 * 128, 0, 1024);
-      const uint64_t db = wgmma_desc(st + C::A_BYTES, BOX_BYTES, 1024);
-      wgmma_fence();
+    if constexpr (TOTAL) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN, 0, 1>(acc, da + 2 * kk, db + 128 * kk, 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done: release it
-      fence_regs(acc);
-      if (i > 0 && threadIdx.x % 32 == 0) mbar_arrive(empty + (i - 1) % C::STAGES);
+      for (int j = 0; j < BN / 2; ++j) tot[j] = 0.0f;
     }
-    wgmma_wait<0>();
-    fence_regs(acc);
+    // group by group: each summed from zero, then added to the total; the
+    // accumulator is touched only between the groups' product loops, never
+    // inside one, so ptxas keeps the products pipelined
+    for (int g0 = 0; g0 < nk; g0 += group) {
+      const int g1 = min(nk, g0 + group);
+      if constexpr (TOTAL) {
+        if (g0 > 0) {
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+        }
+      }
+      for (int i = g0; i < g1; ++i) {
+        const int s = i % C::STAGES;
+        mbar_wait(full + s, (i / C::STAGES) & 1);
+        const unsigned char* st = smem + s * C::STAGE_BYTES;
+        const uint64_t da = wgmma_desc(st + wg * 64 * 128, 0, 1024);
+        const uint64_t db = wgmma_desc(st + C::A_BYTES, BOX_BYTES, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN, 0, 1>(acc, da + 2 * kk, db + 128 * kk, 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        fence_regs(acc);
+        if (i > g0 && threadIdx.x % 32 == 0) mbar_arrive(empty + (i - 1) % C::STAGES);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (threadIdx.x % 32 == 0) mbar_arrive(empty + (g1 - 1) % C::STAGES);
+      if constexpr (TOTAL) {
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) tot[j] += acc[j];
+      }
+    }
+    if constexpr (TOTAL) {
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] = tot[j];
+    }
     bar_sync_first<NC>();  // every product has read the ring: reuse it for the tile
 
     float* stg = reinterpret_cast<float*>(smem);
@@ -1293,13 +1330,13 @@ cudaError_t allow_smem(Kernel k, int bytes) {
 template <int BM, int BN>
 cudaError_t launch_tile(const CUtensorMap& tx, const CUtensorMap& tw, void* out, float* ws,
                         int* counters, int M, int N, int K, int act, int out_f32, int splits,
-                        int per, cudaStream_t st) {
+                        int per, int group, cudaStream_t st) {
   using C = TileCfg<BM, BN>;
   static const cudaError_t set = allow_smem(mm_tile_kernel<BM, BN>, C::SMEM);
   if (set != cudaSuccess) return set;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   return launch_overlapped(mm_tile_kernel<BM, BN>, grid, C::THREADS, C::SMEM, st, tx, tw, out,
-                           ws, counters, M, N, K, act, out_f32, per);
+                           ws, counters, M, N, K, act, out_f32, per, group);
 }
 
 template <int MP>
@@ -1359,29 +1396,35 @@ cudaError_t launch_f32_stream(const CUtensorMap& tw, const void* x, const void* 
 // x [M,K] bf16, w [K,N] bf16, out [M,N] bf16 (out_f32 = 0) or f32, all
 // 16-byte aligned, K and N multiples of 8.  kernel 0: the tile kernel, a
 // block_m x block_n block of 128 x 256, 128 x 128, 128 x 64 or 64 x 64;
-// kernel 1: weight streaming, M <= block_m (8 or 16), block_n 128.  splits:
-// K slices of 64 split so that none is empty (ceil(kt / ceil(kt / splits))
-// == splits, kt = ceil(K / 64)).  With splits > 1, ws holds splits * M * N
+// kernel 1: weight streaming, M <= block_m (8 or 16), block_n 128.  group:
+// K slices of 64 a group (the sum order, kt = ceil(K / 64) slices in
+// ceil(kt / group) groups, none empty); splits: 1, or one group a block
+// (splits == ceil(kt / group)).  The streaming kernel and the 128 x 256
+// tile take one group a block.  With splits > 1, ws holds splits * M * N
 // floats and counters one zeroed int an output tile, used by no other
-// stream.  One launch.  Returns a cudaError_t (0 on
-// success).
+// stream.  One launch.  Returns a cudaError_t (0 on success).
 extern "C" int repro_matmul(const void* x, const void* w, void* out, void* ws, void* counters,
                             int M, int N, int K, int act, int out_f32, int kernel, int block_m,
-                            int block_n, int splits, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || splits < 1 || act < 0 || act > 2)
+                            int block_n, int splits, int group, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || splits < 1 || group < 1 || act < 0 ||
+      act > 2)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
        reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const int kt = (K + BK - 1) / BK;
-  const int per = (kt + splits - 1) / splits;
-  if ((kt + per - 1) / per != splits || (splits > 1 && (ws == nullptr || counters == nullptr)))
+  group = group < kt ? group : kt;
+  const int groups = (kt + group - 1) / group;
+  const int per = splits == 1 ? kt : group;
+  if ((splits > 1 && splits != groups) || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const bool tile = kernel == 0 && ((block_m == 128 && (block_n == 128 || block_n == 256)) ||
                                     ((block_m == 64 || block_m == 128) && block_n == 64));
   const bool strm =
       kernel == 1 && block_n == STREAM_BN && M <= block_m && (block_m == 8 || block_m == 16);
   if (!tile && !strm) return (int)cudaErrorInvalidValue;
+  // no running total in these: a block holds one group
+  if ((strm || block_n == 256) && per != group) return (int)cudaErrorInvalidValue;
   CUtensorMap tx, tw;
   // x [M][K] in boxes of block_m rows of 64, w [K][N] in boxes of 64 rows
   if (!tensor_map(&tx, 2, x, K, M, 1, BK, block_m, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
@@ -1391,12 +1434,14 @@ extern "C" int repro_matmul(const void* x, const void* w, void* out, void* ws, v
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   if (tile) {
-    if (block_m == 64)
-      return (int)launch_tile<64, 64>(tx, tw, out, wsf, cnt, M, N, K, act, out_f32, splits, per, st);
+    const auto run = [&](auto launch) {
+      return (int)launch(tx, tw, out, wsf, cnt, M, N, K, act, out_f32, splits, per, group, st);
+    };
+    if (block_m == 64) return run(launch_tile<64, 64>);
     switch (block_n) {
-      case 64: return (int)launch_tile<128, 64>(tx, tw, out, wsf, cnt, M, N, K, act, out_f32, splits, per, st);
-      case 128: return (int)launch_tile<128, 128>(tx, tw, out, wsf, cnt, M, N, K, act, out_f32, splits, per, st);
-      default: return (int)launch_tile<128, 256>(tx, tw, out, wsf, cnt, M, N, K, act, out_f32, splits, per, st);
+      case 64: return run(launch_tile<128, 64>);
+      case 128: return run(launch_tile<128, 128>);
+      default: return run(launch_tile<128, 256>);
     }
   }
   return (int)(block_m == 8

@@ -8,8 +8,11 @@ and an l == 0 guard.
 
 What bounds it on the H100: bytes — each cached key and value is read once
 for a handful of flops.  The design splits each (sequence, kv head)'s keys
-over :func:`split_kv` blocks (flash-decoding), picked from the shapes and the
-card only, so the grid never depends on the lengths; each block carries the kv
+over :func:`split_kv` blocks (flash-decoding), a count that follows the
+cache's rows alone: never the lengths, so the grid stays fixed for a CUDA
+graph, and never the batch, so a row's result is the same whatever number
+of sequences shares its launch (a decode step of 8 slots, of 16, or a
+first-token fixup of one); each block carries the kv
 head's whole query group as the rows of one tensor-core tile so the cache
 is read once for all of them, deals its 32-key tiles to four warps that
 keep two tiles each in flight by ``cp.async`` and merge their softmax
@@ -50,10 +53,12 @@ NEG_INF = -1e30
 #: keys a warp tile of the kernel; splits are whole tiles
 TILE = 32
 #: key-range splits a (sequence, kv head), at most (the kernel's cap too:
-#: no shape of ``kernels/decode_sweep.py`` ran fastest above 8); a split
-#: takes a multiple of :data:`MIN_SPLIT_TILES` tiles, one a warp
+#: no shape of ``kernels/decode_sweep.py`` ran fastest above 8)
 MAX_SPLITS = 8
-MIN_SPLIT_TILES = 4
+#: 32-key tiles a split takes, two a warp (256 keys), up to MAX_SPLITS
+#: splits: fixed, so the split, and with it the rounding, depends on the
+#: cache's rows alone
+SPLIT_TILES = 8
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 
@@ -71,22 +76,16 @@ def blocks_per_sm(head_dim: int) -> int:
     return n
 
 
-def split_kv(B: int, Hkv: int, T: int, head_dim: int = 64, resident: int | None = None) -> int:
+def split_kv(T: int) -> int:
     """Key-range splits a (sequence, kv head) for a cache of T rows (dense
-    rows, or table width times page size): as many as give each of a
-    split's four warps the same whole number of 32-key tiles
-    (:data:`MIN_SPLIT_TILES` a split, or a multiple) as few times as one
-    wave of resident blocks allows (``resident`` on each SM,
-    :func:`blocks_per_sm` unless given: a second wave would start after the
-    first's merges), at most :data:`MAX_SPLITS`.  ``kernels/decode_sweep.py``
-    times every count at the served shapes beside this pick (``PERF.md``
-    quotes it).  It reads shapes only, never the lengths: no host sync, and
-    the grid stays fixed for a CUDA graph."""
-    resident = blocks_per_sm(head_dim) if resident is None else resident
-    tiles = -(-T // TILE)
-    most = max(1, min(MAX_SPLITS, resident * native.sm_count() // (B * Hkv)))
-    per = MIN_SPLIT_TILES * -(-tiles // (MIN_SPLIT_TILES * most))
-    return -(-tiles // per)
+    rows, or table width times page size): one for every
+    :data:`SPLIT_TILES` 32-key tiles, at most :data:`MAX_SPLITS`.  A
+    function of T alone: the lengths would need a host sync and change the
+    grid under a CUDA graph, and the batch would change a row's rounding
+    with the number of slots (an 8-slot and a 16-slot engine must give a
+    sequence the same tokens).  At llama's 1024 rows it is 4, what
+    ``kernels/decode_sweep.py`` timed fastest at 8 slots."""
+    return max(1, min(MAX_SPLITS, math.ceil(math.ceil(T / TILE) / SPLIT_TILES)))
 
 
 def split_ranges(T: int, splits: int) -> list[tuple[int, int]]:
@@ -184,7 +183,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if Hq % Hkv or Hq // Hkv > 16:
         raise ValueError(f"decode_attention: needs Hq / Hkv a whole number <= 16; got "
                          f"Hq={Hq} Hkv={Hkv}")
-    splits = check_splits("decode_attention", splits, B, Hkv, T, D)
+    splits = check_splits("decode_attention", splits, T)
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
@@ -199,11 +198,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out
 
 
-def check_splits(op: str, splits: int | None, B: int, Hkv: int, T: int, D: int) -> int:
+def check_splits(op: str, splits: int | None, T: int) -> int:
     """``splits``, or :func:`split_kv`'s pick where it is None; raises unless
     it is 1 .. min(:data:`MAX_SPLITS`, ceil(T / 32))."""
     if splits is None:
-        return split_kv(B, Hkv, T, D)
+        return split_kv(T)
     most = min(MAX_SPLITS, -(-T // TILE))
     if not 1 <= splits <= most:
         raise ValueError(f"{op}: splits must be 1 .. {most} for T={T}, got {splits}")

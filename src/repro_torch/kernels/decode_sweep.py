@@ -86,7 +86,7 @@ def sweep(seed: int = 0) -> list[dict]:
                 raise AssertionError(f"splits {splits} at {(kind, D, hkv, T, B)}: row rel L2 "
                                      f"{rel}")
             timed[splits] = time_us(lambda *a, s=splits: call(*a, s=s), sets)
-        chosen = dec.split_kv(B, hkv, T, D)
+        chosen = dec.split_kv(T)
         best = min(timed, key=timed.get)
         row = {"kind": kind, "D": D, "hkv": hkv, "T": T, "B": B, "lengths": list(lens),
                "splits_us": timed, "split_kv": chosen, "fastest": best,

@@ -23,14 +23,22 @@ keys start first.  A key tile is 128 keys at D = 64 and 64 at D = 128 (its
 registers).  P is rounded to bf16 for the P V product; that rounding
 is why the kernel is held to its plain version within a bf16 tolerance.
 
+Key groups (:data:`GROUP_KEYS`): a query row's keys are summed in an order
+fixed by the key index alone.  The keys fall into groups of 512; a row's
+online softmax runs over each group from fresh, and the groups' states are
+folded in key order by one function.  A key tile or a group that a row
+cannot see is an exact no-op for it, so a query row's result does not
+depend on S, B, the grid or where its q tile starts: a chunk's rows (of any
+size, at any start) are bitwise the whole prompt's.
+
 Split-KV (:func:`split_kv`): where the (q tile, head) blocks alone would
 leave SMs idle and each walks many key tiles — a 128-row chunk against
-1024 keys is 64 blocks for 132 SMs, 16 tiles each — each block's key tiles
-are split over up to four blocks; each writes
-its partial softmax state to an f32 workspace this wrapper allocates, and
+1024 keys is 64 blocks for 132 SMs, 16 tiles each — each q tile's key
+groups are split over up to four blocks, whole groups a block; each writes
+its groups' softmax states to an f32 workspace this wrapper allocates, and
 the last block of a tile (an atomic counter: one buffer per CUDA stream,
-left zeroed) merges the splits in split order, in the same launch, so the
-result depends on the shape alone.
+left zeroed) folds them in key order, in the same launch, as an unsplit
+block folds them on its walk.  So a split changes the time, never a bit.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ HEAD_DIMS = tuple(range(16, 129, 16))
 BLOCK_Q = 64
 BLOCK_K = {64: 128, 128: 64}
 MAX_SPLITS = 4
+#: keys a group: a row's softmax runs group by group, folded in key order
+GROUP_KEYS = 512
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -76,12 +86,13 @@ def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
              window: int | None = None, head_dim: int = 64) -> int:
     """Key-range splits a (q tile, head) for one launch: 1 when the tiles
     ``B · Hq · ceil(S / 64)`` fill the card's SMs (132 on the H100); else
-    at most one block an SM and :data:`MAX_SPLITS`, and one split for every
-    384 keys the q tile that sees the most keys (the last one) walks.  A block walks
-    its key tiles one after another (about 0.01 µs a key at D = 64) and the
-    merge costs 3-4 µs, so a split pays only where it takes some 350 keys
-    off the walk (``kernels/flash_sweep.py``: a 128-row chunk splits in two
-    from 768 keys)."""
+    at most one block an SM, :data:`MAX_SPLITS` and the key groups the q
+    tile that sees the most keys (the last one) walks, and one split for
+    every 384 keys it walks.  A block walks its key tiles one after another
+    (about 0.01 µs a key at D = 64) and the merge costs 3-4 µs, so a split
+    pays only where it takes some 350 keys off the walk
+    (``kernels/flash_sweep.py``: a 128-row chunk splits in two from 768
+    keys).  The split never changes a result: only the time."""
     tiles, sms = B * Hq * math.ceil(S / BLOCK_Q), native.sm_count()
     if tiles >= sms:
         return 1
@@ -89,7 +100,40 @@ def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
     q_first = (math.ceil(S / BLOCK_Q) - 1) * BLOCK_Q + T - S   # the last q tile's first row
     lo = max(0, q_first - window + 1) // bk if window else 0
     visible = (math.ceil(T / bk) - lo) * bk
-    return max(1, min(MAX_SPLITS, sms // tiles, visible // 384))
+    groups = math.ceil(T / GROUP_KEYS) - lo * bk // GROUP_KEYS
+    return max(1, min(MAX_SPLITS, sms // tiles, visible // 384, groups))
+
+
+def key_groups(T: int, head_dim: int = 64) -> tuple[tuple[int, int], ...]:
+    """The key ranges [k0, k1) of ``T`` keys whose softmax states the kernel
+    folds, in the order it folds them, for every query row, launch and
+    split: a function of T alone (a row that cannot see a range's keys
+    folds it as a no-op).  The instance's key tile divides a group, so no
+    tile straddles two."""
+    if GROUP_KEYS % BLOCK_K[instance(head_dim)]:
+        raise AssertionError("a key tile straddles two groups")
+    return tuple((k, min(T, k + GROUP_KEYS)) for k in range(0, T, GROUP_KEYS))
+
+
+def split_groups(S: int, T: int, splits: int, causal: bool = True, window: int | None = None,
+                 head_dim: int = 64) -> list[list[list[int]]]:
+    """The key groups each split block of each q tile walks, as the kernel
+    deals them: q tile qt's groups [g_lo, g_hi) (those holding a key some
+    row of the tile sees) in runs of ceil((g_hi - g_lo) / splits), whole
+    groups a block; ``[q tile][split] -> group indices``."""
+    bk = BLOCK_K[instance(head_dim)]
+    tpg, kt = GROUP_KEYS // bk, math.ceil(T / bk)
+    out = []
+    for qt in range(math.ceil(S / BLOCK_Q)):
+        q_first = qt * BLOCK_Q + T - S
+        q_last = min(qt * BLOCK_Q + BLOCK_Q, S) - 1 + T - S
+        hi = min(kt, q_last // bk + 1) if causal else kt
+        lo = max(0, q_first - window + 1) // bk if window else 0
+        g_lo, g_hi = lo // tpg, math.ceil(hi / tpg)
+        per = math.ceil((g_hi - g_lo) / splits)
+        out.append([list(range(min(g_hi, g_lo + sp * per), min(g_hi, g_lo + (sp + 1) * per)))
+                    for sp in range(splits)])
+    return out
 
 
 def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -156,11 +200,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, caus
     out = torch.empty_like(q)
     ws = counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    q_tiles, groups = math.ceil(S / BLOCK_Q), math.ceil(T / GROUP_KEYS)
+    if splits > 1 or groups > 1:
+        # every key group's softmax state but an unsplit block's last
+        ws = torch.empty(groups * B * Hq * q_tiles * BLOCK_Q * (instance(D) + 2),
+                         dtype=torch.float32, device=q.device)
     if splits > 1:
-        q_tiles = math.ceil(S / BLOCK_Q)
-        ws = torch.empty(splits * B * Hq * q_tiles * BLOCK_Q * (instance(D) + 2),
-                         dtype=torch.float32,
-                         device=q.device)
         counters = native.tile_counters("flash_attention", q.device, stream, B * Hq * q_tiles)
     fn = native.function("flash_attention", "repro_flash_attention", _ARGTYPES)
     err = fn(native.ptr(q), native.ptr(k), native.ptr(v), native.ptr(out), native.ptr(ws),

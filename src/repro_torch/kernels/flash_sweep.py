@@ -15,7 +15,8 @@ Two tables, at head_dim 64 and 128 with 32 query and 8 kv heads:
   and whose intercept is the launch's fixed cost; split, what the merge
   costs against what it saves.
 
-The split rule is read from the first table.  Device time from CUDA events
+The split rule is read from the first table; every split must give the
+unsplit launch's bits (the kernel's key groups).  Device time from CUDA events
 over ``iters`` launches behind a spin kernel, cycling through input sets
 that exceed the 50 MB L2, as ``chip_smoke.py`` times its rows.  Imports no
 JAX.
@@ -70,9 +71,13 @@ def sweep(shapes, D: int, all_splits: bool, seed: int = 0) -> list[dict]:
             sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1)))
         q, k, v = sets[0][:3]
         want = fa.plain_flash_attention(q, k, v, causal=causal).float()
-        timed = {}
+        timed, unsplit = {}, fa.flash_attention(q, k, v, causal=causal, splits=1)
         for splits in range(1, fa.MAX_SPLITS + 1 if all_splits else 2):
-            got = fa.flash_attention(q, k, v, causal=causal, splits=splits).float()
+            got = fa.flash_attention(q, k, v, causal=causal, splits=splits)
+            if not torch.equal(got, unsplit):     # key groups: a split moves no bit
+                raise AssertionError(f"splits {splits} at {(S, T, causal, D)}: not bitwise "
+                                     f"the unsplit launch")
+            got = got.float()
             rel = float(((got - want).norm(dim=-1) / want.norm(dim=-1)).max())
             if rel > 1e-2:
                 raise AssertionError(f"splits {splits} at {(S, T, causal, D)}: row rel L2 {rel}")

@@ -32,11 +32,16 @@ split from the shape alone:
   narrow side, and each block streams a 128-column strip of the weight
   through a six-stage TMA ring.
 
-Where the output tiles alone cannot fill the card, both split K across
-blocks and sum the splits in the same launch, in split order (the last block
-of a tile to finish reduces), so a result depends on the shape alone.  The
-wrapper flattens leading dimensions as ``pallas_matmul`` did and allocates
-the split workspace and the tiles' counters (one buffer per CUDA stream,
+A row's K is summed in one order for every M (:func:`groups`): K's 64-deep
+slices fall into groups, a function of (N, K) alone, each group summed from
+zero and the groups added in order.  So a prompt row's result does not
+depend on how many rows its launch carries, on the tile or on the kernel:
+chunked prefill gives the whole prompt's rows bit for bit.  Where the
+output tiles alone cannot fill the card, both kernels split K across blocks
+one group a block and add the groups in the same launch, in group order (the
+last block of a tile to finish reduces); unsplit, a tile kernel block keeps
+a running total of its groups.  The wrapper flattens leading dimensions as
+``pallas_matmul`` did and allocates the split workspace and the tiles' counters (one buffer per CUDA stream,
 which the kernel leaves zeroed); the kernels mask ragged M, N and K
 themselves.  The f32 kernel has 128 x 128 tiles, or 64 x 64 for small
 products (:func:`f32_plan`): a converter warpgroup splits and transposes
@@ -101,7 +106,7 @@ F32_BLOCKS, F32_BK = (128, 64), 32
 EDGE_BN, F32_STREAM_BN = 128, 64
 #: blocks of the edge streaming kernel an SM holds (its shared memory)
 EDGE_BLOCKS_PER_SM = 2
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _EDGE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -191,38 +196,77 @@ def cost(M: int, N: int, K: int, p: Plan) -> float:
     return t
 
 
-@functools.lru_cache(maxsize=4096)
-def plan(M: int, N: int, K: int) -> Plan:
-    """The bf16 kernel, tile and K split for ``[M,K] x [K,N]``: a pure
-    function of the shape.  M up to :data:`STREAM_MAX_M` streams the weight
-    (M padded to 8 or 16); above it, the tile kernel at one of
-    :data:`TILE_SHAPES`.  Of those, the block and the split (every split
-    non-empty) of least :func:`cost`, the fewest splits and largest block on
-    a tie.  Raises ``ValueError`` for K or N not a multiple of 8 (16-byte
-    rows, as TMA needs): :func:`matmul` sends those shapes to the edge
-    kernel and never asks."""
+def _check(M: int, N: int, K: int) -> None:
     if M <= 0 or N <= 0 or K <= 0:
         raise ValueError(f"matmul: empty shape M={M} N={N} K={K}")
     if K % 8 or N % 8:
         raise ValueError(f"matmul: K={K} and N={N} must be multiples of 8")
-    kt = math.ceil(K / BK)
+
+
+def _least_cost(M: int, N: int, K: int, plans) -> Plan:
+    """The plan of least :func:`cost`, the first on a tie."""
+    best, best_t = None, math.inf
+    for p in plans:
+        t = cost(M, N, K, p)
+        if t < best_t * (1 - 1e-9):
+            best, best_t = p, t
+    return best
+
+
+@functools.lru_cache(maxsize=1024)
+def groups(N: int, K: int) -> tuple[int, int]:
+    """The order in which every bf16 kernel sums a row's K for ``[*,K] x
+    [K,N]``, whatever M: (groups, 64-deep slices a group), every group
+    non-empty.  Each group is summed from zero and the groups are added in
+    order, so a row's result is a function of its own x row and w alone.
+    The count is the K split the weight-streaming kernel takes at 8 rows
+    (a decode step) by :func:`cost`, so decode keeps its split; a
+    prefill's tile kernel keeps a running total of the groups instead.
+    Raises ``ValueError`` as :func:`plan` does."""
+    _check(8, N, K)
+    kt, strips = math.ceil(K / BK), math.ceil(N / STREAM_BN)
+    p = _least_cost(8, N, K, (Plan("stream", 8, STREAM_BN, s, math.ceil(kt / s), strips)
+                              for s in range(1, kt + 1)
+                              if math.ceil(kt / math.ceil(kt / s)) == s))
+    return p.splits, p.per_split
+
+
+def alternatives(M: int, N: int, K: int) -> list[Plan]:
+    """Every plan that sums a row in :func:`groups`' order: M up to
+    :data:`STREAM_MAX_M` streams the weight (M padded to 8 or 16) one group
+    a block; above it, the tile kernel at one of :data:`TILE_SHAPES`, one
+    group a block or unsplit (a running total; not at 128 x 256, whose
+    registers hold none, unless K is one group)."""
+    _check(M, N, K)
+    g, per = groups(N, K)
     if M <= STREAM_MAX_M:
         rows = next(r for r in STREAM_ROWS if r >= M)
-        shapes = [("stream", rows, STREAM_BN, math.ceil(N / STREAM_BN))]
-    else:
-        shapes = [("tile", bm, bn, math.ceil(M / bm) * math.ceil(N / bn))
-                  for bm, bn in TILE_SHAPES]
-    best, best_t = None, math.inf
-    for kernel, bm, bn, tiles in shapes:
-        for splits in range(1, kt + 1):
-            per = math.ceil(kt / splits)
-            if math.ceil(kt / per) != splits:
-                continue                  # a split would be empty
-            p = Plan(kernel, bm, bn, splits, per, tiles)
-            t = cost(M, N, K, p)
-            if t < best_t * (1 - 1e-9):
-                best, best_t = p, t
-    return best
+        return [Plan("stream", rows, STREAM_BN, g, per, math.ceil(N / STREAM_BN))]
+    kt = math.ceil(K / BK)
+    return [Plan("tile", bm, bn, s, per if s > 1 else kt, math.ceil(M / bm) * math.ceil(N / bn))
+            for bm, bn in TILE_SHAPES for s in sorted({1, g})
+            if not (s == 1 and g > 1 and bn == 256)]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int) -> Plan:
+    """The bf16 kernel, tile and K split for ``[M,K] x [K,N]``: a pure
+    function of the shape, the least :func:`cost` of :func:`alternatives`
+    (the fewest splits and largest block on a tie).  Raises ``ValueError``
+    for K or N not a multiple of 8 (16-byte rows, as TMA needs):
+    :func:`matmul` sends those shapes to the edge kernel and never asks."""
+    return _least_cost(M, N, K, alternatives(M, N, K))
+
+
+def row_order(M: int, N: int, K: int) -> tuple[tuple[int, int], ...]:
+    """The K ranges [k0, k1) that :func:`matmul` sums from zero for one
+    output row of ``[M,K] x [K,N]``, in the order it adds them, as
+    :func:`plan`'s launch runs them: one a split block, or the groups of an
+    unsplit block's running total."""
+    p = plan(M, N, K)
+    kt = math.ceil(K / BK)
+    size = p.per_split if p.splits > 1 else groups(N, K)[1]
+    return tuple((i * BK, min(K, (i + size) * BK)) for i in range(0, kt, size))
 
 
 def _whole_splits(kt: int, splits: int) -> int:
@@ -355,7 +399,7 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype | None,
         out = _launch_edge(x, w, *edge_plan(M, N, K, w.data_ptr() % 16 == 0), out_dtype,
                            activation, M, N, K)
     else:
-        out = _launch_bf16(x, w, plan(M, N, K), out_dtype, activation, M, N, K)
+        out = _launch_bf16(x, w, plan(M, N, K), groups(N, K)[1], out_dtype, activation, M, N, K)
     if fixed:
         native.count_launch(__name__, "fixed_launches")
     return out.reshape(*lead, N)
@@ -430,10 +474,10 @@ def matmul_edge(x: torch.Tensor, w: torch.Tensor, *, kernel: int, splits: int = 
     return _launch_edge(x, w, kernel, splits, out_dtype or torch.bfloat16, None, M, N, K)
 
 
-def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dtype,
-                activation: str | None, M: int, N: int, K: int) -> torch.Tensor:
-    """One launch of the bf16 kernel ``p`` names, on checked inputs; the
-    [M, N] output."""
+def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, group: int, out_dtype: torch.dtype,
+                 activation: str | None, M: int, N: int, K: int) -> torch.Tensor:
+    """One launch of the bf16 kernel ``p`` names, summing K in groups of
+    ``group`` slices, on checked inputs; the [M, N] output."""
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ws = counters = None
@@ -443,7 +487,7 @@ def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dty
     fn = native.function("matmul", "repro_matmul", _ARGTYPES)
     err = fn(native.ptr(x), native.ptr(w), native.ptr(out), native.ptr(ws), native.ptr(counters),
              M, N, K, _ACTIVATIONS[activation], int(out_dtype == torch.float32),
-             int(p.kernel == "stream"), p.block_m, p.block_n, p.splits,
+             int(p.kernel == "stream"), p.block_m, p.block_n, p.splits, group,
              ctypes.c_void_p(stream))
     native.raise_on_error("matmul", err)
     native.count_launch(__name__)
@@ -451,13 +495,16 @@ def _launch_bf16(x: torch.Tensor, w: torch.Tensor, p: Plan, out_dtype: torch.dty
 
 
 def matmul_planned(x: torch.Tensor, w: torch.Tensor, p: Plan, *,
-                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                   out_dtype: torch.dtype | None = None, group: int | None = None) -> torch.Tensor:
     """``x [M, K] @ w [K, N]`` in bf16 on the CUDA kernel that plan ``p``
-    names (which need not be :func:`plan`'s choice; the C side refuses a
-    plan that does not fit the shape): for timing the alternatives."""
+    names, summing K in groups of ``group`` slices (each block's own run
+    where not given; neither need be :func:`plan`'s choice or
+    :func:`groups`' order; the C side refuses a plan that does not fit the
+    shape): for timing the alternatives."""
     native.check("matmul", {"x": x, "w": w}, torch.bfloat16)
     (M, K), N = x.shape, w.shape[1]
-    return _launch_bf16(x, w, p, out_dtype or torch.bfloat16, None, M, N, K)
+    return _launch_bf16(x, w, p, group or p.per_split, out_dtype or torch.bfloat16, None,
+                        M, N, K)
 
 
 class FixedWeightMatmul:

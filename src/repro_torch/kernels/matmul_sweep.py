@@ -8,9 +8,13 @@ For every weight shape of llama3.2-1b (at M = 1, 8, 16, 64, 128, 256, 512
 and 1024) and mamba2-780m (at M = 3, 5, 8, 37, 45 and 600) it times the
 weight-streaming kernel (where M fits it) and the tile kernel at each of
 its block shapes, each at every K split of 1, 2, 3, 4, 6, 8, 16 and
-32 that leaves no split empty, and prints the fastest configuration beside :func:`matmul.plan`'s
-choice and its time.  The A/B boundary (``STREAM_MAX_M``) and the plan's
-cost model are read from this table.  Device time from CUDA events over
+32 that leaves no split empty, each block summing its own K run, and
+prints the fastest configuration beside :func:`matmul.plan`'s choice and
+its time; then every configuration that sums a row's K in
+:func:`matmul.groups`' order (:func:`matmul.alternatives`: one group a
+block, or a running total), the plan's candidates, and the fastest of
+those: what the row invariance costs at each shape.  The A/B boundary
+(``STREAM_MAX_M``) and the plan's cost model are read from this table.  Device time from CUDA events over
 ``iters`` launches behind a spin kernel, cycling through input sets that
 exceed the 50 MB L2, as ``chip_smoke.py`` times its rows.
 
@@ -100,16 +104,24 @@ def sweep(shapes, seed: int = 0) -> list[dict]:
                 raise AssertionError(f"{p} at {(M, K, N)}: max error {err}")
             timed.append((time_us(lambda a, b, p=p: mm.matmul_planned(a, b, p), sets), p))
         best_us, best = min(timed, key=lambda t: t[0])
+        group = mm.groups(N, K)[1]
+        grouped = [(time_us(lambda a, b, p=p: mm.matmul_planned(a, b, p, group=group), sets), p)
+                   for p in mm.alternatives(M, N, K)]
+        inv_us, inv = min(grouped, key=lambda t: t[0])
         chosen = mm.plan(M, N, K)
         chosen_us = time_us(lambda a, b: mm.matmul(a, b), sets)
         lib_us = time_us(torch.matmul, sets)
         row = {"shape": [M, K, N], "plan": chosen.__dict__, "plan_us": chosen_us,
                "best": best.__dict__, "best_us": best_us, "torch_matmul_us": lib_us,
-               "all": [{"us": us, **p.__dict__} for us, p in timed]}
+               "groups": mm.groups(N, K), "best_grouped": inv.__dict__, "best_grouped_us": inv_us,
+               "all": [{"us": us, **p.__dict__} for us, p in timed],
+               "grouped": [{"us": us, **p.__dict__} for us, p in grouped]}
         rows.append(row)
         print(f"[{M},{K}]x[{K},{N}] plan {chosen.kernel} {chosen.block_m}x{chosen.block_n} "
               f"s{chosen.splits} {chosen_us:.2f} us | best {best.kernel} {best.block_m}x"
-              f"{best.block_n} s{best.splits} {best_us:.2f} us | torch.matmul {lib_us:.2f} us | "
+              f"{best.block_n} s{best.splits} {best_us:.2f} us | best in group order "
+              f"{inv.kernel} {inv.block_m}x{inv.block_n} s{inv.splits} {inv_us:.2f} us | "
+              f"torch.matmul {lib_us:.2f} us | "
               + " ".join(f"{p.kernel[0]}{p.block_m}x{p.block_n}s{p.splits}:{us:.1f}"
                          for us, p in timed), flush=True)
         del sets, x, w

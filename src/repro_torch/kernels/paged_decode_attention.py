@@ -78,7 +78,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     """One-token attention over a paged pool: the plain version for CPU
     tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128, Hq / Hkv
     <= 16, an int32 block table on the card) with ``splits`` key-range
-    splits, ``split_kv(B, Hkv, NP · ps, D)``'s choice unless given: the dense
+    splits, ``split_kv(NP · ps)``'s choice unless given: the dense
     kernel's on the gathered cache."""
     if native.on_cpu(q, k_pages, v_pages, block_table):
         return plain_paged_decode_attention(q, k_pages, v_pages, block_table, length,
@@ -102,7 +102,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if Hq % Hkv or Hq // Hkv > 16:
         raise ValueError(f"paged_decode_attention: needs Hq / Hkv a whole number <= 16; "
                          f"got Hq={Hq} Hkv={Hkv}")
-    splits = check_splits("paged_decode_attention", splits, B, Hkv, NP * ps, D)
+    splits = check_splits("paged_decode_attention", splits, NP * ps)
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)

@@ -165,12 +165,17 @@ def attention_prefill_chunk(
     (JAX returned new caches) and returns y [B, Sc, d].
 
     Row for row the same function as :func:`attention_full` over the whole
-    prompt, with no new kernel: qkv, rope at absolute positions and the
-    norms are row-local, and ``flash_attention`` aligns a short query block
-    to the *end* of its keys (``kv_offset = T - S``), so the chunk's queries
-    against rows ``[0, start+Sc)`` see exactly the causal mask the whole
-    prefill gave those rows.  The cache slice is copied contiguous for the
-    kernel."""
+    prompt, bit for bit on the card too, with no new kernel: rope at
+    absolute positions is row-local; the norms are row-invariant (a row's
+    reduction is one block's, whatever the launch's rows); the matmul sums
+    a row's K in an order fixed by (N, K) alone (``kernels/matmul.py``
+    ``groups``), whatever M, tile, split or kernel a chunk's launch takes;
+    and ``flash_attention`` aligns a short query block to the *end* of its
+    keys (``kv_offset = T - S``), so the chunk's queries against rows
+    ``[0, start+Sc)`` see exactly the causal mask the whole prefill gave
+    those rows, and folds a row's keys in groups fixed by the key index
+    alone (``GROUP_KEYS``), whatever S, the q tile's start or the split.
+    The cache slice is copied contiguous for the kernel."""
     q, k, v = _chunk_qkv(p, x, start, cfg)
     end = start + x.shape[1]
     cache_k[:, :, start:end] = k.transpose(1, 2).to(cache_k.dtype)

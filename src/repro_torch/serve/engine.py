@@ -42,8 +42,13 @@ return to the pool at once.  Admission moves from "free slot?" to an
 :class:`AdmissionPolicy` over free pages and the projected growth of the
 requests already running.  Greedy streams equal the dense engine's.
 
-**Chunked prefill** (``prefill_chunk=``): prompts are prefilled in chunks,
-one chunk per prefilling slot per step, interleaved with the fused decode.
+**Chunked prefill** (``prefill_chunk=``, an int or a :class:`ChunkPolicy`):
+prompts are prefilled in chunks, one chunk per prefilling slot per step,
+interleaved with the fused decode.  A request's chunk is fixed when its
+prefill starts: the policy's pick from the live decode slots and the last
+launch's fusion depth.  The kernels sum a prompt row in an order that does
+not depend on the rows a launch carries, so chunked streams equal
+whole-prompt streams bit for bit, on the card too.
 Dense, each prefilling slot fills a staging cache that is then spliced into
 the batch cache; paged, each chunk writes into and attends through the
 slot's pages directly, so the pool is all the KV memory the engine holds
@@ -55,6 +60,13 @@ AQL call packet on a shared queue, so serving shares the card with other
 producers under the async scheduler (the paper's multi-tenancy).  The packet
 carries the producer's dispatch context, so a ``cuda-strict`` policy holds
 on the scheduler's worker thread too.
+
+**Engine clock**: arrival, first-token and completion timestamps ride on
+``clock`` (a ``WallClock`` unless one is given).  A ``VirtualClock`` with a
+``step_time_model(prefill_tokens, decode_tokens)`` advances by the model's
+seconds after every step, so TTFT and TPOT are exact properties of the
+schedule; ``submit(arrival_t=)`` backdates an arrival a trace replayer
+delivers at a step boundary.
 
 Preemption (8f) is not ported: the default full-reserve admission never
 needs it, and an overcommitting policy is refused.
@@ -72,7 +84,7 @@ import torch
 
 from repro_torch.core import ledger as ledger_mod
 from repro_torch.core.hsa.clock import WallClock
-from repro_torch.core.policy import AdmissionPolicy, FusionPolicy
+from repro_torch.core.policy import AdmissionPolicy, ChunkPolicy, FusionPolicy
 from repro_torch.kernels import sample as sample_k
 from repro_torch.models.params import resolve_device
 from repro_torch.serve import graph as graph_mod
@@ -107,6 +119,7 @@ class _Prefilling:
     req: Request
     tokens: np.ndarray                 # [b] prompt padded to bucket length
     n: int                             # real prompt length
+    chunk: int                         # rows a chunk, fixed at the prefill's start
     staging: dict | None               # dense: the slot's staging {"k", "v"}
     filled: int = 0                    # rows prefilled so far
 
@@ -214,9 +227,10 @@ class ServeEngine:
                  decode_fusion: "int | FusionPolicy" = 1,
                  paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
                  admission: AdmissionPolicy | None = None,
-                 prefill_chunk: int | None = None,
+                 prefill_chunk: "int | ChunkPolicy | None" = None,
                  hsa_queue=None, hsa_scheduler=None, producer: str = "tf-serving",
                  ledger: "ledger_mod.OverheadLedger | None" = None,
+                 clock=None, step_time_model=None,
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -249,7 +263,13 @@ class ServeEngine:
         self._cache: dict | None = None
         self._pos = np.zeros(batch_slots, np.int64)
         self._slot_tok = np.zeros(batch_slots, np.int32)
-        self.clock = WallClock()
+        # engine clock: arrival/first-token/completion timestamps ride on it;
+        # a VirtualClock plus step_time_model makes latency deterministic
+        # (step_time_model(prefill_tokens, decode_tokens) -> seconds, applied
+        # after every step when the clock is virtual)
+        self.clock = clock if clock is not None else WallClock()
+        self.step_time_model = step_time_model
+        self._decode_tokens_last = 0   # k x live slots of the last launch
         # optional HSA routing: model calls become queue packets so serving
         # shares the agent with other producers (paper multi-tenancy)
         if (hsa_queue is None) != (hsa_scheduler is None):
@@ -303,18 +323,20 @@ class ServeEngine:
         self._concurrency_sum = 0
         self._concurrency_n = 0
         self.peak_concurrency = 0
-        # -- chunked prefill: rows per chunk, fixed (a power of two, so over
-        # pow2-bucketed prompts every chunk boundary is aligned) ----------------
-        if prefill_chunk is not None and (not isinstance(prefill_chunk, int) or prefill_chunk < 1
-                                          or prefill_chunk & (prefill_chunk - 1)):
-            raise ValueError(f"prefill_chunk must be a power of two >= 1, got {prefill_chunk!r}")
-        if prefill_chunk is not None and self._cache_keys != {"k", "v"}:
+        # -- chunked prefill: a request's rows per chunk, the policy's pick at
+        # its prefill's start (powers of two, so over pow2-bucketed prompts
+        # every chunk boundary is aligned) ----------------------------------------
+        if prefill_chunk is not None and not isinstance(prefill_chunk, (int, ChunkPolicy)):
+            raise ValueError(f"prefill_chunk must be a power of two >= 1 or a ChunkPolicy, "
+                             f"got {prefill_chunk!r}")
+        self.chunk_policy = ChunkPolicy.of(prefill_chunk)
+        if self.chunk_policy is not None and self._cache_keys != {"k", "v"}:
             raise ValueError(
                 "prefill_chunk requires plain dense-attention layers with "
                 "GQA k/v caches (MoE routing and recurrent state are not "
                 "row-local across chunk boundaries)"
             )
-        self.prefill_chunk = prefill_chunk
+        self._last_fusion_k = 1        # feeds ChunkPolicy.choose_chunk
         self._prefilling: dict[int, _Prefilling] = {}
         self._staging: dict[int, dict] = {}   # dense: slot -> reusable staging k/v
         self._first_this_step: list[Request] = []
@@ -386,8 +408,11 @@ class ServeEngine:
             reserved = len(self._active) * self.max_len * self._token_bytes
         self.ledger.record_memory(reserved_bytes=reserved, used_bytes=used)
 
-    def submit(self, prompt: list[int], max_new_tokens: int = 32) -> int:
-        """Queue a request; its uid."""
+    def submit(self, prompt: list[int], max_new_tokens: int = 32, *,
+               arrival_t: float | None = None) -> int:
+        """Queue a request; its uid.  ``arrival_t`` backdates the arrival
+        timestamp (a trace replayer delivers arrivals at step boundaries,
+        but the request arrived, and its TTFT clock started, earlier)."""
         with self._lock:
             if len(prompt) == 0 or len(prompt) + max_new_tokens > self.max_len:
                 # paged: the block table maps exactly max_len rows
@@ -407,7 +432,7 @@ class ServeEngine:
                     f"request needs up to {worst} pages but the pool can ever "
                     f"admit at most {cap} — it would block the queue forever"
                 )
-            req.arrival_t = self.clock.now()
+            req.arrival_t = arrival_t if arrival_t is not None else self.clock.now()
             self._queue.append(req)
             return self._uid
 
@@ -594,10 +619,18 @@ class ServeEngine:
 
     # -- chunked prefill (continuous batching) ------------------------------------------
 
+    def _chunk_for_new(self, req: Request) -> int:
+        """Chunk size a newly admitted request will prefill at (fixed for the
+        request's whole prefill), from the live decode slots and the last
+        launch's depth."""
+        return self.chunk_policy.choose_chunk(
+            live_decode=len(self._active), fusion_k=self._last_fusion_k)
+
     def _admit_chunked(self, req: Request) -> bool:
         """Paged admission for a chunked prefill: charge the *first chunk's*
         pages; the rest of the prompt is projected growth."""
-        first = paged_mod.pages_for(min(len(req.prompt), self.prefill_chunk), self.page_size)
+        first = paged_mod.pages_for(min(len(req.prompt), self._chunk_for_new(req)),
+                                    self.page_size)
         return self.admission.admit(
             free_pages=self.allocator.free_pages,
             projected_growth_pages=self._projected_growth(),
@@ -623,14 +656,15 @@ class ServeEngine:
             if slot not in self._staging:
                 self._staging[slot] = self._zero_cache(1, self.max_len)
             staging = self._staging[slot]
-        self._prefilling[slot] = _Prefilling(req=req, tokens=tokens, n=n, staging=staging)
+        self._prefilling[slot] = _Prefilling(req=req, tokens=tokens, n=n,
+                                             chunk=self._chunk_for_new(req), staging=staging)
 
     def _chunk_step(self, slot: int, entry: _Prefilling) -> int:
         """Run one prefill chunk for ``slot``; rows processed (0 = stalled)."""
         req = entry.req
         b = len(entry.tokens)
         start = entry.filled
-        size = min(self.prefill_chunk, b - start)
+        size = min(entry.chunk, b - start)
         if self.paged:
             # fund this chunk's pages: only rows < n need their own page (pad
             # rows past them land on the scratch page).  A shortfall stalls
@@ -809,6 +843,10 @@ class ServeEngine:
         if self.paged:
             k = self._fund_growth(k)
         n_live = len(self._active)
+        # the depth launched, after every cap: ChunkPolicy's fusion taper and
+        # the step time model's decode half read it
+        self._last_fusion_k = k
+        self._decode_tokens_last = k * n_live
         self._concurrency_sum += n_live
         self._concurrency_n += 1
         self.peak_concurrency = max(self.peak_concurrency, n_live)
@@ -858,7 +896,10 @@ class ServeEngine:
         """
         with self._lock:
             self._first_this_step = []
-            chunked = self.prefill_chunk is not None
+            chunked = self.chunk_policy is not None
+            # the step's work for the step time model: a whole prompt's
+            # bucket rows, a chunk's rows (pad rows included)
+            prefill_tokens = 0
             for slot in range(self.slots):
                 if slot in self._active or slot in self._prefilling:
                     continue
@@ -875,11 +916,18 @@ class ServeEngine:
                     self._start_chunked(slot, req)
                 else:
                     self._prefill_slot(slot, req)
+                    prefill_tokens += (self.bucket_len(len(req.prompt), self.max_len)
+                                       if self.bucket_prompts else len(req.prompt))
                     self._active[slot] = req
                     self._first_this_step.append(req)
             if self._prefilling:
-                self._chunk_phase()
+                prefill_tokens += self._chunk_phase()
             finished = self._decode_locked() if self._active else []
+            # the clock: advance virtual time by the step's modeled cost,
+            # then stamp this step's latency events at the new now
+            decode_tokens, self._decode_tokens_last = self._decode_tokens_last, 0
+            if self.step_time_model is not None and getattr(self.clock, "virtual", False):
+                self.clock.advance(self.step_time_model(prefill_tokens, decode_tokens))
             now = self.clock.now()
             for req in self._first_this_step:
                 req.first_token_t = now
@@ -896,9 +944,10 @@ class ServeEngine:
             self._record_memory()
             return finished
 
-    def _chunk_phase(self) -> None:
+    def _chunk_phase(self) -> int:
         """One prefill chunk per prefilling slot, oldest first (uid order),
-        so under page pressure the senior prefill funds before junior ones."""
+        so under page pressure the senior prefill funds before junior ones;
+        the rows prefilled."""
         order = sorted(self._prefilling, key=lambda s: self._prefilling[s].req.uid)
         rows = sum(self._chunk_step(slot, self._prefilling[slot]) for slot in order)
         if self.paged and self._prefilling and rows == 0 and not self._active:
@@ -911,6 +960,7 @@ class ServeEngine:
             idx = next((i for i, r in enumerate(self._queue) if r.uid > entry.req.uid),
                        len(self._queue))
             self._queue.insert(idx, entry.req)
+        return rows
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
         """Step until every submitted request finishes; the completed requests.

@@ -667,7 +667,7 @@ def test_decode_and_paged_every_split_count(cuda, splits, d, hkv):
 def test_decode_and_paged_at_the_split_rule_pick(cuda, B, hkv, T, ps):
     """The served shapes at split_kv's own pick (no splits given), lengths at
     and across its boundaries, paged bitwise dense."""
-    splits = dec_k.split_kv(B, hkv, T)
+    splits = dec_k.split_kv(T)
     g = _gen(cuda, 60 + B + T)
     lengths = torch.tensor(_boundary_lengths(T, splits, B), dtype=torch.int32, device=cuda)
     q = _randn(g, (B, 32, 64), cuda)
@@ -703,7 +703,7 @@ def test_decode_split_is_one_launch_and_bitwise_repeatable(cuda, paged):
     q = _randn(g, (8, 32, 64), cuda)
     kp, vp, table = _paged_pool(g, cuda, 8, 16)
     kc, vc = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
-    assert dec_k.split_kv(8, 8, 1024) > 1
+    assert dec_k.split_kv(1024) > 1
     mod = paged_k if paged else dec_k
     call = ((lambda: paged_k.paged_decode_attention(q, kp, vp, table, lengths)) if paged
             else (lambda: dec_k.decode_attention(q, kc, vc, lengths)))
@@ -1530,3 +1530,98 @@ def test_graph_counts_each_kernel_once_a_replay(cuda):
     assert {k: after[k] - v for k, v in before.items() if after[k] != v} == {
         ("matmul", "launches"): 42, ("rmsnorm", "launches"): 15,
         ("decode_attention", "launches"): 6, ("sample", "launches"): 3}
+
+
+# ---------------------------------------------------------------------------
+# row invariance: a prompt row's result does not depend on how it was chunked
+# ---------------------------------------------------------------------------
+
+#: the (K, N) pairs the served models' prefills run: llama3.2-1b's four
+#: weights, mamba2-780m's two
+SERVED_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536, 6448), (3072, 1536)]
+
+
+@pytest.mark.parametrize("k,n", SERVED_KN)
+@pytest.mark.parametrize("activation", [None, "silu"])
+def test_matmul_rows_bitwise_across_launch_rows(cuda, k, n, activation):
+    """A row of x gives the same output bits in a launch of 1, 8, 16, 17,
+    128 or 1024 rows, and under a permutation of the rows: the streaming
+    kernel (M <= 16) and the tile kernel at every block and split sum a row's
+    K in groups(N, K)'s one order."""
+    g = _gen(cuda, 23)
+    x, w = _randn(g, (1024, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
+    full = mm_k.matmul(x, w, activation=activation)
+    kernels = set()
+    for m in (1, 8, 16, 17, 128):
+        kernels.add(mm_k.kernel_instance(x[:m], w))
+        assert torch.equal(mm_k.matmul(x[:m], w, activation=activation), full[:m]), m
+    perm = torch.randperm(1024, generator=g, device=cuda)
+    assert torch.equal(mm_k.matmul(x[perm], w, activation=activation), full[perm])
+    assert any("stream" in s for s in kernels) and any("tile" in s for s in kernels)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_rows_bitwise_chunk_against_whole(cuda, d):
+    """A chunk's queries (16 or 128 rows, starting at 0, 16, 128 or 512)
+    against the keys up to its end give the whole prompt's rows bit for bit,
+    whatever key split the launch takes."""
+    g = _gen(cuda, 29)
+    q = _randn(g, (1, 32, 1024, d), cuda)
+    k, v = _randn(g, (1, 8, 1024, d), cuda), _randn(g, (1, 8, 1024, d), cuda)
+    whole = fa_k.flash_attention(q, k, v, causal=True)
+    for start in (0, 16, 128, 512):
+        for size in (16, 128):
+            end = start + size
+            qc = q[:, :, start:end].contiguous()
+            kc, vc = k[:, :, :end].contiguous(), v[:, :, :end].contiguous()
+            for splits in (None, *range(1, fa_k.MAX_SPLITS + 1)):
+                got = fa_k.flash_attention(qc, kc, vc, causal=True, splits=splits)
+                assert torch.equal(got, whole[:, :, start:end]), (start, size, splits)
+
+
+def test_chunked_prefill_rows_bitwise_at_full_width(cuda):
+    """llama3.2-1b at full width and 2 layers: a 600-token prompt (the 1024
+    bucket) prefilled whole and in 128-, 64- and 16-row chunks writes the
+    same k/v cache rows and gives the same last-row logits, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, init_params
+
+    model = build_model(dataclasses.replace(get_arch("llama3.2-1b"), num_layers=2), device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    tokens = torch.zeros((1, 1024), dtype=torch.long, device=cuda)
+    tokens[0, :600] = torch.randint(0, model.cfg.vocab_size, (600,), generator=_gen(cuda, 31),
+                                    device=cuda)
+    specs = model.cache_specs(1, 1024)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        want, cache = model.prefill(params, {"tokens": tokens}, cache_len=1024)
+        for chunk in (128, 64, 16):
+            staging = {key: torch.zeros(specs[key].shape, dtype=specs[key].dtype, device=cuda)
+                       for key in ("k", "v")}
+            for start in range(0, 1024, chunk):
+                got, _ = model.prefill_chunk(params, tokens[:, start:start + chunk], staging,
+                                             start=start)
+            for key in ("k", "v"):
+                assert torch.equal(staging[key][:, :, :, :600], cache[key][:, :, :, :600]), chunk
+            assert torch.equal(got, want), chunk
+
+
+@pytest.mark.parametrize("T", [1024, 608])
+def test_decode_rows_bitwise_across_the_batch(cuda, T):
+    """A sequence's decode attention gives the same bits in a launch of 16
+    sequences, of 8 and alone, dense and paged: the split count follows the
+    cache's rows, never the batch (an 8-slot and a 16-slot engine give a
+    request the same tokens)."""
+    g = _gen(cuda, 37)
+    B = 16
+    lengths = torch.tensor([1 + (67 * i) % T for i in range(B)], dtype=torch.int32, device=cuda)
+    q = _randn(g, (B, 32, 64), cuda)
+    kp, vp, table = _paged_pool(g, cuda, B, 16, T=T)
+    kc, vc = gather_kv_pages(kp, table), gather_kv_pages(vp, table)
+    full = dec_k.decode_attention(q, kc, vc, lengths)
+    assert torch.equal(paged_k.paged_decode_attention(q, kp, vp, table, lengths), full)
+    for n in (8, 1):
+        assert torch.equal(dec_k.decode_attention(q[:n], kc[:n], vc[:n], lengths[:n]), full[:n])
+        assert torch.equal(paged_k.paged_decode_attention(q[:n], kp, vp, table[:n], lengths[:n]),
+                           full[:n])

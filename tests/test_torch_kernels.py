@@ -151,6 +151,38 @@ def test_flash_attention_plain_matches_pallas_at_head_dim_128(hq, hkv, s, t, cau
     _check(got, want, "bf16")
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_flash_key_groups_of_a_row_are_the_same_in_every_launch(chunk, d):
+    """A query row at position p folds the key groups that hold keys 0..p,
+    in key order: the groups of a chunk's launch (keys up to the chunk's
+    end) cut to p are the whole 1024-row prompt's cut to p, for every row of
+    every chunk; no key tile straddles two groups."""
+    def seen(groups, p):
+        return [(k0, min(k1, p + 1)) for k0, k1 in groups if k0 <= p]
+
+    whole = fa_k.key_groups(1024, d)
+    assert whole == ((0, 512), (512, 1024))
+    for start in range(0, 1024, chunk):
+        groups = fa_k.key_groups(start + chunk, d)
+        for p in range(start, start + chunk):
+            assert seen(groups, p) == seen(whole, p), (start, p)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,t,causal", [(1024, 1024, True), (128, 1024, True), (16, 528, True),
+                                        (64, 2048, False), (100, 1200, True)])
+def test_flash_splits_deal_each_group_to_one_block_in_order(s, t, causal, d):
+    """At every split count, each q tile's key groups are dealt whole, in
+    order, each to exactly one split block: the merge folds the same groups
+    an unsplit block folds on its walk."""
+    unsplit = fa_k.split_groups(s, t, 1, causal, head_dim=d)
+    for splits in range(1, fa_k.MAX_SPLITS + 1):
+        for tile, blocks in zip(unsplit, fa_k.split_groups(s, t, splits, causal, head_dim=d)):
+            assert [g for block in blocks for g in block] == tile[0]
+            assert len(blocks) == splits
+
+
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=24)])
 def test_flash_attention_torch_source_matches_xla(kw):
@@ -223,43 +255,26 @@ def test_split_decode_plain_matches_unsplit_and_pallas(splits, dtype):
     _check(got, want, dtype)
 
 
-#: the blocks an SM each decode instance holds, as the built kernel reported
-#: them on the H100 (``kernels/decode_sweep.py``)
-CARD_OCCUPANCY = {16: 4, 32: 4, 48: 3, 64: 3, 80: 2, 96: 2, 112: 1, 128: 1}
-
-
-def _card_occupancy(monkeypatch):
-    monkeypatch.setattr(dec_k, "blocks_per_sm", CARD_OCCUPANCY.__getitem__)
-
-
-def test_split_ranges_deal_whole_tiles_and_cover_the_cache(monkeypatch):
+def test_split_ranges_deal_whole_tiles_and_cover_the_cache():
     """Each split a run of whole 32-key tiles, in order, covering [0, T);
-    the split rule picks from shapes alone and never leaves a split empty
-    of the cache."""
-    _card_occupancy(monkeypatch)
+    the split rule picks from the cache's rows alone (never the batch, so
+    a row rounds alike in an 8-slot and a 16-slot launch) and never leaves
+    a split empty of the cache."""
     for T in (1, 31, 32, 45, 600, 608, 1024, 4096):
         for splits in range(1, -(-T // 32) + 1):
             ranges = dec_k.split_ranges(T, splits)
             assert ranges[0][0] == 0 and ranges[-1][1] == T
             assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
             assert all(lo % 32 == 0 for lo, hi in ranges if hi > lo)
-    for B, hkv, T in ((8, 8, 1024), (8, 4, 1024), (16, 8, 1024), (1, 8, 608), (8, 8, 512),
-                      (1, 8, 48), (32, 8, 4096)):
-        for D in range(16, 129, 16):
-            splits = dec_k.split_kv(B, hkv, T, D)
-            assert 1 <= splits <= dec_k.MAX_SPLITS
-            assert all(hi > lo for lo, hi in dec_k.split_ranges(T, splits))
-            # one wave: every block of the launch resident at once
-            assert B * hkv * splits <= max(B * hkv, dec_k.blocks_per_sm(D) * 132)
-    # llama's decode step: three D = 64 blocks an SM; yi's D = 128 blocks fit
-    # one an SM; 16 slots fill the card with three splits
-    assert dec_k.split_kv(8, 8, 1024, 64) == 4 and dec_k.split_kv(8, 4, 1024, 128) == 4
-    assert dec_k.split_kv(16, 8, 1024, 64) == 3 and dec_k.split_kv(8, 8, 512, 128) == 2
-    assert dec_k.split_kv(1, 8, 48) == 1
-    # a lone sequence: one tile a warp (19 tiles: 5 splits, 10 tiles: 3),
-    # at most MAX_SPLITS
-    assert dec_k.split_kv(1, 8, 600) == 5 and dec_k.split_kv(1, 8, 300) == 3
-    assert dec_k.split_kv(1, 8, 1024) == dec_k.split_kv(1, 8, 4096) == dec_k.MAX_SPLITS
+    for T in (1, 48, 256, 300, 512, 600, 608, 1024, 4096):
+        splits = dec_k.split_kv(T)
+        assert 1 <= splits <= dec_k.MAX_SPLITS
+        assert all(hi > lo for lo, hi in dec_k.split_ranges(T, splits))
+    # eight tiles a split (two a warp) up to MAX_SPLITS: llama's 1024-row
+    # steps four, granite's 512 two, a 600-row fixup three
+    assert dec_k.split_kv(1024) == 4 and dec_k.split_kv(512) == 2 and dec_k.split_kv(600) == 3
+    assert dec_k.split_kv(48) == dec_k.split_kv(256) == 1 and dec_k.split_kv(300) == 2
+    assert dec_k.split_kv(4096) == dec_k.MAX_SPLITS
 
 
 # ---------------------------------------------------------------------------

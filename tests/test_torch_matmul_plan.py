@@ -23,18 +23,21 @@ SHAPES = SERVE + [(100, 136, 256), (1, 8, 64)]
 
 
 def _alternatives(M: int, N: int, K: int) -> list[mm.Plan]:
-    """Every plan the C side takes for this shape, written out apart from
-    ``plan``'s own search."""
+    """Every plan the C side takes for this shape in ``groups(N, K)``'s sum
+    order, written out apart from ``plan``'s own search: one K group a
+    block (the streaming kernel; the tile kernel at any block), or the
+    tile kernel unsplit with a running total (not at 128 x 256, unless K is
+    one group)."""
     kt = math.ceil(K / mm.BK)
+    g, per = mm.groups(N, K)
     if M <= mm.STREAM_MAX_M:
         rows = min(r for r in mm.STREAM_ROWS if r >= M)
-        blocks = [("stream", rows, mm.STREAM_BN, math.ceil(N / mm.STREAM_BN))]
-    else:
-        blocks = [("tile", bm, bn, math.ceil(M / bm) * math.ceil(N / bn))
-                  for bm, bn in mm.TILE_SHAPES]
-    return [mm.Plan(kernel, bm, bn, s, math.ceil(kt / s), tiles)
-            for kernel, bm, bn, tiles in blocks
-            for s in range(1, kt + 1) if math.ceil(kt / math.ceil(kt / s)) == s]
+        return [mm.Plan("stream", rows, mm.STREAM_BN, g, per, math.ceil(N / mm.STREAM_BN))]
+    out = [mm.Plan("tile", bm, bn, g, per, math.ceil(M / bm) * math.ceil(N / bn))
+           for bm, bn in mm.TILE_SHAPES]
+    out += [mm.Plan("tile", bm, bn, 1, kt, math.ceil(M / bm) * math.ceil(N / bn))
+            for bm, bn in mm.TILE_SHAPES if g == 1 or bn < 256]
+    return out
 
 
 @pytest.mark.parametrize("M,K,N", SHAPES)
@@ -94,7 +97,7 @@ def test_plan_gives_the_same_answer_on_every_call(M, K, N):
     (1024, 8192, 2048, ("tile", 128, 128, 1)),       # prefill down
     (600, 1536, 6448, ("tile", 128, 256, 1)),        # mamba2 in_proj
     (600, 3072, 1536, ("tile", 128, 64, 1)),         # mamba2 out_proj
-    (37, 3072, 1536, ("tile", 64, 64, 4)),           # past the A/B boundary
+    (37, 3072, 1536, ("tile", 64, 64, 5)),           # past the A/B boundary: a block a K group
 ])
 def test_plan_at_the_headline_shapes(M, K, N, want):
     p = mm.plan(M, N, K)
@@ -105,3 +108,37 @@ def test_plan_at_the_headline_shapes(M, K, N, want):
 def test_plan_refuses_k_or_n_not_a_multiple_of_8(M, K, N):
     with pytest.raises(ValueError, match="multiples of 8"):
         mm.plan(M, N, K)
+
+
+# the served (K, N) pairs: llama3.2-1b's four weights, mamba2-780m's two,
+# granite-3-8b's four
+SERVED_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536, 6448), (3072, 1536),
+             (4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
+
+
+@pytest.mark.parametrize("K,N", SERVED_KN)
+def test_a_rows_k_order_is_the_same_for_every_m(K, N):
+    """A row's K is summed in the same ranges, in the same order, whatever
+    rows its launch carries: a decode step, a chunk of 16 to 128 rows and a
+    whole 1024-row bucket give a prompt row the same bits."""
+    orders = {M: mm.row_order(M, N, K) for M in (1, 3, 8, 16, 17, 37, 64, 128, 256, 600, 1024)}
+    g, per = mm.groups(N, K)
+    want = tuple((i * mm.BK, min(K, (i + per) * mm.BK)) for i in range(0, math.ceil(K / mm.BK),
+                                                                       per))
+    assert len(want) == g and want[-1][1] == K
+    assert all(order == want for order in orders.values()), orders
+
+
+@pytest.mark.parametrize("K,N", SERVED_KN)
+def test_groups_are_the_decode_split_and_every_plan_keeps_them(K, N):
+    """The groups are the weight-streaming kernel's least-cost split at 8
+    rows (decode keeps its split), non-empty; every alternative the plan
+    weighs runs one group a block or every group in one block."""
+    g, per = mm.groups(N, K)
+    kt = math.ceil(K / mm.BK)
+    assert (g - 1) * per < kt <= g * per
+    assert (mm.plan(8, N, K).splits, mm.plan(8, N, K).per_split) == (g, per)
+    for M in (8, 17, 128, 1024):
+        for p in mm.alternatives(M, N, K):
+            assert (p.splits, p.per_split) in ((g, per), (1, kt))
+            assert not (p.block_n == 256 and p.splits == 1 and g > 1)

@@ -561,18 +561,17 @@ def test_sass_names_each_decode_instance_and_the_ssd_kernel(monkeypatch):
         cs.ssd_sass(Native())
 
 
-def test_decode_split_check_needs_every_served_split_count(monkeypatch):
-    """The split counts the rule picks at the served shapes (decode steps of
-    8 and 16 slots, every fixup) must each run in some row of the kernel."""
-    # the blocks an SM the built kernel reports on the H100
-    monkeypatch.setattr(dec_k, "blocks_per_sm", {16: 4, 32: 4, 48: 3, 64: 3, 80: 2, 96: 2, 112: 1, 128: 1}.__getitem__)
+def test_decode_split_check_needs_every_served_split_count():
+    """The split counts the rule picks at the served shapes (decode steps
+    over 1024, 512 and 256 rows, every fixup) must each run in some row of
+    the kernel."""
     lengths, _ = cs.serve_prompts(torch, 128, 0)
     served = cs.served_decode_splits(dec_k, lengths)
-    assert served == {"decode_attention": {1, 2, 3, 4, 5}, "paged_decode_attention": {2, 3, 4}}
-    rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4, 5)]
-            + [{"name": "paged_decode_attention", "splits": n} for n in (2, 3, 4)])
-    assert cs.check_splits(rows, served) == {"decode_attention": [1, 2, 3, 4, 5],
-                                             "paged_decode_attention": [2, 3, 4]}
+    assert served == {"decode_attention": {1, 2, 3, 4}, "paged_decode_attention": {2, 4}}
+    rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4)]
+            + [{"name": "paged_decode_attention", "splits": n} for n in (2, 4)])
+    assert cs.check_splits(rows, served) == {"decode_attention": [1, 2, 3, 4],
+                                             "paged_decode_attention": [2, 4]}
     with pytest.raises(AssertionError, match="no row ran"):
         cs.check_splits(rows[1:], served)
 
@@ -747,3 +746,68 @@ def test_trace_steps_split_at_the_marker_kernels():
     assert [{k: v for k, v in st.items() if v} for st in steps] == [
         {"rmsnorm": 1}, {"matmul": 1, "decode_attention": 1}]
     assert len(cs.trace_steps(prof, cs.TRACE_KERNELS, 5)) == 3
+
+
+def test_matmul_row_invariance_check_takes_the_served_launch_rows():
+    """The matmul row-invariance check on the plain version: a 1024-row
+    launch's rows against launches of 1, 3, 8, 16, 17 and 128 rows and a
+    permutation, at a served (K, N) scaled down."""
+    g = torch.Generator().manual_seed(3)
+    x, w = _randn(g, 1024, 64), _randn(g, 64, 32)
+    perm = torch.randperm(1024, generator=g)
+    res = cs.row_invariance(torch, mm_k.plain_matmul, x, w, perm, rows=cs.MATMUL_INVARIANCE_ROWS)
+    assert res["launch_rows"] == [1, 3, 8, 16, 17, 128] and res["rows"] == 1024
+
+
+def test_flash_chunk_invariance_check_reads_where_a_chunk_starts():
+    """The flash chunk check: a row-local function's chunked rows equal the
+    whole prompt's; one whose rows depend on the launch's query count
+    fails."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v = _randn(g, 1, 4, 1024, 16), _randn(g, 1, 2, 1024, 16), _randn(g, 1, 2, 1024, 16)
+
+    def plain(q, k, v, causal, splits=None):
+        # a row-local stand-in (CPU BLAS sums depend on the shape): query row
+        # i against the running sum of keys 0..i, aligned to the keys' end
+        keys = k.float().cumsum(2).repeat_interleave(q.shape[1] // k.shape[1], 1)
+        return (q.float() * keys[:, :, k.shape[2] - q.shape[2]:]).to(q.dtype)
+
+    res = cs.flash_chunk_invariance(torch, plain, q, k, v, (1, 2))
+    assert res["chunk_starts"] == [0, 16, 128, 512] and res["splits"] == ["rule", 1, 2]
+
+    def by_rows(q, k, v, causal, splits=None):
+        return plain(q, k, v, causal) + q.shape[2] * 1e-2
+
+    with pytest.raises(AssertionError, match="16-row chunk at 0"):
+        cs.flash_chunk_invariance(torch, by_rows, q, k, v, (1,))
+
+
+def test_traffic_rows_are_checked_against_the_jax_package():
+    """The traffic phase's gates: a row that differs from the JAX package's
+    in any number, or a chunked stream that differs from its whole stream,
+    raises."""
+    from repro_torch.bench import table9_traffic as t9
+
+    def result(row, streams):
+        return {"ttft_p50": row["ttft_p50_us"] * 1e-6, "ttft_p99": row["ttft_p99_us"] * 1e-6,
+                "tpot_p50": row["tpot_p50_us"] * 1e-6, "tpot_p99": row["tpot_p99_us"] * 1e-6,
+                "throughput": row["throughput_tok_s"], "makespan": row["makespan_us"] * 1e-6,
+                "requests": row["requests"], "streams": streams}
+
+    good = {key: result(row, {1: [5, 6]}) for key, row in t9.EXPECTED.items()}
+    t9.check_rows(good)
+    late = dict(good)
+    late[("bursty", "chunked")] = {**good[("bursty", "chunked")], "ttft_p99": 8401e-6}
+    with pytest.raises(AssertionError, match="bursty chunked"):
+        t9.check_rows(late)
+    parted = dict(good)
+    parted[("poisson", "chunked")] = {**good[("poisson", "chunked")], "streams": {1: [5, 7]}}
+    with pytest.raises(AssertionError, match="diverged .* on poisson"):
+        t9.check_rows(parted)
+
+
+def test_decode_split_check_covers_the_traffic_phase_step():
+    """The decode kernels' served split counts include the traffic phase's
+    6-slot step against 256 rows, whose count a kernel-phase row runs."""
+    served = cs.served_decode_splits(dec_k, [5, 600])
+    assert dec_k.split_kv(256) == 1 and 1 in served["decode_attention"]
