@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
-Serves ``llama3.2-1b`` and ``mamba2-780m`` at full width and depth, and
-runs ``granite-3-8b`` (head_dim 128, an untied unembed over 49155 tokens) at
-full width and GRANITE_DEPTH layers, with weights drawn from ``--seed`` on
-the card, through the port's own entry points under the ``cuda-strict``
-policy, so every op on the path runs a hand-written kernel, and runs the
+Serves ``llama3.2-1b``, ``mamba2-780m``, ``yi-6b``, ``granite-3-8b`` and
+``yi-9b`` (heads of 128, untied unembeds; granite's over 49155 tokens) at
+full width and depth, with weights drawn from ``--seed`` on the card,
+through the port's own entry points under the ``cuda-strict`` policy, so
+every op on the path runs a hand-written kernel; serves yi-9b under an
+overcommitted page pool (preemption, host spill and refill); and runs the
 paper's two tenants on the card through the port's HSA runtime.  Phases, in
 order; any failure raises and the script exits non-zero:
 
@@ -31,8 +32,10 @@ order; any failure raises and the script exits non-zero:
    at an odd D, and bitwise row-invariant (a row's output the same in a
    launch of 1, 3, 8, 128 or 600 rows and under a permutation); the bf16
    matmul bitwise row-invariant too, at every (K, N) a served prefill runs
-   (a row's bits the same in a launch of 1, 3, 8, 16, 17, 128 or 1024
-   rows, streaming kernel or tile, and under a permutation), and flash
+   (llama's, mamba2's, yi's and granite's weights; a row's bits the same
+   in a launch of 1, 3, 8, 16, 17, 128 or 1024 rows, streaming kernel or
+   tile, and under a permutation), yi's and granite's unembeds (f32 out; a
+   row's bits the same alone, in 8 rows and in 16), and flash
    attention's chunked rows bitwise the whole prompt's (16- and 128-row
    chunks at 0, 16, 128 and 512 of a 1024-row prompt, at every split); the
    matmul edge kernels at the untied unembeds' shapes, N not a multiple of
@@ -53,7 +56,10 @@ order; any failure raises and the script exits non-zero:
    beside it).  The
    paged kernel must also equal the dense kernel on the gathered cache bit
    for bit, and the fixed-weight roles (``matmul_fixed_weight``,
-   ``conv2d_fixed_weight``) their generic kernels.  The sampler (``sample``,
+   ``conv2d_fixed_weight``) their generic kernels.  Every shape the
+   full-depth and overcommit runs and model calls give a kernel (derived
+   from each engine's slots, pages and chunk and the prompts' lengths:
+   ``served_shapes``) must have a row here, checked at the summary.  The sampler (``sample``,
    JAX's position-indexed categorical draw) at every [B, V] the sampled
    serve runs give it ([1, 128256], [8, 128256], [16, 128256], [1, 50280],
    [8, 50280]) and at granite's [8, 49155]: its random bits exactly the
@@ -100,24 +106,42 @@ order; any failure raises and the script exits non-zero:
    routed beside direct; checks every role packet against its plain
    version and the launch counts against the packets, and that the routed
    engines' decode graphs were captured on the scheduler's worker thread.
-6. model, granite-3-8b at full width and GRANITE_DEPTH layers: 8 prompts'
+6. full depth: yi-6b (32 layers), granite-3-8b (40) and yi-9b (48) in
+   turn, each from ``--seed`` and freed before the next: 8 prompts'
    bucketed prefills (8 .. 512), their first-token fixups, a batched
    decode over the dense cache and over a page pool (bitwise equal), and a
    512-token prompt in 128-row chunks through staging and a pool (bitwise
-   equal), under ``cuda-strict`` against the ``torch`` source; launches
+   equal), under ``cuda-strict`` against the ``torch`` source, launches
    counted from 0 and checked against the calls (flash, decode and paged
-   attention at D = 128 and the edge matmul each run).
-7. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+   attention at D = 128, and the unembed: yi's on the bf16 kernel,
+   granite's on the edge kernel); then the 16 requests dense 8 slots as a
+   graph, paged 8 slots, paged chunked 16 slots, and at T = 0.7 (seed 3)
+   dense and chunked at K = 4, streams equal 16 of 16; the weights' bytes,
+   peak memory, TTFT and the dense graph run's decode tokens/s beside the
+   weights' bound, and the card's name and power limit.
+7. overcommit, yi-9b at 48 layers: the 16 requests at 128 new tokens
+   through a paged engine of 8 slots over 97 pages: full reserve;
+   overcommitted (``growth_reserve`` 0.5), preempting and resuming both by
+   snapshot and by re-prefill; a host budget of one snapshot with two
+   outside preempts while a refill is in flight, evicting a parked
+   snapshot (arena bytes freed, its refill and copy up cancelled); and
+   churn at T = 0.7 with external ``preempt``/``resume`` calls; each arm's
+   streams equal an unconstrained dense run's, the allocator's and the
+   arena's invariants held after every step; the real snapshot copies' GB/s
+   (refills copied up on a side stream ahead of need, and how long the
+   serving stream waited on them).  Then Table VIII's and XI's trace
+   arms (``repro_torch.bench``), whose rows must equal the JAX package's.
+8. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
    against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
    their own length: an SSM prompt is not bucketed), then three decode
    steps of the three as a batch.
-8. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+9. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps,
    and one 600-token prompt's prefill into an idle engine by kernel (the
    ssd kernel's part); graph against loop as for llama; and T = 0.7 at K 4,
    graph equal to loop.
-9. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
+10. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
    ``repro_torch.bench.table9_traffic``): the poisson, bursty and
    longtail traces through a 6-slot engine at K 4, chunked (16-row
    chunks) and whole, on a virtual
@@ -138,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -166,9 +191,11 @@ SAMPLE_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
 # the sampler's shapes: every shape the sampled serve runs give it (a decode
 # step of 8 slots (dense, paged) and of 16 (chunked) over llama's
 # vocabulary, Mamba-2's step of 8, and the first token of each, one slot);
-# then granite's vocabulary, a width not a multiple of the block's (granite
-# is never sampled)
-SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155))
+# then yi's and granite's vocabularies (granite's not a multiple of the
+# block's) at the full-depth and overcommit phases' sampled runs: a first
+# token, decode steps of 8 and of 16 slots
+SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155),
+                 (1, 49155), (16, 49155), (1, 64000), (8, 64000), (16, 64000))
 # the sampler against its plain version: the random bits exactly (and a
 # numpy Threefry's), the token wherever the two best scores lie more than
 # this many ulps apart (the kernel's logf and PyTorch's may part by an ulp)
@@ -226,13 +253,15 @@ EDGE_ROWS = (1, 8, 16)
 # of 8 with 63 values in its last 64-deep slice (the planted fault drops them)
 EDGE_TILE_ROWS = (17, 64)
 EDGE_RAGGED_K = 1599
-# granite-3-8b at full width, cut to this many layers (about 1.6 GB of bf16
-# weights from --seed): every head_dim 128 kernel and the edge matmul of its
-# untied [4096, 49155] unembed on the path a server runs
-GRANITE_DEPTH = 2
-# the granite phase's 8 prompt lengths (buckets 8 .. 512); the kernel phase
+# the full-depth phase's configs, served in this order (the last one's
+# weights stay for the overcommit phase): yi-6b (32 layers), granite-3-8b
+# (40; an untied unembed over 49155 tokens, the edge matmul), yi-9b (48)
+FULL_DEPTH_ARCHS = ("yi-6b", "granite-3-8b", "yi-9b")
+# the model-call check's 8 prompt lengths (buckets 8 .. 512); the kernel phase
 # holds decode and paged attention against their plain versions at them too
-GRANITE_LENGTHS = (5, 45, 130, 260, 300, 400, 470, 500)
+CALL_LENGTHS = (5, 45, 130, 260, 300, 400, 470, 500)
+#: the serve runs' 16 prompt lengths: 5 to 600, evenly spaced
+SERVE_LENGTHS = tuple(round(5 + i * (600 - 5) / 15) for i in range(16))
 # the decode attention instances no served config runs (llama and granite
 # take 64 and 128, and 96 has timed rows): held against the plain versions
 # untimed, so that every instance built runs in some row
@@ -522,10 +551,19 @@ ROW_INVARIANCE_ROWS = (1, 3, 8, 128)
 #: step of 8 slots and of 16 (the streaming kernel), the tile kernel's
 #: smallest launch, a 128-row chunk
 MATMUL_INVARIANCE_ROWS = (1, 3, 8, 16, 17, 128)
+#: yi's and granite's weights (4096 wide, heads of 128): wq and wo; yi's wk
+#: and wv (4 kv heads), its MLP (11008); granite's wk and wv (8 kv heads),
+#: its MLP (12800)
+FULL_DEPTH_KN = ((4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 1024),
+                 (4096, 12800), (12800, 4096))
 #: the (K, N) pairs the served prefills run: llama3.2-1b's four weights,
-#: mamba2-780m's two
+#: mamba2-780m's two, then yi's and granite's
 MATMUL_SERVED_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536, 6448),
-                    (3072, 1536))
+                    (3072, 1536), *FULL_DEPTH_KN)
+#: the untied unembeds the served runs give M of 1 (a prompt's last row, a
+#: fixup), 8 and 16 (decode steps): yi's (the bf16 kernel, f32 out) and
+#: granite's (N not a multiple of 8: the edge kernel)
+SERVED_UNEMBEDS = ((4096, 64000), (4096, 49155))
 #: where the chunks start, and their rows, that flash attention's rows are
 #: held at against a 1024-row prompt's
 FLASH_CHUNK_STARTS = (0, 16, 128, 512)
@@ -661,6 +699,27 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                               "activations": [None, "silu"]})
         del x, w
     print(f"  matmul row invariance holds: {mm_invariance}")
+    # the untied unembeds' rows, f32 out: a row's bits the same alone, in the
+    # 8 rows of a decode step and in 16 (the bf16 kernel for yi; for
+    # granite the edge kernel, whose split follows (N, K) alone at M <= 16)
+    unembed_invariance = []
+    for K, N in SERVED_UNEMBEDS:
+        x, w = randn((16, K)), randn((K, N), K ** -0.5)
+        full = mm_k.matmul(x, w, out_dtype=torch.float32)
+        for m in (1, 8):
+            if not torch.equal(mm_k.matmul(x[:m], w, out_dtype=torch.float32), full[:m]):
+                raise AssertionError(f"unembed [{K},{N}]: the rows of a {m}-row launch differ "
+                                     f"from the same rows of a 16-row launch")
+        for i in range(16):
+            if not torch.equal(mm_k.matmul(x[i:i + 1], w, out_dtype=torch.float32),
+                               full[i:i + 1]):
+                raise AssertionError(f"unembed [{K},{N}]: row {i} alone differs from its row "
+                                     f"in a 16-row launch")
+        unembed_invariance.append({"K": K, "N": N, "launch_rows": [1, 8, 16],
+                                   "instances": sorted({mm_k.kernel_instance(x[:m], w)
+                                                        for m in (1, 8, 16)})})
+        del x, w, full
+    print(f"  unembed row invariance holds: {unembed_invariance}")
 
     # matmul at the four weight shapes, at every row count the serve runs
     # give it: M = 1 (the first-token fixup), 8 (a decode step of 8 slots,
@@ -711,12 +770,53 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    instance=mm_k.kernel_instance(x, w))
             del sets, x, w
 
+    # yi's and granite's weights at every row count their runs give them,
+    # llama's rows_used (check_served_shapes holds the runs to it), the
+    # MLP's gate also under its silu epilogue; timed at 8 and 1024.  Then
+    # yi's unembed (f32 out) at 1, 8 and 16, timed at 8
+    for K, N in FULL_DEPTH_KN:
+        for M in rows_used:
+            timed = M in (8, 1024)
+            sets = [(randn((M, K)), randn((K, N), K ** -0.5))
+                    for _ in range(n_sets(2 * (M * K + K * N)) if timed else 1)]
+            x, w = sets[0]
+            for act in ((None, "silu") if N in (11008, 12800) else (None,)):
+                check = matmul_err(torch, mm_k.matmul(x, w, activation=act),
+                                   mm_k.plain_matmul(x, w, activation=act),
+                                   mm_k.matmul(drop_last_k_tile(x), w, activation=act), TOL_BF16)
+                record("matmul", f"[{M},{K}]x[{K},{N}] act={act} out=bfloat16", check,
+                       sets if timed else None,
+                       lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
+                       lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
+                       (lambda a, b: torch.matmul(a, b)) if act is None else None,
+                       2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS,
+                       instance=mm_k.kernel_instance(x, w))
+            del sets, x, w
+    K, N = SERVED_UNEMBEDS[0]
+    for M in (1, 8, 16):
+        sets = [(randn((M, K)), randn((K, N), K ** -0.5))
+                for _ in range(n_sets(2 * (M * K + K * N)) if M == 8 else 1)]
+        x, w = sets[0]
+        check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=torch.float32),
+                           mm_k.plain_matmul(x, w, out_dtype=torch.float32),
+                           mm_k.matmul(drop_last_k_tile(x), w, out_dtype=torch.float32), TOL_F32)
+        if M == 8:
+            check["row_invariant"] = unembed_invariance
+        record("matmul", f"[{M},{K}]x[{K},{N}] act=None out=float32", check,
+               sets if M == 8 else None,
+               lambda a, b: mm_k.matmul(a, b, out_dtype=torch.float32),
+               lambda a, b: mm_k.plain_matmul(a, b, out_dtype=torch.float32),
+               lambda a, b: torch.matmul(a, b),
+               2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
+               instance=mm_k.kernel_instance(x, w))
+        del sets, x, w
+
     # rmsnorm's row invariance first: a row normalised in a launch of 1, 3, 8
     # or 128 rows, or moved by a permutation, is bitwise the row of a 600-row
     # launch (chunked and whole-prompt prefill must not part); at llama's
     # width, mamba2's and an odd one (rows off 16-byte boundaries)
     invariance = []
-    for D in (2048, 1536, 1000):
+    for D in (2048, 1536, 1000, 4096):
         x, w = randn((600, D)), randn((D,))
         perm = torch.randperm(600, generator=gen, device=dev)
         invariance.append(row_invariance(torch, rms_k.rmsnorm, x, w, perm))
@@ -724,13 +824,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
 
     # rmsnorm: fixup, decode, chunk and prefill rows at llama's d_model 2048;
     # mamba2's ln1 and ln_f (1536) and gated norm (3072) at its row counts;
-    # granite's and yi's 4096 at a decode step and a prefill bucket; f16 and
+    # granite's and yi's 4096 at every row count of llama's; f16 and
     # an odd D (the ragged last chunk: 1000 is not a multiple of 8) at llama's
     # decode rows
     widths = [(R, 2048, torch.bfloat16) for R in rows_used]
     widths += [(R, D, torch.bfloat16) for D in (1536, 3072) for R in (3, 5, 8, 37, 600)]
-    widths += [(8, 4096, torch.bfloat16), (512, 4096, torch.bfloat16),
-               (8, 2048, torch.float16), (8, 1000, torch.bfloat16)]
+    widths += [(R, 4096, torch.bfloat16) for R in rows_used]
+    widths += [(8, 2048, torch.float16), (8, 1000, torch.bfloat16)]
     for R, D, dt in widths:
         sets = [(randn((R, D)).to(dt), randn((D,)).to(dt)) for _ in range(n_sets(4 * R * D))]
         check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
@@ -754,12 +854,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     del sets
 
     # flash attention at D = 64 (llama's 32/8 heads) and D = 128 (granite's
-    # and yi's heads of 128, 32/8): prefill of every bucket the serve runs
-    # fill (8 .. 1024 rows; 512 also non-causal); S < T: the 128-row chunks
-    # of chunked prefill against 256 .. 1024 keys, which split their key
-    # range over 2-4 blocks a tile (split-KV); a sliding window of 48; a
-    # ragged 200.  And D = 96 (a head_dim the D = 128 instance takes, its
-    # columns past 96 read as zeros) at causal 512, a chunk and ragged 200.
+    # 32/8 heads of 128): prefill of every bucket the serve runs fill (8 ..
+    # 1024 rows; 512 also non-causal); S < T: the 128-row chunks of chunked
+    # prefill against 256 .. 1024 keys, which split their key range over 2-4
+    # blocks a tile (split-KV); a sliding window of 48; a ragged 200.  At yi's
+    # 32/4 heads of 128, the same.  And D = 96 (a head_dim the
+    # D = 128 instance takes, its columns past 96 read as zeros) at causal
+    # 512, a chunk and ragged 200.
     # The planted fault is read in the rows that see all 64 of its keys
     # (none under the window).
     # flash attention's chunk invariance first: a chunk's queries (16 or
@@ -782,9 +883,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     others = [(256, 256, True, 48), (200, 200, True, None)]
     every = buckets + chunks + others
     d96 = [(512, 512, True, None), (128, 1024, True, None), (200, 200, True, None)]
-    for D, flash_cases in ((64, every), (128, every), (96, d96)):
+    for D, hkv, flash_cases in ((64, 8, every), (128, 8, every), (128, 4, every), (96, 8, d96)):
         for S, T, causal, window in flash_cases:
-            per_set = 2 * (2 * 32 * S * D + 2 * 8 * T * D)
+            per_set = 2 * (2 * 32 * S * D + 2 * hkv * T * D)
             sound, dropped = flash_masks(torch, S, T, causal, dev, window)
             # the library call: SDPA's own causal masks where they compute
             # the kernel's (top-left is_causal at S = T, the lower-right bias
@@ -793,8 +894,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                     else None)
             sets = []
             for _ in range(n_sets(per_set)):
-                q, k, v = randn((1, 32, S, D)), randn((1, 8, T, D)), randn((1, 8, T, D))
-                sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1), mask))
+                q, k, v = randn((1, 32, S, D)), randn((1, hkv, T, D)), randn((1, hkv, T, D))
+                sets.append((q, k, v, k.repeat_interleave(32 // hkv, 1),
+                             v.repeat_interleave(32 // hkv, 1), mask))
             q, k, v = sets[0][:3]
             fault = masked_attention(torch, q, k, v, sound & ~dropped)
             kw = dict(causal=causal, window=window)
@@ -806,7 +908,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                 check["row_invariant"] = fa_invariance
             timed = ((S, T) in ((512, 512), (1024, 1024), (128, 1024)) and window is None
                      and (D != 96 or (S, T, causal) == (512, 512, True)))
-            record("flash_attention", f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={causal}"
+            record("flash_attention", f"q[1,32,{S},{D}] kv[1,{hkv},{T},{D}] causal={causal}"
                    + (f" window={window}" if window else ""), check,
                    sets if timed else None,
                    lambda q, k, v, ke, ve, m, kw=kw: fa_k.flash_attention(q, k, v, **kw),
@@ -820,29 +922,35 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # 1024 (a decode step), and one sequence against a cache cut to its
     # prompt length n (the first-token fixup: T = n, not a multiple of the
     # 32-key tile; n = 300, 400 and 600 for the split counts 3, 4 and 5 that
-    # the serve runs' fixups reach); at D = 64 with llama's 8 kv heads, at D =
-    # 128 with yi's 4 (a group of 8 query heads) and with granite's 8 (a
-    # group of 4) at the granite phase's shapes: its decode step of 8 slots
-    # against a 512-row cache (each prompt's length plus the new token) and
-    # fixups; at D = 96 with 8 kv heads; the traffic phase's decode step (6
-    # slots against 256 rows); and every other instance (D = 16, 32, 48, 80,
-    # 112) at the 8 slots, untimed.
+    # the serve runs' fixups reach); at D = 64 with llama's 8 kv heads; at D
+    # = 96 with 8 kv heads; the traffic phase's decode step (6 slots against
+    # 256 rows); and every other instance (D = 16, 32, 48, 80, 112) at the 8
+    # slots, untimed.  At D = 128 with yi's 4 kv heads (a group of 8 query
+    # heads) and granite's 8 (a group of 4), every shape their runs give the
+    # kernel: decode steps of 8 and 16 slots against 1024 rows, the model
+    # calls' 8 against a 512-row cache (each prompt's length plus the new
+    # token), and a fixup at each prompt length whose bucket pads it (timed:
+    # the 8 slots at 1024 rows, and 600).
     slots = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
     traffic = torch.tensor([1, 256, 5, 100, 37, 232], dtype=torch.int32, device=dev)
-    granite = torch.tensor([n + 1 for n in GRANITE_LENGTHS], dtype=torch.int32, device=dev)
+    granite = torch.tensor([n + 1 for n in CALL_LENGTHS], dtype=torch.int32, device=dev)
+    padded = sorted(n for n in {*SERVE_LENGTHS, *CALL_LENGTHS} if n & (n - 1) or n < 8)
     cases = []
-    for D, hkv, lengths, T, fixups in ((64, 8, slots, 1024, (5, 45, 300, 400, 600)),
-                                       (128, 4, slots, 1024, (5, 45, 600)),
-                                       (128, 8, granite, 512, (5, 45, 500)),
-                                       (96, 8, slots, 1024, (5, 45)),
-                                       (64, 8, traffic, 256, ()),
-                                       *((D, 8, slots, 1024, ()) for D in OTHER_HEAD_DIMS)):
-        B = lengths.numel()
-        cases += [(lengths, T, D, hkv, f"q[{B},32,{D}] cache[{B},{hkv},{T},{D}] lengths "
-                   f"{int(lengths.min())}..{int(lengths.max())}")]
+    for D, hkv, steps, fixups in (
+            (64, 8, ((slots, 1024),), (5, 45, 300, 400, 600)),
+            *((128, h, ((slots, 1024), (slots.repeat(2), 1024), (granite, 512)), padded)
+              for h in (4, 8)),
+            (96, 8, ((slots, 1024),), (5, 45)),
+            (64, 8, ((traffic, 256),), ()),
+            *((D, 8, ((slots, 1024),), ()) for D in OTHER_HEAD_DIMS)):
+        for lengths, T in steps:
+            B = lengths.numel()
+            cases += [(lengths, T, D, hkv, f"q[{B},32,{D}] cache[{B},{hkv},{T},{D}] lengths "
+                       f"{int(lengths.min())}..{int(lengths.max())}",
+                       (B, T) == (8, 1024) and D not in OTHER_HEAD_DIMS)]
         cases += [(torch.tensor([n], dtype=torch.int32, device=dev), n, D, hkv,
-                   f"q[1,32,{D}] cache[1,{hkv},{n},{D}] length {n}") for n in fixups]
-    for lengths, T, D, hkv, shape in cases:
+                   f"q[1,32,{D}] cache[1,{hkv},{n},{D}] length {n}", n == 600) for n in fixups]
+    for lengths, T, D, hkv, shape, timed in cases:
         B, group = lengths.numel(), 32 // hkv
         valid, dropped = decode_masks(torch, lengths, T)
         sets = []
@@ -857,8 +965,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                               dropped.any(dim=-1)[:, None])
         check["splits"] = dec_k.last_splits
         n_keys = int(lengths.sum())
-        record("decode_attention", shape, check,
-               sets if T in (1024, 600) and D not in OTHER_HEAD_DIMS else None,
+        record("decode_attention", shape, check, sets if timed else None,
                lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.decode_attention(q, kc, vc, n),
                lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.plain_decode_attention(q, kc, vc, n),
                lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
@@ -891,17 +998,20 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # 16-row pages through a shuffled table (table width 1024 / 16, the
     # dense engine's memory plus the scratch page), the same with 64-row
     # pages, the chunked run's 16 slots, and one sequence against a
-    # 600-row cache; at D = 128 (yi's 4 kv heads) the 8 slots with 16- and
-    # 64-row pages, and the granite phase's paged step (8 kv heads, a pool
-    # of 16-row pages behind a table 512 / 16 wide); at D = 96 the 8 slots
-    # with 16-row pages, and every other instance untimed.  The planted fault
+    # 600-row cache; at D = 128 with yi's 4 kv heads and granite's 8, every
+    # paged step their runs give the kernel: 8 and 16 slots behind a table
+    # 1024 / 16 wide, the model calls' 8 behind one 512 / 16 wide (and yi's 8
+    # with 64-row pages); at D = 96 the 8 slots with 16-row pages, and every
+    # other instance untimed.  The planted fault
     # remaps one whole page inside each sequence's length to another
     # sequence's page.
     paged_cases = [(slots, 16, 64, 64, 8), (slots, 64, 16, 64, 8),
                    (slots.repeat(2), 16, 64, 64, 8),
                    (torch.tensor([600], dtype=torch.int32, device=dev), 16, 38, 64, 8),
-                   (slots, 16, 64, 128, 4), (slots, 64, 16, 128, 4),
-                   (granite, 16, 32, 128, 8), (slots, 16, 64, 96, 8),
+                   (slots, 64, 16, 128, 4),
+                   *((lengths, 16, NP, 128, h) for h in (4, 8)
+                     for lengths, NP in ((slots, 64), (slots.repeat(2), 64), (granite, 32))),
+                   (slots, 16, 64, 96, 8),
                    *((slots, 16, 64, D, 8) for D in OTHER_HEAD_DIMS)]
     for lengths, ps, NP, D, hkv in paged_cases:
         B, group = lengths.numel(), 32 // hkv
@@ -1315,7 +1425,7 @@ def served_decode_splits(dec_k, prompt_lengths) -> dict[str, set[int]]:
     (llama's 8 and 16 slots), 512 (granite) and 256 (the traffic phase's 6
     slots) and every first-token fixup (one sequence against its prompt's n
     rows); the paged kernel at 1024 and 512 rows."""
-    fixups = set(prompt_lengths) | set(GRANITE_LENGTHS)
+    fixups = set(prompt_lengths) | set(CALL_LENGTHS)
     return {"decode_attention": {dec_k.split_kv(T) for T in (1024, 512, 256)}
             | {dec_k.split_kv(n) for n in fixups},
             "paged_decode_attention": {dec_k.split_kv(T) for T in (1024, 512)}}
@@ -1348,6 +1458,93 @@ def check_sample_shapes(rows: list[dict], runs, sample_k) -> dict:
                              f"the plain version: {missing} (served: {served})")
     splits = check_splits(rows, {"sample": {sample_k.splits_for(*shape) for shape in served}})
     return {"served_shapes": served, "splits": splits["sample"]}
+
+
+def weight_kn(cfg) -> list[tuple[int, int]]:
+    """The (K, N) of a dense GQA layer's seven matmuls (wq, wk, wv, wo, the
+    MLP's gate, up and down)."""
+    d, q, kv = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    return [(d, q), (d, kv), (d, kv), (q, d), (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+
+
+def served_shapes(cfg, lengths, *, slots: int, max_len: int, paged: bool = False,
+                  page_size: int = 16, chunk: int | None = None) -> set[tuple]:
+    """The shapes a dense attention model's engine calls give its kernels,
+    as keys (kernel, dims...) that :func:`row_shape_key` reads off the
+    kernel phase's rows: each prompt of ``lengths`` prefilled at its bucket
+    (whole, or in ``chunk``-row chunks against the keys up to each chunk's
+    end), its first-token fixup (one sequence against its n rows) where the
+    bucket pads it, and decode steps of ``slots`` sequences against
+    ``max_len`` rows (dense) or a table of ``max_len / page_size`` pages.
+    Every call normalises its rows (and one row before the unembed, which
+    takes the last row of a prefill or chunk, a fixup's, or a decode
+    step's ``slots``)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    buckets = {ServeEngine.bucket_len(n, max_len) for n in lengths}
+    fixups = {n for n in lengths if ServeEngine.bucket_len(n, max_len) > n}
+    rows, attn = {slots, 1}, set()
+    for b in buckets:
+        for start in range(0, b, chunk or b):
+            size = min(chunk or b, b - start)
+            rows.add(size)
+            attn.add((size, start + size))
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    keys = {("matmul", M, K, N) for M in rows for K, N in weight_kn(cfg)}
+    if not cfg.tie_embeddings:
+        keys |= {("matmul", M, cfg.d_model, cfg.vocab_size) for M in (1, slots)}
+    keys |= {("rmsnorm", R, cfg.d_model) for R in rows}
+    keys |= {("flash_attention", S, T, hkv, hd) for S, T in attn}
+    keys.add(("paged_decode_attention", slots, hkv, page_size, max_len // page_size, hd)
+             if paged else ("decode_attention", slots, hkv, max_len, hd))
+    keys |= {("decode_attention", 1, hkv, n, hd) for n in fixups}
+    return keys
+
+
+#: a kernel-phase row's shape string -> its key in :func:`served_shapes`
+ROW_SHAPE_KEYS = {
+    "matmul": re.compile(r"^\[(\d+),(\d+)\]x\[\d+,(\d+)\] act=None out=(?:bfloat16|float32)$"),
+    "rmsnorm": re.compile(r"^\[(\d+),(\d+)\]$"),
+    "flash_attention": re.compile(r"^q\[1,\d+,(\d+),(\d+)\] kv\[1,(\d+),(\d+),\d+\] "
+                                  r"causal=True$"),
+    "decode_attention": re.compile(r"^q\[(\d+),\d+,(\d+)\] cache\[\d+,(\d+),(\d+),\d+\] "),
+    "paged_decode_attention": re.compile(r"^q\[(\d+),\d+,(\d+)\] pool\[\d+,(\d+),(\d+),\d+\] "
+                                         r"table\[\d+,(\d+)\] "),
+}
+
+
+def row_shape_key(row: dict) -> tuple | None:
+    """The :func:`served_shapes` key of a kernel-phase row (bf16 operands;
+    flash attention causal and unwindowed), or None."""
+    name = "matmul" if row["name"] == "matmul_edge" else row["name"]
+    pattern = ROW_SHAPE_KEYS.get(name)
+    m = pattern.match(row["shape"]) if pattern else None
+    if m is None:
+        return None
+    v = [int(g) for g in m.groups()]
+    if name == "flash_attention":          # q rows S, head_dim, kv heads, keys T
+        return (name, v[0], v[3], v[2], v[1])
+    if name == "decode_attention":         # B, head_dim, kv heads, T
+        return (name, v[0], v[2], v[3], v[1])
+    if name == "paged_decode_attention":   # B, head_dim, kv heads, page rows, pages
+        return (name, v[0], v[2], v[3], v[4], v[1])
+    return (name, *v)
+
+
+def check_served_shapes(rows: list[dict], runs) -> dict:
+    """Raise unless every shape a run of ``runs`` gave a kernel (their
+    ``kernel_shapes``) has a kernel-phase row held against the plain
+    version; the count of shapes by kernel."""
+    served = {tuple(key) for r in runs for key in r["kernel_shapes"]}
+    ran = {row_shape_key(r) for r in rows}
+    missing = sorted(served - ran)
+    if not served or missing:
+        raise AssertionError(f"shapes the full-depth runs gave the kernels that no row held "
+                             f"against the plain version: {missing}")
+    counts: dict[str, int] = {}
+    for key in served:
+        counts[key[0]] = counts.get(key[0], 0) + 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1492,22 +1689,31 @@ def pages_of(torch, kv, table, ps: int):
     return pool
 
 
-def granite_phase(torch, model, params, kernels, seed: int) -> dict:
-    """granite-3-8b at full width (d_model 4096, 32/8 heads of 128, d_ff
-    12800, vocab 49155, an untied unembed) and its first GRANITE_DEPTH
-    layers, weights from ``seed``, under cuda-strict against the torch eager
-    source on the same weights, on the calls an engine of 8 slots and
+def unembed_launches(cfg) -> tuple[int, int]:
+    """(bf16 kernel, edge kernel) launches a model call's unembed makes: a
+    tied table is a plain f32 product (none); an untied one the bf16
+    kernel where TMA takes its N (a multiple of 8, yi's 64000), else the
+    edge kernel (granite's 49155)."""
+    if cfg.tie_embeddings:
+        return 0, 0
+    return (1, 0) if cfg.vocab_size % 8 == 0 else (0, 1)
+
+
+def model_calls_phase(torch, model, params, kernels, seed: int) -> dict:
+    """A dense model with heads of 128 and an untied unembed (yi's or
+    granite's), weights from ``seed``, under cuda-strict against the torch
+    eager source on the same weights, on the calls an engine of 8 slots and
     ``max_len`` 512 makes: each of 8 prompts prefilled at its bucket (8 ..
     512), its first-token fixup against the cache cut to the prompt, one
-    decode step of the 8 as a batch — over the dense cache, and over a pool
+    decode step of the 8 as a batch (over the dense cache, and over a pool
     of 16-row pages behind a shuffled table, whose logits must equal the
-    dense step's bit for bit — and a 512-token prompt in four 128-row
-    chunks through a staging cache and through a page pool (bitwise equal;
-    the last chunk is flash attention of S = 128 against T = 512).  Logits
-    within MODEL_REL_L2_TOL of the torch source's.  The cuda-strict pass's
-    launches are counted from 0 and must equal what its calls imply:
-    flash, decode and paged attention at D = 128 and the edge matmul (the
-    unembed, N = 49155) each run."""
+    dense step's bit for bit) and a 512-token prompt in four 128-row chunks
+    through a staging cache and through a page pool (bitwise equal; the last
+    chunk is flash attention of S = 128 against T = 512).  Logits within
+    MODEL_REL_L2_TOL of the torch source's.  The cuda-strict pass's
+    launches are counted from 0 and must equal what its calls imply: flash,
+    decode and paged attention at D = 128 each run, and the unembed's
+    kernel once a call (:func:`unembed_launches`)."""
     from repro_torch.core import dispatch
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.serve.engine import ServeEngine
@@ -1517,7 +1723,7 @@ def granite_phase(torch, model, params, kernels, seed: int) -> dict:
     max_len, ps, chunk = 512, 16, 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 5)
-    lengths = GRANITE_LENGTHS
+    lengths = CALL_LENGTHS
     prompts = [torch.randint(0, vocab, (n,), generator=gen, device=dev) for n in lengths]
     next_tokens = torch.randint(0, vocab, (len(lengths), 1), generator=gen, device=dev)
     long_prompt = torch.randint(0, vocab, (1, max_len), generator=gen, device=dev)
@@ -1570,32 +1776,39 @@ def granite_phase(torch, model, params, kernels, seed: int) -> dict:
     strict = out["cuda-strict"]
     for a, b in (("decode_paged", "decode"), ("chunk_paged", "chunk")):
         if not all(torch.equal(x, y) for x, y in zip(strict[a], strict[b])):
-            raise AssertionError(f"granite: {a} logits differ from {b} logits under cuda-strict")
+            raise AssertionError(f"{cfg.name}: {a} logits differ from {b} logits under "
+                                 f"cuda-strict")
     res = {"arch": cfg.name, "layers": L, "prompt_lengths": list(lengths), "buckets": buckets,
-           "tolerance_rel_l2": MODEL_REL_L2_TOL, "paged_equal_dense_bitwise": True}
+           "tolerance_rel_l2": MODEL_REL_L2_TOL, "paged_equal_dense_bitwise": True,
+           "kernel_shapes": sorted(
+               served_shapes(cfg, lengths, slots=B, max_len=max_len)
+               | served_shapes(cfg, [max_len], slots=B, max_len=max_len, paged=True,
+                               page_size=ps, chunk=chunk))}
     for kind in got:
         rel, agree = [], 0
         for ref, g in zip(out["torch"][kind], strict[kind]):
             ref, g = ref.float(), g.float()
             if not torch.isfinite(g).all() or g.shape != (vocab,):
-                raise AssertionError(f"granite {kind} logits of shape {tuple(g.shape)}, or "
+                raise AssertionError(f"{cfg.name} {kind} logits of shape {tuple(g.shape)}, or "
                                      f"not finite")
             rel.append(float((g - ref).norm() / ref.norm()))
             agree += int(g.argmax() == ref.argmax())
         res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
     # one unembed a model call; 7 matmuls and 2 norms a layer, the final norm
     calls = len(lengths) + len(got["fixup"]) + 2 + 2 * max_len // chunk
-    want = {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    want = {"matmul": (7 * L + bf16_unembed) * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (len(lengths) + 2 * max_len // chunk),
             "decode_attention": L * (len(got["fixup"]) + 1), "paged_decode_attention": L,
-            "ssd": 0, "sample": 0, "matmul_edge": calls}
+            "ssd": 0, "sample": 0, "matmul_edge": edge_unembed * calls}
     res["launches"] = launches
     print("  " + json.dumps(res))
     if launches != want:
-        raise AssertionError(f"granite: kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{cfg.name}: kernel launches {launches}, expected {want}")
     worst = max(max(res[kind]["rel_l2"]) for kind in got)
     if worst > MODEL_REL_L2_TOL or len(got["fixup"]) != len(lengths):
-        raise AssertionError(f"granite: cuda-strict logits differ from the torch source: {res}")
+        raise AssertionError(f"{cfg.name}: cuda-strict logits differ from the torch source: "
+                             f"{res}")
     return res
 
 
@@ -1762,10 +1975,12 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     """Each kernel's launches implied by the engine's model calls.  Dense:
     every call runs 7 matmuls and 2 norms a layer and the final norm;
     prefills and chunks run flash attention, the first-token fixups dense
-    decode attention, and decode steps dense or paged decode attention.
+    decode attention, and decode steps dense or paged decode attention; an
+    untied unembed runs the bf16 or the edge matmul once a call
+    (:func:`unembed_launches`).
     Mamba-2: every call runs 2 matmuls (in_proj, out_proj) and 2 norms (ln1,
     the gated norm) a layer and the final norm; prefills run ssd in every
-    layer, decode steps none (their single-token update is eager).  The tied
+    layer, decode steps none (their single-token update is eager).  A tied
     unembed is a plain f32 product, not a kernel.  At a temperature above 0
     the sampler runs once for each first token and each decode step
     (``sample_calls``).  A decode step counts alike whether it ran eagerly or
@@ -1775,29 +1990,36 @@ def expected_launches(eng, cfg) -> dict[str, int]:
     if cfg.family == "ssm":
         return {"matmul": 2 * L * calls, "rmsnorm": (2 * L + 1) * calls, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
-                "ssd": L * eng.prefill_calls, "sample": eng.sample_calls}
-    return {"matmul": 7 * L * calls, "rmsnorm": (2 * L + 1) * calls,
+                "ssd": L * eng.prefill_calls, "sample": eng.sample_calls, "matmul_edge": 0}
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    return {"matmul": (7 * L + bf16_unembed) * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (eng.prefill_calls + eng.chunk_calls),
             "decode_attention": L * (eng.fixup_calls + (0 if eng.paged else eng.decode_calls)),
             "paged_decode_attention": L * eng.decode_calls if eng.paged else 0, "ssd": 0,
-            "sample": eng.sample_calls}
+            "sample": eng.sample_calls, "matmul_edge": edge_unembed * calls}
 
 
 def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=True,
-              **engine_kw):
-    """Serve ``prompts`` (32 new tokens each) through one engine under
+              new_tokens: int = 32, after_step=None, **engine_kw):
+    """Serve ``prompts`` (``new_tokens`` each) through one engine under
     cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
-    counts are set to 0 just before the run and read just after it.
-    ``before_step(i)``, if given, runs before the engine's step ``i`` (another
-    tenant's submissions).  ``graphed=False`` runs the decode steps as the
-    eager loop (a comparison arm: the engine serves through graphs)."""
+    counts (and the edge matmul's) are set to 0 just before the run and read
+    just after it.  ``before_step(i)``, if given, runs before the engine's
+    step ``i`` (another tenant's submissions); ``after_step(eng)`` after each
+    step (checks, and preemptions from outside).  ``graphed=False`` runs the
+    decode steps as the eager loop (a comparison arm: the engine serves
+    through graphs).  A paged run's numbers hold the engine's preemption
+    and host-tier counters."""
     from repro_torch.core import dispatch
+    from repro_torch.core.policy import ChunkPolicy
+    from repro_torch.kernels import matmul as mm_k
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.paged import pool_token_bytes
 
     cuda = model.device.type == "cuda"
     with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
-        eng = ServeEngine(model, params, max_len=1024, device=model.device, **engine_kw)
+        engine_kw.setdefault("max_len", 1024)
+        eng = ServeEngine(model, params, device=model.device, **engine_kw)
         if not graphed:
             # the eager loop on the card, for the graph-against-loop
             # comparison only: no public knob turns graphs off
@@ -1807,10 +2029,11 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
             torch.cuda.reset_peak_memory_stats()
         for mod in kernels:
             mod.launches = 0
+        mm_k.edge_launches = 0
         for p in prompts:
-            eng.submit(p, max_new_tokens=32)
+            eng.submit(p, max_new_tokens=new_tokens)
         done, decode_s, decode_tok, t0 = [], 0.0, 0, time.perf_counter()
-        for step in range(1000):
+        for step in range(4000):
             if before_step is not None:
                 before_step(step)
             calls = eng.prefill_calls + eng.chunk_calls
@@ -1819,16 +2042,19 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
             if eng.prefill_calls + eng.chunk_calls == calls:
                 decode_s += time.perf_counter() - ts
                 decode_tok += eng.decode_tokens - toks
+            if after_step is not None:
+                after_step(eng)
             if len(done) == len(prompts):
                 break
         wall = time.perf_counter() - t0
         launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+        launches["matmul_edge"] = mm_k.edge_launches
     peak = torch.cuda.max_memory_allocated() if cuda else None
     vocab = model.cfg.vocab_size
     if len(done) != len(prompts):
         raise AssertionError(f"{len(done)} of {len(prompts)} requests completed")
     for r in done:
-        if len(r.generated) != 32 or not all(0 <= t < vocab for t in r.generated):
+        if len(r.generated) != new_tokens or not all(0 <= t < vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: bad tokens {r.generated}")
     want = expected_launches(eng, model.cfg)
     if launches != want:
@@ -1855,7 +2081,7 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
            # the sampler's [B, V]: one slot's first token, the engine's slots
            # at a decode step
            "sample_shapes": sorted({(1, vocab), (eng.slots, vocab)}) if eng.sample_calls else [],
-           "requests": len(done), "new_tokens_each": 32,
+           "requests": len(done), "new_tokens_each": new_tokens,
            "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
            "fixup_calls": eng.fixup_calls, "decode_calls": eng.decode_calls,
            "launches": launches,
@@ -1869,6 +2095,30 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
            # KV bytes the pool held mapped at its high-water mark (paged runs)
            "kv_high_water_bytes": (eng.allocator.stats().high_water * eng.page_size
                                    * pool_token_bytes(eng._cache)) if eng.paged else None}
+    chunk = engine_kw.get("prefill_chunk")
+    if model.cfg.family != "ssm" and not isinstance(chunk, ChunkPolicy):
+        res["kernel_shapes"] = sorted(served_shapes(
+            model.cfg, [len(p) for p in prompts], slots=eng.slots, max_len=eng.max_len,
+            paged=eng.paged, page_size=eng.page_size, chunk=chunk))
+    if eng.paged:
+        res["pool_pages"] = eng.pool_pages
+        res["tier"] = {k: getattr(eng, k) for k in (
+            "preemptions", "resumes", "recompute_tokens", "pages_reclaimed", "spills",
+            "refills", "demotions", "replay_fallback_tokens")}
+        res["tier"]["host_peak_bytes"] = eng.arena.peak_bytes
+        res["tier"]["block_bytes"] = eng.arena.block_bytes
+        res["tier"]["free_pages"] = eng.allocator.free_pages
+        res["tier"]["total_pages"] = eng.allocator.total_pages
+        res["tier"]["arena_entries"] = len(eng.arena.entries())
+        res["tier"]["copies"] = eng.copy_stats
+        res["tier"]["refill_cancels"] = eng._xfer.cancelled
+        # the transfer engine's priced timeline: bytes over its bandwidth
+        res["tier"]["priced_s"] = eng._xfer.bytes_moved / eng._xfer.bandwidth_bytes_s
+        if eng.ledger is not None:
+            split = eng.ledger.overcommit_split()
+            res["tier"]["snapshot_resumes"] = split["snapshot_resumes"]
+            res["tier"]["reprefill_resumes"] = split["reprefill_resumes"]
+            res["tier"]["demoted_bytes"] = eng.ledger.spill_split()["demoted_bytes"]
     return res, [r.generated for r in sorted(done, key=lambda r: r.uid)]
 
 
@@ -1876,7 +2126,7 @@ def serve_prompts(torch, vocab: int, seed: int) -> tuple[list[int], list[list[in
     """The serve runs' 16 prompts: 5 to 600 tokens, evenly spaced, drawn
     from ``seed`` in the model's vocabulary."""
     rng = torch.Generator().manual_seed(seed + 2)
-    lengths = [round(5 + i * (600 - 5) / 15) for i in range(16)]
+    lengths = list(SERVE_LENGTHS)
     return lengths, [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in lengths]
 
 
@@ -1930,6 +2180,262 @@ def serve_phase(torch, model, params, kernels, seed: int) -> dict:
             "chunked_streams_equal_dense": True,
             "launches": {name: sum(r["launches"][name] for r in runs.values())
                          for name in runs["paged"]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: yi-6b, granite-3-8b and yi-9b at full depth; overcommit
+# ---------------------------------------------------------------------------
+
+#: the full-depth phase's runs of the 16 serve prompts: SERVE_RUNS' three
+#: (streams equal to the dense graph's), then T = 0.7 (seed 3) at K = 4,
+#: dense 8 slots and paged chunked 16 slots (streams equal to each other)
+FULL_DEPTH_RUNS = SERVE_RUNS + (
+    ("t0.7_dense_k4", {"batch_slots": 8, "temperature": 0.7, "seed": 3, "decode_fusion": 4}),
+    ("t0.7_chunked_k4", {**dict(SERVE_RUNS)["paged_chunked"], "temperature": 0.7, "seed": 3,
+                         "decode_fusion": 4}),
+)
+#: run -> the run whose streams it must equal
+FULL_DEPTH_EQUAL = {"paged": "dense", "paged_chunked": "dense",
+                    "t0.7_chunked_k4": "t0.7_dense_k4"}
+
+
+def weight_bytes(params) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    total, todo = 0, [params]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, dict):
+            todo.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            todo.extend(node)
+        else:
+            total += node.numel() * node.element_size()
+    return total
+
+
+def full_depth_phase(torch, model, params, kernels, seed: int, card: str, smi: str, *,
+                     prompts=None) -> dict:
+    """One dense config at its full depth, weights from ``seed``: the model
+    calls against the torch source (:func:`model_calls_phase`), then the 16
+    serve prompts (or ``prompts``) through FULL_DEPTH_RUNS under cuda-strict, each run's
+    launches checked against its model calls and its streams against
+    FULL_DEPTH_EQUAL's (16 of 16).  Prints the weights' bytes, peak device
+    memory, TTFT and the dense graph run's decode tokens/s beside the bound
+    the weights set: a graphed step reads every weight once, so a step
+    takes at least weights / 3.35 TB/s (and the embedding table's rows but
+    B of them are never read: the bound without it beside)."""
+    cfg = model.cfg
+    wbytes = weight_bytes(params)
+    table = params["embed"]["tok"]
+    read_bytes = wbytes - table.numel() * table.element_size()
+    calls = model_calls_phase(torch, model, params, kernels, seed)
+    if prompts is None:
+        prompts = serve_prompts(torch, cfg.vocab_size, seed)[1]
+    lengths = [len(p) for p in prompts]
+    runs, streams = {}, {}
+    for name, kw in FULL_DEPTH_RUNS:
+        runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts, **kw)
+        print("  " + json.dumps({"arch": cfg.name, "run": name, **runs[name]}))
+    for name, want in FULL_DEPTH_EQUAL.items():
+        differ = [i for i, (a, b) in enumerate(zip(streams[name], streams[want])) if a != b]
+        if differ:
+            raise AssertionError(f"{cfg.name}: {name} streams differ from {want} streams in "
+                                 f"requests {differ} (prompt lengths "
+                                 f"{[lengths[i] for i in differ]})")
+    dense = runs["dense"]
+    bound_s = wbytes / HBM_BYTES_S
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "weights_bytes": wbytes,
+        "weights_gb": wbytes / 1e9, "step_bound_ms": bound_s * 1e3,
+        "step_bound_without_embedding_table_ms": read_bytes / HBM_BYTES_S * 1e3,
+        "decode_tokens_per_s_bound_8_slots": 8 / bound_s,
+        "decode_tokens_per_s": dense["decode_tokens_per_s"],
+        "ttft_mean_s": dense["ttft_mean_s"], "ttft_p99_s": dense["ttft_p99_s"],
+        "peak_memory_bytes": max(r["max_memory_allocated_bytes"] or 0 for r in runs.values()),
+        "streams_equal": {name: f"16 of 16 equal {want}"
+                          for name, want in FULL_DEPTH_EQUAL.items()},
+        "card": card, "nvidia_smi": smi}
+    print(f"  {cfg.name} at {cfg.num_layers} layers on {card} ({smi}): weights "
+          f"{summary['weights_gb']} GB; peak device memory {summary['peak_memory_bytes']} bytes; "
+          f"dense graph run: TTFT mean {dense['ttft_mean_s']} s, p99 {dense['ttft_p99_s']} s, "
+          f"decode {dense['decode_tokens_per_s']} tokens/s against the weights' bound of "
+          f"{summary['decode_tokens_per_s_bound_8_slots']} tokens/s at 8 slots "
+          f"({summary['step_bound_ms']} ms a step)")
+    return {"calls": calls, "runs": runs, "summary": summary, "prompt_lengths": lengths}
+
+
+#: the overcommit phase: 128 new tokens a request (8 pages of growth), 8
+#: slots of 16-row pages behind a pool of 96 pages and the scratch page, a
+#: sixth of the dense footprint's 8 x 1024 / 16 + 1 = 513.  At half (257)
+#: the 8 slots bind first and the pool never runs dry (no preemption, in a
+#: run of the engine on the CPU: the schedule follows from the lengths alone)
+OVERCOMMIT_NEW_TOKENS = 128
+OVERCOMMIT_POOL_PAGES = 97
+#: a victim with at least this many cached rows snapshots, a shorter one
+#: replays: the pool's victims hold about 330 to 550 rows, so both come
+OVERCOMMIT_SNAPSHOT_TOKENS = 384
+#: the churn arm's external pressure, drawn after each of its first
+#: CHURN_STEPS steps as tests/test_preemption.py draws it (then the run
+#: drains, as that test's run_to_completion does): preempt a live request,
+#: resume a parked one.  Drawn for the whole run, a request resumed by
+#: re-prefill is preempted again before it regenerates 128 tokens: the run
+#: never ends (so it went in a rehearsal on the CPU)
+CHURN_PREEMPT_P, CHURN_RESUME_P, CHURN_STEPS = 0.25, 0.2, 40
+#: the tight host arm's external preempts
+EVICT_PREEMPTS = 2
+
+
+def overcommit_phase(torch, model, params, kernels, seed: int, card: str, smi: str, *,
+                     prompts=None, new_tokens: int = OVERCOMMIT_NEW_TOKENS,
+                     pool_pages: int = OVERCOMMIT_POOL_PAGES,
+                     snapshot_tokens: int = OVERCOMMIT_SNAPSHOT_TOKENS,
+                     max_len: int = 1024) -> dict:
+    """The 16 serve prompts (or ``prompts``), 128 new tokens each, through a
+    paged engine of 8 slots over ``pool_pages`` pages under cuda-strict (the
+    keywords scale it down for a rehearsal on the CPU), in four arms, each
+    gated to 16 of 16 streams equal to an unconstrained dense run of the
+    same requests (16 slots; greedy, or T = 0.7 for arm 4): (1) full reserve
+    (the default admission); (2) overcommitted (``growth_reserve`` 0.5,
+    snapshots from OVERCOMMIT_SNAPSHOT_TOKENS rows), an unbounded host
+    arena: it must preempt and resume both ways; (3) arm 2 with a host
+    budget of the largest snapshot a request can make, and EVICT_PREEMPTS
+    external preempts, each of the live request with the most cached rows
+    while a parked snapshot's refill is in flight: two snapshots never fit
+    the budget together, so the new one's spill must evict the parked one
+    (a demotion that frees arena bytes, and the cancel of its refill and of
+    its copy up);
+    (4) arm 2 at T = 0.7 (seed 3) with ``FusionPolicy(max_fusion=4)`` and
+    seeded external ``preempt()`` and ``resume()`` calls over its first
+    CHURN_STEPS steps.  After every step the allocator's
+    and the arena's invariants are checked (and the budget); at the end every
+    page is free and the arena empty.  Every re-prefill resume's replay is
+    checked token by token by the engine itself.  Prints each arm's counters,
+    sustained concurrency and the real snapshot copies' seconds and GB/s
+    beside the transfer engine's priced time.  Then Table VIII's and XI's
+    trace arms, on the host, against the JAX package's rows."""
+    import numpy as np
+
+    from repro_torch.bench import table8_overcommit, table11_spill
+    from repro_torch.core.ledger import OverheadLedger
+    from repro_torch.core.policy import AdmissionPolicy, FusionPolicy, PreemptionPolicy
+
+    cfg = model.cfg
+    cuda = model.device.type == "cuda"
+    new = new_tokens
+    if prompts is None:
+        prompts = serve_prompts(torch, cfg.vocab_size, seed)[1]
+    lengths = [len(p) for p in prompts]
+    runs, streams = {}, {}
+    for name, kw in (("dense_16", {}), ("dense_16_t0.7", {"temperature": 0.7, "seed": 3})):
+        runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts,
+                                              new_tokens=new, batch_slots=16, max_len=max_len,
+                                              **kw)
+        print("  " + json.dumps({"arch": cfg.name, "run": name, **runs[name]}))
+
+    def checked(eng):
+        eng.allocator.check_invariants()
+        eng.arena.check_invariants()
+        if eng.host_budget_bytes is not None and eng.arena.used_bytes > eng.host_budget_bytes:
+            raise AssertionError(f"host arena holds {eng.arena.used_bytes} bytes over its "
+                                 f"budget of {eng.host_budget_bytes}")
+
+    rng = np.random.default_rng(seed + 7)
+    churned = [0]
+
+    def churn(eng):
+        checked(eng)
+        churned[0] += 1
+        if churned[0] > CHURN_STEPS:
+            return
+        if eng._active and rng.random() < CHURN_PREEMPT_P:
+            eng.preempt(int(rng.choice([r.uid for r in eng._active.values()])))
+        if eng.parked_requests and rng.random() < CHURN_RESUME_P:
+            eng.resume(int(rng.choice([r.uid for r in eng.parked_requests])))
+
+    pressed = [0]
+
+    def evicting(eng):
+        checked(eng)
+        if pressed[0] >= EVICT_PREEMPTS or not any(e.refill is not None for e in eng._parked):
+            return
+        slot = max(eng._active, key=lambda s: int(eng._pos[s]), default=None)
+        if slot is not None and eng._pos[slot] >= snapshot_tokens:
+            pressed[0] += 1
+            eng.preempt(eng._active[slot].uid)
+
+    over = dict(admission=AdmissionPolicy(growth_reserve=0.5),
+                preemption=PreemptionPolicy(snapshot_threshold_tokens=snapshot_tokens))
+    arms = [("full_reserve", "dense_16", checked, {}),
+            ("overcommit", "dense_16", checked, over),
+            ("tight_host", "dense_16", evicting, over),
+            ("churn_t0.7", "dense_16_t0.7", churn,
+             {**over, "temperature": 0.7, "seed": 3,
+              "decode_fusion": FusionPolicy(max_fusion=4)})]
+    for name, want, after, kw in arms:
+        if name == "tight_host":
+            # room for the largest snapshot (a request's last row cached)
+            # and never two: each holds at least snapshot_tokens rows
+            blocks = -(-(max(lengths) + new - 1) // 16)
+            if 2 * -(-snapshot_tokens // 16) <= blocks:
+                raise ValueError(f"two snapshots of {snapshot_tokens} rows fit {blocks} blocks")
+            kw = {**kw, "host_budget_bytes": blocks * runs["overcommit"]["tier"]["block_bytes"]}
+        runs[name], streams[name] = serve_run(
+            torch, model, params, kernels, prompts, new_tokens=new, after_step=after,
+            batch_slots=8, paged=True, page_size=16, pool_pages=pool_pages, max_len=max_len,
+            ledger=OverheadLedger(), **kw)
+        tier = runs[name]["tier"]
+        copies = tier["copies"]
+        for way in ("d2h", "h2d"):
+            tier[f"{way}_gb_per_s"] = (copies[f"{way}_bytes"] / copies[f"{way}_s"] / 1e9
+                                       if copies[f"{way}_s"] else None)
+        print("  " + json.dumps({"arch": cfg.name, "arm": name, **runs[name]}))
+        differ = [i for i, (a, b) in enumerate(zip(streams[name], streams[want])) if a != b]
+        if differ:
+            raise AssertionError(f"overcommit arm {name}: streams differ from {want} in "
+                                 f"requests {differ}")
+        if tier["free_pages"] != tier["total_pages"] or tier["arena_entries"]:
+            raise AssertionError(f"overcommit arm {name} ended holding pages or snapshots: "
+                                 f"{tier}")
+        print(f"  {name} on {card} ({smi}): {tier['preemptions']} preemptions, resumes "
+              f"{tier['snapshot_resumes']} by snapshot and {tier['reprefill_resumes']} by "
+              f"re-prefill, {tier['recompute_tokens']} recompute tokens, "
+              f"{tier['pages_reclaimed']} pages reclaimed, {tier['spills']} spills, "
+              f"{tier['refills']} refills, {tier['demotions']} demotions "
+              f"({tier['demoted_bytes']} arena bytes freed, {tier['refill_cancels']} refills "
+              f"cancelled), host peak {tier['host_peak_bytes']} bytes; copies: device to host "
+              f"{copies['d2h_bytes']} bytes in {copies['d2h_s']} s ({tier['d2h_gb_per_s']} "
+              f"GB/s; the pinned host buffers allocated in {copies['d2h_alloc_s']} s besides), "
+              f"host to device {copies['h2d_bytes']} bytes in {copies['h2d_s']} s "
+              f"({tier['h2d_gb_per_s']} GB/s, on a side stream ahead of need; the serving "
+              f"stream waited {copies['h2d_waited_s']} s on them; "
+              f"{copies['h2d_cancelled']} copies up cancelled), priced at "
+              f"{tier['priced_s']} s on the transfer timeline; sustained "
+              f"concurrency {runs[name]['sustained_concurrency']}, peak "
+              f"{runs[name]['peak_concurrency']}")
+    oc, th = runs["overcommit"]["tier"], runs["tight_host"]["tier"]
+    if not (oc["preemptions"] > 0 and oc["snapshot_resumes"] > 0 and oc["reprefill_resumes"] > 0):
+        raise AssertionError(f"the overcommitted arm did not preempt and resume both ways: {oc}")
+    if not (th["spills"] > 0 and th["demoted_bytes"] > 0 and th["refill_cancels"] > 0
+            and th["copies"]["h2d_cancelled"] == (th["refill_cancels"] if cuda else 0)):
+        raise AssertionError(f"the tight host arm did not evict a parked snapshot (spills, "
+                             f"a demotion that freed arena bytes, its refill and copy up "
+                             f"cancelled): {th}")
+    if runs["churn_t0.7"]["tier"]["preemptions"] == 0:
+        raise AssertionError("the churn arm never preempted")
+    print(f"  sustained concurrency: overcommitted {runs['overcommit']['sustained_concurrency']} "
+          f"against full reserve {runs['full_reserve']['sustained_concurrency']}")
+    traces = {}
+    for table, mod in (("table8", table8_overcommit), ("table11", table11_spill)):
+        rows = mod.rows(64)
+        mod.check(rows)
+        traces[table] = rows
+        for metric, (value, derived) in rows.items():
+            print(f"  {table},{metric},{value},{derived}")
+    print("  Table VIII's and XI's trace rows equal the JAX package's (BENCH_results.json)")
+    return {"prompt_lengths": lengths, "new_tokens": new, "pool_pages": pool_pages,
+            "runs": runs, "traces": traces,
+            "sustained_concurrency": {n: runs[n]["sustained_concurrency"]
+                                      for n in ("full_reserve", "overcommit")}}
 
 
 # ---------------------------------------------------------------------------
@@ -2388,10 +2894,12 @@ def trace_steps(prof, kinds, steps: int) -> list[dict]:
     return segments[-steps:]
 
 
-#: marker kernels that open a trace: a trace's first records have gone
-#: missing (in traces of the Mamba-2 graph replays, after many earlier
-#: traces in the process), and these absorb what a trace drops first
-TRACE_OPENING_MARKERS = 8
+#: marker kernels that open a trace, and the pause after them: a trace's
+#: first records have gone missing (in traces of the Mamba-2 graph replays,
+#: after many earlier traces and graphs in the process: 8 markers and all
+#: of the first step once), and these absorb what a trace drops first
+TRACE_OPENING_MARKERS = 256
+TRACE_OPENING_PAUSE_S = 0.25
 
 
 def busy_phase(torch, model, params, seed: int, graphed: bool = True,
@@ -2438,7 +2946,7 @@ def busy_phase(torch, model, params, seed: int, graphed: bool = True,
             for _ in range(TRACE_OPENING_MARKERS):
                 torch.cuda._sleep(0)
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(TRACE_OPENING_PAUSE_S)
             t0 = time.perf_counter()
             for _ in range(4):
                 torch.cuda._sleep(0)      # the marker that opens a step
@@ -2775,9 +3283,18 @@ def main() -> int:
     # only the tenants phase runs (and counts on its own)
     kernels = tuple(mod for mod in kernel_pkg.modules() if mod is not conv_k)
     t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}
+    t_lap = [t_start]
+
+    def lap() -> float:
+        """Seconds since the last lap (a phase's)."""
+        now = time.perf_counter()
+        s, t_lap[0] = now - t_lap[0], now
+        return s
+
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/9] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/11] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2797,22 +3314,25 @@ def main() -> int:
     for lib, fns in sass.items():
         for fn, counts in fns.items():
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    phase_s["device"] = lap()
 
-    print(f"[2/9] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/11] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
     decode_splits = check_splits(
         rows, served_decode_splits(dec_k, serve_prompts(torch, 128, args.seed)[0]))
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
+    phase_s["kernels"] = lap()
 
-    print("[3/9] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/11] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
+    phase_s["model"] = lap()
 
-    print("[4/9] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/11] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -2831,9 +3351,9 @@ def main() -> int:
     print("  temperature 0.7, seed 3: dense and paged at K 1 and 4, graph and loop, a "
           "FusionPolicy(max_fusion=8), chunked K 4")
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
+    phase_s["serve"] = lap()
 
-
-    print("[5/9] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/11] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -2841,23 +3361,43 @@ def main() -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     del model, params
     torch.cuda.empty_cache()
+    phase_s["tenants"] = lap()
 
-    print(f"[6/9] model: granite-3-8b at full width, {GRANITE_DEPTH} layers (head_dim 128, "
-          f"untied unembed N = 49155): prefill, fixup, decode dense and paged, chunked "
-          f"staging and paged, cuda-strict vs the torch source")
-    model = build_model(dataclasses.replace(get_arch("granite-3-8b"), num_layers=GRANITE_DEPTH))
-    params = init_params(model.param_specs(), args.seed)
-    granite_res = granite_phase(torch, model, params, kernels, args.seed)
+    print(f"[6/11] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+          f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
+          f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
+          f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
+    full_res = {}
+    for arch in FULL_DEPTH_ARCHS:
+        model = build_model(get_arch(arch))
+        params = init_params(model.param_specs(), args.seed)
+        full_res[arch] = full_depth_phase(torch, model, params, kernels, args.seed, card, smi)
+        if arch != FULL_DEPTH_ARCHS[-1]:
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"  where a {model.cfg.name} decode step's time goes (torch.profiler, CUDA activity):")
+    full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
+    phase_s["full_depth"] = lap()
+
+    print(f"[7/11] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+          f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
+          f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
+          f"VIII's and XI's trace arms")
+    overcommit_res = overcommit_phase(torch, model, params, kernels, args.seed, card, smi)
     del model, params
+    gc.collect()
     torch.cuda.empty_cache()
+    phase_s["overcommit"] = lap()
 
-    print("[7/9] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[8/11] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
+    phase_s["ssm_model"] = lap()
 
-    print("[8/9] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[9/11] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -2875,25 +3415,35 @@ def main() -> int:
     ssm_prefill_res = prefill_busy(torch, model, params, args.seed)
     del model, params
     torch.cuda.empty_cache()
+    phase_s["ssm_serve"] = lap()
 
-    print(f"[9/9] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[10/11] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     traffic_res = traffic_phase(torch, model, params, kernels)
+    phase_s["traffic"] = lap()
 
-    runs = {**serve_res["runs"], "traffic": {"launches": traffic_res["launches"]},
-            "tenants": tenants_res["run"], **ssm_res["runs"],
-            "granite": {"launches": granite_res["launches"]},
-            **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
-            **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()}}
-    sample_shapes = check_sample_shapes(rows, [r for n, r in runs.items()
-                                               if n not in ("granite", "traffic")],
-                                        sample_k)
+    print("[11/11] the kernels' summary")
+    served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
+              **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
+              **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
+              **{f"{arch}_{n}": r for arch, res in full_res.items()
+                 for n, r in res["runs"].items()},
+              **{f"overcommit_{n}": r for n, r in overcommit_res["runs"].items()}}
+    runs = {**served, "traffic": {"launches": traffic_res["launches"]},
+            **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
+               for arch, res in full_res.items()}}
+    sample_shapes = check_sample_shapes(rows, served.values(), sample_k)
     print(f"  every [B, V] the sampled runs gave the sampler, and every split count there, was "
           f"held against the plain version: {sample_shapes}")
+    full_shapes = check_served_shapes(
+        rows, [*(r for n, r in served.items() if n.startswith(FULL_DEPTH_ARCHS + ("overcommit",))),
+               *(res["calls"] for res in full_res.values())])
+    print(f"  every shape the full-depth and overcommit runs and model calls gave a kernel was "
+          f"held against the plain version (shapes by kernel): {full_shapes}")
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
@@ -2912,13 +3462,18 @@ def main() -> int:
     # the f32 kernel at 2048
     lengths = "[1, 1024, 5, 600, 37, 256, 900, 64]"
     off2, off4 = "w 2 bytes off 16-byte alignment", "w 4 bytes off 16-byte alignment"
-    beside = {"matmul": ["[1024,2048]x[2048,8192] act=None out=bfloat16"],
+    beside = {"matmul": ["[1024,2048]x[2048,8192] act=None out=bfloat16"]
+                        + [f"[{M},{K}]x[{K},{N}] act=None out=bfloat16"
+                           for K, N in FULL_DEPTH_KN for M in (8, 1024)]
+                        + ["[8,4096]x[4096,64000] act=None out=float32"],
               "flash_attention": [f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={c}"
                                   for D in (64, 128)
                                   for S, T, c in ((512, 512, True), (512, 512, False),
                                                   (128, 1024, True), (1024, 1024, True))
                                   if (D, S, T, c) != (64, 512, 512, True)]
-                                 + ["q[1,32,512,96] kv[1,8,512,96] causal=True"],
+                                 + ["q[1,32,512,96] kv[1,8,512,96] causal=True"]
+                                 + [f"q[1,32,{S},128] kv[1,4,{T},128] causal=True"
+                                    for S, T in ((512, 512), (1024, 1024), (128, 1024))],
               "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024",
                                    "q[8,32,96] cache[8,8,1024,96] lengths 1..1024",
                                    "q[1,32,64] cache[1,8,600,64] length 600"],
@@ -2987,7 +3542,8 @@ def main() -> int:
                                             ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
                                             ("conv2d", conv_k, conv_k.REPLACES))]
     entries += [("matmul_edge", mm_k, mm_k.REPLACES,
-                 {"granite": granite_res["launches"]["matmul_edge"]})]
+                 {run: r["launches"]["matmul_edge"] for run, r in runs.items()
+                  if r["launches"].get("matmul_edge")})]
     # the line holds what this run measured, and bound_ms: the other bounds
     # (bound_f32_rate_ms, ssd's bound_kernel_tc_ms) stay in the rows and --out
     timing = ("shape", "instance", "splits", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
@@ -3021,15 +3577,18 @@ def main() -> int:
             "card": card, "nvidia_smi": smi, "torch": torch.__version__, "seed": args.seed,
             "kernel_rows": rows, "sass": sass, "model": model_res, "serve": serve_res,
             "busy": busy_res, "prefill_busy": prefill_res,
-            "tenants": tenants_res, "granite": granite_res,
+            "tenants": tenants_res, "full_depth": full_res, "overcommit": overcommit_res,
+            "phase_s": phase_s,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
-            "sample_shapes": sample_shapes,
+            "sample_shapes": sample_shapes, "full_depth_shapes": full_shapes,
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
             "ssm_temperature": ssm_temp_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))
+    phase_s["summary"] = lap()
+    print(f"  seconds by phase: {json.dumps(phase_s)}")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(smi)

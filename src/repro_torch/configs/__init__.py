@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b, llama3_2_1b, mamba2_780m
+from repro_torch.configs import granite_3_8b, llama3_2_1b, mamba2_780m, yi_6b, yi_9b
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, reduced
 
 ARCHS: dict[str, ArchConfig] = {cfg.name: cfg for cfg in (llama3_2_1b.CONFIG, mamba2_780m.CONFIG,
-                                                          granite_3_8b.CONFIG)}
+                                                          granite_3_8b.CONFIG, yi_6b.CONFIG,
+                                                          yi_9b.CONFIG)}
 
 
 def get_arch(name: str) -> ArchConfig:

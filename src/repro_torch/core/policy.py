@@ -9,6 +9,14 @@ as they are (pure dataclasses and functions).
 - :class:`ChunkPolicy`: the serving engine's prefill chunk a request, fixed
   at its prefill's start, tapered by the live decode slots and the last
   launch's fusion depth.
+- :class:`PreemptionPolicy` (with :class:`PreemptionCandidate` and the
+  resume modes :data:`RESUME_REPREFILL`, :data:`RESUME_SNAPSHOT`): which
+  running requests an overcommitted paged engine parks when its pool runs
+  dry, and whether each comes back by re-prefill and replay or by restoring
+  a host snapshot of its pages.
+- :class:`SpillPolicy` (with :class:`SpillCandidate`): which parked
+  snapshots lose their host copy when the host arena passes its budget, and
+  how many refills are issued ahead of need.
 - :class:`PrefetchPolicy` and :class:`RetryPolicy`: the HSA scheduler's
   lookahead depth and fault recovery.
 - The role planner (:class:`Invocation`, :class:`CostModel`,
@@ -20,8 +28,8 @@ as they are (pure dataclasses and functions).
   simulates LRU residency for each assignment of {generic, fixed_weight} per
   op type and picks the lowest predicted steady-state step time.
 
-The rest of that file comes with the slices that read it: the preemption,
-spill, integrity and prefix policies.
+The rest of that file comes with the slices that read it: the integrity
+and prefix policies.
 """
 
 from __future__ import annotations
@@ -270,6 +278,201 @@ class AdmissionPolicy:
         summed unmapped remainder of already-admitted requests."""
         available = free_pages - projected_growth_pages - self.watermark_pages
         return request_pages <= available
+
+
+#: resume modes a preempted request can come back through
+RESUME_REPREFILL = "reprefill"    # recompute prompt + replay generated tokens
+RESUME_SNAPSHOT = "snapshot"      # restore the host-side KV page snapshot
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptionCandidate:
+    """What the :class:`PreemptionPolicy` sees of one active request.
+
+    ``mapped_pages`` is what parking it returns to the pool; ``tokens_done``
+    (prompt + generated rows in its cache) is what a re-prefill resume has to
+    recompute — the wasted work the victim order tries to minimize."""
+
+    uid: int
+    mapped_pages: int
+    tokens_done: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PreemptionPolicy:
+    """Who gets parked when the page pool runs dry, and how they come back.
+
+    The paper's fabric is shared "simultaneously from other sources": a
+    region a tenant holds can be demanded back at runtime.  For overcommitted
+    paged serving that means a mid-decode request's KV pages are reclaimable
+    — the engine parks **victims** (pages back to the pool, generated-so-far
+    tokens kept) instead of letting :class:`~repro_torch.serve.paged.PagePoolExhausted`
+    escape, and resumes them when pages free up.
+
+    ``order`` ranks victims:
+
+      - ``"youngest"`` (default) — latest-admitted first.  The oldest request
+        is never preempted while a younger one holds pages, so the head of
+        the line always drains and admission order stays livelock-free.
+      - ``"oldest"`` — earliest-admitted first (drain-and-restart flavor).
+      - ``"most_pages"`` — largest page holding first (fewest victims per
+        reclaim, at the cost of evicting the most expensive cache to rebuild).
+
+    Resume picks the cheaper of two paths per victim, by cost at park time:
+
+      - **re-prefill** (always available): recompute the prompt and replay
+        the generated tokens through the normal decode path — costs
+        ``tokens_done`` of recompute, holds no host memory;
+      - **snapshot** (``allow_snapshot``): copy the victim's live KV pages to
+        host at park and scatter them back at resume — zero recompute, costs
+        two page-pool copies plus host bytes while parked.
+
+    ``snapshot_threshold_tokens`` is the crossover: a victim with at least
+    this many cached rows snapshots (recompute grows linearly with rows;
+    the copy is bandwidth-priced), a shorter one re-prefills.
+    """
+
+    order: str = "youngest"
+    allow_snapshot: bool = True
+    snapshot_threshold_tokens: int = 24
+
+    _ORDERS = ("youngest", "oldest", "most_pages")
+
+    def __post_init__(self) -> None:
+        if self.order not in self._ORDERS:
+            raise ValueError(
+                f"order must be one of {self._ORDERS}, got {self.order!r}"
+            )
+        if self.snapshot_threshold_tokens < 0:
+            raise ValueError(
+                "snapshot_threshold_tokens must be >= 0, got "
+                f"{self.snapshot_threshold_tokens}"
+            )
+
+    def victims(self, candidates: Sequence[PreemptionCandidate],
+                pages_needed: int) -> list[int]:
+        """Uids to park, in order, until ``pages_needed`` pages are covered.
+
+        Returns the shortest prefix of the ranked candidates whose summed
+        ``mapped_pages`` reaches ``pages_needed`` — or every candidate when
+        even that falls short (the engine then re-plans with what it got)."""
+        if pages_needed <= 0:
+            return []
+        if self.order == "youngest":
+            ranked = sorted(candidates, key=lambda c: -c.uid)
+        elif self.order == "oldest":
+            ranked = sorted(candidates, key=lambda c: c.uid)
+        else:                                   # most_pages; uid tiebreak
+            ranked = sorted(candidates, key=lambda c: (-c.mapped_pages, c.uid))
+        out: list[int] = []
+        covered = 0
+        for c in ranked:
+            if covered >= pages_needed:
+                break
+            out.append(c.uid)
+            covered += c.mapped_pages
+        return out
+
+    def resume_mode(self, *, tokens_done: int) -> str:
+        """``RESUME_SNAPSHOT`` or ``RESUME_REPREFILL`` for a victim with
+        ``tokens_done`` cached rows at park time."""
+        if self.allow_snapshot and tokens_done >= self.snapshot_threshold_tokens:
+            return RESUME_SNAPSHOT
+        return RESUME_REPREFILL
+
+
+@dataclasses.dataclass(frozen=True)
+class SpillCandidate:
+    """What the :class:`SpillPolicy` sees of one parked snapshot.
+
+    ``arena_bytes`` is what demoting it returns to the host budget;
+    ``tokens_done`` is what the demotion costs later — the re-prefill
+    replay a snapshot resume would have avoided."""
+
+    uid: int
+    arena_bytes: int
+    tokens_done: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SpillPolicy:
+    """Who loses their host snapshot when the arena passes its byte budget,
+    and how far ahead of need refills are issued.
+
+    The device tier already degrades gracefully (pool pressure parks
+    victims, :class:`PreemptionPolicy`); this policy is the same discipline
+    one tier down.  When a new snapshot does not fit the
+    ``host_budget_bytes`` arena, parked snapshots are **demoted** to
+    re-prefill replay — their arena bytes are dropped and the request keeps
+    only its committed token prefix, which the replay path regenerates
+    bitwise-identically.  Work is rejected only when replay is disabled
+    (``allow_replay=False``), in which case the over-budget store raises
+    :class:`~repro_torch.serve.paged.HostArenaExhausted`.
+
+    ``order`` ranks demotion victims:
+
+      - ``"cheapest_replay"`` (default) — fewest ``tokens_done`` first: the
+        resume-cost crossover.  A snapshot's whole value is the recompute it
+        avoids, which grows linearly with cached rows, so the snapshot
+        worth the least is the first to give its bytes back.
+      - ``"largest"`` — most ``arena_bytes`` first (fewest victims per
+        reclaim, at the cost of demoting the most valuable snapshot).
+      - ``"oldest"`` — earliest-parked first (store-order eviction, the
+        arena's native ``eviction_order``).
+
+    ``refill_lookahead`` is the ahead-of-need depth: how many parked
+    snapshots from the resume head get their H2D refill issued on the
+    transfer engine *before* the resume step would stall on it — a parked
+    request scheduled for resume is a "role named in a lookahead window",
+    and this is its prefetch.  0 disables (refill on demand, fully
+    exposed).
+    """
+
+    order: str = "cheapest_replay"
+    refill_lookahead: int = 4
+    allow_replay: bool = True
+
+    _ORDERS = ("cheapest_replay", "largest", "oldest")
+
+    def __post_init__(self) -> None:
+        if self.order not in self._ORDERS:
+            raise ValueError(
+                f"order must be one of {self._ORDERS}, got {self.order!r}"
+            )
+        if self.refill_lookahead < 0:
+            raise ValueError(
+                f"refill_lookahead must be >= 0, got {self.refill_lookahead}"
+            )
+
+    @classmethod
+    def of(cls, value: "SpillPolicy | None") -> "SpillPolicy":
+        """``None`` means the defaults (demote cheapest replay, lookahead 4)."""
+        return value if isinstance(value, SpillPolicy) else cls()
+
+    def victims(self, candidates: Sequence[SpillCandidate],
+                bytes_needed: int) -> list[int]:
+        """Uids to demote, in order, until ``bytes_needed`` is covered.
+
+        Returns the shortest prefix of the ranked candidates whose summed
+        ``arena_bytes`` reaches ``bytes_needed`` — or every candidate when
+        even that falls short (the caller then demotes the incoming
+        snapshot itself)."""
+        if bytes_needed <= 0:
+            return []
+        if self.order == "cheapest_replay":
+            ranked = sorted(candidates, key=lambda c: (c.tokens_done, c.uid))
+        elif self.order == "largest":
+            ranked = sorted(candidates, key=lambda c: (-c.arena_bytes, c.uid))
+        else:                                   # oldest; uid is park order
+            ranked = sorted(candidates, key=lambda c: c.uid)
+        out: list[int] = []
+        covered = 0
+        for c in ranked:
+            if covered >= bytes_needed:
+                break
+            out.append(c.uid)
+            covered += c.arena_bytes
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

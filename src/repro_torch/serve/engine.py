@@ -68,8 +68,29 @@ seconds after every step, so TTFT and TPOT are exact properties of the
 schedule; ``submit(arrival_t=)`` backdates an arrival a trace replayer
 delivers at a step boundary.
 
-Preemption (8f) is not ported: the default full-reserve admission never
-needs it, and an overcommitting policy is refused.
+**Preemption** (``admission=AdmissionPolicy(growth_reserve < 1)``,
+``preemption=``): an overcommitted paged engine parks victims when its pool
+runs dry mid-decode (or on an external :meth:`ServeEngine.preempt`): their
+pages return to the pool, their progress stays on the host, and they resume
+before anything still queued, either by re-prefill and replay (the prompt
+prefilled again and the committed tokens regenerated through the normal
+decode path, checked token by token against what was committed) or by
+restoring a snapshot of their pages.  Streams equal an unpreempted run's.
+
+**Host tier** (``host_budget_bytes=``, ``spill=``): snapshots are copied
+off the card into a budgeted :class:`~repro_torch.serve.paged.HostArena`
+before the victim's pages are freed, and restored into the pool in place
+(the decode graph holds the pool's address).  Past the budget a
+:class:`SpillPolicy` demotes parked snapshots to replay.  Refills are issued
+ahead of need: on the :class:`TransferEngine`, a timeline priced at
+``transfer_bandwidth_bytes_s`` on the engine clock (the ledger's exposed and
+hidden refill time), and on the card as a real copy up on a side stream
+(:class:`~repro_torch.serve.paged.StagedRefill`) that the resume waits on.
+``copy_stats`` holds the real copies' bytes and seconds.
+
+Not ported yet: the engine's fault recovery (``retry=``, ``faults=``),
+integrity digests (``integrity=``) and prefix sharing (``prefix=``), which
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,7 +105,18 @@ import torch
 
 from repro_torch.core import ledger as ledger_mod
 from repro_torch.core.hsa.clock import WallClock
-from repro_torch.core.policy import AdmissionPolicy, ChunkPolicy, FusionPolicy
+from repro_torch.core.policy import (
+    RESUME_REPREFILL,
+    RESUME_SNAPSHOT,
+    AdmissionPolicy,
+    ChunkPolicy,
+    FusionPolicy,
+    PreemptionCandidate,
+    PreemptionPolicy,
+    SpillCandidate,
+    SpillPolicy,
+)
+from repro_torch.core.reconfig import TransferEngine
 from repro_torch.kernels import sample as sample_k
 from repro_torch.models.params import resolve_device
 from repro_torch.serve import graph as graph_mod
@@ -99,11 +131,32 @@ class Request:
     max_new_tokens: int
     generated: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    parked: bool = False               # preempted, awaiting resume
+    preemptions: int = 0               # times this request was parked
+    # committed tokens a re-prefill resume is replaying; the engine checks
+    # the regenerated tokens against this prefix bit for bit, then drops it
+    replay: list[int] | None = None
     # engine-clock timestamps (None until the event happens): arrival at
     # submit, first generated token, completion — the TTFT/TPOT feed
     arrival_t: float | None = None
     first_token_t: float | None = None
     finish_t: float | None = None
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A preempted request's host-side state between park and resume.  A
+    snapshot-mode request's KV lives in the engine's host arena, keyed by
+    uid."""
+
+    req: Request
+    pos: int                           # cache rows at park (prompt + gen - 1)
+    mode: str                          # RESUME_SNAPSHOT | RESUME_REPREFILL
+    # the refill (a reconfig.Transfer) the ahead-of-need pump issued; the
+    # resume waits on it instead of issuing one cold
+    refill: object | None = None
+    # on the card, the refill's real copy in flight (a paged.StagedRefill)
+    staged: object | None = None
 
 
 @dataclasses.dataclass
@@ -187,22 +240,36 @@ class _DecodeBuffers:
 class ServeTruncated(RuntimeError):
     """``run_to_completion`` exhausted ``max_steps`` with work still pending.
 
-    Carries the partial result — ``done`` and ``pending`` (active and
-    prefilling slots, then queued requests) — so callers can't mistake
-    truncation for completion.
+    Carries the partial result so callers can't mistake truncation for
+    completion, split by why each unfinished request is unfinished:
+
+    - ``pending``: active and prefilling slots and admissible queued
+      requests; more steps would finish them;
+    - ``parked``: preempted mid-flight by pool pressure, their tokens so far
+      intact; they resume when pages free up;
+    - ``rejected``: queued or parked requests whose worst-case page
+      footprint can never fit the pool under the current admission policy
+      (``submit`` refuses these up front: they appear here only if the
+      policy was tightened after submission).
     """
 
-    def __init__(self, done: list[Request], pending: list[Request]) -> None:
+    def __init__(self, done: list[Request], pending: list[Request], *,
+                 parked: list[Request] | tuple = (),
+                 rejected: list[Request] | tuple = ()) -> None:
         self.done = done
         self.pending = pending
+        self.parked = list(parked)
+        self.rejected = list(rejected)
         super().__init__(
             f"serving truncated at max_steps: {len(done)} requests done, "
-            f"{len(pending)} pending"
+            f"{len(pending)} pending, {len(self.parked)} parked, "
+            f"{len(self.rejected)} permanently rejected"
         )
 
 
-_PREEMPTION = ("preemption is ROADMAP item 8f, not ported: only it makes an "
-               "overcommitting admission (growth_reserve < 1) safe")
+#: constructor arguments of the JAX engine that later slices port: the
+#: ROADMAP §1 item each belongs to
+_LATER_SLICES = {"retry": "4", "faults": "4", "integrity": "4", "prefix": "5"}
 
 
 class ServeEngine:
@@ -227,11 +294,20 @@ class ServeEngine:
                  decode_fusion: "int | FusionPolicy" = 1,
                  paged: bool = False, page_size: int = 16, pool_pages: int | None = None,
                  admission: AdmissionPolicy | None = None,
+                 preemption: PreemptionPolicy | None = None,
                  prefill_chunk: "int | ChunkPolicy | None" = None,
                  hsa_queue=None, hsa_scheduler=None, producer: str = "tf-serving",
                  ledger: "ledger_mod.OverheadLedger | None" = None,
                  clock=None, step_time_model=None,
-                 device: "str | torch.device" = "cuda"):
+                 host_budget_bytes: int | None = None,
+                 spill: SpillPolicy | None = None,
+                 transfer_bandwidth_bytes_s: float = 8e9,
+                 device: "str | torch.device" = "cuda", **later):
+        for arg in later:
+            if arg not in _LATER_SLICES:
+                raise TypeError(f"ServeEngine() got an unexpected keyword argument {arg!r}")
+            raise NotImplementedError(
+                f"ServeEngine({arg}=) is ROADMAP §1 item {_LATER_SLICES[arg]}, not ported yet")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
@@ -293,6 +369,27 @@ class ServeEngine:
         self.paged = paged
         self.page_size = page_size
         self.admission = admission if admission is not None else AdmissionPolicy()
+        self.preemption = preemption if preemption is not None else PreemptionPolicy()
+        # preempted requests awaiting resume, oldest uid first: they were
+        # admitted before anything still queued, so they resume first too
+        self._parked: list[_Parked] = []
+        # overcommit counters (mirrored into the ledger when one is attached)
+        self.preemptions = 0
+        self.resumes = 0
+        self.pages_reclaimed = 0
+        self.recompute_tokens = 0
+        # host-tier counters
+        self.spills = 0
+        self.refills = 0
+        self.demotions = 0
+        self.replay_fallback_tokens = 0
+        # the real copies behind the priced timeline (see copy_stats)
+        self._copies = {"d2h_bytes": 0, "d2h_s": 0.0, "d2h_alloc_s": 0.0,
+                        "h2d_bytes": 0, "h2d_s": 0.0, "h2d_waited_s": 0.0,
+                        "h2d_cancelled": 0}
+        self._landed: list[paged_mod.StagedRefill] = []   # timings not read yet
+        self.spill = SpillPolicy.of(spill)
+        self.host_budget_bytes = host_budget_bytes
         if paged:
             if not self._cache_keys <= {"k", "v"}:
                 raise ValueError(
@@ -303,8 +400,6 @@ class ServeEngine:
                 raise ValueError(
                     f"max_len={max_len} must be a multiple of page_size={page_size}"
                 )
-            if self.admission.overcommitted:
-                raise NotImplementedError(_PREEMPTION)
             if pool_pages is None:
                 # match the dense engine's footprint (+ the scratch page)
                 pool_pages = batch_slots * (max_len // page_size) + 1
@@ -317,8 +412,26 @@ class ServeEngine:
                                   paged_mod.TRASH_PAGE, np.int32)
             self._mapped = np.zeros(batch_slots, np.int64)   # pages mapped/slot
             self._projected: dict[int, int] = {}             # slot -> pages
+            # the host tier: parked snapshots spill into a budgeted arena and
+            # refill ahead of need on the transfer engine's priced timeline
+            self.arena = paged_mod.HostArena(host_budget_bytes)
+            self._xfer = TransferEngine(
+                bandwidth_bytes_s=transfer_bandwidth_bytes_s, clock=self.clock,
+                ledger=self.ledger if self.ledger is not None else ledger_mod.GLOBAL_LEDGER)
+            # on the card, refills copy up on their own stream
+            self._copy_stream = (torch.cuda.Stream(self.device)
+                                 if self.device.type == "cuda" else None)
+            if hsa_scheduler is not None:
+                # refills ride the scheduler's prefetch pass too (never
+                # blocking: the engine also pumps at the end of every step)
+                hsa_scheduler.register_refill_source(self._pump_refills_external)
         else:
+            if host_budget_bytes is not None:
+                raise ValueError("host_budget_bytes requires paged=True")
             self.allocator = None
+            self.arena = None
+            self._xfer = None
+            self._copy_stream = None
         # concurrency trace: sustained (mean over decode launches) and peak
         self._concurrency_sum = 0
         self._concurrency_n = 0
@@ -394,9 +507,9 @@ class ServeEngine:
 
     def _record_memory(self) -> None:
         """Reserved and used KV bytes into the ledger (dense: every live
-        slot's ``max_len`` rows; paged: its mapped pages), as the JAX engine
-        records them; none for a recurrent cache.  The host arena's half
-        waits for its slice (8f)."""
+        slot's ``max_len`` rows; paged: its mapped pages, and the host
+        arena's bytes against its budget), as the JAX engine records them;
+        none for a recurrent cache."""
         if self._token_bytes == 0 and self._cache is not None and self._cache_keys == {"k", "v"}:
             self._token_bytes = paged_mod.pool_token_bytes(self._cache)
         if self.ledger is None or self._token_bytes == 0:
@@ -407,6 +520,9 @@ class ServeEngine:
         else:
             reserved = len(self._active) * self.max_len * self._token_bytes
         self.ledger.record_memory(reserved_bytes=reserved, used_bytes=used)
+        if self.arena is not None:
+            self.ledger.record_host_memory(used_bytes=self.arena.used_bytes,
+                                           budget_bytes=self.arena.budget_bytes)
 
     def submit(self, prompt: list[int], max_new_tokens: int = 32, *,
                arrival_t: float | None = None) -> int:
@@ -516,24 +632,305 @@ class ServeEngine:
     def _fund_growth(self, k: int) -> int:
         """Make this launch's page growth allocatable; the funded depth.
 
-        On a shortfall the launch shrinks (k halves): a shallower launch
-        needs fewer pages ahead.  Where even k = 1 cannot be funded the JAX
-        engine preempts victims; that is ROADMAP 8f here, unreachable under
-        the full-reserve admission this engine accepts."""
+        On a shortfall the cheap lever comes first: the launch shrinks (k
+        halves), since a shallower launch needs fewer pages ahead.  Only
+        where even k = 1 cannot be funded does the engine park
+        policy-chosen victims, one at a time with a re-plan between (a
+        parked victim both frees its pages and drops its own need).  A lone
+        request can always fund itself (``submit`` rejected anything whose
+        worst case exceeds the pool), so the loop ends funded."""
         while True:
             needed = sum(max(0, self._launch_pages(slot, req, k) - int(self._mapped[slot]))
                          for slot, req in self._active.items())
-            if needed <= self.allocator.free_pages:
+            shortfall = needed - self.allocator.free_pages
+            if shortfall <= 0:
                 return k
             if k > 1:
                 k = (k + 1) // 2
                 continue
-            raise NotImplementedError(_PREEMPTION)
+            victims = self.preemption.victims(self._candidates(), shortfall)
+            if not victims:
+                return k
+            self._park_slot(next(s for s, r in self._active.items() if r.uid == victims[0]))
 
     def _ensure_pool(self) -> None:
         if self._cache is None:
             # the cache layout with pages for rows: [L, pool_pages, Hkv, page_size, hd]
             self._cache = self._zero_cache(self.allocator.num_pages, self.page_size)
+            self._token_bytes = paged_mod.pool_token_bytes(self._cache)
+
+    # -- preemption: park / resume ----------------------------------------------------
+
+    @property
+    def parked_requests(self) -> list[Request]:
+        return [e.req for e in self._parked]
+
+    def preempt(self, uid: int | None = None) -> int:
+        """Park one active request, returning its pages to the pool now; its
+        uid.  With ``uid=None`` the :class:`PreemptionPolicy` picks the
+        victim.  This is how another tenant takes serving's memory back
+        mid-flight: the request keeps its tokens so far and resumes by
+        itself once pages free up."""
+        if not self.paged:
+            raise RuntimeError("preemption requires paged=True")
+        with self._lock:
+            if uid is None:
+                victims = self.preemption.victims(self._candidates(), 1)
+                if not victims:
+                    raise ValueError("no active request to preempt")
+                uid = victims[0]
+            slot = next((s for s, r in self._active.items() if r.uid == uid), None)
+            if slot is None:
+                raise ValueError(f"request {uid} is not active")
+            self._park_slot(slot)
+            return uid
+
+    def resume(self, uid: int) -> bool:
+        """Try to resume a parked request now.  False when the pool (or a
+        free slot) cannot take it yet: it stays parked.  Raises
+        ``ValueError`` if ``uid`` is not parked (a double resume is a
+        caller's bug)."""
+        with self._lock:
+            entry = next((e for e in self._parked if e.req.uid == uid), None)
+            if entry is None:
+                raise ValueError(f"request {uid} is not parked (double resume?)")
+            slot = next((s for s in range(self.slots)
+                         if s not in self._active and s not in self._prefilling), None)
+            if slot is None:
+                return False
+            return self._try_resume(entry, slot)
+
+    def _candidates(self) -> list[PreemptionCandidate]:
+        return [PreemptionCandidate(uid=req.uid, mapped_pages=int(self._mapped[slot]),
+                                    tokens_done=int(self._pos[slot]))
+                for slot, req in self._active.items()]
+
+    def _park_slot(self, slot: int) -> None:
+        """Reclaim one active request's pages; keep its progress on the
+        host.  A snapshot is copied off the card (into the arena) before
+        the pages are freed, so a later launch may overwrite them."""
+        req = self._active.pop(slot)
+        t0 = time.perf_counter_ns()
+        pos = int(self._pos[slot])
+        mode = self.preemption.resume_mode(tokens_done=pos)
+        snap_bytes = 0
+        reclaimed = int(self._mapped[slot])
+        if mode == RESUME_SNAPSHOT:
+            # only the pages holding written rows (0 .. pos-1) matter: pages
+            # mapped ahead for a launch that never ran hold nothing
+            keep = paged_mod.pages_for(pos, self.page_size)
+            snap_bytes = keep * self.page_size * self._token_bytes
+            if not self._spill_snapshot(req.uid, self._table[slot, :keep].copy(), snap_bytes,
+                                        pos):
+                mode, snap_bytes = RESUME_REPREFILL, 0
+        self._release_slot(slot, req)
+        req.parked = True
+        req.preemptions += 1
+        self._parked.append(_Parked(req=req, pos=pos, mode=mode))
+        self._parked.sort(key=lambda e: e.req.uid)
+        self.preemptions += 1
+        self.pages_reclaimed += reclaimed
+        if self.ledger is not None:
+            self.ledger.record(ledger_mod.PREEMPT_PARK, (time.perf_counter_ns() - t0) * 1e-9,
+                               producer=self._producer, what=mode, uid=req.uid)
+            self.ledger.record_preemption(pages_reclaimed=reclaimed, snapshot_bytes=snap_bytes)
+
+    def _try_resume(self, entry: _Parked, slot: int) -> bool:
+        """Bring a parked request back into ``slot`` if the pool can fund
+        it: the test of a fresh admission (projected lifetime pages against
+        free pages less the growth in flight), floored by what the resume
+        maps at once (a snapshot restore maps every written row's page)."""
+        req = entry.req
+        if entry.mode == RESUME_SNAPSHOT:
+            need_now = paged_mod.pages_for(entry.pos, self.page_size)
+        else:
+            need_now = paged_mod.pages_for(len(req.prompt), self.page_size)
+        if not self.admission.admit(
+                free_pages=self.allocator.free_pages,
+                projected_growth_pages=self._projected_growth(),
+                request_pages=max(need_now, self._projected_pages(req))):
+            return False
+        t0 = time.perf_counter_ns()
+        self._parked.remove(entry)
+        recompute = 0
+        if entry.mode == RESUME_SNAPSHOT:
+            # wait on the ahead-of-need refill (only its exposed residue
+            # stalls the resume); a cold resume issues it now
+            if entry.refill is None:
+                self._issue_refill(entry)
+            self._xfer.wait(entry.refill)
+            entry.refill = None
+            snapshot = self.arena.take(req.uid)
+            self.refills += 1
+            n = paged_mod.pages_for(entry.pos, self.page_size)
+            pages = self.allocator.allocate(req.uid, n)
+            self._table[slot] = paged_mod.TRASH_PAGE
+            self._table[slot, :n] = pages
+            self._mapped[slot] = n
+            if entry.staged is not None:
+                # the serving stream waits for the copy up, then scatters
+                entry.staged.land(self._cache, pages)
+                self._landed.append(entry.staged)
+                entry.staged = None
+                self._fold_copies(wait=False)
+            else:
+                # the pool is host memory: the restore is the copy
+                ts = time.perf_counter()
+                paged_mod.restore_pages(self._cache, snapshot, pages)
+                self._copies["h2d_s"] += time.perf_counter() - ts
+                self._copies["h2d_bytes"] += paged_mod.snapshot_bytes(snapshot)
+            self._pos[slot] = entry.pos
+            self._projected[slot] = self._projected_pages(req)
+            self._slot_key[slot] = sampling.key_of(self.seed, req.uid)
+        else:
+            # re-prefill and replay: the prompt's cache again (the same
+            # function of the same tokens), the request rewound, and the
+            # normal decode path regenerating the committed tokens, checked
+            # against ``req.replay`` launch by launch
+            committed = req.replay if req.replay is not None else req.generated
+            recompute = len(req.prompt) + len(committed) - 1
+            req.replay = committed
+            req.generated = []
+            self._prefill_slot(slot, req)
+            if req.generated[0] != committed[0]:
+                raise RuntimeError(
+                    f"preemption replay diverged at request {req.uid} token 0: re-prefill "
+                    f"sampled {req.generated[0]}, committed {committed[0]}")
+        req.parked = False
+        self._active[slot] = req
+        self.resumes += 1
+        self.recompute_tokens += recompute
+        if self.ledger is not None:
+            self.ledger.record(ledger_mod.PREEMPT_RESUME, (time.perf_counter_ns() - t0) * 1e-9,
+                               producer=self._producer, what=entry.mode, uid=req.uid)
+            self.ledger.record_resume(mode=entry.mode, recompute_tokens=recompute)
+        return True
+
+    # -- the host tier: spill / refill / demotion ---------------------------------------
+
+    def _spill_snapshot(self, uid: int, pages: np.ndarray, nbytes: int, pos: int) -> bool:
+        """Spill a fresh park's snapshot of ``pages`` into the host arena.
+        False when the park must degrade to re-prefill replay instead: the
+        snapshot can never fit the budget, or every demotable snapshot was
+        demoted and it still does not fit (with ``SpillPolicy.allow_replay``
+        off, both raise :class:`~repro_torch.serve.paged.HostArenaExhausted`).
+        The pages are copied only once the store is funded."""
+        arena = self.arena
+        arena.configure(self.page_size * self._token_bytes)
+        if not arena.can_ever_fit(nbytes):
+            if not self.spill.allow_replay:
+                raise paged_mod.HostArenaExhausted(
+                    f"snapshot of {nbytes} B cannot ever fit host budget "
+                    f"{arena.budget_bytes} B and replay is disabled")
+            self._count_demotion(bytes_freed=0, replay_tokens=pos)
+            return False
+        self._xfer.issue("d2h", f"kv[uid={uid}]", nbytes)
+        while not arena.fits(nbytes):
+            if not self.spill.allow_replay:
+                raise paged_mod.HostArenaExhausted(
+                    f"store of {nbytes} B over host budget {arena.budget_bytes} B "
+                    f"({arena.used_bytes} B used) and replay is disabled")
+            cands = [SpillCandidate(uid=e.req.uid, arena_bytes=arena.bytes_of(e.req.uid),
+                                    tokens_done=e.pos)
+                     for e in self._parked
+                     if e.mode == RESUME_SNAPSHOT and arena.holds(e.req.uid)]
+            if not cands:
+                # nothing left to demote: the incoming snapshot degrades
+                self._count_demotion(bytes_freed=0, replay_tokens=pos)
+                return False
+            short = arena.blocks_for(nbytes) - arena.free_blocks
+            for v_uid in self.spill.victims(cands, short * arena.block_bytes):
+                self._demote_entry(next(e for e in self._parked if e.req.uid == v_uid))
+        ts = time.perf_counter()
+        snapshot = paged_mod.snapshot_buffers(self._cache, len(pages),
+                                              pin=self.device.type == "cuda")
+        tc = time.perf_counter()
+        paged_mod.gather_pages(self._cache, pages, snapshot)
+        self._copies["d2h_alloc_s"] += tc - ts
+        self._copies["d2h_s"] += time.perf_counter() - tc
+        self._copies["d2h_bytes"] += nbytes
+        arena.store(uid, snapshot, nbytes)
+        self.spills += 1
+        return True
+
+    def _issue_refill(self, entry: _Parked) -> None:
+        """Issue the refill of ``entry``'s arena snapshot: on the transfer
+        timeline, and on the card the real copy up on the side stream."""
+        uid = entry.req.uid
+        entry.refill = self._xfer.issue("h2d", f"kv[uid={uid}]", self.arena.bytes_of(uid))
+        if self._copy_stream is not None:
+            entry.staged = paged_mod.StagedRefill(self.arena.load(uid), self.device,
+                                                  self._copy_stream)
+
+    @property
+    def copy_stats(self) -> dict:
+        """The real copies behind the priced timeline: bytes and seconds of
+        the snapshot gathers (device to host; their pinned buffers'
+        allocation apart) and of the refills (host to device: on the card,
+        the side stream's copy time by its events, ``h2d_waited_s`` the time
+        the serving stream waited past the resume's need of it, and
+        ``h2d_cancelled`` copies dropped by a demotion).  Reading it waits
+        for refills still in flight, never the serving step."""
+        self._fold_copies(wait=True)
+        return dict(self._copies)
+
+    def _fold_copies(self, *, wait: bool) -> None:
+        """Add landed refills' event timings into the copy counters: every
+        one (``wait``), or only those the card has finished."""
+        pending = []
+        for staged in self._landed:
+            if wait or staged.finished():
+                copy_s, waited_s = staged.seconds()
+                self._copies["h2d_s"] += copy_s
+                self._copies["h2d_waited_s"] += waited_s
+                self._copies["h2d_bytes"] += staged.nbytes
+            else:
+                pending.append(staged)
+        self._landed = pending
+
+    def _demote_entry(self, entry: _Parked) -> None:
+        """Demote one parked snapshot to re-prefill replay: its arena bytes
+        go back to the budget, its refill in flight (if any) is cancelled,
+        and the resume recomputes ``entry.pos`` rows instead."""
+        uid = entry.req.uid
+        freed = self.arena.discard(uid) if self.arena.holds(uid) else 0
+        if entry.refill is not None:
+            self._xfer.cancel(entry.refill)
+            entry.refill = None
+        if entry.staged is not None:
+            # its device tensors were only written on the side stream
+            entry.staged = None
+            self._copies["h2d_cancelled"] += 1
+        entry.mode = RESUME_REPREFILL
+        self._count_demotion(bytes_freed=freed, replay_tokens=entry.pos)
+
+    def _count_demotion(self, *, bytes_freed: int, replay_tokens: int) -> None:
+        self.demotions += 1
+        self.replay_fallback_tokens += replay_tokens
+        if self.ledger is not None:
+            self.ledger.record_demotion(bytes_freed=bytes_freed, replay_tokens=replay_tokens)
+
+    def _pump_refills(self) -> None:
+        """Issue refills for the parked snapshots nearest resume: the first
+        ``SpillPolicy.refill_lookahead`` parked entries (the order the step
+        resumes them).  Entries with a refill in flight are skipped."""
+        if not self.paged:
+            return
+        for entry in list(self._parked[: self.spill.refill_lookahead]):
+            if entry.mode != RESUME_SNAPSHOT or entry.refill is not None:
+                continue
+            if self.arena.holds(entry.req.uid):
+                self._issue_refill(entry)
+
+    def _pump_refills_external(self) -> None:
+        """The scheduler's pump (``register_refill_source``): never blocks;
+        if a step holds the engine's lock it skips (the step pumps itself)."""
+        if not self._lock.acquire(blocking=False):
+            return
+        try:
+            self._pump_refills()
+        finally:
+            self._lock.release()
 
     def _zero_cache(self, batch: int, rows: int) -> dict:
         """Every cache leaf but ``pos``, zeroed, for ``batch`` slots (or
@@ -841,7 +1238,14 @@ class ServeEngine:
     def _decode_locked(self) -> list[Request]:
         k = self._choose_fusion()
         if self.paged:
+            # fund this launch's growth: a shallower launch first, then
+            # preemption (under overcommit the pool can run dry mid-decode)
             k = self._fund_growth(k)
+            if not self._active:
+                return []                   # every live slot became a victim
+            # re-cap to the survivors' budgets (growth was funded for the larger k)
+            k = max(1, min(k, max(r.max_new_tokens - len(r.generated)
+                                  for r in self._active.values())))
         n_live = len(self._active)
         # the depth launched, after every cap: ChunkPolicy's fusion taper and
         # the step time model's decode half read it
@@ -876,6 +1280,16 @@ class ServeEngine:
         finished = []
         for slot, req in list(self._active.items()):
             req.generated.extend(int(t) for t in toks[valid[:, slot], slot])
+            if req.replay is not None:
+                # a re-prefill resume in flight: the regenerated tokens must
+                # be the committed ones bit for bit, checked every launch
+                n = min(len(req.generated), len(req.replay))
+                if req.generated[:n] != req.replay[:n]:
+                    raise RuntimeError(
+                        f"preemption replay diverged at request {req.uid}: regenerated "
+                        f"{req.generated[:n]} != committed {req.replay[:n]}")
+                if len(req.generated) >= len(req.replay):
+                    req.replay = None          # fully replayed: normal decode
             if len(req.generated) >= req.max_new_tokens:
                 req.done = True
                 finished.append(req)
@@ -903,6 +1317,13 @@ class ServeEngine:
             for slot in range(self.slots):
                 if slot in self._active or slot in self._prefilling:
                     continue
+                if self.paged and self._parked:
+                    # parked requests were admitted before anything queued,
+                    # so they resume first, and an unresumable head blocks
+                    # younger work as the queue's head does
+                    if not self._try_resume(self._parked[0], slot):
+                        break
+                    continue
                 if not self._queue:
                     break
                 if self.paged:
@@ -923,6 +1344,9 @@ class ServeEngine:
             if self._prefilling:
                 prefill_tokens += self._chunk_phase()
             finished = self._decode_locked() if self._active else []
+            # refills for the parked snapshots nearing resume, issued before
+            # the clock advances so that the step's modeled time hides them
+            self._pump_refills()
             # the clock: advance virtual time by the step's modeled cost,
             # then stamp this step's latency events at the new now
             decode_tokens, self._decode_tokens_last = self._decode_tokens_last, 0
@@ -966,15 +1390,32 @@ class ServeEngine:
         """Step until every submitted request finishes; the completed requests.
 
         Raises :class:`ServeTruncated` if ``max_steps`` steps were not enough
-        — truncation is never silently returned as success.
+        (truncation is never returned as success), its requests split into
+        pending, parked and rejected; it raises at once when nothing runs
+        and the seniority head can never fit.  Pool exhaustion itself never
+        raises: the engine preempts and resumes through it.
         """
         done: list[Request] = []
         for _ in range(max_steps):
             done += self.step()
             with self._lock:
-                if not self._active and not self._prefilling and not self._queue:
+                if (not self._active and not self._prefilling and not self._queue
+                        and not self._parked):
                     return done
+                if not self._active and not self._prefilling and self.paged:
+                    # nothing runs, so nothing will free pages: a seniority
+                    # head (parked before queued) that can never fit makes
+                    # every further step a no-op
+                    head = (self._parked[0].req if self._parked
+                            else self._queue[0] if self._queue else None)
+                    if head is not None and self._never_fits(head):
+                        break
         with self._lock:
-            pending = (list(self._active.values())
-                       + [e.req for e in self._prefilling.values()] + list(self._queue))
-            raise ServeTruncated(done, pending)
+            pending = list(self._active.values()) + [e.req for e in self._prefilling.values()]
+            parked: list[Request] = []
+            rejected: list[Request] = []
+            for req in self._queue:
+                (rejected if self.paged and self._never_fits(req) else pending).append(req)
+            for entry in self._parked:
+                (rejected if self._never_fits(entry.req) else parked).append(entry.req)
+            raise ServeTruncated(done, pending, parked=parked, rejected=rejected)

@@ -14,12 +14,22 @@ and ``quarantine`` included (prefix sharing and integrity, ROADMAP 8g/8h,
 will use them).  The prefill scatter writes the pool in place, where JAX
 returned a new tree; a chunked prefill writes the pool from inside the model
 (``layers.attention_prefill_chunk_paged``), so no chunk scatter is needed.
+
+Preemption's snapshots (:func:`gather_pages`, :func:`restore_pages`) and
+the budgeted host tier they spill into (:class:`HostArena`) come over too.
+A snapshot is a pair of host tensors, copied off the card before the
+victim's pages are freed; a restore writes the pool in place with
+``index_copy_`` on the page axis and never makes a new pool tensor, since a
+captured decode graph holds the pool's address.  On the card a refill is
+copied up ahead of need on a side stream (:class:`StagedRefill`) and lands
+in the pool when its request resumes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import Any
 
 import numpy as np
 import torch
@@ -327,3 +337,300 @@ def flip_tree(tree):
     if out:
         out[0].view(np.uint8).reshape(-1)[0] ^= 0xFF
     return out
+
+
+# ---------------------------------------------------------------------------
+# page snapshot save/restore (preemption's zero-recompute resume path)
+# ---------------------------------------------------------------------------
+
+
+def snapshot_buffers(pool: dict, n: int, *, pin: bool = False) -> dict:
+    """Empty host tensors for a snapshot of ``n`` pages of the pool:
+    ``{"k", "v"}`` of ``[L, n, Hkv, page_size, hd]`` (``pin``: in
+    page-locked memory, which a device-to-host copy writes at the link's
+    rate)."""
+    return {key: torch.empty((pool[key].shape[0], n, *pool[key].shape[2:]),
+                             dtype=pool[key].dtype, pin_memory=pin) for key in KV_KEYS}
+
+
+def gather_pages(pool: dict, pages, out: dict) -> dict:
+    """Copy ``pages`` of the pool's k and v into ``out`` (from
+    :func:`snapshot_buffers`) and return it: the victim's KV bit for bit as
+    it sits in the pool.
+
+    The copy has finished when this returns, so the caller may free the
+    pages and let later launches overwrite them: the gather itself runs on
+    the current stream ahead of any such launch."""
+    for key in KV_KEYS:
+        leaf = pool[key]
+        idx = torch.as_tensor(np.asarray(pages), dtype=torch.long).to(leaf.device)
+        out[key].copy_(leaf.index_select(1, idx))
+    return out
+
+
+def restore_pages(pool: dict, saved: dict, pages) -> None:
+    """Scatter a :func:`gather_pages` snapshot back into freshly mapped
+    ``pages`` of the pool, in place (the physical page ids may differ from
+    the ones saved: the block table makes that invisible).  The copies are
+    ordered on the current stream ahead of any later launch that reads
+    the pages."""
+    for key in KV_KEYS:
+        leaf = pool[key]
+        idx = torch.as_tensor(np.asarray(pages), dtype=torch.long).to(leaf.device)
+        src = saved[key].to(leaf.device, non_blocking=saved[key].is_pinned())
+        leaf.index_copy_(1, idx, src.to(leaf.dtype))
+
+
+class StagedRefill:
+    """A host snapshot's copy to the card, started ahead of its resume on
+    ``stream`` (a side stream, so that it overlaps the launches on the
+    serving stream): device tensors the copy fills, and timed events
+    around it.  :meth:`land` scatters the rows into the pool once the copy
+    is done; :meth:`seconds` reads the copy's time and how long the
+    serving stream waited on it, after the fact.
+
+    The host snapshot may be dropped as soon as this is made: PyTorch keeps
+    a pinned block from reuse until the copies out of it are done."""
+
+    def __init__(self, saved: dict, device, stream):
+        self.nbytes = snapshot_bytes(saved)
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.done = torch.cuda.Event(enable_timing=True)
+        self.needed: torch.cuda.Event | None = None
+        with torch.cuda.stream(stream):
+            # allocated on the side stream: freed unread (a cancel), the
+            # memory goes back to that stream's pool only
+            self.tensors = {key: torch.empty(saved[key].shape, dtype=saved[key].dtype,
+                                             device=device) for key in KV_KEYS}
+            self.start.record(stream)          # the copy alone, not the allocation
+            for key in KV_KEYS:
+                self.tensors[key].copy_(saved[key], non_blocking=True)
+            self.done.record(stream)
+
+    def land(self, pool: dict, pages) -> None:
+        """Make the current stream wait for the copy, then scatter the
+        staged rows into ``pages`` of the pool in place."""
+        serving = torch.cuda.current_stream(pool["k"].device)
+        self.needed = torch.cuda.Event(enable_timing=True)
+        self.needed.record(serving)
+        serving.wait_event(self.done)
+        restore_pages(pool, self.tensors, pages)
+        for t in self.tensors.values():
+            t.record_stream(serving)      # read here: not reused before this stream's reads
+        self.tensors = {}
+
+    def finished(self) -> bool:
+        """Landed, and both the copy and the serving stream past its events."""
+        return (self.needed is not None and self.needed.query()) and self.done.query()
+
+    def seconds(self) -> tuple[float, float]:
+        """(the copy's seconds on the card, the seconds the serving stream
+        waited for it past the moment the resume needed it): waits for the
+        events if the card has not reached them yet."""
+        for event in (self.done, self.needed):
+            if event is not None:
+                event.synchronize()
+        copy_s = self.start.elapsed_time(self.done) * 1e-3
+        waited = (max(0.0, self.needed.elapsed_time(self.done)) * 1e-3
+                  if self.needed is not None else 0.0)
+        return copy_s, waited
+
+
+def snapshot_bytes(saved: dict) -> int:
+    """Host bytes a :func:`gather_pages` snapshot holds while parked."""
+    return sum(leaf.numel() * leaf.element_size() for leaf in _leaves(saved))
+
+
+# ---------------------------------------------------------------------------
+# host arena: the budgeted second tier of the page pool
+# ---------------------------------------------------------------------------
+
+
+class HostArenaExhausted(RuntimeError):
+    """A snapshot store found the host arena past its byte budget.
+
+    Only reachable when degradation is disabled (``SpillPolicy.allow_replay
+    = False``): with replay allowed the engine demotes parked snapshots to
+    re-prefill replay until the store fits, so the budget is a ceiling the
+    arena never crosses rather than an error the caller sees.
+    """
+
+
+class HostArena:
+    """Budgeted host-side tier for cold KV pages.
+
+    The device pool (tier 0) holds hot pages; parked-request snapshots
+    spill device-to-host into this arena (tier 1).  Like the device
+    :class:`PageAllocator` it is an explicit free-list over fixed-size
+    blocks with tracked owners, so conservation is an assertable invariant
+    rather than an accounting convention.  One block holds the bytes of
+    one device page (``configure`` is called lazily once the engine knows
+    its per-page byte size), so N device pages spill into N host blocks.
+
+    ``budget_bytes=None`` means unbounded: blocks are minted on demand and
+    the free-list stays exact, so the conservation invariants hold either
+    way.  With a budget, a store that does not fit raises
+    :class:`HostArenaExhausted`; callers degrade by demoting victims (see
+    ``SpillPolicy``) before retrying.
+
+    Entries are keyed by owner uid.  ``entries()`` is store order, oldest
+    first.
+    """
+
+    def __init__(self, budget_bytes: int | None = None) -> None:
+        if budget_bytes is not None and budget_bytes < 0:
+            raise ValueError(f"budget_bytes must be >= 0, got {budget_bytes}")
+        self.budget_bytes = budget_bytes
+        self.block_bytes: int | None = None      # set lazily by configure()
+        self._total_blocks = 0
+        self._free: list[int] = []
+        self._owner: dict[int, int] = {}         # block -> owner uid
+        self._blocks: dict[int, list[int]] = {}  # uid -> its blocks
+        self._data: dict[int, Any] = {}          # uid -> snapshot
+        self._nbytes: dict[int, int] = {}        # uid -> actual bytes stored
+        self._order: list[int] = []              # uids in store order
+        self.peak_bytes = 0
+        self.stores = 0
+        self.discards = 0
+
+    # -- sizing ------------------------------------------------------------
+
+    def configure(self, block_bytes: int) -> None:
+        """Fix the block size (bytes of one device page).  Idempotent; a
+        conflicting re-configure is a hard error: resizing live blocks
+        would break the free-list's correspondence with the budget."""
+        if self.block_bytes is not None:
+            if block_bytes != self.block_bytes:
+                raise ValueError(
+                    f"arena already configured with block_bytes="
+                    f"{self.block_bytes}, got {block_bytes}"
+                )
+            return
+        if block_bytes < 1:
+            raise ValueError(f"block_bytes must be >= 1, got {block_bytes}")
+        self.block_bytes = block_bytes
+        if self.budget_bytes is not None:
+            self._total_blocks = self.budget_bytes // block_bytes
+            self._free = list(range(self._total_blocks - 1, -1, -1))
+
+    def blocks_for(self, nbytes: int) -> int:
+        """Blocks needed to hold ``nbytes`` (at least one)."""
+        if self.block_bytes is None:
+            raise RuntimeError("arena not configured (block_bytes unset)")
+        return max(1, -(-nbytes // self.block_bytes))
+
+    # -- accounting --------------------------------------------------------
+
+    @property
+    def total_blocks(self) -> int:
+        return self._total_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return len(self._owner)
+
+    @property
+    def used_bytes(self) -> int:
+        """Actual snapshot bytes resident (<= used_blocks · block_bytes)."""
+        return sum(self._nbytes.values())
+
+    def fits(self, nbytes: int) -> bool:
+        """Would a store of ``nbytes`` succeed right now?"""
+        if self.budget_bytes is None:
+            return True
+        return self.blocks_for(nbytes) <= len(self._free)
+
+    def can_ever_fit(self, nbytes: int) -> bool:
+        """Would ``nbytes`` fit into an *empty* arena?  False means no
+        amount of demotion helps: the entry must go straight to replay."""
+        if self.budget_bytes is None:
+            return True
+        return self.blocks_for(nbytes) <= self._total_blocks
+
+    # -- store / load / discard --------------------------------------------
+
+    def holds(self, uid: int) -> bool:
+        return uid in self._data
+
+    def bytes_of(self, uid: int) -> int:
+        return self._nbytes[uid]
+
+    def entries(self) -> list[int]:
+        """Resident uids in eviction order (oldest store first)."""
+        return list(self._order)
+
+    def store(self, uid: int, data: Any, nbytes: int) -> None:
+        """Park ``data`` (a :func:`gather_pages` snapshot) under ``uid``."""
+        if uid in self._data:
+            raise ValueError(f"uid {uid} already holds an arena entry")
+        need = self.blocks_for(nbytes)
+        if self.budget_bytes is None:
+            while len(self._free) < need:       # unbounded: mint blocks
+                self._free.append(self._total_blocks)
+                self._total_blocks += 1
+        elif need > len(self._free):
+            raise HostArenaExhausted(
+                f"store of {nbytes} B ({need} blocks) over budget: "
+                f"{len(self._free)}/{self._total_blocks} blocks free, "
+                f"budget {self.budget_bytes} B"
+            )
+        blocks = [self._free.pop() for _ in range(need)]
+        for b in blocks:
+            self._owner[b] = uid
+        self._blocks[uid] = blocks
+        self._data[uid] = data
+        self._nbytes[uid] = nbytes
+        self._order.append(uid)
+        self.stores += 1
+        self.peak_bytes = max(self.peak_bytes, self.used_bytes)
+
+    def load(self, uid: int) -> Any:
+        """Peek the stored snapshot without freeing its blocks."""
+        return self._data[uid]
+
+    def discard(self, uid: int) -> int:
+        """Drop ``uid``'s entry, return its blocks to the free-list; the
+        bytes freed (what a demotion gives back to the budget)."""
+        if uid not in self._data:
+            raise ValueError(f"uid {uid} holds no arena entry")
+        for b in self._blocks.pop(uid):
+            del self._owner[b]
+            self._free.append(b)
+        del self._data[uid]
+        self._order.remove(uid)
+        self.discards += 1
+        return self._nbytes.pop(uid)
+
+    def take(self, uid: int) -> Any:
+        """Load + discard in one step (the refill-complete path)."""
+        data = self._data[uid]
+        self.discard(uid)
+        return data
+
+    # -- invariants --------------------------------------------------------
+
+    def check_invariants(self) -> None:
+        """free + owned must tile [0, total_blocks) exactly; per-entry
+        block counts must match the byte accounting; budget never crossed."""
+        owned = set(self._owner)
+        free = set(self._free)
+        assert not (owned & free), f"aliased blocks {owned & free}"
+        union = owned | free
+        expect = set(range(self._total_blocks))
+        assert union == expect, (
+            f"leaked blocks {expect - union} / phantom {union - expect}"
+        )
+        assert set(self._data) == set(self._blocks) == set(self._nbytes)
+        assert set(self._order) == set(self._data)
+        assert len(self._order) == len(self._data)
+        for uid, blocks in self._blocks.items():
+            assert len(blocks) == self.blocks_for(self._nbytes[uid])
+            assert all(self._owner[b] == uid for b in blocks)
+        if self.budget_bytes is not None:
+            assert self.used_blocks * (self.block_bytes or 0) \
+                <= self.budget_bytes
+            assert self.used_bytes <= self.budget_bytes

@@ -1625,3 +1625,192 @@ def test_decode_rows_bitwise_across_the_batch(cuda, T):
         assert torch.equal(dec_k.decode_attention(q[:n], kc[:n], vc[:n], lengths[:n]), full[:n])
         assert torch.equal(paged_k.paged_decode_attention(q[:n], kp, vp, table[:n], lengths[:n]),
                            full[:n])
+
+
+def _paged_engine(model, params, **kw):
+    from repro_torch.core.policy import PreemptionPolicy
+    from repro_torch.serve.engine import ServeEngine
+
+    kw.setdefault("preemption", PreemptionPolicy(snapshot_threshold_tokens=0))
+    return ServeEngine(model, params, batch_slots=4, max_len=128, paged=True, page_size=16,
+                       decode_fusion=2, device=model.device, **kw)
+
+
+def _finish(eng):
+    return [r.generated for r in sorted(eng.run_to_completion(), key=lambda r: r.uid)]
+
+
+def test_snapshot_round_trips_bitwise_into_a_pool_a_decode_graph_holds(cuda):
+    """``gather_pages`` copies a victim's pages off the card bit for bit,
+    ``restore_pages`` writes them back into other pages of the pool in
+    place (the captured decode graph keeps its pool: no second capture),
+    and the streams after the restore equal the unparked run's."""
+    from repro_torch.serve import paged
+
+    model, params = _small("dense", cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        want = _finish(_submit(_paged_engine(model, params)))
+        eng = _submit(_paged_engine(model, params))
+        for _ in range(3):
+            eng.step()
+        assert eng._graph is not None and eng._graph.captures == 1
+        pool_ptrs = [t.data_ptr() for t in eng._cache.values()]
+        slot, req = next(iter(eng._active.items()))
+        keep = paged.pages_for(int(eng._pos[slot]), 16)
+        pages = eng._table[slot, :keep].copy()
+        before = {k: v[:, torch.as_tensor(pages, device=cuda).long()].clone()
+                  for k, v in eng._cache.items()}
+        eng.preempt(req.uid)
+        snap = eng.arena.load(req.uid)
+        for key in ("k", "v"):
+            assert snap[key].device.type == "cpu" and snap[key].is_pinned()
+            assert torch.equal(snap[key], before[key].cpu())
+        # a round trip of its own into free pages of the same pool
+        free = [p for p in range(1, eng.pool_pages) if eng.allocator.owner_of(p) is None]
+        dest = free[:keep]
+        paged.restore_pages(eng._cache, snap, dest)
+        for key in ("k", "v"):
+            assert torch.equal(eng._cache[key][:, torch.as_tensor(dest, device=cuda).long()],
+                               before[key])
+        got = _finish(eng)
+        assert eng._graph.captures == 1
+        assert [t.data_ptr() for t in eng._cache.values()] == pool_ptrs
+    assert got == want
+    assert eng.resumes == eng.preemptions == 1 and eng.refills == 1
+
+
+def _submit(eng, prompts=None):
+    for p in prompts or _PROMPTS:
+        eng.submit(p, max_new_tokens=9)
+    return eng
+
+
+def test_parked_pages_overwritten_by_another_prefill_resume_unchanged(cuda):
+    """A victim's freed pages are written over by another prompt's prefill
+    (scattered into exactly those pages) before it resumes from its
+    snapshot: the snapshot left the card before the pages were freed, so
+    its stream is unchanged."""
+    from repro_torch.serve import paged
+
+    model, params = _small("dense", cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        want = _finish(_submit(_paged_engine(model, params)))
+        eng = _submit(_paged_engine(model, params))
+        for _ in range(3):
+            eng.step()
+        slot, req = next(iter(eng._active.items()))
+        freed = [int(p) for p in eng._table[slot, :int(eng._mapped[slot])]]
+        eng.preempt(req.uid)
+        other = torch.arange(1, 16 * len(freed) + 1, device=cuda)[None] % 500
+        _, cache = model.prefill(params, {"tokens": other}, cache_len=16 * len(freed))
+        paged.scatter_prefill(eng._cache, cache, freed, 16)
+        got = _finish(eng)
+    assert got == want
+    assert eng.refills == 1
+
+
+def test_refill_copied_up_ahead_lands_bitwise_and_a_demotion_cancels_it(cuda):
+    """The pump copies a parked snapshot up to the card on the side stream
+    ahead of its resume (the staged tensors hold the snapshot's bits); the
+    resume lands them and the streams equal the unparked run's, with the
+    copy's bytes and seconds read off its events.  With room for one
+    snapshot, a second park demotes the first: its copy up is dropped."""
+    model, params = _small("dense", cuda)
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        want = _finish(_submit(_paged_engine(model, params)))
+
+        def parked_two(budget=None):
+            eng = _submit(_paged_engine(model, params, host_budget_bytes=budget))
+            for _ in range(3):
+                eng.step()
+            a, b = [r.uid for r in eng._active.values()][:2]
+            eng.preempt(a)
+            with eng._lock:
+                eng._pump_refills()
+            entry = eng._parked[0]
+            sizes = [eng.arena.bytes_of(a)]
+            return eng, entry, b, sizes
+
+        eng, entry, _, _ = parked_two()
+        assert entry.staged is not None and entry.refill is not None
+        entry.staged.done.synchronize()
+        snap = eng.arena.load(entry.req.uid)
+        for key in ("k", "v"):
+            assert entry.staged.tensors[key].device.type == "cuda"
+            assert torch.equal(entry.staged.tensors[key].cpu(), snap[key])
+        got = _finish(eng)
+        stats = eng.copy_stats
+        assert got == want
+        assert stats["h2d_bytes"] == stats["d2h_bytes"] > 0 and stats["h2d_s"] > 0
+        assert stats["h2d_cancelled"] == 0 and eng.refills == 1
+
+        probe, _, b, sizes = parked_two()
+        probe.preempt(b)
+        sizes.append(probe.arena.bytes_of(b))
+        eng, entry, b, _ = parked_two(budget=max(sizes))
+        staged = entry.staged
+        assert staged is not None
+        eng.preempt(b)                  # b's spill evicts a's snapshot and its copy up
+        assert entry.staged is None and entry.refill is None
+        assert eng.demotions == 1 and eng._xfer.cancelled == 1
+        got = _finish(eng)
+        assert got == want
+        assert eng.copy_stats["h2d_cancelled"] == 1
+        del probe, staged
+
+
+def test_granite_unembed_rows_are_bitwise_across_m(cuda):
+    """granite's unembed on the edge kernel (N = 49155), f32 out: a row's
+    bits are the same alone, in the 8 rows of a decode step and in 16."""
+    g = _gen(cuda, 21)
+    x, w = _randn(g, (16, 4096), cuda), _randn(g, (4096, 49155), cuda, 4096 ** -0.5)
+    full = mm_k.matmul(x, w, out_dtype=torch.float32)
+    assert not mm_k.tma_ready(x, w)
+    for m in (1, 8):
+        assert torch.equal(mm_k.matmul(x[:m], w, out_dtype=torch.float32), full[:m])
+    for i in range(16):
+        assert torch.equal(mm_k.matmul(x[i:i + 1], w, out_dtype=torch.float32), full[i:i + 1])
+
+
+def test_reprefill_replay_at_yi_9b_width(cuda):
+    """yi-9b at full width and 2 layers, chunked (128-row chunks), K = 4,
+    as graphs: every request is parked once mid-decode for re-prefill (a
+    whole-prompt prefill, then its committed tokens regenerated in another
+    batch and checked token by token by the engine), and the streams equal
+    the unparked run's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import AdmissionPolicy, PreemptionPolicy
+    from repro_torch.models import build_model, init_params
+    from repro_torch.serve.engine import ServeEngine
+
+    model = build_model(dataclasses.replace(get_arch("yi-9b"), num_layers=2), device=cuda)
+    params = init_params(model.param_specs(), 0, device=cuda)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, 64000, (n,), generator=gen).tolist()
+               for n in (5, 37, 130, 300, 260, 9)]
+
+    def serve(parked: bool):
+        eng = ServeEngine(model, params, batch_slots=4, max_len=512, paged=True, page_size=16,
+                          prefill_chunk=128, decode_fusion=4, device=cuda,
+                          admission=AdmissionPolicy(growth_reserve=0.5),
+                          preemption=PreemptionPolicy(allow_snapshot=False))
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        done, seen = [], set()
+        while len(done) < len(prompts):
+            done += eng.step()
+            if parked:
+                for r in list(eng._active.values()):
+                    if r.uid not in seen and len(r.generated) >= 5:
+                        seen.add(r.uid)
+                        eng.preempt(r.uid)
+        return [r.generated for r in sorted(done, key=lambda r: r.uid)], eng
+
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        want, _ = serve(False)
+        got, eng = serve(True)
+    assert got == want
+    assert eng.preemptions >= len(prompts) and eng.recompute_tokens > 0
+    assert eng._graph is not None and eng._graph.captures == 1

@@ -337,12 +337,16 @@ def test_no_leak_after_serve_truncated(models):
 
 
 def test_overcommitting_admission_needs_preemption(models):
-    """Only preemption (ROADMAP 8f, not ported) makes growth_reserve < 1
-    safe: the engine refuses such a policy at construction."""
+    """Only preemption makes growth_reserve < 1 safe, and the engine has it
+    (8f): a pool too small for the admitted requests' real growth parks
+    victims and resumes them, and the streams equal the dense engine's."""
     _, _, model, params = models
-    with pytest.raises(NotImplementedError, match="8f"):
-        _port(model, params, paged=True,
-              admission=tpolicy.AdmissionPolicy(growth_reserve=0.5))
+    want, _ = _run(_port(model, params, paged=False))
+    got, eng = _run(_port(model, params, paged=True, pool_pages=3,
+                          admission=tpolicy.AdmissionPolicy(growth_reserve=0.5)))
+    assert eng.preemptions > 0 and eng.resumes == eng.preemptions
+    assert got == want
+    assert eng.allocator.free_pages == eng.allocator.total_pages
 
 
 def test_paged_requires_page_aligned_max_len(models):

@@ -209,12 +209,12 @@ def test_serve_phase_runs_three_engines_with_their_launch_counts():
 
 
 def test_granite_phase_runs_the_head_dim_128_calls_on_a_small_model():
-    """The granite phase on a small granite-shaped model (head_dim 128, 4
-    query heads a kv head, an untied unembed over an odd vocabulary): the
-    calls run, the paged decode and paged chunks equal the dense and staging
-    ones bit for bit, the logits agree with the torch source, and the launch
-    counts it checks hold (plain versions counted as launches; the unembed
-    as the edge kernel's)."""
+    """The model-call check of the full-depth phase on a small
+    granite-shaped model (head_dim 128, 4 query heads a kv head, an untied
+    unembed over an odd vocabulary): the calls run, the paged decode and
+    paged chunks equal the dense and staging ones bit for bit, the logits
+    agree with the torch source, and the launch counts it checks hold (plain
+    versions counted as launches; the unembed as the edge kernel's)."""
     import dataclasses
 
     cfg = dataclasses.replace(reduced(ARCHS["granite-3-8b"], layers=2, d_model=64, vocab=131),
@@ -223,7 +223,7 @@ def test_granite_phase_runs_the_head_dim_128_calls_on_a_small_model():
     params = init_params(model.param_specs(), 0, device="cpu")
     kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
     with dispatch.use(registry=_counting_registry(with_others=True)):
-        res = cs.granite_phase(torch, model, params, kernels, 0)
+        res = cs.model_calls_phase(torch, model, params, kernels, 0)
     assert res["buckets"] == [8, 64, 256, 512, 512, 512, 512, 512]
     assert res["launches"] == {"matmul": 364, "rmsnorm": 130, "flash_attention": 32,
                                "decode_attention": 18, "paged_decode_attention": 2, "ssd": 0,
@@ -318,7 +318,7 @@ def test_ssm_serve_phase_counts_48_ssd_a_prefill_scaled_down():
     assert run["prefill_calls"] == 16 and run["fixup_calls"] == 0 and run["chunk_calls"] == 0
     assert run["launches"] == {"matmul": 4 * calls, "rmsnorm": 5 * calls, "flash_attention": 0,
                                "decode_attention": 0, "paged_decode_attention": 0, "ssd": 32,
-                               "sample": 0}
+                               "sample": 0, "matmul_edge": 0}
     # 8 slots of 2 layers' [8, 16, 16] f32 state and [3, 160] bf16 conv tail
     assert run["state_bytes"] == 8 * 2 * (8 * 16 * 16 * 4 + 3 * 160 * 2)
     assert run["peak_concurrency"] == 8
@@ -811,3 +811,138 @@ def test_decode_split_check_covers_the_traffic_phase_step():
     6-slot step against 256 rows, whose count a kernel-phase row runs."""
     served = cs.served_decode_splits(dec_k, [5, 600])
     assert dec_k.split_kv(256) == 1 and 1 in served["decode_attention"]
+
+
+def _small_untied(arch: str, vocab: int, heads: int):
+    """A 2-layer model with the arch's heads of 128 (``heads`` query heads
+    over one kv head) and its untied unembed over ``vocab`` entries."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(ARCHS[arch], layers=2, d_model=64, vocab=vocab),
+                              num_heads=heads, num_kv_heads=1, head_dim=128)
+    model = build_model(cfg, device="cpu")
+    return model, init_params(model.param_specs(), 0, device="cpu")
+
+
+def test_yi_model_calls_count_the_unembed_as_the_bf16_kernel():
+    """yi's unembed (N a multiple of 8) is a bf16 kernel launch a model
+    call, counted with the matmuls; no edge launch."""
+    model, params = _small_untied("yi-9b", 128, 8)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.model_calls_phase(torch, model, params, kernels, 0)
+    assert res["launches"]["matmul"] == (7 * 2 + 1) * 26 and res["launches"]["matmul_edge"] == 0
+    assert cs.unembed_launches(ARCHS["yi-9b"]) == (1, 0)
+    assert cs.unembed_launches(ARCHS["granite-3-8b"]) == (0, 1)
+    assert cs.unembed_launches(ARCHS["llama3.2-1b"]) == (0, 0)
+
+
+def test_full_depth_phase_serves_five_runs_equal_on_a_small_model(monkeypatch):
+    """The full-depth phase on a small granite-shaped model: the model calls,
+    then the five serve runs with their launch counts (the unembed on the
+    edge kernel, the sampler once a first token and a decode step), paged
+    and chunked streams equal to dense, T = 0.7 chunked equal to dense.
+    Prompts of 5 to 480 tokens: on the CPU the plain versions sum a row in
+    an order that may follow the launch's rows (the 1024 bucket's whole
+    prompt against its 128-row chunks parts here), which only the kernels
+    on the card rule out."""
+    model, params = _small_untied("granite-3-8b", 131, 4)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 131, (5 + 475 * i // 15,), generator=gen).tolist()
+               for i in range(16)]
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.full_depth_phase(torch, model, params, kernels, 0, "cpu", "no card",
+                                  prompts=prompts)
+    runs = res["runs"]
+    assert list(runs) == [name for name, _ in cs.FULL_DEPTH_RUNS]
+    for run in runs.values():
+        calls = (run["prefill_calls"] + run["chunk_calls"] + run["fixup_calls"]
+                 + run["decode_calls"])
+        assert run["launches"]["matmul_edge"] == calls
+    assert runs["t0.7_chunked_k4"]["sample_shapes"] == [(1, 131), (16, 131)]
+    # the chunked runs' shapes: 128-row chunks against each chunk's keys
+    chunked = set(runs["paged_chunked"]["kernel_shapes"])
+    assert ("flash_attention", 128, 512, 1, 128) in chunked
+    assert ("paged_decode_attention", 16, 1, 16, 64, 128) in chunked
+    assert ("matmul", 16, 64, 131) in chunked                    # the unembed of a step
+    assert ("flash_attention", 128, 512, 1, 128) in res["calls"]["kernel_shapes"]
+    assert res["summary"]["weights_bytes"] == cs.weight_bytes(params)
+    assert res["summary"]["streams_equal"]["paged_chunked"] == "16 of 16 equal dense"
+
+
+def test_served_shapes_are_read_off_the_kernel_rows():
+    """The shapes a yi-9b engine gives its kernels are keys that
+    ``row_shape_key`` reads off the kernel phase's shape strings (a windowed
+    flash row names no served shape), and ``check_served_shapes`` names a
+    served shape that no row held."""
+    keys = cs.served_shapes(ARCHS["yi-9b"], [5, 600], slots=16, max_len=1024, paged=True,
+                            chunk=128)
+    for key in (("matmul", 128, 4096, 11008), ("matmul", 16, 4096, 64000),
+                ("matmul", 8, 4096, 512), ("rmsnorm", 1, 4096),
+                ("flash_attention", 8, 8, 4, 128), ("flash_attention", 128, 640, 4, 128),
+                ("flash_attention", 128, 1024, 4, 128),
+                ("paged_decode_attention", 16, 4, 16, 64, 128),
+                ("decode_attention", 1, 4, 5, 128), ("decode_attention", 1, 4, 600, 128)):
+        assert key in keys
+    assert ("decode_attention", 16, 4, 1024, 128) not in keys      # paged: no dense step
+    rows = [{"name": "matmul", "shape": "[128,4096]x[4096,11008] act=None out=bfloat16"},
+            {"name": "matmul", "shape": "[8,4096]x[4096,11008] act=silu out=bfloat16"},
+            {"name": "matmul_edge", "shape": "[8,4096]x[4096,49155] act=None out=float32"},
+            {"name": "flash_attention", "shape": "q[1,32,128,128] kv[1,4,640,128] causal=True"},
+            {"name": "flash_attention",
+             "shape": "q[1,32,256,128] kv[1,8,256,128] causal=True window=48"},
+            {"name": "decode_attention", "shape": "q[1,32,128] cache[1,4,5,128] length 5"},
+            {"name": "decode_attention",
+             "shape": "q[16,32,128] cache[16,8,1024,128] lengths 1..1024"},
+            {"name": "paged_decode_attention",
+             "shape": "q[8,32,128] pool[513,4,16,128] table[8,64] lengths [1, 1024]"},
+            {"name": "rmsnorm", "shape": "[64,4096]"}]
+    assert [cs.row_shape_key(r) for r in rows] == [
+        ("matmul", 128, 4096, 11008), None, ("matmul", 8, 4096, 49155),
+        ("flash_attention", 128, 640, 4, 128), None, ("decode_attention", 1, 4, 5, 128),
+        ("decode_attention", 16, 8, 1024, 128), ("paged_decode_attention", 8, 4, 16, 64, 128),
+        ("rmsnorm", 64, 4096)]
+    runs = [{"kernel_shapes": [("rmsnorm", 64, 4096), ("matmul", 128, 4096, 11008)]},
+            {"kernel_shapes": [["rmsnorm", 64, 4096]]}]
+    assert cs.check_served_shapes(rows, runs) == {"rmsnorm": 1, "matmul": 1}
+    with pytest.raises(AssertionError, match=r"\('rmsnorm', 256, 4096\)"):
+        cs.check_served_shapes(rows, [*runs, {"kernel_shapes": [("rmsnorm", 256, 4096)]}])
+
+
+def test_overcommit_phase_preempts_spills_and_streams_equal_on_a_small_model(monkeypatch):
+    """The overcommit phase on a small yi-shaped model, scaled down: the
+    overcommitted arm preempts and resumes by snapshot and by re-prefill,
+    the tight host arm spills and demotes, the churn arm preempts, every
+    arm's streams equal the dense run's, its launches its model calls, and
+    the trace arms equal the JAX package's rows.  The tight host arm evicts
+    a parked snapshot (a demotion that frees arena bytes) and cancels its
+    refill in flight."""
+    model, params = _small_untied("yi-9b", 128, 8)
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    # the phase scaled down: prompts of 5 to 150 tokens, 32 new, max_len 256,
+    # a pool of 25 pages, snapshots from 100 rows (two never fit the tight
+    # host arm's budget of the largest one); at full size it takes a minute
+    # here: 97 pages, 128 new tokens, snapshots from 384 rows
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, 128, (round(5 + i * 145 / 15),), generator=gen).tolist()
+               for i in range(16)]
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.overcommit_phase(torch, model, params, kernels, 0, "cpu", "no card",
+                                  prompts=prompts, new_tokens=32, pool_pages=26,
+                                  snapshot_tokens=100, max_len=256)
+    runs = res["runs"]
+    assert list(runs) == ["dense_16", "dense_16_t0.7", "full_reserve", "overcommit",
+                          "tight_host", "churn_t0.7"]
+    assert runs["full_reserve"]["tier"]["preemptions"] == 0
+    over = runs["overcommit"]["tier"]
+    assert over["snapshot_resumes"] > 0 and over["reprefill_resumes"] > 0
+    assert over["copies"]["d2h_bytes"] == over["copies"]["h2d_bytes"] > 0
+    tight = runs["tight_host"]["tier"]
+    assert tight["demotions"] > 0 and tight["demoted_bytes"] > 0
+    assert tight["refill_cancels"] > 0 and tight["copies"]["h2d_cancelled"] == 0
+    assert (res["sustained_concurrency"]["overcommit"]
+            > res["sustained_concurrency"]["full_reserve"])
+    assert set(res["traces"]) == {"table8", "table11"}
