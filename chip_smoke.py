@@ -7,10 +7,11 @@ Serves ``llama3.2-1b``, ``mamba2-780m``, ``yi-6b``, ``granite-3-8b`` and
 ``yi-9b`` (heads of 128, untied unembeds; granite's over 49155 tokens) at
 full width and depth, with weights drawn from ``--seed`` on the card,
 through the port's own entry points under the ``cuda-strict`` policy, so
-every op on the path runs a hand-written kernel; serves yi-9b under an
-overcommitted page pool (preemption, host spill and refill); and runs the
-paper's two tenants on the card through the port's HSA runtime.  Phases, in
-order; any failure raises and the script exits non-zero:
+every op on the path runs a hand-written kernel; serves llama3.2-1b
+through faults, silent corruption and shared prompt prefixes, and yi-9b
+under an overcommitted page pool (preemption, host spill and refill); and
+runs the paper's two tenants on the card through the port's HSA runtime.
+Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (seven sources, twelve kernels) and print what
@@ -33,11 +34,12 @@ order; any failure raises and the script exits non-zero:
    launch of 1, 3, 8, 128 or 600 rows and under a permutation); the bf16
    matmul bitwise row-invariant too, at every (K, N) a served prefill runs
    (llama's, mamba2's, yi's and granite's weights; a row's bits the same
-   in a launch of 1, 3, 8, 16, 17, 128 or 1024 rows, streaming kernel or
+   in a launch of 1, 3, 8, 16, 17, 128, 512 or 1024 rows, streaming kernel or
    tile, and under a permutation), yi's and granite's unembeds (f32 out; a
    row's bits the same alone, in 8 rows and in 16), and flash
-   attention's chunked rows bitwise the whole prompt's (16- and 128-row
-   chunks at 0, 16, 128 and 512 of a 1024-row prompt, at every split); the
+   attention's chunked rows bitwise the whole prompt's (16-, 128- and
+   512-row chunks at 0, 16, 128 and 512 of a 1024-row prompt, at every
+   split); the
    matmul edge kernels at the untied unembeds' shapes, N not a multiple of
    8, at M = 1, 8 and 16, and at M = 17 and 64, w off a 16-byte boundary
    and K not a multiple of 8, so that every instance of the matmul kernels
@@ -57,7 +59,8 @@ order; any failure raises and the script exits non-zero:
    paged kernel must also equal the dense kernel on the gathered cache bit
    for bit, and the fixed-weight roles (``matmul_fixed_weight``,
    ``conv2d_fixed_weight``) their generic kernels.  Every shape the
-   full-depth and overcommit runs and model calls give a kernel (derived
+   full-depth, overcommit, fault, integrity and prefix runs and model
+   calls give a kernel (derived
    from each engine's slots, pages and chunk and the prompts' lengths:
    ``served_shapes``) must have a row here, checked at the summary.  The sampler (``sample``,
    JAX's position-indexed categorical draw) at every [B, V] the sampled
@@ -106,7 +109,37 @@ order; any failure raises and the script exits non-zero:
    routed beside direct; checks every role packet against its plain
    version and the launch counts against the packets, and that the routed
    engines' decode graphs were captured on the scheduler's worker thread.
-6. full depth: yi-6b (32 layers), granite-3-8b (40) and yi-9b (48) in
+6. faults, llama3.2-1b: the 16 requests paged 8 slots, routed through a
+   queue of an HSA scheduler on a virtual clock (Table X's cost model),
+   greedy and at T = 0.7 (K = 4): fault-free; a forced exec fault on the
+   first fused decode (every live request parked and re-prefilled) and on
+   the first prefill (requeued) with an engine ``RetryPolicy``; the decode
+   fault absorbed by the scheduler's retry; a permanent one with no
+   recovery budget (the live requests in ``failed_requests`` and
+   ``ServeTruncated.failed``); Table X's seeded plan at 0.05; chunked
+   fault-free and with a forced fault on the first chunk.  Every stream
+   equals the fault-free run's, 16 of 16 (the permanent arm's survivors).
+7. integrity, llama3.2-1b: the 16 requests at the overcommit phase's
+   settings (128 new tokens, 8 slots over 96 pages, snapshots from 384
+   rows), greedy and at T = 0.7: clean, then a seeded corruption plan
+   (pool pages flipped in place, parked snapshots and transfers
+   corrupted) with every check on and a scrub of 4 a step (every
+   corruption detected, none escaping, pages quarantined, streams the
+   clean run's), and greedy with every check off (corruption escapes);
+   the read check's hashed bytes and seconds a decode launch beside a
+   clean step.
+8. prefix, llama3.2-1b: 16 users of two personas' 512-token system
+   prompts (suffixes of 8 to 200 tokens, 32 new tokens), 16 slots, greedy
+   and at T = 0.7: sharing off and on, whole and chunked (128-row chunks;
+   a shared request prefills its suffix from row 512); streams equal 16 of
+   16; every indexed page's digest unchanged while shared; a byte flipped
+   on a page several requests share (every reader parks and re-prefills).
+   The counts of phases 6-8 (model calls, faults, corruptions, detections,
+   prefix hits, CoW copies) must equal a run of the same phases on the
+   card's host CPU with a tiny llama at the same lengths (``--twin``,
+   started beside the card's phases).  Then Table XII's region arm and
+   Table XIII's trace arm on the host, against the JAX package's rows.
+9. full depth: yi-6b (32 layers), granite-3-8b (40) and yi-9b (48) in
    turn, each from ``--seed`` and freed before the next: 8 prompts'
    bucketed prefills (8 .. 512), their first-token fixups, a batched
    decode over the dense cache and over a page pool (bitwise equal), and a
@@ -119,7 +152,7 @@ order; any failure raises and the script exits non-zero:
    dense and chunked at K = 4, streams equal 16 of 16; the weights' bytes,
    peak memory, TTFT and the dense graph run's decode tokens/s beside the
    weights' bound, and the card's name and power limit.
-7. overcommit, yi-9b at 48 layers: the 16 requests at 128 new tokens
+10. overcommit, yi-9b at 48 layers: the 16 requests at 128 new tokens
    through a paged engine of 8 slots over 97 pages: full reserve;
    overcommitted (``growth_reserve`` 0.5), preempting and resuming both by
    snapshot and by re-prefill; a host budget of one snapshot with two
@@ -131,17 +164,17 @@ order; any failure raises and the script exits non-zero:
    (refills copied up on a side stream ahead of need, and how long the
    serving stream waited on them).  Then Table VIII's and XI's trace
    arms (``repro_torch.bench``), whose rows must equal the JAX package's.
-8. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+11. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
    against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
    their own length: an SSM prompt is not bucketed), then three decode
    steps of the three as a batch.
-9. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+12. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps,
    and one 600-token prompt's prefill into an idle engine by kernel (the
    ssd kernel's part); graph against loop as for llama; and T = 0.7 at K 4,
    graph equal to loop.
-10. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
+13. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
    ``repro_torch.bench.table9_traffic``): the poisson, bursty and
    longtail traces through a 6-slot engine at K 4, chunked (16-row
    chunks) and whole, on a virtual
@@ -165,6 +198,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -262,6 +296,14 @@ FULL_DEPTH_ARCHS = ("yi-6b", "granite-3-8b", "yi-9b")
 CALL_LENGTHS = (5, 45, 130, 260, 300, 400, 470, 500)
 #: the serve runs' 16 prompt lengths: 5 to 600, evenly spaced
 SERVE_LENGTHS = tuple(round(5 + i * (600 - 5) / 15) for i in range(16))
+#: the prefix phase's prompts: a persona's 512-token system prompt (32
+#: pages of 16) and a user's suffix of 8 to 200 tokens, evenly spaced
+PREFIX_ROWS = 512
+PREFIX_SUFFIXES = tuple(round(8 + i * (200 - 8) / 15) for i in range(16))
+PREFIX_LENGTHS = tuple(PREFIX_ROWS + n for n in PREFIX_SUFFIXES)
+#: the step the prefix phase's other 14 users arrive at, after the two
+#: personas' first users
+PREFIX_WAVE_STEP = 8
 # the decode attention instances no served config runs (llama and granite
 # take 64 and 128, and 96 has timed rows): held against the plain versions
 # untimed, so that every instance built runs in some row
@@ -549,8 +591,9 @@ def role_err(torch, got, want, fault, tol) -> dict:
 ROW_INVARIANCE_ROWS = (1, 3, 8, 128)
 #: the bf16 matmul's launches held to a 1024-row launch: a fixup, a decode
 #: step of 8 slots and of 16 (the streaming kernel), the tile kernel's
-#: smallest launch, a 128-row chunk
-MATMUL_INVARIANCE_ROWS = (1, 3, 8, 16, 17, 128)
+#: smallest launch, a 128-row chunk, a 512-row suffix prefill after a shared
+#: 512-row prefix
+MATMUL_INVARIANCE_ROWS = (1, 3, 8, 16, 17, 128, 512)
 #: yi's and granite's weights (4096 wide, heads of 128): wq and wo; yi's wk
 #: and wv (4 kv heads), its MLP (11008); granite's wk and wv (8 kv heads),
 #: its MLP (12800)
@@ -565,9 +608,10 @@ MATMUL_SERVED_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536
 #: granite's (N not a multiple of 8: the edge kernel)
 SERVED_UNEMBEDS = ((4096, 64000), (4096, 49155))
 #: where the chunks start, and their rows, that flash attention's rows are
-#: held at against a 1024-row prompt's
+#: held at against a 1024-row prompt's (512 rows at 512: the prefix phase's
+#: suffix prefill)
 FLASH_CHUNK_STARTS = (0, 16, 128, 512)
-FLASH_CHUNK_ROWS = (16, 128)
+FLASH_CHUNK_ROWS = (16, 128, 512)
 
 
 def row_invariance(torch, fn, x, w, perm, rows=ROW_INVARIANCE_ROWS) -> dict:
@@ -880,6 +924,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     buckets += [(512, 512, False, None)]
     chunks = [(128, T, True, None) for T in range(256, 1025, 128)]
     chunks += [(16, 256, True, None), (64, 256, True, None)]  # the traffic phase's chunks
+    chunks += [(512, 1024, True, None)]    # a suffix prefill after a 512-row prefix
     others = [(256, 256, True, 48), (200, 200, True, None)]
     every = buckets + chunks + others
     d96 = [(512, 512, True, None), (128, 1024, True, None), (200, 200, True, None)]
@@ -935,9 +980,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     traffic = torch.tensor([1, 256, 5, 100, 37, 232], dtype=torch.int32, device=dev)
     granite = torch.tensor([n + 1 for n in CALL_LENGTHS], dtype=torch.int32, device=dev)
     padded = sorted(n for n in {*SERVE_LENGTHS, *CALL_LENGTHS} if n & (n - 1) or n < 8)
+    # llama's fixups: the split counts 3-5 (300, 400, 600), then every
+    # length the serve, fault, integrity and prefix phases pad
+    padded64 = sorted({300, 400, 600} | {n for n in (*SERVE_LENGTHS, *PREFIX_LENGTHS)
+                                         if n & (n - 1) or n < 8})
     cases = []
     for D, hkv, steps, fixups in (
-            (64, 8, ((slots, 1024),), (5, 45, 300, 400, 600)),
+            (64, 8, ((slots, 1024),), tuple(padded64)),
             *((128, h, ((slots, 1024), (slots.repeat(2), 1024), (granite, 512)), padded)
               for h in (4, 8)),
             (96, 8, ((slots, 1024),), (5, 45)),
@@ -1468,7 +1517,8 @@ def weight_kn(cfg) -> list[tuple[int, int]]:
 
 
 def served_shapes(cfg, lengths, *, slots: int, max_len: int, paged: bool = False,
-                  page_size: int = 16, chunk: int | None = None) -> set[tuple]:
+                  page_size: int = 16, chunk: int | None = None,
+                  shared_rows: int | None = None) -> set[tuple]:
     """The shapes a dense attention model's engine calls give its kernels,
     as keys (kernel, dims...) that :func:`row_shape_key` reads off the
     kernel phase's rows: each prompt of ``lengths`` prefilled at its bucket
@@ -1478,15 +1528,22 @@ def served_shapes(cfg, lengths, *, slots: int, max_len: int, paged: bool = False
     ``max_len`` rows (dense) or a table of ``max_len / page_size`` pages.
     Every call normalises its rows (and one row before the unembed, which
     takes the last row of a prefill or chunk, a fixup's, or a decode
-    step's ``slots``)."""
+    step's ``slots``).  With ``shared_rows``, a prompt long enough to share
+    that many rows of a resident prefix is also prefilled from there: its
+    suffix whole (one chunk of the rest of its bucket) or in chunks."""
     from repro_torch.serve.engine import ServeEngine
 
     buckets = {ServeEngine.bucket_len(n, max_len) for n in lengths}
     fixups = {n for n in lengths if ServeEngine.bucket_len(n, max_len) > n}
+    starts = {(b, 0) for b in buckets}
+    if shared_rows:
+        starts |= {(ServeEngine.bucket_len(n, max_len), shared_rows) for n in lengths
+                   if (n - 1) // page_size * page_size >= shared_rows}
     rows, attn = {slots, 1}, set()
-    for b in buckets:
-        for start in range(0, b, chunk or b):
-            size = min(chunk or b, b - start)
+    for b, first in starts:
+        step = chunk or b - first
+        for start in range(first, b, step):
+            size = min(step, b - start)
             rows.add(size)
             attn.add((size, start + size))
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -2000,7 +2057,9 @@ def expected_launches(eng, cfg) -> dict[str, int]:
 
 
 def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=True,
-              new_tokens: int = 32, after_step=None, **engine_kw):
+              new_tokens: int = 32, after_step=None, allow_failed: bool = False,
+              shared_rows: int | None = None, check_launches: bool = True, arrivals=None,
+              **engine_kw):
     """Serve ``prompts`` (``new_tokens`` each) through one engine under
     cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
     counts (and the edge matmul's) are set to 0 just before the run and read
@@ -2009,7 +2068,14 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
     step (checks, and preemptions from outside).  ``graphed=False`` runs the
     decode steps as the eager loop (a comparison arm: the engine serves
     through graphs).  A paged run's numbers hold the engine's preemption
-    and host-tier counters."""
+    and host-tier counters, and its fault, integrity and prefix counters.
+    With ``allow_failed`` requests killed by faults may end the run (their
+    streams are left out; the numbers name them); ``shared_rows`` adds the
+    kernel shapes of suffix prefills after that many shared prompt rows.
+    ``check_launches=False`` leaves out the launch check (a run on the CPU
+    through the kernels' plain versions, which count nothing).
+    ``arrivals`` (nondecreasing, one a prompt) is the step before which
+    each prompt is submitted (all before the first, by default)."""
     from repro_torch.core import dispatch
     from repro_torch.core.policy import ChunkPolicy
     from repro_torch.kernels import matmul as mm_k
@@ -2030,38 +2096,47 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
         for mod in kernels:
             mod.launches = 0
         mm_k.edge_launches = 0
-        for p in prompts:
-            eng.submit(p, max_new_tokens=new_tokens)
-        done, decode_s, decode_tok, t0 = [], 0.0, 0, time.perf_counter()
+        arrivals = list(arrivals) if arrivals is not None else [0] * len(prompts)
+        if arrivals != sorted(arrivals) or len(arrivals) != len(prompts):
+            raise ValueError(f"arrivals {arrivals} must be one a prompt, nondecreasing")
+        waiting = list(zip(arrivals, prompts))
+        done, decode_s, decode_tok, decode_steps, t0 = [], 0.0, 0, 0, time.perf_counter()
         for step in range(4000):
+            while waiting and waiting[0][0] <= step:
+                eng.submit(waiting.pop(0)[1], max_new_tokens=new_tokens)
             if before_step is not None:
                 before_step(step)
             calls = eng.prefill_calls + eng.chunk_calls
             toks, ts = eng.decode_tokens, time.perf_counter()
             done += eng.step()        # every step ends reading tokens back to the host
-            if eng.prefill_calls + eng.chunk_calls == calls:
+            if eng.prefill_calls + eng.chunk_calls == calls and eng.decode_tokens > toks:
                 decode_s += time.perf_counter() - ts
                 decode_tok += eng.decode_tokens - toks
+                decode_steps += 1
             if after_step is not None:
                 after_step(eng)
-            if len(done) == len(prompts):
+            if len(done) == len(prompts) or (
+                    allow_failed and not (waiting or eng._active or eng._prefilling
+                                          or eng._queue or eng._parked)):
                 break
         wall = time.perf_counter() - t0
         launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
         launches["matmul_edge"] = mm_k.edge_launches
     peak = torch.cuda.max_memory_allocated() if cuda else None
     vocab = model.cfg.vocab_size
-    if len(done) != len(prompts):
-        raise AssertionError(f"{len(done)} of {len(prompts)} requests completed")
+    failed = sorted(r.uid for r in eng.failed_requests)
+    if len(done) + len(failed) != len(prompts) or (failed and not allow_failed):
+        raise AssertionError(f"{len(done)} of {len(prompts)} requests completed, "
+                             f"{len(failed)} failed")
     for r in done:
         if len(r.generated) != new_tokens or not all(0 <= t < vocab for t in r.generated):
             raise AssertionError(f"request {r.uid}: bad tokens {r.generated}")
     want = expected_launches(eng, model.cfg)
-    if launches != want:
+    if check_launches and launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want} from the engine's "
                              f"{eng.prefill_calls} prefills, {eng.chunk_calls} chunks, "
                              f"{eng.fixup_calls} fixups and {eng.decode_calls} decode steps")
-    if any(launches[n] == 0 for n, v in want.items() if v):
+    if check_launches and any(launches[n] == 0 for n, v in want.items() if v):
         raise AssertionError(f"a kernel of the path never launched while serving: {launches}")
     ttft = sorted(r.first_token_t - r.arrival_t for r in done)
     # every cache tensor the engine holds: the batch cache or pool, and
@@ -2087,8 +2162,11 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
            "launches": launches,
            "ttft_mean_s": sum(ttft) / len(ttft),
            "ttft_p99_s": ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
+           "ttft_by_request_s": [r.first_token_t - r.arrival_t
+                                 for r in sorted(done, key=lambda r: r.uid)],
            "decode_tokens_per_s": decode_tok / decode_s if decode_s else None,
-           "decode_tokens": decode_tok, "wall_s": wall, "max_memory_allocated_bytes": peak,
+           "decode_tokens": decode_tok, "decode_step_s": decode_s / decode_steps
+           if decode_steps else None, "wall_s": wall, "max_memory_allocated_bytes": peak,
            ("state_bytes" if model.cfg.family == "ssm" else "kv_bytes"): cache_bytes,
            "peak_concurrency": eng.peak_concurrency,
            "sustained_concurrency": eng.concurrency_stats()["sustained"],
@@ -2099,7 +2177,7 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
     if model.cfg.family != "ssm" and not isinstance(chunk, ChunkPolicy):
         res["kernel_shapes"] = sorted(served_shapes(
             model.cfg, [len(p) for p in prompts], slots=eng.slots, max_len=eng.max_len,
-            paged=eng.paged, page_size=eng.page_size, chunk=chunk))
+            paged=eng.paged, page_size=eng.page_size, chunk=chunk, shared_rows=shared_rows))
     if eng.paged:
         res["pool_pages"] = eng.pool_pages
         res["tier"] = {k: getattr(eng, k) for k in (
@@ -2119,6 +2197,22 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
             res["tier"]["snapshot_resumes"] = split["snapshot_resumes"]
             res["tier"]["reprefill_resumes"] = split["reprefill_resumes"]
             res["tier"]["demoted_bytes"] = eng.ledger.spill_split()["demoted_bytes"]
+        # fault recovery, integrity and prefix sharing: every count follows
+        # from the schedule (the prompts' lengths and tokens), so a run of
+        # the engine on the CPU at the same lengths gives the same
+        res["recovery"] = {
+            **{k: getattr(eng, k) for k in (
+                "transfer_faults", "corruptions_injected", "corruptions_detected",
+                "pages_quarantined", "escaped_corruptions", "scrubbed_targets",
+                "prefix_lookups", "prefix_hits", "prefix_pages_saved", "cow_copies")},
+            "failed": failed, "quarantined": eng.allocator.quarantined_pages,
+            "fault_recoveries": [r.fault_recoveries for r in sorted(done, key=lambda r: r.uid)]}
+        res["verify"] = dict(eng.verify_stats)
+        if eng.ledger is not None:
+            res["splits"] = {name: {k: v for k, v in getattr(eng.ledger, name)().items()
+                                    if not k.endswith(("_s", "_frac"))}
+                             for name in ("availability_split", "integrity_split",
+                                          "prefix_split")}
     return res, [r.generated for r in sorted(done, key=lambda r: r.uid)]
 
 
@@ -2436,6 +2530,434 @@ def overcommit_phase(torch, model, params, kernels, seed: int, card: str, smi: s
             "runs": runs, "traces": traces,
             "sustained_concurrency": {n: runs[n]["sustained_concurrency"]
                                       for n in ("full_reserve", "overcommit")}}
+
+
+# ---------------------------------------------------------------------------
+# phases 5b-5d: fault recovery, integrity and prefix sharing (llama3.2-1b)
+# ---------------------------------------------------------------------------
+
+#: every stream gate's two samplings: greedy (K = 1), and T = 0.7 (seed 3) at K = 4
+GATE_SAMPLINGS = (("greedy", {}), ("t0.7", {"temperature": 0.7, "seed": 3, "decode_fusion": 4}))
+#: the faults phase's scheduler: benchmarks/table10_faults.py's virtual cost
+#: model (a launch 1 ms, a region load 5 ms) and its plan at the rate 0.05
+#: (80 % exec faults, 20 % wedges, seed 7), with its "engine" policy
+FAULT_EXEC_S, FAULT_RECONFIG_S = 1e-3, 5e-3
+TABLE10_PLAN = {"seed": 7, "exec_rate": 0.04, "wedge_rate": 0.01}
+#: the faults phase's arms: (name, forced exec fault's packet name or None,
+#: permanent, the engine's RetryPolicy keywords, the scheduler's, chunked)
+FAULT_ARMS = (
+    ("clean", None, False, None, None, False),
+    ("decode_fault", "decode_fused", False, {}, None, False),
+    ("prefill_fault", "prefill", False, {}, None, False),
+    ("sched_retry", "decode_fused", False, None, {"backoff_s": 1e-4, "max_backoff_s": 1e-2},
+     False),
+    ("permanent", "decode_fused", True, {"max_request_recoveries": 0}, None, False),
+    ("table10", None, False, {"max_request_recoveries": 32}, None, False),
+    ("chunked_clean", None, False, None, None, True),
+    ("chunk_fault", "prefill_chunk", False, {}, None, True),
+)
+#: the integrity phase's corruption: FaultPlan's corruption draws at a seeded
+#: rate an opportunity (a page flipped in the pool, a byte of a parked
+#: snapshot, a transfer's payload), and the first arena block and the first
+#: two transfers forced (a transfer is a rare opportunity: some 20 a run).
+#: A detected page is quarantined for good, so the rate is kept where the
+#: pool still fits the longest request
+INTEGRITY_PLAN = {"seed": 8, "corrupt_rate": 0.002}
+INTEGRITY_FORCED = (("flip_block", 1), ("corrupt_transfer", 2))
+INTEGRITY_POOL_PAGES = 96
+INTEGRITY_SCRUB = 4
+#: the integrity phase's samplings: greedy and T = 0.7, both at K = 4.  The
+#: read check hashes every sealed page a launch read (some 36 MB a launch
+#: here, on the host), so at K = 1 the greedy arm's 762 launches spent 25 s
+#: hashing; at K = 4 a launch costs the same and there are a quarter of them
+INTEGRITY_SAMPLINGS = (("greedy", {"decode_fusion": 4}), GATE_SAMPLINGS[1])
+
+
+def schedule_counts(res: dict) -> dict:
+    """The numbers of a run that follow from its schedule alone (the
+    prompts' lengths and tokens, not the model's values): model calls,
+    concurrency, preemption and tier counters, fault, integrity and prefix
+    counters and the ledger's splits less their timings.  A run of the
+    engine on the CPU with a tiny model on prompts of the same lengths (and
+    the same shared prefixes) gives the same."""
+    out = {k: res[k] for k in ("requests", "prefill_calls", "chunk_calls", "fixup_calls",
+                               "decode_calls", "sample_calls", "peak_concurrency",
+                               "sustained_concurrency", "recovery", "splits")}
+    out["tier"] = {k: res["tier"][k] for k in (
+        "preemptions", "resumes", "recompute_tokens", "pages_reclaimed", "spills", "refills",
+        "demotions", "replay_fallback_tokens", "free_pages", "total_pages")}
+    out["verify"] = {k: res["verify"][k] for k in ("launches", "pages")}
+    return out
+
+
+def schedule_twin(torch, phases, seed: int) -> dict:
+    """Each of ``phases`` (name -> a phase function) run again on the CPU
+    with a tiny llama (2 layers, d_model 64, vocab 128) on prompts of the
+    same lengths: its runs' :func:`schedule_counts` by arm.  The twin's
+    streams are its own (a tiny model's) and are not gated; every count
+    gate of the phases holds on it too."""
+    from repro_torch import kernels as kernel_pkg
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    model = build_model(reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128),
+                        device="cpu")
+    params = init_params(model.param_specs(), seed, device="cpu")
+    kernels = tuple(kernel_pkg.modules())
+    return {name: fn(torch, model, params, kernels, seed, twin=True)["counts"]
+            for name, fn in phases.items()}
+
+
+def check_counts(card: dict, twin: dict) -> None:
+    """Raise unless every arm's schedule counts on the card equal the CPU
+    run's."""
+    differ = {arm: {k: (card[arm].get(k), twin.get(arm, {}).get(k))
+                    for k in card[arm] if card[arm].get(k) != twin.get(arm, {}).get(k)}
+              for arm in card if card[arm] != twin.get(arm)}
+    if differ or set(card) != set(twin):
+        raise AssertionError(f"counts differ from the CPU run's at the same lengths: {differ}")
+
+
+def _gate_streams(name: str, got: list, want: list, lengths) -> None:
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if differ or len(got) != len(want):
+        raise AssertionError(f"{name}: streams differ from the clean run's in requests {differ} "
+                             f"(prompt lengths {[lengths[i] for i in differ]})")
+
+
+def faults_phase(torch, model, params, kernels, seed: int, *, prompts=None,
+                 new_tokens: int = 32, max_len: int = 1024, twin: bool = False) -> dict:
+    """The 16 serve prompts (32 new tokens), paged, 8 slots, the engine
+    routed through a queue of an HSA scheduler on a ``VirtualClock`` (Table
+    X's cost model), under cuda-strict, greedy and at T = 0.7 (K = 4), in
+    the arms of FAULT_ARMS: fault-free; a forced exec fault on the first
+    fused decode and on the first prefill with an engine ``RetryPolicy()``
+    (every live request parked and re-prefilled, or requeued); the decode
+    fault absorbed by the scheduler's retry (no parks); a permanent decode
+    fault with ``max_request_recoveries=0`` (the live requests fail, in
+    ``failed_requests`` and ``ServeTruncated.failed``; the rest complete);
+    Table X's seeded plan at 0.05; and chunked (128-row chunks, 16 slots)
+    fault-free and with a forced fault on the first chunk.  Every stream
+    equals the fault-free run's, 16 of 16 (the permanent arm's survivors);
+    the split shows the faults, recoveries and recompute.  ``twin``: the
+    CPU run of :func:`schedule_twin` (quiet, no launch or stream gates)."""
+    from repro_torch.core import hsa
+    from repro_torch.core.ledger import OverheadLedger
+    from repro_torch.core.policy import RetryPolicy
+    from repro_torch.core.reconfig import RegionManager
+    from repro_torch.core.roles import RoleLibrary
+    from repro_torch.serve.engine import ServeTruncated
+
+    if prompts is None:
+        prompts = serve_prompts(torch, model.cfg.vocab_size, seed)[1]
+    lengths = [len(p) for p in prompts]
+    runs, streams, counts, t0 = {}, {}, {}, time.perf_counter()
+    for sampling, skw in GATE_SAMPLINGS:
+        for name, force, permanent, eng_retry, sched_retry, chunked in FAULT_ARMS:
+            plan = None
+            if force is not None:
+                plan = hsa.FaultPlan()
+                plan.force("exec", force, permanent=permanent)
+            elif name == "table10":
+                plan = hsa.FaultPlan(**TABLE10_PLAN)
+            led, clock = OverheadLedger(), hsa.VirtualClock()
+            sched = hsa.Scheduler(
+                RegionManager(4, ledger=led), RoleLibrary(ledger=led), ledger=led, clock=clock,
+                cost_model=lambda kind, what, measured: (FAULT_RECONFIG_S if kind == "reconfig"
+                                                         else FAULT_EXEC_S),
+                retry=None if sched_retry is None else RetryPolicy(**sched_retry), faults=plan,
+                expected_exec_s=FAULT_EXEC_S)
+            q = sched.add_queue(hsa.Queue(None, 512, name="serve"))
+            kw = ({"batch_slots": 16, "prefill_chunk": 128, "pool_pages": 8 * max_len // 16 + 1}
+                  if chunked else {"batch_slots": 8})
+            held = []
+            arm = f"{sampling}_{name}"
+            runs[arm], streams[arm] = serve_run(
+                torch, model, params, kernels, prompts, new_tokens=new_tokens, max_len=max_len,
+                paged=True, page_size=16, hsa_queue=q, hsa_scheduler=sched, clock=clock,
+                retry=None if eng_retry is None else RetryPolicy(**eng_retry),
+                allow_failed=name == "permanent", check_launches=not twin,
+                after_step=lambda eng: held.append(eng) if not held else None, **kw, **skw)
+            res, rec = runs[arm], runs[arm]["recovery"]
+            res["faults_injected"] = len(plan.trace) if plan is not None else 0
+            counts[arm] = schedule_counts(res)
+            counts[arm]["trace"] = ([(f.kind, f.what, f.permanent, f.forced) for f in plan.trace]
+                                    if plan is not None else [])
+            if not twin:
+                print("  " + json.dumps({"arch": model.cfg.name, "arm": arm, **res}))
+            avail = res["splits"]["availability_split"]
+            clean = streams[f"{sampling}_clean"]
+            if name == "permanent":
+                failed = rec["failed"]
+                try:
+                    held[0].run_to_completion(max_steps=1)
+                    raise AssertionError("the permanent arm's run_to_completion did not raise")
+                except ServeTruncated as e:
+                    truncated = sorted(r.uid for r in e.failed)
+                if not failed or truncated != failed or len(failed) == len(prompts):
+                    raise AssertionError(f"permanent arm: failed {failed}, ServeTruncated.failed "
+                                         f"{truncated}")
+                survivors = [i for i in range(len(prompts)) if i + 1 not in failed]
+                if not twin:
+                    _gate_streams(arm, streams[arm], [clean[i] for i in survivors],
+                                  [lengths[i] for i in survivors])
+                res["survivors"] = len(survivors)
+                continue
+            if not twin:
+                _gate_streams(arm, streams[arm], clean, lengths)
+            if rec["failed"]:
+                raise AssertionError(f"{arm}: requests failed: {rec['failed']}")
+            if name == "decode_fault" and not (
+                    avail["faults"] >= 1 and avail["recoveries"] >= 1
+                    and avail["recovery_recompute_tokens"] > 0):
+                raise AssertionError(f"{arm}: the split shows no fault recovered: {avail}")
+            if name == "table10" and not avail["faults"] >= 1:
+                raise AssertionError(f"{arm}: the seeded plan injected no fault: {avail}")
+            if name == "prefill_fault" and rec["fault_recoveries"][0] != 1:
+                raise AssertionError(f"{arm}: the first request was not requeued once: "
+                                     f"{rec['fault_recoveries']}")
+            if name == "chunk_fault" and not any(rec["fault_recoveries"]):
+                raise AssertionError(f"{arm}: no chunked prefill was aborted to the queue")
+            if name == "sched_retry" and not (res["tier"]["preemptions"] == 0
+                                              and avail["faults"] == 1 and avail["retries"] == 1):
+                raise AssertionError(f"{arm}: the scheduler did not absorb the fault: {avail}")
+    wall = time.perf_counter() - t0
+    if not twin:
+        for arm, res in runs.items():
+            a = res["splits"]["availability_split"]
+            print(f"  {arm}: faults {a['faults']:.0f} (wedges {a['wedges']:.0f}), retries "
+                  f"{a['retries']:.0f}, recoveries {a['recoveries']:.0f}, recompute tokens "
+                  f"{a['recovery_recompute_tokens']:.0f}, failed {res['recovery']['failed']}, "
+                  f"preemptions {res['tier']['preemptions']}; TTFT mean {res['ttft_mean_s']} s")
+        print(f"  every stream equals the fault-free run's, 16 of 16 (the permanent arm: its "
+              f"survivors); the faults phase took {wall:.1f} s")
+    return {"prompt_lengths": lengths, "runs": runs, "counts": counts, "wall_s": wall}
+
+
+def integrity_phase(torch, model, params, kernels, seed: int, *, prompts=None,
+                    new_tokens: int = OVERCOMMIT_NEW_TOKENS,
+                    pool_pages: int = INTEGRITY_POOL_PAGES,
+                    snapshot_tokens: int = OVERCOMMIT_SNAPSHOT_TOKENS, max_len: int = 1024,
+                    twin: bool = False) -> dict:
+    """The 16 serve prompts at the overcommit phase's settings (128 new
+    tokens, 8 slots over INTEGRITY_POOL_PAGES pages, ``growth_reserve``
+    0.5, snapshots from OVERCOMMIT_SNAPSHOT_TOKENS rows: parks, spills and
+    refills), under cuda-strict, greedy and at T = 0.7 (both at K = 4,
+    INTEGRITY_SAMPLINGS): clean (no
+    integrity layer), then INTEGRITY_PLAN's seeded corruption with
+    ``IntegrityPolicy(scrub_pages_per_step=4)`` (every corruption detected
+    by a read, the scrubber or a transfer's check, none escaping, pages
+    quarantined, every stream the clean run's), and greedy with every check
+    off (the same corruption must escape).  The hashed bytes and seconds a
+    decode launch against the clean run's step.  ``twin`` as in
+    :func:`faults_phase`."""
+    from repro_torch.core import hsa
+    from repro_torch.core.ledger import OverheadLedger
+    from repro_torch.core.policy import (
+        AdmissionPolicy,
+        IntegrityPolicy,
+        PreemptionPolicy,
+        RetryPolicy,
+    )
+
+    if prompts is None:
+        prompts = serve_prompts(torch, model.cfg.vocab_size, seed)[1]
+    lengths = [len(p) for p in prompts]
+    off = IntegrityPolicy(scrub_pages_per_step=0, verify_reads=False, verify_transfers=False,
+                          verify_regions=False)
+    arms = [(sampling, skw, name, integrity)
+            for sampling, skw in INTEGRITY_SAMPLINGS
+            for name, integrity in (("clean", None),
+                                    ("verified",
+                                     IntegrityPolicy(scrub_pages_per_step=INTEGRITY_SCRUB)))]
+    arms.append((*INTEGRITY_SAMPLINGS[0], "verify_off", off))
+    runs, streams, counts, t0 = {}, {}, {}, time.perf_counter()
+    for sampling, skw, name, integrity in arms:
+        arm = f"{sampling}_{name}"
+        plan = None
+        if integrity is not None:
+            plan = hsa.FaultPlan(**INTEGRITY_PLAN)
+            for kind, n in INTEGRITY_FORCED:
+                plan.force(kind, count=n)
+        runs[arm], streams[arm] = serve_run(
+            torch, model, params, kernels, prompts, new_tokens=new_tokens, max_len=max_len,
+            batch_slots=8, paged=True, page_size=16, pool_pages=pool_pages,
+            admission=AdmissionPolicy(growth_reserve=0.5),
+            preemption=PreemptionPolicy(snapshot_threshold_tokens=snapshot_tokens),
+            ledger=OverheadLedger(), retry=RetryPolicy(max_request_recoveries=64),
+            faults=plan, integrity=integrity, check_launches=not twin, **skw)
+        res = runs[arm]
+        counts[arm] = schedule_counts(res)
+        counts[arm]["trace"] = ([(f.kind, f.what, f.forced) for f in plan.trace]
+                                if plan is not None else [])
+        if not twin:
+            print("  " + json.dumps({"arch": model.cfg.name, "arm": arm, **res}))
+        if res["tier"]["free_pages"] != res["tier"]["total_pages"] or res["tier"]["arena_entries"]:
+            raise AssertionError(f"{arm} ended holding pages or snapshots: {res['tier']}")
+        if name == "clean":
+            continue
+        sp = res["splits"]["integrity_split"]
+        rec = res["recovery"]
+        if name == "verify_off":
+            if not (sp["escaped"] > 0 and sp["detected"] == 0):
+                raise AssertionError(f"{arm}: the corruption did not escape: {sp}")
+            continue
+        if not twin:
+            _gate_streams(arm, streams[arm], streams[f"{sampling}_clean"], lengths)
+        kinds = [k for k in ("corrupt_pages", "corrupt_blocks", "corrupt_transfers") if sp[k]]
+        if not (sp["escaped"] == 0 and sp["detected"] == sp["corruptions"] > 0
+                and rec["quarantined"] > 0 and len(kinds) == 3):
+            raise AssertionError(f"{arm}: corruptions {sp}, engine {rec}")
+    wall = time.perf_counter() - t0
+    per_launch = {}
+    for sampling, _ in INTEGRITY_SAMPLINGS:
+        v, clean = runs[f"{sampling}_verified"]["verify"], runs[f"{sampling}_clean"]
+        per_launch[sampling] = {
+            "hashed_bytes": v["bytes"] / max(1, v["launches"]),
+            "hashed_pages": v["pages"] / max(1, v["launches"]),
+            "verify_s": v["s"] / max(1, v["launches"]),
+            "verified_step_s": runs[f"{sampling}_verified"]["decode_step_s"],
+            "clean_step_s": clean["decode_step_s"]}
+    if not twin:
+        for arm, res in runs.items():
+            sp = res["splits"]["integrity_split"]
+            print(f"  {arm}: corruptions {sp['corruptions']:.0f} (pages {sp['corrupt_pages']:.0f}"
+                  f", blocks {sp['corrupt_blocks']:.0f}, transfers "
+                  f"{sp['corrupt_transfers']:.0f}), detected {sp['detected']:.0f} (read "
+                  f"{sp['detected_read']:.0f}, scrub {sp['detected_scrub']:.0f}, transfer "
+                  f"{sp['detected_transfer']:.0f}), escaped {sp['escaped']:.0f}, quarantined "
+                  f"{res['recovery']['quarantined']}, preemptions {res['tier']['preemptions']}, "
+                  f"spills {res['tier']['spills']}, refills {res['tier']['refills']}")
+        for sampling, d in per_launch.items():
+            print(f"  {sampling}: the read check hashed {d['hashed_pages']:.1f} pages, "
+                  f"{d['hashed_bytes']:.0f} bytes a decode launch (K = 4) in {d['verify_s']} s "
+                  f"(one gather and copy off the card, hashed on the host); a decode launch "
+                  f"took {d['verified_step_s']} s with it, {d['clean_step_s']} s in the clean "
+                  f"run")
+        print(f"  verified streams equal the clean run's, 16 of 16; nothing escaped; with the "
+              f"checks off the corruption escaped; the integrity phase took {wall:.1f} s")
+    return {"prompt_lengths": lengths, "runs": runs, "counts": counts, "per_launch": per_launch,
+            "wall_s": wall}
+
+
+def prefix_prompts(torch, vocab: int, seed: int) -> list[list[int]]:
+    """The prefix phase's 16 prompts: two personas' PREFIX_ROWS-token system
+    prompts in turn, each with a user's suffix of PREFIX_SUFFIXES tokens,
+    drawn from ``seed`` in the model's vocabulary."""
+    rng = torch.Generator().manual_seed(seed + 5)
+    personas = [torch.randint(0, vocab, (PREFIX_ROWS,), generator=rng).tolist() for _ in range(2)]
+    return [personas[i % 2] + torch.randint(0, vocab, (n,), generator=rng).tolist()
+            for i, n in enumerate(PREFIX_SUFFIXES)]
+
+
+def prefix_phase(torch, model, params, kernels, seed: int, *, prompts=None,
+                 prefix_rows: int = PREFIX_ROWS, new_tokens: int = 32, max_len: int = 1024,
+                 twin: bool = False) -> dict:
+    """Table XIII's persona mix at full width: 16 requests over two personas'
+    512-token system prompts (32 pages of 16), 32 new tokens, paged, 16
+    slots, under cuda-strict, greedy and at T = 0.7 (K = 4): sharing off and
+    on, whole-prompt prefill (the default pool) and chunked (128-row chunks,
+    the dense 8-slot run's KV memory).  Every stream equals the unshared
+    whole run's, 16 of 16: a shared request prefills its suffix alone, one
+    chunk from row 512, reading the shared rows in place.  Then sharing on,
+    whole, checked after every step: every page in the prefix index keeps
+    its digest while indexed (no suffix prefill writes a shared page); and
+    with ``IntegrityPolicy()`` and a byte flipped in the pool on a page
+    several requests share: every reader parks and prefills again, the
+    streams unchanged.  TTFT and concurrency, sharing on and off.  ``twin``
+    as in :func:`faults_phase`."""
+    from repro_torch.core.ledger import OverheadLedger
+    from repro_torch.core.policy import IntegrityPolicy
+    from repro_torch.serve.paged import page_digests
+
+    if prompts is None:
+        prompts = prefix_prompts(torch, model.cfg.vocab_size, seed)
+    lengths = [len(p) for p in prompts]
+    # the two personas' first users arrive first; the other 14 once those
+    # have prefilled (8 chunks of 128 rows), while they still decode
+    arrivals = [0, 0] + [PREFIX_WAVE_STEP] * (len(prompts) - 2)
+    chunked = {"prefill_chunk": 128, "pool_pages": 8 * max_len // 16 + 1}
+    seen: dict = {}
+    checked = [0]
+
+    def shared_unchanged(eng):
+        entries = sorted(eng._prefix_index._by_page.items())
+        for key in [k for k in seen if k not in entries]:
+            del seen[key]
+        for entry, digest in zip(entries, page_digests(eng._cache, [p for p, _ in entries])):
+            if seen.setdefault(entry, digest) != digest:
+                raise AssertionError(f"indexed page {entry[0]} changed while shared")
+        checked[0] += len(entries)
+
+    flipped: dict = {}
+
+    def flip_shared(eng):
+        if flipped:
+            return
+        shared = [p for p in eng._prefix_index.pages() if eng.allocator.refcount(p) >= 3]
+        if shared:
+            from repro_torch.serve.paged import flip_page
+            page = min(shared)
+            flipped.update(page=page, readers=sorted(eng.allocator.owners_of(page)))
+            flip_page(eng._cache, page)
+
+    runs, streams, counts, t0 = {}, {}, {}, time.perf_counter()
+    for sampling, skw in GATE_SAMPLINGS:
+        arms = (("off", {}, None), ("on", {"prefix": True}, None),
+                ("off_chunked", chunked, None), ("on_chunked", {**chunked, "prefix": True}, None),
+                ("on_checked", {"prefix": True}, shared_unchanged),
+                ("on_flip", {"prefix": True, "integrity": IntegrityPolicy()}, flip_shared))
+        for name, kw, hook in arms:
+            arm = f"{sampling}_{name}"
+            seen.clear()
+            flipped.clear()
+            runs[arm], streams[arm] = serve_run(
+                torch, model, params, kernels, prompts, new_tokens=new_tokens, max_len=max_len,
+                batch_slots=16, paged=True, page_size=16, ledger=OverheadLedger(),
+                after_step=hook, shared_rows=prefix_rows if kw.get("prefix") else None,
+                check_launches=not twin, arrivals=arrivals, **kw, **skw)
+            res = runs[arm]
+            counts[arm] = schedule_counts(res)
+            if not twin:
+                print("  " + json.dumps({"arch": model.cfg.name, "arm": arm, **res}))
+            if not twin:
+                _gate_streams(arm, streams[arm], streams[f"{sampling}_off"], lengths)
+            rec = res["recovery"]
+            if name.startswith("on") and not rec["prefix_hits"]:
+                raise AssertionError(f"{arm}: no request attached to a shared prefix: {rec}")
+            if name == "on_flip":
+                readers = flipped.get("readers", [])
+                counts[arm]["flipped"] = dict(flipped)
+                recoveries = dict(zip(sorted(range(1, len(prompts) + 1)),
+                                      rec["fault_recoveries"]))
+                if len(readers) < 3 or any(recoveries[u] < 1 for u in readers) \
+                        or rec["corruptions_detected"] < 1 or rec["quarantined"] != 1 \
+                        or rec["cow_copies"] != len(readers) - 1:
+                    raise AssertionError(f"{arm}: the flipped shared page {flipped} did not "
+                                         f"park and re-prefill every reader: {rec}")
+            elif rec["corruptions_detected"]:
+                raise AssertionError(f"{arm}: a digest check failed with no corruption: {rec}")
+    if not checked[0]:
+        raise AssertionError("the shared pages' digests were never checked")
+    wall = time.perf_counter() - t0
+    if not twin:
+        for arm, res in runs.items():
+            sp = res["splits"]["prefix_split"]
+            print(f"  {arm}: TTFT mean {res['ttft_mean_s']} s, p99 {res['ttft_p99_s']} s; "
+                  f"sustained concurrency {res['sustained_concurrency']}, peak "
+                  f"{res['peak_concurrency']}; prefix hits {sp['prefix_hits']:.0f} of "
+                  f"{sp['prefix_lookups']:.0f} lookups, pages saved {sp['pages_saved']:.0f}, "
+                  f"peak shared pages {sp['peak_shared_pages']:.0f}, CoW copies "
+                  f"{sp['cow_copies']:.0f}; prefill calls {res['prefill_calls']}, chunk calls "
+                  f"{res['chunk_calls']}")
+        print(f"  streams equal across sharing on and off, whole and chunked, 16 of 16; shared "
+              f"pages unchanged by suffix prefills ({checked[0]} page checks); the flipped "
+              f"shared page parked every reader; the prefix phase took {wall:.1f} s")
+    return {"prompt_lengths": lengths, "runs": runs, "counts": counts, "wall_s": wall}
+
+
+#: the phases the CPU run of ``--twin`` replays
+TWIN_PHASES = {"faults": faults_phase, "integrity": integrity_phase, "prefix": prefix_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -3263,21 +3785,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None, help="write every measurement here")
+    ap.add_argument("--twin", action="store_true",
+                    help="print the fault, integrity and prefix phases' schedule counts from "
+                         "a run on the CPU with a tiny model (what the card's must equal)")
     args = ap.parse_args()
 
     import torch
 
+    if args.twin:
+        torch.set_num_threads(2)
+        print(json.dumps(schedule_twin(torch, TWIN_PHASES, args.seed)))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch import kernels as kernel_pkg
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import conv2d as conv_k
-    from repro_torch.kernels import decode_attention as dec_k
-    from repro_torch.kernels import matmul as mm_k
-    from repro_torch.kernels import native
-    from repro_torch.kernels import sample as sample_k
-    from repro_torch.models import build_model, init_params
 
     # the kernels of the serve paths: every counted module but conv2d, which
     # only the tenants phase runs (and counts on its own)
@@ -3292,9 +3815,34 @@ def main() -> int:
         s, t_lap[0] = now - t_lap[0], now
         return s
 
+    # the schedule counts the fault, integrity and prefix phases must give,
+    # from a run of theirs on the CPU, while the card works
+    twin = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--twin",
+                             "--seed", str(args.seed)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    try:
+        return run_phases(args, torch, twin, kernels, t_start, phase_s, lap)
+    finally:
+        if twin.poll() is None:
+            twin.kill()
+            twin.communicate()
+
+
+def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
+    """Every phase after the check for a card (see the module docstring)."""
+    from repro_torch.bench import table12_integrity, table13_prefix
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import conv2d as conv_k
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import native
+    from repro_torch.kernels import sample as sample_k
+    from repro_torch.models import build_model, init_params
+
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/11] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/14] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3316,23 +3864,24 @@ def main() -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/11] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/14] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
     decode_splits = check_splits(
-        rows, served_decode_splits(dec_k, serve_prompts(torch, 128, args.seed)[0]))
+        rows, served_decode_splits(dec_k, [*serve_prompts(torch, 128, args.seed)[0],
+                                           *PREFIX_LENGTHS]))
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/11] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/14] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/11] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/14] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -3353,17 +3902,55 @@ def main() -> int:
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
     phase_s["serve"] = lap()
 
-    print("[5/11] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/14] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
                                 serve_res.pop("dense_streams"))
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
-    del model, params
-    torch.cuda.empty_cache()
     phase_s["tenants"] = lap()
 
-    print(f"[6/11] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[6/14] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+          f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
+          f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
+          f"Table X's plan at 0.05, on {card} ({smi})")
+    faults_res = faults_phase(torch, model, params, kernels, args.seed)
+    phase_s["faults"] = lap()
+    print(f"[7/14] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+          f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
+          f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
+          f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
+    integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
+    phase_s["integrity"] = lap()
+    print(f"[8/14] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+          f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
+          f"flipped shared page, on {card} ({smi})")
+    prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
+    phase_s["prefix"] = lap()
+    out, err = twin.communicate(timeout=900)
+    if twin.returncode != 0:
+        raise AssertionError(f"the CPU run of the fault, integrity and prefix phases failed: "
+                             f"{err[-4000:]}")
+    twin_counts = json.loads(out.strip().splitlines()[-1])
+    for name, res in (("faults", faults_res), ("integrity", integrity_res),
+                      ("prefix", prefix_res)):
+        check_counts(json.loads(json.dumps(res["counts"])), twin_counts[name])
+    print(f"  every arm's counts equal a CPU run's at the same lengths (a tiny llama): "
+          f"{sum(len(c) for c in twin_counts.values())} arms; seconds: faults "
+          f"{faults_res['wall_s']:.1f}, integrity {integrity_res['wall_s']:.1f}, prefix "
+          f"{prefix_res['wall_s']:.1f}")
+    for table, mod in (("table13", table13_prefix), ("table12", table12_integrity)):
+        table_rows = mod.rows()
+        mod.check(table_rows)
+        for metric, (value, derived) in table_rows.items():
+            print(f"  {table},{metric},{value},{derived}")
+    print("  Table XIII's trace rows and Table XII's region row equal the JAX package's "
+          "(BENCH_results.json)")
+    del model, params
+    torch.cuda.empty_cache()
+    phase_s["twin_and_tables"] = lap()
+
+    print(f"[9/14] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -3380,7 +3967,7 @@ def main() -> int:
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
     phase_s["full_depth"] = lap()
 
-    print(f"[7/11] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/14] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -3390,14 +3977,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[8/11] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/14] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[9/11] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/14] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -3417,7 +4004,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[10/11] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/14] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -3426,13 +4013,17 @@ def main() -> int:
     traffic_res = traffic_phase(torch, model, params, kernels)
     phase_s["traffic"] = lap()
 
-    print("[11/11] the kernels' summary")
+    print("[14/14] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
               **{f"{arch}_{n}": r for arch, res in full_res.items()
                  for n, r in res["runs"].items()},
-              **{f"overcommit_{n}": r for n, r in overcommit_res["runs"].items()}}
+              **{f"overcommit_{n}": r for n, r in overcommit_res["runs"].items()},
+              **{f"{phase}_{n}": r for phase, res in (("faults", faults_res),
+                                                      ("integrity", integrity_res),
+                                                      ("prefix", prefix_res))
+                 for n, r in res["runs"].items()}}
     runs = {**served, "traffic": {"launches": traffic_res["launches"]},
             **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
                for arch, res in full_res.items()}}
@@ -3444,6 +4035,11 @@ def main() -> int:
                *(res["calls"] for res in full_res.values())])
     print(f"  every shape the full-depth and overcommit runs and model calls gave a kernel was "
           f"held against the plain version (shapes by kernel): {full_shapes}")
+    recovery_shapes = check_served_shapes(
+        rows, [r for n, r in served.items() if n.startswith(("faults", "integrity", "prefix"))])
+    print(f"  every shape the fault, integrity and prefix runs gave a kernel (suffix prefills "
+          f"after a 512-row prefix included) was held against the plain version (shapes by "
+          f"kernel): {recovery_shapes}")
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
@@ -3578,6 +4174,8 @@ def main() -> int:
             "kernel_rows": rows, "sass": sass, "model": model_res, "serve": serve_res,
             "busy": busy_res, "prefill_busy": prefill_res,
             "tenants": tenants_res, "full_depth": full_res, "overcommit": overcommit_res,
+            "faults": faults_res, "integrity": integrity_res, "prefix": prefix_res,
+            "recovery_shapes": recovery_shapes,
             "phase_s": phase_s,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,

@@ -18,7 +18,12 @@ as they are (pure dataclasses and functions).
   snapshots lose their host copy when the host arena passes its budget, and
   how many refills are issued ahead of need.
 - :class:`PrefetchPolicy` and :class:`RetryPolicy`: the HSA scheduler's
-  lookahead depth and fault recovery.
+  lookahead depth and fault recovery (and the serving engine's recovery
+  budget a request).
+- :class:`IntegrityPolicy`: which boundaries the serving engine and the
+  transfer engine verify content digests at, and the scrubber's budget.
+- :class:`PrefixPolicy`: when a new request attaches to prompt pages
+  already resident in the paged pool.
 - The role planner (:class:`Invocation`, :class:`CostModel`,
   :func:`simulate_lru`, :func:`plan_roles`): the paper's generic-vs-fixed-
   weight trade-off (§IV).  A generic role (weights as operands) is shared by
@@ -27,9 +32,6 @@ as they are (pure dataclasses and functions).
   the LRU thrashes and every layer pays a reconfiguration.  The planner
   simulates LRU residency for each assignment of {generic, fixed_weight} per
   op type and picks the lowest predicted steady-state step time.
-
-The rest of that file comes with the slices that read it: the integrity
-and prefix policies.
 """
 
 from __future__ import annotations
@@ -565,6 +567,107 @@ class RetryPolicy:
         ``step_time_model`` or a measured exec cost), floored so a
         nominally-instant launch still gets a real window."""
         return max(self.watchdog_floor_s, self.watchdog_factor * expected_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegrityPolicy:
+    """When and how the serving path verifies the bytes it trusts.
+
+    The fault layer covers *fail-stop* faults — a launch that errors
+    or wedges.  This policy covers the quieter failure mode: state that is
+    silently wrong.  Four tiers are verifiable — device KV pages (digest
+    stamped at every write boundary), host-arena blocks (digest stamped at
+    ``store()``), DMA payloads (digest carried on the transfer), and loaded
+    region images.  Each knob gates one verification site:
+
+    - ``verify_reads``: after every decode launch, re-hash the sealed pages
+      the attention kernel just read and park any slot whose pages mismatch
+      *before* its tokens commit.  This is the structural zero-escape
+      guarantee — corruption is caught before it influences a sampled token.
+    - ``verify_transfers``: check the payload digest on every H2D refill at
+      ``wait()`` and every D2H spill at ``issue()`` (spills complete at
+      issue; they are never waited).
+    - ``verify_regions``: check the region-image digest after every
+      reconfiguration load and again at ``complete_prefetch``, so a stale
+      image is caught before any packet executes against it.
+    - ``scrub_pages_per_step``: budgeted background audit — re-hash up to
+      this many cold targets (sealed device pages + parked arena blocks,
+      round-robin cursor) per engine step.  Scrubbing does not change what
+      escapes (the read/transfer/region checks already bound that at zero);
+      it bounds *detection latency*, so a corrupted parked snapshot is
+      demoted before the engine wastes a refill on it.  0 disables.
+
+    Passing ``integrity=None`` to the engine skips the whole layer — no
+    digests, no hashing, bit-for-bit the pre-integrity hot path.
+    """
+
+    scrub_pages_per_step: int = 0
+    verify_transfers: bool = True
+    verify_regions: bool = True
+    verify_reads: bool = True
+
+    def __post_init__(self):
+        if self.scrub_pages_per_step < 0:
+            raise ValueError(
+                f"scrub_pages_per_step must be >= 0, got {self.scrub_pages_per_step}")
+
+    @classmethod
+    def of(cls, value: "IntegrityPolicy | bool | None") -> "IntegrityPolicy | None":
+        """Normalize an engine-constructor argument.
+
+        ``None``/``False`` → disabled (``None``); ``True`` → all
+        verification on with scrubbing off; an ``IntegrityPolicy`` passes
+        through.
+        """
+        if value is None or value is False:
+            return None
+        if value is True:
+            return cls()
+        if isinstance(value, cls):
+            return value
+        raise TypeError(f"expected IntegrityPolicy, bool, or None, got {value!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixPolicy:
+    """When a new request may attach to already-resident prompt pages.
+
+    Prefix sharing is the Table II ``if_not_configured`` hit applied to KV
+    state: a request whose prompt prefix is already paged in attaches to
+    those pages at +1 refcount instead of re-prefilling them, and admission
+    charges only the unshared remainder.  Two knobs bound the mechanism:
+
+    - ``min_prefix_pages``: shortest shared prefix (in full pages) worth
+      attaching.  Below this the bookkeeping (refcounts, CoW on the
+      park/quarantine paths) outweighs the prefill saved.
+    - ``max_refs``: cap on readers per physical page.  Bounds the blast
+      radius of one quarantined page (every reader parks through the
+      ``RESUME_REPREFILL`` lane) and keeps a single viral prefix from
+      serializing the whole pool's fault recovery.
+    """
+
+    min_prefix_pages: int = 1
+    max_refs: int = 64
+
+    def __post_init__(self):
+        if self.min_prefix_pages < 1:
+            raise ValueError(
+                f"min_prefix_pages must be >= 1, got {self.min_prefix_pages}")
+        if self.max_refs < 2:
+            raise ValueError(f"max_refs must be >= 2, got {self.max_refs}")
+
+    @classmethod
+    def of(cls, value: "PrefixPolicy | bool | None") -> "PrefixPolicy | None":
+        """Normalize an engine-constructor argument: ``None``/``False`` →
+        sharing off, ``True`` → defaults, a ``PrefixPolicy`` passes
+        through."""
+        if value is None or value is False:
+            return None
+        if value is True:
+            return cls()
+        if isinstance(value, cls):
+            return value
+        raise TypeError(f"expected PrefixPolicy, bool, or None, got {value!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -88,13 +88,42 @@ hidden refill time), and on the card as a real copy up on a side stream
 (:class:`~repro_torch.serve.paged.StagedRefill`) that the resume waits on.
 ``copy_stats`` holds the real copies' bytes and seconds.
 
-Not ported yet: the engine's fault recovery (``retry=``, ``faults=``),
-integrity digests (``integrity=``) and prefix sharing (``prefix=``), which
-raise ``NotImplementedError``.
+**Fault recovery** (``retry=``, ``faults=``): with an engine
+:class:`RetryPolicy`, a launch that dies to a ``FaultError`` (after the HSA
+scheduler's own retries) parks its requests for re-prefill and replay
+instead of raising: a decode fault parks every live slot, a prefill fault
+puts its request back at the queue's head, a chunk's fault sends its
+request back to the queue; a request past ``max_request_recoveries`` fails
+and lands in ``ServeTruncated.failed``.  A faulted launch commits nothing:
+the scheduler draws a fault before the packet runs, and the packet is
+where the static decode buffers and the pool are written.  ``faults=`` (a
+``FaultPlan``) also draws the transfer engine's faults and the
+corruptions below.
+
+**Integrity** (``integrity=``, an :class:`IntegrityPolicy`): content
+digests stamped on every page a write seals (prefill, chunk, decode commit,
+snapshot restore) and checked where the bytes are trusted again: every
+sealed page a decode launch read, before its tokens commit (a mismatch
+quarantines the page and re-prefills each reader), spills and refills,
+and a budgeted scrubber over device pages and arena blocks.  Digests are
+computed on the host after one copy of the pages due off the card
+(:func:`~repro_torch.serve.paged.page_digests`); ``verify_stats`` holds
+their pages, bytes and seconds.  ``FaultPlan``'s corruption draws flip a
+pool byte in place, a parked snapshot's byte, or a transfer's payload; with
+verification off the engine counts the escapes.
+
+**Prefix sharing** (``prefix=``, a :class:`PrefixPolicy`): a request whose
+prompt's full pages are already resident attaches to them at +1 refcount
+and prefills only its suffix, one chunk from the first unshared page's
+row, reading the shared rows in place through the block table (the JAX
+engine copies them into a staging cache); admission charges only the
+unshared pages, a park's snapshot leaves the shared pages out, and a
+resume whose prefix has gone demotes to replay (a copy-on-write copy).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextvars
 import dataclasses
 import threading
@@ -105,14 +134,18 @@ import torch
 
 from repro_torch.core import ledger as ledger_mod
 from repro_torch.core.hsa.clock import WallClock
+from repro_torch.core.hsa.faults import CorruptPayload, FaultError, SilentCorruption
 from repro_torch.core.policy import (
     RESUME_REPREFILL,
     RESUME_SNAPSHOT,
     AdmissionPolicy,
     ChunkPolicy,
     FusionPolicy,
+    IntegrityPolicy,
     PreemptionCandidate,
     PreemptionPolicy,
+    PrefixPolicy,
+    RetryPolicy,
     SpillCandidate,
     SpillPolicy,
 )
@@ -133,6 +166,9 @@ class Request:
     done: bool = False
     parked: bool = False               # preempted, awaiting resume
     preemptions: int = 0               # times this request was parked
+    fault_recoveries: int = 0          # fault-triggered park/requeue cycles
+    # the fault that permanently killed this request (recovery budget spent)
+    failed: BaseException | None = None
     # committed tokens a re-prefill resume is replaying; the engine checks
     # the regenerated tokens against this prefix bit for bit, then drops it
     replay: list[int] | None = None
@@ -157,6 +193,13 @@ class _Parked:
     refill: object | None = None
     # on the card, the refill's real copy in flight (a paged.StagedRefill)
     staged: object | None = None
+    # engine-clock time the fault that parked this request fired (None for
+    # a pool-pressure park); resume - fault_t is its repair time (MTTR)
+    fault_t: float | None = None
+    # shared-prefix pages the slot held at park: the snapshot leaves them
+    # out (they stay resident under other readers' refcounts) and the resume
+    # attaches them again, or demotes to replay if the prefix has gone
+    shared_pages: int = 0
 
 
 @dataclasses.dataclass
@@ -250,26 +293,28 @@ class ServeTruncated(RuntimeError):
     - ``rejected``: queued or parked requests whose worst-case page
       footprint can never fit the pool under the current admission policy
       (``submit`` refuses these up front: they appear here only if the
-      policy was tightened after submission).
+      policy was tightened after submission);
+    - ``failed``: requests killed by a hardware fault after the engine's
+      recovery budget (``RetryPolicy.max_request_recoveries``) was spent:
+      permanent, and raised as soon as everything else drains.  Each
+      carries the fatal error on ``req.failed``.
     """
 
     def __init__(self, done: list[Request], pending: list[Request], *,
                  parked: list[Request] | tuple = (),
-                 rejected: list[Request] | tuple = ()) -> None:
+                 rejected: list[Request] | tuple = (),
+                 failed: list[Request] | tuple = ()) -> None:
         self.done = done
         self.pending = pending
         self.parked = list(parked)
         self.rejected = list(rejected)
+        self.failed = list(failed)
         super().__init__(
             f"serving truncated at max_steps: {len(done)} requests done, "
             f"{len(pending)} pending, {len(self.parked)} parked, "
-            f"{len(self.rejected)} permanently rejected"
+            f"{len(self.rejected)} permanently rejected, "
+            f"{len(self.failed)} failed to faults"
         )
-
-
-#: constructor arguments of the JAX engine that later slices port: the
-#: ROADMAP §1 item each belongs to
-_LATER_SLICES = {"retry": "4", "faults": "4", "integrity": "4", "prefix": "5"}
 
 
 class ServeEngine:
@@ -302,12 +347,11 @@ class ServeEngine:
                  host_budget_bytes: int | None = None,
                  spill: SpillPolicy | None = None,
                  transfer_bandwidth_bytes_s: float = 8e9,
-                 device: "str | torch.device" = "cuda", **later):
-        for arg in later:
-            if arg not in _LATER_SLICES:
-                raise TypeError(f"ServeEngine() got an unexpected keyword argument {arg!r}")
-            raise NotImplementedError(
-                f"ServeEngine({arg}=) is ROADMAP §1 item {_LATER_SLICES[arg]}, not ported yet")
+                 retry: "RetryPolicy | int | None" = None,
+                 faults=None,
+                 integrity: "IntegrityPolicy | bool | None" = None,
+                 prefix: "PrefixPolicy | bool | None" = None,
+                 device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
@@ -373,6 +417,13 @@ class ServeEngine:
         # preempted requests awaiting resume, oldest uid first: they were
         # admitted before anything still queued, so they resume first too
         self._parked: list[_Parked] = []
+        # fault recovery: with a RetryPolicy, a launch dying to a FaultError
+        # parks its requests for re-prefill replay instead of raising; a
+        # request whose recovery budget is spent lands in _failed.  Any other
+        # error still propagates: bugs are not retried
+        self.retry = RetryPolicy.of(retry)
+        self._failed: list[Request] = []
+        self.faults = faults
         # overcommit counters (mirrored into the ledger when one is attached)
         self.preemptions = 0
         self.resumes = 0
@@ -383,6 +434,7 @@ class ServeEngine:
         self.refills = 0
         self.demotions = 0
         self.replay_fallback_tokens = 0
+        self.transfer_faults = 0
         # the real copies behind the priced timeline (see copy_stats)
         self._copies = {"d2h_bytes": 0, "d2h_s": 0.0, "d2h_alloc_s": 0.0,
                         "h2d_bytes": 0, "h2d_s": 0.0, "h2d_waited_s": 0.0,
@@ -390,6 +442,47 @@ class ServeEngine:
         self._landed: list[paged_mod.StagedRefill] = []   # timings not read yet
         self.spill = SpillPolicy.of(spill)
         self.host_budget_bytes = host_budget_bytes
+        # -- integrity: digests stamped at write boundaries, verified at read
+        # and transfer boundaries, scrubbed on a budget; None keeps the path
+        # free of hashing ------------------------------------------------------
+        self.integrity = IntegrityPolicy.of(integrity)
+        if self.integrity is not None and not paged:
+            raise ValueError("integrity requires paged=True (digests are page-granular)")
+        self._page_digests: dict[int, bytes] = {}   # sealed page -> digest
+        # the scrubber's rotation cursor: the last target scanned, keyed
+        # (tier, id) with tier 0 a device page and tier 1 an arena uid
+        self._scrub_cursor: tuple[int, int] = (-1, -1)
+        # injected but undetected corruption, the escape accounting's ground
+        # truth: device pages (page -> owner uid), tainted arena entries, and
+        # slots restored from tainted or corrupted payloads
+        self._live_corrupt_pages: dict[int, int] = {}
+        self._tainted_uids: set[int] = set()
+        self._tainted_slots: set[int] = set()
+        self.corruptions_injected = 0
+        self.corruptions_detected = 0
+        self.pages_quarantined = 0
+        self.escaped_corruptions = 0
+        self.scrubbed_targets = 0
+        # the read verification's cost: decode launches checked, the pages
+        # and bytes hashed, and the seconds (the copy off the card included)
+        self.verify_stats = {"launches": 0, "pages": 0, "bytes": 0, "s": 0.0}
+        # -- prefix sharing: refcounted pages and the prefix index -----------
+        self.prefix = PrefixPolicy.of(prefix)
+        if self.prefix is not None:
+            if not paged:
+                raise ValueError("prefix sharing requires paged=True "
+                                 "(shared pages live in the page pool)")
+            if self._cache_keys != {"k", "v"}:
+                raise ValueError(
+                    "prefix sharing requires chunk-exact models (plain "
+                    "dense-attention GQA layers): the unshared suffix is "
+                    "prefilled as one chunk over the resident prefix rows")
+        self._prefix_index = paged_mod.PrefixIndex() if self.prefix is not None else None
+        self._slot_shared = np.zeros(batch_slots, np.int64)  # shared pages/slot
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_pages_saved = 0
+        self.cow_copies = 0
         if paged:
             if not self._cache_keys <= {"k", "v"}:
                 raise ValueError(
@@ -417,7 +510,8 @@ class ServeEngine:
             self.arena = paged_mod.HostArena(host_budget_bytes)
             self._xfer = TransferEngine(
                 bandwidth_bytes_s=transfer_bandwidth_bytes_s, clock=self.clock,
-                ledger=self.ledger if self.ledger is not None else ledger_mod.GLOBAL_LEDGER)
+                ledger=self.ledger if self.ledger is not None else ledger_mod.GLOBAL_LEDGER,
+                faults=faults, integrity=self.integrity)
             # on the card, refills copy up on their own stream
             self._copy_stream = (torch.cuda.Stream(self.device)
                                  if self.device.type == "cuda" else None)
@@ -593,10 +687,13 @@ class ServeEngine:
         return sum(max(0, self._projected[slot] - int(self._mapped[slot])) for slot in live)
 
     def _admit_paged(self, req: Request) -> bool:
+        # admission charges only the unshared pages: a resident prefix
+        # costs nothing to attach
+        shared = len(self._lookup_prefix(req.prompt, req.uid)) if self.prefix is not None else 0
         return self.admission.admit(
             free_pages=self.allocator.free_pages,
             projected_growth_pages=self._projected_growth(),
-            request_pages=self._projected_pages(req),
+            request_pages=max(0, self._projected_pages(req) - shared),
         )
 
     def _launch_pages(self, slot: int, req: Request, k: int) -> int:
@@ -621,13 +718,346 @@ class ServeEngine:
         self._mapped[slot] = need
 
     def _release_slot(self, slot: int, req: Request) -> None:
-        """Finished or aborted request: its pages return to the pool."""
+        """Finished, parked or aborted request: its page references drop
+        now.  A page returns to the pool only when its last reader lets go,
+        so its digest, its live-corruption record and its prefix-index
+        entry are dropped only for the pages the allocator released."""
         pages = [int(p) for p in self._table[slot, : int(self._mapped[slot])]]
+        rehome = False
         if pages:
-            self.allocator.free(req.uid, pages)
+            for p in self.allocator.free(req.uid, pages):
+                # a freed page's digest dies with its contents (the next
+                # owner stamps it again); an undetected corruption on it
+                # never reached a token: latent, not escaped
+                self._page_digests.pop(p, None)
+                self._live_corrupt_pages.pop(p, None)
+                if self._prefix_index is not None:
+                    rehome = rehome or p in self._prefix_index.pages()
+                    self._prefix_index.drop_page(p)
+        self._tainted_slots.discard(slot)
         self._table[slot] = paged_mod.TRASH_PAGE
         self._mapped[slot] = 0
         self._projected.pop(slot, None)
+        if self.prefix is not None:
+            self._slot_shared[slot] = 0
+            self._record_prefix_gauge()
+            if rehome:
+                # the released pages backed index entries, but other slots
+                # may hold bitwise-equal private copies (first-wins losers):
+                # publish their keys again, so a prefix stays discoverable
+                # while any reader lives
+                for s, r in self._active.items():
+                    if s != slot:
+                        self._publish_prefix(s, r)
+
+    # -- prefix sharing: lookup / attach / publish ----------------------------------
+
+    def _lookup_prefix(self, prompt: np.ndarray, uid: int) -> list[int]:
+        """The longest resident, attachable page run covering a prefix of
+        ``prompt``.  Capped at ``(len(prompt) - 1) // page_size`` pages so
+        the suffix prefill always computes the last real row (whose logits
+        sample token 0); the walk stops at the first miss, a page at its
+        reader cap, or a page ``uid`` already holds."""
+        if self._prefix_index is None or self._cache is None:
+            return []
+        cap = (len(prompt) - 1) // self.page_size
+        if cap < 1:
+            return []
+        pages: list[int] = []
+        for key in paged_mod.prefix_page_keys(prompt, self.page_size, max_pages=cap):
+            p = self._prefix_index.get(key)
+            if p is None:
+                break
+            refs = self.allocator.refcount(p)
+            if refs == 0:                     # stale entry (page released)
+                self._prefix_index.drop_page(p)
+                break
+            if refs >= self.prefix.max_refs or uid in self.allocator.owners_of(p):
+                break
+            pages.append(p)
+        if len(pages) < self.prefix.min_prefix_pages:
+            return []
+        return pages
+
+    def _count_prefix_lookup(self, shared: list[int]) -> None:
+        self.prefix_lookups += 1
+        if shared:
+            self.prefix_hits += 1
+            self.prefix_pages_saved += len(shared)
+        if self.ledger is not None:
+            self.ledger.record_prefix_lookup(hit=bool(shared), pages_saved=len(shared))
+
+    def _share_prefix(self, slot: int, uid: int, pages: list[int]) -> None:
+        """Map ``pages`` (a resident shared prefix) into ``slot``'s block
+        table at +1 refcount each; the caller has reset the row."""
+        for p in pages:
+            self.allocator.share(p, uid)
+        s = len(pages)
+        self._table[slot, :s] = pages
+        self._mapped[slot] = s
+        self._slot_shared[slot] = s
+
+    def _attach_prefix(self, slot: int, uid: int, pages: list[int]) -> None:
+        self._share_prefix(slot, uid, pages)
+        self._record_prefix_gauge()
+
+    def _publish_prefix(self, slot: int, req: Request) -> None:
+        """Register ``slot``'s full prompt pages in the prefix index, so
+        later requests with the same prefix attach instead of prefilling.
+        First wins: a key already published keeps its page."""
+        if self._prefix_index is None:
+            return
+        full = len(req.prompt) // self.page_size
+        if full < 1:
+            return
+        keys = paged_mod.prefix_page_keys(req.prompt, self.page_size, max_pages=full)
+        for i, key in enumerate(keys):
+            self._prefix_index.publish(key, int(self._table[slot, i]))
+
+    def _record_prefix_gauge(self) -> None:
+        if self.ledger is not None and self.prefix is not None:
+            self.ledger.record_prefix_sharing(shared_pages=self.allocator.shared_pages)
+
+    # -- integrity: digests, scrubbing, corruption injection ---------------------------
+
+    def _sealed_pages(self, slot: int, rows: int) -> list[int]:
+        """Pages of ``slot`` whose every row is final at ``rows`` written
+        rows.  The trailing partial page is still being appended to by
+        decode: never digested, never an injection target."""
+        return [int(p) for p in self._table[slot, : rows // self.page_size]]
+
+    def _seal_slot_pages(self, slot: int, rows: int) -> None:
+        """Stamp digests on ``slot``'s sealed pages not stamped yet (at each
+        write boundary: prefill, chunk, decode commit, snapshot restore).
+        A stamped page's rows are final until it is freed, so an existing
+        stamp stands: hashing again would launder an injected flip."""
+        if self.integrity is None:
+            return
+        new = [p for p in self._sealed_pages(slot, rows) if p not in self._page_digests]
+        self._page_digests.update(zip(new, paged_mod.page_digests(self._cache, new)))
+
+    def _inject_corruption(self) -> None:
+        """Seeded bit flips on cold state, drawn once a step: sealed pages
+        of live and prefilling slots (flipped in the pool, in place) and
+        parked snapshots in the arena.  Each is recorded, so the engine
+        itself can count an escape if undetected bytes reach a sampled
+        token.  Runs whether or not ``integrity`` is on (that is how a
+        verification-off run shows escapes happen)."""
+        if self.faults is None or not self.paged or self._cache is None:
+            return
+        # pages already corrupt are left out: a second flip would restore
+        # the bytes and leave the accounting pointing at clean state
+        targets: list[int] = []
+        for slot in self._active:
+            targets += [p for p in self._sealed_pages(slot, int(self._pos[slot]))
+                        if p not in self._live_corrupt_pages]
+        for slot, entry in self._prefilling.items():
+            targets += [p for p in self._sealed_pages(slot, min(entry.filled, entry.n))
+                        if p not in self._live_corrupt_pages]
+        if targets:
+            i = self.faults.draw_corruption("flip_page", [f"page[{p}]" for p in targets])
+            if i is not None:
+                page = targets[i]
+                paged_mod.flip_page(self._cache, page)
+                uid = self.allocator.owner_of(page)
+                self._live_corrupt_pages[page] = uid if uid is not None else -1
+                self.corruptions_injected += 1
+                if self.ledger is not None:
+                    self.ledger.record_corruption(kind="flip_page")
+        uids = [u for u in self.arena.entries()
+                if self.arena.load(u) is not None and u not in self._tainted_uids]
+        if uids:
+            i = self.faults.draw_corruption("flip_block", [f"block[uid={u}]" for u in uids])
+            if i is not None:
+                self.arena.corrupt(uids[i])
+                self._tainted_uids.add(uids[i])
+                self.corruptions_injected += 1
+                if self.ledger is not None:
+                    self.ledger.record_corruption(kind="flip_block")
+
+    def _scrub_step(self) -> None:
+        """Budgeted background audit: re-hash up to ``scrub_pages_per_step``
+        stamped targets (device pages, then arena blocks) against their
+        stamps, resuming at the first target after the last one scanned and
+        wrapping, so every stamped target is audited within ceil(targets /
+        budget) steps however the membership churns.  A bad page is
+        quarantined and its readers re-prefilled; a bad arena block demotes
+        its parked request to replay."""
+        if self.integrity is None or self.integrity.scrub_pages_per_step <= 0:
+            return
+        budget = self.integrity.scrub_pages_per_step
+        t0 = self.clock.now()
+        targets: list[tuple[int, int]] = []
+        if self._cache is not None:
+            targets += [(0, p) for p in sorted(self._page_digests)]
+        targets += [(1, u) for u in sorted(self.arena.entries())
+                    if self.arena.digest_of(u) is not None]
+        scanned_pages = scanned_blocks = 0
+        bad: list[int] = []
+        bad_uids: list[int] = []
+        if targets:
+            k = min(budget, len(targets))
+            idx = bisect.bisect_right(targets, self._scrub_cursor)
+            scan = [targets[(idx + j) % len(targets)] for j in range(k)]
+            self._scrub_cursor = scan[-1]
+            for tier, tid in scan:
+                if tier == 0:
+                    scanned_pages += 1
+                    if paged_mod.page_digest(self._cache, tid) != self._page_digests[tid]:
+                        bad.append(tid)
+                else:
+                    scanned_blocks += 1
+                    if not self.arena.verify(tid):
+                        bad_uids.append(tid)
+        self.scrubbed_targets += scanned_pages + scanned_blocks
+        if self.ledger is not None:
+            self.ledger.record_scrub(pages=scanned_pages, blocks=scanned_blocks,
+                                     targets=len(targets))
+            self.ledger.record("scrub", max(0.0, self.clock.now() - t0))
+        if bad:
+            self._handle_corrupt_pages(bad, via="scrub")
+        for uid in bad_uids:
+            self.corruptions_detected += 1
+            self._tainted_uids.discard(uid)
+            if self.ledger is not None:
+                self.ledger.record_integrity_detection(via="scrub", recovered=True)
+            entry = next((e for e in self._parked if e.req.uid == uid), None)
+            if entry is not None:
+                self._demote_entry(entry)
+            elif self.arena.holds(uid):
+                self.arena.discard(uid)
+
+    def _handle_corrupt_pages(self, pages: list[int], *, via: str) -> None:
+        """Quarantine ``pages`` and re-prefill every reader from its prompt:
+        every active reader parks through ``RESUME_REPREFILL`` (the fault
+        lane) and every mid-prefill reader goes back to the queue.  The
+        parks drop every reference first; then the free pages leave
+        circulation.  Readers past the first of a shared page are the
+        copy-on-write cost of sharing, counted as CoW copies."""
+        err = SilentCorruption(f"digest mismatch on page(s) {pages} (via {via})")
+        if self.prefix is not None:
+            extra = sum(max(0, self.allocator.refcount(p) - 1) for p in pages)
+            if extra:
+                self.cow_copies += extra
+                if self.ledger is not None:
+                    self.ledger.record_prefix_cow(extra)
+        for p in pages:
+            self._live_corrupt_pages.pop(p, None)
+            self._page_digests.pop(p, None)
+        bad = set(pages)
+
+        def reads_bad(slot: int) -> bool:
+            return bool(bad & {int(q) for q in self._table[slot, : int(self._mapped[slot])]})
+
+        for slot in sorted(s for s in self._active if reads_bad(s)):
+            req = self._active[slot]
+            req.fault_recoveries += 1
+            if self.retry is not None and req.fault_recoveries > self.retry.max_request_recoveries:
+                self._active.pop(slot)
+                self._release_slot(slot, req)
+                self._fail_request(req, err)
+            else:
+                self._park_slot(slot, mode=RESUME_REPREFILL, fault_t=self.clock.now())
+        for slot in sorted(s for s in self._prefilling if reads_bad(s)):
+            if self.retry is not None:
+                self._abort_prefill_to_queue(slot, err)
+            else:
+                entry = self._prefilling.pop(slot)
+                self._release_slot(slot, entry.req)
+                entry.req.fault_recoveries += 1
+                self._requeue(entry.req)
+        if self.prefix is not None:
+            # after the parks: a release publishes index entries again onto
+            # surviving copies, which may put a bad page back; drop them last
+            for p in pages:
+                self._prefix_index.drop_page(p)
+        for p in pages:
+            self.corruptions_detected += 1
+            if self.ledger is not None:
+                self.ledger.record_integrity_detection(via=via, recovered=True)
+            try:
+                self.allocator.quarantine(p)
+            except ValueError:
+                continue                  # a freed page already allocated again
+            self.pages_quarantined += 1
+            if self.ledger is not None:
+                self.ledger.record_page_quarantine()
+
+    def _record_escape(self, n: int = 1) -> None:
+        self.escaped_corruptions += n
+        if self.ledger is not None:
+            for _ in range(n):
+                self.ledger.record_escape()
+
+    def _requeue(self, req: Request) -> None:
+        """Put ``req`` back in the queue in uid order."""
+        idx = next((i for i, r in enumerate(self._queue) if r.uid > req.uid), len(self._queue))
+        self._queue.insert(idx, req)
+
+    # -- fault recovery ----------------------------------------------------------------
+
+    @property
+    def failed_requests(self) -> list[Request]:
+        """Requests permanently killed by faults (recovery budget spent)."""
+        return list(self._failed)
+
+    def _fail_request(self, req: Request, err: BaseException) -> None:
+        """Recovery budget spent: the request is dead, moved to the failed
+        bucket (``ServeTruncated.failed``) instead of retried forever."""
+        req.failed = err
+        req.parked = False
+        self._failed.append(req)
+        if self.ledger is not None:
+            self.ledger.record_recovery(failed=True)
+
+    def _repark_faulted(self, entry: _Parked, err: FaultError) -> None:
+        """A resume whose re-prefill faulted goes back to the parked list
+        (budget permitting), its fault time kept, so the resume that
+        succeeds reports the whole outage as its repair time."""
+        req = entry.req
+        req.fault_recoveries += 1
+        if req.fault_recoveries > self.retry.max_request_recoveries:
+            self._fail_request(req, err)
+            return
+        if entry.fault_t is None:
+            entry.fault_t = self.clock.now()
+        self._parked.append(entry)
+        self._parked.sort(key=lambda e: e.req.uid)
+
+    def _recover_decode_fault(self, err: FaultError) -> None:
+        """A decode launch died to a fault after the scheduler's retries:
+        park every live slot for re-prefill replay.  The launch committed
+        nothing (the fault was drawn before its packet ran), but the KV
+        behind a faulted launch is not trusted, so recovery recomputes the
+        prompt's cache and replays the committed tokens.  Requests whose
+        budget is spent fail instead.  Without an engine RetryPolicy (or
+        unpaged) the fault propagates."""
+        if self.retry is None or not self.paged:
+            raise err
+        now = self.clock.now()
+        for slot in sorted(self._active):
+            req = self._active[slot]
+            req.fault_recoveries += 1
+            if req.fault_recoveries > self.retry.max_request_recoveries:
+                self._active.pop(slot)
+                self._release_slot(slot, req)
+                self._fail_request(req, err)
+                continue
+            self._park_slot(slot, mode=RESUME_REPREFILL, fault_t=now)
+
+    def _abort_prefill_to_queue(self, slot: int, err: FaultError) -> None:
+        """A chunked prefill's launch faulted: its partial rows are dropped
+        and the request goes back to the queue in uid order (budget
+        permitting); its prefill starts again from row 0."""
+        entry = self._prefilling.pop(slot)
+        req = entry.req
+        if self.paged:
+            self._release_slot(slot, req)
+        req.fault_recoveries += 1
+        if req.fault_recoveries > self.retry.max_request_recoveries:
+            self._fail_request(req, err)
+            return
+        self._requeue(req)
 
     def _fund_growth(self, k: int) -> int:
         """Make this launch's page growth allocatable; the funded depth.
@@ -705,28 +1135,39 @@ class ServeEngine:
                                     tokens_done=int(self._pos[slot]))
                 for slot, req in self._active.items()]
 
-    def _park_slot(self, slot: int) -> None:
+    def _park_slot(self, slot: int, *, mode: str | None = None,
+                   fault_t: float | None = None) -> None:
         """Reclaim one active request's pages; keep its progress on the
         host.  A snapshot is copied off the card (into the arena) before
-        the pages are freed, so a later launch may overwrite them."""
+        the pages are freed, so a later launch may overwrite them; it
+        leaves out the slot's shared-prefix pages, which stay resident
+        under other readers' refcounts.  ``mode`` overrides the policy's
+        resume mode (fault recovery forces re-prefill: nothing is trusted
+        after a faulted launch); ``fault_t`` marks a fault's park for the
+        repair time at resume."""
         req = self._active.pop(slot)
         t0 = time.perf_counter_ns()
         pos = int(self._pos[slot])
-        mode = self.preemption.resume_mode(tokens_done=pos)
+        if mode is None:
+            mode = self.preemption.resume_mode(tokens_done=pos)
         snap_bytes = 0
         reclaimed = int(self._mapped[slot])
+        shared = int(self._slot_shared[slot]) if self.prefix is not None else 0
         if mode == RESUME_SNAPSHOT:
             # only the pages holding written rows (0 .. pos-1) matter: pages
             # mapped ahead for a launch that never ran hold nothing
             keep = paged_mod.pages_for(pos, self.page_size)
-            snap_bytes = keep * self.page_size * self._token_bytes
-            if not self._spill_snapshot(req.uid, self._table[slot, :keep].copy(), snap_bytes,
-                                        pos):
+            snap_bytes = (keep - shared) * self.page_size * self._token_bytes
+            if not self._spill_snapshot(req.uid, self._table[slot, shared:keep].copy(),
+                                        snap_bytes, pos):
                 mode, snap_bytes = RESUME_REPREFILL, 0
+        if mode == RESUME_REPREFILL:
+            shared = 0                      # replay looks its prefix up afresh
         self._release_slot(slot, req)
         req.parked = True
         req.preemptions += 1
-        self._parked.append(_Parked(req=req, pos=pos, mode=mode))
+        self._parked.append(_Parked(req=req, pos=pos, mode=mode, fault_t=fault_t,
+                                    shared_pages=shared))
         self._parked.sort(key=lambda e: e.req.uid)
         self.preemptions += 1
         self.pages_reclaimed += reclaimed
@@ -739,50 +1180,58 @@ class ServeEngine:
         """Bring a parked request back into ``slot`` if the pool can fund
         it: the test of a fresh admission (projected lifetime pages against
         free pages less the growth in flight), floored by what the resume
-        maps at once (a snapshot restore maps every written row's page)."""
+        maps at once (a snapshot restore maps every written row's page),
+        less the shared prefix it attaches."""
         req = entry.req
+        attach: list[int] = []
+        if self.prefix is not None:
+            attach = self._lookup_prefix(req.prompt, req.uid)
+        if entry.mode == RESUME_SNAPSHOT and entry.shared_pages > len(attach):
+            # the shared prefix this snapshot leaned on has gone while it
+            # was parked: the snapshot lacks those rows, so this is the
+            # copy-on-write moment: replay, which rebuilds the prefix
+            self.cow_copies += 1
+            if self.ledger is not None:
+                self.ledger.record_prefix_cow()
+            self._demote_entry(entry)
         if entry.mode == RESUME_SNAPSHOT:
-            need_now = paged_mod.pages_for(entry.pos, self.page_size)
+            attach = attach[: entry.shared_pages]
+            need_now = paged_mod.pages_for(entry.pos, self.page_size) - len(attach)
         else:
-            need_now = paged_mod.pages_for(len(req.prompt), self.page_size)
+            need_now = max(0, paged_mod.pages_for(len(req.prompt), self.page_size) - len(attach))
         if not self.admission.admit(
                 free_pages=self.allocator.free_pages,
                 projected_growth_pages=self._projected_growth(),
-                request_pages=max(need_now, self._projected_pages(req))):
+                request_pages=max(need_now, self._projected_pages(req) - len(attach))):
             return False
         t0 = time.perf_counter_ns()
         self._parked.remove(entry)
         recompute = 0
         if entry.mode == RESUME_SNAPSHOT:
             # wait on the ahead-of-need refill (only its exposed residue
-            # stalls the resume); a cold resume issues it now
-            if entry.refill is None:
-                self._issue_refill(entry)
-            self._xfer.wait(entry.refill)
-            entry.refill = None
-            snapshot = self.arena.take(req.uid)
-            self.refills += 1
-            n = paged_mod.pages_for(entry.pos, self.page_size)
-            pages = self.allocator.allocate(req.uid, n)
-            self._table[slot] = paged_mod.TRASH_PAGE
-            self._table[slot, :n] = pages
-            self._mapped[slot] = n
-            if entry.staged is not None:
-                # the serving stream waits for the copy up, then scatters
-                entry.staged.land(self._cache, pages)
-                self._landed.append(entry.staged)
-                entry.staged = None
-                self._fold_copies(wait=False)
+            # stalls the resume); a cold resume issues it now.  A faulted or
+            # corrupted refill demotes the entry to replay
+            x = entry.refill
+            if x is None:
+                x = self._issue_refill(entry)
+                if x.error is None:
+                    self._stage(entry, x)
+            if x.error is not None:
+                self.transfer_faults += 1
+                self._demote_entry(entry)
             else:
-                # the pool is host memory: the restore is the copy
-                ts = time.perf_counter()
-                paged_mod.restore_pages(self._cache, snapshot, pages)
-                self._copies["h2d_s"] += time.perf_counter() - ts
-                self._copies["h2d_bytes"] += paged_mod.snapshot_bytes(snapshot)
-            self._pos[slot] = entry.pos
-            self._projected[slot] = self._projected_pages(req)
-            self._slot_key[slot] = sampling.key_of(self.seed, req.uid)
-        else:
+                try:
+                    self._xfer.wait(x)
+                except CorruptPayload:
+                    # the refill delivered wrong bytes (arena rot or a
+                    # corrupted copy, caught by the payload digest)
+                    self.transfer_faults += 1
+                    self.corruptions_detected += 1
+                    self._tainted_uids.discard(req.uid)
+                    self._demote_entry(entry)
+                else:
+                    self._restore(entry, slot, x, attach)
+        if entry.mode == RESUME_REPREFILL:
             # re-prefill and replay: the prompt's cache again (the same
             # function of the same tokens), the request rewound, and the
             # normal decode path regenerating the committed tokens, checked
@@ -791,7 +1240,15 @@ class ServeEngine:
             recompute = len(req.prompt) + len(committed) - 1
             req.replay = committed
             req.generated = []
-            self._prefill_slot(slot, req)
+            try:
+                self._prefill_slot(slot, req)
+            except FaultError as e:
+                # the recovery prefill itself faulted: park again (the
+                # committed tokens live on in req.replay) or fail on budget
+                if self.retry is None:
+                    raise
+                self._repark_faulted(entry, e)
+                return False
             if req.generated[0] != committed[0]:
                 raise RuntimeError(
                     f"preemption replay diverged at request {req.uid} token 0: re-prefill "
@@ -804,17 +1261,93 @@ class ServeEngine:
             self.ledger.record(ledger_mod.PREEMPT_RESUME, (time.perf_counter_ns() - t0) * 1e-9,
                                producer=self._producer, what=entry.mode, uid=req.uid)
             self.ledger.record_resume(mode=entry.mode, recompute_tokens=recompute)
+        if entry.fault_t is not None:
+            # a fault's park healed: park to resume on the engine clock is
+            # the request's repair time, and its replay recovery recompute
+            mttr = max(0.0, self.clock.now() - entry.fault_t)
+            if self.ledger is not None:
+                self.ledger.record(ledger_mod.RECOVER, mttr, producer=self._producer,
+                                   what=entry.mode, uid=req.uid)
+                self.ledger.record_recovery(mttr_s=mttr, recompute_tokens=recompute)
         return True
 
+    def _restore(self, entry: _Parked, slot: int, x, attach: list[int]) -> None:
+        """Land a waited refill: attach the shared prefix again, map the
+        private pages and write the snapshot into them in place (from the
+        copy up in flight on the card), then stamp the restored pages."""
+        req = entry.req
+        entry.refill = None
+        # what the copy delivered is what lands: a corrupted transfer's
+        # bytes (verification off), or the arena entry as it is now.  A
+        # payload the refill read before the entry rotted is clean, and the
+        # rotted copy is dropped unread (the JAX engine counts an escape
+        # there)
+        stored = self.arena.load(req.uid)
+        tainted = x.corrupted or (req.uid in self._tainted_uids
+                                  and (x.payload is None or x.payload is stored))
+        if x.payload is not None:
+            snapshot = x.payload
+            self.arena.discard(req.uid)
+        else:
+            snapshot = self.arena.take(req.uid)
+        self.refills += 1
+        n = paged_mod.pages_for(entry.pos, self.page_size)
+        s = len(attach)
+        self._table[slot] = paged_mod.TRASH_PAGE
+        if s:
+            # the prefix rows never left the card: attach them again
+            self._attach_prefix(slot, req.uid, attach)
+        pages = self.allocator.allocate(req.uid, n - s)
+        self._table[slot, s:n] = pages
+        self._mapped[slot] = n
+        if entry.staged is not None and x.payload is None and req.uid in self._tainted_uids:
+            # the arena entry rotted after its copy up started, and no
+            # payload rode the transfer: what lands is what it holds now
+            entry.staged = None
+            self._copies["h2d_cancelled"] += 1
+        if entry.staged is not None:
+            # the serving stream waits for the copy up, then scatters
+            entry.staged.land(self._cache, pages)
+            self._landed.append(entry.staged)
+            entry.staged = None
+            self._fold_copies(wait=False)
+        else:
+            ts = time.perf_counter()
+            paged_mod.restore_pages(self._cache, snapshot, pages)
+            self._copies["h2d_s"] += time.perf_counter() - ts
+            self._copies["h2d_bytes"] += paged_mod.snapshot_bytes(snapshot)
+        self._pos[slot] = entry.pos
+        self._projected[slot] = self._projected_pages(req)
+        self._slot_key[slot] = sampling.key_of(self.seed, req.uid)
+        self._seal_slot_pages(slot, entry.pos)
+        self._tainted_uids.discard(req.uid)
+        if tainted:
+            # verification off: wrong bytes were restored; the commit path
+            # counts the escape
+            self._tainted_slots.add(slot)
+
     # -- the host tier: spill / refill / demotion ---------------------------------------
+
+    def _gather(self, pages: np.ndarray) -> dict:
+        """A snapshot of ``pages`` copied off the card, timed."""
+        ts = time.perf_counter()
+        snapshot = paged_mod.snapshot_buffers(self._cache, len(pages),
+                                              pin=self.device.type == "cuda")
+        tc = time.perf_counter()
+        paged_mod.gather_pages(self._cache, pages, snapshot)
+        self._copies["d2h_alloc_s"] += tc - ts
+        self._copies["d2h_s"] += time.perf_counter() - tc
+        self._copies["d2h_bytes"] += paged_mod.snapshot_bytes(snapshot)
+        return snapshot
 
     def _spill_snapshot(self, uid: int, pages: np.ndarray, nbytes: int, pos: int) -> bool:
         """Spill a fresh park's snapshot of ``pages`` into the host arena.
         False when the park must degrade to re-prefill replay instead: the
-        snapshot can never fit the budget, or every demotable snapshot was
-        demoted and it still does not fit (with ``SpillPolicy.allow_replay``
-        off, both raise :class:`~repro_torch.serve.paged.HostArenaExhausted`).
-        The pages are copied only once the store is funded."""
+        snapshot can never fit the budget, its transfer faulted, or every
+        demotable snapshot was demoted and it still does not fit (with
+        ``SpillPolicy.allow_replay`` off, these raise).  The pages are
+        copied once the store is funded, or, with integrity on, at once:
+        their digest rides the transfer."""
         arena = self.arena
         arena.configure(self.page_size * self._token_bytes)
         if not arena.can_ever_fit(nbytes):
@@ -824,7 +1357,21 @@ class ServeEngine:
                     f"{arena.budget_bytes} B and replay is disabled")
             self._count_demotion(bytes_freed=0, replay_tokens=pos)
             return False
-        self._xfer.issue("d2h", f"kv[uid={uid}]", nbytes)
+        snapshot = digest = None
+        if self.integrity is not None:
+            # the digest is stamped at the write boundary, before the copy,
+            # so corruption in the transfer or in the arena is caught later
+            snapshot = self._gather(pages)
+            digest = paged_mod.tree_digest(snapshot)
+        x = self._xfer.issue("d2h", f"kv[uid={uid}]", nbytes, payload=snapshot, digest=digest)
+        if x.error is not None:
+            self.transfer_faults += 1
+            if isinstance(x.error, CorruptPayload):
+                self.corruptions_detected += 1
+            if not self.spill.allow_replay:
+                raise x.error
+            self._count_demotion(bytes_freed=0, replay_tokens=pos)
+            return False
         while not arena.fits(nbytes):
             if not self.spill.allow_replay:
                 raise paged_mod.HostArenaExhausted(
@@ -841,26 +1388,34 @@ class ServeEngine:
             short = arena.blocks_for(nbytes) - arena.free_blocks
             for v_uid in self.spill.victims(cands, short * arena.block_bytes):
                 self._demote_entry(next(e for e in self._parked if e.req.uid == v_uid))
-        ts = time.perf_counter()
-        snapshot = paged_mod.snapshot_buffers(self._cache, len(pages),
-                                              pin=self.device.type == "cuda")
-        tc = time.perf_counter()
-        paged_mod.gather_pages(self._cache, pages, snapshot)
-        self._copies["d2h_alloc_s"] += tc - ts
-        self._copies["d2h_s"] += time.perf_counter() - tc
-        self._copies["d2h_bytes"] += nbytes
-        arena.store(uid, snapshot, nbytes)
+        if snapshot is None:
+            snapshot = self._gather(pages)
+        # store what the transfer delivered (a corrupted copy, with
+        # verification off) under the pre-transfer digest
+        arena.store(uid, x.payload if x.payload is not None else snapshot, nbytes,
+                    digest=digest)
+        if x.corrupted:
+            self._tainted_uids.add(uid)
         self.spills += 1
         return True
 
-    def _issue_refill(self, entry: _Parked) -> None:
-        """Issue the refill of ``entry``'s arena snapshot: on the transfer
-        timeline, and on the card the real copy up on the side stream."""
+    def _issue_refill(self, entry: _Parked):
+        """Issue the refill of ``entry``'s arena snapshot on the transfer
+        timeline, its stored payload and store-time digest riding along
+        (integrity on) so the wait can verify what it delivered."""
         uid = entry.req.uid
-        entry.refill = self._xfer.issue("h2d", f"kv[uid={uid}]", self.arena.bytes_of(uid))
+        payload = digest = None
+        if self.integrity is not None:
+            payload, digest = self.arena.load(uid), self.arena.digest_of(uid)
+        return self._xfer.issue("h2d", f"kv[uid={uid}]", self.arena.bytes_of(uid),
+                                payload=payload, digest=digest)
+
+    def _stage(self, entry: _Parked, x) -> None:
+        """On the card, start the refill's real copy up on the side stream:
+        of the bytes the transfer delivers."""
         if self._copy_stream is not None:
-            entry.staged = paged_mod.StagedRefill(self.arena.load(uid), self.device,
-                                                  self._copy_stream)
+            saved = x.payload if x.payload is not None else self.arena.load(entry.req.uid)
+            entry.staged = paged_mod.StagedRefill(saved, self.device, self._copy_stream)
 
     @property
     def copy_stats(self) -> dict:
@@ -894,6 +1449,8 @@ class ServeEngine:
         and the resume recomputes ``entry.pos`` rows instead."""
         uid = entry.req.uid
         freed = self.arena.discard(uid) if self.arena.holds(uid) else 0
+        # a tainted entry demoted to replay never restores its bytes
+        self._tainted_uids.discard(uid)
         if entry.refill is not None:
             self._xfer.cancel(entry.refill)
             entry.refill = None
@@ -913,14 +1470,22 @@ class ServeEngine:
     def _pump_refills(self) -> None:
         """Issue refills for the parked snapshots nearest resume: the first
         ``SpillPolicy.refill_lookahead`` parked entries (the order the step
-        resumes them).  Entries with a refill in flight are skipped."""
+        resumes them).  Entries with a refill in flight are skipped; a
+        refill that faults demotes its entry to replay at once."""
         if not self.paged:
             return
         for entry in list(self._parked[: self.spill.refill_lookahead]):
             if entry.mode != RESUME_SNAPSHOT or entry.refill is not None:
                 continue
-            if self.arena.holds(entry.req.uid):
-                self._issue_refill(entry)
+            if not self.arena.holds(entry.req.uid):
+                continue
+            x = self._issue_refill(entry)
+            if x.error is not None:
+                self.transfer_faults += 1
+                self._demote_entry(entry)
+                continue
+            entry.refill = x
+            self._stage(entry, x)
 
     def _pump_refills_external(self) -> None:
         """The scheduler's pump (``register_refill_source``): never blocks;
@@ -989,6 +1554,12 @@ class ServeEngine:
         self._slot_tok[slot] = tok
 
     def _prefill_slot(self, slot: int, req: Request) -> None:
+        if self.prefix is not None:
+            shared = self._lookup_prefix(req.prompt, req.uid)
+            self._count_prefix_lookup(shared)
+            if shared:
+                self._prefill_shared(slot, req, shared)
+                return
         n = len(req.prompt)
         pad = max(0, self.bucket_len(n, self.max_len) - n) if self.bucket_prompts else 0
         tokens = np.pad(req.prompt, (0, pad)) if pad else req.prompt
@@ -999,6 +1570,7 @@ class ServeEngine:
         )
         self.prefill_calls += 1
         self._first_token(slot, req, logits, _prompt_rows(cache, n) if pad else None)
+        # every launch is done: a fault above left the engine's state as it was
         self._pos[slot] = n
         if not self.paged:
             self._splice_dense(slot, cache)
@@ -1013,6 +1585,55 @@ class ServeEngine:
         self._mapped[slot] = n_store
         self._projected[slot] = self._projected_pages(req)
         paged_mod.scatter_prefill(self._cache, cache, pages, self.page_size)
+        self._seal_slot_pages(slot, n)
+        if self.prefix is not None:
+            self._publish_prefix(slot, req)
+
+    def _prefill_shared(self, slot: int, req: Request, shared: list[int]) -> None:
+        """Prefill only the unshared suffix of ``req.prompt``: one chunk of
+        the padded prompt's rows from ``srows`` (the shared pages' rows),
+        written into the slot's private pages and attending the shared rows
+        in place through the block table.  The shared pages hold the rows a
+        private prefill would compute (a KV row depends only on the tokens
+        up to it, and the page keys chain over the whole prefix), and a
+        chunk's rows are the whole prompt's bit for bit, so this is a
+        private prefill's cache.  The suffix starts on a page boundary, so
+        no row of it, pad rows included, lands in a shared page.  The pages
+        are mapped before the launch (the chunk writes through them); a
+        fault gives them back, the private ones onto the free list in the
+        order they left it."""
+        n = len(req.prompt)
+        s = len(shared)
+        srows = s * self.page_size
+        b = self.bucket_len(n, self.max_len) if self.bucket_prompts else n
+        tokens = np.pad(req.prompt, (0, b - n)) if b > n else req.prompt
+        n_store = paged_mod.pages_for(n, self.page_size)
+        self._table[slot] = paged_mod.TRASH_PAGE
+        self._share_prefix(slot, req.uid, shared)
+        priv = self.allocator.allocate(req.uid, n_store - s)
+        self._table[slot, s:n_store] = priv
+        self._mapped[slot] = n_store
+        try:
+            cache = {**self._cache, "block_table": torch.as_tensor(self._table[slot:slot + 1],
+                                                                   device=self.device)}
+            logits, _ = self._launch(
+                "prefill_chunk", self.model.prefill_chunk, self.params,
+                torch.as_tensor(tokens[None, srows:b], device=self.device), cache, start=srows)
+            self.chunk_calls += 1
+            rows = (paged_mod.gather_rows(self._cache, self._table[slot], n, self.page_size)
+                    if b > n else None)
+            self._first_token(slot, req, logits, rows)
+        except FaultError:
+            self.allocator.free(req.uid, priv[::-1] + shared)
+            self._table[slot] = paged_mod.TRASH_PAGE
+            self._mapped[slot] = 0
+            self._slot_shared[slot] = 0
+            raise
+        self._record_prefix_gauge()
+        self._projected[slot] = self._projected_pages(req)
+        self._pos[slot] = n
+        self._seal_slot_pages(slot, n)
+        self._publish_prefix(slot, req)
 
     # -- chunked prefill (continuous batching) ------------------------------------------
 
@@ -1025,9 +1646,12 @@ class ServeEngine:
 
     def _admit_chunked(self, req: Request) -> bool:
         """Paged admission for a chunked prefill: charge the *first chunk's*
-        pages; the rest of the prompt is projected growth."""
-        first = paged_mod.pages_for(min(len(req.prompt), self._chunk_for_new(req)),
-                                    self.page_size)
+        pages (past a shared prefix, which costs nothing); the rest of the
+        prompt is projected growth."""
+        chunk = self._chunk_for_new(req)
+        shared = len(self._lookup_prefix(req.prompt, req.uid)) if self.prefix is not None else 0
+        first = max(0, paged_mod.pages_for(min(len(req.prompt), shared * self.page_size + chunk),
+                                           self.page_size) - shared)
         return self.admission.admit(
             free_pages=self.allocator.free_pages,
             projected_growth_pages=self._projected_growth(),
@@ -1035,15 +1659,22 @@ class ServeEngine:
         )
 
     def _start_chunked(self, slot: int, req: Request) -> None:
-        """Admit ``req`` into ``slot`` as a chunked prefill."""
+        """Admit ``req`` into ``slot`` as a chunked prefill; with a shared
+        prefix resident, its chunks start at the first unshared page."""
         n = len(req.prompt)
         b = self.bucket_len(n, self.max_len)
         tokens = np.pad(req.prompt, (0, b - n)) if b > n else req.prompt
         staging = None
+        shared: list[int] = []
         if self.paged:
             self._ensure_pool()
+            if self.prefix is not None:
+                shared = self._lookup_prefix(req.prompt, req.uid)
+                self._count_prefix_lookup(shared)
             self._table[slot] = paged_mod.TRASH_PAGE
             self._mapped[slot] = 0
+            if shared:
+                self._attach_prefix(slot, req.uid, shared)
             self._projected[slot] = self._projected_pages(req)
         else:
             # allocated once per slot and reused across occupants without
@@ -1054,7 +1685,8 @@ class ServeEngine:
                 self._staging[slot] = self._zero_cache(1, self.max_len)
             staging = self._staging[slot]
         self._prefilling[slot] = _Prefilling(req=req, tokens=tokens, n=n,
-                                             chunk=self._chunk_for_new(req), staging=staging)
+                                             chunk=self._chunk_for_new(req), staging=staging,
+                                             filled=len(shared) * self.page_size)
 
     def _chunk_step(self, slot: int, entry: _Prefilling) -> int:
         """Run one prefill chunk for ``slot``; rows processed (0 = stalled)."""
@@ -1081,6 +1713,8 @@ class ServeEngine:
         logits, _ = self._launch("prefill_chunk", self.model.prefill_chunk, self.params, toks,
                                  cache, start=start)
         self.chunk_calls += 1
+        if self.paged and start < entry.n:
+            self._seal_slot_pages(slot, min(start + size, entry.n))
         entry.filled += size
         if entry.filled >= b:
             self._finish_chunked(slot, entry, logits)
@@ -1100,9 +1734,12 @@ class ServeEngine:
         if not self.paged:
             self._splice_dense(slot, entry.staging)
         self._pos[slot] = n
+        if self.prefix is not None:
+            self._publish_prefix(slot, req)
         del self._prefilling[slot]
         self._active[slot] = req
-        self._first_this_step.append(req)
+        if req.first_token_t is None:
+            self._first_this_step.append(req)
 
     # -- decode ---------------------------------------------------------------------
 
@@ -1212,7 +1849,7 @@ class ServeEngine:
         the host state into the static buffers (each live request's token
         count is its sampler's t), the steps (a graph's replays on the
         card), and the tokens [k, slots] and their validity mask read back
-        once."""
+        once, with the slots' positions and last tokens."""
         b = self._dec
         counts = np.zeros(self.slots, np.int32)
         for slot, req in self._active.items():
@@ -1264,21 +1901,40 @@ class ServeEngine:
                 # map through the last position this launch can write (funded above)
                 self._grow_to(slot, self._launch_pages(slot, req, k))
         table = None
+        # the sealed pages this launch reads, at the positions before it:
+        # decode writes only past them, so a digest mismatch after the
+        # launch is silent corruption
+        sealed_before: dict[int, list[int]] = {}
         if self.paged:
+            sealed_before = {slot: self._sealed_pages(slot, int(self._pos[slot]))
+                             for slot in self._active}
             table = self._table
             if self._prefilling:
                 # a mid-prefill slot has real pages mapped but is masked in this
                 # launch: its dummy writes at its stale position must land on the
-                # scratch page, not on the chunk rows already scattered
+                # scratch page, not on the chunk rows already written
                 table = table.copy()
                 table[list(self._prefilling)] = paged_mod.TRASH_PAGE
             table = torch.from_numpy(table)     # on the host: the launch uploads it
         # one packet a fused launch, named as the JAX engine names it
         name = f"decode_fused_k{k}" + ("_paged" if self.paged else "")
-        toks, valid = self._launch(name, self._fused_decode, k, active, remaining, table)
+        try:
+            toks, valid = self._launch(name, self._fused_decode, k, active, remaining, table)
+        except FaultError as e:
+            # the packet never ran: nothing of the launch was written
+            self._recover_decode_fault(e)
+            return []
         self.decode_tokens += int(valid.sum())
+        if self.paged:
+            # before any token commits (a slot parked here keeps none)
+            self._verify_reads(sealed_before)
         finished = []
         for slot, req in list(self._active.items()):
+            if slot in self._tainted_slots:
+                # restored from a corrupted payload with verification off:
+                # the stream parts from its first commit after the restore
+                self._tainted_slots.discard(slot)
+                self._record_escape()
             req.generated.extend(int(t) for t in toks[valid[:, slot], slot])
             if req.replay is not None:
                 # a re-prefill resume in flight: the regenerated tokens must
@@ -1296,7 +1952,45 @@ class ServeEngine:
                 if self.paged:
                     self._release_slot(slot, req)
                 del self._active[slot]
+        # stamp the pages this launch filled (the decode commit's write
+        # boundary): the survivors'; finished slots were released
+        if self.paged and self.integrity is not None:
+            for slot in self._active:
+                self._seal_slot_pages(slot, int(self._pos[slot]))
         return finished
+
+    def _verify_reads(self, sealed_before: dict[int, list[int]]) -> None:
+        """The check before a launch's tokens commit: hash the sealed pages
+        it read (one gather and one copy off the card for all of them) and
+        compare each with its stamp; a mismatch parks every reader at its
+        state before the launch, so corrupt bytes never reach a committed
+        token.  With verification off, a launch that read a known-corrupt
+        page counts an escape."""
+        verify = self.integrity is not None and self.integrity.verify_reads
+        fresh: dict[int, bytes] = {}
+        if verify:
+            due = sorted({p for slot in self._active for p in sealed_before.get(slot, ())
+                          if p in self._page_digests})
+            t0 = time.perf_counter()
+            fresh = dict(zip(due, paged_mod.page_digests(self._cache, due)))
+            st = self.verify_stats
+            st["s"] += time.perf_counter() - t0
+            st["launches"] += 1
+            st["pages"] += len(due)
+            st["bytes"] += len(due) * self.page_size * self._token_bytes
+        corrupt: set[int] = set()
+        for slot in list(self._active):
+            for p in sealed_before.get(slot, ()):
+                if verify and p in self._page_digests:
+                    if fresh[p] != self._page_digests[p]:
+                        corrupt.add(p)
+                elif p in self._live_corrupt_pages:
+                    # verification off: this launch read known-bad bytes,
+                    # and the token about to commit parts from the stream
+                    self._live_corrupt_pages.pop(p)
+                    self._record_escape()
+        if corrupt:
+            self._handle_corrupt_pages(sorted(corrupt), via="read")
 
     # -- public loop ------------------------------------------------------------
 
@@ -1310,6 +2004,11 @@ class ServeEngine:
         """
         with self._lock:
             self._first_this_step = []
+            # integrity: this step's corruption draws on the state before it,
+            # then the scrub budget: a detection parks its readers before
+            # any launch can read the bad bytes
+            self._inject_corruption()
+            self._scrub_step()
             chunked = self.chunk_policy is not None
             # the step's work for the step time model: a whole prompt's
             # bucket rows, a chunk's rows (pad rows included)
@@ -1335,11 +2034,25 @@ class ServeEngine:
                 req = self._queue.pop(0)
                 if chunked:
                     self._start_chunked(slot, req)
-                else:
+                    continue
+                try:
                     self._prefill_slot(slot, req)
-                    prefill_tokens += (self.bucket_len(len(req.prompt), self.max_len)
-                                       if self.bucket_prompts else len(req.prompt))
-                    self._active[slot] = req
+                except FaultError as e:
+                    if self.retry is None:
+                        raise
+                    # the launch faulted before any of the engine's state
+                    # moved: the request goes back to the queue's head
+                    # (FIFO kept) for the next free slot, or fails on budget
+                    req.fault_recoveries += 1
+                    if req.fault_recoveries > self.retry.max_request_recoveries:
+                        self._fail_request(req, e)
+                    else:
+                        self._queue.insert(0, req)
+                    continue
+                prefill_tokens += (self.bucket_len(len(req.prompt), self.max_len)
+                                   if self.bucket_prompts else len(req.prompt))
+                self._active[slot] = req
+                if req.first_token_t is None:
                     self._first_this_step.append(req)
             if self._prefilling:
                 prefill_tokens += self._chunk_phase()
@@ -1371,9 +2084,16 @@ class ServeEngine:
     def _chunk_phase(self) -> int:
         """One prefill chunk per prefilling slot, oldest first (uid order),
         so under page pressure the senior prefill funds before junior ones;
-        the rows prefilled."""
-        order = sorted(self._prefilling, key=lambda s: self._prefilling[s].req.uid)
-        rows = sum(self._chunk_step(slot, self._prefilling[slot]) for slot in order)
+        the rows prefilled.  A chunk's fault sends its request back to the
+        queue."""
+        rows = 0
+        for slot in sorted(self._prefilling, key=lambda s: self._prefilling[s].req.uid):
+            try:
+                rows += self._chunk_step(slot, self._prefilling[slot])
+            except FaultError as e:
+                if self.retry is None:
+                    raise
+                self._abort_prefill_to_queue(slot, e)
         if self.paged and self._prefilling and rows == 0 and not self._active:
             # every prefill stalled and nothing is decoding: no pages will free
             # on their own.  Abort the youngest prefill back into the queue (uid
@@ -1381,9 +2101,7 @@ class ServeEngine:
             slot = max(self._prefilling, key=lambda s: self._prefilling[s].req.uid)
             entry = self._prefilling.pop(slot)
             self._release_slot(slot, entry.req)
-            idx = next((i for i, r in enumerate(self._queue) if r.uid > entry.req.uid),
-                       len(self._queue))
-            self._queue.insert(idx, entry.req)
+            self._requeue(entry.req)
         return rows
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
@@ -1391,9 +2109,11 @@ class ServeEngine:
 
         Raises :class:`ServeTruncated` if ``max_steps`` steps were not enough
         (truncation is never returned as success), its requests split into
-        pending, parked and rejected; it raises at once when nothing runs
-        and the seniority head can never fit.  Pool exhaustion itself never
-        raises: the engine preempts and resumes through it.
+        pending, parked, rejected and failed; it raises at once when nothing
+        runs and the seniority head can never fit, or when only requests
+        killed by faults are left.  Pool exhaustion itself never raises:
+        the engine preempts and resumes through it, and with an engine
+        :class:`RetryPolicy` a transient fault does not raise either.
         """
         done: list[Request] = []
         for _ in range(max_steps):
@@ -1401,6 +2121,8 @@ class ServeEngine:
             with self._lock:
                 if (not self._active and not self._prefilling and not self._queue
                         and not self._parked):
+                    if self._failed:
+                        break                  # fault-killed requests are permanent
                     return done
                 if not self._active and not self._prefilling and self.paged:
                     # nothing runs, so nothing will free pages: a seniority
@@ -1411,6 +2133,9 @@ class ServeEngine:
                     if head is not None and self._never_fits(head):
                         break
         with self._lock:
+            if not (self._active or self._prefilling or self._queue or self._parked
+                    or self._failed):
+                return done
             pending = list(self._active.values()) + [e.req for e in self._prefilling.values()]
             parked: list[Request] = []
             rejected: list[Request] = []
@@ -1418,4 +2143,5 @@ class ServeEngine:
                 (rejected if self.paged and self._never_fits(req) else pending).append(req)
             for entry in self._parked:
                 (rejected if self._never_fits(entry.req) else parked).append(entry.req)
-            raise ServeTruncated(done, pending, parked=parked, rejected=rejected)
+            raise ServeTruncated(done, pending, parked=parked, rejected=rejected,
+                                 failed=list(self._failed))

@@ -10,10 +10,10 @@ at it, so the fused decode's masked dummy writes land somewhere harmless
 instead of on a live page.
 
 The allocator is pure Python and comes over unchanged, refcounts, ``share``
-and ``quarantine`` included (prefix sharing and integrity, ROADMAP 8g/8h,
-will use them).  The prefill scatter writes the pool in place, where JAX
-returned a new tree; a chunked prefill writes the pool from inside the model
-(``layers.attention_prefill_chunk_paged``), so no chunk scatter is needed.
+and ``quarantine`` included.  The prefill scatter writes the pool in place,
+where JAX returned a new tree; a chunked prefill writes the pool from inside
+the model (``layers.attention_prefill_chunk_paged``), so no chunk scatter is
+needed.
 
 Preemption's snapshots (:func:`gather_pages`, :func:`restore_pages`) and
 the budgeted host tier they spill into (:class:`HostArena`) come over too.
@@ -23,12 +23,27 @@ victim's pages are freed; a restore writes the pool in place with
 captured decode graph holds the pool's address.  On the card a refill is
 copied up ahead of need on a side stream (:class:`StagedRefill`) and lands
 in the pool when its request resumes.
+
+Prefix sharing's page keys (:func:`prefix_page_keys`) and index
+(:class:`PrefixIndex`) are pure Python and come over unchanged.  The JAX
+engine seeds a staging cache with the shared rows (``scatter_rows``); the
+port's suffix prefill reads them in place through the block table, so that
+helper has no counterpart.
+
+The integrity layer's digests hash on the host, in the JAX package's byte
+order: :func:`page_digest` is blake2b-128 over ``leaf[:, page]`` of k then
+v, and :func:`page_digests` gives the same digests for many pages after one
+gather and one copy off the card.  :func:`flip_page` flips one byte of the
+pool in place, through a ``uint8`` view, so a captured decode graph reads
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -329,14 +344,170 @@ def tree_digest(tree) -> bytes:
     return h.digest()
 
 
+def _map(fn, tree):
+    """``tree`` with ``fn`` applied to each leaf, in :func:`_leaves` order."""
+    if isinstance(tree, dict):
+        return {key: _map(fn, tree[key]) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, sub) for sub in tree)
+    return fn(tree)
+
+
 def flip_tree(tree):
-    """Copy of ``tree``'s leaves on the host with one byte flipped in the
-    first leaf — the injector's model of a DMA that completes but delivers
-    wrong bytes."""
-    out = [_host(leaf).copy() for leaf in _leaves(tree)]
-    if out:
-        out[0].view(np.uint8).reshape(-1)[0] ^= 0xFF
-    return out
+    """Copy of ``tree`` on the host with one byte flipped in the first leaf
+    — the injector's model of a DMA that completes but delivers wrong
+    bytes.  Tensor leaves stay tensors of their dtype (a refill copies them
+    to the card as it would the stored snapshot)."""
+    flipped = False
+
+    def leaf(x):
+        nonlocal flipped
+        host = _host(x).copy()
+        if not flipped:
+            flipped = True
+            host.view(np.uint8).reshape(-1)[0] ^= 0xFF
+        if isinstance(x, torch.Tensor):
+            return torch.from_numpy(host).view(x.dtype)
+        return host
+
+    return _map(leaf, tree)
+
+
+# ---------------------------------------------------------------------------
+# prefix sharing: page-granular prompt hashing + the shared-page index
+# ---------------------------------------------------------------------------
+#
+# Prefixes are hashed per *full* page of prompt tokens with a rolling
+# digest, so equal keys mean equal token histories — and, because KV rows at
+# position t depend only on tokens [0, t], equal token histories mean
+# bitwise-equal page contents.
+
+
+def prefix_page_keys(tokens, page_size: int,
+                     max_pages: int | None = None) -> list[bytes]:
+    """Rolling digest chain over full pages of ``tokens``.
+
+    ``keys[i]`` commits to tokens ``[0, (i+1)·page_size)`` — key equality
+    between two prompts implies their first ``i+1`` pages of KV are
+    bitwise-identical.  Only *full* pages get keys: a trailing partial page
+    is never shared (decode writes land there).
+    """
+    toks = np.asarray(tokens, np.int64)
+    full = len(toks) // page_size
+    if max_pages is not None:
+        full = min(full, max_pages)
+    keys: list[bytes] = []
+    prev = b""
+    for i in range(full):
+        h = hashlib.blake2b(digest_size=16)
+        h.update(prev)
+        h.update(toks[i * page_size:(i + 1) * page_size].tobytes())
+        prev = h.digest()
+        keys.append(prev)
+    return keys
+
+
+class PrefixIndex:
+    """Prefix-key → resident pool page map (the KV "hit-rate" table).
+
+    Holds *no* references of its own: an entry is only valid while the
+    page is allocated, and the engine drops entries the moment ``free``
+    reports the page released (or it is quarantined).  ``publish`` is
+    first-wins — once a key maps to a live page, later prefills of the
+    same prefix attach to it rather than replacing it.
+    """
+
+    def __init__(self) -> None:
+        self._by_key: dict[bytes, int] = {}
+        self._by_page: dict[int, bytes] = {}
+
+    def __len__(self) -> int:
+        return len(self._by_key)
+
+    def get(self, key: bytes) -> int | None:
+        return self._by_key.get(key)
+
+    def publish(self, key: bytes, page: int) -> bool:
+        """Map ``key`` to ``page`` unless the key is already published.
+        Returns True when the entry was added."""
+        if key in self._by_key:
+            return False
+        old = self._by_page.get(page)
+        if old is not None:            # page recycled under a new prefix
+            del self._by_key[old]
+        self._by_key[key] = page
+        self._by_page[page] = key
+        return True
+
+    def drop_page(self, page: int) -> None:
+        """Forget the entry backed by ``page`` (page released/quarantined)."""
+        key = self._by_page.pop(page, None)
+        if key is not None:
+            del self._by_key[key]
+
+    def pages(self) -> set[int]:
+        return set(self._by_page)
+
+
+# ---------------------------------------------------------------------------
+# page digests: the integrity layer's ground truth on device pages
+# ---------------------------------------------------------------------------
+
+#: bytes of pages above which :func:`page_digests` hashes on threads
+#: (hashlib releases the GIL while it hashes a large buffer)
+PARALLEL_HASH_BYTES = 4 << 20
+
+
+def page_digest(pool: dict, page: int) -> bytes:
+    """Content digest of one physical ``page``: blake2b-128 over the bytes
+    of ``leaf[:, page]`` of k, then v (the JAX package's leaf order, so the
+    same bytes give its digest)."""
+    h = hashlib.blake2b(digest_size=16)
+    for key in KV_KEYS:
+        h.update(_host(pool[key][:, page]).tobytes())
+    return h.digest()
+
+
+def page_digests(pool: dict, pages) -> list[bytes]:
+    """:func:`page_digest` of each of ``pages``, from one gather on the
+    pool's device and one copy off it (into page-locked memory on the
+    card): the pages land as ``[n, 2, L·Hkv·page_size·hd]``, each page's k
+    then v rows in ``leaf[:, page]`` order, and each page is hashed from
+    its slice."""
+    n = len(pages)
+    if n == 0:
+        return []
+    k = pool["k"]
+    idx = torch.as_tensor(np.asarray(pages, np.int64)).to(k.device)
+    dev = torch.stack([pool[key].index_select(1, idx).transpose(0, 1).reshape(n, -1)
+                       for key in KV_KEYS], 1)
+    if dev.is_cuda:
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev)
+    else:
+        host = dev
+    raw = _host(host).view(np.uint8)
+
+    def one(i: int) -> bytes:
+        h = hashlib.blake2b(digest_size=16)
+        h.update(raw[i, 0])
+        h.update(raw[i, 1])
+        return h.digest()
+
+    if raw.nbytes < PARALLEL_HASH_BYTES:
+        return [one(i) for i in range(n)]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def flip_page(pool: dict, page: int) -> None:
+    """Flip one byte of ``page`` in the pool's first leaf (k), in place —
+    the fault injector's model of a silent device-memory bit flip.  The
+    byte is the first of ``k[:, page]``'s bytes, the one the JAX package
+    flips; the write goes through a ``uint8`` view of the pool, so the
+    pool keeps its address and a captured decode graph reads the flip."""
+    leaf = pool[KV_KEYS[0]]
+    leaf.view(torch.uint8)[0, page, 0, 0, 0:1].bitwise_xor_(0xFF)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +659,7 @@ class HostArena:
         self._blocks: dict[int, list[int]] = {}  # uid -> its blocks
         self._data: dict[int, Any] = {}          # uid -> snapshot
         self._nbytes: dict[int, int] = {}        # uid -> actual bytes stored
+        self._digest: dict[int, bytes] = {}      # uid -> store-time digest
         self._order: list[int] = []              # uids in store order
         self.peak_bytes = 0
         self.stores = 0
@@ -563,8 +735,16 @@ class HostArena:
         """Resident uids in eviction order (oldest store first)."""
         return list(self._order)
 
-    def store(self, uid: int, data: Any, nbytes: int) -> None:
-        """Park ``data`` (a :func:`gather_pages` snapshot) under ``uid``."""
+    def store(self, uid: int, data: Any, nbytes: int,
+              digest: bytes | None = None) -> None:
+        """Park ``data`` (a :func:`gather_pages` snapshot) under ``uid``.
+
+        ``digest`` stamps the block's content at its write boundary — the
+        engine passes the *pre-transfer* digest, so corruption anywhere
+        downstream (the copy off the card, the arena's own storage) is
+        caught by :meth:`verify` or by the refill-wait payload check.
+        ``None`` skips stamping (the integrity layer is off); ``verify``
+        then always passes."""
         if uid in self._data:
             raise ValueError(f"uid {uid} already holds an arena entry")
         need = self.blocks_for(nbytes)
@@ -584,6 +764,8 @@ class HostArena:
         self._blocks[uid] = blocks
         self._data[uid] = data
         self._nbytes[uid] = nbytes
+        if digest is not None:
+            self._digest[uid] = digest
         self._order.append(uid)
         self.stores += 1
         self.peak_bytes = max(self.peak_bytes, self.used_bytes)
@@ -591,6 +773,32 @@ class HostArena:
     def load(self, uid: int) -> Any:
         """Peek the stored snapshot without freeing its blocks."""
         return self._data[uid]
+
+    def digest_of(self, uid: int) -> bytes | None:
+        """Store-time content digest of ``uid``'s block (None if the
+        integrity layer never stamped one)."""
+        return self._digest.get(uid)
+
+    def verify(self, uid: int) -> bool:
+        """Re-hash ``uid``'s stored snapshot against its store-time digest
+        — the scrubber's arena probe.  True when unstamped or dataless."""
+        expect = self._digest.get(uid)
+        data = self._data.get(uid)
+        if expect is None or data is None:
+            return True
+        return tree_digest(data) == expect
+
+    def corrupt(self, uid: int) -> None:
+        """Flip one byte of ``uid``'s stored snapshot (fault injection:
+        host memory rotting under a parked block).  The snapshot is
+        replaced by a copy, byte-identical but for the one flipped byte (a
+        copy up already started from the old one delivers what it read);
+        the store-time digest is untouched, so :meth:`verify` and the
+        refill payload check both see the mismatch."""
+        data = self._data[uid]
+        if data is None:
+            raise ValueError(f"uid {uid} holds no payload to corrupt")
+        self._data[uid] = flip_tree(data)
 
     def discard(self, uid: int) -> int:
         """Drop ``uid``'s entry, return its blocks to the free-list; the
@@ -601,6 +809,7 @@ class HostArena:
             del self._owner[b]
             self._free.append(b)
         del self._data[uid]
+        self._digest.pop(uid, None)
         self._order.remove(uid)
         self.discards += 1
         return self._nbytes.pop(uid)
@@ -625,6 +834,7 @@ class HostArena:
             f"leaked blocks {expect - union} / phantom {union - expect}"
         )
         assert set(self._data) == set(self._blocks) == set(self._nbytes)
+        assert set(self._digest) <= set(self._data), "orphaned digests"
         assert set(self._order) == set(self._data)
         assert len(self._order) == len(self._data)
         for uid, blocks in self._blocks.items():

@@ -1814,3 +1814,104 @@ def test_reprefill_replay_at_yi_9b_width(cuda):
     assert got == want
     assert eng.preemptions >= len(prompts) and eng.recompute_tokens > 0
     assert eng._graph is not None and eng._graph.captures == 1
+
+
+# ---------------------------------------------------------------------------
+# integrity and prefix sharing on the card
+# ---------------------------------------------------------------------------
+
+
+def test_flip_page_flips_one_byte_in_place_and_a_graph_replay_reads_it(cuda):
+    """``flip_page`` changes one byte of the pool where it lies (the same
+    data pointer), and a CUDA graph captured over the pool, as the decode
+    graph is, reads the flipped byte at its next replay: the rows that
+    attend the page change, the others do not, and the replay equals an
+    eager launch after the flip."""
+    from repro_torch.serve import paged
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    P, H, ps, D, B = 9, 2, 16, 64, 3
+    pool = {key: _randn(gen, (1, P, H, ps, D), cuda) for key in ("k", "v")}
+    q = _randn(gen, (B, 8, D), cuda)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0], [7, 8, 0, 0]], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([60, 20, 30], dtype=torch.int32, device=cuda)
+
+    def attend():
+        return paged_k.paged_decode_attention(q, pool["k"][0], pool["v"][0], table, lengths)
+
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        attend()                                  # warm-up off the capture
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = attend()
+    graph.replay()
+    before = out.clone()
+    ptr, old = pool["k"].data_ptr(), pool["k"].clone()
+    paged.flip_page(pool, 2)                      # row 0 of page 2: sequence 0's key 16
+    assert pool["k"].data_ptr() == ptr
+    changed = (pool["k"].view(torch.int16) != old.view(torch.int16))
+    assert int(changed.sum()) == 1 and bool(changed[0, 2, 0, 0, 0])
+    graph.replay()
+    assert not torch.equal(out[0], before[0])     # sequence 0 reads page 2
+    assert torch.equal(out[1:], before[1:])
+    assert torch.equal(out, attend())
+
+
+def test_page_digest_of_a_card_page_equals_the_host_digest(cuda):
+    """A page's digest on the card (one page, and many through one gather
+    and one copy, hashed on threads past 4 MB) is the host digest of the
+    same bytes."""
+    from repro_torch.serve import paged
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    pool = {key: _randn(gen, (16, 40, 8, 16, 64), cuda) for key in ("k", "v")}  # 512 KiB pages
+    host = {key: t.cpu() for key, t in pool.items()}
+    pages = [39, 1, 17, 5, 23, 8, 30, 12, 2, 36]
+    want = [paged.page_digest(host, p) for p in pages]
+    assert [paged.page_digest(pool, p) for p in pages] == want
+    assert paged.page_digests(pool, pages) == want
+    assert len(pages) * 2 * 16 * 8 * 16 * 64 * 2 > paged.PARALLEL_HASH_BYTES
+    assert paged.page_digests(pool, pages[:2]) == want[:2]
+
+
+def test_suffix_prefill_leaves_shared_pages_bitwise_unchanged(cuda):
+    """Requests sharing a resident 48-token prefix prefill only their
+    suffix, one chunk from row 48 through the block table: the shared pages
+    hold the same bits after every suffix prefill (and the same digests),
+    the pool keeps its address, and the streams equal an unshared run's."""
+    from repro_torch.core.policy import IntegrityPolicy
+    from repro_torch.serve import paged
+    from repro_torch.serve.engine import ServeEngine
+
+    model, params = _small("dense", cuda)
+    persona = list(range(100, 148))                # 3 pages of 16
+    prompts = [persona + [7 + i] * (3 + 5 * i) for i in range(5)]
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        def engine(**kw):
+            return ServeEngine(model, params, batch_slots=4, max_len=128, paged=True,
+                               page_size=16, device=cuda, **kw)
+
+        want = _finish(_submit(engine(), prompts))
+        eng = engine(prefix=True, integrity=IntegrityPolicy())
+        eng.submit(prompts[0], max_new_tokens=9)
+        done = eng.step()                          # the publisher's private prefill
+        shared = [int(p) for p in eng._table[0, :3]]
+        held = {key: t[:, shared].clone() for key, t in eng._cache.items()}
+        digests = paged.page_digests(eng._cache, shared)
+        ptrs = [t.data_ptr() for t in eng._cache.values()]
+        _submit(eng, prompts[1:])
+        while eng._queue:
+            done += eng.step()                     # the sharers' suffix prefills
+            for key, t in eng._cache.items():
+                assert torch.equal(t[:, shared], held[key])
+        assert eng.prefix_hits == 4 and eng.chunk_calls == 4
+        assert paged.page_digests(eng._cache, shared) == digests
+        done += eng.run_to_completion()
+        got = [r.generated for r in sorted(done, key=lambda r: r.uid)]
+        assert [t.data_ptr() for t in eng._cache.values()] == ptrs
+    assert eng.corruptions_detected == 0
+    assert got == want

@@ -404,10 +404,24 @@ def test_resume_twice_or_unknown_raises(models):
 @pytest.mark.parametrize("arg,item", [("retry", "4"), ("faults", "4"), ("integrity", "4"),
                                       ("prefix", "5")])
 def test_later_slices_refused_by_name(models, arg, item):
+    """The arguments of ROADMAP §1 items 4 and 5, once refused by name, are
+    taken with the JAX engine's meanings: a policy (or ``True``) is held
+    normalised by its ``of()``, a ``FaultPlan`` as given; an argument of
+    the wrong type is refused as JAX's ``of()`` refuses it."""
+    from repro_torch.core.hsa import FaultPlan
+
     _, _, model, params = models
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        ServeEngine(model, params, paged=True, page_size=8, max_len=32, device="cpu",
-                    **{arg: object()})
+    value = {"retry": tpolicy.RetryPolicy(), "faults": FaultPlan(seed=1),
+             "integrity": True, "prefix": True}[arg]
+    eng = ServeEngine(model, params, paged=True, page_size=8, max_len=32, device="cpu",
+                      **{arg: value})
+    want = {"retry": value, "faults": value, "integrity": tpolicy.IntegrityPolicy(),
+            "prefix": tpolicy.PrefixPolicy()}[arg]
+    assert getattr(eng, arg) == want
+    if arg != "faults":
+        with pytest.raises(TypeError):
+            ServeEngine(model, params, paged=True, page_size=8, max_len=32, device="cpu",
+                        **{arg: object()})
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,17 @@ cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The small models' ops gain nothing from threads, and beside other
+    test workers torch's default threads oversubscribe the cores and slow
+    every worker many times over: one while this file runs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(gen, *shape):
     return torch.randn(*shape, generator=gen).to(torch.bfloat16)
 
@@ -750,13 +761,13 @@ def test_trace_steps_split_at_the_marker_kernels():
 
 def test_matmul_row_invariance_check_takes_the_served_launch_rows():
     """The matmul row-invariance check on the plain version: a 1024-row
-    launch's rows against launches of 1, 3, 8, 16, 17 and 128 rows and a
-    permutation, at a served (K, N) scaled down."""
+    launch's rows against launches of 1, 3, 8, 16, 17, 128 and 512 rows and
+    a permutation, at a served (K, N) scaled down."""
     g = torch.Generator().manual_seed(3)
     x, w = _randn(g, 1024, 64), _randn(g, 64, 32)
     perm = torch.randperm(1024, generator=g)
     res = cs.row_invariance(torch, mm_k.plain_matmul, x, w, perm, rows=cs.MATMUL_INVARIANCE_ROWS)
-    assert res["launch_rows"] == [1, 3, 8, 16, 17, 128] and res["rows"] == 1024
+    assert res["launch_rows"] == [1, 3, 8, 16, 17, 128, 512] and res["rows"] == 1024
 
 
 def test_flash_chunk_invariance_check_reads_where_a_chunk_starts():
@@ -946,3 +957,115 @@ def test_overcommit_phase_preempts_spills_and_streams_equal_on_a_small_model(mon
     assert (res["sustained_concurrency"]["overcommit"]
             > res["sustained_concurrency"]["full_reserve"])
     assert set(res["traces"]) == {"table8", "table11"}
+
+
+def _small_llama():
+    model = build_model(reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128),
+                        device="cpu")
+    return model, init_params(model.param_specs(), 0, device="cpu")
+
+
+def _prompts(lengths, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, 128, (n,), generator=gen).tolist() for n in lengths]
+
+
+def test_faults_phase_recovers_every_arm_on_a_small_model(monkeypatch):
+    """The faults phase scaled down (prompts of 5 to 40 tokens, 6 new,
+    max_len 64): every arm's streams equal the fault-free run's (the
+    permanent arm's survivors), its launches its model calls; the decode
+    fault parks and re-prefills, the scheduler's retry absorbs its fault,
+    the permanent fault fails the first slots' requests, Table X's plan
+    faults and recovers; the counts are the CPU run's the card is held
+    to."""
+    model, params = _small_llama()
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    prompts = _prompts([round(5 + i * 35 / 15) for i in range(16)], 5)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.faults_phase(torch, model, params, kernels, 0, prompts=prompts, new_tokens=6,
+                              max_len=64)
+    runs = res["runs"]
+    assert list(runs) == [f"{s}_{a[0]}" for s, _ in cs.GATE_SAMPLINGS for a in cs.FAULT_ARMS]
+    for s, _ in cs.GATE_SAMPLINGS:
+        assert runs[f"{s}_decode_fault"]["tier"]["preemptions"] == 8
+        assert runs[f"{s}_sched_retry"]["tier"]["preemptions"] == 0
+        assert runs[f"{s}_permanent"]["recovery"]["failed"] == list(range(1, 9))
+        assert runs[f"{s}_permanent"]["survivors"] == 8
+        assert runs[f"{s}_table10"]["splits"]["availability_split"]["faults"] > 0
+        chunk = runs[f"{s}_chunk_fault"]
+        assert chunk["chunk_calls"] == 16 and sum(chunk["recovery"]["fault_recoveries"]) == 1
+    assert res["counts"]["greedy_decode_fault"]["trace"] == [
+        ("exec", "decode_fused_k1_paged", False, True)]
+    # a second run of the phase gives the same counts (what the card's are
+    # compared with comes from such a run)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        again = cs.faults_phase(torch, model, params, kernels, 0, prompts=prompts,
+                                new_tokens=6, max_len=64, twin=True)
+    cs.check_counts(res["counts"], again["counts"])
+
+
+def test_integrity_phase_detects_every_corruption_on_a_small_model(monkeypatch):
+    """The integrity phase scaled down (prompts of 5 to 40 tokens, 24 new,
+    22 pages, snapshots from 30 rows) at a higher corruption rate: pages,
+    arena blocks and transfers corrupted, every corruption detected and
+    none escaping, the streams the clean run's; with the checks off the
+    corruption escapes.  The hashed bytes a decode launch are the sealed
+    pages' bytes."""
+    model, params = _small_llama()
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    monkeypatch.setattr(cs, "INTEGRITY_PLAN", {"seed": 0, "corrupt_rate": 0.02})
+    prompts = _prompts([round(5 + i * 35 / 15) for i in range(16)], 6)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.integrity_phase(torch, model, params, kernels, 0, prompts=prompts,
+                                 new_tokens=24, pool_pages=22, snapshot_tokens=30, max_len=64)
+    runs = res["runs"]
+    assert list(runs) == ["greedy_clean", "greedy_verified", "t0.7_clean", "t0.7_verified",
+                          "greedy_verify_off"]
+    for s, _ in cs.GATE_SAMPLINGS:
+        sp = runs[f"{s}_verified"]["splits"]["integrity_split"]
+        assert sp["detected"] == sp["corruptions"] > 0 and sp["escaped"] == 0
+        assert runs[f"{s}_verified"]["tier"]["spills"] > 0
+        d = res["per_launch"][s]
+        cfg = model.cfg         # a page: 16 rows of k and v in every layer, bf16
+        page = 16 * cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+        assert d["hashed_bytes"] == pytest.approx(d["hashed_pages"] * page) and page > 0
+    assert runs["greedy_verify_off"]["splits"]["integrity_split"]["escaped"] > 0
+    assert runs["greedy_clean"]["verify"]["launches"] == 0
+
+
+def test_prefix_phase_shares_and_streams_equal_on_a_small_model(monkeypatch):
+    """The prefix phase scaled down (two personas' 32-token prefixes, 16
+    users' suffixes of 8 to 40 tokens, 40 new, max_len 128): the followers
+    attach to their persona's pages, whole and chunked, every stream the
+    unshared run's; the indexed pages' digests hold while shared; the
+    flipped shared page parks and re-prefills its readers, each reader past
+    the first a CoW copy."""
+    model, params = _small_llama()
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    personas = _prompts([32, 32], 7)
+    suffixes = _prompts([round(8 + i * 32 / 15) for i in range(16)], 8)
+    prompts = [personas[i % 2] + s for i, s in enumerate(suffixes)]
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.prefix_phase(torch, model, params, kernels, 0, prompts=prompts, prefix_rows=32,
+                              new_tokens=40, max_len=128)
+    runs = res["runs"]
+    for s, _ in cs.GATE_SAMPLINGS:
+        on, off = runs[f"{s}_on"], runs[f"{s}_off"]
+        assert on["recovery"]["prefix_hits"] == 14 and off["recovery"]["prefix_hits"] == 0
+        assert on["recovery"]["prefix_pages_saved"] == 14 * 2
+        assert on["prefill_calls"] + on["chunk_calls"] == 16      # 14 suffix chunks
+        assert runs[f"{s}_on_chunked"]["recovery"]["prefix_hits"] >= 12
+        flip = res["counts"][f"{s}_on_flip"]["flipped"]
+        assert len(flip["readers"]) >= 3
+        assert runs[f"{s}_on_flip"]["recovery"]["cow_copies"] == len(flip["readers"]) - 1
+    # the suffix prefills' kernel shapes: a chunk of the rest of the bucket
+    # from row 32 (the 64 bucket's 32 rows against 64 keys), beside the
+    # whole bucket's
+    cfg = model.cfg
+    shapes = {tuple(k) for k in runs["greedy_on"]["kernel_shapes"]}
+    assert {("flash_attention", 32, 64, cfg.num_kv_heads, cfg.head_dim),
+            ("flash_attention", 64, 64, cfg.num_kv_heads, cfg.head_dim)} <= shapes
+    assert not {k for k in runs["greedy_off"]["kernel_shapes"] if tuple(k)[1:3] == (32, 64)}
