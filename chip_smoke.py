@@ -5,7 +5,9 @@
 
 Serves ``llama3.2-1b``, ``mamba2-780m``, ``yi-6b``, ``granite-3-8b`` and
 ``yi-9b`` (heads of 128, untied unembeds; granite's over 49155 tokens) at
-full width and depth, with weights drawn from ``--seed`` on the card,
+full width and depth, and the Mixture-of-Experts ``llama4-maverick`` and
+``deepseek-v3`` (MLA) at full width with their depth cut to fit one card,
+with weights drawn from ``--seed`` on the card,
 through the port's own entry points under the ``cuda-strict`` policy, so
 every op on the path runs a hand-written kernel; serves llama3.2-1b
 through faults, silent corruption and shared prompt prefixes, and yi-9b
@@ -14,7 +16,8 @@ runs the paper's two tenants on the card through the port's HSA runtime.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
-   ``src/repro_torch/csrc`` (seven sources, twelve kernels) and print what
+   ``src/repro_torch/csrc`` (seven sources, twelve kernels; flash attention
+   three instances, <64,64>, <128,128> and <192,128>) and print what
    ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
    instructions in each bf16 matmul kernel and each flash attention
    instance, wgmma in the f32 (3xTF32) kernel, and mma.sync (HMMA) in the
@@ -26,10 +29,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch version at the shapes the
    serving paths and the paper's roles give it, the attention kernels at
    head_dim 64 and 128 (flash also split over 2-4 blocks a tile, under a
-   window, ragged) and 96, within the tolerance stated below (attention
+   window, ragged) and 96, flash's <192,128> instance at MLA's prefill
+   shapes (128 heads, q and k 192 wide, values 128; 8 .. 1024 rows), within
+   the tolerance stated below (attention
    row by row, ssd per row and per head's state, conv2d and the f32 matmul
-   exactly or within 2e-4, the bf16 matmul within 2e-2, each beside what a
-   planted fault reads by the same measure; rmsnorm in bf16, f16 and f32,
+   exactly or within 2e-4 (also filters too large for one shared-memory
+   slab, staged in row slabs), the bf16 matmul within 2e-2, each beside what
+   a planted fault reads by the same measure; rmsnorm in bf16, f16, f32 and
+   f64,
    at an odd D, and bitwise row-invariant (a row's output the same in a
    launch of 1, 3, 8, 128 or 600 rows and under a permutation); the bf16
    matmul bitwise row-invariant too, at every (K, N) a served prefill runs
@@ -185,6 +192,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunked and whole in turns, its TTFT, TPOT and tokens/s printed,
    and where its wall time went (steps that prefilled, steps that only
    decoded).
+14. moe: llama4-maverick (d_model 5120, 40/8 heads of 128, 128 experts
+   top-1 of d_ff 8192 and a shared one, vocab 202048) at 2 of 48 layers
+   (one (moe, dense) unit, 37 GB) under ``cuda-strict``, then deepseek-v3
+   (d_model 7168, 128 MLA heads, ranks 1536/512, 3 dense layers of d_ff
+   18432 then MoE: 256 experts top-8 of d_ff 2048 and a shared one, vocab
+   129280) at 5 of 61 layers (56 GB) under ``cuda`` (MLA's absorbed decode
+   attention is plain PyTorch, as in the JAX package), each from ``--seed``
+   and freed before the next.  8 prompts of 5 to 600 tokens: their
+   prefills, fixups and 3 batched decode steps against the ``torch``
+   source (launches counted, a dispatch trace: ``mla_decode_attention`` the
+   only op off the kernels; a GQA step over a page pool bitwise the dense
+   one), and the same calls with every kernel held against its plain
+   version on the calls' data; then the 8 prompts (16 new tokens) dense 8
+   slots as a graph and as the eager loop, K = 4, paged (llama4), T = 0.7 at
+   K 1 and 4: streams equal 8 of 8, launches checked against the calls; the
+   depth cut, weights' bytes, peak memory, TTFT and decode tokens/s beside
+   the weights' bound.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -229,7 +253,8 @@ SAMPLE_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
 # block's) at the full-depth and overcommit phases' sampled runs: a first
 # token, decode steps of 8 and of 16 slots
 SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155),
-                 (1, 49155), (16, 49155), (1, 64000), (8, 64000), (16, 64000))
+                 (1, 49155), (16, 49155), (1, 64000), (8, 64000), (16, 64000),
+                 (1, 202048), (8, 202048), (1, 129280), (8, 129280))
 # the sampler against its plain version: the random bits exactly (and a
 # numpy Threefry's), the token wherever the two best scores lie more than
 # this many ulps apart (the kernel's logf and PyTorch's may part by an ulp)
@@ -607,6 +632,14 @@ MATMUL_SERVED_KN = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (1536
 #: fixup), 8 and 16 (decode steps): yi's (the bf16 kernel, f32 out) and
 #: granite's (N not a multiple of 8: the edge kernel)
 SERVED_UNEMBEDS = ((4096, 64000), (4096, 49155))
+# the moe phase's decode matmuls (K, N, out dtype): llama4-maverick's wq/wo,
+# wk/wv, shared expert (gate/up, down), dense MLP (gate/up, down), unembed;
+# deepseek-v3's wq_a, wq_b, wkv_a, dense MLP, shared expert, unembed
+MOE_DECODE_KN = (
+    (5120, 5120, "bf16"), (5120, 1024, "bf16"), (5120, 8192, "bf16"), (8192, 5120, "bf16"),
+    (5120, 16384, "bf16"), (16384, 5120, "bf16"), (5120, 202048, "f32"),
+    (7168, 1536, "bf16"), (1536, 24576, "bf16"), (7168, 576, "bf16"), (7168, 18432, "bf16"),
+    (18432, 7168, "bf16"), (7168, 2048, "bf16"), (2048, 7168, "bf16"), (7168, 129280, "f32"))
 #: where the chunks start, and their rows, that flash attention's rows are
 #: held at against a 1024-row prompt's (512 rows at 512: the prefix phase's
 #: suffix prefill)
@@ -836,6 +869,27 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                        2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS,
                        instance=mm_k.kernel_instance(x, w))
             del sets, x, w
+    # the moe phase's decode matmuls at 8 slots, timed: llama4-maverick's
+    # attention, shared expert and dense MLP, deepseek-v3's MLA projections,
+    # dense MLP and shared expert (every shape and row count the phase runs
+    # is also held against the plain version on the calls' data there), and
+    # the two untied unembeds (f32 out)
+    for K, N, out_name in MOE_DECODE_KN:
+        M, out = 8, torch.float32 if out_name == "f32" else torch.bfloat16
+        sets = [(randn((M, K)), randn((K, N), K ** -0.5))
+                for _ in range(n_sets(2 * (M * K + K * N)))]
+        x, w = sets[0]
+        tol = TOL_F32 if out == torch.float32 else TOL_BF16
+        check = matmul_err(torch, mm_k.matmul(x, w, out_dtype=out),
+                           mm_k.plain_matmul(x, w, out_dtype=out),
+                           mm_k.matmul(drop_last_k_tile(x), w, out_dtype=out), tol)
+        record("matmul", f"[{M},{K}]x[{K},{N}] act=None out={str(out)[6:]}", check, sets,
+               lambda a, b, out=out: mm_k.matmul(a, b, out_dtype=out),
+               lambda a, b, out=out: mm_k.plain_matmul(a, b, out_dtype=out),
+               lambda a, b: torch.matmul(a, b),
+               2 * (M * K + K * N) + out.itemsize * M * N, 2 * M * N * K, BF16_TC_FLOPS,
+               instance=mm_k.kernel_instance(x, w))
+        del sets, x, w
     K, N = SERVED_UNEMBEDS[0]
     for M in (1, 8, 16):
         sets = [(randn((M, K)), randn((K, N), K ** -0.5))
@@ -895,6 +949,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     record("rmsnorm", f"[{R},{D}] f32", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
            lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
            4 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
+    # and in f64, the element template's fourth instance (each element read
+    # as f32, as the plain version's statistics are f32), at the same rows
+    sets = [(x.double(), w.double()) for x, w in sets]
+    check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_ROLE_F32)
+    record("rmsnorm", f"[{R},{D}] f64", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+           lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+           8 * (2 * R * D + D), 4 * R * D, F32_FLOPS)
     del sets
 
     # flash attention at D = 64 (llama's 32/8 heads) and D = 128 (granite's
@@ -962,6 +1023,36 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                        F.scaled_dot_product_attention(q, ke, ve, attn_mask=m, is_causal=c),
                    per_set, 4 * 32 * D * int(sound.sum()), BF16_TC_FLOPS)
             del sets, q, k, v, fault
+
+    # flash attention's <192,128> instance: MLA's prefill (deepseek-v3: 128
+    # heads, q and k of qk_nope 128 + qk_rope 64, values of 128, Hq = Hkv,
+    # scale 1/sqrt(192)) at every bucket the moe phase's prompts fill (8 ..
+    # 1024) and a ragged 200, beside the planted fault (keys 64..127
+    # dropped); timed at 128, 512 and 1024 beside SDPA (its own causal mask)
+    H, DQK, DV = 128, 192, 128
+    for S in (8, 64, 128, 256, 512, 1024, 200):
+        per_set = 2 * H * S * (2 * DQK + 2 * DV)
+        sound, dropped = flash_masks(torch, S, S, True, dev)
+        timed = S in (128, 512, 1024)
+        sets = [(randn((1, H, S, DQK)), randn((1, H, S, DQK)), randn((1, H, S, DV)))
+                for _ in range(n_sets(per_set) if timed else 1)]
+        q, k, v = sets[0]
+        kw = dict(causal=True, scale=DQK ** -0.5)
+        check = attention_err(torch, fa_k.flash_attention(q, k, v, **kw),
+                              fa_k.plain_flash_attention(q, k, v, **kw),
+                              masked_attention(torch, q, k, v, sound & ~dropped),
+                              dropped.sum(dim=-1) == 64)
+        check["splits"] = fa_k.split_kv(1, H, S, S, True, None, DQK, DV)
+        record("flash_attention_qk192",
+               f"q[1,{H},{S},{DQK}] k[1,{H},{S},{DQK}] v[1,{H},{S},{DV}] causal=True", check,
+               sets if timed else None,
+               lambda q, k, v, kw=kw: fa_k.flash_attention(q, k, v, **kw),
+               lambda q, k, v, kw=kw: fa_k.plain_flash_attention(q, k, v, **kw),
+               lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              scale=DQK ** -0.5),
+               per_set, 2 * H * (DQK + DV) * int(sound.sum()), BF16_TC_FLOPS,
+               instance="fa_kernel<192,128>")
+        del sets, q, k, v
 
     # decode attention: 8 slots against a 1024-row cache with lengths 1 ..
     # 1024 (a decode step), and one sequence against a cache cut to its
@@ -1146,7 +1237,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                   ((1, 32, 32, 1), (5, 5, 1, 1), torch.float32),
                   ((1, 32, 32, 1), (3, 3, 1, 1), torch.float32),
                   ((256, 64, 64, 1), (3, 3, 1, 2), torch.int16),
-                  ((1024, 64, 64, 1), (3, 3, 1, 2), torch.int16)]
+                  ((1024, 64, 64, 1), (3, 3, 1, 2), torch.int16),
+                  # filters whose one-channel slab passes 227 KB beside the
+                  # input rows: staged through shared memory in row slabs
+                  # (2 of 68x68x8 f32, 2 of 90x90x8 int16); untimed (the plain
+                  # version walks 4624 and 8100 taps)
+                  ((1, 80, 140, 1), (68, 68, 1, 8), torch.float32),
+                  ((1, 100, 160, 1), (90, 90, 1, 8), torch.int16)]
     for xs, wsh, dt in conv_cases:
         (B, H, W, Cin), (kh, kw, _, nf) = xs, wsh
         bytes_, ops = conv_work(B, H, W, Cin, kh, kw, nf, 2 if dt == torch.int16 else 4)
@@ -1173,6 +1270,9 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         check["bitwise_equal_generic_kernel"] = True
         if dt == torch.float32:  # the F.conv2d yardstick's precision, as it ran
             check["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+        if kh * kw > 64:
+            check["filter_slabs"] = -(-kh // conv_k.filter_rows(kh, kw, nf, x.element_size()))
+            sets = None
         record("conv2d", f"x[{B},{H},{W},{Cin}] w[{kh},{kw},{Cin},{nf}] {str(dt)[6:]}", check,
                sets, lambda x, w, xn, wn: conv_k.conv2d(x, w),
                lambda x, w, xn, wn: conv_k.plain_conv2d(x, w),
@@ -1218,6 +1318,21 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                lambda a, b: torch.matmul(a, wf), per_set, 3 * 2 * M ** 3, TF32_TC_FLOPS,
                f32_rate_flops=2 * M ** 3, instance=mm_k.kernel_instance(x, wf))
         del sets, x, w, xf, fixed, wf, got
+    # MLA's decode wo: the f32 context [M, 16384] by the resident f32 copy of
+    # wo [16384, 7168], at a first-token fixup's M = 1 and 8 slots' M = 8
+    K, N = 16384, 7168
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    for M in (1, 8):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        xf = drop_last_k_tile(x)
+        check = role_err(torch, mm_k.matmul(x, w), mm_k.plain_matmul(x, w),
+                         mm_k.plain_matmul(xf, w), TOL_ROLE_F32)
+        record("matmul_f32", f"[{M},{K}]x[{K},{N}] act=None f32", check, [(x, w)],
+               mm_k.matmul, mm_k.plain_matmul, torch.matmul,
+               4 * (M * K + K * N + M * N), 3 * 2 * M * N * K, TF32_TC_FLOPS,
+               f32_rate_flops=2 * M * N * K, instance=mm_k.kernel_instance(x, w))
+        del x, xf
+    del w
 
     # the matmul edge kernels (shapes and operands TMA cannot take) at the
     # untied unembeds' shapes: granite-3-8b, hymba-1.5b, whisper large-v3, at
@@ -2048,6 +2163,10 @@ def expected_launches(eng, cfg) -> dict[str, int]:
         return {"matmul": 2 * L * calls, "rmsnorm": (2 * L + 1) * calls, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd": L * eng.prefill_calls, "sample": eng.sample_calls, "matmul_edge": 0}
+    if cfg.moe is not None:
+        return moe_launches(eng.model, prefills=eng.prefill_calls + eng.chunk_calls,
+                            fixups=eng.fixup_calls, decodes=eng.decode_calls,
+                            paged=eng.paged, samples=eng.sample_calls)
     bf16_unembed, edge_unembed = unembed_launches(cfg)
     return {"matmul": (7 * L + bf16_unembed) * calls, "rmsnorm": (2 * L + 1) * calls,
             "flash_attention": L * (eng.prefill_calls + eng.chunk_calls),
@@ -2059,9 +2178,11 @@ def expected_launches(eng, cfg) -> dict[str, int]:
 def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=True,
               new_tokens: int = 32, after_step=None, allow_failed: bool = False,
               shared_rows: int | None = None, check_launches: bool = True, arrivals=None,
-              **engine_kw):
+              policy: str = "cuda-strict", **engine_kw):
     """Serve ``prompts`` (``new_tokens`` each) through one engine under
-    cuda-strict; the run's numbers and the token streams in submission order.  The kernels' launch
+    ``policy`` (cuda-strict unless given: an MLA model runs under cuda,
+    its decode attention plain PyTorch); the run's numbers and the token
+    streams in submission order.  The kernels' launch
     counts (and the edge matmul's) are set to 0 just before the run and read
     just after it.  ``before_step(i)``, if given, runs before the engine's
     step ``i`` (another tenant's submissions); ``after_step(eng)`` after each
@@ -2083,7 +2204,7 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
     from repro_torch.serve.paged import pool_token_bytes
 
     cuda = model.device.type == "cuda"
-    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+    with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
         engine_kw.setdefault("max_len", 1024)
         eng = ServeEngine(model, params, device=model.device, **engine_kw)
         if not graphed:
@@ -2095,7 +2216,7 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
             torch.cuda.reset_peak_memory_stats()
         for mod in kernels:
             mod.launches = 0
-        mm_k.edge_launches = 0
+        mm_k.edge_launches = mm_k.f32_launches = 0
         arrivals = list(arrivals) if arrivals is not None else [0] * len(prompts)
         if arrivals != sorted(arrivals) or len(arrivals) != len(prompts):
             raise ValueError(f"arrivals {arrivals} must be one a prompt, nondecreasing")
@@ -2122,6 +2243,8 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
         wall = time.perf_counter() - t0
         launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
         launches["matmul_edge"] = mm_k.edge_launches
+        if model.cfg.mla is not None:   # MLA's decode wo: the f32 kernel
+            launches["matmul_f32"] = mm_k.f32_launches
     peak = torch.cuda.max_memory_allocated() if cuda else None
     vocab = model.cfg.vocab_size
     failed = sorted(r.uid for r in eng.failed_requests)
@@ -2174,7 +2297,8 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
            "kv_high_water_bytes": (eng.allocator.stats().high_water * eng.page_size
                                    * pool_token_bytes(eng._cache)) if eng.paged else None}
     chunk = engine_kw.get("prefill_chunk")
-    if model.cfg.family != "ssm" and not isinstance(chunk, ChunkPolicy):
+    if (model.cfg.family != "ssm" and model.cfg.moe is None
+            and not isinstance(chunk, ChunkPolicy)):
         res["kernel_shapes"] = sorted(served_shapes(
             model.cfg, [len(p) for p in prompts], slots=eng.slots, max_len=eng.max_len,
             paged=eng.paged, page_size=eng.page_size, chunk=chunk, shared_rows=shared_rows))
@@ -2571,6 +2695,303 @@ INTEGRITY_SCRUB = 4
 #: here, on the host), so at K = 1 the greedy arm's 762 launches spent 25 s
 #: hashing; at K = 4 a launch costs the same and there are a quarter of them
 INTEGRITY_SAMPLINGS = (("greedy", {"decode_fusion": 4}), GATE_SAMPLINGS[1])
+
+
+# ---------------------------------------------------------------------------
+# phase 14: Mixture-of-Experts and MLA at full width (llama4-maverick,
+# deepseek-v3)
+# ---------------------------------------------------------------------------
+
+#: the moe phase's configs, served in this order, each at full width with
+#: its depth the one cut (one 80 GB card: all 48 and 61 layers would be 0.8
+#: and 1.3 TB of weights), and the policy its kernels run under:
+#: llama4-maverick's one (moe, dense) unit under cuda-strict; deepseek-v3's 3
+#: dense layers, then 2 MoE ones, under cuda (MLA's absorbed decode
+#: attention is a plain function in the JAX package too, so it is plain
+#: PyTorch here, the one op that leaves the hand-written kernels)
+MOE_ARCHS = (("llama4-maverick-400b-a17b", 2, "cuda-strict"), ("deepseek-v3-671b", 5, "cuda"))
+#: the phase's 8 prompts, 5 to 600 tokens evenly spaced, 16 new tokens each
+MOE_LENGTHS = tuple(round(5 + i * (600 - 5) / 7) for i in range(8))
+MOE_NEW_TOKENS = 16
+MOE_DECODE_STEPS = 3
+#: the runs of the 8 prompts, and run -> the run whose streams it must equal:
+#: graph against loop, K = 4 against K = 1, paged against dense (GQA only:
+#: MLA's latent cache does not page, as in the JAX engine), and T = 0.7 at
+#: K = 4 against K = 1
+MOE_RUNS = (("dense", {"batch_slots": 8}),
+            ("dense_loop", {"batch_slots": 8, "graphed": False}),
+            ("k4", {"batch_slots": 8, "decode_fusion": 4}),
+            ("paged", {"batch_slots": 8, "paged": True, "page_size": 16}),
+            ("t0.7_k1", {"batch_slots": 8, "temperature": 0.7, "seed": 3}),
+            ("t0.7_k4", {"batch_slots": 8, "temperature": 0.7, "seed": 3, "decode_fusion": 4}))
+MOE_EQUAL = {"dense_loop": "dense", "k4": "dense", "paged": "dense", "t0.7_k4": "t0.7_k1"}
+
+
+def moe_launches(model, *, prefills: int, fixups: int, decodes: int, paged: bool = False,
+                 samples: int = 0) -> dict[str, int]:
+    """Each kernel's launches implied by an MoE model's calls.  A layer's
+    attention runs 4 matmuls (GQA: wq, wk, wv, wo) or, MLA, 5 in a prefill
+    (wq_a, wq_b, wkv_a, wkv_b, wo) and 3 bf16 ones and the f32 ``wo`` in a
+    decode step (W_UK and W_UV are read by the absorbed attention, not
+    multiplied); its FFN 3 (the dense MLP, or MoE's shared expert: the
+    routed experts are batched PyTorch products, as JAX's einsums).  Norms:
+    2 a layer (GQA), 4 (MLA: q_norm and kv_norm too), and the final one.
+    Prefills run flash attention in every layer; GQA fixups and decode steps
+    decode attention (dense or paged), MLA's none (plain PyTorch)."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    shared = cfg.moe.num_shared_experts > 0
+    ffn = sum(3 for kind in model.kinds if kind == "dense" or shared)
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    calls, steps = prefills + fixups + decodes, fixups + decodes
+    base = {"ssd": 0, "sample": samples, "matmul_edge": edge_unembed * calls,
+            "flash_attention": L * prefills}
+    if cfg.mla is not None:
+        return {**base, "matmul": (5 * L + ffn + bf16_unembed) * prefills
+                + (3 * L + ffn + bf16_unembed) * steps, "matmul_f32": L * steps,
+                "rmsnorm": (4 * L + 1) * calls, "decode_attention": 0,
+                "paged_decode_attention": 0}
+    return {**base, "matmul": (4 * L + ffn + bf16_unembed) * calls,
+            "rmsnorm": (2 * L + 1) * calls,
+            "decode_attention": L * (fixups + (0 if paged else decodes)),
+            "paged_decode_attention": L * decodes if paged else 0}
+
+
+class KernelChecks:
+    """A registry whose hand-written kernels each run their plain version
+    on the same inputs after every call and raise unless the two agree
+    within the kernel phase's tolerances (the bf16 matmul 2e-2, f32 out
+    1e-3, f32 in 2e-4; rmsnorm 2e-2; attention rows 1e-2 relative L2): a
+    model call under it holds every kernel at every shape, on the data, the
+    call gives it.  The worst error at each (op, shape) is kept."""
+
+    PLAIN = {"matmul": ("matmul", "plain_matmul"), "rmsnorm": ("rmsnorm", "plain_rmsnorm"),
+             "flash_attention": ("flash_attention", "plain_flash_attention"),
+             "decode_attention": ("decode_attention", "plain_decode_attention"),
+             "paged_decode_attention": ("paged_decode_attention",
+                                        "plain_paged_decode_attention")}
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.worst: dict[str, dict[str, float]] = {}
+
+    def registry(self):
+        import importlib
+
+        from repro_torch.core.registry import GLOBAL_REGISTRY, KernelRegistry
+
+        reg = KernelRegistry()
+        reg.restore(GLOBAL_REGISTRY.snapshot())
+        for op, (mod, fn_name) in self.PLAIN.items():
+            plain = getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn_name)
+            impl = reg.resolve(op, "cuda", ("cuda",))
+
+            def checked(*args, _kernel=impl.fn, _plain=plain, _op=op, **kwargs):
+                got = _kernel(*args, **kwargs)
+                self.check(_op, args, got, _plain(*args, **kwargs))
+                return got
+            reg.register(dataclasses.replace(impl, fn=checked), allow_override=True)
+        return reg
+
+    def check(self, op: str, args, got, want) -> None:
+        torch = self.torch
+        shapes = "x".join(str(list(a.shape)) for a in args if isinstance(a, torch.Tensor))
+        if op in ("matmul", "rmsnorm"):
+            tol = (TOL_ROLE_F32 if args[0].dtype == torch.float32
+                   else TOL_F32 if got.dtype == torch.float32 else TOL_BF16)
+            err = max_err(torch, got, want, tol)["max_abs_err"]
+            key = f"{shapes} {str(args[0].dtype)[6:]} out={str(got.dtype)[6:]}"
+        else:
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{op} at {shapes}: non-finite output")
+            err = float(row_rel_l2(torch, got, want).max())
+            if err > ATTN_REL_L2_TOL:
+                raise AssertionError(f"{op} at {shapes} disagrees with its plain version: row "
+                                     f"rel L2 {err} beyond {ATTN_REL_L2_TOL}")
+            key = shapes
+        by_shape = self.worst.setdefault(op, {})
+        by_shape[key] = max(by_shape.get(key, 0.0), err)
+
+
+def moe_prompts(torch, vocab: int, seed: int) -> list[list[int]]:
+    """The moe phase's 8 prompts (MOE_LENGTHS), drawn from ``seed``."""
+    rng = torch.Generator().manual_seed(seed + 3)
+    return [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in MOE_LENGTHS]
+
+
+def moe_model_calls(torch, model, params, kernels, prompts, policy: str, seed: int) -> dict:
+    """The engine's calls for the 8 prompts (each prefilled at its bucket
+    into a 1024-row cache, its first-token fixup where the bucket pads it),
+    then MOE_DECODE_STEPS decode steps of the 8 as a batch at their own
+    positions, under the ``torch`` source, under ``policy`` (launches
+    counted from 0 and checked against the calls, and a dispatch trace of
+    which source each op resolved to), and under ``policy`` with every
+    kernel held against its plain version (:class:`KernelChecks`).  A GQA
+    model's first batched step also runs over a page pool behind a shuffled
+    table: bitwise the dense step under ``policy``.  Logits within
+    MODEL_REL_L2_TOL of the torch source's, row by row."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.models.model import TIME_KEYS
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, cfg = model.device, model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    lengths = [len(p) for p in prompts]
+    B, ps = len(prompts), 16
+    buckets = [ServeEngine.bucket_len(n, 1024) for n in lengths]
+    nexts = torch.randint(0, cfg.vocab_size, (B, MOE_DECODE_STEPS), generator=gen, device=dev)
+    table = (torch.randperm(B * 1024 // ps, generator=gen, device=dev) + 1).reshape(B, -1).int()
+    checks = KernelChecks(torch)
+    out, launches, sources = {}, {}, {}
+    for arm in ("torch", policy, "checked"):
+        for mod in kernels:
+            mod.launches = 0
+        mm_k.edge_launches = mm_k.f32_launches = 0
+        trace = dispatch.DispatchTrace() if arm == policy else None
+        got: dict[str, list] = {"prefill": [], "fixup": [], "decode": []}
+        with dispatch.use(prefer=dispatch.policy_from_flag("torch" if arm == "torch" else policy),
+                          registry=checks.registry() if arm == "checked" else None, trace=trace):
+            caches = []
+            for tokens, n, bucket in zip(prompts, lengths, buckets):
+                t = torch.tensor([tokens + [0] * (bucket - n)], device=dev)
+                logits, cache = model.prefill(params, {"tokens": t}, cache_len=1024)
+                got["prefill"].append(logits[0])
+                if bucket > n:
+                    fix = {"pos": torch.tensor([n - 1], dtype=torch.int32, device=dev),
+                           **{k: v.narrow(-2, 0, n).clone() for k, v in cache.items()
+                              if k in TIME_KEYS}}
+                    got["fixup"].append(model.decode_step(params, t[:, n - 1:n], fix)[0][0])
+                caches.append(cache)
+            batch = {k: torch.cat([c[k] for c in caches], dim=1) for k in caches[0]
+                     if k in TIME_KEYS}
+            del caches
+            pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            if cfg.mla is None and arm != "torch":
+                pool = {k: pages_of(torch, batch[k], table, ps) for k in ("k", "v")}
+                got["decode_paged"] = list(model.decode_step(
+                    params, nexts[:, :1], {**pool, "pos": pos, "block_table": table})[0])
+                del pool
+            batch["pos"] = pos
+            for step in range(MOE_DECODE_STEPS):
+                logits, batch = model.decode_step(params, nexts[:, step:step + 1], batch)
+                got["decode"] += list(logits)
+            del batch
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[arm] = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+        launches[arm].update(matmul_edge=mm_k.edge_launches, matmul_f32=mm_k.f32_launches)
+        if trace is not None:
+            for op, name in trace.events:
+                sources.setdefault(op, set()).add(name.split(":")[1])
+        out[arm] = got
+    strict = out[policy]
+    if cfg.mla is None and not all(torch.equal(a, b) for a, b in
+                                   zip(strict["decode_paged"], strict["decode"][:B])):
+        raise AssertionError(f"{cfg.name}: the paged decode step's logits differ from the dense "
+                             f"step's under {policy}")
+    fixups = len(strict["fixup"])
+    want = moe_launches(model, prefills=B, fixups=fixups, decodes=MOE_DECODE_STEPS)
+    if cfg.mla is None:
+        paged = moe_launches(model, prefills=0, fixups=0, decodes=1, paged=True)
+        want = {k: want[k] + paged[k] for k in want}
+    if launches[policy] != {**want, "matmul_f32": want.get("matmul_f32", 0)}:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches[policy]} under {policy}, "
+                             f"expected {want}")
+    off_kernels = {op: sorted(src) for op, src in sources.items() if src != {"cuda"}}
+    if off_kernels != ({"mla_decode_attention": ["torch"]} if cfg.mla is not None else {}):
+        raise AssertionError(f"{cfg.name}: ops off the hand-written kernels under {policy}: "
+                             f"{off_kernels}")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "policy": policy,
+           "prompt_lengths": lengths, "buckets": buckets, "tolerance_rel_l2": MODEL_REL_L2_TOL,
+           "launches": launches[policy], "dispatch_sources": {op: sorted(src) for op, src
+                                                             in sources.items()},
+           "off_the_kernels": off_kernels,
+           "kernels_held_against_plain": {op: len(v) for op, v in checks.worst.items()},
+           "kernel_worst_errors": checks.worst}
+    for kind in ("prefill", "fixup", "decode"):
+        rel, agree = [], 0
+        for ref, g in zip(out["torch"][kind], strict[kind]):
+            ref, g = ref.float(), g.float()
+            if not torch.isfinite(g).all() or g.shape != (cfg.vocab_size,):
+                raise AssertionError(f"{cfg.name} {kind} logits of shape {tuple(g.shape)}, or "
+                                     f"not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+        res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    if cfg.mla is None:
+        res["paged_equal_dense_bitwise"] = True
+    print("  " + json.dumps(res))
+    worst = max(max(res[kind]["rel_l2"]) for kind in ("prefill", "fixup", "decode"))
+    if worst > MODEL_REL_L2_TOL:
+        raise AssertionError(f"{cfg.name}: {policy} logits differ from the torch source's: {res}")
+    return res
+
+
+def moe_phase(torch, model, params, policy: str, kernels, seed: int, card: str, smi: str, *,
+              full_layers: int, prompts=None) -> dict:
+    """One MoE config at full width, cut to its ``model``'s depth, weights
+    from ``seed``: its model calls (:func:`moe_model_calls`), then the 8
+    prompts (or ``prompts``) through MOE_RUNS under ``policy``, each run's
+    launches checked against its model calls, streams equal 8 of 8 per
+    MOE_EQUAL.  Prints the depth cut (``full_layers`` to the model's), the
+    weights' bytes, peak memory, TTFT and the dense graph run's decode
+    tokens/s beside the weights' bound: a dropless decode step runs every
+    expert (C = T k rows each), so it reads every weight but the embedding
+    table (and, MLA, the bf16 ``wo``, which only prefill reads)."""
+    cfg = model.cfg
+    arch, layers = cfg.name, cfg.num_layers
+    wbytes = weight_bytes(params)
+    unread = params["embed"]["tok"].numel() * params["embed"]["tok"].element_size()
+    if cfg.mla is not None:
+        unread += sum(layer["mla"]["wo"].numel() * 2 for layer in params["layers"])
+    print(f"  {arch}: full width (d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, {cfg.moe.num_experts} experts top-{cfg.moe.experts_per_token} of d_ff "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}); depth cut {full_layers} -> "
+          f"{layers} layers {model.kinds}; weights {wbytes / 1e9:.2f} GB; policy {policy}")
+    if prompts is None:
+        prompts = moe_prompts(torch, cfg.vocab_size, seed)
+    calls = moe_model_calls(torch, model, params, kernels, prompts, policy, seed)
+    runs, streams = {}, {}
+    for name, kw in MOE_RUNS:
+        if cfg.mla is not None and kw.get("paged"):
+            continue
+        runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts,
+                                              new_tokens=MOE_NEW_TOKENS, policy=policy, **kw)
+        print("  " + json.dumps({"arch": arch, "run": name, **runs[name]}))
+    equal = {}
+    for name, want in MOE_EQUAL.items():
+        if name not in streams:
+            continue
+        differ = [i for i, (a, b) in enumerate(zip(streams[name], streams[want])) if a != b]
+        if differ:
+            raise AssertionError(f"{arch}: {name} streams differ from {want} streams in "
+                                 f"requests {differ} (prompt lengths "
+                                 f"{[len(prompts[i]) for i in differ]})")
+        equal[name] = f"{len(prompts)} of {len(prompts)} equal {want}"
+    busy = None
+    if model.device.type == "cuda":
+        print(f"  where a {arch} decode step's time goes (torch.profiler, CUDA activity):")
+        busy = busy_phase(torch, model, params, seed, policy=policy)
+    dense = runs["dense"]
+    bound_s = (wbytes - unread) / HBM_BYTES_S
+    summary = {
+        "arch": arch, "layers": layers, "full_layers": full_layers, "policy": policy,
+        "weights_bytes": wbytes, "weights_gb": wbytes / 1e9,
+        "step_bound_ms": bound_s * 1e3, "decode_tokens_per_s_bound_8_slots": 8 / bound_s,
+        "decode_tokens_per_s": dense["decode_tokens_per_s"],
+        "decode_step_ms": (dense["decode_step_s"] or 0) * 1e3,
+        "ttft_mean_s": dense["ttft_mean_s"], "ttft_p99_s": dense["ttft_p99_s"],
+        "peak_memory_bytes": max(r["max_memory_allocated_bytes"] or 0 for r in runs.values()),
+        "streams_equal": equal, "card": card, "nvidia_smi": smi}
+    print(f"  {arch} at {layers} of {full_layers} layers on {card} ({smi}): weights "
+          f"{summary['weights_gb']:.2f} GB; peak device memory {summary['peak_memory_bytes']} "
+          f"bytes; dense graph run: TTFT mean {dense['ttft_mean_s']} s, p99 "
+          f"{dense['ttft_p99_s']} s, decode {dense['decode_tokens_per_s']} tokens/s against "
+          f"the weights' bound of {summary['decode_tokens_per_s_bound_8_slots']} tokens/s at 8 "
+          f"slots ({summary['step_bound_ms']} ms a step); streams {equal}")
+    return {"calls": calls, "runs": runs, "summary": summary, "busy": busy}
 
 
 def schedule_counts(res: dict) -> dict:
@@ -3425,7 +3846,7 @@ TRACE_OPENING_PAUSE_S = 0.25
 
 
 def busy_phase(torch, model, params, seed: int, graphed: bool = True,
-               temperature: float = 0.0) -> dict:
+               temperature: float = 0.0, policy: str = "cuda-strict") -> dict:
     """Where a decode step's time goes: the card's busy share over four
     decode steps of 8 live slots (device kernel time from a torch.profiler
     trace of CUDA activity, over the wall time of the steps) and the
@@ -3437,7 +3858,8 @@ def busy_phase(torch, model, params, seed: int, graphed: bool = True,
     A marker kernel opens each traced step, so the trace splits into steps:
     each of the four must list every kernel exactly as often as its launch
     counter moved a step (a replay adds the captured step's launches), and
-    every kernel the decode path runs.  A trace without device events reads
+    every kernel the decode path runs (an MLA model's, under ``policy``
+    cuda, no decode attention kernel).  A trace without device events reads
     as not measured (None)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3446,9 +3868,10 @@ def busy_phase(torch, model, params, seed: int, graphed: bool = True,
     from repro_torch.serve.engine import ServeEngine
 
     path = {"matmul", "rmsnorm"} | ({"sample"} if temperature > 0 else set()) | (
-        set() if model.cfg.family == "ssm" else {"decode_attention"})
+        set() if model.cfg.family == "ssm" or model.cfg.mla is not None
+        else {"decode_attention"})
     rng = torch.Generator().manual_seed(seed + 3)
-    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+    with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
         eng = ServeEngine(model, params, batch_slots=8, max_len=1024, device=model.device,
                           temperature=temperature, seed=3)
         if not graphed:
@@ -3835,6 +4258,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.kernels import matmul as mm_k
     from repro_torch.kernels import native
     from repro_torch.kernels import sample as sample_k
@@ -3842,7 +4266,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/14] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/15] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3864,7 +4288,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/14] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/15] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -3874,14 +4298,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/14] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/15] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/14] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/15] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -3902,7 +4326,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
     phase_s["serve"] = lap()
 
-    print("[5/14] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/15] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -3910,19 +4334,19 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/14] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/15] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/14] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/15] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/14] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/15] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -3950,7 +4374,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["twin_and_tables"] = lap()
 
-    print(f"[9/14] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[9/15] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -3967,7 +4391,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/14] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/15] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -3977,14 +4401,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/14] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/15] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/14] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/15] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -4004,16 +4428,41 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/14] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/15] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     traffic_res = traffic_phase(torch, model, params, kernels)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print("[14/14] the kernels' summary")
+    print(f"[14/15] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+          f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
+          f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
+          f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
+          f"prompts ({MOE_NEW_TOKENS} new tokens) dense 8 slots as a graph and as the loop, K = "
+          f"4, paged (GQA), and T = 0.7 at K 1 and 4, streams equal 8 of 8, on {card} ({smi})")
+    moe_res = {}
+    for arch, layers, policy in MOE_ARCHS:
+        full = get_arch(arch)
+        model = build_model(dataclasses.replace(full, num_layers=layers))
+        t = time.perf_counter()
+        params = init_params(model.param_specs(), args.seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        moe_res[arch] = moe_phase(torch, model, params, policy, kernels, args.seed, card, smi,
+                                  full_layers=full.num_layers)
+        moe_res[arch]["summary"]["init_s"] = init_s
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s["moe"] = lap()
+
+    print("[15/15] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -4023,10 +4472,13 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
               **{f"{phase}_{n}": r for phase, res in (("faults", faults_res),
                                                       ("integrity", integrity_res),
                                                       ("prefix", prefix_res))
-                 for n, r in res["runs"].items()}}
+                 for n, r in res["runs"].items()},
+              **{f"{arch}_{n}": r for arch, res in moe_res.items() for n, r in res["runs"].items()}}
     runs = {**served, "traffic": {"launches": traffic_res["launches"]},
             **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
-               for arch, res in full_res.items()}}
+               for arch, res in {**full_res, **moe_res}.items()}}
+    # MLA's runs: the <192,128> flash instance and the f32 matmul (decode's wo)
+    mla_runs = {run for run in runs if run.startswith("deepseek")}
     sample_shapes = check_sample_shapes(rows, served.values(), sample_k)
     print(f"  every [B, V] the sampled runs gave the sampler, and every split count there, was "
           f"held against the plain version: {sample_shapes}")
@@ -4051,7 +4503,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                 "matmul_fixed_weight": "[256,256]x[256,256] fixed f32",
                 "conv2d": "x[1,64,64,1] w[5,5,1,1] int16",
                 "matmul_edge": "[8,4096]x[4096,49155] act=None out=float32",
-                "sample": "[8,128256]"}
+                "sample": "[8,128256]",
+                "flash_attention_qk192": "q[1,128,1024,192] k[1,128,1024,192] v[1,128,1024,128] "
+                                         "causal=True"}
     # the rows beside each headline: the bf16 matmul's prefill, flash
     # attention's other timed rows at D = 64 and its D = 128 and 96 rows, the
     # decode kernels at D = 128 and 96, the other unembeds and row counts,
@@ -4061,7 +4515,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     beside = {"matmul": ["[1024,2048]x[2048,8192] act=None out=bfloat16"]
                         + [f"[{M},{K}]x[{K},{N}] act=None out=bfloat16"
                            for K, N in FULL_DEPTH_KN for M in (8, 1024)]
-                        + ["[8,4096]x[4096,64000] act=None out=float32"],
+                        + ["[8,4096]x[4096,64000] act=None out=float32"]
+                        + [f"[8,{K}]x[{K},{N}] act=None out={'float32' if o == 'f32' else 'bfloat16'}"
+                           for K, N, o in MOE_DECODE_KN],
               "flash_attention": [f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={c}"
                                   for D in (64, 128)
                                   for S, T, c in ((512, 512, True), (512, 512, False),
@@ -4090,20 +4546,29 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                              + [f"[{M},{K}]x[{K},{N}] act=None f32{note}" for _, K, N in UNEMBEDS
                                 for M, note in ((8, ""), (16, ""), (64, ""), (8, f" {off4}"),
                                                 (16, f" {off4}"))],
-              "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32"],
+              "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32",
+                             "[1,16384]x[16384,7168] act=None f32",
+                             "[8,16384]x[16384,7168] act=None f32"],
               "rmsnorm": ["[512,2048]", "[8,1536]", "[600,1536]", "[8,3072]", "[600,3072]",
                           "[8,4096]", "[512,4096]", "[8,2048] float16", "[8,1000]",
-                          "[8,2048] f32"],
+                          "[8,2048] f32", "[8,2048] f64"],
               "conv2d": ["x[1,64,64,1] w[3,3,1,2] int16", "x[1,32,32,1] w[5,5,1,1] float32",
                          "x[1,32,32,1] w[3,3,1,1] float32", "x[256,64,64,1] w[3,3,1,2] int16",
-                         "x[1024,64,64,1] w[3,3,1,2] int16"],
+                         "x[1024,64,64,1] w[3,3,1,2] int16", "x[1,80,140,1] w[68,68,1,8] float32",
+                         "x[1,100,160,1] w[90,90,1,8] int16"],
               "matmul_fixed_weight": ["[2048,2048]x[2048,2048] fixed f32"],
+              "flash_attention_qk192": [
+                  f"q[1,128,{S},192] k[1,128,{S},192] v[1,128,{S},128] causal=True"
+                  for S in (512, 128)],
               "sample": [f"[{B},{V}]" for B, V in SAMPLE_SHAPES[1:]]}
     # the CUDA functions behind each entry
     cuda_fn = {"matmul": "mm_tile_kernel<BM,BN>, mm_stream_kernel<MP>",
                "rmsnorm": "rmsnorm_kernel<E,WARPS,NC,RESIDENT> (a block of 1-8 warps a "
                           "row, NC 16-byte chunks a thread; E bf16, f16 or f32)",
-               "flash_attention": "fa_kernel<64|128>",
+               "flash_attention": "fa_kernel<64,64>, fa_kernel<128,128> (every head_dim up "
+                                  "to their own)",
+               "flash_attention_qk192": "fa_kernel<192,128> (MLA's prefill: q and k 192 wide, "
+                                        "v 128)",
                "decode_attention": "dec_kernel<D, DenseRows>",
                "paged_decode_attention": "dec_kernel<D, PagedRows>", "ssd": "ssd_kernel",
                "matmul_f32": "mm_f32_kernel<1,B,B> (3xTF32 on wgmma; M <= 16: "
@@ -4119,6 +4584,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                               "(M <= 16), mm_f32_kernel<0,B,B> (M > 16)"}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",
+               "flash_attention_qk192": "F.scaled_dot_product_attention",
                "decode_attention": "F.scaled_dot_product_attention",
                "paged_decode_attention": "two calls: an index gather of the pages into a "
                                          "dense copy, then F.scaled_dot_product_attention",
@@ -4131,12 +4597,17 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     # the paper-role kernels run on the tenants phase's main path only, the
     # edge kernel on the granite phase's
     entries = [(mod.__name__.rsplit(".", 1)[1], mod, mod.REPLACES,
-                {run: r["launches"][mod.__name__.rsplit(".", 1)[1]] for run, r in runs.items()})
+                {run: r["launches"][mod.__name__.rsplit(".", 1)[1]] for run, r in runs.items()
+                 if not (mod is fa_k and run in mla_runs)})
                for mod in kernels]
+    entries += [("flash_attention_qk192", fa_k, fa_k.REPLACES,
+                 {run: runs[run]["launches"]["flash_attention"] for run in sorted(mla_runs)})]
     entries += [(name, mod, replaces, {"tenants": tenants_res["launches"][name]})
                 for name, mod, replaces in (("matmul_f32", mm_k, mm_k.REPLACES),
                                             ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
                                             ("conv2d", conv_k, conv_k.REPLACES))]
+    # the f32 matmul also runs MLA's decode wo (the resident f32 copy)
+    entries[-3][3].update({run: runs[run]["launches"]["matmul_f32"] for run in sorted(mla_runs)})
     entries += [("matmul_edge", mm_k, mm_k.REPLACES,
                  {run: r["launches"]["matmul_edge"] for run, r in runs.items()
                   if r["launches"].get("matmul_edge")})]
@@ -4181,7 +4652,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
             "sample_shapes": sample_shapes, "full_depth_shapes": full_shapes,
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
-            "ssm_temperature": ssm_temp_res,
+            "ssm_temperature": ssm_temp_res, "moe": moe_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

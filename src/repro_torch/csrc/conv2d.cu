@@ -27,6 +27,10 @@
 //     own type (widened on read); 16-, 8- or 4-byte copies, the widest that the rows'
 //     alignment allows (odd int16 rows: plain 2-byte loads).  Channels that do not fit the
 //     48 KB slot budget are staged in chunks (then the filter slab too);
+//   - a filter whose one-channel slab would pass the 227 KB a block may hold with the ring
+//     (a 68x68 filter of eight f32 filters: 148 KB of taps beside 88 KB of input rows) is
+//     staged through the slab in chunks of its rows, KHC rows at a time, between barriers:
+//     the taps are read in the same (dy, dx, c) order, so the sums are those of one slab;
 //   - each strip's P*F outputs are contiguous in NHWC: 16-byte evict-first stores where F
 //     equals the filter chunk and the strip is aligned, scalar ones otherwise.
 // Launched as the matmul kernels are (programmatic dependent launch): a launch may begin while
@@ -80,6 +84,7 @@ struct Geom {
   int H, W, Cin, F, kh, kw, oh, ow;
   int tiles_y, tiles_x, nfc;  // tiles down and across a frame; filter chunks
   int cc, ncc;                // channels a staged chunk; chunks
+  int khc, nkc;               // filter rows a slab holds; slabs a channel chunk (1: whole)
   int ir, ic, pitch;          // staged input rows, pixels a row, bytes a row (16-byte multiple)
   int slot, ws_off;           // bytes a ring slot; offset of the filter slab
   int vbytes;                 // copy width: 16, 8 or 4 (cp.async), 2 (plain int16 loads)
@@ -171,15 +176,15 @@ __device__ __forceinline__ void stage(unsigned char* slot, const Tin* __restrict
   }
 }
 
-// The filter slab of filter chunk fc and channel chunk `chunk`: ws[tap][c][f], tap = dy*kw+dx,
-// zeros past Cin and F.
+// The filter slab of filter chunk fc, channel chunk `chunk` and the filter rows [dy0, dy0 +
+// khc): ws[tap][c][f], tap = (dy - dy0)*kw+dx, zeros past Cin and F.
 template <typename Tin, typename Acc, int FCH>
 __device__ __forceinline__ void load_filter(Acc* ws, const Tin* __restrict__ w, const Geom& g,
-                                            int fc, int chunk) {
+                                            int fc, int chunk, int dy0 = 0) {
   const int f0 = fc * FCH, ch0 = chunk * g.cc, nc = min(g.cc, g.Cin - ch0);
-  const int n = g.kh * g.kw * g.cc * FCH;
+  const int n = min(g.khc, g.kh - dy0) * g.kw * g.cc * FCH;
   for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int f = i % FCH, rest = i / FCH, c = rest % g.cc, tap = rest / g.cc;
+    const int f = i % FCH, rest = i / FCH, c = rest % g.cc, tap = dy0 * g.kw + rest / g.cc;
     ws[i] = (c < nc && f0 + f < g.F)
                 ? widen<Acc>(w[(static_cast<size_t>(tap) * g.Cin + ch0 + c) * g.F + f0 + f])
                 : Acc(0);
@@ -243,7 +248,8 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
 
     const Item it = decode(item, g);
     const int key = it.fc * g.ncc + chunk;
-    const bool new_filter = key != loaded;
+    // a filter staged in row slabs loads them as the rows come (below)
+    const bool new_filter = key != loaded && g.nkc == 1;
     if (new_filter) load_filter<Tin, Acc, FCH>(ws, w, g, it.fc, chunk);
     cp_async_wait<1>();  // this stage's copies have landed (the next stage's may not)
     __syncthreads();
@@ -277,10 +283,16 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
       }
     } else {
       const int nc = min(g.cc, g.Cin - chunk * g.cc);
-      for (int dy = 0; dy < kh; ++dy)
+      for (int dy = 0; dy < kh; ++dy) {
+        const int dy0 = dy - dy % g.khc;  // the slab holding row dy
+        if (g.nkc > 1 && dy == dy0) {
+          __syncthreads();  // every thread is done with the previous slab
+          load_filter<Tin, Acc, FCH>(ws, w, g, it.fc, chunk, dy0);
+          __syncthreads();
+        }
         for (int dx = 0; dx < kw; ++dx) {
           const Tin* xp = xs + (ty + dy) * pe + (tx * P + dx) * g.cc;
-          const Acc* wp = ws + (dy * kw + dx) * g.cc * FCH;
+          const Acc* wp = ws + ((dy - dy0) * kw + dx) * g.cc * FCH;
           for (int c = 0; c < nc; ++c) {
             Acc wv[FCH];
 #pragma unroll
@@ -293,6 +305,7 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
             }
           }
         }
+      }
     }
 
     if (chunk == g.ncc - 1) {
@@ -374,21 +387,29 @@ int launch(const void* x, const void* w, void* out, long long B, int H, int W, i
   const int fch = F <= 1 ? 1 : F <= 2 ? 2 : F <= 4 ? 4 : 8;
   g.nfc = (F + fch - 1) / fch;
   g.ir = TY + kh - 1, g.ic = TC + kw - 1;
-  // bytes of a block at cc channels a chunk: two ring slots and the filter slab
-  auto bytes = [&](int cc) {
+  // bytes of a block at cc channels a chunk and a slab of khc filter rows: two ring slots
+  // and the filter slab
+  auto bytes = [&](int cc, int khc) {
     return 2LL * g.ir * round16(static_cast<long long>(g.ic) * cc * SZ) +
-           round16(static_cast<long long>(kh) * kw * cc * fch * 4);
+           round16(static_cast<long long>(khc) * kw * cc * fch * 4);
   };
-  const long long per_channel = bytes(1);
-  if (per_channel > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  int cc = static_cast<int>(per_channel <= SMEM_SMALL ? SMEM_SMALL / per_channel : 1);
-  cc = cc < Cin ? (cc < 1 ? 1 : cc) : Cin;
-  while (cc > 1 && bytes(cc) > SMEM_SMALL) --cc;
+  const long long per_channel = bytes(1, kh);
+  int cc = 1, khc = kh;
+  if (per_channel > SMEM_MAX) {
+    // one channel a chunk, the filter staged in slabs of the most rows that fit
+    while (khc > 0 && bytes(1, khc) > SMEM_MAX) --khc;
+    if (khc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    cc = static_cast<int>(per_channel <= SMEM_SMALL ? SMEM_SMALL / per_channel : 1);
+    cc = cc < Cin ? (cc < 1 ? 1 : cc) : Cin;
+    while (cc > 1 && bytes(cc, kh) > SMEM_SMALL) --cc;
+  }
   g.cc = cc, g.ncc = (Cin + cc - 1) / cc;
+  g.khc = khc, g.nkc = (kh + khc - 1) / khc;
   g.pitch = round16(static_cast<long long>(g.ic) * cc * SZ);
   g.slot = g.ir * g.pitch;
   g.ws_off = 2 * g.slot;
-  const int smem = static_cast<int>(bytes(cc));
+  const int smem = static_cast<int>(bytes(cc, khc));
   g.items = B * g.tiles_y * g.tiles_x * g.nfc;
   // the widest copy that every staged run's source and destination are aligned to
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
@@ -417,7 +438,8 @@ int launch(const void* x, const void* w, void* out, long long B, int H, int W, i
 
 // x [B,H,W,Cin], w [kh,kw,Cin,F], both int16 (is_float = 0; out int32) or both f32
 // (is_float = 1; out f32), contiguous; any B.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a filter whose one-channel tile passes the shared memory).
+// (cudaErrorInvalidValue for a filter whose input rows and one filter row pass the shared
+// memory).
 extern "C" int repro_conv2d(const void* x, const void* w, void* out, long long B, int H, int W,
                             int Cin, int kh, int kw, int F, int is_float, void* stream) {
   if (B < 1 || Cin < 1 || F < 1 || kh < 1 || kw < 1 || H < kh || W < kw)

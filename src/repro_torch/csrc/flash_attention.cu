@@ -1,32 +1,36 @@
-// Flash attention for Hopper: online-softmax attention of q [B,Hq,S,d] over
-// k, v [B,Hkv,T,d] (bf16, d a multiple of 16 from 16 to 128), GQA head h
-// reading kv head h / (Hq/Hkv).  Two instances, D = 64 and 128, take every
-// d up to their own: the tensor maps span the true d, so a 64-wide TMA box
-// reads zeros in columns d..D-1 of Q, K and V (their products add nothing,
-// and the output's padded columns are never stored), and the wrapper passes
-// the softmax scale of the true d.
+// Flash attention for Hopper: online-softmax attention of q [B,Hq,S,dqk]
+// over k [B,Hkv,T,dqk] and v [B,Hkv,T,dv] (bf16; dqk a multiple of 16 from 16
+// to 192, dv one from 16 to 128), GQA head h reading kv head h / (Hq/Hkv).
+// Three instances <DQK, DV>: <64,64>, <128,128> and <192,128> (MLA's prefill:
+// q and k of qk_nope 128 + qk_rope 64, values of 128), each taking every
+// (dqk, dv) up to its own: the tensor maps span the true widths, so a
+// 64-wide TMA box reads zeros in the columns past dqk of Q and K and past dv
+// of V (their products add nothing, and the output's padded columns are
+// never stored), and the wrapper passes the softmax scale it was given.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_fa_kernel).  The TPU carried the running max,
 // denominator and accumulator in VMEM across a sequential KV grid axis;
 // here a block owns 64 query rows of one head and loops over key tiles
-// itself (128 keys at D = 64, 64 at D = 128, as the registers of the S and
-// O accumulators allow), keeping that state in registers.  A block is one
+// itself (128 keys at DQK = 64, 64 at 128 and 192, as the registers of the
+// S and O accumulators allow), keeping that state in registers.  A block is one
 // consumer warpgroup (threads 0-127) and one producer warp (128-159):
 //   - the producer issues TMA loads: Q's tile once, then K and V tiles into
-//     a ring of 3 stages at D = 64 (2 at D = 128), K and V each tracked by
-//     full/empty mbarriers, so the next tiles arrive while this one is
+//     a ring of 3 stages at DQK = 64 (2 at 128 and 192), K and V each tracked
+//     by full/empty mbarriers, so the next tiles arrive while this one is
 //     multiplied and K's slot frees as soon as S has read it.  The
-//     tiles are 128-byte swizzled boxes of 64 values a row (D = 128: two
-//     boxes side by side), read through 3-D tensor maps over [B*H, T, D], so
-//     rows past T (or S) read zeros and never a neighbouring head's rows;
+//     tiles are 128-byte swizzled boxes of 64 values a row (DQK / 64 boxes
+//     side by side for Q and K, DV / 64 for V), read through 3-D tensor maps
+//     over [B*H, T, d], so rows past T (or S) read zeros and never a
+//     neighbouring head's rows.  At <192,128> a stage is K's 24 KB and V's 16
+//     KB, and Q, the two stages and the barriers take 105 KB: two blocks an SM;
 //   - S = Q K^T is wgmma m64nBKk16 from shared memory, Q and K both K-major
 //     (SBO 1024; the k16 slice kk starts 32 (kk % 4) bytes into a row of box
 //     kk / 4);
-//   - O += P V is wgmma m64nDk16 with P from registers: the f32 S
+//   - O += P V is wgmma m64nDVk16 with P from registers: the f32 S
 //     accumulator of each k16 slice of keys re-packed as bf16 A fragments
 //     (hopper.cuh), and V an MN-major B operand (transpose bit; SBO 1024,
-//     LBO the 8 KB between the two 64-wide boxes at D = 128, k16 steps of
+//     LBO the 8 KB between the two 64-wide boxes at DV = 128, k16 steps of
 //     2 KB).  P is rounded to bf16 for that product (the one place the
 //     arithmetic differs from the f32 Pallas kernel), while the denominator
 //     sums the f32 probabilities;
@@ -73,22 +77,26 @@ constexpr int THREADS = 160;         // the consumer warpgroup, then the produce
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int GROUP_KEYS = 512;      // keys a group: the fixed order of a row's sum
 
-template <int D>
+template <int DQK, int DV>
 struct FaCfg {
-  static constexpr int BK = D == 64 ? 128 : 64;   // keys a tile
-  static constexpr int TPG = GROUP_KEYS / BK;     // key tiles a group
-  static constexpr int BOXES = D / BOX;           // 1 or 2 boxes a row
+  static constexpr int BK = DQK == 64 ? 128 : 64;  // keys a tile
+  static constexpr int TPG = GROUP_KEYS / BK;      // key tiles a group
+  static constexpr int QK_BOXES = DQK / BOX;       // 1, 2 or 3 boxes a row of Q and K
+  static constexpr int V_BOXES = DV / BOX;         // 1 or 2 boxes a row of V
   static constexpr int KV_BOX_BYTES = BK * 128;
-  static constexpr int Q_BYTES = BOXES * Q_BOX_BYTES;
-  static constexpr int TILE_BYTES = BOXES * KV_BOX_BYTES;  // K or V of one tile
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;       // K then V
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int Q_BYTES = QK_BOXES * Q_BOX_BYTES;
+  static constexpr int K_TILE_BYTES = QK_BOXES * KV_BOX_BYTES;  // K of one tile
+  static constexpr int V_TILE_BYTES = V_BOXES * KV_BOX_BYTES;   // V of one tile
+  static constexpr int STAGE_BYTES = K_TILE_BYTES + V_TILE_BYTES;  // K then V
+  static constexpr int STAGES = DQK == 64 ? 3 : 2;
   static constexpr int BODY = Q_BYTES + STAGES * STAGE_BYTES;
   // 1 KB of alignment slack, Q and the ring, 4 mbarriers a stage (K and V
   // each full and empty) and Q's, a flag
   static constexpr int SMEM = 1024 + BODY + (4 * STAGES + 1) * 8 + 16;
-  // 105 KB or 81 KB: two blocks an SM
+  // 105 KB at <192,128> and <64,64>, 81 KB at <128,128>: two blocks an SM
   static constexpr int MIN_BLOCKS = 2;
+  // the last group's O waits in the ring while the stored groups fold
+  static_assert(DV / 2 * 128 * 4 <= STAGES * STAGE_BYTES, "the ring holds O");
 };
 
 // Fold one key group's softmax state (m, l) and unnormalised O of a
@@ -120,15 +128,17 @@ __device__ __forceinline__ void fold(float (&M)[2], float (&L)[2], float (&A)[D 
 // grid (Hq * splits, q tiles, B): block (h + Hq * split, y, b) owns query
 // rows 64 qt.. of head h, qt = q tiles - 1 - y, and its split's share of the
 // q tile's key groups.  With splits > 1, ws holds groups x [B*Hq, 64 q
-// tiles, D] f32 partials, then groups x [B*Hq, 64 q tiles, 2] (m, l), groups
-// = ceil(ceil(T / BK) / TPG); counters one zeroed int a (b, h, q tile).
-template <int D>
-__global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
+// tiles, DV] f32 partials, then groups x [B*Hq, 64 q tiles, 2] (m, l), groups
+// = ceil(ceil(T / BK) / TPG); counters one zeroed int a (b, h, q tile).  The
+// output o is [B, Hq, S, dv].
+template <int DQK, int DV>
+__global__ void __launch_bounds__(THREADS, FaCfg<DQK, DV>::MIN_BLOCKS)
     fa_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
               float* __restrict__ ws, int* __restrict__ counters, int Hq, int Hkv, int S, int T,
-              int d, float scale_log2, int causal, int window, int splits) {
-  using C = FaCfg<D>;
+              int dv, float scale_log2, int causal, int window, int splits) {
+  using C = FaCfg<DQK, DV>;
+  constexpr int D = DV;  // the width of O: the accumulator, the workspace, the folds
   constexpr int BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -179,7 +189,7 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
     if (threadIdx.x == 128 && n > 0) {
       mbar_expect_tx(qbar, C::Q_BYTES);
 #pragma unroll
-      for (int x = 0; x < C::BOXES; ++x)
+      for (int x = 0; x < C::QK_BOXES; ++x)
         tma_load_3d(qs + x * Q_BOX_BYTES, &tq, qbar, x * BOX, q0, b * Hq + h);
       // K's slot frees as soon as S has read it, V's after P V: each has its
       // own barriers, so the next K is not held up behind this tile's V
@@ -187,15 +197,15 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
         const int s = i % C::STAGES, k0 = (t0 + i) * BK;
         unsigned char* st = ring + s * C::STAGE_BYTES;
         if (i >= C::STAGES) mbar_wait(empty_k + s, (i / C::STAGES - 1) & 1);
-        mbar_expect_tx(full_k + s, C::TILE_BYTES);
+        mbar_expect_tx(full_k + s, C::K_TILE_BYTES);
 #pragma unroll
-        for (int x = 0; x < C::BOXES; ++x)
+        for (int x = 0; x < C::QK_BOXES; ++x)
           tma_load_3d(st + x * C::KV_BOX_BYTES, &tk, full_k + s, x * BOX, k0, b * Hkv + hk);
         if (i >= C::STAGES) mbar_wait(empty_v + s, (i / C::STAGES - 1) & 1);
-        mbar_expect_tx(full_v + s, C::TILE_BYTES);
+        mbar_expect_tx(full_v + s, C::V_TILE_BYTES);
 #pragma unroll
-        for (int x = 0; x < C::BOXES; ++x)
-          tma_load_3d(st + C::TILE_BYTES + x * C::KV_BOX_BYTES, &tv, full_v + s, x * BOX, k0,
+        for (int x = 0; x < C::V_BOXES; ++x)
+          tma_load_3d(st + C::K_TILE_BYTES + x * C::KV_BOX_BYTES, &tv, full_v + s, x * BOX, k0,
                       b * Hkv + hk);
       }
     }
@@ -269,7 +279,7 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
       mbar_wait(full_k + s, phase);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         wgmma<BK, 0, 0>(sc, wgmma_desc(qs + (kk / 4) * Q_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
                         wgmma_desc(st + (kk / 4) * C::KV_BOX_BYTES, 0, 1024) + 2 * (kk % 4),
                         kk > 0);
@@ -329,10 +339,10 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
       }
 
       mbar_wait(full_v + s, phase);
-      const uint64_t dv = wgmma_desc(st + C::TILE_BYTES, C::KV_BOX_BYTES, 1024);
+      const uint64_t vd = wgmma_desc(st + C::K_TILE_BYTES, C::KV_BOX_BYTES, 1024);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, 1>(acc, pa[kk], dv + 128 * kk);
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D, 1>(acc, pa[kk], vd + 128 * kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -381,68 +391,75 @@ __global__ void __launch_bounds__(THREADS, FaCfg<D>::MIN_BLOCKS)
 
   const float l0 = L[0] == 0.0f ? 1.0f : L[0];
   const float l1 = L[1] == 0.0f ? 1.0f : L[1];
-  __nv_bfloat16* ob = o + bh * S * d;
+  __nv_bfloat16* ob = o + bh * S * dv;
   const int row0 = q0 + r0, row1 = row0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t4;  // even, and d a multiple of 16: both or neither stored
-    if (col >= d) continue;
+    const int col = 8 * j + 2 * t4;  // even, and dv a multiple of 16: both or neither stored
+    if (col >= dv) continue;
     if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * d + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * dv + col) =
           __floats2bfloat162_rn(acc[4 * j] / l0, acc[4 * j + 1] / l0);
     if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * d + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * dv + col) =
           __floats2bfloat162_rn(acc[4 * j + 2] / l1, acc[4 * j + 3] / l1);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* ws,
-                   void* counters, int B, int Hq, int Hkv, int S, int T, int d, float scale,
-                   int causal, int window, int splits, cudaStream_t st) {
-  using C = FaCfg<D>;
-  static const cudaError_t set =
-      cudaFuncSetAttribute(fa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+                   void* counters, int B, int Hq, int Hkv, int S, int T, int dqk, int dv,
+                   float scale, int causal, int window, int splits, cudaStream_t st) {
+  using C = FaCfg<DQK, DV>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      fa_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (set != cudaSuccess) return set;
   CUtensorMap tq, tk, tv;
   // [B·H][rows][d] in boxes of one head's rows by 64 values: rows past S or T,
-  // and columns past d, read zeros, never the next row's or head's
+  // and columns past dqk (Q, K) or dv (V), read zeros, never the next row's
+  // or head's
   constexpr CUtensorMapL2promotion L2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
-  if (!tensor_map(&tq, 3, q, d, S, (uint64_t)B * Hq, BOX, BQ, L2) ||
-      !tensor_map(&tk, 3, k, d, T, (uint64_t)B * Hkv, BOX, C::BK, L2) ||
-      !tensor_map(&tv, 3, v, d, T, (uint64_t)B * Hkv, BOX, C::BK, L2))
+  if (!tensor_map(&tq, 3, q, dqk, S, (uint64_t)B * Hq, BOX, BQ, L2) ||
+      !tensor_map(&tk, 3, k, dqk, T, (uint64_t)B * Hkv, BOX, C::BK, L2) ||
+      !tensor_map(&tv, 3, v, dv, T, (uint64_t)B * Hkv, BOX, C::BK, L2))
     return cudaErrorInvalidValue;
   dim3 grid(Hq * splits, (S + BQ - 1) / BQ, B);
-  return launch_overlapped(fa_kernel<D>, grid, THREADS, C::SMEM, st, tq, tk, tv,
+  return launch_overlapped(fa_kernel<DQK, DV>, grid, THREADS, C::SMEM, st, tq, tk, tv,
                            static_cast<__nv_bfloat16*>(o), static_cast<float*>(ws),
-                           static_cast<int*>(counters), Hq, Hkv, S, T, d, scale * LOG2E, causal,
-                           window, splits);
+                           static_cast<int*>(counters), Hq, Hkv, S, T, dv, scale * LOG2E,
+                           causal, window, splits);
 }
 
 }  // namespace
 
-// q [B,Hq,S,D], k/v [B,Hkv,T,D], o [B,Hq,S,D], all bf16, contiguous and
-// 16-byte aligned, D a multiple of 16 from 16 to 128, S <= T, Hq % Hkv ==
-// 0.  window <= 0 means no window.  splits: key-range splits a (q tile,
-// head), 1-4.  With splits > 1 or T > 512, ws holds groups * B * Hq * 64
-// ceil(S / 64) * (Di + 2) floats (Di = 64 for D <= 64, else 128: the
-// instance; groups = ceil(T / 512), the key groups); with splits > 1,
-// counters B * Hq * ceil(S / 64) zeroed ints used by no other stream.  One
-// launch.  Returns the cudaError_t.
+// q [B,Hq,S,Dqk], k [B,Hkv,T,Dqk], v [B,Hkv,T,Dv], o [B,Hq,S,Dv], all bf16,
+// contiguous and 16-byte aligned, Dqk a multiple of 16 from 16 to 192 and Dv
+// one from 16 to 128, S <= T, Hq % Hkv == 0.  The instance: <64,64> where
+// both are at most 64, else <128,128> where Dqk is at most 128, else
+// <192,128>.  window <= 0 means no window.  splits: key-range splits a (q
+// tile, head), 1-4.  With splits > 1 or T > 512, ws holds groups * B * Hq *
+// 64 ceil(S / 64) * (Di + 2) floats (Di the instance's DV, 64 or 128;
+// groups = ceil(T / 512), the key groups); with splits > 1, counters B * Hq *
+// ceil(S / 64) zeroed ints used by no other stream.  One launch.  Returns
+// the cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      void* ws, void* counters, int B, int Hq, int Hkv, int S,
-                                     int T, int D, float scale, int causal, int window,
+                                     int T, int Dqk, int Dv, float scale, int causal, int window,
                                      int splits, void* stream) {
-  if (D < 16 || D > 128 || D % 16 || B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T ||
-      splits < 1 || splits > 4 || (splits > 1 && counters == nullptr) ||
-      ((splits > 1 || T > GROUP_KEYS) && ws == nullptr))
+  if (Dqk < 16 || Dqk > 192 || Dqk % 16 || Dv < 16 || Dv > 128 || Dv % 16 || B <= 0 ||
+      Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T || splits < 1 || splits > 4 ||
+      (splits > 1 && counters == nullptr) || ((splits > 1 || T > GROUP_KEYS) && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(D <= 64 ? launch<64>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, D, scale, causal,
-                                    window, splits, st)
-                       : launch<128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, D, scale,
-                                     causal, window, splits, st));
+  if (Dqk <= 64 && Dv <= 64)
+    return (int)launch<64, 64>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale, causal,
+                               window, splits, st);
+  if (Dqk <= 128)
+    return (int)launch<128, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
+                                 causal, window, splits, st);
+  return (int)launch<192, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
+                               causal, window, splits, st);
 }

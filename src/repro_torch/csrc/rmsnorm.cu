@@ -1,5 +1,6 @@
 // Fused RMSNorm for Hopper: y = x * rsqrt(mean(x^2) + eps) * w, f32 statistics and one
-// rounding to x's type.  bf16, f16 or f32 (x, w and y of one type), any D >= 1.
+// rounding to x's type.  bf16, f16, f32 or f64 (x, w and y of one type; an f64 element is
+// rounded to f32 as it is read, as the plain version's statistics are f32), any D >= 1.
 //
 // Replaces the Pallas TPU kernel repro/kernels/rmsnorm.py::rmsnorm (_rmsnorm_kernel).  It is
 // a row reduction and an elementwise scale with no tensor-core work, so bytes bound it: each
@@ -13,7 +14,8 @@
 //     warps (bf16: 1536 to 2048 one chunk, 3072 and 4096 two, internvl2's 8192 and
 //     deepseek's 7168 four).  A warp a row holding the whole of a 2048 or 4096 row (8 or 16
 //     chunks a lane) spends its time in its own serial chain at 8 rows
-//     (kernels/rmsnorm_sweep.py times every count);
+//     (kernels/rmsnorm_sweep.py times every count).  A chunk holds 8 bf16 or f16 elements,
+//     4 f32 or 2 f64;
 //   - w's chunks are loaded before the first row's x, both in flight together, and kept in
 //     registers for every row the block takes; the sum of squares is reduced with warp
 //     shuffles, then (W > 1) the W warp sums in shared memory, double-buffered by row
@@ -70,6 +72,11 @@ struct F32 {
   static __device__ __forceinline__ float to_f(raw r) { return r; }
   static __device__ __forceinline__ raw from_f(float f) { return f; }
 };
+struct F64 {
+  using raw = double;
+  static __device__ __forceinline__ float to_f(raw r) { return __double2float_rn(r); }
+  static __device__ __forceinline__ raw from_f(float f) { return static_cast<double>(f); }
+};
 
 // elements of a 16-byte chunk
 template <class E>
@@ -89,8 +96,11 @@ __device__ __forceinline__ float get(const uint4& u, int j) {
   if constexpr (sizeof(typename E::raw) == 2) {
     const uint32_t wd = word(u, j >> 1);
     return E::to_f(static_cast<unsigned short>((j & 1) ? (wd >> 16) : (wd & 0xffffu)));
-  } else {
+  } else if constexpr (sizeof(typename E::raw) == 4) {
     return E::to_f(__uint_as_float(word(u, j)));
+  } else {
+    return E::to_f(__hiloint2double(static_cast<int>(word(u, 2 * j + 1)),
+                                    static_cast<int>(word(u, 2 * j))));
   }
 }
 
@@ -106,6 +116,10 @@ template <bool STREAM>
 __device__ __forceinline__ uint32_t ld_elem(const float* p) {
   return __float_as_uint(STREAM ? __ldcs(p) : __ldg(p));
 }
+template <bool STREAM>
+__device__ __forceinline__ unsigned long long ld_elem(const double* p) {
+  return static_cast<unsigned long long>(__double_as_longlong(STREAM ? __ldcs(p) : __ldg(p)));
+}
 
 // The n (0..vec) elements of a chunk at p, zeros past them: one 16-byte load when p is
 // 16-byte aligned and the chunk whole, else element by element.  STREAM: evict-first.
@@ -119,10 +133,18 @@ __device__ __forceinline__ uint4 load_chunk(const typename E::raw* p, int n, boo
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j < n) wd[j >> 1] |= ld_elem<STREAM>(p + j) << ((j & 1) * 16);
-    } else {
+    } else if constexpr (N == 4) {
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j < n) wd[j] = ld_elem<STREAM>(p + j);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        if (j < n) {
+          const unsigned long long bits = ld_elem<STREAM>(p + j);
+          wd[2 * j] = static_cast<uint32_t>(bits);
+          wd[2 * j + 1] = static_cast<uint32_t>(bits >> 32);
+        }
     }
   }
   return make_uint4(wd[0], wd[1], wd[2], wd[3]);
@@ -138,11 +160,15 @@ __device__ __forceinline__ void store_chunk(typename E::raw* p, const float (&o)
     uint32_t wd[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if constexpr (N == 8)
+      if constexpr (N == 8) {
         wd[k] = static_cast<uint32_t>(E::from_f(o[2 * k])) |
                 (static_cast<uint32_t>(E::from_f(o[2 * k + 1])) << 16);
-      else
+      } else if constexpr (N == 4) {
         wd[k] = __float_as_uint(o[k]);
+      } else {
+        const long long bits = __double_as_longlong(E::from_f(o[k / 2]));
+        wd[k] = static_cast<uint32_t>(k % 2 ? bits >> 32 : bits);
+      }
     }
     __stcs(reinterpret_cast<uint4*>(p), make_uint4(wd[0], wd[1], wd[2], wd[3]));
     return;
@@ -331,22 +357,23 @@ int launch(const void* x, const void* w, void* y, int rows, int D, float eps, in
 
 }  // namespace
 
-// x, y [rows, D] and w [D], contiguous, all of one type: dtype 0 bf16, 1 f16, 2 f32.  Any
+// x, y [rows, D] and w [D], contiguous, all of one type: dtype 0 bf16, 1 f16, 2 f32, 3 f64.  Any
 // alignment of the element type.  warps: 0 for the rule, or 1, 2, 4, 8 warps a row.
 // Returns the cudaError_t of the launch.
 extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int rows, int D, float eps,
                              int dtype, int warps, void* stream) {
-  if (rows <= 0 || D <= 0 || dtype < 0 || dtype > 2 ||
+  if (rows <= 0 || D <= 0 || dtype < 0 || dtype > 3 ||
       !(warps == 0 || warps == 1 || warps == 2 || warps == 4 || warps == 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<Bf16>(x, w, y, rows, D, eps, warps, st);
   if (dtype == 1) return launch<F16>(x, w, y, rows, D, eps, warps, st);
-  return launch<F32>(x, w, y, rows, D, eps, warps, st);
+  if (dtype == 2) return launch<F32>(x, w, y, rows, D, eps, warps, st);
+  return launch<F64>(x, w, y, rows, D, eps, warps, st);
 }
 
 // The warps a row the rule gives D in dtype (as repro_rmsnorm reads it).
 extern "C" int repro_rmsnorm_warps(int D, int dtype) {
-  const int bytes = dtype == 2 ? 4 : 2;
+  const int bytes = dtype == 3 ? 8 : dtype == 2 ? 4 : 2;
   return rule_warps((static_cast<long long>(D) * bytes + 15) / 16);
 }

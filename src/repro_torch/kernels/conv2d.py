@@ -15,7 +15,9 @@ and one memory trip.  Hopper's tensor cores have no int16 product, so the
 kernel runs on the CUDA cores: each thread computes a strip of ``P``
 output pixels of a row, sliding the filter window through registers, with
 the filter chunk sized to F (1, 2, 4 or 8) and, for the roles, the taps in
-registers; persistent blocks walk (frame, tile, filter chunk) work items,
+registers (a filter too large for one shared-memory slab beside the input
+tile is staged through it in chunks of rows, :func:`filter_rows`);
+persistent blocks walk (frame, tile, filter chunk) work items,
 staging the next item's input rows with a two-slot ``cp.async`` ring, so
 any number of frames is one launch.  The fixed-weight role holds its filter
 on the card from load to unload and launches the same kernel, so it is
@@ -82,20 +84,37 @@ def _smem(cin: int, kh: int, kw: int, f: int, itemsize: int) -> tuple[int, int]:
     """(channels a staged chunk, shared-memory bytes of a block), as the
     kernel computes them: two ring slots of the input tile with its halo in
     the input's type, rows padded to 16 bytes, and the filter slab in 4-byte
-    words; 0 channels when not even one fits."""
+    words.  A filter whose one-channel slab would pass 227 KB beside the ring
+    is staged in slabs of the most filter rows that fit
+    (:func:`filter_rows`); 0 channels when not even one row fits."""
+    khc = filter_rows(kh, kw, f, itemsize)
+    if khc < 1:
+        return 0, _block_bytes(1, khc + 1, kh, kw, f, itemsize)
+    if khc < kh:
+        return 1, _block_bytes(1, khc, kh, kw, f, itemsize)
+    cc = min(cin, max(1, _SMEM_SMALL // _block_bytes(1, kh, kh, kw, f, itemsize)))
+    while cc > 1 and _block_bytes(cc, kh, kh, kw, f, itemsize) > _SMEM_SMALL:
+        cc -= 1
+    return cc, _block_bytes(cc, kh, kh, kw, f, itemsize)
+
+
+def _block_bytes(cc: int, khc: int, kh: int, kw: int, f: int, itemsize: int) -> int:
+    """A block's shared memory at ``cc`` channels a chunk and a filter slab
+    of ``khc`` rows."""
     def r16(n: int) -> int:
         return -(-n // 16) * 16
 
-    def size(cc: int) -> int:
-        return (2 * (_TY + kh - 1) * r16((_TC + kw - 1) * cc * itemsize)
-                + r16(kh * kw * cc * _filter_chunk(f) * 4))
+    return (2 * (_TY + kh - 1) * r16((_TC + kw - 1) * cc * itemsize)
+            + r16(khc * kw * cc * _filter_chunk(f) * 4))
 
-    if size(1) > _SMEM_MAX:
-        return 0, size(1)
-    cc = min(cin, max(1, _SMEM_SMALL // size(1)))
-    while cc > 1 and size(cc) > _SMEM_SMALL:
-        cc -= 1
-    return cc, size(cc)
+
+def filter_rows(kh: int, kw: int, f: int, itemsize: int) -> int:
+    """Filter rows a slab holds at one channel: ``kh`` where the whole
+    filter fits beside the ring, else the most that do (0: none)."""
+    khc = kh
+    while khc > 0 and _block_bytes(1, khc, kh, kw, f, itemsize) > _SMEM_MAX:
+        khc -= 1
+    return khc
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -117,8 +136,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if H < kh or W < kw:
         raise ValueError(f"conv2d: a {kh}x{kw} filter does not fit a {H}x{W} image")
     if _smem(Cin, kh, kw, F, x.element_size())[0] < 1:
-        raise ValueError(f"conv2d: the kernel takes filters whose one-channel tile fits its "
-                         f"shared memory, got {kh}x{kw}")
+        raise ValueError(f"conv2d: the kernel takes filters whose input tile and one filter "
+                         f"row fit its shared memory, got {kh}x{kw}")
     out = torch.empty((B, H - kh + 1, W - kw + 1, F), dtype=accum_dtype(x.dtype),
                       device=x.device)
     if B == 0:

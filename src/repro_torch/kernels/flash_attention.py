@@ -5,10 +5,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 q [B, Hq, S, D] over k, v [B, Hkv, T, D], GQA head h reading kv head
 h // (Hq // Hkv), causal and sliding-window masks at -1e30 with the queries
 aligned to the end of the keys (``kv_offset = T - S``), a non-causal mode and
-an l == 0 guard.  Any head dim D that is a multiple of 16 from 16 to 128:
-two instances, D = 64 and 128, each take every D up to their own (its tensor
-maps read zeros in the columns past D, and the softmax scale is the true
-D's); any other D raises.
+an l == 0 guard.  Values may be narrower than queries and keys: q, k
+[.., Dqk] and v [.., Dv], as MLA's prefill runs them (Dqk 192 = qk_nope 128 +
+qk_rope 64, Dv 128; the Pallas kernel gives v q's width, JAX's ``xla``
+source takes any).  Dqk a multiple of 16 from 16 to 192, Dv one from 16 to
+128: three instances <Dqk, Dv> = <64,64>, <128,128> and <192,128>, each
+taking every pair up to its own (its tensor maps read zeros in the columns
+past the true widths, and the softmax scale is the true Dqk's unless given);
+any other width raises.
 
 What bounds it on the H100: operations at prefill lengths in principle — a
 causal 512 x 512 head does about 90 flops per byte it must move — but at
@@ -19,8 +23,8 @@ producer warp owns 64 query rows of a head; the producer keeps TMA loads of
 K and V tiles in flight in a 2-3 stage ring; both products run on ``wgmma``
 (S = Q Kᵀ from shared memory, O += P V with P from registers); tiles the
 masks hide from every row are never loaded; causal tiles that see the most
-keys start first.  A key tile is 128 keys at D = 64 and 64 at D = 128 (its
-registers).  P is rounded to bf16 for the P V product; that rounding
+keys start first.  A key tile is 128 keys at Dqk = 64 and 64 at 128 and 192
+(its registers).  P is rounded to bf16 for the P V product; that rounding
 is why the kernel is held to its plain version within a bf16 tolerance.
 
 Key groups (:data:`GROUP_KEYS`): a query row's keys are summed in an order
@@ -58,21 +62,36 @@ REPLACES = "src/repro/kernels/flash_attention.py:101"
 launches = 0
 
 NEG_INF = -1e30
-#: the head dims the kernel takes: multiples of 16 up to 128
+#: the head dims the decode kernels take, and flash attention's value widths:
+#: multiples of 16 up to 128
 HEAD_DIMS = tuple(range(16, 129, 16))
 #: query rows a tile of the kernel, and keys a tile of each instance
 BLOCK_Q = 64
-BLOCK_K = {64: 128, 128: 64}
+BLOCK_K = {64: 128, 128: 64, 192: 64}
 MAX_SPLITS = 4
 #: keys a group: a row's softmax runs group by group, folded in key order
 GROUP_KEYS = 512
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+#: the query/key widths the kernel takes: multiples of 16 up to 192
+QK_DIMS = tuple(range(16, 193, 16))
+#: the instances (Dqk, Dv), smallest first
+INSTANCES = ((64, 64), (128, 128), (192, 128))
+
+
+def kernel_instance(head_dim: int, value_dim: int | None = None) -> tuple[int, int]:
+    """The instance (Dqk, Dv) that runs q, k ``head_dim`` wide over values
+    ``value_dim`` wide (``head_dim`` unless given): the smallest that holds
+    both."""
+    value_dim = head_dim if value_dim is None else value_dim
+    return next(inst for inst in INSTANCES if head_dim <= inst[0] and value_dim <= inst[1])
 
 
 def instance(head_dim: int) -> int:
-    """The kernel instance (64 or 128) that runs head dim ``head_dim``."""
-    return 64 if head_dim <= 64 else 128
+    """The query/key width of the instance that runs queries, keys and
+    values ``head_dim`` wide (192: queries and keys of 192 over values of
+    at most 128)."""
+    return kernel_instance(head_dim, min(head_dim, 128))[0]
 
 
 def check_head_dim(op: str, D: int) -> None:
@@ -82,8 +101,19 @@ def check_head_dim(op: str, D: int) -> None:
                          f"of 16 from 16 to 128")
 
 
+def check_head_dims(op: str, Dqk: int, Dv: int) -> None:
+    """Raise, naming the width, unless flash attention takes queries and keys
+    ``Dqk`` wide (:data:`QK_DIMS`) over values ``Dv`` wide
+    (:data:`HEAD_DIMS`)."""
+    if Dqk not in QK_DIMS:
+        raise ValueError(f"{op}: head_dim {Dqk} is not taken: the CUDA kernel takes query and "
+                         f"key widths that are multiples of 16 from 16 to 192")
+    check_head_dim(op, Dv)
+
+
 def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
-             window: int | None = None, head_dim: int = 64) -> int:
+             window: int | None = None, head_dim: int = 64,
+             value_dim: int | None = None) -> int:
     """Key-range splits a (q tile, head) for one launch: 1 when the tiles
     ``B · Hq · ceil(S / 64)`` fill the card's SMs (132 on the H100); else
     at most one block an SM, :data:`MAX_SPLITS` and the key groups the q
@@ -92,11 +122,12 @@ def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
     (about 0.01 µs a key at D = 64) and the merge costs 3-4 µs, so a split
     pays only where it takes some 350 keys off the walk
     (``kernels/flash_sweep.py``: a 128-row chunk splits in two from 768
-    keys).  The split never changes a result: only the time."""
+    keys).  The split never changes a result: only the time.  The key tile
+    is that of :func:`kernel_instance` (``head_dim``, ``value_dim``)."""
     tiles, sms = B * Hq * math.ceil(S / BLOCK_Q), native.sm_count()
     if tiles >= sms:
         return 1
-    bk = BLOCK_K[instance(head_dim)]
+    bk = BLOCK_K[kernel_instance(head_dim, value_dim)[0]]
     q_first = (math.ceil(S / BLOCK_Q) - 1) * BLOCK_Q + T - S   # the last q tile's first row
     lo = max(0, q_first - window + 1) // bk if window else 0
     visible = (math.ceil(T / bk) - lo) * bk
@@ -104,24 +135,25 @@ def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
     return max(1, min(MAX_SPLITS, sms // tiles, visible // 384, groups))
 
 
-def key_groups(T: int, head_dim: int = 64) -> tuple[tuple[int, int], ...]:
+def key_groups(T: int, head_dim: int = 64,
+               value_dim: int | None = None) -> tuple[tuple[int, int], ...]:
     """The key ranges [k0, k1) of ``T`` keys whose softmax states the kernel
     folds, in the order it folds them, for every query row, launch and
     split: a function of T alone (a row that cannot see a range's keys
     folds it as a no-op).  The instance's key tile divides a group, so no
     tile straddles two."""
-    if GROUP_KEYS % BLOCK_K[instance(head_dim)]:
+    if GROUP_KEYS % BLOCK_K[kernel_instance(head_dim, value_dim)[0]]:
         raise AssertionError("a key tile straddles two groups")
     return tuple((k, min(T, k + GROUP_KEYS)) for k in range(0, T, GROUP_KEYS))
 
 
 def split_groups(S: int, T: int, splits: int, causal: bool = True, window: int | None = None,
-                 head_dim: int = 64) -> list[list[list[int]]]:
+                 head_dim: int = 64, value_dim: int | None = None) -> list[list[list[int]]]:
     """The key groups each split block of each q tile walks, as the kernel
     deals them: q tile qt's groups [g_lo, g_hi) (those holding a key some
     row of the tile sees) in runs of ceil((g_hi - g_lo) / splits), whole
     groups a block; ``[q tile][split] -> group indices``."""
-    bk = BLOCK_K[instance(head_dim)]
+    bk = BLOCK_K[kernel_instance(head_dim, value_dim)[0]]
     tpg, kt = GROUP_KEYS // bk, math.ceil(T / bk)
     out = []
     for qt in range(math.ceil(S / BLOCK_Q)):
@@ -140,7 +172,8 @@ def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32 logits, masks at -1e30,
-    f32 softmax and product, l == 0 guarded."""
+    f32 softmax and product, l == 0 guarded; values may be narrower than
+    queries and keys (the output takes v's width)."""
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -165,27 +198,28 @@ def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     splits: int | None = None) -> torch.Tensor:
-    """Attention of q [B,Hq,S,D] over k, v [B,Hkv,T,D]: the plain version for
-    CPU tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128,
-    S <= T) with
-    ``splits`` key-range splits, :func:`split_kv`'s choice unless given
+    """Attention of q [B,Hq,S,Dqk] over k [B,Hkv,T,Dqk] and v [B,Hkv,T,Dv]:
+    the plain version for CPU tensors, else the CUDA kernel (bf16, Dqk a
+    multiple of 16 up to 192 and Dv one up to 128, S <= T) with ``splits``
+    key-range splits, :func:`split_kv`'s choice unless given
     (``kernels/flash_sweep.py`` times the others)."""
     if native.on_cpu(q, k, v):
         return plain_flash_attention(q, k, v, causal=causal, window=window, scale=scale)
     native.check("flash_attention", {"q": q, "k": k, "v": v}, torch.bfloat16)
     B, Hq, S, D = q.shape
-    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != B or k.shape[3] != D:
+    if (k.dim() != 4 or v.dim() != 4 or k.shape[0] != B or k.shape[3] != D
+            or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    Hkv, T = k.shape[1], k.shape[2]
-    check_head_dim("flash_attention", D)
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    check_head_dims("flash_attention", D, Dv)
     if Hq % Hkv or not 0 < S <= T:
         raise ValueError(f"flash_attention: needs Hq % Hkv == 0 and 0 < S <= T; got "
                          f"Hq={Hq} Hkv={Hkv} S={S} T={T}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if splits is None:
-        splits = split_kv(B, Hq, S, T, causal, window, D)
+        splits = split_kv(B, Hq, S, T, causal, window, D, Dv)
     elif not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"flash_attention: splits must be 1 .. {MAX_SPLITS}, got {splits}")
     return _launch(q, k, v, splits, causal, window, scale)
@@ -195,21 +229,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, caus
             window: int | None, scale: float | None) -> torch.Tensor:
     """One launch of the kernel on checked inputs; the output."""
     B, Hq, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, S, Dv))
     ws = counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     q_tiles, groups = math.ceil(S / BLOCK_Q), math.ceil(T / GROUP_KEYS)
     if splits > 1 or groups > 1:
         # every key group's softmax state but an unsplit block's last
-        ws = torch.empty(groups * B * Hq * q_tiles * BLOCK_Q * (instance(D) + 2),
+        ws = torch.empty(groups * B * Hq * q_tiles * BLOCK_Q * (kernel_instance(D, Dv)[1] + 2),
                          dtype=torch.float32, device=q.device)
     if splits > 1:
         counters = native.tile_counters("flash_attention", q.device, stream, B * Hq * q_tiles)
     fn = native.function("flash_attention", "repro_flash_attention", _ARGTYPES)
     err = fn(native.ptr(q), native.ptr(k), native.ptr(v), native.ptr(out), native.ptr(ws),
-             native.ptr(counters), B, Hq, Hkv, S, T, D, float(scale), int(causal),
+             native.ptr(counters), B, Hq, Hkv, S, T, D, Dv, float(scale), int(causal),
              int(window or 0), splits, ctypes.c_void_p(stream))
     native.raise_on_error("flash_attention", err)
     native.count_launch(__name__)

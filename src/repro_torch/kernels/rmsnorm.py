@@ -2,8 +2,10 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py`` ``rmsnorm``
 (``_rmsnorm_kernel``): ``x * rsqrt(mean(x^2) + eps) * w`` with f32
-statistics and one rounding to x's dtype, for any D and for bf16, f16 and
-f32 (the weight in x's dtype), as the Pallas kernel takes any float dtype.
+statistics and one rounding to x's dtype, for any D and for bf16, f16, f32
+and f64 (the weight in x's dtype), as the Pallas kernel takes any float
+dtype (an f64 element is rounded to f32 as it is read, as the plain
+version's statistics are f32).
 
 What bounds it on the H100: bytes — a row reduction and an elementwise
 scale, a few flops per element and no tensor-core work — and, at decode
@@ -32,7 +34,7 @@ REPLACES = "src/repro/kernels/rmsnorm.py:27"
 launches = 0
 
 #: the dtypes the kernel takes, by the code its C entry reads
-_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.float64: 3}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
     ctypes.c_void_p]
 #: warps a row the kernel takes (``warps=``); None is its rule's count
@@ -53,13 +55,13 @@ def rule_warps(D: int, dtype: torch.dtype) -> int:
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
             warps: int | None = None) -> torch.Tensor:
     """RMS norm over the last axis: the plain version for CPU tensors, else
-    the CUDA kernel (bf16, f16 or f32, the weight in x's dtype; any D).
+    the CUDA kernel (bf16, f16, f32 or f64, the weight in x's dtype; any D).
     ``warps`` overrides the rule's warps a row (``kernels/rmsnorm_sweep.py``);
     a row's output then depends on it."""
     if native.on_cpu(x, weight):
         return plain_rmsnorm(x, weight, eps=eps)
     if x.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm: x must be bf16, f16 or f32, got {x.dtype}")
+        raise TypeError(f"rmsnorm: x must be bf16, f16, f32 or f64, got {x.dtype}")
     native.check("rmsnorm", {"x": x, "weight": weight}, x.dtype, aligned=False)
     D = x.shape[-1]
     if weight.shape != (D,):

@@ -306,8 +306,10 @@ def attention_decode_paged(
 # ---------------------------------------------------------------------------
 
 
-def mlp_specs(cfg: ArchConfig) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> Params:
+    """The SwiGLU MLP's weights, ``d_ff`` wide (the config's unless given:
+    MoE's shared experts are ``d_ff_expert`` times their count)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "wg": linear_spec(d, f),
         "wu": linear_spec(d, f),

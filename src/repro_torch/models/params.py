@@ -11,6 +11,7 @@ across with :func:`params_from_jax` instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -47,14 +48,30 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+#: a leaf of more elements than this is drawn in slices along its first
+#: axis (an f32 draw of deepseek-v3's [256, 7168, 2048] expert stack whole
+#: would hold 30 GB of temporaries); every smaller leaf is one draw
+DRAW_SLICE_ELEMENTS = 1 << 28
+
+
+def _normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype, gen: torch.Generator,
+            device: torch.device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "normal":
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
-        return (x * spec.scale).to(spec.dtype)
+        if math.prod(spec.shape) <= DRAW_SLICE_ELEMENTS:
+            return _normal(spec.shape, spec.scale, spec.dtype, gen, device)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        for i in range(spec.shape[0]):
+            out[i] = _normal(spec.shape[1:], spec.scale, spec.dtype, gen, device)
+        return out
     if spec.init == "ssm_a":
         # a_log of the SSD decay: -uniform(1, 16), stored negative
         u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
@@ -62,12 +79,17 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> t
     raise ValueError(f"unknown init {spec.init!r}")
 
 
-def _with_unembed_copy(params: dict) -> dict:
-    """Tied embeddings: keep one f32 copy of the table for the f32 unembed
-    product, instead of casting 128256 x 2048 values on every step."""
+def _with_f32_copies(params: dict) -> dict:
+    """Resident f32 copies of the weights JAX multiplies in f32: the tied
+    embedding table, for the f32 unembed product (instead of casting 128256
+    x 2048 values on every step), and each MLA layer's ``wo``, which decode
+    multiplies by its f32 context (``models/mla.py``)."""
     embed = params["embed"]
     if "unembed" not in embed:
         embed["tok_f32"] = embed["tok"].float()
+    for layer in params["layers"]:
+        if "mla" in layer:
+            layer["mla"]["wo_f32"] = layer["mla"]["wo"].float()
     return params
 
 
@@ -77,19 +99,22 @@ def init_params(specs: Any, seed: int = 0, *, device: "str | torch.device" = "cu
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return _with_unembed_copy(tree_map(lambda s: _init_leaf(s, gen, device), specs))
+    return _with_f32_copies(tree_map(lambda s: _init_leaf(s, gen, device), specs))
 
 
 def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dict:
     """The port's parameters from the JAX ``DecoderLM``'s, given as a tree of
     numpy arrays (``jax.tree.map(np.asarray, params)``).
 
-    JAX stacks a segment's layers as ``[L, ...]`` under
-    ``tree["segments"][0]["0"]``; the port keeps one dict per layer.  Values
-    travel through float32 (exact for bf16; ``torch.from_numpy`` rejects
-    numpy's bf16) and are cast back to their dtype on the torch side, so a
-    Mamba-2 layer's ``mamba`` sub-tree keeps ``a_log``, ``skip_d`` and
-    ``dt_bias`` in f32 and the rest in bf16.
+    JAX stacks each segment's repeated unit as ``[count, ...]`` under
+    ``tree["segments"][s][str(j)]`` (j the unit's j-th layer kind: llama4's
+    unit is ``{"0": moe, "1": dense}``, deepseek's two segments are the
+    dense head and the MoE rest); the port keeps one dict per layer, in
+    :func:`repro_torch.models.model.layer_kinds`' order.  Expert stacks
+    stay stacked ``[E, d, f]``.  Values travel through float32 (exact for
+    bf16; ``torch.from_numpy`` rejects numpy's bf16) and are cast back to
+    their dtype on the torch side, so the router and a Mamba-2 layer's
+    ``a_log``, ``skip_d`` and ``dt_bias`` stay f32 and the rest bf16.
     """
     device = resolve_device(device)
 
@@ -97,13 +122,12 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
         dtype = getattr(torch, str(a.dtype))
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
-    segments = tree["segments"]
-    if len(segments) != 1 or set(segments[0]) != {"0"}:
-        raise ValueError("params_from_jax takes a dense or SSM model: one segment of one "
-                         "layer kind")
-    stacked = tree_map(leaf, segments[0]["0"])
-    layers = [tree_map(lambda t: t[i], stacked) for i in range(stacked["ln1"].shape[0])]
-    return _with_unembed_copy({
+    layers = []
+    for segment in tree["segments"]:
+        units = [tree_map(leaf, segment[str(j)]) for j in range(len(segment))]
+        count = units[0]["ln1"].shape[0]
+        layers += [tree_map(lambda t, i=i: t[i], unit) for i in range(count) for unit in units]
+    return _with_f32_copies({
         "embed": tree_map(leaf, tree["embed"]),
         "layers": layers,
         "ln_f": leaf(tree["ln_f"]),

@@ -151,6 +151,7 @@ from repro_torch.core.policy import (
 )
 from repro_torch.core.reconfig import TransferEngine
 from repro_torch.kernels import sample as sample_k
+from repro_torch.models.model import TIME_KEYS
 from repro_torch.models.params import resolve_device
 from repro_torch.serve import graph as graph_mod
 from repro_torch.serve import paged as paged_mod
@@ -221,9 +222,10 @@ class _Prefilling:
 
 
 def _prompt_rows(cache: dict, n: int) -> dict:
-    """A copy of a one-slot dense cache's rows [0, n): the first-token
+    """A copy of a one-slot dense cache's rows [0, n) (k/v, or MLA's
+    latents; time is each leaf's second to last axis): the first-token
     fixup's cache, which its decode step may write."""
-    return {key: cache[key][:, :, :, :n].clone() for key in ("k", "v")}
+    return {key: cache[key].narrow(-2, 0, n).clone() for key in cache if key != "pos"}
 
 
 class _DecodeBuffers:
@@ -472,7 +474,7 @@ class ServeEngine:
             if not paged:
                 raise ValueError("prefix sharing requires paged=True "
                                  "(shared pages live in the page pool)")
-            if self._cache_keys != {"k", "v"}:
+            if not self._chunk_safe():
                 raise ValueError(
                     "prefix sharing requires chunk-exact models (plain "
                     "dense-attention GQA layers): the unshared suffix is "
@@ -537,7 +539,7 @@ class ServeEngine:
             raise ValueError(f"prefill_chunk must be a power of two >= 1 or a ChunkPolicy, "
                              f"got {prefill_chunk!r}")
         self.chunk_policy = ChunkPolicy.of(prefill_chunk)
-        if self.chunk_policy is not None and self._cache_keys != {"k", "v"}:
+        if self.chunk_policy is not None and not self._chunk_safe():
             raise ValueError(
                 "prefill_chunk requires plain dense-attention layers with "
                 "GQA k/v caches (MoE routing and recurrent state are not "
@@ -556,6 +558,14 @@ class ServeEngine:
         # eager calls of the step are the CPU's (and a comparison's)
         self._graphed = self.device.type == "cuda"
         self._graph: graph_mod.StepGraph | None = None
+
+    def _chunk_safe(self) -> bool:
+        """True iff chunked prefill is exact for this model (JAX's
+        ``_chunk_safe``): every layer a plain dense-attention block over GQA
+        k/v caches.  MoE capacity routing and recurrent scans are not
+        row-local, and MLA's latents have no chunk path."""
+        return (self._cache_keys == {"k", "v"}
+                and all(kind == "dense" for kind in self.model.kinds))
 
     def _launch(self, name: str, fn, *args, **kwargs):
         """Run a model call directly, or as an AQL call packet named ``name``
@@ -604,7 +614,8 @@ class ServeEngine:
         slot's ``max_len`` rows; paged: its mapped pages, and the host
         arena's bytes against its budget), as the JAX engine records them;
         none for a recurrent cache."""
-        if self._token_bytes == 0 and self._cache is not None and self._cache_keys == {"k", "v"}:
+        if (self._token_bytes == 0 and self._cache is not None
+                and self._cache_keys <= TIME_KEYS):
             self._token_bytes = paged_mod.pool_token_bytes(self._cache)
         if self.ledger is None or self._token_bytes == 0:
             return

@@ -49,6 +49,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.models.model import TIME_KEYS
+
 TRASH_PAGE = 0
 
 
@@ -305,13 +307,13 @@ def gather_rows(pool: dict, table_row, n: int, page_size: int) -> dict:
 
 
 def pool_token_bytes(cache: dict) -> int:
-    """Bytes per cached token position across the k/v leaves of a pool
-    ``[L, P, H, ps, hd]`` or a dense cache ``[L, B, H, T, hd]`` (the two
-    capacity axes, 1 and -2, dropped): the figure that prices a paged
-    reservation (``mapped_pages · page_size · bytes``) and a dense one
-    (``slots · max_len · bytes``) alike."""
+    """Bytes per cached token position across the time-indexed leaves of a
+    pool ``[L, P, H, ps, hd]`` or a dense cache ``[L, B, H, T, hd]`` (MLA's
+    ``[L, B, T, r]``; the two capacity axes, 1 and -2, dropped): the figure
+    that prices a paged reservation (``mapped_pages · page_size · bytes``)
+    and a dense one (``slots · max_len · bytes``) alike."""
     total = 0
-    for key in KV_KEYS:
+    for key in TIME_KEYS & set(cache):
         leaf = cache[key]
         total += leaf.numel() // (leaf.shape[1] * leaf.shape[-2]) * leaf.element_size()
     return total

@@ -252,7 +252,7 @@ def test_rmsnorm_matches_plain(cuda, shape):
 # odd widths (the ragged last chunk), and rows past the register-resident
 # instances (40000: segmented)
 RMS_WIDTHS = [1536, 1600, 2048, 3072, 4096, 7168, 8192, 100, 1000, 4100, 40000]
-RMS_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+RMS_DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.float64]
 
 
 def _rms_inputs(g, device, rows, d, dtype, offset=0):
@@ -265,8 +265,11 @@ def _rms_inputs(g, device, rows, d, dtype, offset=0):
 
 
 def _rms_tol(dtype):
-    """bf16 and f16 within BF16_TOL, f32 within the JAX package's 2e-4."""
-    return dict(atol=2e-4, rtol=2e-4) if dtype == torch.float32 else BF16_TOL
+    """bf16 and f16 within BF16_TOL, f32 and f64 (whose elements the kernel
+    reads as f32, as the plain version's statistics are f32) within the JAX
+    package's 2e-4."""
+    return (dict(atol=2e-4, rtol=2e-4) if dtype in (torch.float32, torch.float64)
+            else BF16_TOL)
 
 
 @pytest.mark.parametrize("offset", [0, 1])
@@ -282,7 +285,8 @@ def test_rmsnorm_every_width_and_dtype_matches_plain(cuda, d, dtype, offset):
     _close(got, rms_k.plain_rmsnorm(x, w), **_rms_tol(dtype))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=lambda t: str(t)[6:])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64],
+                         ids=lambda t: str(t)[6:])
 @pytest.mark.parametrize("d", [2048, 1600, 100, 8192, 40000])
 def test_rmsnorm_is_row_invariant(cuda, d, dtype):
     """A row's output is bitwise the same in a launch of 1, 3, 8, 128 or 600
@@ -304,7 +308,7 @@ def test_rmsnorm_counts_launches_and_refuses_bad_input(cuda):
     rms_k.rmsnorm(x, w)
     assert rms_k.launches == before + 1
     with pytest.raises(TypeError):
-        rms_k.rmsnorm(x.double(), w.double())        # no f64 instance
+        rms_k.rmsnorm(x.int(), w.int())              # no integer instance
     with pytest.raises(TypeError):
         rms_k.rmsnorm(x, w.float())                  # the weight in x's dtype
     with pytest.raises(ValueError):
@@ -1000,10 +1004,32 @@ def test_conv2d_wrapper_counts_launches_and_refuses_bad_input(cuda):
         conv_k.conv2d(x, w.float())
     with pytest.raises(ValueError):
         conv_k.conv2d(x[:, :2], w)
-    big = torch.zeros((68, 68, 1, 8), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):   # one channel's tile: 235616 bytes
-        conv_k.conv2d(torch.zeros((1, 70, 70, 1), device=cuda), big)
+    big = torch.zeros((200, 200, 1, 1), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):   # the input tile alone: 454 KB
+        conv_k.conv2d(torch.zeros((1, 202, 202, 1), device=cuda), big)
     assert conv_k.launches == before + 1
+
+
+@pytest.mark.parametrize("kh,kw,F,dtype,slabs", [(68, 68, 8, torch.float32, 2),
+                                                  (100, 100, 8, torch.float32, 4),
+                                                  (90, 90, 8, torch.int16, 2),
+                                                  (120, 120, 3, torch.int16, 2)])
+def test_conv2d_stages_a_filter_past_one_slab_in_row_chunks(cuda, kh, kw, F, dtype, slabs):
+    """A filter whose one-channel slab would pass the 227 KB beside the
+    input ring (68x68 of eight f32 filters: 148 KB of taps) is staged in
+    slabs of its rows: one launch, f32 within F32_TOL of the plain version
+    and int16 exact, as many slabs as :func:`conv2d.filter_rows` gives."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    assert -(-kh // conv_k.filter_rows(kh, kw, F, isz)) == slabs
+    x, w = _conv_inputs(_gen(cuda, kh), cuda, 2, kh + 20, kw + 70, 1, kh, kw, F, dtype)
+    before = conv_k.launches
+    got = conv_k.conv2d(x, w)
+    assert conv_k.launches == before + 1
+    want = conv_k.plain_conv2d(x, w)
+    if dtype == torch.int16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **F32_TOL)
 
 
 @pytest.mark.parametrize("m,k,n", [(256, 256, 256), (2048, 2048, 2048), (100, 260, 132),
@@ -1915,3 +1941,98 @@ def test_suffix_prefill_leaves_shared_pages_bitwise_unchanged(cuda):
         assert [t.data_ptr() for t in eng._cache.values()] == ptrs
     assert eng.corruptions_detected == 0
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# MLA's prefill attention (queries and keys 192 wide over values of 128), and
+# MoE and MLA decode steps in a captured graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,T,causal", [(64, 64, True), (512, 512, True), (512, 512, False),
+                                        (128, 1024, True), (1024, 1024, True), (200, 200, True),
+                                        (8, 8, True)])
+def test_flash_attention_at_qk_192_over_values_of_128_matches_plain(cuda, S, T, causal):
+    """The <192,128> instance (MLA: q, k of qk_nope 128 + qk_rope 64, v of
+    128, Hq = Hkv, scale 1/sqrt(192)) row by row within ATTN_REL_L2_TOL of
+    the plain version, at the rule's split and bitwise the same at every
+    split 1-4 (a split changes the time, never a bit); the output takes v's
+    width; one launch a call."""
+    g = _gen(cuda, 41)
+    q, k = _randn(g, (1, 16, S, 192), cuda), _randn(g, (1, 16, T, 192), cuda)
+    v = _randn(g, (1, 16, T, 128), cuda)
+    scale = 192 ** -0.5
+    assert fa_k.kernel_instance(192, 128) == (192, 128)
+    before = fa_k.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, scale=scale)
+    assert fa_k.launches == before + 1 and got.shape == (1, 16, S, 128)
+    _attn_close(got, fa_k.plain_flash_attention(q, k, v, causal=causal, scale=scale))
+    for splits in range(1, fa_k.MAX_SPLITS + 1):
+        assert torch.equal(fa_k.flash_attention(q, k, v, causal=causal, scale=scale,
+                                                splits=splits), got)
+
+
+def test_flash_attention_at_qk_192_chunk_rows_equal_the_whole_prompt(cuda):
+    """A 128-row chunk's queries against the keys up to its end give the
+    rows of one causal launch over the 1024-row prompt bit for bit at the
+    <192,128> instance too (keys folded in 512-key groups fixed by the key
+    index)."""
+    g = _gen(cuda, 42)
+    q, k = _randn(g, (1, 8, 1024, 192), cuda), _randn(g, (1, 8, 1024, 192), cuda)
+    v = _randn(g, (1, 8, 1024, 128), cuda)
+    whole = fa_k.flash_attention(q, k, v, causal=True)
+    for start in (0, 128, 512, 896):
+        end = start + 128
+        part = fa_k.flash_attention(q[:, :, start:end].contiguous(), k[:, :, :end].contiguous(),
+                                    v[:, :, :end].contiguous(), causal=True)
+        assert torch.equal(part, whole[:, :, start:end])
+
+
+def _small_moe(arch, cuda):
+    """A reduced llama4-maverick (a (moe, dense) unit) or deepseek-v3 (a
+    dense layer then MoE, MLA with widths the kernels take: q and k 48 =
+    32 + 16, values 32) at d_model 256, on the card."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.models import build_model, init_params
+
+    cfg = reduced(ARCHS[arch], layers=2, d_model=256, vocab=512)
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=MLAConfig(q_lora_rank=64, kv_lora_rank=64,
+                                                     qk_nope_dim=32, qk_rope_dim=16,
+                                                     v_head_dim=64))
+    model = build_model(cfg, device=cuda)
+    return model, init_params(model.param_specs(), 0, device=cuda)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "deepseek-v3-671b"])
+def test_moe_decode_in_a_cuda_graph_equals_the_eager_loop(cuda, arch, k, temperature):
+    """MoE layers (a stable sort for the top k, searchsorted ranks,
+    index_add_ dispatch, bf16 batched expert products) and MLA's absorbed
+    decode capture into the decode graph: its replays give the eager loop's
+    streams token for token, under the ``cuda`` policy (MLA's decode
+    attention is plain PyTorch there), and count each kernel alike."""
+    from repro_torch.kernels import launch_counters
+    from repro_torch.serve.engine import ServeEngine
+
+    model, params = _small_moe(arch, cuda)
+    out = {}
+    for graphed in (True, False):
+        before = launch_counters()
+        with dispatch.use(prefer=dispatch.policy_from_flag("cuda")):
+            eng = ServeEngine(model, params, batch_slots=4, max_len=128, decode_fusion=k,
+                              temperature=temperature, seed=3, device=cuda)
+            eng._graphed = graphed
+            for p in _PROMPTS:
+                eng.submit(p, max_new_tokens=9)
+            streams = [r.generated for r in sorted(eng.run_to_completion(), key=lambda r: r.uid)]
+        after = launch_counters()
+        out[graphed] = (streams, {key: after[key] - v for key, v in before.items()})
+        assert (eng._graph is not None) == graphed
+    assert out[True] == out[False]
+    assert all(len(s) == 9 for s in out[True][0])
+    assert out[True][1][("flash_attention", "launches")] > 0

@@ -420,3 +420,47 @@ def test_wrappers_raise_off_cpu_without_cuda(call):
     with pytest.raises(ValueError, match="mixed devices"):
         mm_k.matmul(torch.ones(4, 64, dtype=torch.bfloat16),
                     torch.empty(64, 64, dtype=torch.bfloat16, device="meta"))
+
+
+def test_rmsnorm_wrapper_runs_f64_through_its_plain_version_on_the_cpu():
+    """float64 is an instance of the CUDA kernel's element template (C code
+    3); on CPU tensors the wrapper runs the plain version, which keeps x's
+    dtype and takes f32 statistics, as the kernel reads f64 elements as
+    f32.  Counted nowhere."""
+    assert rms_k._DTYPES[torch.float64] == 3
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((5, 300), generator=g, dtype=torch.float64)
+    w = torch.randn((300,), generator=g, dtype=torch.float64)
+    before = rms_k.launches
+    got = rms_k.rmsnorm(x, w)
+    assert got.dtype == torch.float64 and rms_k.launches == before
+    assert torch.equal(got, rms_k.plain_rmsnorm(x, w))
+    xn, wn = x.numpy(), w.numpy()
+    want = xn / np.sqrt(np.mean(xn * xn, axis=-1, keepdims=True) + 1e-6) * wn
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_conv2d_stages_a_filter_past_one_slab_in_row_chunks_on_the_rule():
+    """The wrapper's shared-memory rule, as the kernel computes it: a
+    filter whose one-channel slab would pass 227 KB beside the input ring
+    is staged in slabs of the rows that fit (68x68 of eight f32 filters:
+    two slabs of 66 and 2 rows); the roles keep one slab; only a filter
+    whose input tile and one filter row pass 227 KB is refused.  On CPU
+    tensors the wrapper runs the plain version, here at a 68x68 filter
+    against a float64 ``F.conv2d``."""
+    from repro_torch.kernels import conv2d as conv_k
+
+    assert conv_k.filter_rows(68, 68, 8, 4) == 66
+    cc, nbytes = conv_k._smem(1, 68, 68, 8, 4)
+    assert cc == 1 and nbytes <= 227 * 1024
+    assert conv_k.filter_rows(5, 5, 1, 2) == 5 and conv_k._smem(1, 5, 5, 1, 2)[0] == 1
+    assert conv_k.filter_rows(200, 200, 1, 4) == 0 and conv_k._smem(1, 200, 200, 1, 4)[0] == 0
+    assert conv_k.footprint(1, 68, 68, 8, 4).smem_bytes == nbytes
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((1, 70, 71, 1), generator=g)
+    w = torch.randn((68, 68, 1, 8), generator=g)
+    got = conv_k.conv2d(x, w)
+    want = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                      w.double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    assert got.shape == (1, 3, 4, 8) and got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, atol=2e-3, rtol=2e-4)

@@ -188,3 +188,35 @@ def test_head_dim_128_matches_jax_bitwise_on_the_same_residual(models_hd128, pol
             big = float(np.abs(_np(j_lg)).max())
             atol = 0.0 if policy == "reference" else 1e-6 * big
             np.testing.assert_allclose(_np(t_lg), _np(j_lg), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_vision_patches_replace_the_first_rows_as_jax(policy):
+    """A vlm config (internvl2's frontend, reduced: 8 patch rows) prefills
+    with ``batch["patch_embeds"]`` over the first rows' token embeddings,
+    as JAX's ``_embed_inputs``: logits and caches within TOL, and the
+    patches move them (the port's config is JAX's, field by field)."""
+    from repro_torch.configs.base import ArchConfig
+
+    jcfg = jreduced(JARCHS["internvl2-76b"], layers=2, d_model=64, vocab=128)
+    cfg = ArchConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    assert cfg.frontend == "vision_patches" and cfg.frontend_seq == 8
+    jmodel = jbuild_model(jcfg)
+    jparams = jinit_params(jmodel.param_specs(), jax.random.key(12))
+    model = build_model(cfg, device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, 128, (2, 12)).astype(np.int32)
+    # at the token embeddings' scale (init 0.02): the rows they replace
+    patches = (0.02 * rng.standard_normal((2, 8, 64))).astype(np.float32)
+    jpol, tpol = POLICIES[policy]
+    with jdispatch.use(prefer=jpol):
+        jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens),
+                                          "patch_embeds": jnp.asarray(patches)})
+    with dispatch.use(prefer=tpol):
+        tl, tc = model.prefill(params, {"tokens": torch.tensor(tokens),
+                                        "patch_embeds": torch.tensor(patches)})
+        plain, _ = model.prefill(params, {"tokens": torch.tensor(tokens)})
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL[policy])
+    np.testing.assert_allclose(_np(tc["k"]), _np(jc["segments"][0]["0"]["k"]), **TOL[policy])
+    assert not torch.equal(tl, plain)

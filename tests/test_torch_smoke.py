@@ -166,7 +166,8 @@ def test_model_phase_runs_the_engine_calls_on_a_small_model():
 def _counting_registry(*, with_others: bool = False) -> KernelRegistry:
     """A registry whose cuda source for each op is the kernel's plain
     version counted as a launch of its module, as the wrapper counts one (a
-    matmul TMA cannot take counted as the edge kernel's); ``with_others``
+    matmul TMA cannot take counted as the edge kernel's, one of f32 inputs
+    as the f32 kernel's); ``with_others``
     keeps the global registry's torch and reference sources beside them."""
     from repro_torch.core.registry import GLOBAL_REGISTRY
 
@@ -182,7 +183,9 @@ def _counting_registry(*, with_others: bool = False) -> KernelRegistry:
                             paged_k.plain_paged_decode_attention),
                            (ssd_k, "ssd", ssd_k.plain_ssd)):
         def counted(*args, _mod=mod, _plain=plain, **kwargs):
-            if _mod is mm_k and not mm_k.tma_ready(*args[:2]):
+            if _mod is mm_k and args[0].dtype == torch.float32:
+                mm_k.f32_launches += 1
+            elif _mod is mm_k and not mm_k.tma_ready(*args[:2]):
                 mm_k.edge_launches += 1
             else:
                 _mod.launches += 1
@@ -1069,3 +1072,48 @@ def test_prefix_phase_shares_and_streams_equal_on_a_small_model(monkeypatch):
     assert {("flash_attention", 32, 64, cfg.num_kv_heads, cfg.head_dim),
             ("flash_attention", 64, 64, cfg.num_kv_heads, cfg.head_dim)} <= shapes
     assert not {k for k in runs["greedy_off"]["kernel_shapes"] if tuple(k)[1:3] == (32, 64)}
+
+
+@pytest.mark.parametrize("arch,policy", [("llama4-maverick-400b-a17b", "cuda-strict"),
+                                         ("deepseek-v3-671b", "cuda")])
+def test_moe_phase_serves_its_runs_equal_on_a_small_model(monkeypatch, arch, policy):
+    """The moe phase on a reduced llama4-maverick (a (moe, dense) unit) and
+    deepseek-v3 (a dense layer, then MoE; MLA): the model calls against the
+    torch source with their launch counts (MLA's decode wo on the f32
+    kernel) and the dispatch trace (only ``mla_decode_attention`` off the
+    kernels, and only for MLA), every kernel held against its plain version
+    on the calls' data, then the runs, streams equal per MOE_EQUAL (paged
+    for GQA only), each run's launches equal to its calls'.  Prompts of 5
+    to 120 tokens (the phase's are 5 to 600)."""
+    cfg = reduced(ARCHS[arch], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 128, (5 + 115 * i // 7,), generator=gen).tolist()
+               for i in range(8)]
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.moe_phase(torch, model, params, policy, kernels, 0, "cpu", "no card",
+                           full_layers=ARCHS[arch].num_layers, prompts=prompts)
+    calls, runs = res["calls"], res["runs"]
+    mla = cfg.mla is not None
+    assert calls["off_the_kernels"] == ({"mla_decode_attention": ["torch"]} if mla else {})
+    held = calls["kernels_held_against_plain"]
+    assert held["matmul"] > 0 and held["rmsnorm"] > 0 and held["flash_attention"] > 0
+    assert ("decode_attention" in held) != mla and ("paged_decode_attention" in held) != mla
+    L, fix = 2, len(calls["fixup"]["rel_l2"])
+    want = cs.moe_launches(model, prefills=8, fixups=fix, decodes=cs.MOE_DECODE_STEPS)
+    if mla:
+        assert calls["launches"]["matmul_f32"] == L * (fix + cs.MOE_DECODE_STEPS)
+        assert want["decode_attention"] == 0 and want["rmsnorm"] == (4 * L + 1) * (8 + fix + 3)
+    else:
+        assert calls["paged_equal_dense_bitwise"]
+    assert list(runs) == [n for n, kw in cs.MOE_RUNS if not (mla and kw.get("paged"))]
+    for run in runs.values():
+        assert run["requests"] == 8 and run["new_tokens_each"] == cs.MOE_NEW_TOKENS
+        assert run["launches"]["matmul"] > 0
+    assert runs["dense_loop"]["graphed"] is False
+    assert res["summary"]["weights_bytes"] == cs.weight_bytes(params)
+    assert res["summary"]["streams_equal"]["t0.7_k4"] == "8 of 8 equal t0.7_k1"
+    assert cs.MOE_LENGTHS == (5, 90, 175, 260, 345, 430, 515, 600)
