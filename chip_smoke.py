@@ -5,9 +5,11 @@
 
 Serves ``llama3.2-1b``, ``mamba2-780m``, ``yi-6b``, ``granite-3-8b`` and
 ``yi-9b`` (heads of 128, untied unembeds; granite's over 49155 tokens) at
-full width and depth, and the Mixture-of-Experts ``llama4-maverick`` and
+full width and depth, the Mixture-of-Experts ``llama4-maverick`` and
 ``deepseek-v3`` (MLA) at full width with their depth cut to fit one card,
-with weights drawn from ``--seed`` on the card,
+and the hybrid ``hymba-1.5b`` (attention and Mamba-2 heads, a sliding
+window) and the encoder-decoder ``whisper-large-v3`` at full width and
+depth, with weights drawn from ``--seed`` on the card,
 through the port's own entry points under the ``cuda-strict`` policy, so
 every op on the path runs a hand-written kernel; serves llama3.2-1b
 through faults, silent corruption and shared prompt prefixes, and yi-9b
@@ -17,7 +19,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
    ``src/repro_torch/csrc`` (seven sources, twelve kernels; flash attention
-   three instances, <64,64>, <128,128> and <192,128>) and print what
+   four instances, <64,64>, <128,128>, <192,128> and <256,128>) and print what
    ptxas reports for each, and the wgmma (HGMMA) and TMA (UTMALDG)
    instructions in each bf16 matmul kernel and each flash attention
    instance, wgmma in the f32 (3xTF32) kernel, and mma.sync (HMMA) in the
@@ -209,6 +211,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    K 1 and 4: streams equal 8 of 8, launches checked against the calls; the
    depth cut, weights' bytes, peak memory, TTFT and decode tokens/s beside
    the weights' bound.
+15. families: hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64 under
+   a 1024-token window beside 50 Mamba-2 heads of 64 with state 16, vocab
+   32001) and whisper-large-v3 (32 encoder and 32 decoder layers, d_model
+   1280, 20 heads of 64, vocab 51866) at full width and depth, each from
+   ``--seed`` and freed before the next.  Hymba: 8 prompts of 5 to 1400
+   tokens (three past the window, the ring engaged at prefill; 1000 crossing
+   it in decode) into 2048-row slots (a 1024-row ring): prefills and 3
+   batched decode steps under cuda-strict against the ``torch`` source
+   (launches counted, every kernel held against its plain version on the
+   calls' data, ssd's state too), paged and chunked serving refused, then
+   the 8 prompts (32 new tokens) dense 8 slots as a graph and as the loop,
+   K = 4, T = 0.7 at K 1 and 4, streams equal 8 of 8; weights, peak memory,
+   TTFT, decode tokens/s beside the step's bound, a traced step.  Whisper: 8
+   sets of 1500 frames and a 4-token prompt, prefill into a 448-row cache
+   and 3 decode steps against the ``torch`` source as for hymba, the
+   engine's refusal, then 64 greedy tokens twice (equal), the encoder's and
+   the decoder's prefill seconds, decode tokens/s beside the step's bound, a
+   traced step.  Every shape the phase gave a kernel must have a kernel-phase
+   row (checked at the summary); the kernel phase holds the kernels at those
+   shapes beside planted faults, and the inputs only the wrappers route
+   (widths off a multiple of 16, values past 128, queries and keys to 256,
+   query groups past 16, rmsnorm in fp8, conv2d's input in slabs).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -251,10 +275,11 @@ SAMPLE_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
 # vocabulary, Mamba-2's step of 8, and the first token of each, one slot);
 # then yi's and granite's vocabularies (granite's not a multiple of the
 # block's) at the full-depth and overcommit phases' sampled runs: a first
-# token, decode steps of 8 and of 16 slots
+# token, decode steps of 8 and of 16 slots; llama4-maverick's and
+# deepseek-v3's, and hymba's (32001), a first token and a step of 8
 SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155),
                  (1, 49155), (16, 49155), (1, 64000), (8, 64000), (16, 64000),
-                 (1, 202048), (8, 202048), (1, 129280), (8, 129280))
+                 (1, 202048), (8, 202048), (1, 129280), (8, 129280), (1, 32001), (8, 32001))
 # the sampler against its plain version: the random bits exactly (and a
 # numpy Threefry's), the token wherever the two best scores lie more than
 # this many ulps apart (the kernel's logf and PyTorch's may part by an ulp)
@@ -587,6 +612,15 @@ def ssd_kernel_work(S: int, B: int = 1, H: int = 48, P: int = 64, N: int = 128,
     return B * H * flops
 
 
+def exact_matmul(torch, x, w, activation=None):
+    """The f32 matmul's function on f32 operands at f64 precision, cast to
+    f32: the exact product that the kernel and torch's f32 product (the
+    plain version) each approximate."""
+    from repro_torch.kernels.ref import epilogue
+
+    return epilogue(torch.matmul(x.double(), w.double()), activation).float()
+
+
 def role_err(torch, got, want, fault, tol) -> dict:
     """Hold a paper-role kernel (conv2d, the f32 matmul) to its plain version:
     equal for integer outputs, within ``tol`` (atol, rtol) for f32.  ``fault``
@@ -725,7 +759,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
           f"(CUDA events)")
 
     def record(name, shape, check, sets, kernel, plain, library, bytes_, flops, peak,
-               previous=None, f32_rate_flops=None, instance=None):
+               previous=None, f32_rate_flops=None, instance=None, served_key=None):
         # the worst errors of a kernel's rows, one group for each tolerance
         # (a kernel's types differ in tolerance: int16 conv exact, f32 not)
         tol = check["tolerance"]
@@ -742,7 +776,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                 worst[key] = True
         # a matmul row names the CUDA kernel instance it ran
         row = {"name": name, "shape": shape, **({"instance": instance} if instance else {}),
-               **check}
+               **({"served_key": list(served_key)} if served_key else {}), **check}
         if sets is not None:
             row["ms"], row["host_ms"] = time_ms(torch, kernel, sets)
             row["plain_ms"] = time_ms(torch, plain, sets)[0]
@@ -1243,7 +1277,13 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                   # (2 of 68x68x8 f32, 2 of 90x90x8 int16); untimed (the plain
                   # version walks 4624 and 8100 taps)
                   ((1, 80, 140, 1), (68, 68, 1, 8), torch.float32),
-                  ((1, 100, 160, 1), (90, 90, 1, 8), torch.int16)]
+                  ((1, 100, 160, 1), (90, 90, 1, 8), torch.int16),
+                  # filters so tall that the ring's input rows alone pass
+                  # 227 KB (200x200 f32: 454 KB): the input rows staged with
+                  # each filter slab (2 and 3 slabs), two tiles down and
+                  # across
+                  ((2, 220, 270, 1), (200, 200, 1, 1), torch.float32),
+                  ((2, 260, 310, 1), (240, 240, 1, 2), torch.int16)]
     for xs, wsh, dt in conv_cases:
         (B, H, W, Cin), (kh, kw, _, nf) = xs, wsh
         bytes_, ops = conv_work(B, H, W, Cin, kh, kw, nf, 2 if dt == torch.int16 else 4)
@@ -1271,7 +1311,11 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         if dt == torch.float32:  # the F.conv2d yardstick's precision, as it ran
             check["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
         if kh * kw > 64:
-            check["filter_slabs"] = -(-kh // conv_k.filter_rows(kh, kw, nf, x.element_size()))
+            rows_a_slab = conv_k.filter_rows(kh, kw, nf, x.element_size())
+            if rows_a_slab == 0:      # the input rows in slabs too
+                rows_a_slab = conv_k.slab_rows(kh, kw, nf, x.element_size())
+                check["input_slabs"] = True
+            check["filter_slabs"] = -(-kh // rows_a_slab)
             sets = None
         record("conv2d", f"x[{B},{H},{W},{Cin}] w[{kh},{kw},{Cin},{nf}] {str(dt)[6:]}", check,
                sets, lambda x, w, xn, wn: conv_k.conv2d(x, w),
@@ -1287,6 +1331,11 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # values 16..31 dropped).  Library time: torch.matmul in f32 with TF32
     # off.  Bound: three TF32 products at the TF32 rate, the f32 rate's
     # beside it.
+    # The yardstick is the exact product (f64, cast to f32): at K = 2048 on
+    # these O(1) operands torch's f32 product, the plain version, misses it
+    # by more than the kernel does, past the 2e-4 limit at outputs near zero
+    # on some draws (each row reads the plain version's miss beside the
+    # kernel's, ``plain_max_abs_err_vs_exact``)
     for M in (256, 2048):
         per_set = 4 * 3 * M * M
         sets = [(torch.randn((M, M), generator=gen, device=dev),
@@ -1295,9 +1344,11 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         xf = x.clone()
         xf[:, 16:32] = 0
         for act in ((None, "silu", "gelu") if M == 256 else (None,)):
-            check = role_err(torch, mm_k.matmul(x, w, activation=act),
-                             mm_k.plain_matmul(x, w, activation=act),
+            want = exact_matmul(torch, x, w, act)
+            check = role_err(torch, mm_k.matmul(x, w, activation=act), want,
                              mm_k.plain_matmul(xf, w, activation=act), TOL_ROLE_F32)
+            check["plain_max_abs_err_vs_exact"] = float(
+                (mm_k.plain_matmul(x, w, activation=act) - want).abs().max())
             record("matmul_f32", f"[{M},{M}]x[{M},{M}] act={act} f32", check,
                    sets if act is None else None,
                    lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
@@ -1309,7 +1360,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
         got = fixed(x)
         if not torch.equal(got, mm_k.matmul(x, w)):
             raise AssertionError(f"matmul_fixed_weight differs from matmul at {M}")
-        check = role_err(torch, got, mm_k.plain_matmul(x, w), mm_k.plain_matmul(xf, w),
+        check = role_err(torch, got, exact_matmul(torch, x, w), mm_k.plain_matmul(xf, w),
                          TOL_ROLE_F32)
         check["bitwise_equal_generic_kernel"] = True
         wf = fixed.weight
@@ -1359,7 +1410,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    lambda a, b: torch.matmul(a, b),
                    2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
                    previous=lambda a, b: mm_k.matmul_edge(a, b, kernel=0, out_dtype=f32),
-                   instance=mm_k.kernel_instance(x, w))
+                   instance=mm_k.kernel_instance(x, w),
+                   served_key=call_key("matmul", (x, w), {"out_dtype": f32}))
             if M == 8:
                 check = matmul_err(torch, mm_k.matmul(x, w, activation="silu"),
                                    mm_k.plain_matmul(x, w, activation="silu"),
@@ -1391,7 +1443,293 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     del x, w
     edge_instance_rows(torch, mm_k, gen, record)
     sample_rows(torch, gen, record)
+    family_rows(torch, gen, record)
+    width_rows(torch, gen, record)
     return rows, errs
+
+
+def family_rows(torch, gen, record) -> None:
+    """The kernels at every shape the families phase gives them, each
+    against its plain version beside its planted fault and keyed by the
+    call's shape (``served_key``, :func:`call_key`) for the summary's check:
+    hymba-1.5b at its 8 prompts' lengths (5 .. 1400 rows) and decode steps
+    of 8 slots (the bf16 matmuls, its in_proj [*,1600]x[1600,6482] on the
+    edge kernels, rmsnorm at 1600 and the SSM block's 3200, flash attention
+    under the 1024-key window, 25/5 heads of 64, decode attention over the
+    1024-row ring, ssd at 50 heads of 64 with state 16), and
+    whisper-large-v3's encoder over 8 x 1500 frames (12000 rows), its
+    4-token prompt over them (32 rows; flash attention causal over 4 rows,
+    non-causal over 1500) and decode steps of 8 (decode attention over 448
+    self-attention rows and across to the 1500 memory rows, group 1).
+    Timed beside the plain version, the library call and the bound: the
+    decode steps' rows and the longest prefill's, the edge kernel's
+    prefill rows (M > 16) beside ``torch.matmul``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd as ssd_k
+    from repro_torch.models.model import cache_rows
+
+    dev = torch.device("cuda")
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    hymba, whisper = get_arch("hymba-1.5b"), get_arch("whisper-large-v3")
+    enc_rows = WHISPER_BATCH * whisper.frontend_seq
+    # (config, weight (K, N) pairs, row counts, the row counts timed)
+    mm_cases = ((hymba, hybrid_kn(hymba), (8, *HYMBA_LENGTHS), (8, HYMBA_LENGTHS[-1])),
+                (whisper, weight_kn(whisper), (8, WHISPER_BATCH * WHISPER_PROMPT, enc_rows),
+                 (8, enc_rows)))
+    for cfg, kn, row_counts, timed_rows in mm_cases:
+        for K, N in sorted(set(kn)):
+            edge = bool(K % 8 or N % 8)
+            for M in row_counts:
+                timed = M in timed_rows or (edge and M > mm_k.STREAM_MAX_M)
+                sets = [(randn((M, K)), randn((K, N), K ** -0.5))
+                        for _ in range(n_sets(2 * (M * K + K * N)) if timed else 1)]
+                x, w = sets[0]
+                for act in ((None, "silu") if N == cfg.d_ff else (None,)):
+                    check = matmul_err(torch, mm_k.matmul(x, w, activation=act),
+                                       mm_k.plain_matmul(x, w, activation=act),
+                                       mm_k.matmul(drop_last_k_tile(x), w, activation=act),
+                                       TOL_BF16)
+                    record("matmul_edge" if edge else "matmul",
+                           f"[{M},{K}]x[{K},{N}] act={act} out=bfloat16", check,
+                           sets if timed and act is None else None,
+                           lambda a, b, act=act: mm_k.matmul(a, b, activation=act),
+                           lambda a, b, act=act: mm_k.plain_matmul(a, b, activation=act),
+                           lambda a, b: torch.matmul(a, b),
+                           2 * (M * K + K * N + M * N), 2 * M * N * K, BF16_TC_FLOPS,
+                           instance=mm_k.kernel_instance(x, w),
+                           served_key=call_key("matmul", (x, w), {"activation": act}))
+                del sets, x, w
+
+    # rmsnorm: hymba's d_model and the SSM block's gated norm over d_inner at
+    # its rows, whisper's d_model at its
+    norm_cases = [(R, D) for D in (hymba.d_model, hymba.ssm.d_inner(hymba.d_model))
+                  for R in (8, *HYMBA_LENGTHS)]
+    norm_cases += [(R, whisper.d_model) for R in (8, WHISPER_BATCH * WHISPER_PROMPT, enc_rows)]
+    for R, D in norm_cases:
+        timed = R in (8, HYMBA_LENGTHS[-1], enc_rows)
+        sets = [(randn((R, D)), randn((D,))) for _ in range(n_sets(4 * R * D) if timed else 1)]
+        check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]), TOL_BF16)
+        record("rmsnorm", f"[{R},{D}]", check, sets if timed else None, rms_k.rmsnorm,
+               rms_k.plain_rmsnorm, lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+               2 * (2 * R * D + D), 4 * R * D, F32_FLOPS,
+               served_key=call_key("rmsnorm", sets[0], {}))
+        del sets
+
+    # flash attention: hymba's windowed prefill at every prompt length;
+    # whisper's encoder (1500 x 1500, non-causal), its prompt's causal self-
+    # attention (4 x 4) and its cross-attention (4 over 1500).  The planted
+    # fault drops keys 64..127 in the rows that see them all.
+    D, win = hymba.head_dim, hymba.attn_window
+    flash_cases = [(1, hymba.num_heads, hymba.num_kv_heads, S, S, True, win,
+                    S in (HYMBA_LENGTHS[-1], 1000)) for S in HYMBA_LENGTHS]
+    Hw, B, S4, Tm = whisper.num_heads, WHISPER_BATCH, WHISPER_PROMPT, whisper.frontend_seq
+    flash_cases += [(B, Hw, Hw, Tm, Tm, False, None, True), (B, Hw, Hw, S4, S4, True, None, True),
+                    (B, Hw, Hw, S4, Tm, False, None, True)]
+    for B_, Hq, Hkv, S, T, causal, window, timed in flash_cases:
+        per_set = 2 * B_ * (2 * Hq * S * D + 2 * Hkv * T * D)
+        sound, dropped = flash_masks(torch, S, T, causal, dev, window)
+        mask = sound if window else None
+        sets = []
+        for _ in range(n_sets(per_set) if timed else 1):
+            q, k, v = randn((B_, Hq, S, D)), randn((B_, Hkv, T, D)), randn((B_, Hkv, T, D))
+            sets.append((q, k, v, k.repeat_interleave(Hq // Hkv, 1),
+                         v.repeat_interleave(Hq // Hkv, 1), mask))
+        q, k, v = sets[0][:3]
+        kw = dict(causal=causal, window=window)
+        check = attention_err(torch, fa_k.flash_attention(q, k, v, **kw),
+                              fa_k.plain_flash_attention(q, k, v, **kw),
+                              masked_attention(torch, q, k, v, sound & ~dropped),
+                              dropped.sum(dim=-1) == 64)
+        check["splits"] = fa_k.split_kv(B_, Hq, S, T, causal, window, D)
+        record("flash_attention", f"q[{B_},{Hq},{S},{D}] kv[{B_},{Hkv},{T},{D}] causal={causal}"
+               + (f" window={window}" if window else ""), check, sets if timed else None,
+               lambda q, k, v, ke, ve, m, kw=kw: fa_k.flash_attention(q, k, v, **kw),
+               lambda q, k, v, ke, ve, m, kw=kw: fa_k.plain_flash_attention(q, k, v, **kw),
+               lambda q, k, v, ke, ve, m, c=causal and S == T and not window:
+                   F.scaled_dot_product_attention(q, ke, ve, attn_mask=m, is_causal=c),
+               per_set, 4 * B_ * Hq * D * int(sound.sum()), BF16_TC_FLOPS,
+               instance=f"fa_kernel<{fa_k.instance(D)},{fa_k.instance(D)}>",
+               served_key=call_key("flash_attention", (q, k, v), kw))
+        del sets, q, k, v
+
+    # decode attention: hymba's step over the ring (lengths of the run's
+    # prompts a step in, those past the window at its 1024 rows), whisper's
+    # self-attention (448 rows, all 8 sequences at the run's mean position)
+    # and its cross-attention (group 1 over the 1500 memory rows, a scalar
+    # length, as the model passes it)
+    ring = cache_rows(hymba, HYMBA_MAX_LEN)
+    mid = WHISPER_PROMPT + WHISPER_NEW_TOKENS // 2
+    dec_cases = [(hymba.num_heads, hymba.num_kv_heads, ring,
+                  [min(n + 1, ring) for n in HYMBA_LENGTHS]),
+                 (Hw, Hw, WHISPER_CACHE_LEN, [mid] * WHISPER_BATCH),
+                 (Hw, Hw, whisper.frontend_seq, whisper.frontend_seq)]
+    for Hq, Hkv, T, length in dec_cases:
+        lengths = torch.tensor(length if isinstance(length, list) else [length] * WHISPER_BATCH,
+                               dtype=torch.int32, device=dev)
+        B_ = lengths.numel()
+        valid, dropped = decode_masks(torch, lengths, T)
+        sets = []
+        for _ in range(n_sets(2 * 2 * B_ * Hkv * T * D)):
+            q, kc, vc = randn((B_, Hq, D)), randn((B_, Hkv, T, D)), randn((B_, Hkv, T, D))
+            sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(Hq // Hkv, 1),
+                         vc.repeat_interleave(Hq // Hkv, 1)))
+        q, kc, vc = sets[0][:3]
+        fault = masked_attention(torch, q[:, :, None], kc, vc, (valid & ~dropped)[:, None, None])
+        check = attention_err(torch, dec_k.decode_attention(q, kc, vc, length),
+                              dec_k.plain_decode_attention(q, kc, vc, lengths), fault[:, :, 0],
+                              dropped.any(dim=-1)[:, None])
+        check["splits"] = dec_k.last_splits
+        n_keys = int(lengths.sum())
+        shape = (f"q[{B_},{Hq},{D}] cache[{B_},{Hkv},{T},{D}] " + (
+            f"length {length}" if isinstance(length, int)
+            else f"lengths {int(lengths.min())}..{int(lengths.max())}"))
+        record("decode_attention", shape, check, sets,
+               lambda q, kc, vc, q4, ke, ve, n=length if isinstance(length, int) else lengths:
+                   dec_k.decode_attention(q, kc, vc, n),
+               lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.plain_decode_attention(q, kc, vc, n),
+               lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
+                   q4, ke, ve, attn_mask=m[:, None, None, :]),
+               2 * (2 * B_ * Hq * D + 2 * Hkv * n_keys * D), 4 * Hq * D * n_keys, BF16_TC_FLOPS,
+               instance=f"dec_kernel<{D},DenseRows>",
+               served_key=call_key("decode_attention", (q, kc), {}))
+        del sets, q, kc, vc, fault
+
+    # ssd at hymba's SSM heads: 50 of 64, state 16, one group, every prompt
+    # length; timed at 5, 500 and 1400
+    s = hymba.ssm
+    H, P, N = s.num_heads(hymba.d_model), s.head_dim, s.state_dim
+    for S in HYMBA_LENGTHS:
+        timed = S in (5, 500, HYMBA_LENGTHS[-1])
+        bytes_, flops = ssd_work(S, H=H, P=P, N=N)
+        sets = [ssd_inputs(torch, S, gen, dev, H=H, P=P, N=N)
+                for _ in range(n_sets(bytes_) if timed else 1)]
+        args = sets[0]
+        check = ssd_err(torch, ssd_k.ssd(*args, return_state=True),
+                        ssd_k.plain_ssd(*args, return_state=True),
+                        ssd_fault(torch, ssd_k.plain_ssd, *args, ssd_k.CHUNK))
+        check["kernel_flops"] = ssd_kernel_work(S, H=H, P=P, N=N, q=ssd_k.CHUNK)
+        record("ssd", f"x[1,{S},{H},{P}] b,c[1,{S},1,{N}]", check, sets if timed else None,
+               lambda *a: ssd_k.ssd(*a, return_state=True),
+               lambda *a: ssd_k.plain_ssd(*a, return_state=True), None,
+               bytes_, 3 * flops, TF32_TC_FLOPS, f32_rate_flops=flops, instance="ssd_kernel",
+               served_key=call_key("ssd", args, {}))
+        del sets, args
+
+
+def width_rows(torch, gen, record) -> None:
+    """The inputs the Pallas kernels take that the CUDA kernels alone do not,
+    which the wrappers route (no served config reaches them), each against
+    its plain version beside its planted fault: flash attention at head
+    dims 40 and 100 (zero-padded to 48 and 112), queries and keys of 208
+    and 256 (the <256,128> instance), values of 200 (two 128-wide column
+    blocks, a launch each); decode and paged attention at head dim 40 and
+    at a query group of 20 (sub-groups of 16 and 4, a launch each); rmsnorm
+    in fp8 (the f32 instance, cast).  Timed: flash at <256,128> and decode
+    at the group of 20, beside SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import paged_decode_attention as paged_k
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels.ref import gather_kv_pages
+
+    dev = torch.device("cuda")
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    S = T = 512
+    for dqk, dv, causal in ((40, 40, True), (100, 100, False), (208, 208, True),
+                            (256, 128, True), (64, 200, True)):
+        timed = (dqk, dv) == (256, 128)
+        per_set = 2 * (8 * S * dqk + 2 * T * dqk + 2 * T * dv + 8 * S * dv)
+        sound, dropped = flash_masks(torch, S, T, causal, dev)
+        sets = []
+        for _ in range(n_sets(per_set) if timed else 1):
+            q, k, v = randn((1, 8, S, dqk)), randn((1, 2, T, dqk)), randn((1, 2, T, dv))
+            sets.append((q, k, v, k.repeat_interleave(4, 1), v.repeat_interleave(4, 1)))
+        q, k, v = sets[0][:3]
+        before = fa_k.launches
+        got = fa_k.flash_attention(q, k, v, causal=causal)
+        check = attention_err(torch, got, fa_k.plain_flash_attention(q, k, v, causal=causal),
+                              masked_attention(torch, q, k, v, sound & ~dropped),
+                              dropped.sum(dim=-1) == 64)
+        check["launches"] = fa_k.launches - before
+        pd, pv = fa_k.padded_width(dqk), fa_k.padded_width(dv)
+        record("flash_attention", f"q[1,8,{S},{dqk}] k[1,2,{T},{dqk}] v[1,2,{T},{dv}] "
+               f"causal={causal}", check, sets if timed else None,
+               lambda q, k, v, ke, ve, c=causal: fa_k.flash_attention(q, k, v, causal=c),
+               lambda q, k, v, ke, ve, c=causal: fa_k.plain_flash_attention(q, k, v, causal=c),
+               lambda q, k, v, ke, ve, c=causal: F.scaled_dot_product_attention(
+                   q, ke, ve, is_causal=c),
+               per_set, 2 * 8 * (dqk + dv) * int(sound.sum()), BF16_TC_FLOPS,
+               instance="fa_kernel<{},{}>".format(*fa_k.kernel_instance(pd, min(pv, 128))))
+        del sets, q, k, v, got
+    lengths = torch.tensor([1, 1024, 5, 600, 37, 256, 900, 64], dtype=torch.int32, device=dev)
+    for D, Hq, Hkv in ((40, 32, 8), (64, 40, 2)):
+        timed = Hq // Hkv > dec_k.MAX_GROUP
+        valid, dropped = decode_masks(torch, lengths, 1024)
+        sets = []
+        for _ in range(n_sets(2 * 2 * 8 * Hkv * 1024 * D) if timed else 1):
+            q, kc, vc = randn((8, Hq, D)), randn((8, Hkv, 1024, D)), randn((8, Hkv, 1024, D))
+            sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(Hq // Hkv, 1),
+                         vc.repeat_interleave(Hq // Hkv, 1)))
+        q, kc, vc = sets[0][:3]
+        fault = masked_attention(torch, q[:, :, None], kc, vc, (valid & ~dropped)[:, None, None])
+        before = dec_k.launches
+        got = dec_k.decode_attention(q, kc, vc, lengths)
+        check = attention_err(torch, got, dec_k.plain_decode_attention(q, kc, vc, lengths),
+                              fault[:, :, 0], dropped.any(dim=-1)[:, None])
+        check["launches"] = dec_k.launches - before
+        n_keys = int(lengths.sum())
+        record("decode_attention", f"q[8,{Hq},{D}] cache[8,{Hkv},1024,{D}] lengths 1..1024", check,
+               sets if timed else None,
+               lambda q, kc, vc, q4, ke, ve: dec_k.decode_attention(q, kc, vc, lengths),
+               lambda q, kc, vc, q4, ke, ve: dec_k.plain_decode_attention(q, kc, vc, lengths),
+               lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
+                   q4, ke, ve, attn_mask=m[:, None, None, :]),
+               2 * (2 * 8 * Hq * D + 2 * Hkv * n_keys * D), 4 * Hq * D * n_keys, BF16_TC_FLOPS,
+               instance=f"dec_kernel<{fa_k.padded_width(D)},DenseRows>")
+        # paged: the same rows through a shuffled table of 16-row pages,
+        # bitwise the dense kernel on the gathered cache
+        P = 8 * 64 + 1
+        kp, vp = randn((P, Hkv, 16, D)), randn((P, Hkv, 16, D))
+        table = (torch.randperm(P - 1, generator=gen, device=dev)[:8 * 64] + 1).reshape(8, 64)
+        table = table.to(torch.int32)
+        faulted, touched = remap_one_page(table, lengths, 16)
+        got = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
+        check = attention_err(torch, got,
+                              paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths),
+                              paged_k.plain_paged_decode_attention(q, kp, vp, faulted, lengths),
+                              touched[:, None])
+        if not torch.equal(got, dec_k.decode_attention(q, gather_kv_pages(kp, table),
+                                                       gather_kv_pages(vp, table), lengths)):
+            raise AssertionError(f"paged kernel differs from the dense kernel on the gathered "
+                                 f"cache at D {D}, {Hq}/{Hkv} heads")
+        check["bitwise_equal_dense_kernel"] = True
+        record("paged_decode_attention", f"q[8,{Hq},{D}] pool[{P},{Hkv},16,{D}] table[8,64] "
+               f"lengths {lengths.tolist()}", check, None, None, None, None, 0, 0, BF16_TC_FLOPS,
+               instance=f"dec_kernel<{fa_k.padded_width(D)},PagedRows>")
+        del sets, q, kc, vc, fault, kp, vp, got
+    for dtype, step in ((torch.float8_e4m3fn, 2.0 ** -3), (torch.float8_e5m2, 2.0 ** -2)):
+        x = torch.randn((8, 2048), generator=gen, device=dev).to(dtype)
+        w = (1 + torch.rand((2048,), generator=gen, device=dev)).to(dtype)
+        got, want = rms_k.rmsnorm(x, w).float(), rms_k.plain_rmsnorm(x, w).float()
+        # one fp8 step: the f32 sums part by an ulp, which the rounding may carry
+        check = max_err(torch, got, want, (1e-6, step))
+        record("rmsnorm", f"[8,2048] {str(dtype)[6:]}", check, None, None, None, None, 0, 0,
+               F32_FLOPS)
+        del x, w, got, want
 
 
 def np_threefry(np, k0, k1, x0, x1):
@@ -1590,7 +1928,9 @@ def served_decode_splits(dec_k, prompt_lengths) -> dict[str, set[int]]:
     slots) and every first-token fixup (one sequence against its prompt's n
     rows); the paged kernel at 1024 and 512 rows."""
     fixups = set(prompt_lengths) | set(CALL_LENGTHS)
-    return {"decode_attention": {dec_k.split_kv(T) for T in (1024, 512, 256)}
+    # hymba's ring and whisper's self-attention and memory rows too
+    return {"decode_attention": {dec_k.split_kv(T) for T in (1024, 512, 256, WHISPER_CACHE_LEN,
+                                                             1500)}
             | {dec_k.split_kv(n) for n in fixups},
             "paged_decode_attention": {dec_k.split_kv(T) for T in (1024, 512)}}
 
@@ -2163,6 +2503,10 @@ def expected_launches(eng, cfg) -> dict[str, int]:
         return {"matmul": 2 * L * calls, "rmsnorm": (2 * L + 1) * calls, "flash_attention": 0,
                 "decode_attention": 0, "paged_decode_attention": 0,
                 "ssd": L * eng.prefill_calls, "sample": eng.sample_calls, "matmul_edge": 0}
+    if cfg.family == "hybrid":
+        return hybrid_launches(cfg, prefills=eng.prefill_calls,
+                               decodes=eng.fixup_calls + eng.decode_calls,
+                               samples=eng.sample_calls)
     if cfg.moe is not None:
         return moe_launches(eng.model, prefills=eng.prefill_calls + eng.chunk_calls,
                             fixups=eng.fixup_calls, decodes=eng.decode_calls,
@@ -2297,7 +2641,7 @@ def serve_run(torch, model, params, kernels, prompts, before_step=None, graphed=
            "kv_high_water_bytes": (eng.allocator.stats().high_water * eng.page_size
                                    * pool_token_bytes(eng._cache)) if eng.paged else None}
     chunk = engine_kw.get("prefill_chunk")
-    if (model.cfg.family != "ssm" and model.cfg.moe is None
+    if (model.cfg.family not in ("ssm", "hybrid") and model.cfg.moe is None
             and not isinstance(chunk, ChunkPolicy)):
         res["kernel_shapes"] = sorted(served_shapes(
             model.cfg, [len(p) for p in prompts], slots=eng.slots, max_len=eng.max_len,
@@ -2761,15 +3105,17 @@ class KernelChecks:
     """A registry whose hand-written kernels each run their plain version
     on the same inputs after every call and raise unless the two agree
     within the kernel phase's tolerances (the bf16 matmul 2e-2, f32 out
-    1e-3, f32 in 2e-4; rmsnorm 2e-2; attention rows 1e-2 relative L2): a
-    model call under it holds every kernel at every shape, on the data, the
-    call gives it.  The worst error at each (op, shape) is kept."""
+    1e-3, f32 in 2e-4; rmsnorm 2e-2; attention rows 1e-2 relative L2; ssd
+    rows 1e-2 and its state 1e-3 relative L2): a model call under it holds
+    every kernel at every shape, on the data, the call gives it.  The worst
+    error at each (op, shape) is kept."""
 
     PLAIN = {"matmul": ("matmul", "plain_matmul"), "rmsnorm": ("rmsnorm", "plain_rmsnorm"),
              "flash_attention": ("flash_attention", "plain_flash_attention"),
              "decode_attention": ("decode_attention", "plain_decode_attention"),
              "paged_decode_attention": ("paged_decode_attention",
-                                        "plain_paged_decode_attention")}
+                                        "plain_paged_decode_attention"),
+             "ssd": ("ssd", "plain_ssd")}
 
     def __init__(self, torch) -> None:
         self.torch = torch
@@ -2788,7 +3134,10 @@ class KernelChecks:
 
             def checked(*args, _kernel=impl.fn, _plain=plain, _op=op, **kwargs):
                 got = _kernel(*args, **kwargs)
-                self.check(_op, args, got, _plain(*args, **kwargs))
+                # ssd's chunk is the Pallas kernel's, which the kernel ignores:
+                # the plain version runs at the kernel's own chunk
+                plain_kw = {k: v for k, v in kwargs.items() if k != "chunk"}
+                self.check(_op, args, got, _plain(*args, **plain_kw))
                 return got
             reg.register(dataclasses.replace(impl, fn=checked), allow_override=True)
         return reg
@@ -2801,6 +3150,17 @@ class KernelChecks:
                    else TOL_F32 if got.dtype == torch.float32 else TOL_BF16)
             err = max_err(torch, got, want, tol)["max_abs_err"]
             key = f"{shapes} {str(args[0].dtype)[6:]} out={str(got.dtype)[6:]}"
+        elif op == "ssd":
+            (gy, gs), (wy, ws) = ((got, want) if isinstance(got, tuple)
+                                  else ((got, None), (want, None)))
+            err = float(row_rel_l2(torch, gy, wy).max())
+            state = float(row_rel_l2(torch, gs.flatten(2), ws.flatten(2)).max()) if gs is not None \
+                else 0.0
+            if (not torch.isfinite(gy.float()).all() or err > SSD_Y_REL_L2_TOL
+                    or state > SSD_STATE_REL_L2_TOL):
+                raise AssertionError(f"ssd at {shapes} disagrees with its plain version: y row "
+                                     f"rel L2 {err}, state rel L2 {state}")
+            key = shapes
         else:
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{op} at {shapes}: non-finite output")
@@ -2992,6 +3352,568 @@ def moe_phase(torch, model, params, policy: str, kernels, seed: int, card: str, 
           f"the weights' bound of {summary['decode_tokens_per_s_bound_8_slots']} tokens/s at 8 "
           f"slots ({summary['step_bound_ms']} ms a step); streams {equal}")
     return {"calls": calls, "runs": runs, "summary": summary, "busy": busy}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the last two families at full width and depth: hymba-1.5b
+# (attention and Mamba-2 heads in every layer, a 1024-token sliding window)
+# and whisper-large-v3 (an encoder-decoder)
+# ---------------------------------------------------------------------------
+
+#: hymba's 8 prompts: 1100, 1250 and 1400 tokens pass its window of 1024 (the
+#: ring engaged at prefill), 1000 crosses it in decode (32 new tokens), the
+#: rest stay inside; each slot 2048 rows long, a ring of 1024
+HYMBA_LENGTHS = (5, 200, 500, 800, 1000, 1100, 1250, 1400)
+HYMBA_MAX_LEN = 2048
+HYMBA_NEW_TOKENS = 32
+#: the runs of the 8 prompts, and run -> the run whose streams it must equal:
+#: graph against loop, K = 4 against K = 1, T = 0.7 at K = 4 against K = 1
+#: (paged and chunked serving refuse a ring cache, as in the JAX engine)
+HYMBA_RUNS = (("dense", {"batch_slots": 8}),
+              ("dense_loop", {"batch_slots": 8, "graphed": False}),
+              ("k4", {"batch_slots": 8, "decode_fusion": 4}),
+              ("t0.7_k1", {"batch_slots": 8, "temperature": 0.7, "seed": 3}),
+              ("t0.7_k4", {"batch_slots": 8, "temperature": 0.7, "seed": 3,
+                           "decode_fusion": 4}))
+HYMBA_EQUAL = {"dense_loop": "dense", "k4": "dense", "t0.7_k4": "t0.7_k1"}
+#: whisper: 8 frame sets of the config's 1500 frames (the conv frontend is a
+#: stub, as in the JAX package), a 4-token decoder prompt, the published
+#: 448-row decoder context, 64 greedy tokens
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_CACHE_LEN, WHISPER_NEW_TOKENS = 8, 4, 448, 64
+FAMILY_DECODE_STEPS = 3
+
+
+def hybrid_kn(cfg) -> list[tuple[int, int]]:
+    """The (K, N) of a hybrid layer's nine matmuls: wq, wk, wv, wo and the
+    MLP's three (:func:`weight_kn`), then the Mamba-2 block's in_proj (N =
+    2 d_inner + 2 G N + H: 6482 at hymba, not a multiple of 8) and
+    out_proj."""
+    s, d = cfg.ssm, cfg.d_model
+    d_in = s.d_inner(d)
+    return [*weight_kn(cfg), (d, 2 * d_in + 2 * s.num_groups * s.state_dim + s.num_heads(d)),
+            (d_in, d)]
+
+
+def hybrid_launches(cfg, *, prefills: int, decodes: int, samples: int = 0) -> dict[str, int]:
+    """Each kernel's launches implied by a hybrid model's calls (prefills
+    and decode steps; no fixups: a ring cache is not bucketed): every call
+    runs a layer's nine matmuls, those whose K or N is not a multiple of 8
+    on the edge kernel (hymba's in_proj), five norms a layer (ln1, the
+    attention and SSM heads' norms, ln2, the block's gated norm over
+    d_inner) and the final one, and the untied unembed (:func:`unembed_launches`);
+    a prefill runs flash attention and ssd in every layer, a decode step
+    decode attention over the ring."""
+    L, kn = cfg.num_layers, hybrid_kn(cfg)
+    edge = sum(1 for K, N in kn if K % 8 or N % 8)
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    calls = prefills + decodes
+    return {"matmul": ((len(kn) - edge) * L + bf16_unembed) * calls,
+            "rmsnorm": (5 * L + 1) * calls, "flash_attention": L * prefills,
+            "decode_attention": L * decodes, "paged_decode_attention": 0, "ssd": L * prefills,
+            "sample": samples, "matmul_edge": (edge * L + edge_unembed) * calls}
+
+
+def encdec_launches(cfg, *, prefills: int, decodes: int) -> dict[str, int]:
+    """Each kernel's launches implied by an encoder-decoder's calls: a
+    prefill runs each encoder layer's 7 matmuls, 2 norms and a non-causal
+    flash attention, the encoder's final norm, then each decoder layer's 11
+    matmuls (its attention's 4, the cross-attention's wq, wo and the
+    memory's wk, wv, the MLP's 3), 3 norms (ln1, lnx, ln2) and two flash
+    attentions (causal over its rows, non-causal over the memory); a decode
+    step each decoder layer's 9 matmuls (the memory's K/V are cached), 3
+    norms and two decode attentions (its rows, the memory); every call the
+    final norm and the unembed."""
+    Le, Ld = cfg.encoder_layers, cfg.num_layers
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    calls = prefills + decodes
+    return {"matmul": (7 * Le + 11 * Ld) * prefills + 9 * Ld * decodes + bf16_unembed * calls,
+            "rmsnorm": (2 * Le + 1 + 3 * Ld) * prefills + 3 * Ld * decodes + calls,
+            "flash_attention": (Le + 2 * Ld) * prefills, "decode_attention": 2 * Ld * decodes,
+            "paged_decode_attention": 0, "ssd": 0, "sample": 0,
+            "matmul_edge": edge_unembed * calls}
+
+
+def call_key(op: str, args, kwargs) -> tuple:
+    """The shape key of one kernel call (what a served shape is): the
+    matmul's rows M, K, N, types and epilogue; rmsnorm's rows, width and
+    type; flash attention's batch, heads, rows, widths, keys, mask; decode
+    attention's batch, heads, width and cache rows; ssd's (B, S, H, P, G,
+    N)."""
+    if op == "matmul":
+        x, w = args[:2]
+        out = kwargs.get("out_dtype") or x.dtype
+        return (op, math.prod(x.shape[:-1]), x.shape[-1], w.shape[1], str(x.dtype)[6:],
+                str(out)[6:], kwargs.get("activation"))
+    if op == "rmsnorm":
+        x = args[0]
+        return (op, math.prod(x.shape[:-1]), x.shape[-1], str(x.dtype)[6:])
+    if op == "flash_attention":
+        q, k, v = args[:3]
+        return (op, *q.shape, k.shape[1], k.shape[2], v.shape[3], kwargs.get("causal", True),
+                kwargs.get("window"))
+    if op == "decode_attention":
+        q, k = args[:2]
+        return (op, *q.shape, k.shape[1], k.shape[2])
+    if op == "ssd":
+        x, b = args[0], args[2]
+        return (op, *x.shape, b.shape[2], b.shape[3])
+    return (op,)
+
+
+class ShapeLog:
+    """A registry whose hand-written kernels record each call's
+    :func:`call_key` before they launch: the shapes a run gives the
+    kernels, which the kernel phase's rows must cover.  It wraps the active
+    dispatch registry's kernels (the global one's, unless a caller set
+    another)."""
+
+    OPS = ("matmul", "rmsnorm", "flash_attention", "decode_attention",
+           "paged_decode_attention", "ssd")
+
+    def __init__(self) -> None:
+        self.keys: set[tuple] = set()
+
+    def registry(self):
+        from repro_torch.core import dispatch
+        from repro_torch.core.registry import KernelRegistry
+
+        reg = KernelRegistry()
+        reg.restore(dispatch.current().registry.snapshot())
+        for op in self.OPS:
+            impl = reg.resolve(op, "cuda", ("cuda",))
+
+            def logged(*args, _kernel=impl.fn, _op=op, **kwargs):
+                self.keys.add(call_key(_op, args, kwargs))
+                return _kernel(*args, **kwargs)
+            reg.register(dataclasses.replace(impl, fn=logged), allow_override=True)
+        return reg
+
+
+def check_family_shapes(rows: list[dict], keys) -> dict:
+    """Raise unless every shape key the families phase's runs gave a kernel
+    has a kernel-phase row held against the plain version at it (a row's
+    ``served_key``); the count of shapes by kernel."""
+    served = {tuple(k) for k in keys}
+    ran = {tuple(r["served_key"]) for r in rows if "served_key" in r}
+    missing = sorted(served - ran, key=str)
+    if not served or missing:
+        raise AssertionError(f"shapes the families phase gave the kernels that no row held "
+                             f"against the plain version: {missing}")
+    counts: dict[str, int] = {}
+    for key in served:
+        counts[key[0]] = counts.get(key[0], 0) + 1
+    return counts
+
+
+def family_prompts(torch, vocab: int, seed: int, lengths=HYMBA_LENGTHS) -> list[list[int]]:
+    """Hymba's prompts (HYMBA_LENGTHS), drawn from ``seed``."""
+    rng = torch.Generator().manual_seed(seed + 5)
+    return [torch.randint(0, vocab, (n,), generator=rng).tolist() for n in lengths]
+
+
+def compare_logits(torch, cfg, got: dict, want: dict) -> dict:
+    """Each kind's logits rows against the torch source's: relative L2 and
+    argmax agreement; raises on a row that is not finite or of the wrong
+    width."""
+    res = {}
+    for kind in want:
+        rel, agree = [], 0
+        for ref, g in zip(want[kind], got[kind]):
+            ref, g = ref.float(), g.float()
+            if not torch.isfinite(g).all() or g.shape != (cfg.vocab_size,):
+                raise AssertionError(f"{cfg.name} {kind} logits of shape {tuple(g.shape)}, or "
+                                     f"not finite")
+            rel.append(float((g - ref).norm() / ref.norm()))
+            agree += int(g.argmax() == ref.argmax())
+        res[kind] = {"rel_l2": rel, "top1_agree": f"{agree} of {len(rel)}"}
+    return res
+
+
+def family_calls(torch, model, params, kernels, run_calls, want_launches, *,
+                 shape_log: ShapeLog) -> dict:
+    """``run_calls()`` (a dict of logits rows by kind) under the ``torch``
+    source, under cuda-strict (launches counted from 0, checked against
+    ``want_launches``, shapes logged), and under cuda-strict with every
+    kernel held against its plain version on the calls' data
+    (:class:`KernelChecks`); the cuda-strict logits within MODEL_REL_L2_TOL
+    of the torch source's, row by row."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import matmul as mm_k
+
+    cfg = model.cfg
+    checks = KernelChecks(torch)
+    out, launches = {}, {}
+    logged = shape_log.registry()
+    for arm in ("torch", "cuda-strict", "checked"):
+        for mod in kernels:
+            mod.launches = 0
+        mm_k.edge_launches = mm_k.f32_launches = 0
+        registry = (checks.registry() if arm == "checked" else
+                    logged if arm == "cuda-strict" else None)
+        with dispatch.use(prefer=dispatch.policy_from_flag(
+                "torch" if arm == "torch" else "cuda-strict"), registry=registry):
+            out[arm] = run_calls()
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        launches[arm] = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+        launches[arm]["matmul_edge"] = mm_k.edge_launches
+    if launches["cuda-strict"] != want_launches:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches['cuda-strict']} under "
+                             f"cuda-strict, expected {want_launches}")
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "tolerance_rel_l2": MODEL_REL_L2_TOL,
+           "launches": launches["cuda-strict"],
+           "kernels_held_against_plain": {op: len(v) for op, v in checks.worst.items()},
+           "kernel_worst_errors": checks.worst,
+           **compare_logits(torch, cfg, out["cuda-strict"], out["torch"])}
+    print("  " + json.dumps(res))
+    worst = max(max(res[kind]["rel_l2"]) for kind in out["torch"])
+    if worst > MODEL_REL_L2_TOL:
+        raise AssertionError(f"{cfg.name}: cuda-strict logits differ from the torch source's: "
+                             f"{res}")
+    return res
+
+
+def hymba_calls(torch, model, params, prompts, max_len: int, seed: int):
+    """The engine's calls for hymba's prompts, as a function of no
+    arguments: each prompt prefilled at its own length (no bucketing: a
+    ring keeps a prefill's last window rows) into a ``max_len`` slot (a
+    ring of min(max_len, window) rows), then FAMILY_DECODE_STEPS decode steps
+    of them as a batch at their own positions (the ring rows past the
+    window overwritten in place); the logits by kind."""
+    dev, cfg = model.device, model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    nexts = torch.randint(0, cfg.vocab_size, (len(prompts), FAMILY_DECODE_STEPS),
+                          generator=gen, device=dev)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+
+    def run() -> dict:
+        got: dict[str, list] = {"prefill": [], "decode": []}
+        caches = []
+        for tokens in prompts:
+            logits, cache = model.prefill(params, {"tokens": torch.tensor([tokens], device=dev)},
+                                          cache_len=max_len)
+            got["prefill"].append(logits[0])
+            caches.append(cache)
+        batch = {k: torch.cat([c[k] for c in caches], dim=1) for k in caches[0] if k != "pos"}
+        del caches
+        batch["pos"] = lengths.clone()
+        for step in range(FAMILY_DECODE_STEPS):
+            logits, batch = model.decode_step(params, nexts[:, step:step + 1], batch)
+            got["decode"] += list(logits)
+        return got
+    return run
+
+
+def whisper_inputs(torch, cfg, seed: int, dev, batch: int = WHISPER_BATCH,
+                   prompt: int = WHISPER_PROMPT):
+    """(tokens [B, prompt], frames [B, frontend_seq, d_model] f32), drawn on
+    ``dev`` from ``seed``: the frame embeddings stand for the conv
+    frontend's output, as in the JAX package."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    frames = torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen, device=dev)
+    return tokens, frames
+
+
+def whisper_calls(torch, model, params, tokens, frames, cache_len: int, seed: int):
+    """Whisper's calls as a function of no arguments: the prefill of the
+    decoder prompt over the frames into a ``cache_len`` cache, then
+    FAMILY_DECODE_STEPS decode steps at the batch's one position; the
+    logits by kind."""
+    gen = torch.Generator(device=tokens.device)
+    gen.manual_seed(seed + 13)
+    nexts = torch.randint(0, model.cfg.vocab_size, (tokens.shape[0], FAMILY_DECODE_STEPS),
+                          generator=gen, device=tokens.device)
+
+    def run() -> dict:
+        logits, cache = model.prefill(params, {"tokens": tokens, "frames": frames},
+                                      cache_len=cache_len)
+        got = {"prefill": list(logits), "decode": []}
+        for step in range(FAMILY_DECODE_STEPS):
+            logits, cache = model.decode_step(params, nexts[:, step:step + 1], cache)
+            got["decode"] += list(logits)
+        return got
+    return run
+
+
+def synced_s(torch, device, fn):
+    """(fn()'s result, its wall seconds, the card drained before and after)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def whisper_greedy(torch, model, params, tokens, frames, cache_len: int, new_tokens: int):
+    """Greedy decoding under cuda-strict: the encoder, the decoder's
+    prefill, then ``new_tokens`` decode steps of the batch, each feeding
+    back its argmax; the tokens [B, new_tokens] and the seconds of the
+    encoder, the decoder's prefill and the decode steps."""
+    from repro_torch.core import dispatch
+
+    dev = model.device
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        memory, enc_s = synced_s(torch, dev, lambda: model.encode(params, frames))
+        (logits, cache), dec_s = synced_s(torch, dev, lambda: model.decoder_prefill(
+            params, tokens, memory, cache_len=cache_len))
+        del memory
+
+        def loop():
+            nonlocal logits, cache
+            out = []
+            for _ in range(new_tokens):
+                tok = torch.argmax(logits, dim=-1)
+                out.append(tok)
+                logits, cache = model.decode_step(params, tok[:, None], cache)
+            return torch.stack(out, dim=1)
+        toks, loop_s = synced_s(torch, dev, loop)
+    return toks, {"encoder_s": enc_s, "decoder_prefill_s": dec_s, "decode_s": loop_s}
+
+
+def traced_call(torch, call, steps: int = 1) -> dict:
+    """Where ``call()``'s device time goes: a torch.profiler trace of CUDA
+    activity over ``steps`` calls, opened by marker kernels as busy_phase's
+    traces are; the device busy share of their wall time and the kernels
+    that take it (None where the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()                                    # warm, outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_OPENING_MARKERS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_OPENING_PAUSE_S)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+    busy = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    res = {"calls": steps, "wall_us": wall_us,
+           "device_busy_us": busy if events else None,
+           "device_busy_share": busy / wall_us if events else None,
+           "device_union_us": union_us(device_kernels(prof)) if events else None,
+           "top_device_us": {e.key[:60]: [e.self_device_time_total, e.count] for e in top}}
+    print("  " + json.dumps(res))
+    return res
+
+
+def hymba_phase(torch, model, params, kernels, seed: int, card: str, smi: str, *,
+                shape_log: ShapeLog, lengths=HYMBA_LENGTHS, max_len: int = HYMBA_MAX_LEN,
+                new_tokens: int = HYMBA_NEW_TOKENS) -> dict:
+    """Hymba at full width and depth, weights from ``seed``: its model calls
+    against the torch source (:func:`family_calls`), paged and chunked
+    serving refused as the JAX engine refuses them, then the prompts
+    through HYMBA_RUNS under cuda-strict, each run's launches checked
+    against its calls, streams equal per HYMBA_EQUAL (8 of 8); the weights'
+    bytes, peak memory, TTFT and the dense graph run's decode tokens/s
+    beside the step's bound: the weights but the embedding table, the ring
+    rows the step's attention reads (the run's mean) and the SSM state read
+    and written, over 3.35 TB/s."""
+    from repro_torch.core import dispatch
+    from repro_torch.models.model import cache_rows
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    prompts = family_prompts(torch, cfg.vocab_size, seed, lengths)
+    window = cfg.attn_window
+    if not (sum(n > window for n in lengths) >= 2 and any(
+            n <= window < n + new_tokens for n in lengths)):
+        raise AssertionError(f"hymba's prompts {lengths} must pass the window of {window} at "
+                             f"prefill twice and cross it once in decode")
+    calls = family_calls(torch, model, params, kernels,
+                         hymba_calls(torch, model, params, prompts, max_len, seed),
+                         hybrid_launches(cfg, prefills=len(prompts),
+                                         decodes=FAMILY_DECODE_STEPS),
+                         shape_log=shape_log)
+    refusals = {}
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+        for name, kw in (("paged", {"paged": True, "page_size": 16}),
+                         ("prefill_chunk", {"prefill_chunk": 128})):
+            try:
+                ServeEngine(model, params, batch_slots=8, max_len=max_len, device=model.device,
+                            **kw)
+            except ValueError as e:
+                refusals[name] = str(e)
+            else:
+                raise AssertionError(f"{cfg.name}: ServeEngine({name}) took a ring cache")
+    runs, streams = {}, {}
+    with dispatch.use(registry=shape_log.registry()):
+        for name, kw in HYMBA_RUNS:
+            runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts,
+                                                  new_tokens=new_tokens, max_len=max_len, **kw)
+            print("  " + json.dumps({"arch": cfg.name, "run": name, **runs[name]}))
+    equal = {}
+    for name, want in HYMBA_EQUAL.items():
+        differ = [i for i, (a, b) in enumerate(zip(streams[name], streams[want])) if a != b]
+        if differ:
+            raise AssertionError(f"{cfg.name}: {name} streams differ from {want} streams in "
+                                 f"requests {differ} (prompt lengths "
+                                 f"{[lengths[i] for i in differ]})")
+        equal[name] = f"{len(prompts)} of {len(prompts)} equal {want}"
+    wbytes = weight_bytes(params)
+    table = params["embed"]["tok"]
+    rows = cache_rows(cfg, max_len)
+    hkv, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    # the ring rows a decode step's attention reads, k and v, over the run's
+    # steps (each live prompt's positions; all 8 slots live throughout)
+    ring_rows = sum(min(n + t + 1, rows) for n in lengths for t in range(new_tokens)) / new_tokens
+    state = params["layers"][0]["mamba"]["a_log"].numel() * cfg.ssm.head_dim * cfg.ssm.state_dim
+    step_bytes = (wbytes - table.numel() * table.element_size() + 2 * L * hkv * hd * 2 * ring_rows
+                  + 2 * L * len(prompts) * state * 4)
+    bound_s = step_bytes / HBM_BYTES_S
+    dense = runs["dense"]
+    summary = {
+        "arch": cfg.name, "layers": L, "window": window, "cache_rows": rows,
+        "prompt_lengths": list(lengths), "weights_bytes": wbytes, "weights_gb": wbytes / 1e9,
+        "step_bytes_read": step_bytes, "step_bound_ms": bound_s * 1e3,
+        "decode_tokens_per_s_bound_8_slots": len(prompts) / bound_s,
+        "decode_tokens_per_s": dense["decode_tokens_per_s"],
+        "decode_step_ms": (dense["decode_step_s"] or 0) * 1e3,
+        "ttft_mean_s": dense["ttft_mean_s"], "ttft_p99_s": dense["ttft_p99_s"],
+        "ttft_by_request_s": dense["ttft_by_request_s"],
+        "peak_memory_bytes": max(r["max_memory_allocated_bytes"] or 0 for r in runs.values()),
+        "streams_equal": equal, "refused": refusals, "card": card, "nvidia_smi": smi}
+    print(f"  {cfg.name} at {L} layers on {card} ({smi}): weights {summary['weights_gb']} GB; "
+          f"peak device memory {summary['peak_memory_bytes']} bytes; dense graph run: TTFT "
+          f"mean {dense['ttft_mean_s']} s, p99 {dense['ttft_p99_s']} s, decode "
+          f"{dense['decode_tokens_per_s']} tokens/s against the step's bound of "
+          f"{summary['decode_tokens_per_s_bound_8_slots']} tokens/s at 8 slots "
+          f"({summary['step_bound_ms']} ms a step); streams {equal}; refused {refusals}")
+    busy = None
+    if model.device.type == "cuda":
+        print(f"  where a {cfg.name} decode step's time goes (torch.profiler, CUDA activity):")
+        busy = busy_phase(torch, model, params, seed)
+    return {"calls": calls, "runs": runs, "summary": summary, "busy": busy}
+
+
+def whisper_phase(torch, model, params, kernels, seed: int, card: str, smi: str, *,
+                  shape_log: ShapeLog, batch: int = WHISPER_BATCH,
+                  cache_len: int = WHISPER_CACHE_LEN,
+                  new_tokens: int = WHISPER_NEW_TOKENS) -> dict:
+    """Whisper at full width and depth, weights from ``seed``: its model
+    calls against the torch source (:func:`family_calls`), the engine's
+    refusal, then greedy decoding of ``new_tokens`` tokens from the batch's
+    prompt twice under cuda-strict (the tokens equal), with the encoder's,
+    the decoder prefill's and the decode steps' seconds; decode tokens/s
+    beside the step's bound: the decoder's weights a step reads (not the
+    memory's wk and wv, nor the embedding table), the unembed, the memory's
+    K/V and the self-attention rows up to each step's position, over 3.35
+    TB/s; then a traced decode step."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    tokens, frames = whisper_inputs(torch, cfg, seed, model.device, batch)
+    calls = family_calls(torch, model, params, kernels,
+                         whisper_calls(torch, model, params, tokens, frames, cache_len, seed),
+                         encdec_launches(cfg, prefills=1, decodes=FAMILY_DECODE_STEPS),
+                         shape_log=shape_log)
+    try:
+        ServeEngine(model, params, batch_slots=8, max_len=cache_len, device=model.device)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: ServeEngine took an encoder-decoder model")
+    from repro_torch.core import dispatch
+
+    with dispatch.use(registry=shape_log.registry()):
+        first, timing = whisper_greedy(torch, model, params, tokens, frames, cache_len,
+                                       new_tokens)
+    again, timing2 = whisper_greedy(torch, model, params, tokens, frames, cache_len, new_tokens)
+    if not torch.equal(first, again):
+        differ = (first != again).any(dim=1).nonzero().flatten().tolist()
+        raise AssertionError(f"{cfg.name}: two greedy decodes differ in sequences {differ}")
+    if not bool(((first >= 0) & (first < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: tokens out of the vocabulary")
+    wbytes = weight_bytes(params)
+    layer = params["decoder"][0]
+    d, L, S = cfg.d_model, cfg.num_layers, tokens.shape[1]
+    per_layer = sum(layer[key][w].numel() * 2 for key in ("attn", "mlp")
+                    for w in layer[key]) + sum(layer["xattn"][w].numel() * 2
+                                               for w in ("wq", "wo"))
+    norms = 3 * d * 2
+    kv = 2 * batch * cfg.num_kv_heads * cfg.head_dim * 2      # k and v of one row, bf16
+    self_rows = sum(S + t + 1 for t in range(new_tokens)) / new_tokens
+    step_bytes = (L * (per_layer + norms) + params["embed"]["unembed"].numel() * 2
+                  + L * kv * (cfg.frontend_seq + self_rows))
+    bound_s = step_bytes / HBM_BYTES_S
+    decode_s = min(timing["decode_s"], timing2["decode_s"])
+    summary = {
+        "arch": cfg.name, "encoder_layers": cfg.encoder_layers, "decoder_layers": L,
+        "batch": batch, "frames": cfg.frontend_seq, "prompt_tokens": S, "cache_len": cache_len,
+        "new_tokens": new_tokens, "weights_bytes": wbytes, "weights_gb": wbytes / 1e9,
+        "encoder_s": [timing["encoder_s"], timing2["encoder_s"]],
+        "decoder_prefill_s": [timing["decoder_prefill_s"], timing2["decoder_prefill_s"]],
+        "decode_s": [timing["decode_s"], timing2["decode_s"]],
+        "decode_tokens_per_s": batch * new_tokens / decode_s,
+        "decode_step_ms": decode_s / new_tokens * 1e3,
+        "step_bytes_read": step_bytes, "step_bound_ms": bound_s * 1e3,
+        "decode_tokens_per_s_bound": batch / bound_s,
+        "greedy_decodes_equal": True, "refused": refused,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                              if model.device.type == "cuda" else None),
+        "card": card, "nvidia_smi": smi}
+    print(f"  {cfg.name} at {cfg.encoder_layers}+{L} layers on {card} ({smi}): weights "
+          f"{summary['weights_gb']} GB; encoder {summary['encoder_s']} s and decoder prefill "
+          f"{summary['decoder_prefill_s']} s for {batch} x {cfg.frontend_seq} frames and "
+          f"{S} tokens; greedy decode {summary['decode_tokens_per_s']} tokens/s against the "
+          f"step's bound of {summary['decode_tokens_per_s_bound']} tokens/s "
+          f"({summary['step_bound_ms']} ms a step); the two decodes equal")
+    trace = None
+    if model.device.type == "cuda":
+        print(f"  where a {cfg.name} decode step's time goes (torch.profiler, CUDA activity):")
+        with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+            logits, cache = model.prefill(params, {"tokens": tokens, "frames": frames},
+                                          cache_len=cache_len)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            trace = traced_call(torch, lambda: model.decode_step(params, tok, dict(cache)))
+        del cache
+    return {"calls": calls, "summary": summary, "tokens_head": first[:, :8].tolist(),
+            "launches": calls["launches"], "trace": trace}
+
+
+def families_phase(torch, kernels, seed: int, card: str, smi: str, *, hymba=None,
+                   whisper=None, hymba_kw=None, whisper_kw=None) -> dict:
+    """Phase 15: hymba-1.5b, then whisper-large-v3, each at full width and
+    depth with weights from ``seed`` (or the (model, params) given), freed
+    before the next; the shapes their runs gave the kernels, for the
+    summary's check against the kernel phase's rows."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, init_params
+
+    shape_log = ShapeLog()
+    out = {}
+    for arch, given, phase, kw in (("hymba-1.5b", hymba, hymba_phase, hymba_kw or {}),
+                                   ("whisper-large-v3", whisper, whisper_phase,
+                                    whisper_kw or {})):
+        t = time.perf_counter()
+        if given is None:
+            model = build_model(get_arch(arch))
+            params = init_params(model.param_specs(), seed)
+        else:
+            model, params = given
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        init_s = time.perf_counter() - t
+        out[arch] = phase(torch, model, params, kernels, seed, card, smi, shape_log=shape_log,
+                          **kw)
+        out[arch]["summary"]["init_s"] = init_s
+        del model, params
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    out["shape_keys"] = sorted(shape_log.keys, key=str)
+    return out
 
 
 def schedule_counts(res: dict) -> dict:
@@ -4266,7 +5188,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/15] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/16] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4288,7 +5210,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/15] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/16] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -4298,14 +5220,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/15] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/16] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/15] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/16] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -4326,7 +5248,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
     phase_s["serve"] = lap()
 
-    print("[5/15] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/16] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -4334,19 +5256,19 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/15] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/16] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/15] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/16] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/15] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/16] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -4374,7 +5296,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["twin_and_tables"] = lap()
 
-    print(f"[9/15] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[9/16] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -4391,7 +5313,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/15] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/16] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -4401,14 +5323,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/15] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/16] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/15] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/16] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -4428,7 +5350,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/15] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/16] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -4440,7 +5362,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print(f"[14/15] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+    print(f"[14/16] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
           f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
           f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
           f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
@@ -4462,7 +5384,18 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
         torch.cuda.empty_cache()
     phase_s["moe"] = lap()
 
-    print("[15/15] the kernels' summary")
+    print(f"[15/16] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
+          f"{HYMBA_MAX_LEN}-row slot on a 1024-row ring) and whisper-large-v3 (32 + 32 layers), "
+          f"full width and depth, weights from --seed, one after the other: model calls against "
+          f"the torch source, every kernel held against its plain version on the calls' data; "
+          f"hymba's 8 prompts of {HYMBA_LENGTHS[0]} to {HYMBA_LENGTHS[-1]} tokens as a graph and "
+          f"as the loop, K = 4, T = 0.7 at K 1 and 4, streams equal 8 of 8; whisper's "
+          f"{WHISPER_BATCH} x {WHISPER_PROMPT}-token prompts over 1500 frames, "
+          f"{WHISPER_NEW_TOKENS} greedy tokens twice, on {card} ({smi})")
+    families_res = families_phase(torch, kernels, args.seed, card, smi)
+    phase_s["families"] = lap()
+
+    print("[16/16] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -4473,10 +5406,13 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                                                       ("integrity", integrity_res),
                                                       ("prefix", prefix_res))
                  for n, r in res["runs"].items()},
-              **{f"{arch}_{n}": r for arch, res in moe_res.items() for n, r in res["runs"].items()}}
+              **{f"{arch}_{n}": r for arch, res in moe_res.items() for n, r in res["runs"].items()},
+              **{f"hymba_{n}": r for n, r in families_res["hymba-1.5b"]["runs"].items()}}
     runs = {**served, "traffic": {"launches": traffic_res["launches"]},
             **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
-               for arch, res in {**full_res, **moe_res}.items()}}
+               for arch, res in {**full_res, **moe_res}.items()},
+            "hymba_calls": {"launches": families_res["hymba-1.5b"]["calls"]["launches"]},
+            "whisper_calls": {"launches": families_res["whisper-large-v3"]["calls"]["launches"]}}
     # MLA's runs: the <192,128> flash instance and the f32 matmul (decode's wo)
     mla_runs = {run for run in runs if run.startswith("deepseek")}
     sample_shapes = check_sample_shapes(rows, served.values(), sample_k)
@@ -4492,6 +5428,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every shape the fault, integrity and prefix runs gave a kernel (suffix prefills "
           f"after a 512-row prefix included) was held against the plain version (shapes by "
           f"kernel): {recovery_shapes}")
+    family_shapes = check_family_shapes(rows, families_res["shape_keys"])
+    print(f"  every shape the families phase's calls and runs gave a kernel (hymba's and "
+          f"whisper's) was held against the plain version (shapes by kernel): {family_shapes}")
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
                 "rmsnorm": "[8,2048]",
                 "flash_attention": "q[1,32,512,64] kv[1,8,512,64] causal=True",
@@ -4517,7 +5456,13 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                            for K, N in FULL_DEPTH_KN for M in (8, 1024)]
                         + ["[8,4096]x[4096,64000] act=None out=float32"]
                         + [f"[8,{K}]x[{K},{N}] act=None out={'float32' if o == 'f32' else 'bfloat16'}"
-                           for K, N, o in MOE_DECODE_KN],
+                           for K, N, o in MOE_DECODE_KN]
+                        + [f"[{M},{K}]x[{K},{N}] act=None out=bfloat16"
+                           for K, N in ((1600, 1600), (1600, 320), (1600, 5504), (5504, 1600),
+                                        (3200, 1600)) for M in (8, HYMBA_LENGTHS[-1])]
+                        + [f"[{M},{K}]x[{K},{N}] act=None out=bfloat16"
+                           for K, N in ((1280, 1280), (1280, 5120), (5120, 1280))
+                           for M in (8, WHISPER_BATCH * 1500)],
               "flash_attention": [f"q[1,32,{S},{D}] kv[1,8,{T},{D}] causal={c}"
                                   for D in (64, 128)
                                   for S, T, c in ((512, 512, True), (512, 512, False),
@@ -4525,13 +5470,25 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                                   if (D, S, T, c) != (64, 512, 512, True)]
                                  + ["q[1,32,512,96] kv[1,8,512,96] causal=True"]
                                  + [f"q[1,32,{S},128] kv[1,4,{T},128] causal=True"
-                                    for S, T in ((512, 512), (1024, 1024), (128, 1024))],
+                                    for S, T in ((512, 512), (1024, 1024), (128, 1024))]
+                                 + [f"q[1,25,{S},64] kv[1,5,{S},64] causal=True window=1024"
+                                    for S in (1000, HYMBA_LENGTHS[-1])]
+                                 + [f"q[8,20,{S},64] kv[8,20,{T},64] causal={c}" for S, T, c in
+                                    ((1500, 1500, False), (4, 4, True), (4, 1500, False))]
+                                 + ["q[1,8,512,256] k[1,2,512,256] v[1,2,512,128] causal=True"],
               "decode_attention": ["q[8,32,128] cache[8,4,1024,128] lengths 1..1024",
                                    "q[8,32,96] cache[8,8,1024,96] lengths 1..1024",
-                                   "q[1,32,64] cache[1,8,600,64] length 600"],
+                                   "q[1,32,64] cache[1,8,600,64] length 600",
+                                   "q[8,25,64] cache[8,5,1024,64] lengths 6..1024",
+                                   f"q[8,20,64] cache[8,20,{WHISPER_CACHE_LEN},64] lengths "
+                                   f"{WHISPER_PROMPT + WHISPER_NEW_TOKENS // 2}.."
+                                   f"{WHISPER_PROMPT + WHISPER_NEW_TOKENS // 2}",
+                                   "q[8,20,64] cache[8,20,1500,64] length 1500",
+                                   "q[8,40,64] cache[8,2,1024,64] lengths 1..1024"],
               "ssd": [f"x[{B},{S},48,64] b,c[{B},{S},{G},128]"
                       for S, B, G in ((5, 1, 1), (65, 1, 1), (256, 1, 1), (1024, 1, 1),
-                                      (600, 2, 2))],
+                                      (600, 2, 2))]
+                     + [f"x[1,{S},50,64] b,c[1,{S},1,16]" for S in (5, 500, HYMBA_LENGTHS[-1])],
               "paged_decode_attention": [f"q[8,32,128] pool[513,4,16,128] table[8,64] lengths "
                                          f"{lengths}",
                                          f"q[16,32,64] pool[1025,8,16,64] table[16,64] lengths "
@@ -4545,13 +5502,16 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                               if (M, K, note) != (8, 4096, "")]
                              + [f"[{M},{K}]x[{K},{N}] act=None f32{note}" for _, K, N in UNEMBEDS
                                 for M, note in ((8, ""), (16, ""), (64, ""), (8, f" {off4}"),
-                                                (16, f" {off4}"))],
+                                                (16, f" {off4}"))]
+                             + [f"[{M},1600]x[1600,6482] act=None out=bfloat16"
+                                for M in (8, 200, 500, 1000, 1400)],
               "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32",
                              "[1,16384]x[16384,7168] act=None f32",
                              "[8,16384]x[16384,7168] act=None f32"],
               "rmsnorm": ["[512,2048]", "[8,1536]", "[600,1536]", "[8,3072]", "[600,3072]",
                           "[8,4096]", "[512,4096]", "[8,2048] float16", "[8,1000]",
-                          "[8,2048] f32", "[8,2048] f64"],
+                          "[8,2048] f32", "[8,2048] f64", "[8,1600]", "[1400,1600]",
+                          "[8,3200]", "[1400,3200]", "[8,1280]", "[12000,1280]"],
               "conv2d": ["x[1,64,64,1] w[3,3,1,2] int16", "x[1,32,32,1] w[5,5,1,1] float32",
                          "x[1,32,32,1] w[3,3,1,1] float32", "x[256,64,64,1] w[3,3,1,2] int16",
                          "x[1024,64,64,1] w[3,3,1,2] int16", "x[1,80,140,1] w[68,68,1,8] float32",
@@ -4652,7 +5612,8 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             "ssm_prefill_busy": ssm_prefill_res, "decode_splits": decode_splits,
             "sample_shapes": sample_shapes, "full_depth_shapes": full_shapes,
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
-            "ssm_temperature": ssm_temp_res, "moe": moe_res,
+            "ssm_temperature": ssm_temp_res, "moe": moe_res, "families": families_res,
+            "family_shapes": family_shapes,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

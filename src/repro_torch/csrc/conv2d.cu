@@ -31,6 +31,11 @@
 //     (a 68x68 filter of eight f32 filters: 148 KB of taps beside 88 KB of input rows) is
 //     staged through the slab in chunks of its rows, KHC rows at a time, between barriers:
 //     the taps are read in the same (dy, dx, c) order, so the sums are those of one slab;
+//   - a filter so tall that the ring's input rows alone pass it (a 200x200 f32 filter:
+//     two slots of 215 rows, 454 KB) stages the input in slabs too (in_slab): one slot,
+//     and with each slab of KHC filter rows the TY + KHC - 1 input rows that slab reads,
+//     copied between the same barriers.  The accumulators carry across the slabs, so each
+//     output's sum is still taken in (dy, dx, c) order;
 //   - each strip's P*F outputs are contiguous in NHWC: 16-byte evict-first stores where F
 //     equals the filter chunk and the strip is aligned, scalar ones otherwise.
 // Launched as the matmul kernels are (programmatic dependent launch): a launch may begin while
@@ -85,6 +90,7 @@ struct Geom {
   int tiles_y, tiles_x, nfc;  // tiles down and across a frame; filter chunks
   int cc, ncc;                // channels a staged chunk; chunks
   int khc, nkc;               // filter rows a slab holds; slabs a channel chunk (1: whole)
+  int in_slab;                // 1: the input rows are staged with each filter slab, one slot
   int ir, ic, pitch;          // staged input rows, pixels a row, bytes a row (16-byte multiple)
   int slot, ws_off;           // bytes a ring slot; offset of the filter slab
   int vbytes;                 // copy width: 16, 8 or 4 (cp.async), 2 (plain int16 loads)
@@ -176,6 +182,23 @@ __device__ __forceinline__ void stage(unsigned char* slot, const Tin* __restrict
   }
 }
 
+// in_slab: the input rows [dy0, dy0 + TY + khc - 1) of work item `it`'s tile that lie in
+// the image, channel `chunk` (one channel a chunk), the pixels [ox0, ox0 + ic) that lie in
+// it, into the slot: plain loads, waited for at the barrier after them.
+template <typename Tin>
+__device__ __forceinline__ void load_rows(unsigned char* slot, const Tin* __restrict__ x,
+                                          const Geom& g, const Item& it, int chunk, int dy0) {
+  const int oy0 = it.ty * TY + dy0, ox0 = it.tx * TC;
+  const int rows = min(TY + g.khc - 1, g.H - oy0), npx = min(g.ic, g.W - ox0);
+  const int pe = g.pitch / static_cast<int>(sizeof(Tin));
+  const Tin* xb = x + static_cast<size_t>(it.b) * g.H * g.W * g.Cin + chunk;
+  Tin* xs = reinterpret_cast<Tin*>(slot);
+  for (int i = threadIdx.x; i < rows * npx; i += THREADS) {
+    const int r = i / npx, px = i - r * npx;
+    xs[r * pe + px] = xb[(static_cast<size_t>(oy0 + r) * g.W + ox0 + px) * g.Cin];
+  }
+}
+
 // The filter slab of filter chunk fc, channel chunk `chunk` and the filter rows [dy0, dy0 +
 // khc): ws[tap][c][f], tap = (dy - dy0)*kw+dx, zeros past Cin and F.
 template <typename Tin, typename Acc, int FCH>
@@ -230,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
   grid_dependency_wait();  // the kernel before this one on the stream has written x and w
   launch_dependents();
   int chunk = 0, buf = 0, loaded = -1;
-  stage<Tin>(smem, x, g, item, 0);
+  if (!g.in_slab) stage<Tin>(smem, x, g, item, 0);
   cp_async_commit();
 
   Acc taps[NTAPS];
@@ -243,13 +266,13 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
       next += gridDim.x;
     }
     const bool more = next < g.items;
-    if (more) stage<Tin>(smem + (buf ^ 1) * g.slot, x, g, next, nchunk);
+    if (more && !g.in_slab) stage<Tin>(smem + (buf ^ 1) * g.slot, x, g, next, nchunk);
     cp_async_commit();
 
     const Item it = decode(item, g);
     const int key = it.fc * g.ncc + chunk;
     // a filter staged in row slabs loads them as the rows come (below)
-    const bool new_filter = key != loaded && g.nkc == 1;
+    const bool new_filter = key != loaded && g.nkc == 1 && !g.in_slab;
     if (new_filter) load_filter<Tin, Acc, FCH>(ws, w, g, it.fc, chunk);
     cp_async_wait<1>();  // this stage's copies have landed (the next stage's may not)
     __syncthreads();
@@ -265,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
         for (int f = 0; f < FCH; ++f) acc[p][f] = Acc(0);
     }
 
-    const Tin* xs = reinterpret_cast<const Tin*>(smem + buf * g.slot);
+    const Tin* xs = reinterpret_cast<const Tin*>(smem + (g.in_slab ? 0 : buf * g.slot));
     if constexpr (ONE_CH) {
 #pragma unroll
       for (int dy = 0; dy < KH; ++dy) {
@@ -285,13 +308,16 @@ __global__ void __launch_bounds__(THREADS, ONE_CH && FCH <= 2 ? 4 : 1)
       const int nc = min(g.cc, g.Cin - chunk * g.cc);
       for (int dy = 0; dy < kh; ++dy) {
         const int dy0 = dy - dy % g.khc;  // the slab holding row dy
-        if (g.nkc > 1 && dy == dy0) {
+        if ((g.nkc > 1 || g.in_slab) && dy == dy0) {
           __syncthreads();  // every thread is done with the previous slab
           load_filter<Tin, Acc, FCH>(ws, w, g, it.fc, chunk, dy0);
+          if (g.in_slab) load_rows<Tin>(smem, x, g, it, chunk, dy0);
           __syncthreads();
         }
+        // in_slab: the slot holds the input rows from the slab's first, dy0
+        const int row = ty + dy - (g.in_slab ? dy0 : 0);
         for (int dx = 0; dx < kw; ++dx) {
-          const Tin* xp = xs + (ty + dy) * pe + (tx * P + dx) * g.cc;
+          const Tin* xp = xs + row * pe + (tx * P + dx) * g.cc;
           const Acc* wp = ws + ((dy - dy0) * kw + dx) * g.cc * FCH;
           for (int c = 0; c < nc; ++c) {
             Acc wv[FCH];
@@ -393,23 +419,35 @@ int launch(const void* x, const void* w, void* out, long long B, int H, int W, i
     return 2LL * g.ir * round16(static_cast<long long>(g.ic) * cc * SZ) +
            round16(static_cast<long long>(khc) * kw * cc * fch * 4);
   };
+  // in_slab: one slot of the TY + khc - 1 input rows a slab of khc filter rows reads, and
+  // that slab
+  auto slab_bytes = [&](int khc) {
+    return static_cast<long long>(TY + khc - 1) * round16(static_cast<long long>(g.ic) * SZ) +
+           round16(static_cast<long long>(khc) * kw * fch * 4);
+  };
   const long long per_channel = bytes(1, kh);
-  int cc = 1, khc = kh;
+  int cc = 1, khc = kh, in_slab = 0;
   if (per_channel > SMEM_MAX) {
     // one channel a chunk, the filter staged in slabs of the most rows that fit
     while (khc > 0 && bytes(1, khc) > SMEM_MAX) --khc;
-    if (khc < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (khc < 1) {
+      // not even one filter row fits beside the ring: the input rows go in slabs too
+      in_slab = 1;
+      khc = kh;
+      while (khc > 0 && slab_bytes(khc) > SMEM_MAX) --khc;
+      if (khc < 1) return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     cc = static_cast<int>(per_channel <= SMEM_SMALL ? SMEM_SMALL / per_channel : 1);
     cc = cc < Cin ? (cc < 1 ? 1 : cc) : Cin;
     while (cc > 1 && bytes(cc, kh) > SMEM_SMALL) --cc;
   }
   g.cc = cc, g.ncc = (Cin + cc - 1) / cc;
-  g.khc = khc, g.nkc = (kh + khc - 1) / khc;
+  g.khc = khc, g.nkc = (kh + khc - 1) / khc, g.in_slab = in_slab;
   g.pitch = round16(static_cast<long long>(g.ic) * cc * SZ);
-  g.slot = g.ir * g.pitch;
-  g.ws_off = 2 * g.slot;
-  const int smem = static_cast<int>(bytes(cc, khc));
+  g.slot = in_slab ? (TY + khc - 1) * g.pitch : g.ir * g.pitch;
+  g.ws_off = in_slab ? g.slot : 2 * g.slot;
+  const int smem = static_cast<int>(in_slab ? slab_bytes(khc) : bytes(cc, khc));
   g.items = B * g.tiles_y * g.tiles_x * g.nfc;
   // the widest copy that every staged run's source and destination are aligned to
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
@@ -438,8 +476,8 @@ int launch(const void* x, const void* w, void* out, long long B, int H, int W, i
 
 // x [B,H,W,Cin], w [kh,kw,Cin,F], both int16 (is_float = 0; out int32) or both f32
 // (is_float = 1; out f32), contiguous; any B.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a filter whose input rows and one filter row pass the shared
-// memory).
+// (cudaErrorInvalidValue for a filter whose 16 output rows' input and one filter row pass
+// the shared memory).
 extern "C" int repro_conv2d(const void* x, const void* w, void* out, long long B, int H, int W,
                             int Cin, int kh, int kw, int F, int is_float, void* stream) {
   if (B < 1 || Cin < 1 || F < 1 || kh < 1 || kw < 1 || H < kh || W < kw)

@@ -1,8 +1,8 @@
 // Flash attention for Hopper: online-softmax attention of q [B,Hq,S,dqk]
 // over k [B,Hkv,T,dqk] and v [B,Hkv,T,dv] (bf16; dqk a multiple of 16 from 16
-// to 192, dv one from 16 to 128), GQA head h reading kv head h / (Hq/Hkv).
-// Three instances <DQK, DV>: <64,64>, <128,128> and <192,128> (MLA's prefill:
-// q and k of qk_nope 128 + qk_rope 64, values of 128), each taking every
+// to 256, dv one from 16 to 128), GQA head h reading kv head h / (Hq/Hkv).
+// Four instances <DQK, DV>: <64,64>, <128,128>, <192,128> (MLA's prefill:
+// q and k of qk_nope 128 + qk_rope 64, values of 128) and <256,128>, each taking every
 // (dqk, dv) up to its own: the tensor maps span the true widths, so a
 // 64-wide TMA box reads zeros in the columns past dqk of Q and K and past dv
 // of V (their products add nothing, and the output's padded columns are
@@ -12,18 +12,19 @@
 // flash_attention (_fa_kernel).  The TPU carried the running max,
 // denominator and accumulator in VMEM across a sequential KV grid axis;
 // here a block owns 64 query rows of one head and loops over key tiles
-// itself (128 keys at DQK = 64, 64 at 128 and 192, as the registers of the
+// itself (128 keys at DQK = 64, 64 at 128, 192 and 256, as the registers of the
 // S and O accumulators allow), keeping that state in registers.  A block is one
 // consumer warpgroup (threads 0-127) and one producer warp (128-159):
 //   - the producer issues TMA loads: Q's tile once, then K and V tiles into
-//     a ring of 3 stages at DQK = 64 (2 at 128 and 192), K and V each tracked
+//     a ring of 3 stages at DQK = 64 (2 at 128, 192 and 256), K and V each tracked
 //     by full/empty mbarriers, so the next tiles arrive while this one is
 //     multiplied and K's slot frees as soon as S has read it.  The
 //     tiles are 128-byte swizzled boxes of 64 values a row (DQK / 64 boxes
 //     side by side for Q and K, DV / 64 for V), read through 3-D tensor maps
 //     over [B*H, T, d], so rows past T (or S) read zeros and never a
 //     neighbouring head's rows.  At <192,128> a stage is K's 24 KB and V's 16
-//     KB, and Q, the two stages and the barriers take 105 KB: two blocks an SM;
+//     KB, and Q, the two stages and the barriers take 105 KB: two blocks an SM
+//     (at <256,128> 129 KB: one);
 //   - S = Q K^T is wgmma m64nBKk16 from shared memory, Q and K both K-major
 //     (SBO 1024; the k16 slice kk starts 32 (kk % 4) bytes into a row of box
 //     kk / 4);
@@ -81,7 +82,7 @@ template <int DQK, int DV>
 struct FaCfg {
   static constexpr int BK = DQK == 64 ? 128 : 64;  // keys a tile
   static constexpr int TPG = GROUP_KEYS / BK;      // key tiles a group
-  static constexpr int QK_BOXES = DQK / BOX;       // 1, 2 or 3 boxes a row of Q and K
+  static constexpr int QK_BOXES = DQK / BOX;       // 1 to 4 boxes a row of Q and K
   static constexpr int V_BOXES = DV / BOX;         // 1 or 2 boxes a row of V
   static constexpr int KV_BOX_BYTES = BK * 128;
   static constexpr int Q_BYTES = QK_BOXES * Q_BOX_BYTES;
@@ -94,6 +95,7 @@ struct FaCfg {
   // each full and empty) and Q's, a flag
   static constexpr int SMEM = 1024 + BODY + (4 * STAGES + 1) * 8 + 16;
   // 105 KB at <192,128> and <64,64>, 81 KB at <128,128>: two blocks an SM
+  // (129 KB at <256,128>: one, its registers held to two blocks' all the same)
   static constexpr int MIN_BLOCKS = 2;
   // the last group's O waits in the ring while the stored groups fold
   static_assert(DV / 2 * 128 * 4 <= STAGES * STAGE_BYTES, "the ring holds O");
@@ -433,20 +435,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* w
 }  // namespace
 
 // q [B,Hq,S,Dqk], k [B,Hkv,T,Dqk], v [B,Hkv,T,Dv], o [B,Hq,S,Dv], all bf16,
-// contiguous and 16-byte aligned, Dqk a multiple of 16 from 16 to 192 and Dv
+// contiguous and 16-byte aligned, Dqk a multiple of 16 from 16 to 256 and Dv
 // one from 16 to 128, S <= T, Hq % Hkv == 0.  The instance: <64,64> where
 // both are at most 64, else <128,128> where Dqk is at most 128, else
-// <192,128>.  window <= 0 means no window.  splits: key-range splits a (q
-// tile, head), 1-4.  With splits > 1 or T > 512, ws holds groups * B * Hq *
-// 64 ceil(S / 64) * (Di + 2) floats (Di the instance's DV, 64 or 128;
-// groups = ceil(T / 512), the key groups); with splits > 1, counters B * Hq *
-// ceil(S / 64) zeroed ints used by no other stream.  One launch.  Returns
-// the cudaError_t.
+// <192,128> where it is at most 192, else <256,128>.  window <= 0 means no
+// window.  splits: key-range splits a (q tile, head), 1-4.  With splits > 1
+// or T > 512, ws holds groups * B * Hq * 64 ceil(S / 64) * (Di + 2) floats
+// (Di the instance's DV, 64 or 128; groups = ceil(T / 512), the key groups);
+// with splits > 1, counters B * Hq * ceil(S / 64) zeroed ints used by no
+// other stream.  One launch.  Returns the cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      void* ws, void* counters, int B, int Hq, int Hkv, int S,
                                      int T, int Dqk, int Dv, float scale, int causal, int window,
                                      int splits, void* stream) {
-  if (Dqk < 16 || Dqk > 192 || Dqk % 16 || Dv < 16 || Dv > 128 || Dv % 16 || B <= 0 ||
+  if (Dqk < 16 || Dqk > 256 || Dqk % 16 || Dv < 16 || Dv > 128 || Dv % 16 || B <= 0 ||
       Hq <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || S > T || splits < 1 || splits > 4 ||
       (splits > 1 && counters == nullptr) || ((splits > 1 || T > GROUP_KEYS) && ws == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -460,6 +462,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (Dqk <= 128)
     return (int)launch<128, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
                                  causal, window, splits, st);
-  return (int)launch<192, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
+  if (Dqk <= 192)
+    return (int)launch<192, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
+                                 causal, window, splits, st);
+  return (int)launch<256, 128>(q, k, v, o, ws, counters, B, Hq, Hkv, S, T, Dqk, Dv, scale,
                                causal, window, splits, st);
 }

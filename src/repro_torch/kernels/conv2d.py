@@ -16,8 +16,11 @@ kernel runs on the CUDA cores: each thread computes a strip of ``P``
 output pixels of a row, sliding the filter window through registers, with
 the filter chunk sized to F (1, 2, 4 or 8) and, for the roles, the taps in
 registers (a filter too large for one shared-memory slab beside the input
-tile is staged through it in chunks of rows, :func:`filter_rows`);
-persistent blocks walk (frame, tile, filter chunk) work items,
+tile is staged through it in chunks of rows, :func:`filter_rows`, and one
+so tall that the input tile alone passes the shared memory stages the
+input rows with each slab, :func:`slab_rows`, the sums carried across the
+slabs in the same order); persistent blocks walk (frame, tile, filter
+chunk) work items,
 staging the next item's input rows with a two-slot ``cp.async`` ring, so
 any number of frames is one launch.  The fixed-weight role holds its filter
 on the card from load to unload and launches the same kernel, so it is
@@ -86,10 +89,13 @@ def _smem(cin: int, kh: int, kw: int, f: int, itemsize: int) -> tuple[int, int]:
     the input's type, rows padded to 16 bytes, and the filter slab in 4-byte
     words.  A filter whose one-channel slab would pass 227 KB beside the ring
     is staged in slabs of the most filter rows that fit
-    (:func:`filter_rows`); 0 channels when not even one row fits."""
+    (:func:`filter_rows`); where not even one row fits, the input rows go in
+    slabs too, one slot (:func:`slab_rows`); 0 channels when not even that
+    fits."""
     khc = filter_rows(kh, kw, f, itemsize)
     if khc < 1:
-        return 0, _block_bytes(1, khc + 1, kh, kw, f, itemsize)
+        rows = slab_rows(kh, kw, f, itemsize)
+        return (1 if rows else 0), _slab_bytes(max(rows, 1), kw, f, itemsize)
     if khc < kh:
         return 1, _block_bytes(1, khc, kh, kw, f, itemsize)
     cc = min(cin, max(1, _SMEM_SMALL // _block_bytes(1, kh, kh, kw, f, itemsize)))
@@ -117,6 +123,30 @@ def filter_rows(kh: int, kw: int, f: int, itemsize: int) -> int:
     return khc
 
 
+def _slab_bytes(khc: int, kw: int, f: int, itemsize: int) -> int:
+    """A block's shared memory where the input rows go in slabs: one slot of
+    the ``_TY + khc - 1`` input rows a slab of ``khc`` filter rows reads, and
+    that slab, at one channel."""
+    def r16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    return ((_TY + khc - 1) * r16((_TC + kw - 1) * itemsize)
+            + r16(khc * kw * _filter_chunk(f) * 4))
+
+
+def slab_rows(kh: int, kw: int, f: int, itemsize: int) -> int:
+    """Filter rows a slab holds where not one fits beside the ring (the input
+    rows then staged with each slab): the most that fit with their
+    ``_TY + khc - 1`` input rows (0: none; 0 too where one fits beside the
+    ring, and this mode is not taken)."""
+    if filter_rows(kh, kw, f, itemsize) > 0:
+        return 0
+    khc = kh
+    while khc > 0 and _slab_bytes(khc, kw, f, itemsize) > _SMEM_MAX:
+        khc -= 1
+    return khc
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID stride-1 conv ``x [B,H,W,Cin]`` (*) ``w [kh,kw,Cin,F]``: the plain
     version for CPU tensors, else the CUDA kernel (int16 or f32 inputs of one
@@ -136,8 +166,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if H < kh or W < kw:
         raise ValueError(f"conv2d: a {kh}x{kw} filter does not fit a {H}x{W} image")
     if _smem(Cin, kh, kw, F, x.element_size())[0] < 1:
-        raise ValueError(f"conv2d: the kernel takes filters whose input tile and one filter "
-                         f"row fit its shared memory, got {kh}x{kw}")
+        raise ValueError(f"conv2d: the kernel takes filters whose 16 output rows' input and "
+                         f"one filter row fit its shared memory, got {kh}x{kw}")
     out = torch.empty((B, H - kh + 1, W - kw + 1, F), dtype=accum_dtype(x.dtype),
                       device=x.device)
     if B == 0:

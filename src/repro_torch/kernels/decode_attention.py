@@ -20,9 +20,15 @@ states at the end, and skips every tile at or past the sequence's length.
 With more than one split, the last block of a (sequence, kv head) merges
 the partials in split order in the same launch (an atomic counter, one
 buffer per CUDA stream, left zeroed), so a call is one launch and repeats
-bit for bit.  D any multiple of 16 from 16 to 128 (an instance each),
-Hq / Hkv <= 16; any other D raises (MLA's 192 will need instances of its
-own).
+bit for bit.  The kernel takes D a multiple of 16 from 16 to 128 (an
+instance each) and Hq / Hkv <= 16, the rows of one tensor-core tile.  The
+wrapper takes the rest of what the Pallas kernel takes up to D = 128: a D
+off a multiple of 16 is zero-padded to the next one (q and the cache: zero
+columns add exact zeros to every score, the scale stays 1/sqrt of the true
+D, and the padded output columns are sliced off; the cache's copy makes it
+slow, and no config runs it), and a query group above 16 runs as sub-groups
+of at most 16 heads a kv head, a launch each (rows are independent, so this
+is exact).  A D above 128 raises (MLA's 192 runs its own plain function).
 
 :func:`plain_split_decode_attention` is the split-and-merge in plain
 PyTorch (per split (m, l, acc), merged in the kernel's order); the wrapper's
@@ -38,7 +44,7 @@ import math
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.flash_attention import check_head_dim
+from repro_torch.kernels.flash_attention import check_head_dim, pad_width
 
 ROUTE = "cuda"
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
@@ -97,7 +103,11 @@ def split_ranges(T: int, splits: int) -> list[tuple[int, int]]:
 
 
 def lengths_vector(length, batch: int, device: torch.device) -> torch.Tensor:
-    """``length`` (int, 0-d or [B] tensor) as an int32 [B] tensor on ``device``."""
+    """``length`` (int, 0-d or [B] tensor) as an int32 [B] tensor on ``device``
+    (an int is filled there: no copy from the host, so a graph may capture
+    it)."""
+    if isinstance(length, int):
+        return torch.full((batch,), length, dtype=torch.int32, device=device)
     lengths = torch.as_tensor(length, device=device)
     if lengths.dim() == 0:
         lengths = lengths.expand(batch)
@@ -165,9 +175,9 @@ def plain_split_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, length, *,
                      scale: float | None = None, splits: int | None = None) -> torch.Tensor:
     """One-token attention over a dense cache: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128, Hq / Hkv
-    <= 16) with ``splits`` key-range splits, :func:`split_kv`'s choice
-    unless given (``kernels/decode_sweep.py`` times each count)."""
+    tensors, else the CUDA kernel (bf16, D up to 128, any whole query group)
+    with ``splits`` key-range splits, :func:`split_kv`'s choice unless given
+    (``kernels/decode_sweep.py`` times each count)."""
     if native.on_cpu(q, k_cache, v_cache):
         return plain_decode_attention(q, k_cache, v_cache, length, scale=scale)
     global last_splits
@@ -180,22 +190,62 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     check_head_dim("decode_attention", D)
-    if Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"decode_attention: needs Hq / Hkv a whole number <= 16; got "
-                         f"Hq={Hq} Hkv={Hkv}")
+    check_group("decode_attention", Hq, Hkv)
     splits = check_splits("decode_attention", splits, T)
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
-    ws, counters, stream = split_buffers(q, splits, Hkv)
+    q, k_cache, v_cache = pad_width(q), pad_width(k_cache), pad_width(v_cache)
     fn = native.function("decode_attention", "repro_decode_attention", _ARGTYPES)
-    err = fn(native.ptr(q), native.ptr(k_cache), native.ptr(v_cache), native.ptr(lengths),
-             native.ptr(out), native.ptr(ws), native.ptr(counters), B, Hq, Hkv, T, D, splits,
-             float(scale), stream)
-    native.raise_on_error("decode_attention", err)
-    native.count_launch(__name__)
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(qs)
+        ws, counters, stream = split_buffers(qs, splits, Hkv)
+        err = fn(native.ptr(qs), native.ptr(k_cache), native.ptr(v_cache), native.ptr(lengths),
+                 native.ptr(out), native.ptr(ws), native.ptr(counters), B, qs.shape[1], Hkv, T,
+                 qs.shape[2], splits, float(scale), stream)
+        native.raise_on_error("decode_attention", err)
+        native.count_launch(__name__)
+        return out
+
+    out = by_subgroups(launch, q, Hkv)
     last_splits = splits
-    return out
+    return out if out.shape[2] == D else out[..., :D].contiguous()
+
+
+#: query heads a kv head that one launch of the decode kernels takes: the
+#: rows of one tensor-core tile
+MAX_GROUP = 16
+
+
+def check_group(op: str, Hq: int, Hkv: int) -> None:
+    """Raise unless ``Hq`` query heads share ``Hkv`` kv heads evenly."""
+    if Hq % Hkv:
+        raise ValueError(f"{op}: needs Hq / Hkv a whole number; got Hq={Hq} Hkv={Hkv}")
+
+
+def subgroups(group: int) -> list[tuple[int, int]]:
+    """The query sub-groups [lo, hi) of a kv head's ``group`` heads that the
+    decode kernels run a launch each: one where the group fits a tile, else
+    runs of :data:`MAX_GROUP` and the rest."""
+    return [(lo, min(group, lo + MAX_GROUP)) for lo in range(0, group, MAX_GROUP)]
+
+
+def by_subgroups(launch, q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """``launch(q_sub)`` over each query sub-group of q [B, Hq, D]
+    (:func:`subgroups`; the sub-group of every kv head, contiguous), the
+    outputs put back in q's head order: q itself where the group fits one
+    launch."""
+    B, Hq, D = q.shape
+    group = Hq // Hkv
+    if group <= MAX_GROUP:
+        return launch(q)
+    qg = q.view(B, Hkv, group, D)
+    out = torch.empty_like(qg)
+    for lo, hi in subgroups(group):
+        # a copy: with one kv head the reshape would be a strided view
+        sub = qg[:, :, lo:hi].reshape(B, Hkv * (hi - lo), D).contiguous()
+        out[:, :, lo:hi] = launch(sub).view(B, Hkv, hi - lo, D)
+    return out.view(B, Hq, D)
 
 
 def check_splits(op: str, splits: int | None, T: int) -> int:

@@ -8,11 +8,17 @@ aligned to the end of the keys (``kv_offset = T - S``), a non-causal mode and
 an l == 0 guard.  Values may be narrower than queries and keys: q, k
 [.., Dqk] and v [.., Dv], as MLA's prefill runs them (Dqk 192 = qk_nope 128 +
 qk_rope 64, Dv 128; the Pallas kernel gives v q's width, JAX's ``xla``
-source takes any).  Dqk a multiple of 16 from 16 to 192, Dv one from 16 to
-128: three instances <Dqk, Dv> = <64,64>, <128,128> and <192,128>, each
-taking every pair up to its own (its tensor maps read zeros in the columns
-past the true widths, and the softmax scale is the true Dqk's unless given);
-any other width raises.
+source takes any).  The kernel takes Dqk a multiple of 16 from 16 to 256
+and Dv one from 16 to 128: four instances <Dqk, Dv> = <64,64>, <128,128>,
+<192,128> and <256,128>, each taking every pair up to its own (its tensor
+maps read zeros in the columns past the true widths, and the softmax scale
+is the true Dqk's unless given).  The wrapper takes the rest of what the
+Pallas kernel takes: a width that is not a multiple of 16 is zero-padded to
+the next one (zero columns add exact zeros to every score, the scale stays
+1/sqrt of the true Dqk, and the output's padded columns are sliced off), and
+values wider than 128 run as 128-wide column blocks of v, one launch each
+(scores and their folds do not read v, so each column is what one launch
+would give).  Query and key widths above 256 raise.
 
 What bounds it on the H100: operations at prefill lengths in principle — a
 causal 512 x 512 head does about 90 flops per byte it must move — but at
@@ -67,16 +73,20 @@ NEG_INF = -1e30
 HEAD_DIMS = tuple(range(16, 129, 16))
 #: query rows a tile of the kernel, and keys a tile of each instance
 BLOCK_Q = 64
-BLOCK_K = {64: 128, 128: 64, 192: 64}
+BLOCK_K = {64: 128, 128: 64, 192: 64, 256: 64}
 MAX_SPLITS = 4
 #: keys a group: a row's softmax runs group by group, folded in key order
 GROUP_KEYS = 512
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-#: the query/key widths the kernel takes: multiples of 16 up to 192
-QK_DIMS = tuple(range(16, 193, 16))
+#: the query/key widths the kernel takes: multiples of 16 up to 256
+QK_DIMS = tuple(range(16, 257, 16))
 #: the instances (Dqk, Dv), smallest first
-INSTANCES = ((64, 64), (128, 128), (192, 128))
+INSTANCES = ((64, 64), (128, 128), (192, 128), (256, 128))
+#: the widest value block one launch takes
+MAX_DV = 128
+#: the head widths a kernel launch takes are multiples of this
+WIDTH_STEP = 16
 
 
 def kernel_instance(head_dim: int, value_dim: int | None = None) -> tuple[int, int]:
@@ -89,26 +99,43 @@ def kernel_instance(head_dim: int, value_dim: int | None = None) -> tuple[int, i
 
 def instance(head_dim: int) -> int:
     """The query/key width of the instance that runs queries, keys and
-    values ``head_dim`` wide (192: queries and keys of 192 over values of
-    at most 128)."""
-    return kernel_instance(head_dim, min(head_dim, 128))[0]
+    values ``head_dim`` wide (192 and 256: queries and keys that wide over
+    values of at most 128)."""
+    return kernel_instance(head_dim, min(head_dim, MAX_DV))[0]
+
+
+def padded_width(D: int) -> int:
+    """``D`` rounded up to the next multiple of :data:`WIDTH_STEP`: the width
+    a kernel launch runs a head ``D`` wide at."""
+    return -(-D // WIDTH_STEP) * WIDTH_STEP
+
+
+def pad_width(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to :func:`padded_width` (a copy),
+    or ``x`` itself where it is already a multiple of :data:`WIDTH_STEP`."""
+    D = x.shape[-1]
+    if D % WIDTH_STEP == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, padded_width(D) - D))
 
 
 def check_head_dim(op: str, D: int) -> None:
-    """Raise, naming ``D``, unless the kernels take it (:data:`HEAD_DIMS`)."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{op}: head_dim {D} is not taken: the CUDA kernel takes multiples "
-                         f"of 16 from 16 to 128")
+    """Raise, naming ``D``, unless the decode kernels take it, padded to a
+    multiple of 16 (:data:`HEAD_DIMS`)."""
+    if not 0 < D <= HEAD_DIMS[-1]:
+        raise ValueError(f"{op}: head_dim {D} is not taken: the CUDA kernel takes head dims "
+                         f"up to {HEAD_DIMS[-1]}")
 
 
 def check_head_dims(op: str, Dqk: int, Dv: int) -> None:
     """Raise, naming the width, unless flash attention takes queries and keys
-    ``Dqk`` wide (:data:`QK_DIMS`) over values ``Dv`` wide
-    (:data:`HEAD_DIMS`)."""
-    if Dqk not in QK_DIMS:
+    ``Dqk`` wide (up to :data:`QK_DIMS`' last, padded to a multiple of 16)
+    over values ``Dv`` wide (any: 128-wide blocks)."""
+    if not 0 < Dqk <= QK_DIMS[-1]:
         raise ValueError(f"{op}: head_dim {Dqk} is not taken: the CUDA kernel takes query and "
-                         f"key widths that are multiples of 16 from 16 to 192")
-    check_head_dim(op, Dv)
+                         f"key widths up to {QK_DIMS[-1]}")
+    if Dv <= 0:
+        raise ValueError(f"{op}: value width {Dv} is not taken")
 
 
 def split_kv(B: int, Hq: int, S: int, T: int, causal: bool = True,
@@ -199,8 +226,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                     window: int | None = None, scale: float | None = None,
                     splits: int | None = None) -> torch.Tensor:
     """Attention of q [B,Hq,S,Dqk] over k [B,Hkv,T,Dqk] and v [B,Hkv,T,Dv]:
-    the plain version for CPU tensors, else the CUDA kernel (bf16, Dqk a
-    multiple of 16 up to 192 and Dv one up to 128, S <= T) with ``splits``
+    the plain version for CPU tensors, else the CUDA kernel (bf16, Dqk up to
+    256, any Dv, S <= T; widths off a multiple of 16 zero-padded, values
+    wider than 128 in 128-wide blocks, a launch each) with ``splits``
     key-range splits, :func:`split_kv`'s choice unless given
     (``kernels/flash_sweep.py`` times the others)."""
     if native.on_cpu(q, k, v):
@@ -218,19 +246,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                          f"Hq={Hq} Hkv={Hkv} S={S} T={T}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    if splits is None:
-        splits = split_kv(B, Hq, S, T, causal, window, D, Dv)
-    elif not 1 <= splits <= MAX_SPLITS:
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"flash_attention: splits must be 1 .. {MAX_SPLITS}, got {splits}")
-    return _launch(q, k, v, splits, causal, window, scale)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if splits is None:
+        splits = split_kv(B, Hq, S, T, causal, window, padded_width(D),
+                          min(padded_width(Dv), MAX_DV))
+    return by_width(lambda q, k, v: _launch(q, k, v, splits, causal, window, scale), q, k, v)
+
+
+def by_width(launch, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``launch(q, k, v)`` on widths a launch takes: q, k and v zero-padded to
+    multiples of 16 (:func:`pad_width`), v in :data:`MAX_DV`-wide column
+    blocks, a launch each, their outputs joined and sliced to v's width.
+    ``launch`` must keep the softmax scale of the true query width."""
+    Dv = v.shape[-1]
+    q, k, v = pad_width(q), pad_width(k), pad_width(v)
+    Dp = v.shape[-1]
+    if Dp <= MAX_DV:
+        out = launch(q, k, v)
+    else:
+        out = torch.cat([launch(q, k, v[..., c:c + MAX_DV].contiguous())
+                         for c in range(0, Dp, MAX_DV)], dim=-1)
+    return out if Dp == Dv else out[..., :Dv].contiguous()
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, splits: int, causal: bool,
-            window: int | None, scale: float | None) -> torch.Tensor:
-    """One launch of the kernel on checked inputs; the output."""
+            window: int | None, scale: float) -> torch.Tensor:
+    """One launch of the kernel on checked inputs of widths it takes; the
+    output."""
     B, Hq, S, D = q.shape
     Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = q.new_empty((B, Hq, S, Dv))
     ws = counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -21,8 +21,10 @@ a sequence's length, so table entries past it (the scratch page) are never
 dereferenced, and it makes no dense copy of the pages.  A table entry inside
 the length that lies outside the pool is a corrupt table: the kernel masks
 that page's rows out of the softmax (it cannot raise without a sync; the
-plain version's gather raises for an index past the pool).  D a multiple of
-16 from 16 to 128, Hq / Hkv <= 16.
+plain version's gather raises for an index past the pool).  The wrapper
+takes what the dense kernel's takes: D up to 128 (off a multiple of 16
+zero-padded, the pools copied), any whole query group (sub-groups of at most
+16, a launch each).
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ import math
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.decode_attention import (check_splits, lengths_vector,
-                                                  plain_decode_attention,
+from repro_torch.kernels.decode_attention import (by_subgroups, check_group, check_splits,
+                                                  lengths_vector, plain_decode_attention,
                                                   plain_split_decode_attention, split_buffers)
-from repro_torch.kernels.flash_attention import check_head_dim
+from repro_torch.kernels.flash_attention import check_head_dim, pad_width
 from repro_torch.kernels.ref import gather_kv_pages
 
 ROUTE = "cuda"
@@ -76,10 +78,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                            block_table: torch.Tensor, length, *, scale: float | None = None,
                            splits: int | None = None) -> torch.Tensor:
     """One-token attention over a paged pool: the plain version for CPU
-    tensors, else the CUDA kernel (bf16, D a multiple of 16 up to 128, Hq / Hkv
-    <= 16, an int32 block table on the card) with ``splits`` key-range
-    splits, ``split_kv(NP · ps)``'s choice unless given: the dense
-    kernel's on the gathered cache."""
+    tensors, else the CUDA kernel (bf16, D up to 128, any whole query group,
+    an int32 block table on the card) with ``splits`` key-range splits,
+    ``split_kv(NP · ps)``'s choice unless given: the dense kernel's on the
+    gathered cache."""
     if native.on_cpu(q, k_pages, v_pages, block_table):
         return plain_paged_decode_attention(q, k_pages, v_pages, block_table, length,
                                             scale=scale)
@@ -99,19 +101,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     P, Hkv, ps = k_pages.shape[:3]
     NP = block_table.shape[1]
     check_head_dim("paged_decode_attention", D)
-    if Hq % Hkv or Hq // Hkv > 16:
-        raise ValueError(f"paged_decode_attention: needs Hq / Hkv a whole number <= 16; "
-                         f"got Hq={Hq} Hkv={Hkv}")
+    check_group("paged_decode_attention", Hq, Hkv)
     splits = check_splits("paged_decode_attention", splits, NP * ps)
     lengths = lengths_vector(length, B, q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
-    ws, counters, stream = split_buffers(q, splits, Hkv)
+    q, k_pages, v_pages = pad_width(q), pad_width(k_pages), pad_width(v_pages)
     fn = native.function("decode_attention", "repro_paged_decode_attention", _ARGTYPES)
-    err = fn(native.ptr(q), native.ptr(k_pages), native.ptr(v_pages), native.ptr(block_table),
-             native.ptr(lengths), native.ptr(out), native.ptr(ws), native.ptr(counters),
-             B, Hq, Hkv, P, ps, NP, D, splits, float(scale), stream)
-    native.raise_on_error("paged_decode_attention", err)
-    native.count_launch(__name__)
+
+    def launch(qs: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(qs)
+        ws, counters, stream = split_buffers(qs, splits, Hkv)
+        err = fn(native.ptr(qs), native.ptr(k_pages), native.ptr(v_pages),
+                 native.ptr(block_table), native.ptr(lengths), native.ptr(out), native.ptr(ws),
+                 native.ptr(counters), B, qs.shape[1], Hkv, P, ps, NP, qs.shape[2], splits,
+                 float(scale), stream)
+        native.raise_on_error("paged_decode_attention", err)
+        native.count_launch(__name__)
+        return out
+
+    out = by_subgroups(launch, q, Hkv)
     last_splits = splits
-    return out
+    return out if out.shape[2] == D else out[..., :D].contiguous()

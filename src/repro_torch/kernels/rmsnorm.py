@@ -3,9 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm.py`` ``rmsnorm``
 (``_rmsnorm_kernel``): ``x * rsqrt(mean(x^2) + eps) * w`` with f32
 statistics and one rounding to x's dtype, for any D and for bf16, f16, f32
-and f64 (the weight in x's dtype), as the Pallas kernel takes any float
-dtype (an f64 element is rounded to f32 as it is read, as the plain
-version's statistics are f32).
+and f64 (the weight in x's dtype; an f64 element is rounded to f32 as it is
+read, as the plain version's statistics are f32).  The Pallas kernel takes
+any float dtype: the wrapper runs any other (the fp8 types) through the f32
+instance and casts the result to x's dtype, as the Pallas kernel's
+``astype`` does.
 
 What bounds it on the H100: bytes — a row reduction and an elementwise
 scale, a few flops per element and no tensor-core work — and, at decode
@@ -55,13 +57,17 @@ def rule_warps(D: int, dtype: torch.dtype) -> int:
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
             warps: int | None = None) -> torch.Tensor:
     """RMS norm over the last axis: the plain version for CPU tensors, else
-    the CUDA kernel (bf16, f16, f32 or f64, the weight in x's dtype; any D).
-    ``warps`` overrides the rule's warps a row (``kernels/rmsnorm_sweep.py``);
-    a row's output then depends on it."""
+    the CUDA kernel (bf16, f16, f32 or f64, the weight in x's dtype; any
+    other float type through the f32 instance; any D).  ``warps`` overrides
+    the rule's warps a row (``kernels/rmsnorm_sweep.py``); a row's output
+    then depends on it."""
     if native.on_cpu(x, weight):
         return plain_rmsnorm(x, weight, eps=eps)
     if x.dtype not in _DTYPES:
-        raise TypeError(f"rmsnorm: x must be bf16, f16, f32 or f64, got {x.dtype}")
+        if not x.dtype.is_floating_point or weight.dtype != x.dtype:
+            raise TypeError(f"rmsnorm: x must be a float type, the weight in x's, got "
+                            f"{x.dtype} and {weight.dtype}")
+        return rmsnorm(x.float(), weight.float(), eps=eps, warps=warps).to(x.dtype)
     native.check("rmsnorm", {"x": x, "weight": weight}, x.dtype, aligned=False)
     D = x.shape[-1]
     if weight.shape != (D,):

@@ -1,4 +1,5 @@
-"""Shared model building blocks: the GQA half of ``repro/models/layers.py``.
+"""Shared model building blocks: ``repro/models/layers.py`` but its
+sequence-parallel decode (which waits for ``dist``).
 
 Every compute hot spot goes through ``dispatch.op`` — matmuls, norms,
 attention — so the model is transparently retargetable between the
@@ -78,9 +79,11 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
     """Logits in f32.  Tied embeddings run a plain f32 product against the
-    table's f32 copy, as the JAX package's f32 einsum outside any kernel."""
+    table's f32 copy, as the JAX package's f32 einsum outside any kernel.
+    ``h`` may be a strided view (a batch's last rows): the kernel reads its
+    rows contiguous."""
     if "unembed" in p:
-        return dispatch.op("matmul", h, p["unembed"], out_dtype=torch.float32)
+        return dispatch.op("matmul", h.contiguous(), p["unembed"], out_dtype=torch.float32)
     # the JAX einsum is exact f32: TF32 would round its inputs to 10 bits.
     # The flag is process-wide, so it is set for this product only.
     flags = torch.backends.cuda.matmul
@@ -121,14 +124,18 @@ def attention_full(
     cfg: ArchConfig,
     *,
     positions: torch.Tensor,           # [S]
+    window: int | None = None,
+    causal: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence causal attention (prefill).  Returns (y, k, v), the
-    caches post-rope as contiguous [B, Hkv, S, hd]."""
+    """Full-sequence attention (prefill; causal unless ``causal=False``, as
+    whisper's encoder runs it), over the last ``window`` keys of each row
+    where given.  Returns (y, k, v), the caches post-rope as contiguous
+    [B, Hkv, S, hd]."""
     q, k, v = _qkv(p, x, cfg)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out = dispatch.op("flash_attention", q, k, v, causal=True)
+    out = dispatch.op("flash_attention", q, k, v, causal=causal, window=window)
     B, S = x.shape[:2]
     y = dispatch.op("matmul", out.transpose(1, 2).reshape(B, S, -1), p["wo"])
     return y, k, v
@@ -216,10 +223,11 @@ def decode_positions(pos: torch.Tensor) -> torch.Tensor:
 def write_kv(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
     """Write one token's KV [B, H, hd] into cache [B, H, Tc, hd] at ``slot``
     (scalar, or [B] per-sequence positions) — in place, where JAX rebuilt the
-    cache."""
+    cache.  A scalar slot is an index on the device (indexing with a 0-d
+    tensor would read it back to the host, a sync a layer)."""
     slot = slot.long()
     if slot.dim() == 0:
-        cache[:, :, slot] = new.to(cache.dtype)
+        cache.index_copy_(2, slot.reshape(1), new[:, :, None].to(cache.dtype))
     else:
         B = cache.shape[0]
         cache[torch.arange(B, device=cache.device), :, slot] = new.to(cache.dtype)
@@ -299,6 +307,46 @@ def attention_decode_paged(
     out = dispatch.op("paged_decode_attention", q, k_pages, v_pages, block_table, lengths)
     y = dispatch.op("matmul", out.reshape(B, -1), p["wo"])
     return y[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the encoder-decoder's)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_specs(cfg: ArchConfig) -> Params:
+    return attention_specs(cfg)
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,                   # [B, S, d] decoder side
+    mem_k: torch.Tensor,               # [B, Hkv, T_enc, hd] precomputed
+    mem_v: torch.Tensor,
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """The decoder's rows attending over the encoder memory, unroped and
+    unmasked: at S = 1 one-token ``decode_attention`` over all T_enc rows,
+    else non-causal ``flash_attention``.  Returns y [B, S, d]."""
+    B, S, _ = x.shape
+    q = dispatch.op("matmul", x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    if S == 1:
+        out = dispatch.op("decode_attention", q[:, 0], mem_k, mem_v, mem_k.shape[2])[:, None]
+    else:
+        out = dispatch.op("flash_attention", q.transpose(1, 2).contiguous(), mem_k, mem_v,
+                          causal=False).transpose(1, 2)
+    return dispatch.op("matmul", out.reshape(B, S, -1), p["wo"])
+
+
+def encode_memory(p: Params, memory: torch.Tensor,
+                  cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of the encoder output [B, T, d], computed once:
+    contiguous [B, Hkv, T, hd] each."""
+    B, T, _ = memory.shape
+    hd = cfg.head_dim
+    k = dispatch.op("matmul", memory, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
+    v = dispatch.op("matmul", memory, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,32 @@
-"""The decoder: ``DecoderLM`` of ``repro/models/model.py`` for the
-``dense`` and ``vlm`` families (llama3_2_1b, yi, granite: GQA attention +
-SwiGLU), the ``moe`` family (llama4-maverick: GQA with a (moe, dense)
-unit; deepseek-v3: MLA, 3 dense layers then MoE) and the ``ssm`` family
-(mamba2: Mamba-2 blocks, no attention, no MLP).
+"""The models: ``DecoderLM`` and ``EncDecLM`` of ``repro/models/model.py``.
+
+``DecoderLM`` runs the ``dense`` and ``vlm`` families (llama3_2_1b, yi,
+granite: GQA attention + SwiGLU), the ``moe`` family (llama4-maverick: GQA
+with a (moe, dense) unit; deepseek-v3: MLA, 3 dense layers then MoE), the
+``ssm`` family (mamba2: Mamba-2 blocks, no attention, no MLP) and the
+``hybrid`` family (hymba: attention and Mamba-2 heads side by side in every
+layer, their normed outputs averaged, under a sliding window).  A config
+with ``attn_window`` keeps a ring-buffer KV cache of ``min(cache_len,
+window)`` rows: prefill keeps the last ``window`` rows, rolled to their
+slots (:func:`_window_clip`), and decode writes row ``pos`` at slot ``pos %
+window``.
+
+``EncDecLM`` runs the ``audio`` family (whisper): an encoder over frame
+embeddings (the conv frontend is a stub, as in the JAX package), then a
+decoder whose layers attend causally over their own rows and across to the
+encoder's output.
 
 Layers run in a Python loop (JAX scanned stacked segments); parameters are
 one dict per layer, and :attr:`DecoderLM.kinds` names each layer's kind
-(``dense``, ``moe`` or ``ssm``) in JAX's segment order
+(``dense``, ``moe``, ``ssm`` or ``hybrid``) in JAX's segment order
 (:func:`plan_segments`).  The cache keeps JAX's stacked layout over all
 layers, so no ``segments`` list: ``{"pos", "k": [L, B, Hkv, T, hd], "v":
 ...}`` for GQA models, ``{"pos", "ckv": [L, B, T, r], "krope": [L, B, T,
 rope]}`` for MLA ones, ``{"pos", "ssm_state": [L, B, H, P, N] f32,
-"conv_tail": [L, B, K-1, C]}`` for SSM ones.  Decode updates it in place
-where JAX returned a new one.
+"conv_tail": [L, B, K-1, C]}`` for SSM ones, all four for hybrid ones, and
+``{"pos", "k", "v", "mem_k", "mem_v"}`` (the cross-attention's memory
+``[L, B, Hkv, T_enc, hd]``) for the encoder-decoder.  Decode updates it in
+place where JAX returned a new one.
 """
 
 from __future__ import annotations
@@ -37,9 +51,12 @@ class Segment:
 
 def plan_segments(cfg: ArchConfig) -> list[Segment]:
     """JAX's segment plan: dense/vlm [dense x L]; moe [dense x first_k_dense,
-    (moe, dense x (period - 1)) x the rest]; ssm [ssm x L]."""
+    (moe, dense x (period - 1)) x the rest]; ssm [ssm x L]; hybrid [hybrid
+    x L]."""
     if cfg.family == "ssm":
         return [Segment(("ssm",), cfg.num_layers)]
+    if cfg.family == "hybrid":
+        return [Segment(("hybrid",), cfg.num_layers)]
     if cfg.moe is not None:
         k1 = cfg.moe.first_k_dense
         period = cfg.moe.layer_period
@@ -61,6 +78,18 @@ def layer_specs(cfg: ArchConfig, kind: str) -> Params:
     d = cfg.d_model
     if kind == "ssm":
         return {"ln1": layers.norm_spec(d), "mamba": ssm.ssm_specs(cfg)}
+    if kind == "hybrid":
+        return {"ln1": layers.norm_spec(d), "attn": layers.attention_specs(cfg),
+                "mamba": ssm.ssm_specs(cfg), "attn_norm": layers.norm_spec(d),
+                "ssm_norm": layers.norm_spec(d), "ln2": layers.norm_spec(d),
+                "mlp": layers.mlp_specs(cfg)}
+    if kind == "enc":
+        return {"ln1": layers.norm_spec(d), "attn": layers.attention_specs(cfg),
+                "ln2": layers.norm_spec(d), "mlp": layers.mlp_specs(cfg)}
+    if kind == "dec":
+        return {"ln1": layers.norm_spec(d), "attn": layers.attention_specs(cfg),
+                "lnx": layers.norm_spec(d), "xattn": layers.cross_attention_specs(cfg),
+                "ln2": layers.norm_spec(d), "mlp": layers.mlp_specs(cfg)}
     attn = ({"mla": mla.mla_specs(cfg)} if cfg.mla is not None
             else {"attn": layers.attention_specs(cfg)})
     ffn = {"moe": moe.moe_specs(cfg)} if kind == "moe" else {"mlp": layers.mlp_specs(cfg)}
@@ -71,31 +100,59 @@ def layer_specs(cfg: ArchConfig, kind: str) -> Params:
 TIME_KEYS = frozenset({"k", "v", "ckv", "krope"})
 
 
-def _pad_cache_time(cache: dict, cache_len: int) -> dict:
+def cache_rows(cfg: ArchConfig, cache_len: int) -> int:
+    """The KV cache's rows for a serving length ``cache_len``: all of them,
+    or under a sliding window a ring of ``min(cache_len, window)``."""
+    return min(cache_len, cfg.attn_window) if cfg.attn_window else cache_len
+
+
+def _pad_cache_time(cache: dict, rows: int) -> dict:
     """Zero-pad the prefill KV (or latent) caches along the time axis to
-    ``cache_len``.  Zeros, not ``torch.empty``: decode attention multiplies
-    masked rows' values by a zero probability, and 0 * NaN would poison the
-    product."""
+    ``rows`` (:func:`cache_rows`).  Zeros, not ``torch.empty``: decode
+    attention multiplies masked rows' values by a zero probability, and 0 *
+    NaN would poison the product."""
     out = dict(cache)
     for key in TIME_KEYS & set(cache):
         x = cache[key]
         cur = x.shape[-2]
-        if cur < cache_len:
-            padded = x.new_zeros((*x.shape[:-2], cache_len, x.shape[-1]))
+        if cur < rows:
+            padded = x.new_zeros((*x.shape[:-2], rows, x.shape[-1]))
             padded[..., :cur, :] = x
             out[key] = padded
     return out
 
 
+def _window_clip(cfg: ArchConfig, kv: dict) -> dict:
+    """Ring-buffer clip of prefill KV to the attention window: the last
+    ``w`` rows of the time axis (its second to last), each at slot ``row %
+    w`` — a roll of the tail by ``(S - w) % w``, as JAX's ``jnp.roll``."""
+    if cfg.attn_window is None or "k" not in kv:
+        return kv
+    w = cfg.attn_window
+    S = kv["k"].shape[-2]
+    if S <= w:
+        return kv
+    shift = (S - w) % w
+    return {**kv, **{key: torch.roll(kv[key][..., -w:, :], shifts=shift, dims=-2)
+                     for key in ("k", "v")}}
+
+
+def _merge_heads(cfg: ArchConfig, p: Params, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """A hybrid layer's merge of its attention and SSM heads' outputs:
+    ``0.5 * (norm(a) + norm(s))``, rounded to bf16 where JAX rounds (the sum,
+    then the half)."""
+    return 0.5 * (layers.apply_norm(p["attn_norm"], a, cfg.norm_eps)
+                  + layers.apply_norm(p["ssm_norm"], s, cfg.norm_eps))
+
+
 class DecoderLM:
-    """Decoder-only LM: dense, vlm, moe (with GQA or MLA attention) and ssm."""
+    """Decoder-only LM: dense, vlm, moe (with GQA or MLA attention), ssm and
+    hybrid."""
 
     def __init__(self, cfg: ArchConfig, *, device: "str | torch.device" = "cuda"):
-        if cfg.family in ("hybrid", "audio") or cfg.attn_window is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs dense and MoE decoders (GQA or MLA) and Mamba-2 "
-                "so far (ROADMAP: hybrid, windowed and audio models come in later slices)"
-            )
+        if cfg.family == "audio":
+            raise ValueError(f"{cfg.name}: an encoder-decoder config is EncDecLM's "
+                             f"(build_model picks it)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = layer_kinds(cfg)
@@ -115,18 +172,21 @@ class DecoderLM:
     def _refuse_chunked(self) -> None:
         """Only plain dense GQA layers are chunk-safe: MoE capacity routing
         depends on the other tokens of a call, recurrent state folds
-        sequentially, and MLA's latents have no chunk path."""
+        sequentially, MLA's latents have no chunk path, and a ring cache
+        clips by position."""
         cfg = self.cfg
         # the first layer that refuses, as JAX's layer loop meets it
-        kind = next((k for k in self.kinds if k != "dense" or cfg.mla is not None), None)
+        kind = next((k for k in self.kinds if k != "dense" or cfg.mla is not None
+                     or cfg.attn_window is not None), None)
         if kind is not None:
             raise ValueError(f"chunked prefill supports plain dense GQA layers only, not "
                              f"{kind!r} (mla={cfg.mla is not None}, window={cfg.attn_window})")
 
     def _refuse_paged(self) -> None:
-        """Only plain position-indexed GQA caches page (dense and moe layers)."""
+        """Only plain position-indexed GQA caches page (dense and moe layers,
+        no window)."""
         cfg = self.cfg
-        if cfg.family == "ssm" or cfg.mla is not None:
+        if self.kinds[0] not in ("dense", "moe") or cfg.mla is not None or cfg.attn_window:
             raise ValueError(f"paged decode supports plain GQA KV caches only, not "
                              f"{self.kinds[0]!r} (mla={cfg.mla is not None}, "
                              f"window={cfg.attn_window})")
@@ -146,9 +206,10 @@ class DecoderLM:
     def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
         """``batch["tokens"]`` [B, S] -> (last-token logits [B, V] f32, cache).
         ``cache_len`` pre-allocates the KV or latent caches to the serving
-        max length; an SSM model's cache has no time axis and ignores it.
-        A vlm config's ``batch["patch_embeds"]`` [B, P, d] replaces the
-        first P rows' embeddings."""
+        max length (a windowed config's ring to ``min(cache_len, window)``
+        rows); an SSM model's cache has no time axis and ignores it.  A vlm
+        config's ``batch["patch_embeds"]`` [B, P, d] replaces the first P
+        rows' embeddings."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = layers.embed_tokens(params["embed"], tokens)
@@ -170,22 +231,33 @@ class DecoderLM:
             return logits[:, 0], {"pos": pos, "ssm_state": torch.stack(states),
                                   "conv_tail": torch.stack(tails)}
         positions = torch.arange(S, device=x.device)
-        first, second = [], []
+        first, second, states, tails = [], [], [], []
         for kind, p in zip(self.kinds, params["layers"]):
             h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
             if cfg.mla is not None:
                 a, c1, c2 = mla.mla_full(p["mla"], h, cfg, positions=positions)
             else:
-                a, c1, c2 = layers.attention_full(p["attn"], h, cfg, positions=positions)
-            x = self._ffn(kind, p, x + a, dropless=False)
+                a, c1, c2 = layers.attention_full(p["attn"], h, cfg, positions=positions,
+                                                  window=cfg.attn_window)
+            if kind == "hybrid":
+                y, state, tail = ssm.ssm_full(p["mamba"], h, cfg, return_state=True)
+                x = x + _merge_heads(cfg, p, a, y)
+                x = self._ffn(kind, p, x, dropless=False)
+                states.append(state)
+                tails.append(tail)
+            else:
+                x = self._ffn(kind, p, x + a, dropless=False)
             first.append(c1)
             second.append(c2)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
         logits = layers.unembed(params["embed"], h[:, -1:])
         keys = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
-        cache = {"pos": pos, keys[0]: torch.stack(first), keys[1]: torch.stack(second)}
+        cache = _window_clip(cfg, {keys[0]: torch.stack(first), keys[1]: torch.stack(second)})
+        cache["pos"] = pos
+        if states:
+            cache.update(ssm_state=torch.stack(states), conv_tail=torch.stack(tails))
         if cache_len is not None:
-            cache = _pad_cache_time(cache, cache_len)
+            cache = _pad_cache_time(cache, cache_rows(cfg, cache_len))
         return logits[:, 0], cache
 
     # -- chunked prefill ------------------------------------------------------
@@ -208,7 +280,8 @@ class DecoderLM:
 
         Only plain dense GQA models chunk: SSM, MoE and MLA models raise
         ``ValueError`` (recurrent state and capacity routing are not
-        row-local across chunk boundaries)."""
+        row-local across chunk boundaries), as do hybrid and windowed ones
+        (a ring cache clips by position)."""
         cfg = self.cfg
         self._refuse_chunked()
         x = layers.embed_tokens(params["embed"], tokens)
@@ -245,11 +318,13 @@ class DecoderLM:
         A ``cache["block_table"]`` ([B, NP] int32) switches attention to the
         paged KV path: ``k``/``v`` are then page pools ``[L, P, Hkv, ps,
         hd]`` shared by the batch, written and read through the table.  The
-        table is the engine's and is not part of the returned cache; an SSM
-        or MLA model refuses it (``ValueError``).
+        table is the engine's and is not part of the returned cache; an SSM,
+        MLA, hybrid or windowed model refuses it (``ValueError``).
 
         An SSM model's ``ssm_state`` and ``conv_tail`` are updated in place
-        the same way; its layers read no position."""
+        the same way; its layers read no position.  A hybrid model updates
+        both its ring KV cache (row ``pos`` at slot ``pos % window``) and its
+        SSM state."""
         cfg = self.cfg
         x = layers.embed_tokens(params["embed"], tokens)
         pos = cache["pos"]
@@ -282,11 +357,18 @@ class DecoderLM:
             else:
                 a = layers.attention_decode_paged(p["attn"], h, cache["k"][i], cache["v"][i],
                                                   table, posb, page, offset, lengths, cfg)
-            x = self._ffn(kind, p, x + a, dropless=True)
+            if kind == "hybrid":
+                y, state, tail = ssm.ssm_decode(p["mamba"], h, cache["ssm_state"][i],
+                                                cache["conv_tail"][i], cfg)
+                cache["ssm_state"][i].copy_(state)
+                cache["conv_tail"][i].copy_(tail)
+                x = self._ffn(kind, p, x + _merge_heads(cfg, p, a, y), dropless=True)
+            else:
+                x = self._ffn(kind, p, x + a, dropless=True)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
         logits = layers.unembed(params["embed"], h)
-        return logits[:, 0], {"pos": pos + 1, **{key: cache[key] for key in TIME_KEYS
-                                                 if key in cache}}
+        return logits[:, 0], {"pos": pos + 1, **{key: cache[key] for key in cache
+                                                 if key not in ("pos", "block_table")}}
 
     # -- cache specs -------------------------------------------------------------
 
@@ -294,10 +376,11 @@ class DecoderLM:
         cfg = self.cfg
         L = cfg.num_layers
         pos = ParamSpec(shape=(), dtype=torch.int32, init="zeros")
+        recurrent = ({key: ParamSpec((L, *spec.shape), dtype=spec.dtype, init="zeros")
+                      for key, spec in ssm.init_ssm_cache_specs(cfg, batch).items()}
+                     if cfg.family in ("ssm", "hybrid") else {})
         if cfg.family == "ssm":
-            return {"pos": pos, **{
-                key: ParamSpec((L, *spec.shape), dtype=spec.dtype, init="zeros")
-                for key, spec in ssm.init_ssm_cache_specs(cfg, batch).items()}}
+            return {"pos": pos, **recurrent}
         if cfg.mla is not None:
             m = cfg.mla
             return {"pos": pos,
@@ -305,10 +388,117 @@ class DecoderLM:
                                      dtype=layers.COMPUTE_DTYPE, init="zeros"),
                     "krope": ParamSpec((L, batch, cache_len, m.qk_rope_dim),
                                        dtype=layers.COMPUTE_DTYPE, init="zeros")}
-        kv = ParamSpec(shape=(L, batch, cfg.num_kv_heads, cache_len, cfg.head_dim),
-                       dtype=layers.COMPUTE_DTYPE, init="zeros")
-        return {"pos": pos, "k": kv, "v": kv}
+        kv = ParamSpec(shape=(L, batch, cfg.num_kv_heads, cache_rows(cfg, cache_len),
+                              cfg.head_dim), dtype=layers.COMPUTE_DTYPE, init="zeros")
+        return {"pos": pos, "k": kv, "v": kv, **recurrent}
 
 
-def build_model(cfg: ArchConfig, *, device: "str | torch.device" = "cuda") -> DecoderLM:
+class EncDecLM:
+    """Whisper-style encoder-decoder (the conv frontend stubbed: frame
+    embeddings ``[B, frontend_seq, d_model]`` in, as in the JAX package).
+    The encoder's layers attend over all frames (rope at the frame's
+    position, no mask); the decoder's attend causally over their own rows,
+    then across to the encoder's output, whose K/V each layer computes once
+    at prefill and keeps in the cache (``mem_k``, ``mem_v``).  The cache's
+    ``pos`` is one scalar for the batch, as JAX's.  Training's ``loss``
+    waits for ``chunked_ce`` (ROADMAP §1)."""
+
+    def __init__(self, cfg: ArchConfig, *, device: "str | torch.device" = "cuda"):
+        if cfg.family != "audio":
+            raise ValueError(f"{cfg.name}: EncDecLM runs the audio family, not {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        return {
+            "embed": layers.embed_specs(cfg),
+            "enc_pos": ParamSpec((cfg.frontend_seq, cfg.d_model), scale=0.02),
+            "encoder": [layer_specs(cfg, "enc") for _ in range(cfg.encoder_layers)],
+            "ln_enc": layers.norm_spec(cfg.d_model),
+            "decoder": [layer_specs(cfg, "dec") for _ in range(cfg.num_layers)],
+            "ln_f": layers.norm_spec(cfg.d_model),
+        }
+
+    def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, self.cfg.norm_eps))
+
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings [B, T, d] (any float type) -> the encoder's
+        normed output [B, T, d] bf16."""
+        cfg = self.cfg
+        h = frames.to(layers.COMPUTE_DTYPE) + params["enc_pos"].to(layers.COMPUTE_DTYPE)
+        positions = torch.arange(h.shape[1], device=h.device)
+        for p in params["encoder"]:
+            a, _, _ = layers.attention_full(p["attn"], layers.apply_norm(p["ln1"], h, cfg.norm_eps),
+                                            cfg, positions=positions, causal=False)
+            h = self._mlp(p, h + a)
+        return layers.apply_norm(params["ln_enc"], h, cfg.norm_eps)
+
+    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
+        """``batch["tokens"]`` [B, S] and ``batch["frames"]`` [B, T_enc, d]
+        -> (last-token logits [B, V] f32, cache).  ``cache_len`` pads the
+        self-attention caches to the decoder's serving length; the memory's
+        K/V keep the encoder's T_enc rows."""
+        memory = self.encode(params, batch["frames"])
+        return self.decoder_prefill(params, batch["tokens"], memory, cache_len=cache_len)
+
+    def decoder_prefill(self, params: Params, tokens: torch.Tensor, memory: torch.Tensor, *,
+                        cache_len: int | None = None):
+        """:meth:`prefill`'s decoder half: ``tokens`` [B, S] over the
+        encoder's output ``memory`` [B, T_enc, d] (:meth:`encode`)."""
+        cfg = self.cfg
+        x = layers.embed_tokens(params["embed"], tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        caches: dict[str, list] = {"k": [], "v": [], "mem_k": [], "mem_v": []}
+        for p in params["decoder"]:
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            a, k, v = layers.attention_full(p["attn"], h, cfg, positions=positions)
+            x = x + a
+            mem_k, mem_v = layers.encode_memory(p["xattn"], memory, cfg)
+            hx = layers.apply_norm(p["lnx"], x, cfg.norm_eps)
+            x = self._mlp(p, x + layers.cross_attention(p["xattn"], hx, mem_k, mem_v, cfg))
+            for key, t in zip(caches, (k, v, mem_k, mem_v)):
+                caches[key].append(t)
+        h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = layers.unembed(params["embed"], h[:, -1:])
+        cache = {key: torch.stack(ts) for key, ts in caches.items()}
+        if cache_len is not None:
+            # the memory's K/V are fixed-length: only self-attention pads
+            cache.update(_pad_cache_time({"k": cache["k"], "v": cache["v"]}, cache_len))
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        return logits[:, 0], cache
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict):
+        """tokens [B, 1] -> (logits [B, V] f32, cache): this token's k/v are
+        written at row ``pos`` (a scalar) in place, and the returned cache
+        holds the same tensors with ``pos + 1``."""
+        cfg = self.cfg
+        x = layers.embed_tokens(params["embed"], tokens)
+        pos = cache["pos"]
+        for i, p in enumerate(params["decoder"]):
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+            x = x + layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+            hx = layers.apply_norm(p["lnx"], x, cfg.norm_eps)
+            x = self._mlp(p, x + layers.cross_attention(p["xattn"], hx, cache["mem_k"][i],
+                                                        cache["mem_v"][i], cfg))
+        h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
+        logits = layers.unembed(params["embed"], h)
+        return logits[:, 0], {**cache, "pos": pos + 1}
+
+    def cache_specs(self, batch: int, cache_len: int) -> dict:
+        cfg = self.cfg
+        L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        kv = ParamSpec((L, batch, hkv, cache_len, hd), dtype=layers.COMPUTE_DTYPE, init="zeros")
+        mem = ParamSpec((L, batch, hkv, cfg.frontend_seq, hd), dtype=layers.COMPUTE_DTYPE,
+                        init="zeros")
+        return {"pos": ParamSpec(shape=(), dtype=torch.int32, init="zeros"), "k": kv, "v": kv,
+                "mem_k": mem, "mem_v": mem}
+
+
+def build_model(cfg: ArchConfig, *,
+                device: "str | torch.device" = "cuda") -> "DecoderLM | EncDecLM":
+    if cfg.family == "audio":
+        return EncDecLM(cfg, device=device)
     return DecoderLM(cfg, device=device)

@@ -87,7 +87,7 @@ def _with_f32_copies(params: dict) -> dict:
     embed = params["embed"]
     if "unembed" not in embed:
         embed["tok_f32"] = embed["tok"].float()
-    for layer in params["layers"]:
+    for layer in params.get("layers", ()):
         if "mla" in layer:
             layer["mla"]["wo_f32"] = layer["mla"]["wo"].float()
     return params
@@ -103,8 +103,8 @@ def init_params(specs: Any, seed: int = 0, *, device: "str | torch.device" = "cu
 
 
 def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dict:
-    """The port's parameters from the JAX ``DecoderLM``'s, given as a tree of
-    numpy arrays (``jax.tree.map(np.asarray, params)``).
+    """The port's parameters from the JAX ``DecoderLM``'s or ``EncDecLM``'s,
+    given as a tree of numpy arrays (``jax.tree.map(np.asarray, params)``).
 
     JAX stacks each segment's repeated unit as ``[count, ...]`` under
     ``tree["segments"][s][str(j)]`` (j the unit's j-th layer kind: llama4's
@@ -115,6 +115,10 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
     bf16; ``torch.from_numpy`` rejects numpy's bf16) and are cast back to
     their dtype on the torch side, so the router and a Mamba-2 layer's
     ``a_log``, ``skip_d`` and ``dt_bias`` stay f32 and the rest bf16.
+
+    The encoder-decoder's ``encoder`` and ``decoder`` stacks (``[L, ...]``
+    each) become lists of per-layer dicts; ``enc_pos`` and ``ln_enc`` come
+    across as they are.
     """
     device = resolve_device(device)
 
@@ -122,6 +126,15 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
         dtype = getattr(torch, str(a.dtype))
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
+    def unstack(stack: dict) -> list:
+        stack = tree_map(leaf, stack)
+        return [tree_map(lambda t, i=i: t[i], stack) for i in range(stack["ln1"].shape[0])]
+
+    if "encoder" in tree:
+        return _with_f32_copies({
+            "embed": tree_map(leaf, tree["embed"]), "enc_pos": leaf(tree["enc_pos"]),
+            "encoder": unstack(tree["encoder"]), "ln_enc": leaf(tree["ln_enc"]),
+            "decoder": unstack(tree["decoder"]), "ln_f": leaf(tree["ln_f"])})
     layers = []
     for segment in tree["segments"]:
         units = [tree_map(leaf, segment[str(j)]) for j in range(len(segment))]

@@ -9,8 +9,12 @@ live slots decode in lock-step, and finished slots are recycled.
 JAX engine does to hit its jit trace cache), and one decode step of the last
 prompt token at its true position re-derives the first token's logits.
 Only where every cache leaf is position-indexed: a recurrent cache (Mamba-2's
-``ssm_state`` and ``conv_tail``) would fold the pads into its state, so for
-those models prompts prefill at their exact length and no fixup runs.
+``ssm_state`` and ``conv_tail``) would fold the pads into its state, and a
+sliding window's ring cache (Hymba's) would keep the pads' rows, so for
+those models prompts prefill at their exact length and no fixup runs.  A
+hybrid model's decode step updates its ring and its SSM state in place, in
+the same captured graph.  An encoder-decoder model is refused: its prefill
+needs frames the engine does not pass.
 
 **Fused multi-token decode** (``decode_fusion=K``, or a
 :class:`FusionPolicy` choosing K a launch): one launch runs K decode steps
@@ -355,6 +359,13 @@ class ServeEngine:
                  prefix: "PrefixPolicy | bool | None" = None,
                  device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
+        if model.cfg.family == "audio":
+            # the JAX engine takes such a model and its prefill then raises
+            # KeyError: 'frames' (it passes tokens alone)
+            raise ValueError(
+                f"{model.cfg.name}: ServeEngine serves decoder-only models; an encoder-decoder "
+                f"prefill also needs batch['frames'], which the engine does not pass: call "
+                f"EncDecLM.prefill and decode_step directly")
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
         if not isinstance(decode_fusion, FusionPolicy) and (
@@ -413,6 +424,11 @@ class ServeEngine:
         self.sample_calls = 0          # sampler calls (first tokens, decode steps) at T > 0
         # -- paged KV cache state ---------------------------------------------
         self.paged = paged
+        if paged and not self._paged_safe():
+            raise ValueError(
+                "paged=True requires plain position-indexed GQA KV caches "
+                "(no MLA latent, recurrent, windowed, or cross-attn leaves)"
+            )
         self.page_size = page_size
         self.admission = admission if admission is not None else AdmissionPolicy()
         self.preemption = preemption if preemption is not None else PreemptionPolicy()
@@ -486,11 +502,6 @@ class ServeEngine:
         self.prefix_pages_saved = 0
         self.cow_copies = 0
         if paged:
-            if not self._cache_keys <= {"k", "v"}:
-                raise ValueError(
-                    "paged=True requires plain position-indexed GQA KV caches "
-                    "(no MLA latent, recurrent, windowed, or cross-attn leaves)"
-                )
             if page_size < 1 or max_len % page_size:
                 raise ValueError(
                     f"max_len={max_len} must be a multiple of page_size={page_size}"
@@ -559,12 +570,18 @@ class ServeEngine:
         self._graphed = self.device.type == "cuda"
         self._graph: graph_mod.StepGraph | None = None
 
+    def _paged_safe(self) -> bool:
+        """True iff every cache leaf is a plain GQA k/v tensor that pages
+        (JAX's ``_paged_safe``): no MLA latent, recurrent state or ring."""
+        return not self.model.cfg.attn_window and self._cache_keys <= {"k", "v"}
+
     def _chunk_safe(self) -> bool:
         """True iff chunked prefill is exact for this model (JAX's
         ``_chunk_safe``): every layer a plain dense-attention block over GQA
         k/v caches.  MoE capacity routing and recurrent scans are not
-        row-local, and MLA's latents have no chunk path."""
-        return (self._cache_keys == {"k", "v"}
+        row-local, MLA's latents have no chunk path, and a ring cache clips
+        by position."""
+        return (self._paged_safe() and self._cache_keys == {"k", "v"}
                 and all(kind == "dense" for kind in self.model.kinds))
 
     def _launch(self, name: str, fn, *args, **kwargs):
@@ -669,8 +686,10 @@ class ServeEngine:
     def _bucketing_safe(self) -> bool:
         """True iff every cache leaf is position-indexed (decode masks by
         ``pos``, so end-padding is causally inert).  Recurrent leaves have
-        no such mask."""
-        return not (self._cache_keys & self._RECURRENT_CACHE_KEYS)
+        no such mask, and a sliding window's ring keeps the *last* window
+        rows of a prefill, which would be the pads."""
+        return (not self.model.cfg.attn_window
+                and not (self._cache_keys & self._RECURRENT_CACHE_KEYS))
 
     def concurrency_stats(self) -> dict[str, float]:
         """Sustained (mean over decode launches) and peak concurrency."""

@@ -147,3 +147,37 @@ def test_small_streams_equal_jax(small):
         k = next(j for j, (a, b) in enumerate(zip(got[i], want[i])) if a != b)
         _near_tie(small, PROMPTS[i] + want[i][:k], got[i][k], want[i][k])
     assert all(len(s) == 9 for s in want)
+
+
+def test_every_jax_config_is_the_port_s_and_builds():
+    """Every configuration of the JAX package is the port's, field for field
+    (internvl2's vlm frontend, hymba's hybrid layers and whisper's
+    encoder-decoder included), and each reduced one builds the model class
+    JAX builds for it and draws as many parameters as JAX's specs hold (the
+    port's resident f32 copies aside)."""
+    from repro.models.model import EncDecLM as JEncDecLM
+    from repro_torch.models import EncDecLM, init_params
+
+    assert sorted(ARCHS) == sorted(JARCHS)
+    for name, jcfg in JARCHS.items():
+        assert repr(ARCHS[name]) == repr(jcfg)
+        rcfg = reduced(ARCHS[name])
+        model, jmodel = build_model(rcfg, device="cpu"), jbuild_model(jreduced(jcfg))
+        assert isinstance(model, EncDecLM) == isinstance(jmodel, JEncDecLM)
+        params = init_params(model.param_specs(), 0, device="cpu")
+        leaves = []
+
+        def walk(node):
+            if isinstance(node, dict):
+                # the resident f32 copies (tok_f32, MLA's wo_f32) are the port's own
+                for key, v in node.items():
+                    if not key.endswith("_f32"):
+                        walk(v)
+            elif isinstance(node, list):
+                for v in node:
+                    walk(v)
+            else:
+                leaves.append(node)
+        walk(params)
+        jleaves = jax.tree.leaves(jmodel.param_specs(), is_leaf=lambda s: hasattr(s, "shape"))
+        assert sum(t.numel() for t in leaves) == sum(int(np.prod(s.shape)) for s in jleaves)

@@ -427,11 +427,11 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         mm_k.matmul(x.float(), w)                    # f32 with bf16: no kernel takes the mix
     with pytest.raises(ValueError):
         mm_k.matmul(x.t(), w)                        # not contiguous
+    with pytest.raises(ValueError, match="head_dim 264"):
+        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 264), cuda) for _ in range(3)))
     with pytest.raises(ValueError, match="head_dim 144"):
-        fa_k.flash_attention(*(_randn(g, (1, 2, 8, 144), cuda) for _ in range(3)))
-    with pytest.raises(ValueError, match="head_dim 40"):
-        dec_k.decode_attention(_randn(g, (1, 2, 40), cuda), *(_randn(g, (1, 2, 8, 40), cuda)
-                                                              for _ in range(2)), 3)
+        dec_k.decode_attention(_randn(g, (1, 2, 144), cuda), *(_randn(g, (1, 2, 8, 144), cuda)
+                                                               for _ in range(2)), 3)
     assert mm_k.launches == before + 1
 
 
@@ -1004,9 +1004,10 @@ def test_conv2d_wrapper_counts_launches_and_refuses_bad_input(cuda):
         conv_k.conv2d(x, w.float())
     with pytest.raises(ValueError):
         conv_k.conv2d(x[:, :2], w)
-    big = torch.zeros((200, 200, 1, 1), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):   # the input tile alone: 454 KB
-        conv_k.conv2d(torch.zeros((1, 202, 202, 1), device=cuda), big)
+    # 16 output rows' input, 4063 pixels wide, and one filter row: past 227 KB
+    big = torch.zeros((1, 4000, 1, 1), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_k.conv2d(torch.zeros((1, 2, 4001, 1), device=cuda), big)
     assert conv_k.launches == before + 1
 
 
@@ -1268,15 +1269,27 @@ def test_decode_and_paged_attention_take_every_head_dim_to_128(cuda, d):
 
 @pytest.mark.parametrize("d", [8, 24, 136, 192])
 def test_attention_refuses_a_head_dim_it_does_not_take_naming_it(cuda, d):
+    """Each attention kernel takes ``d`` (flash up to 256, the decode kernels
+    up to 128; widths off a multiple of 16 zero-padded) and agrees with its
+    plain version, or refuses it naming it."""
     g = _gen(cuda, 26)
     q4, kv4 = _randn(g, (1, 4, 16, d), cuda), _randn(g, (1, 2, 16, d), cuda)
     q3 = _randn(g, (1, 4, d), cuda)
     kp, vp, table = _paged_pool(g, cuda, 1, 16, T=32, d=d, hkv=2)
-    for call in (lambda: fa_k.flash_attention(q4, kv4, kv4),
-                 lambda: dec_k.decode_attention(q3, kv4, kv4, 8),
-                 lambda: paged_k.paged_decode_attention(q3, kp, vp, table, 8)):
-        with pytest.raises(ValueError, match=f"head_dim {d} "):
-            call()
+    calls = ((256, lambda: fa_k.flash_attention(q4, kv4, kv4),
+              lambda: fa_k.plain_flash_attention(q4, kv4, kv4)),
+             (128, lambda: dec_k.decode_attention(q3, kv4, kv4, 8),
+              lambda: dec_k.plain_decode_attention(q3, kv4, kv4, 8)),
+             (128, lambda: paged_k.paged_decode_attention(q3, kp, vp, table, 8),
+              lambda: paged_k.plain_paged_decode_attention(q3, kp, vp, table, 8)))
+    for most, call, plain in calls:
+        if d <= most:
+            got = call()
+            assert got.shape[-1] == d
+            _attn_close(got, plain())
+        else:
+            with pytest.raises(ValueError, match=f"head_dim {d} "):
+                call()
 
 
 # ---------------------------------------------------------------------------
@@ -1384,7 +1397,7 @@ def _small(kind, cuda):
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import build_model, init_params
 
-    arch = "mamba2-780m" if kind == "ssm" else "llama3.2-1b"
+    arch = {"ssm": "mamba2-780m", "hybrid": "hymba-1.5b"}.get(kind, "llama3.2-1b")
     model = build_model(reduced(ARCHS[arch], layers=2, d_model=256, vocab=512), device=cuda)
     return model, init_params(model.param_specs(), 0, device=cuda)
 
@@ -1408,11 +1421,14 @@ _PROMPTS = [[3, 14, 15, 92, 65], [7, 8], list(range(1, 40)), [42], [5] * 17, [9,
 
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 @pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("kind", ["dense", "paged", "ssm"])
+@pytest.mark.parametrize("kind", ["dense", "paged", "ssm", "hybrid"])
 def test_graph_replays_equal_the_eager_loop_bitwise(cuda, kind, k, temperature):
     """The decode step as a replayed CUDA graph gives the eager loop's
     streams token for token (the same kernels on the same buffers), and its
-    replays count as launches: each kernel's count equals the loop's."""
+    replays count as launches: each kernel's count equals the loop's.  The
+    hybrid model (window 32) holds its ring cache at per-slot positions and
+    its SSM state in the graph: the 39-token prompt engages the ring at
+    prefill, the 17-token one during decode."""
     from repro_torch.kernels import launch_counters
 
     model, params = _small(kind, cuda)
@@ -2036,3 +2052,182 @@ def test_moe_decode_in_a_cuda_graph_equals_the_eager_loop(cuda, arch, k, tempera
     assert out[True] == out[False]
     assert all(len(s) == 9 for s in out[True][0])
     assert out[True][1][("flash_attention", "launches")] > 0
+
+
+# ---------------------------------------------------------------------------
+# the inputs the Pallas kernels take that the kernels alone do not: widths
+# off a multiple of 16, values past 128, queries and keys to 256, query
+# groups past 16, rmsnorm in other float types, conv2d's input in slabs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dqk,dv,causal,window", [
+    (40, 40, True, None), (100, 100, False, None), (72, 136, True, 96), (208, 128, True, None),
+    (256, 256, True, None), (64, 200, False, None), (250, 250, True, 64), (192, 320, True, None)])
+def test_flash_attention_takes_any_width_to_256_and_values_past_128(cuda, dqk, dv, causal,
+                                                                     window):
+    """Widths off a multiple of 16 zero-padded (the scale 1/sqrt of the true
+    Dqk), queries and keys of 193-256 on the <256,128> instance, values past
+    128 in 128-wide column blocks, a launch each: within the row tolerance of
+    the plain version, and two calls bit for bit."""
+    g = _gen(cuda, dqk + dv)
+    q = _randn(g, (2, 8, 200, dqk), cuda)
+    k, v = _randn(g, (2, 2, 300, dqk), cuda), _randn(g, (2, 2, 300, dv), cuda)
+    before = fa_k.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_k.launches == before + -(-fa_k.padded_width(dv) // fa_k.MAX_DV)
+    assert got.shape == (2, 8, 200, dv) and got.is_contiguous()
+    _attn_close(got, fa_k.plain_flash_attention(q, k, v, causal=causal, window=window))
+    assert torch.equal(got, fa_k.flash_attention(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(40, 32, 8), (100, 8, 2), (64, 40, 2), (64, 34, 1),
+                                      (24, 96, 3), (128, 64, 2)])
+def test_decode_and_paged_take_any_width_to_128_and_any_query_group(cuda, d, hq, hkv):
+    """A width off a multiple of 16 zero-padded; a query group past 16 in
+    sub-groups of at most 16, a launch each: dense and paged within the row
+    tolerance of their plain versions, and paged bitwise the dense kernel on
+    the gathered cache."""
+    g = _gen(cuda, d + hq)
+    lengths = torch.tensor([1, 300, 77, 512], dtype=torch.int32, device=cuda)
+    q = _randn(g, (4, hq, d), cuda)
+    kc, vc = _randn(g, (4, hkv, 512, d), cuda), _randn(g, (4, hkv, 512, d), cuda)
+    kp, vp, table = _paged_pool(g, cuda, 4, 16, T=512, d=d, hkv=hkv)
+    n = len(dec_k.subgroups(hq // hkv))
+    before = (dec_k.launches, paged_k.launches)
+    got = dec_k.decode_attention(q, kc, vc, lengths)
+    paged = paged_k.paged_decode_attention(q, kp, vp, table, lengths)
+    assert (dec_k.launches, paged_k.launches) == (before[0] + n, before[1] + n)
+    assert got.shape == q.shape and paged.shape == q.shape
+    _attn_close(got, dec_k.plain_decode_attention(q, kc, vc, lengths))
+    _attn_close(paged, paged_k.plain_paged_decode_attention(q, kp, vp, table, lengths))
+    assert torch.equal(paged, dec_k.decode_attention(q, gather_kv_pages(kp, table),
+                                                     gather_kv_pages(vp, table), lengths))
+
+
+@pytest.mark.parametrize("dtype,step", [(torch.float8_e4m3fn, 2.0 ** -3),
+                                        (torch.float8_e5m2, 2.0 ** -2)], ids=["e4m3", "e5m2"])
+def test_rmsnorm_takes_other_float_types_through_the_f32_instance(cuda, dtype, step):
+    """fp8 rows run the f32 instance and are cast to their type, one
+    launch: each element the plain version's or one fp8 step from it (the
+    f32 sums part by an ulp, which a rounding to fp8 may carry)."""
+    g = _gen(cuda, 31)
+    x = torch.randn((8, 2048), generator=g, device=cuda).to(dtype)
+    w = (1 + torch.rand((2048,), generator=g, device=cuda)).to(dtype)
+    before = rms_k.launches
+    got = rms_k.rmsnorm(x, w)
+    assert rms_k.launches == before + 1 and got.dtype == dtype
+    want = rms_k.plain_rmsnorm(x, w).float()
+    assert bool(((got.float() - want).abs() <= step * want.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("kh,kw,F,dtype,slabs", [(200, 200, 1, torch.float32, 2),
+                                                  (240, 240, 2, torch.int16, 3)])
+def test_conv2d_stages_the_input_rows_in_slabs_for_a_tall_filter(cuda, kh, kw, F, dtype, slabs):
+    """A filter so tall that the ring's input rows alone pass 227 KB (200x200
+    in f32: 454 KB) stages the input rows with each filter slab, the sums
+    carried across slabs in the same order: one launch, f32 within F32_TOL
+    of the plain version and int16 exact, over two tiles down and across."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    assert conv_k.filter_rows(kh, kw, F, isz) == 0
+    assert -(-kh // conv_k.slab_rows(kh, kw, F, isz)) == slabs
+    x, w = _conv_inputs(_gen(cuda, kh), cuda, 2, kh + 20, kw + 70, 1, kh, kw, F, dtype)
+    before = conv_k.launches
+    got = conv_k.conv2d(x, w)
+    assert conv_k.launches == before + 1
+    want = conv_k.plain_conv2d(x, w)
+    if dtype == torch.int16:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid (hymba-1.5b) and encoder-decoder (whisper-large-v3) shapes
+# ---------------------------------------------------------------------------
+
+
+def test_flash_attention_window_1024_at_hymba_shape_folds_groups_alike_at_every_split(cuda):
+    """Hymba's prefill: 25/5 heads of 64, a 1024-key window, S = T = 1400.  A
+    windowed q tile's first visible key tile need not start a 512-key group:
+    within the row tolerance of the plain version, and bitwise the same at
+    every split count."""
+    g = _gen(cuda, 41)
+    q = _randn(g, (1, 25, 1400, 64), cuda)
+    k, v = _randn(g, (1, 5, 1400, 64), cuda), _randn(g, (1, 5, 1400, 64), cuda)
+    got = fa_k.flash_attention(q, k, v, causal=True, window=1024)
+    _attn_close(got, fa_k.plain_flash_attention(q, k, v, causal=True, window=1024))
+    for splits in range(1, fa_k.MAX_SPLITS + 1):
+        assert torch.equal(fa_k.flash_attention(q, k, v, causal=True, window=1024,
+                                                splits=splits), got)
+
+
+@pytest.mark.parametrize("S,T", [(1500, 1500), (4, 1500), (1, 1500)])
+def test_flash_attention_non_causal_at_whisper_shapes(cuda, S, T):
+    """Whisper's encoder (1500 frames: not a multiple of 64) and its
+    cross-attention prefill (4 decoder rows over 1500), 20 heads of 64."""
+    g = _gen(cuda, S)
+    q = _randn(g, (2, 20, S, 64), cuda)
+    k, v = _randn(g, (2, 20, T, 64), cuda), _randn(g, (2, 20, T, 64), cuda)
+    _attn_close(fa_k.flash_attention(q, k, v, causal=False),
+                fa_k.plain_flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("hq,hkv,T,lengths", [
+    (25, 5, 1024, [1, 500, 1023, 1024, 1024, 1024, 2, 1024]),
+    (20, 20, 1500, 1500), (20, 20, 448, [5, 100, 448, 7, 64, 300, 2, 448])])
+def test_decode_attention_over_the_ring_and_whisper_caches(cuda, hq, hkv, T, lengths):
+    """Hymba's ring (1024 rows, lengths either side of filling it), and
+    whisper's cross-attention (group 1 over 1500 memory rows, a scalar
+    length) and self-attention (448 rows), 8 sequences."""
+    g = _gen(cuda, T)
+    q = _randn(g, (8, hq, 64), cuda)
+    kc, vc = _randn(g, (8, hkv, T, 64), cuda), _randn(g, (8, hkv, T, 64), cuda)
+    n = lengths if isinstance(lengths, int) else torch.tensor(lengths, dtype=torch.int32,
+                                                              device=cuda)
+    _attn_close(dec_k.decode_attention(q, kc, vc, n), dec_k.plain_decode_attention(q, kc, vc, n))
+
+
+@pytest.mark.parametrize("S", [5, 1000, 1400])
+def test_ssd_at_hymba_shape(cuda, S):
+    """Hymba's SSM heads: 50 heads of 64, state 16, one group."""
+    args = _ssd_args(_gen(cuda, S), cuda, 1, S, 50, 64, 1, 16)
+    y, state = ssd_k.ssd(*args, return_state=True)
+    want_y, want_state = ssd_k.plain_ssd(*args, return_state=True)
+    _attn_close(y, want_y)
+    rel = (state - want_state).flatten(2).norm(dim=-1) / want_state.flatten(2).norm(dim=-1)
+    assert float(rel.max()) <= SSD_STATE_REL_L2_TOL, f"state rel L2 {float(rel.max())}"
+
+
+def test_small_hybrid_and_encoder_decoder_cuda_match_the_torch_source(cuda):
+    """Reduced hymba (window 32, a 40-token prompt: the ring engaged) and
+    whisper under cuda-strict against the torch source: prefill and three
+    decode steps, at the small-model tolerance above."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, init_params
+
+    for arch in ("hymba-1.5b", "whisper-large-v3"):
+        cfg = reduced(ARCHS[arch], layers=2, d_model=256, vocab=517)
+        model = build_model(cfg, device=cuda)
+        params = init_params(model.param_specs(), 0, device=cuda)
+        g = _gen(cuda, 43)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device=cuda)
+        batch = {"tokens": tokens}
+        if arch.startswith("whisper"):
+            batch = {"tokens": tokens[:, :4],
+                     "frames": torch.randn((2, cfg.frontend_seq, cfg.d_model), generator=g,
+                                           device=cuda)}
+        out = {}
+        for policy in ("torch", "cuda-strict"):
+            with dispatch.use(prefer=dispatch.policy_from_flag(policy)):
+                logits, cache = model.prefill(params, batch, cache_len=64)
+                if arch.startswith("hymba"):
+                    cache["pos"] = torch.tensor([40, 40], dtype=torch.int32, device=cuda)
+                steps = [logits]
+                for t in range(3):
+                    step, cache = model.decode_step(params, tokens[:, t:t + 1], cache)
+                    steps.append(step)
+            out[policy] = steps
+        for a, b in zip(out["torch"], out["cuda-strict"]):
+            assert torch.isfinite(b).all() and b.shape == (2, 517)
+            torch.testing.assert_close(b, a, atol=5e-2, rtol=5e-2)

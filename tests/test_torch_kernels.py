@@ -444,17 +444,23 @@ def test_conv2d_stages_a_filter_past_one_slab_in_row_chunks_on_the_rule():
     """The wrapper's shared-memory rule, as the kernel computes it: a
     filter whose one-channel slab would pass 227 KB beside the input ring
     is staged in slabs of the rows that fit (68x68 of eight f32 filters:
-    two slabs of 66 and 2 rows); the roles keep one slab; only a filter
-    whose input tile and one filter row pass 227 KB is refused.  On CPU
-    tensors the wrapper runs the plain version, here at a 68x68 filter
-    against a float64 ``F.conv2d``."""
+    two slabs of 66 and 2 rows); the roles keep one slab; a filter whose
+    input tile and one filter row pass 227 KB stages its input rows with
+    each slab (200x200 f32: two slabs of 116 and 84 rows, one 231 KB slot);
+    only a filter whose 16 output rows' input and one filter row pass 227 KB
+    is refused.  On CPU tensors the wrapper runs the plain version, here at
+    a 68x68 filter against a float64 ``F.conv2d``."""
     from repro_torch.kernels import conv2d as conv_k
 
-    assert conv_k.filter_rows(68, 68, 8, 4) == 66
+    assert conv_k.filter_rows(68, 68, 8, 4) == 66 and conv_k.slab_rows(68, 68, 8, 4) == 0
     cc, nbytes = conv_k._smem(1, 68, 68, 8, 4)
     assert cc == 1 and nbytes <= 227 * 1024
     assert conv_k.filter_rows(5, 5, 1, 2) == 5 and conv_k._smem(1, 5, 5, 1, 2)[0] == 1
-    assert conv_k.filter_rows(200, 200, 1, 4) == 0 and conv_k._smem(1, 200, 200, 1, 4)[0] == 0
+    assert conv_k.filter_rows(200, 200, 1, 4) == 0 and conv_k.slab_rows(200, 200, 1, 4) == 116
+    cc, slab_bytes = conv_k._smem(1, 200, 200, 1, 4)
+    assert cc == 1 and slab_bytes == (16 + 115) * 1056 + 116 * 200 * 4 <= 227 * 1024
+    assert conv_k.slab_rows(240, 240, 2, 2) == 88
+    assert conv_k._smem(1, 1, 4000, 1, 4)[0] == 0 and conv_k.slab_rows(1, 4000, 1, 4) == 0
     assert conv_k.footprint(1, 68, 68, 8, 4).smem_bytes == nbytes
     g = torch.Generator().manual_seed(4)
     x = torch.randn((1, 70, 71, 1), generator=g)
@@ -464,3 +470,31 @@ def test_conv2d_stages_a_filter_past_one_slab_in_row_chunks_on_the_rule():
                                       w.double().permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
     assert got.shape == (1, 3, 4, 8) and got.dtype == torch.float32
     torch.testing.assert_close(got.double(), want, atol=2e-3, rtol=2e-4)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_conv2d_rule_routes_every_filter_to_a_mode_that_fits(itemsize):
+    """Over filters of 1..400 rows and 1..1200 columns and 1..9 filters,
+    the wrapper's rule picks, as the kernel does, the ring with the whole
+    filter, the ring with filter slabs (:func:`filter_rows` rows a slab), or
+    one slot of input rows with each slab (:func:`slab_rows`), each within
+    227 KB of shared memory; it refuses only a filter whose 16 output
+    rows' input and one filter row pass that."""
+    from repro_torch.kernels import conv2d as conv_k
+
+    modes = set()
+    for kh in (1, 3, 30, 68, 120, 200, 260, 400):
+        for kw in (1, 5, 68, 200, 600, 1200):
+            for f in (1, 2, 5, 9):
+                cc, nbytes = conv_k._smem(1, kh, kw, f, itemsize)
+                rows, slabs = conv_k.filter_rows(kh, kw, f, itemsize), conv_k.slab_rows(
+                    kh, kw, f, itemsize)
+                if cc == 0:
+                    assert rows == slabs == 0
+                    assert conv_k._slab_bytes(1, kw, f, itemsize) > 227 * 1024
+                    continue
+                assert nbytes <= 227 * 1024
+                mode = "whole" if rows == kh else "filter slabs" if rows else "input slabs"
+                assert (slabs > 0) == (mode == "input slabs")
+                modes.add(mode)
+    assert modes == {"whole", "filter slabs", "input slabs"}

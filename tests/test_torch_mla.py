@@ -106,15 +106,20 @@ def test_flash_attention_with_narrower_values_matches_jax(S, T, causal, dqk, dv)
 
 
 def test_flash_instance_and_width_rules():
-    """The instance that holds (Dqk, Dv), smallest first; widths the kernel
-    refuses raise with the width named (MLA's 192 over 128 is taken)."""
+    """The instance that holds (Dqk, Dv), smallest first; widths the wrapper
+    refuses raise with the width named (MLA's 192 over 128 is taken, and
+    since the <256,128> instance, every query and key width up to 256 over
+    any value width: off a multiple of 16 padded, values past 128 in
+    128-wide blocks)."""
     assert fa_k.kernel_instance(192, 128) == (192, 128)
     assert fa_k.kernel_instance(24, 32) == (64, 64)
     assert fa_k.kernel_instance(64, 128) == (128, 128)
     assert fa_k.kernel_instance(128) == (128, 128) and fa_k.instance(160) == 192
-    for dqk, dv in ((192, 128), (176, 64), (16, 16), (128, 128)):
+    assert fa_k.kernel_instance(208, 128) == (256, 128) and fa_k.instance(256) == 256
+    for dqk, dv in ((192, 128), (176, 64), (16, 16), (128, 128), (192, 192), (208, 128),
+                    (24, 32), (64, 136), (256, 512), (100, 7)):
         fa_k.check_head_dims("flash_attention", dqk, dv)
-    for dqk, dv, named in ((192, 192, 192), (208, 128, 208), (24, 32, 24), (64, 136, 136)):
+    for dqk, dv, named in ((264, 128, 264), (320, 64, 320), (512, 512, 512)):
         with pytest.raises(ValueError, match=f"head_dim {named} "):
             fa_k.check_head_dims("flash_attention", dqk, dv)
     # the split rule reads the instance's key tile: 64 keys at 192, as at 128

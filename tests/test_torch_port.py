@@ -68,18 +68,39 @@ def test_entry_points_raise_without_a_card(tiny):
 
 
 def test_decoder_refuses_the_families_not_ported():
-    """Hybrid (hymba: attention and SSM heads in one layer) is not ported;
-    its config is built here, since the port does not copy hymba's yet."""
+    """Every family of the JAX package is ported: hybrid (attention and SSM
+    heads in one layer) and windowed configs build as ``DecoderLM`` and
+    audio ones as ``EncDecLM`` (the decoder refuses them).  What JAX
+    refuses stays refused, with JAX's messages: chunked prefill and paged
+    decode of hybrid or windowed layers."""
     import dataclasses
 
     from repro_torch.configs.base import SSMConfig
+    from repro_torch.models import EncDecLM
+    from repro_torch.models.model import DecoderLM
 
     hybrid = dataclasses.replace(CFG, name="hybrid-smoke", family="hybrid", parallel_ssm=True,
-                                 ssm=SSMConfig(state_dim=16, head_dim=16, chunk=16))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(hybrid, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(CFG, attn_window=8), device="cpu")
+                                 attn_window=8, ssm=SSMConfig(state_dim=16, head_dim=16,
+                                                              chunk=16))
+    windowed = dataclasses.replace(CFG, attn_window=8)
+    tokens = torch.tensor([[1, 2, 3, 4]])
+    for cfg, kind in ((hybrid, "hybrid"), (windowed, "dense")):
+        model = build_model(cfg, device="cpu")
+        assert isinstance(model, DecoderLM) and model.kinds == [kind] * cfg.num_layers
+        params = init_params(model.param_specs(), 0, device="cpu")
+        _, cache = model.prefill(params, {"tokens": tokens}, cache_len=16)
+        assert cache["k"].shape[3] == 8                  # the ring: min(cache_len, window)
+        with pytest.raises(ValueError, match=f"chunked prefill supports plain dense GQA layers "
+                                             f"only, not '{kind}' \\(mla=False, window=8\\)"):
+            model.prefill_chunk(params, tokens, cache, start=0)
+        with pytest.raises(ValueError, match=f"paged decode supports plain GQA KV caches only, "
+                                             f"not '{kind}' \\(mla=False, window=8\\)"):
+            model.decode_step(params, tokens[:, :1],
+                              {**cache, "block_table": torch.zeros(1, 2, dtype=torch.int32)})
+    audio = reduced(ARCHS["whisper-large-v3"], layers=2, d_model=64, vocab=128)
+    assert isinstance(build_model(audio, device="cpu"), EncDecLM)
+    with pytest.raises(ValueError, match="EncDecLM"):
+        DecoderLM(audio, device="cpu")
     build_model(ARCHS["mamba2-780m"], device="cpu")
 
 

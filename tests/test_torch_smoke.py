@@ -577,14 +577,15 @@ def test_sass_names_each_decode_instance_and_the_ssd_kernel(monkeypatch):
 
 def test_decode_split_check_needs_every_served_split_count():
     """The split counts the rule picks at the served shapes (decode steps
-    over 1024, 512 and 256 rows, every fixup) must each run in some row of
-    the kernel."""
+    over 1024, 512 and 256 rows, every fixup; hymba's 1024-row ring,
+    whisper's 448 self-attention rows and its 1500 memory rows: 6 splits)
+    must each run in some row of the kernel."""
     lengths, _ = cs.serve_prompts(torch, 128, 0)
     served = cs.served_decode_splits(dec_k, lengths)
-    assert served == {"decode_attention": {1, 2, 3, 4}, "paged_decode_attention": {2, 4}}
-    rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4)]
+    assert served == {"decode_attention": {1, 2, 3, 4, 6}, "paged_decode_attention": {2, 4}}
+    rows = ([{"name": "decode_attention", "splits": n} for n in (1, 2, 3, 4, 6)]
             + [{"name": "paged_decode_attention", "splits": n} for n in (2, 4)])
-    assert cs.check_splits(rows, served) == {"decode_attention": [1, 2, 3, 4],
+    assert cs.check_splits(rows, served) == {"decode_attention": [1, 2, 3, 4, 6],
                                              "paged_decode_attention": [2, 4]}
     with pytest.raises(AssertionError, match="no row ran"):
         cs.check_splits(rows[1:], served)
@@ -1117,3 +1118,53 @@ def test_moe_phase_serves_its_runs_equal_on_a_small_model(monkeypatch, arch, pol
     assert res["summary"]["weights_bytes"] == cs.weight_bytes(params)
     assert res["summary"]["streams_equal"]["t0.7_k4"] == "8 of 8 equal t0.7_k1"
     assert cs.MOE_LENGTHS == (5, 90, 175, 260, 345, 430, 515, 600)
+
+
+def test_families_phase_serves_hymba_and_runs_whisper_on_small_models(monkeypatch):
+    """The families phase on reduced hymba (window 32: prompts of 3 to 60
+    tokens, 40, 50 and 60 past the window, 30 crossing it in decode) and
+    reduced whisper (8 frames, 2 sequences, 5 greedy tokens): the model
+    calls against the torch source with their launch counts, every kernel
+    (ssd's state too) held against its plain version, paged and chunked
+    serving refused, the runs' streams equal per HYMBA_EQUAL, the two greedy
+    decodes equal, and the engine's refusal of whisper; and every shape the
+    runs gave a kernel logged for the summary's check."""
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    given = {}
+    for arch in ("hymba-1.5b", "whisper-large-v3"):
+        model = build_model(reduced(ARCHS[arch], layers=2, d_model=64, vocab=131), device="cpu")
+        given[arch] = (model, init_params(model.param_specs(), 0, device="cpu"))
+    lengths = (3, 10, 20, 30, 33, 40, 50, 60)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.families_phase(torch, kernels, 0, "cpu", "no card",
+                                hymba=given["hymba-1.5b"], whisper=given["whisper-large-v3"],
+                                hymba_kw={"lengths": lengths, "max_len": 128, "new_tokens": 6},
+                                whisper_kw={"batch": 2, "cache_len": 16, "new_tokens": 5})
+    hymba, whisper = res["hymba-1.5b"], res["whisper-large-v3"]
+    held = hymba["calls"]["kernels_held_against_plain"]
+    assert held["ssd"] > 0 and held["flash_attention"] > 0 and held["decode_attention"] > 0
+    # d_model 64: in_proj's N is 296, so only the unembed (vocabulary 131) is
+    # the edge kernel's: once a call
+    assert hymba["calls"]["launches"]["matmul_edge"] == 8 + cs.FAMILY_DECODE_STEPS
+    assert list(hymba["runs"]) == [name for name, _ in cs.HYMBA_RUNS]
+    for run in hymba["runs"].values():
+        assert run["requests"] == 8 and run["fixup_calls"] == 0
+        assert run["launches"]["ssd"] == 2 * run["prefill_calls"]
+    summary = hymba["summary"]
+    assert summary["streams_equal"]["t0.7_k4"] == "8 of 8 equal t0.7_k1"
+    assert set(summary["refused"]) == {"paged", "prefill_chunk"} and summary["cache_rows"] == 32
+    assert whisper["summary"]["greedy_decodes_equal"] and "EncDecLM" in whisper["summary"][
+        "refused"]
+    assert whisper["launches"]["flash_attention"] == 2 + 2 * 2
+    assert whisper["launches"]["decode_attention"] == 2 * 2 * cs.FAMILY_DECODE_STEPS
+    keys = {tuple(k) for k in res["shape_keys"]}
+    assert ("flash_attention", 1, 4, 60, 16, 1, 60, 16, True, 32) in keys
+    assert ("flash_attention", 2, 4, 8, 16, 4, 8, 16, False, None) in keys      # the encoder
+    assert ("decode_attention", 2, 4, 16, 4, 8) in keys             # across to the memory
+    assert ("ssd", 1, 60, 8, 16, 1, 16) in keys
+    rows = [{"served_key": list(k)} for k in keys]
+    assert cs.check_family_shapes(rows, res["shape_keys"])["ssd"] == len(lengths)
+    with pytest.raises(AssertionError, match="no row held"):
+        cs.check_family_shapes(rows[1:], res["shape_keys"])
+    assert cs.hybrid_launches(ARCHS["hymba-1.5b"], prefills=1, decodes=0)["matmul_edge"] == 33
