@@ -13,8 +13,9 @@ depth, with weights drawn from ``--seed`` on the card,
 through the port's own entry points under the ``cuda-strict`` policy, so
 every op on the path runs a hand-written kernel; serves llama3.2-1b
 through faults, silent corruption and shared prompt prefixes, and yi-9b
-under an overcommitted page pool (preemption, host spill and refill); and
-runs the paper's two tenants on the card through the port's HSA runtime.
+under an overcommitted page pool (preemption, host spill and refill);
+runs the paper's two tenants on the card through the port's HSA runtime;
+and trains llama3.2-1b at full width and depth under the ``torch`` policy.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: the card's name and power limit; build the kernels from
@@ -233,6 +234,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes beside planted faults, and the inputs only the wrappers route
    (widths off a multiple of 16, values past 128, queries and keys to 256,
    query groups past 16, rmsnorm in fp8, conv2d's input in slabs).
+16. train: llama3.2-1b (16 layers, d_model 2048, vocab 128256, tied) at full
+   width and depth, weights from ``--seed``, under the ``torch`` policy (no
+   hand-written kernel has a backward pass; ``dispatch.op`` refuses one
+   where a gradient flows), AdamW from ``pick_opt`` with a 2-step warm-up,
+   remat ``full``, 8 x 1024 tokens a step from the synthetic stream: the
+   first step's gradient finite and nonzero on every leaf (``tok``
+   among them), its loss and grad norm within 2e-2 of the same weights'
+   in f32; a warm-up step and 10 timed steps through ``TrainLoop`` (step
+   time, tokens/s, peak memory, loss and grad norm at each step, model
+   FLOPs a step as a share of 989 TFLOP/s), no kernel launched, the loss
+   falling, and where a step's device time goes (a traced step); greedy streams (8 x 16 tokens) under cuda-strict on the
+   refreshed weights, every kernel call held against its plain version,
+   equal to the torch source's on the training tree up to each stream's
+   first near tie (best two scores within 4 ulps), and a planted stale
+   ``tok_f32`` caught; then 2 of 16 layers trained 4 steps unbroken and 2 +
+   2 across a checkpoint and a resume, parameters and optimizer state bit
+   for bit.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3916,6 +3934,290 @@ def families_phase(torch, kernels, seed: int, card: str, smi: str, *, hymba=None
     return out
 
 
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+#: steps after the warm-up step
+TRAIN_STEPS = 10
+TRAIN_WARMUP_STEPS = 2
+TRAIN_F32_REL_TOL = 2e-2
+#: the resume check: depth, steps before and after the checkpoint
+RESUME_LAYERS, RESUME_STEPS = 2, 2
+GREEDY_PROMPT, GREEDY_NEW = 16, 16
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """A training step's model FLOPs: 6 N a token, and attention's two
+    products over the causal half of each layer's [S, S] (2 B H S^2 hd
+    forward), three times for the backward pass."""
+    attention = 3 * cfg.num_layers * 2 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    return 6.0 * n_params * batch * seq + attention
+
+
+def greedy_streams(torch, model, params, prompts, new_tokens: int, policy: str,
+                   registry=None):
+    """Greedy decoding of ``prompts`` [B, P] under ``policy``: a batched
+    prefill, then ``new_tokens - 1`` decode steps each feeding back the
+    argmax; (tokens [B, new_tokens], the scores each token was chosen from
+    [B, new_tokens, V])."""
+    from repro_torch.core import dispatch
+
+    toks, scores = [], []
+    with dispatch.use(prefer=dispatch.policy_from_flag(policy), registry=registry), \
+            torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      cache_len=prompts.shape[1] + new_tokens)
+        for i in range(new_tokens):
+            scores.append(logits)
+            toks.append(torch.argmax(logits, dim=-1))
+            if i + 1 < new_tokens:
+                logits, cache = model.decode_step(params, toks[-1][:, None].to(torch.int32),
+                                                  cache)
+    return torch.stack(toks, dim=1), torch.stack(scores, dim=1)
+
+
+def streams_agree(torch, got, got_scores, want, want_scores) -> dict:
+    """Each stream of ``got`` against ``want``'s, token by token, up to its
+    first position where ``want``'s two best scores lie within
+    SAMPLE_TIE_ULPS ulps (a near tie either side may break): the tokens
+    compared, the first that differs where the scores lie apart, and the
+    largest relative L2 of ``got``'s scores against ``want``'s over the
+    compared positions (the same prefix fed to both)."""
+    top = want_scores.topk(2, dim=-1).values
+    best = top[..., 0].abs()
+    clear = ((top[..., 0] - top[..., 1]) / (torch.nextafter(best, best + 1) - best)
+             > SAMPLE_TIE_ULPS).cpu()
+    rel = ((got_scores - want_scores).norm(dim=-1) / want_scores.norm(dim=-1)).cpu()
+    got, want = got.cpu(), want.cpu()
+    compared, differ, worst = 0, [], 0.0
+    for b in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            if not clear[b, i]:
+                break
+            compared += 1
+            worst = max(worst, float(rel[b, i]))
+            if got[b, i] != want[b, i]:
+                differ.append([b, i])
+                break
+    return {"compared": compared, "of": want.numel(), "differ_at": differ,
+            "max_scores_rel_l2": worst}
+
+
+def train_phase(torch, seed: int, card: str, smi: str) -> dict:
+    """Phase 16: llama3.2-1b trained at full width and depth under the
+    ``torch`` policy (AdamW from ``pick_opt``, warm-up over
+    TRAIN_WARMUP_STEPS steps, remat ``full``, TRAIN_BATCH x TRAIN_SEQ tokens
+    from the synthetic stream): the first step's gradients finite and
+    nonzero on every leaf (``tok`` among them), its loss and grad norm
+    against the same weights in f32 on the card; a warm-up step and
+    TRAIN_STEPS timed ones through ``TrainLoop`` (no hand-written kernel
+    launched), the loss falling, and one more step traced; resume from a
+    checkpoint at RESUME_LAYERS
+    layers bitwise the unbroken run; then greedy streams under cuda-strict on
+    the refreshed weights (every kernel held against its plain version on
+    the calls' data) against the torch source's on the training tree, and
+    a planted stale ``tok_f32`` caught."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_batch_iterator, \
+        to_device
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch.specs import pick_opt
+    from repro_torch.models import build_model, init_params, layers
+    from repro_torch.models.params import trainable, tree_leaves, tree_map, tree_paths
+    from repro_torch.optim.adamw import global_norm, opt_init
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import auto_microbatches, make_train_step, value_and_grad
+
+    cfg = get_arch(TRAIN_ARCH)
+    model = build_model(cfg)
+    dev = model.device
+    served0 = init_params(model.param_specs(), seed)
+    params = trainable(served0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = dataclasses.replace(pick_opt(cfg), warmup_steps=TRAIN_WARMUP_STEPS)
+    mb = auto_microbatches(TRAIN_BATCH, TRAIN_SEQ, cfg=cfg)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=seed)
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": n_params, "remat": cfg.remat,
+           "optimizer": dataclasses.asdict(opt), "microbatches": mb,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "card": card, "nvidia_smi": smi}
+
+    # the first step's gradients, and the same weights in f32
+    batch0 = to_device(SyntheticTokens(data_cfg).batch_at(0), dev)
+    loss, _, grads = value_and_grad(model, params, batch0)
+    norms = {k: float(torch.linalg.vector_norm(g.float())) for k, g in
+             zip(tree_paths(grads), tree_leaves(grads))}
+    bad = {k: v for k, v in norms.items() if not math.isfinite(v) or v == 0.0}
+    if bad:
+        raise AssertionError(f"leaves with a non-finite or zero gradient: {bad}")
+    gnorm = float(global_norm(grads))
+    del grads
+    params32 = tree_map(lambda t: t.float(), params)
+    old = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        loss32, _, grads32 = value_and_grad(model, params32, batch0)
+        gnorm32 = float(global_norm(grads32))
+    finally:
+        layers.COMPUTE_DTYPE = old
+    del params32, grads32
+    first = {"loss": float(loss), "loss_f32": float(loss32), "grad_norm": gnorm,
+             "grad_norm_f32": gnorm32, "tok_grad_norm": norms["['embed']['tok']"],
+             "leaves": len(norms), "tolerance_rel": TRAIN_F32_REL_TOL}
+    first["loss_rel"] = abs(first["loss"] - first["loss_f32"]) / first["loss_f32"]
+    first["grad_norm_rel"] = abs(gnorm - gnorm32) / gnorm32
+    res["first_step"] = first
+    print("  first step: " + json.dumps(first))
+    if max(first["loss_rel"], first["grad_norm_rel"]) > TRAIN_F32_REL_TOL:
+        raise AssertionError(f"the first step's loss or grad norm differs from f32's: {first}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a warm-up step, then TRAIN_STEPS timed ones through the loop
+    step_fn = make_train_step(model, opt, microbatches=mb)
+    per_step: list[dict] = []
+
+    def recorded(p, o, b):
+        p, o, m = step_fn(p, o, b)
+        per_step.append(m)
+        return p, o, m
+
+    batches = make_batch_iterator(data_cfg)
+    loop = TrainLoop(recorded, lambda s: next(batches),
+                     LoopConfig(total_steps=1 + TRAIN_STEPS, log_every=0), log=print)
+    before = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, report = loop.run(params, opt_init(opt, params))
+    peak = torch.cuda.max_memory_allocated()
+    launched = {f"{mod}.{counter}": n - before[mod, counter]
+                for (mod, counter), n in launch_counters().items()}
+    if any(launched.values()):
+        raise AssertionError(f"training launched hand-written kernels: {launched}")
+    losses = [float(m["loss"]) for m in per_step]
+    step_s = report.step_times_s[1:]
+    mean_s = sum(step_s) / len(step_s)
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    res["train"] = {
+        "steps": len(step_s), "warmup_step_s": report.step_times_s[0], "step_s": step_s,
+        "mean_step_s": mean_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s,
+        "peak_memory_bytes": peak, "model_flops_per_step": flops,
+        "flop_share_of_989_tflops": flops / mean_s / BF16_TC_FLOPS,
+        "loss": losses, "grad_norm": [float(m["grad_norm"]) for m in per_step],
+        "lr": [float(m["lr"]) for m in per_step], "kernel_launches": launched}
+    print("  " + json.dumps(res["train"]))
+    print(f"  {cfg.name} training on {card} ({smi}): {mean_s * 1e3:.1f} ms a step, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB, "
+          f"{flops / mean_s / 1e12:.1f} TFLOP/s of model FLOPs = "
+          f"{flops / mean_s / BF16_TC_FLOPS:.4f} of 989")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    print("  where a training step's time goes (torch.profiler, CUDA activity):")
+    batch = to_device(SyntheticTokens(data_cfg).batch_at(1 + TRAIN_STEPS), dev)
+    res["train"]["trace"] = traced_call(torch, lambda: step_fn(params, state, batch))
+    del batch
+
+    res["greedy"] = train_greedy_check(torch, model, params, served0["embed"]["tok_f32"],
+                                       data_cfg)
+    del params, state, served0, loop, per_step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["resume"] = train_resume_check(torch, cfg, opt, data_cfg, seed)
+    return res
+
+
+def train_greedy_check(torch, model, params, stale_tok_f32, data_cfg) -> dict:
+    """Greedy streams after training: under cuda-strict on the refreshed
+    serving weights, every kernel call held against its plain version
+    (:class:`KernelChecks`), against the torch source's on the training
+    tree (which reads ``tok`` itself): tokens equal up to each stream's
+    first near tie, and the scores they were chosen from within
+    MODEL_REL_L2_TOL relative L2, as the model phases hold cuda-strict
+    logits.  The same with the initial table's f32 copy left in place must
+    fail it.  (Ten steps teach the model the stream's commonest tokens:
+    greedy streams repeat one token under either table, so the tokens alone
+    cannot see a stale table; the scores can.)"""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models.params import refresh_derived, tree_map
+
+    prompts = torch.from_numpy(SyntheticTokens(data_cfg).batch_at(10_000)["tokens"]
+                               [:, :GREEDY_PROMPT]).to(model.device)
+    want, want_scores = greedy_streams(torch, model, params, prompts, GREEDY_NEW, "torch")
+    served = refresh_derived(tree_map(lambda t: t, params))
+    checks = KernelChecks(torch)
+    got, got_scores = greedy_streams(torch, model, served, prompts, GREEDY_NEW, "cuda-strict",
+                                     registry=checks.registry())
+    stale = {**served, "embed": {**served["embed"], "tok_f32": stale_tok_f32}}
+    stale_toks, stale_scores = greedy_streams(torch, model, stale, prompts, GREEDY_NEW,
+                                              "cuda-strict")
+    out = {"refreshed": streams_agree(torch, got, got_scores, want, want_scores),
+           "stale": streams_agree(torch, stale_toks, stale_scores, want, want_scores),
+           "streams": [prompts.shape[0], GREEDY_NEW], "tie_ulps": SAMPLE_TIE_ULPS,
+           "scores_tolerance_rel_l2": MODEL_REL_L2_TOL,
+           "kernels_held_against_plain": {op: len(v) for op, v in checks.worst.items()},
+           "kernel_worst_errors": checks.worst, "tokens": want.tolist()}
+    print("  greedy after training: " + json.dumps({k: v for k, v in out.items()
+                                                    if k not in ("tokens", "kernel_worst_errors")}))
+
+    def passes(res: dict) -> bool:
+        return (not res["differ_at"] and res["compared"] >= res["of"] // 2
+                and res["max_scores_rel_l2"] <= MODEL_REL_L2_TOL)
+
+    if not passes(out["refreshed"]):
+        raise AssertionError(f"cuda-strict streams on the refreshed weights part from the "
+                             f"torch source's: {out}")
+    if passes(out["stale"]):
+        raise AssertionError(f"a stale tok_f32 went unseen: {out}")
+    return out
+
+
+def train_resume_check(torch, cfg, opt, data_cfg, seed: int) -> dict:
+    """RESUME_LAYERS layers at full width: 2 x RESUME_STEPS steps through
+    one ``TrainLoop``, against RESUME_STEPS steps, a checkpoint, and a new
+    loop that resumes from it for RESUME_STEPS more: parameters and
+    optimizer state bit for bit."""
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_paths
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    model = build_model(dataclasses.replace(cfg, num_layers=RESUME_LAYERS))
+    src = SyntheticTokens(data_cfg)
+    step_fn = make_train_step(model, opt)
+    ckpt = ROOT / "build" / "train_resume"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def run(total: int, ckpt_dir):
+        loop = TrainLoop(step_fn, lambda s: to_device(src.batch_at(s), model.device),
+                         LoopConfig(total_steps=total, ckpt_dir=ckpt_dir, keep=1, log_every=0),
+                         log=print)
+        return loop.run(*init_train_state(model, opt, seed))
+
+    try:
+        whole_p, whole_o, _ = run(2 * RESUME_STEPS, None)
+        t = time.perf_counter()
+        run(RESUME_STEPS, str(ckpt))
+        save_s = time.perf_counter() - t
+        resumed_p, resumed_o, report = run(2 * RESUME_STEPS, str(ckpt))
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    differ = [k for k, a, b in zip(tree_paths((whole_p, whole_o)), tree_leaves((whole_p, whole_o)),
+                                   tree_leaves((resumed_p, resumed_o)))
+              if not torch.equal(a, b)]
+    out = {"layers": RESUME_LAYERS, "steps": [RESUME_STEPS, RESUME_STEPS],
+           "resumed_from": report.resumed_from, "leaves": len(tree_leaves((whole_p, whole_o))),
+           "leaves_differing": differ, "first_run_with_checkpoint_s": save_s,
+           "checkpoint_bytes": ckpt_bytes}
+    print("  resume: " + json.dumps(out))
+    if report.resumed_from != RESUME_STEPS or differ:
+        raise AssertionError(f"the resumed run differs from the unbroken one: {out}")
+    return out
+
+
 def schedule_counts(res: dict) -> dict:
     """The numbers of a run that follow from its schedule alone (the
     prompts' lengths and tokens, not the model's values): model calls,
@@ -5188,7 +5490,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/16] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/17] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5210,7 +5512,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/16] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/17] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -5220,14 +5522,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/16] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/17] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/16] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/17] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -5248,7 +5550,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
     phase_s["serve"] = lap()
 
-    print("[5/16] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/17] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -5256,19 +5558,19 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/16] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/17] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/16] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/17] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/16] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/17] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -5296,7 +5598,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["twin_and_tables"] = lap()
 
-    print(f"[9/16] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[9/17] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -5313,7 +5615,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/16] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/17] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -5323,14 +5625,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/16] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/17] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/16] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/17] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -5350,7 +5652,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/16] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/17] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -5362,7 +5664,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print(f"[14/16] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+    print(f"[14/17] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
           f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
           f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
           f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
@@ -5384,7 +5686,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
         torch.cuda.empty_cache()
     phase_s["moe"] = lap()
 
-    print(f"[15/16] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
+    print(f"[15/17] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
           f"{HYMBA_MAX_LEN}-row slot on a 1024-row ring) and whisper-large-v3 (32 + 32 layers), "
           f"full width and depth, weights from --seed, one after the other: model calls against "
           f"the torch source, every kernel held against its plain version on the calls' data; "
@@ -5395,7 +5697,15 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     families_res = families_phase(torch, kernels, args.seed, card, smi)
     phase_s["families"] = lap()
 
-    print("[16/16] the kernels' summary")
+    print(f"[16/17] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
+          f"hand-written kernel has a backward pass), AdamW from pick_opt, remat full, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the first step against f32, a warm-up step and "
+          f"{TRAIN_STEPS} timed, greedy streams on the refreshed weights under cuda-strict, "
+          f"resume at {RESUME_LAYERS} layers, on {card} ({smi})")
+    train_res = train_phase(torch, args.seed, card, smi)
+    phase_s["train"] = lap()
+
+    print("[17/17] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -5613,7 +5923,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             "sample_shapes": sample_shapes, "full_depth_shapes": full_shapes,
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
             "ssm_temperature": ssm_temp_res, "moe": moe_res, "families": families_res,
-            "family_shapes": family_shapes,
+            "family_shapes": family_shapes, "train": train_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

@@ -1,0 +1,119 @@
+"""Checkpointing: atomic, self-describing, restorable into a live tree; the
+counterpart of ``repro/checkpoint/checkpoint.py``.
+
+- **Atomicity**: a checkpoint is written to ``step_N.tmp/`` and renamed
+  into place only after every array and the manifest are on disk, so a
+  writer killed midway never spoils the newest checkpoint.
+- **Self-describing**: the manifest records the step, the mesh shape and,
+  for each leaf, its tree path (``['embed']['tok']``), file, shape and
+  dtype.
+- **Restore** reads each leaf onto the device and into the dtype of the
+  live tree's leaf at the same path, after checking its shape.
+- **Retention**: the newest ``keep`` checkpoints stay; older ones are
+  deleted only once a newer one is published.
+
+Arrays are ``.npy`` files, one a leaf.  numpy has no bf16, so a bf16 leaf
+is stored as its uint16 bits, its dtype in the manifest: the round trip
+is bitwise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import tree_leaves, tree_paths, tree_unflatten
+
+MANIFEST = "manifest.json"
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _published(ckpt_dir: str) -> list[str]:
+    return sorted(d for d in os.listdir(ckpt_dir)
+                  if d.startswith("step_") and not d.endswith(".tmp"))
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, mesh_shape: tuple[int, ...] = (),
+                    keep: int = 3, extra_meta: dict | None = None) -> str:
+    """Write ``tree`` (dicts, lists and tuples of tensors) as
+    ``ckpt_dir/step_{step:08d}``; returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    entries = []
+    for i, (key, leaf) in enumerate(zip(tree_paths(tree), tree_leaves(tree))):
+        fname = f"arr_{i:05d}.npy"
+        with open(os.path.join(tmp, fname), "wb") as f:
+            np.save(f, _to_numpy(leaf))
+            f.flush()
+            os.fsync(f.fileno())
+        entries.append({"key": key, "file": fname, "shape": list(leaf.shape),
+                        "dtype": str(leaf.dtype).removeprefix("torch.")})
+    manifest = {"step": step, "time": time.time(), "mesh_shape": list(mesh_shape),
+                "entries": entries, **(extra_meta or {})}
+    with open(os.path.join(tmp, MANIFEST), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)          # atomic publish
+
+    for old in _published(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, old), ignore_errors=True)
+    return final
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    """The newest published checkpoint with a manifest, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    for cand in reversed(_published(ckpt_dir)):
+        path = os.path.join(ckpt_dir, cand)
+        if os.path.exists(os.path.join(path, MANIFEST)):
+            return path
+    return None
+
+
+def restore_checkpoint(path: str, tree_like: Any) -> tuple[Any, dict]:
+    """(a tree of ``tree_like``'s structure holding the checkpoint's
+    arrays, the manifest).  Each leaf goes to the device and dtype of
+    ``tree_like``'s leaf at its path; a missing or extra leaf, or another
+    shape, raises ``ValueError``."""
+    with open(os.path.join(path, MANIFEST)) as f:
+        manifest = json.load(f)
+    likes, keys = tree_leaves(tree_like), tree_paths(tree_like)
+    entries = manifest["entries"]
+    if len(likes) != len(entries):
+        raise ValueError(f"checkpoint has {len(entries)} leaves, model expects {len(likes)}")
+    out = []
+    for entry, key, like in zip(entries, keys, likes):
+        if entry["key"] != key:
+            raise ValueError(f"checkpoint leaf {entry['key']} where {key} is expected")
+        arr = np.load(os.path.join(path, entry["file"]))
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(like.shape)}")
+        out.append(_from_numpy(arr, entry["dtype"]).to(device=like.device, dtype=like.dtype))
+    return tree_unflatten(tree_like, out), manifest

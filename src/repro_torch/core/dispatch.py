@@ -7,6 +7,14 @@ memo keeps that to one dictionary lookup); the active
 Flipping ``prefer=policy_from_flag("cuda")`` retargets an entire model to
 the hand-written Hopper kernels without touching model code; that one-flag
 switch is the paper's transparency claim.
+
+The hand-written kernels have no backward pass (nor have the JAX package's
+Pallas kernels), and a kernel called through its binding returns a tensor
+with no ``grad_fn``: a gradient upstream of it would be lost without an
+error.  So :func:`op` refuses a ``cuda`` or ``triton`` source while grad is
+enabled and a tensor argument requires grad; training runs under the
+``torch`` policy, and serving, whose weights do not require grad, is
+unaffected.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ import contextlib
 import contextvars
 import dataclasses
 from typing import Any, Iterator, Sequence
+
+import torch
 
 from repro_torch.core.registry import GLOBAL_REGISTRY, KernelImpl, KernelRegistry
 
@@ -98,10 +108,26 @@ def use(
         _CTX.reset(token)
 
 
+#: the sources whose kernels have no backward pass
+NO_BACKWARD = frozenset({"cuda", "triton"})
+
+
+def _requires_grad(args: tuple, kwargs: dict) -> bool:
+    return any(isinstance(a, torch.Tensor) and a.requires_grad
+               for a in (*args, *kwargs.values()))
+
+
 def op(name: str, *args: Any, specialization: str | None = None, **kwargs: Any) -> Any:
-    """Dispatch a logical op through the active context."""
+    """Dispatch a logical op through the active context.  Raises
+    ``RuntimeError`` where the resolved source has no backward pass and a
+    gradient would flow through it."""
     ctx = _CTX.get()
     impl = ctx.resolve(name, specialization=specialization)
+    if (impl.source in NO_BACKWARD and torch.is_grad_enabled()
+            and _requires_grad(args, kwargs)):
+        raise RuntimeError(
+            f"{name}: the {impl.source} source ({impl.name}) has no backward pass, and an "
+            f"argument requires grad; differentiate under the 'torch' policy")
     if ctx.trace is not None:
         ctx.trace.record(name, impl)
     return impl.fn(*args, **kwargs)

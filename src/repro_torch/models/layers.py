@@ -12,8 +12,9 @@ are ``[B, S, d]``, per-head tensors ``[B, S, H, hd]``, caches
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 
@@ -77,21 +78,64 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(tokens, p["tok"]).to(COMPUTE_DTYPE)
 
 
+@contextlib.contextmanager
+def exact_f32() -> Iterator[None]:
+    """Clears ``torch.backends.cuda.matmul.allow_tf32`` for the products in
+    the block: TF32 would round f32 inputs to 10 bits."""
+    flags = torch.backends.cuda.matmul
+    allow, flags.allow_tf32 = flags.allow_tf32, False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = allow
+
+
+class _ExactF32Product(torch.autograd.Function):
+    """``x @ w`` of f32 operands with TF32 off in the forward product and in
+    both backward products.  The flag is process-wide and the backward runs
+    later, under whatever it is then, so each product clears it for itself."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        with exact_f32():
+            return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with exact_f32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.matmul(g, w.t())
+            if ctx.needs_input_grad[1]:
+                gw = torch.matmul(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+        return gx, gw
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` in exact f32, forward and backward, as the
+    JAX package's f32 ``jnp.einsum`` / ``jnp.dot``; the casts to f32
+    differentiate back into each operand's dtype."""
+    return _ExactF32Product.apply(x.float(), w.float())
+
+
 def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
-    """Logits in f32.  Tied embeddings run a plain f32 product against the
-    table's f32 copy, as the JAX package's f32 einsum outside any kernel.
-    ``h`` may be a strided view (a batch's last rows): the kernel reads its
-    rows contiguous."""
+    """Logits in f32.  Tied embeddings run an exact f32 product against the
+    table, as the JAX package's f32 einsum outside any kernel: serving
+    reads the table's resident f32 copy ``tok_f32``
+    (:func:`repro_torch.models.params.refresh_derived`), training
+    differentiates into ``tok`` through its cast (the training tree has no
+    copy, :func:`repro_torch.models.params.trainable`; a table that
+    requires grad is read through its cast even beside one).  ``h`` may be
+    a strided view (a batch's last rows): the kernel reads its rows
+    contiguous."""
     if "unembed" in p:
         return dispatch.op("matmul", h.contiguous(), p["unembed"], out_dtype=torch.float32)
-    # the JAX einsum is exact f32: TF32 would round its inputs to 10 bits.
-    # The flag is process-wide, so it is set for this product only.
-    flags = torch.backends.cuda.matmul
-    allow_tf32, flags.allow_tf32 = flags.allow_tf32, False
-    try:
-        return torch.matmul(h.float(), p["tok_f32"].t())
-    finally:
-        flags.allow_tf32 = allow_tf32
+    table = p.get("tok_f32")
+    if table is None or (p["tok"].requires_grad and torch.is_grad_enabled()):
+        table = p["tok"]
+    return f32_product(h, table.t())
 
 
 # ---------------------------------------------------------------------------

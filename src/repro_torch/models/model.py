@@ -32,15 +32,29 @@ place where JAX returned a new one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import dispatch
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.params import ParamSpec, resolve_device
 
 Params = Any
+
+AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
+
+
+def _zero_aux(device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
+def _merge_aux(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +159,125 @@ def _merge_heads(cfg: ArchConfig, p: Params, a: torch.Tensor, s: torch.Tensor) -
                   + layers.apply_norm(p["ssm_norm"], s, cfg.norm_eps))
 
 
+# ---------------------------------------------------------------------------
+# the training forward (JAX's ``full`` mode)
+# ---------------------------------------------------------------------------
+
+
+def _apply_attn_full(cfg: ArchConfig, p: Params, h: torch.Tensor, positions: torch.Tensor, *,
+                     causal: bool = True) -> torch.Tensor:
+    if cfg.mla is not None:
+        return mla.mla_full(p["mla"], h, cfg, positions=positions)[0]
+    return layers.attention_full(p["attn"], h, cfg, positions=positions,
+                                 window=cfg.attn_window, causal=causal)[0]
+
+
+def apply_layer_full(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
+                     positions: torch.Tensor,
+                     memory: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """One layer over the whole sequence, no cache: (x, aux).  MoE layers
+    route with their capacity (``dropless=False``) and return their aux
+    metrics; every other kind returns zeros."""
+    aux = _zero_aux(x.device)
+    if kind == "ssm":
+        return x + ssm.ssm_full(p["mamba"], layers.apply_norm(p["ln1"], x, cfg.norm_eps),
+                                cfg), aux
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
+    if kind == "hybrid":
+        a = _apply_attn_full(cfg, p, h, positions)
+        x = x + _merge_heads(cfg, p, a, ssm.ssm_full(p["mamba"], h, cfg))
+        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps)), aux
+    x = x + _apply_attn_full(cfg, p, h, positions, causal=kind != "enc")
+    if kind == "dec":
+        hx = layers.apply_norm(p["lnx"], x, cfg.norm_eps)
+        mem_k, mem_v = layers.encode_memory(p["xattn"], memory, cfg)
+        x = x + layers.cross_attention(p["xattn"], hx, mem_k, mem_v, cfg)
+    h2 = layers.apply_norm(p["ln2"], x, cfg.norm_eps)
+    if kind == "moe":
+        y, moe_aux = moe.apply_moe(p["moe"], h2, cfg)
+        aux.update({k: v.float() for k, v in moe_aux.items()})
+    else:
+        y = layers.apply_mlp(p["mlp"], h2)
+    return x + y, aux
+
+
+#: the ops whose outputs ``remat="dots"`` saves: products without batch
+#: dimensions (JAX's ``dots_with_no_batch_dims_saveable``); attention's
+#: batched products and every elementwise op are recomputed
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """JAX's ``_remat`` as ``torch.utils.checkpoint`` (non-reentrant):
+    ``"none"`` saves what autograd saves, ``"full"`` keeps only the
+    function's inputs and recomputes the rest in the backward pass,
+    ``"dots"`` keeps the outputs of its matmuls too.  The recomputation runs
+    under the dispatch context of the forward (the backward may run on
+    another thread, where the context variable is unset)."""
+    if mode == "none":
+        return fn
+    ctx = dispatch.current()
+
+    def run(*args):
+        with dispatch.use(device_kind=ctx.device_kind, prefer=ctx.prefer,
+                          registry=ctx.registry, trace=ctx.trace):
+            return fn(*args)
+
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(checkpoint.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    elif mode != "full":
+        raise ValueError(f"unknown remat mode {mode!r}")
+    return lambda *args: checkpoint.checkpoint(run, *args, use_reentrant=False, **kw)
+
+
+def chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor, *,
+               chunk: int = 1024) -> torch.Tensor:
+    """Next-token cross entropy without materialising [B, S, V] logits: the
+    unembed product and the log-softmax run a ``chunk`` of rows at a time,
+    each chunk recomputed in the backward pass, so the f32 logits of one
+    chunk are all that is ever live.  The mean over the B·(S-1) predicted
+    rows; ``S - 1`` rows are padded up to a multiple of the chunk and the
+    padded tail is masked, as JAX's."""
+    B, S, _ = h.shape
+    h_in, tgt = h[:, :-1], labels[:, 1:].long()
+    n = S - 1
+    c = min(chunk, n)
+    pad = (-n) % c
+    if pad:
+        h_in = F.pad(h_in, (0, 0, 0, pad))
+        tgt = F.pad(tgt, (0, pad))
+
+    def body(hc: torch.Tensor, tc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        lp = torch.log_softmax(layers.unembed(embed_params, hc).float(), dim=-1)
+        nll = -torch.gather(lp, -1, tc[..., None])[..., 0]
+        return torch.sum(nll * valid[None, :])
+
+    chunk_ce = _remat(body, "full")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    rows = torch.arange(c, device=h.device)
+    for i in range(0, n + pad, c):
+        total = total + chunk_ce(h_in[:, i:i + c], tgt[:, i:i + c], (i + rows) < n)
+    return total / (B * n)
+
+
+def _loss_metrics(cfg: ArchConfig, nll: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
+    """The loss (the MoE router's weighted aux terms added) and its
+    metrics, detached."""
+    loss = nll
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["load_balance"]
+        loss = loss + cfg.moe.router_z_weight * aux["router_z"]
+    metrics = {"nll": nll, **aux, "loss": loss}
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
 class DecoderLM:
     """Decoder-only LM: dense, vlm, moe (with GQA or MLA attention), ssm and
     hybrid."""
@@ -200,6 +333,47 @@ class DecoderLM:
         else:
             y = layers.apply_mlp(p["mlp"], h2)
         return x + y
+
+    # -- the full forward (training) ------------------------------------------
+
+    def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+        """The token embeddings, a vlm config's ``patch_embeds`` [B, P, d]
+        over the first P rows (out of place: the rows differentiate)."""
+        h = layers.embed_tokens(params["embed"], batch["tokens"])
+        if self.cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(h.dtype)
+            h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
+        return h
+
+    def backbone(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """``batch["tokens"]`` [B, S] -> (the final norm's rows [B, S, d],
+        aux summed over the layers).  Each layer runs under the config's
+        ``remat`` (:func:`_remat`) and is cast back to the residual stream's
+        dtype, as JAX's scanned body."""
+        cfg = self.cfg
+        h = self._embed_inputs(params, batch)
+        positions = torch.arange(h.shape[1], device=h.device)
+        aux = _zero_aux(h.device)
+        for kind, p in zip(self.kinds, params["layers"]):
+            layer = _remat(functools.partial(apply_layer_full, cfg, kind), cfg.remat)
+            x, aux_l = layer(p, h, positions)
+            h = x.to(h.dtype)
+            aux = _merge_aux(aux, aux_l)
+        return layers.apply_norm(params["ln_f"], h, cfg.norm_eps), aux
+
+    def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(logits [B, S, V] f32, aux)."""
+        h, aux = self.backbone(params, batch)
+        return layers.unembed(params["embed"], h), aux
+
+    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics): the next-token cross entropy of
+        ``batch["labels"]`` (the tokens where absent), with MoE configs'
+        router terms added; the metrics hold ``nll``, ``loss`` and the aux
+        sums, detached."""
+        h, aux = self.backbone(params, batch)
+        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]))
+        return _loss_metrics(self.cfg, nll, aux)
 
     # -- prefill ------------------------------------------------------------
 
@@ -400,8 +574,9 @@ class EncDecLM:
     position, no mask); the decoder's attend causally over their own rows,
     then across to the encoder's output, whose K/V each layer computes once
     at prefill and keeps in the cache (``mem_k``, ``mem_v``).  The cache's
-    ``pos`` is one scalar for the batch, as JAX's.  Training's ``loss``
-    waits for ``chunked_ce`` (ROADMAP §1)."""
+    ``pos`` is one scalar for the batch, as JAX's.  Training runs
+    :meth:`encode` and :meth:`_decode_full` under the config's ``remat``,
+    then :func:`chunked_ce` (:meth:`loss`)."""
 
     def __init__(self, cfg: ArchConfig, *, device: "str | torch.device" = "cuda"):
         if cfg.family != "audio":
@@ -423,17 +598,41 @@ class EncDecLM:
     def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
         return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, self.cfg.norm_eps))
 
-    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: Params, frames: torch.Tensor, *,
+               remat: str = "none") -> torch.Tensor:
         """Frame embeddings [B, T, d] (any float type) -> the encoder's
-        normed output [B, T, d] bf16."""
+        normed output [B, T, d] bf16, each layer under ``remat``
+        (:func:`_remat`; :meth:`loss` passes the config's)."""
         cfg = self.cfg
         h = frames.to(layers.COMPUTE_DTYPE) + params["enc_pos"].to(layers.COMPUTE_DTYPE)
         positions = torch.arange(h.shape[1], device=h.device)
+        layer = _remat(functools.partial(apply_layer_full, cfg, "enc"), remat)
         for p in params["encoder"]:
-            a, _, _ = layers.attention_full(p["attn"], layers.apply_norm(p["ln1"], h, cfg.norm_eps),
-                                            cfg, positions=positions, causal=False)
-            h = self._mlp(p, h + a)
+            h = layer(p, h, positions)[0]
         return layers.apply_norm(params["ln_enc"], h, cfg.norm_eps)
+
+    def _decode_full(self, params: Params, tokens: torch.Tensor,
+                     memory: torch.Tensor) -> torch.Tensor:
+        """The decoder over all of ``tokens`` [B, S] with no cache (JAX's
+        ``"full"`` mode), each layer under the config's ``remat``: its last
+        layer's rows [B, S, d], before the final norm."""
+        cfg = self.cfg
+        h = layers.embed_tokens(params["embed"], tokens)
+        positions = torch.arange(h.shape[1], device=h.device)
+        layer = _remat(functools.partial(apply_layer_full, cfg, "dec"), cfg.remat)
+        for p in params["decoder"]:
+            h = layer(p, h, positions, memory)[0]
+        return h
+
+    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) over ``batch["frames"]`` and ``batch["tokens"]``
+        (``labels`` where given), as :meth:`DecoderLM.loss`; the aux metrics
+        are zeros."""
+        memory = self.encode(params, batch["frames"], remat=self.cfg.remat)
+        h = self._decode_full(params, batch["tokens"], memory)
+        h = layers.apply_norm(params["ln_f"], h, self.cfg.norm_eps)
+        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]))
+        return _loss_metrics(self.cfg, nll, _zero_aux(h.device))
 
     def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
         """``batch["tokens"]`` [B, S] and ``batch["frames"]`` [B, T_enc, d]

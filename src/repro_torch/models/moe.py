@@ -53,17 +53,6 @@ def moe_specs(cfg: ArchConfig) -> Params:
     return p
 
 
-def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in f32, as JAX's f32 ``jnp.dot``: TF32 would round the inputs
-    to 10 bits, so the process-wide flag is cleared for this product only."""
-    flags = torch.backends.cuda.matmul
-    allow_tf32, flags.allow_tf32 = flags.allow_tf32, False
-    try:
-        return torch.matmul(x.float(), w.float())
-    finally:
-        flags.allow_tf32 = allow_tf32
-
-
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The k largest of each row and their indices, ties toward the lower
     index (``jax.lax.top_k``'s order): a stable descending sort."""
@@ -73,7 +62,7 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _route(x: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
     """Top-k routing.  Returns (weights [T, k] f32, ids [T, k] long, aux)."""
-    logits = _f32_product(x, router_w)
+    logits = layers.f32_product(x, router_w)          # JAX's f32 jnp.dot, TF32 off
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
     weights, ids = top_k(probs, m.experts_per_token)             # [T, k]
     weights = weights / torch.sum(weights, dim=-1, keepdim=True)

@@ -48,6 +48,44 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_flatten_as(like: Any, tree: Any) -> list:
+    """``tree``'s subtrees at the leaves of ``like`` (a prefix of its
+    structure), in ``like``'s order: dicts in their keys' order, lists in
+    theirs."""
+    if isinstance(like, dict):
+        return [x for k in like for x in tree_flatten_as(like[k], tree[k])]
+    if isinstance(like, (list, tuple)):
+        if len(like) != len(tree):
+            raise ValueError(f"a list of {len(tree)} where {len(like)} are expected")
+        return [x for a, b in zip(like, tree) for x in tree_flatten_as(a, b)]
+    return [tree]
+
+
+def tree_leaves(tree: Any) -> list:
+    """Every leaf of a tree, in :func:`tree_flatten_as`'s order."""
+    return tree_flatten_as(tree, tree)
+
+
+def tree_paths(tree: Any, prefix: str = "") -> list[str]:
+    """Each leaf's path, in :func:`tree_leaves`' order, as JAX's
+    ``keystr`` writes it: ``['embed']['tok']``, ``['layers'][0]['ln1']``."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """A tree of ``like``'s structure (tuples become lists) holding
+    ``leaves`` in :func:`tree_leaves`' order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 #: a leaf of more elements than this is drawn in slices along its first
 #: axis (an f32 draw of deepseek-v3's [256, 7168, 2048] expert stack whole
 #: would hold 30 GB of temporaries); every smaller leaf is one draw
@@ -79,17 +117,39 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, device: torch.device) -> t
     raise ValueError(f"unknown init {spec.init!r}")
 
 
-def _with_f32_copies(params: dict) -> dict:
-    """Resident f32 copies of the weights JAX multiplies in f32: the tied
-    embedding table, for the f32 unembed product (instead of casting 128256
-    x 2048 values on every step), and each MLA layer's ``wo``, which decode
-    multiplies by its f32 context (``models/mla.py``)."""
+#: the derived leaves: resident f32 copies of weights JAX multiplies in f32
+#: (``embed["tok_f32"]``, each MLA layer's ``wo_f32``), made from the
+#: trained leaves and never trained themselves
+DERIVED = frozenset({"tok_f32", "wo_f32"})
+
+
+def refresh_derived(params: dict) -> dict:
+    """(Re)make the derived f32 copies from the weights, in place, and
+    return ``params``: the tied embedding table's, for the f32 unembed
+    product (instead of casting 128256 x 2048 values on every step), and
+    each MLA layer's ``wo``, which decode multiplies by its f32 context
+    (``models/mla.py``).  Run it after training or a restore, before
+    serving the weights: serving reads the copies, and a stale one serves
+    the old table."""
     embed = params["embed"]
     if "unembed" not in embed:
-        embed["tok_f32"] = embed["tok"].float()
+        embed["tok_f32"] = embed["tok"].detach().float()
     for layer in params.get("layers", ()):
         if "mla" in layer:
-            layer["mla"]["wo_f32"] = layer["mla"]["wo"].float()
+            layer["mla"]["wo_f32"] = layer["mla"]["wo"].detach().float()
+    return params
+
+
+def trainable(params: Any) -> Any:
+    """The training tree: the same tensors as ``params`` in the same
+    structure, less the derived copies (:data:`DERIVED`), so exactly the
+    JAX package's leaves.  The optimizer, the global norm and the
+    checkpoint see only these; the tied unembed then differentiates into
+    ``tok`` (``models/layers.py`` ``unembed``)."""
+    if isinstance(params, dict):
+        return {k: trainable(v) for k, v in params.items() if k not in DERIVED}
+    if isinstance(params, (list, tuple)):
+        return [trainable(v) for v in params]
     return params
 
 
@@ -99,7 +159,7 @@ def init_params(specs: Any, seed: int = 0, *, device: "str | torch.device" = "cu
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return _with_f32_copies(tree_map(lambda s: _init_leaf(s, gen, device), specs))
+    return refresh_derived(tree_map(lambda s: _init_leaf(s, gen, device), specs))
 
 
 def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dict:
@@ -118,7 +178,9 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
 
     The encoder-decoder's ``encoder`` and ``decoder`` stacks (``[L, ...]``
     each) become lists of per-layer dicts; ``enc_pos`` and ``ln_enc`` come
-    across as they are.
+    across as they are.  Each layer's leaf is a copy of its slice of the
+    stack, with storage of its own: trained in place, one layer's leaf
+    never writes another's.
     """
     device = resolve_device(device)
 
@@ -128,10 +190,10 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
 
     def unstack(stack: dict) -> list:
         stack = tree_map(leaf, stack)
-        return [tree_map(lambda t, i=i: t[i], stack) for i in range(stack["ln1"].shape[0])]
+        return [tree_map(lambda t, i=i: t[i].clone(), stack) for i in range(stack["ln1"].shape[0])]
 
     if "encoder" in tree:
-        return _with_f32_copies({
+        return refresh_derived({
             "embed": tree_map(leaf, tree["embed"]), "enc_pos": leaf(tree["enc_pos"]),
             "encoder": unstack(tree["encoder"]), "ln_enc": leaf(tree["ln_enc"]),
             "decoder": unstack(tree["decoder"]), "ln_f": leaf(tree["ln_f"])})
@@ -139,8 +201,9 @@ def params_from_jax(tree: dict, *, device: "str | torch.device" = "cuda") -> dic
     for segment in tree["segments"]:
         units = [tree_map(leaf, segment[str(j)]) for j in range(len(segment))]
         count = units[0]["ln1"].shape[0]
-        layers += [tree_map(lambda t, i=i: t[i], unit) for i in range(count) for unit in units]
-    return _with_f32_copies({
+        layers += [tree_map(lambda t, i=i: t[i].clone(), unit)
+                   for i in range(count) for unit in units]
+    return refresh_derived({
         "embed": tree_map(leaf, tree["embed"]),
         "layers": layers,
         "ln_f": leaf(tree["ln_f"]),
