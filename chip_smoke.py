@@ -251,6 +251,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tok_f32`` caught; then 2 of 16 layers trained 4 steps unbroken and 2 +
    2 across a checkpoint and a resume, parameters and optimizer state bit
    for bit.
+17. dist: llama3.2-1b at full width and depth on a one-rank 1x1 ("data",
+   "model") mesh over NCCL: ``make_prefill_step`` (8 prompts of 128 tokens)
+   and 16 ``make_decode_step`` steps under cuda-strict, every logit bit for
+   bit ``DecoderLM.prefill``'s and ``decode_step``'s and the greedy tokens
+   equal; 2 ``make_train_step`` steps under the rules at 8 x 1024 tokens
+   against the one-device step, the leaves that differ (none expected)
+   listed with their largest gap; ``python -m repro_torch.launch.serve
+   --arch llama3.2-1b --requests 6`` through its ``main``, 6 of 6 answered;
+   ``compressed_psum`` through NCCL, ``quantize_int8`` bitwise the CPU's;
+   matmul, rmsnorm, flash attention and decode attention each launched in
+   the phase; its seconds.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -4194,7 +4205,7 @@ def train_resume_check(torch, cfg, opt, data_cfg, seed: int) -> dict:
         loop = TrainLoop(step_fn, lambda s: to_device(src.batch_at(s), model.device),
                          LoopConfig(total_steps=total, ckpt_dir=ckpt_dir, keep=1, log_every=0),
                          log=print)
-        return loop.run(*init_train_state(model, opt, seed))
+        return loop.run(*init_train_state(model, opt, seed=seed))
 
     try:
         whole_p, whole_o, _ = run(2 * RESUME_STEPS, None)
@@ -4216,6 +4227,200 @@ def train_resume_check(torch, cfg, opt, data_cfg, seed: int) -> dict:
     if report.resumed_from != RESUME_STEPS or differ:
         raise AssertionError(f"the resumed run differs from the unbroken one: {out}")
     return out
+
+
+DIST_ARCH = "llama3.2-1b"
+DIST_SLOTS, DIST_PROMPT, DIST_DECODE_STEPS = 8, 128, 16
+DIST_TRAIN_STEPS = 2
+DIST_SERVE_ARGV = ("--arch", "llama3.2-1b", "--requests", "6")
+DIST_KERNELS = ("matmul", "rmsnorm", "flash_attention", "decode_attention")
+
+
+def dist_phase(torch, kernels, seed: int, card: str, smi: str, *, cfg=None,
+               device: str = "cuda", train_batch: tuple[int, int] = (TRAIN_BATCH, TRAIN_SEQ),
+               serve_argv=DIST_SERVE_ARGV, check_launches: bool = True) -> dict:
+    """Phase 17: the sharded entry points on a one-rank 1x1 ("data",
+    "model") mesh (NCCL over one card), DIST_ARCH at full width and depth
+    from ``seed``: ``make_prefill_step`` and DIST_DECODE_STEPS
+    ``make_decode_step`` steps at DIST_SLOTS slots under cuda-strict, every
+    logit bit for bit ``DecoderLM.prefill``'s and ``decode_step``'s on the
+    same weights and the greedy tokens equal (a collective over one rank is
+    the identity); DIST_TRAIN_STEPS ``make_train_step`` steps under the
+    rules at ``train_batch`` tokens against the one-device step, every
+    leaf compared bit for bit; ``launch.serve``'s ``main`` answering its
+    requests; ``compressed_psum`` through NCCL, ``quantize_int8`` bitwise
+    the CPU's.  The kernels' counts are set to 0 just before the sharded
+    steps run and read after the launcher: each of DIST_KERNELS must have
+    launched.  ``cfg``, ``device`` and
+    the sizes rehearse it on the CPU (gloo; no kernel, so no count)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import dispatch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, to_device
+    from repro_torch.dist.collectives import compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import pick_opt
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import trainable, tree_leaves, tree_paths
+    from repro_torch.optim.adamw import opt_init
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+    from repro_torch.train.step import auto_microbatches, init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_arch(DIST_ARCH)
+    mesh = make_mesh((1, 1), ("data", "model"), device=device)
+    res: dict = {"arch": cfg.name, "layers": cfg.num_layers, "mesh": [1, 1],
+                 "backend": dist.get_backend(), "card": card, "nvidia_smi": smi}
+    try:
+        model = build_model(cfg, device=mesh.device)
+        params = init_params(model.param_specs(), seed, device=mesh.device)
+        serving = ShardingRules.for_arch(cfg, mesh, serving=True)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        cache_len = DIST_PROMPT + DIST_DECODE_STEPS
+        prompt = torch.randint(1, cfg.vocab_size, (DIST_SLOTS, DIST_PROMPT), generator=gen,
+                               device=mesh.device)
+
+        # serving: the sharded steps against the model's own calls
+        with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")):
+            pre, p_sh, _ = make_prefill_step(model, serving, global_batch=DIST_SLOTS,
+                                             cache_len=cache_len)
+            dec, _, _, _ = make_decode_step(model, serving, global_batch=DIST_SLOTS,
+                                            cache_len=cache_len)
+            local = [sh.local(p) for p, sh in zip(tree_leaves(params), tree_leaves(p_sh))]
+            if not all(a is b for a, b in zip(local, tree_leaves(params))):
+                raise AssertionError("a 1x1 mesh's local slices are not the leaves themselves")
+            runs = {}
+            for name in ("model", "sharded"):
+                if name == "sharded":
+                    # the phase's counts: the sharded steps' launches and the launcher's
+                    for mod in kernels:
+                        mod.launches = 0
+                    mm_k.edge_launches = mm_k.f32_launches = 0
+                    logits, cache = pre(params, {"tokens": prompt})
+                else:
+                    logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=cache_len)
+                out, toks = [logits], []
+                for _ in range(DIST_DECODE_STEPS):
+                    tok = out[-1].argmax(-1)[:, None]
+                    toks.append(tok)
+                    if name == "sharded":
+                        logits, cache = dec(params, tok, cache)
+                    else:
+                        logits, cache = model.decode_step(params, tok, cache)
+                    out.append(logits)
+                runs[name] = (out, torch.cat(toks, 1))
+                del cache
+        differ = [i for i, (a, b) in enumerate(zip(runs["sharded"][0], runs["model"][0]))
+                  if not torch.equal(a, b)]
+        res["serve_steps"] = {"prefill_rows": [DIST_SLOTS, DIST_PROMPT],
+                              "decode_steps": DIST_DECODE_STEPS, "logits_differ_at": differ,
+                              "tokens_equal": bool(torch.equal(runs["sharded"][1],
+                                                               runs["model"][1]))}
+        print("  sharded prefill and decode steps against the model's: "
+              + json.dumps(res["serve_steps"]))
+        if differ or not res["serve_steps"]["tokens_equal"]:
+            raise AssertionError(f"the sharded steps' logits differ from the model's at "
+                                 f"calls {differ}")
+        del runs
+
+        # the serving launcher through its main
+        argv = [*serve_argv] + ([] if mesh.device.type == "cuda" else ["--device", "cpu"])
+        buf = io.StringIO()
+        with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")), \
+                contextlib.redirect_stdout(buf):
+            launch_serve.main(argv)
+        served = buf.getvalue().strip().splitlines()
+        print("  python -m repro_torch.launch.serve " + " ".join(argv) + ": " + served[-1])
+        want = int(argv[argv.index("--requests") + 1])
+        res["serve_launcher"] = {"argv": argv, "last_line": served[-1],
+                                 "requests": want, "lines": len(served)}
+        if served[-1] != f"[serve] completed {want}/{want} requests" or len(served) != want + 1:
+            raise AssertionError(f"launch.serve answered: {served}")
+
+        counts = {name: getattr(mod, "launches") for mod in kernels
+                  for name in [mod.__name__.rsplit(".", 1)[1]] if name in DIST_KERNELS}
+        res["launches"] = counts
+        print(f"  the phase's kernel launches: {json.dumps(counts)}")
+        if check_launches and not all(counts.get(k, 0) > 0 for k in DIST_KERNELS):
+            raise AssertionError(f"a kernel of the phase never launched: {counts}")
+
+        # training: two steps under the rules against the one-device step
+        B, S = train_batch
+        rules = ShardingRules.for_arch(cfg, mesh)
+        opt = pick_opt(cfg)
+        mb = auto_microbatches(B, S, rules, cfg=cfg)
+        data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                          global_batch=B, seed=seed))
+        batches = [to_device(data.batch_at(s), mesh.device) for s in range(DIST_TRAIN_STEPS)]
+        train = trainable(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        step_one = make_train_step(model, opt, microbatches=mb)
+        step_sh, t_sh, _, _ = make_train_step(model, opt, rules, global_batch=B,
+                                              microbatches=mb)
+        start, _ = init_train_state(model, opt, rules, seed=seed)
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(start), tree_leaves(train))):
+            raise AssertionError("init_train_state under the rules drew other weights")
+        del start
+        ends, losses = {}, {}
+        for name, fn in (("one_device", step_one), ("sharded", step_sh)):
+            p, o = train, opt_init(opt, train, **({"shardings": t_sh} if name == "sharded"
+                                                  else {}))
+            losses[name] = []
+            for batch in batches:
+                p, o, m = fn(p, o, batch)
+                losses[name].append(float(m["loss"]))
+            ends[name] = p
+            del o
+            gc.collect()
+            torch.cuda.empty_cache()
+        gaps = {}
+        for key, a, b in zip(tree_paths(ends["sharded"]), tree_leaves(ends["sharded"]),
+                             tree_leaves(ends["one_device"])):
+            if not torch.equal(a, b):
+                gaps[key] = float((a.float() - b.float()).abs().max())
+        res["train_steps"] = {"batch": [B, S], "steps": DIST_TRAIN_STEPS, "microbatches": mb,
+                              "optimizer": opt.kind, "loss": losses,
+                              "leaves": len(tree_leaves(ends["sharded"])),
+                              "leaves_differing": gaps}
+        print("  two train steps under the rules against the one-device step: "
+              + json.dumps(res["train_steps"]))
+        del ends, train
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # compressed psum over the one-rank group, through the backend
+        x = torch.randn(4096 + 17, generator=gen, device=mesh.device) * 3
+        mean, residual = compressed_psum(x, None)
+        q, scale, shape = quantize_int8(x)
+        q_cpu, scale_cpu, _ = quantize_int8(x.cpu())
+        sent = dequantize_int8(q, scale, shape)
+        res["compressed_psum"] = {
+            "n": x.numel(), "quantize_bitwise_cpu": bool(torch.equal(q.cpu(), q_cpu)
+                                                        and torch.equal(scale.cpu(), scale_cpu)),
+            "mean_is_payload": bool(torch.equal(mean, sent)),
+            "residual_exact": bool(torch.equal(residual, x - sent)),
+            "max_abs_err": float((mean - x).abs().max()),
+            "bound": float(x.abs().max()) / 64}
+        print("  compressed_psum: " + json.dumps(res["compressed_psum"]))
+        cp = res["compressed_psum"]
+        if not (cp["quantize_bitwise_cpu"] and cp["mean_is_payload"] and cp["residual_exact"]
+                and cp["max_abs_err"] < cp["bound"]):
+            raise AssertionError(f"compressed_psum: {cp}")
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  dist phase on {card} ({smi}): {res['seconds']:.1f} s")
+    return res
 
 
 def schedule_counts(res: dict) -> dict:
@@ -5490,7 +5695,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/17] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/18] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5512,7 +5717,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/17] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/18] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -5522,14 +5727,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/17] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/18] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/17] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/18] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -5550,7 +5755,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
     phase_s["serve"] = lap()
 
-    print("[5/17] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/18] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -5558,19 +5763,19 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/17] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/18] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/17] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/18] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/17] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/18] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -5598,7 +5803,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["twin_and_tables"] = lap()
 
-    print(f"[9/17] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[9/18] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -5615,7 +5820,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/17] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/18] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -5625,14 +5830,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/17] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/18] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/17] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/18] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -5652,7 +5857,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/17] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/18] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -5664,7 +5869,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print(f"[14/17] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+    print(f"[14/18] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
           f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
           f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
           f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
@@ -5686,7 +5891,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
         torch.cuda.empty_cache()
     phase_s["moe"] = lap()
 
-    print(f"[15/17] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
+    print(f"[15/18] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
           f"{HYMBA_MAX_LEN}-row slot on a 1024-row ring) and whisper-large-v3 (32 + 32 layers), "
           f"full width and depth, weights from --seed, one after the other: model calls against "
           f"the torch source, every kernel held against its plain version on the calls' data; "
@@ -5697,7 +5902,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     families_res = families_phase(torch, kernels, args.seed, card, smi)
     phase_s["families"] = lap()
 
-    print(f"[16/17] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
+    print(f"[16/18] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
           f"hand-written kernel has a backward pass), AdamW from pick_opt, remat full, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the first step against f32, a warm-up step and "
           f"{TRAIN_STEPS} timed, greedy streams on the refreshed weights under cuda-strict, "
@@ -5705,7 +5910,16 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     train_res = train_phase(torch, args.seed, card, smi)
     phase_s["train"] = lap()
 
-    print("[17/17] the kernels' summary")
+    print(f"[17/18] dist: {DIST_ARCH} at full width and depth on a one-rank 1x1 (data, model) "
+          f"mesh over NCCL, weights from --seed: make_prefill_step and {DIST_DECODE_STEPS} "
+          f"make_decode_step steps at {DIST_SLOTS} slots under cuda-strict against the model's "
+          f"prefill and decode_step, bit for bit; {DIST_TRAIN_STEPS} make_train_step steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens against the one-device step; launch.serve "
+          f"{' '.join(DIST_SERVE_ARGV)}; compressed_psum, on {card} ({smi})")
+    dist_res = dist_phase(torch, kernels, args.seed, card, smi)
+    phase_s["dist"] = lap()
+
+    print("[18/18] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -5923,7 +6137,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             "sample_shapes": sample_shapes, "full_depth_shapes": full_shapes,
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
             "ssm_temperature": ssm_temp_res, "moe": moe_res, "families": families_res,
-            "family_shapes": family_shapes, "train": train_res,
+            "family_shapes": family_shapes, "train": train_res, "dist": dist_res,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

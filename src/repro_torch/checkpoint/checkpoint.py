@@ -9,6 +9,12 @@ counterpart of ``repro/checkpoint/checkpoint.py``.
   dtype.
 - **Restore** reads each leaf onto the device and into the dtype of the
   live tree's leaf at the same path, after checking its shape.
+- **Sharded and elastic**: with ``shardings=`` (a tree of each leaf's
+  :class:`~repro_torch.dist.sharding.Sharding`, the trees holding a rank's
+  slices), save gathers each leaf whole and rank 0 alone writes it, with
+  the mesh's shape in the manifest; restore reads each whole leaf and keeps
+  this rank's slice of the *live* mesh's placement, which may differ from
+  the saver's (the layout on disk is the global one).
 - **Retention**: the newest ``keep`` checkpoints stay; older ones are
   deleted only once a newer one is published.
 
@@ -27,8 +33,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.params import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.models.params import tree_flatten_as, tree_leaves, tree_paths, tree_unflatten
 
 MANIFEST = "manifest.json"
 
@@ -51,19 +58,34 @@ def _published(ckpt_dir: str) -> list[str]:
                   if d.startswith("step_") and not d.endswith(".tmp"))
 
 
+def _writer(shardings: Any) -> bool:
+    """Whether this process writes: rank 0 of a sharded save, or any
+    process saving a whole tree."""
+    return shardings is None or not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, mesh_shape: tuple[int, ...] = (),
-                    keep: int = 3, extra_meta: dict | None = None) -> str:
+                    keep: int = 3, extra_meta: dict | None = None,
+                    shardings: Any = None) -> str:
     """Write ``tree`` (dicts, lists and tuples of tensors) as
-    ``ckpt_dir/step_{step:08d}``; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``ckpt_dir/step_{step:08d}``; returns its path.  With ``shardings``
+    every rank calls it (each leaf is gathered whole), rank 0 writes, and
+    all return once the checkpoint is published."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    leaves = tree_leaves(tree)
+    if shardings is not None:
+        leaves = [sh.gather(x) for x, sh in zip(leaves, tree_flatten_as(tree, shardings))]
+    if not _writer(shardings):
+        dist.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
     entries = []
-    for i, (key, leaf) in enumerate(zip(tree_paths(tree), tree_leaves(tree))):
+    for i, (key, leaf) in enumerate(zip(tree_paths(tree), leaves)):
         fname = f"arr_{i:05d}.npy"
         with open(os.path.join(tmp, fname), "wb") as f:
             np.save(f, _to_numpy(leaf))
@@ -83,6 +105,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, mesh_shape: tuple[in
 
     for old in _published(ckpt_dir)[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, old), ignore_errors=True)
+    if shardings is not None and dist.is_initialized():
+        dist.barrier()
     return final
 
 
@@ -97,23 +121,31 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return None
 
 
-def restore_checkpoint(path: str, tree_like: Any) -> tuple[Any, dict]:
+def restore_checkpoint(path: str, tree_like: Any, *, shardings: Any = None) -> tuple[Any, dict]:
     """(a tree of ``tree_like``'s structure holding the checkpoint's
     arrays, the manifest).  Each leaf goes to the device and dtype of
     ``tree_like``'s leaf at its path; a missing or extra leaf, or another
-    shape, raises ``ValueError``."""
+    shape, raises ``ValueError``.  With ``shardings`` (the live mesh's
+    placements, ``tree_like`` this rank's slices) each leaf is this rank's
+    slice of the stored whole one."""
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
     likes, keys = tree_leaves(tree_like), tree_paths(tree_like)
     entries = manifest["entries"]
     if len(likes) != len(entries):
         raise ValueError(f"checkpoint has {len(entries)} leaves, model expects {len(likes)}")
+    shards = (tree_flatten_as(tree_like, shardings) if shardings is not None
+              else [None] * len(likes))
     out = []
-    for entry, key, like in zip(entries, keys, likes):
+    for entry, key, like, sh in zip(entries, keys, likes, shards):
         if entry["key"] != key:
             raise ValueError(f"checkpoint leaf {entry['key']} where {key} is expected")
         arr = np.load(os.path.join(path, entry["file"]))
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(f"{key}: shape {arr.shape} != {tuple(like.shape)}")
-        out.append(_from_numpy(arr, entry["dtype"]).to(device=like.device, dtype=like.dtype))
+        shape = tuple(arr.shape) if sh is None else sh.local_shape(arr.shape)
+        if shape != tuple(like.shape):
+            raise ValueError(f"{key}: shape {shape} != {tuple(like.shape)}")
+        t = _from_numpy(arr, entry["dtype"])
+        if sh is not None:
+            t = sh.local(t).contiguous()
+        out.append(t.to(device=like.device, dtype=like.dtype))
     return tree_unflatten(tree_like, out), manifest

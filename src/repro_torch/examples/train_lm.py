@@ -54,7 +54,7 @@ def main(argv: list[str] | None = None) -> int:
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                       global_batch=args.batch))
     step = make_train_step(model, opt)
-    params, opt_state = init_train_state(model, opt, 0)
+    params, opt_state = init_train_state(model, opt, seed=0)
     n = sum(x.numel() for x in tree_leaves(params))
     print(f"model {cfg.name}: {n / 1e6:.1f}M params on {model.device}")
 

@@ -1,6 +1,6 @@
 """The optimizer pick of ``repro/launch/specs.py``.  The abstract input
 specs of the JAX dry run (``batch_specs``, ``decode_specs``,
-``abstract_opt_state``) wait for the port's distribution."""
+``abstract_opt_state``) come with the port's dry run."""
 
 from __future__ import annotations
 

@@ -1,5 +1,4 @@
-"""Shared model building blocks: ``repro/models/layers.py`` but its
-sequence-parallel decode (which waits for ``dist``).
+"""Shared model building blocks: ``repro/models/layers.py``.
 
 Every compute hot spot goes through ``dispatch.op`` — matmuls, norms,
 attention — so the model is transparently retargetable between the
@@ -8,6 +7,21 @@ plain functions on tensors; parameters are dicts from
 :mod:`repro_torch.models.params`.  Layouts follow the JAX package's: rows
 are ``[B, S, d]``, per-head tensors ``[B, S, H, hd]``, caches
 ``[B, Hkv, T, hd]``.
+
+**Under sharding rules** (:func:`repro_torch.dist.act.use_rules` with a
+live mesh) each leaf holds this rank's slice of its placement, and the
+layers issue the collectives GSPMD inserts in JAX
+(:mod:`repro_torch.dist.collectives`): a vocab-split table embeds by a
+masked lookup and a sum over the model axis, and unembeds to local logits
+gathered along the vocabulary; the MLP is column- then row-parallel, one
+sum after ``wd``; attention runs on this rank's heads where they divide
+the model axis (q's heads beside the k/v heads they read, one sum after
+``wo``); a leaf whose activation the rules would leave whole (k/v heads
+that do not divide, the SSM's and MLA's inner widths) is gathered whole
+first (:func:`whole`), as GSPMD reshards it.  Serving decode with k/v
+heads that do not divide the model axis and a time-split cache runs
+sequence-parallel (:func:`_sp_decode_attention`, JAX's
+``_sp_decode_body``).  Outside rules every collective is the identity.
 """
 
 from __future__ import annotations
@@ -21,6 +35,8 @@ import torch
 from repro_torch import kernels  # noqa: F401  (registry population)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dispatch
+from repro_torch.dist import act, collectives
+from repro_torch.dist.sharding import entry_axes
 from repro_torch.models.params import ParamSpec
 
 Params = Any
@@ -51,16 +67,56 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
+# placements under the active rules
+# ---------------------------------------------------------------------------
+
+
+def split_group(name: str, dim: int):
+    """The process group a dimension of ``dim`` named ``name`` is split
+    over under the active rules (None: whole, or no rules)."""
+    rules = act.current()
+    if rules is None:
+        return None
+    entry = rules.act_pspec((dim,), (name,))[0]
+    return None if entry is None else act.group(entry_axes(entry))
+
+
+def whole(w: torch.Tensor, logical, shape) -> torch.Tensor:
+    """The leaf ``w`` of global ``shape`` in full: gathered along each
+    dimension the active rules split (``w`` itself outside rules)."""
+    rules = act.current()
+    if rules is None:
+        return w
+    for dim, entry in enumerate(rules.act_pspec(shape, logical)):
+        if entry is not None:
+            w = collectives.gather(w, dim, act.group(entry_axes(entry)))
+    return w
+
+
+def whole_tree(p: Params, specs: Params) -> Params:
+    """Every leaf of ``p`` in full (:func:`whole`, by ``specs``); a derived
+    f32 copy (``wo_f32``) by its source leaf's spec."""
+    if act.current() is None:
+        return p
+    out = {}
+    for key, v in p.items():
+        spec = specs[key.removesuffix("_f32")]
+        out[key] = whole_tree(v, spec) if isinstance(v, dict) else whole(v, spec.logical,
+                                                                            spec.shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # elementary modules
 # ---------------------------------------------------------------------------
 
 
-def linear_spec(d_in: int, d_out: int) -> ParamSpec:
-    return ParamSpec(shape=(d_in, d_out), scale=1.0 / math.sqrt(d_in))
+def linear_spec(d_in: int, d_out: int, logical: tuple[str | None, str | None]) -> ParamSpec:
+    return ParamSpec(shape=(d_in, d_out), logical=logical, scale=1.0 / math.sqrt(d_in))
 
 
 def norm_spec(d: int) -> ParamSpec:
-    return ParamSpec(shape=(d,), init="ones")
+    return ParamSpec(shape=(d,), logical=(None,), init="ones")
 
 
 def apply_norm(p: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -68,14 +124,28 @@ def apply_norm(p: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def embed_specs(cfg: ArchConfig) -> Params:
-    p: dict[str, ParamSpec] = {"tok": ParamSpec(shape=(cfg.vocab_size, cfg.d_model), scale=0.02)}
+    p: dict[str, ParamSpec] = {"tok": ParamSpec(shape=(cfg.vocab_size, cfg.d_model),
+                                                logical=("vocab", "embed"), scale=0.02)}
     if not cfg.tie_embeddings:
-        p["unembed"] = linear_spec(cfg.d_model, cfg.vocab_size)
+        p["unembed"] = linear_spec(cfg.d_model, cfg.vocab_size, ("embed", "vocab"))
     return p
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.embedding(tokens, p["tok"]).to(COMPUTE_DTYPE)
+def embed_tokens(p: Params, tokens: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+    """The rows of ``tokens``.  With ``vocab`` (the global vocabulary) and
+    a table the rules split over the model axis: each rank looks up the
+    tokens its rows hold, zeros elsewhere, and one sum joins them (exact:
+    one term of the sum is not zero)."""
+    tok = p["tok"]
+    group = split_group("vocab", vocab) if vocab else None
+    if group is None:
+        return torch.nn.functional.embedding(tokens, tok).to(COMPUTE_DTYPE)
+    n = tok.shape[0]
+    ids = tokens - torch.distributed.get_rank(group) * n
+    inside = (ids >= 0) & (ids < n)
+    rows = torch.nn.functional.embedding(torch.where(inside, ids, 0), tok)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return collectives.reduce_sum(rows, group).to(COMPUTE_DTYPE)
 
 
 @contextlib.contextmanager
@@ -120,7 +190,7 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _ExactF32Product.apply(x.float(), w.float())
 
 
-def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
+def unembed(p: Params, h: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
     """Logits in f32.  Tied embeddings run an exact f32 product against the
     table, as the JAX package's f32 einsum outside any kernel: serving
     reads the table's resident f32 copy ``tok_f32``
@@ -129,13 +199,19 @@ def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
     copy, :func:`repro_torch.models.params.trainable`; a table that
     requires grad is read through its cast even beside one).  ``h`` may be
     a strided view (a batch's last rows): the kernel reads its rows
-    contiguous."""
+    contiguous.  With ``vocab`` and a table the rules split over the model
+    axis, each rank computes its vocabulary's logits and they are gathered
+    whole."""
+    group = split_group("vocab", vocab) if vocab else None
+    h = collectives.copy_to(h, group)
     if "unembed" in p:
-        return dispatch.op("matmul", h.contiguous(), p["unembed"], out_dtype=torch.float32)
-    table = p.get("tok_f32")
-    if table is None or (p["tok"].requires_grad and torch.is_grad_enabled()):
-        table = p["tok"]
-    return f32_product(h, table.t())
+        out = dispatch.op("matmul", h.contiguous(), p["unembed"], out_dtype=torch.float32)
+    else:
+        table = p.get("tok_f32")
+        if table is None or (p["tok"].requires_grad and torch.is_grad_enabled()):
+            table = p["tok"]
+        out = f32_product(h, table.t())
+    return collectives.gather(out, -1, group)
 
 
 # ---------------------------------------------------------------------------
@@ -146,20 +222,106 @@ def unembed(p: Params, h: torch.Tensor) -> torch.Tensor:
 def attention_specs(cfg: ArchConfig) -> Params:
     d, hd = cfg.d_model, cfg.head_dim
     return {
-        "wq": linear_spec(d, cfg.num_heads * hd),
-        "wk": linear_spec(d, cfg.num_kv_heads * hd),
-        "wv": linear_spec(d, cfg.num_kv_heads * hd),
-        "wo": linear_spec(cfg.num_heads * hd, d),
+        "wq": linear_spec(d, cfg.num_heads * hd, ("embed", "heads")),
+        "wk": linear_spec(d, cfg.num_kv_heads * hd, ("embed", "kv_heads")),
+        "wv": linear_spec(d, cfg.num_kv_heads * hd, ("embed", "kv_heads")),
+        "wo": linear_spec(cfg.num_heads * hd, d, ("heads", "embed")),
     }
 
 
+class HeadPlan:
+    """Which attention heads this rank computes under the active rules.
+
+    ``q_local``: wq's columns are split and whole heads divide the model
+    axis, so this rank computes heads ``[q_lo, q_lo + Hq)`` and ``wo``'s
+    matching rows (one sum after).  ``kv_local``: the same for k/v.  Where
+    q is local and k/v whole, the rank's q heads read k/v heads ``[kv_lo,
+    kv_lo + Hkv)``, which must group as the kernel groups them (``Hq /
+    Hkv`` q heads a k/v head); where they do not on some rank, q is whole
+    too.  Whole leaves are gathered (:func:`whole`)."""
+
+    def __init__(self, cfg: ArchConfig, group, rank: int, size: int):
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.group = group
+        self.q_local = split_group("heads", H * hd) is not None and H % size == 0
+        self.kv_local = (self.q_local and split_group("kv_heads", Hkv * hd) is not None
+                         and Hkv % size == 0)
+        if self.q_local and not self.kv_local and not all(
+                self._kv_range(cfg, r, size) for r in range(size)):
+            self.q_local = False
+        self.q_lo, self.Hq = (rank * (H // size), H // size) if self.q_local else (0, H)
+        if self.kv_local:
+            self.kv_lo, self.Hkv = rank * (Hkv // size), Hkv // size
+        else:
+            self.kv_lo, self.Hkv = self._kv_range(cfg, rank, size) or (0, Hkv)
+
+    @staticmethod
+    def _kv_range(cfg: ArchConfig, rank: int, size: int):
+        """(first, count) of the k/v heads rank's q heads read, if they
+        group as the kernel groups them; else None."""
+        g = cfg.num_heads // cfg.num_kv_heads
+        n = cfg.num_heads // size
+        lo = rank * n
+        first, last = lo // g, (lo + n - 1) // g + 1
+        if n % (last - first):
+            return None
+        per = n // (last - first)
+        if any((lo + i) // g - first != i // per for i in range(n)):
+            return None
+        return first, last - first
+
+
+def head_plan(cfg: ArchConfig) -> HeadPlan | None:
+    """The active rules' :class:`HeadPlan`, or None outside rules."""
+    group = act.group("model")
+    if group is None:
+        return None
+    return HeadPlan(cfg, group, torch.distributed.get_rank(group), act.size("model"))
+
+
 def _qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
-    B, S, _ = x.shape
-    hd = cfg.head_dim
-    q = dispatch.op("matmul", x, p["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = dispatch.op("matmul", x, p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = dispatch.op("matmul", x, p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-    return q, k, v
+    """q [B, S, H, hd], k and v [B, S, Hkv, hd]; under rules, this rank's
+    heads of each where its plan holds them local, else all of them."""
+    B, S, d = x.shape
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    plan = head_plan(cfg)
+    if plan is None:
+        q = dispatch.op("matmul", x, p["wq"]).reshape(B, S, H, hd)
+        k = dispatch.op("matmul", x, p["wk"]).reshape(B, S, Hkv, hd)
+        v = dispatch.op("matmul", x, p["wv"]).reshape(B, S, Hkv, hd)
+        return q, k, v
+    xm = collectives.copy_to(x, plan.group) if plan.q_local else x
+    wq = p["wq"] if plan.q_local else whole(p["wq"], ("embed", "heads"), (d, H * hd))
+    q = dispatch.op("matmul", xm if plan.q_local else x, wq).reshape(B, S, -1, hd)
+    kv_in = xm if plan.kv_local else x
+    kv = []
+    for key in ("wk", "wv"):
+        w = p[key] if plan.kv_local else whole(p[key], ("embed", "kv_heads"), (d, Hkv * hd))
+        kv.append(dispatch.op("matmul", kv_in, w).reshape(B, S, -1, hd))
+    return q, kv[0], kv[1]
+
+
+def _kv_for_heads(t: torch.Tensor, plan: HeadPlan | None) -> torch.Tensor:
+    """k or v [B, Hkv, T, hd] as this rank's q heads read it: the plan's
+    k/v heads of a whole tensor (entering a computation that differs by
+    rank: its gradient sums over them), else ``t``."""
+    if plan is None or plan.kv_local or not plan.q_local:
+        return t
+    t = collectives.copy_to(t, plan.group)
+    return t[:, plan.kv_lo:plan.kv_lo + plan.Hkv].contiguous()
+
+
+def _attn_out(p: Params, out: torch.Tensor, cfg: ArchConfig, plan: HeadPlan | None,
+              local: bool) -> torch.Tensor:
+    """The output projection of the attention's rows [..., heads * hd]:
+    this rank's heads' rows of ``wo`` and a sum over the model axis where
+    ``local``, else all of ``wo``."""
+    if plan is None:
+        return dispatch.op("matmul", out, p["wo"])
+    if local:
+        return collectives.reduce_sum(dispatch.op("matmul", out, p["wo"]), plan.group)
+    H, hd = cfg.num_heads, cfg.head_dim
+    return dispatch.op("matmul", out, whole(p["wo"], ("heads", "embed"), (H * hd, cfg.d_model)))
 
 
 def attention_full(
@@ -175,13 +337,16 @@ def attention_full(
     whisper's encoder runs it), over the last ``window`` keys of each row
     where given.  Returns (y, k, v), the caches post-rope as contiguous
     [B, Hkv, S, hd]."""
+    plan = head_plan(cfg)
     q, k, v = _qkv(p, x, cfg)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out = dispatch.op("flash_attention", q, k, v, causal=causal, window=window)
+    out = dispatch.op("flash_attention", q, _kv_for_heads(k, plan), _kv_for_heads(v, plan),
+                      causal=causal, window=window)
     B, S = x.shape[:2]
-    y = dispatch.op("matmul", out.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    y = _attn_out(p, out.transpose(1, 2).reshape(B, S, -1), cfg, plan,
+                  plan is not None and plan.q_local)
     return y, k, v
 
 
@@ -286,22 +451,80 @@ def attention_decode(
     cfg: ArchConfig,
 ) -> torch.Tensor:
     """Single-token decode against the dense KV cache.  Writes this token's
-    k/v into the caches in place and returns y [B, 1, d]."""
+    k/v into the caches in place and returns y [B, 1, d].
+
+    Under rules the caches hold this rank's k/v heads where its plan does
+    (:class:`HeadPlan`), else all of them; sequence-parallel decode
+    (:func:`sp_decode_applies`) takes this rank's rows of a time-split
+    cache instead."""
     B = x.shape[0]
     hd = cfg.head_dim
     Tc = cache_k.shape[2]
+    plan = head_plan(cfg)
     q, k, v = _qkv(p, x, cfg)
     cos, sin = rope_table(decode_positions(pos), hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)[:, 0]                     # [B, H, hd]
     k = apply_rope(k, cos, sin)[:, 0]                     # [B, Hkv, hd]
     v = v[:, 0]
+    if sp_decode_applies(cfg, pos):
+        if plan.q_local:
+            q = collectives.gather(q, 1, plan.group)
+        out = _sp_decode_attention(q, k, v, cache_k, cache_v, pos, cfg, plan.group)
+        return _attn_out(p, out.reshape(B, -1), cfg, plan, False)[:, None, :]
     slot = pos % Tc
     write_kv(cache_k, k, slot)
     write_kv(cache_v, v, slot)
     length = torch.clamp(pos + 1, max=Tc)
-    out = dispatch.op("decode_attention", q, cache_k, cache_v, length)
-    y = dispatch.op("matmul", out.reshape(B, -1), p["wo"])
+    out = dispatch.op("decode_attention", q, _kv_for_heads(cache_k, plan),
+                      _kv_for_heads(cache_v, plan), length)
+    y = _attn_out(p, out.reshape(B, -1), cfg, plan, plan is not None and plan.q_local)
     return y[:, None, :]
+
+
+def sp_decode_applies(cfg: ArchConfig, pos: torch.Tensor) -> bool:
+    """JAX's condition for sequence-parallel decode: serving rules, a model
+    axis of more than one rank that the k/v heads do not divide, a cache
+    split along its time axis (the decode step's cache layout,
+    :func:`repro_torch.dist.act.cache_layout`), no window, one position
+    for the batch."""
+    rules = act.current()
+    if rules is None or not rules.serving or act.group("model") is None:
+        return False
+    layout = act.cache_layout()
+    return (cfg.num_kv_heads % act.size("model") != 0 and cfg.attn_window is None
+            and pos.dim() == 0 and layout is not None
+            and layout.get("k", (None,) * 5)[3] == "model")
+
+
+def _sp_decode_attention(q, k_new, v_new, ck, cv, pos, cfg: ArchConfig, group):
+    """Sequence-parallel decode attention (JAX's ``_sp_decode_body``): q
+    [B, Hq, hd] and the new k/v [B, Hkv, hd] whole on every rank, the
+    caches [B, Hkv, T/M, hd] this rank's rows of the time axis.  The new
+    row lands on its one owner (a masked write on every rank), each rank
+    attends over its rows, and the softmax's max and sum and the weighted
+    values combine over the model axis (a max and two sums of [B, Hkv, g]
+    and [B, Hkv, g, hd] values, where gathering the cache would move all
+    of it)."""
+    B, Hq, hd = q.shape
+    Hkv, T_loc = ck.shape[1], ck.shape[2]
+    g = Hq // Hkv
+    my = torch.distributed.get_rank(group)
+    owner = pos // T_loc
+    slot = (pos % T_loc).long().reshape(1)
+    for cache, new in ((ck, k_new), (cv, v_new)):
+        cur = cache.index_select(2, slot)
+        cache.index_copy_(2, slot, torch.where(owner == my, new[:, :, None].to(cache.dtype), cur))
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    qg = q.reshape(B, Hkv, g, hd)
+    logits = torch.einsum("bkgd,bktd->bkgt", qg.float(), ck.float()) * scale
+    rows = my * T_loc + torch.arange(T_loc, device=ck.device)
+    logits = torch.where(rows[None, None, None, :] <= pos, logits, -1e30)
+    m = collectives.reduce_max(torch.amax(logits, dim=-1), group)          # [B, Hkv, g]
+    probs = torch.exp(logits - m[..., None])
+    denom = collectives.reduce_sum(torch.sum(probs, dim=-1), group)
+    o_part = torch.einsum("bkgt,bktd->bkgd", probs.to(cv.dtype).float(), cv.float())
+    o = collectives.reduce_sum(o_part, group) / denom[..., None]
+    return o.reshape(B, Hq, hd).to(q.dtype)
 
 
 def paged_write_kv(pool: torch.Tensor, new: torch.Tensor, page: torch.Tensor,
@@ -373,6 +596,7 @@ def cross_attention(
     unmasked: at S = 1 one-token ``decode_attention`` over all T_enc rows,
     else non-causal ``flash_attention``.  Returns y [B, S, d]."""
     B, S, _ = x.shape
+    p = whole_tree(p, attention_specs(cfg))
     q = dispatch.op("matmul", x, p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
     if S == 1:
         out = dispatch.op("decode_attention", q[:, 0], mem_k, mem_v, mem_k.shape[2])[:, None]
@@ -388,6 +612,7 @@ def encode_memory(p: Params, memory: torch.Tensor,
     contiguous [B, Hkv, T, hd] each."""
     B, T, _ = memory.shape
     hd = cfg.head_dim
+    p = whole_tree(p, attention_specs(cfg))
     k = dispatch.op("matmul", memory, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
     v = dispatch.op("matmul", memory, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -403,13 +628,20 @@ def mlp_specs(cfg: ArchConfig, d_ff: int | None = None) -> Params:
     MoE's shared experts are ``d_ff_expert`` times their count)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
-        "wg": linear_spec(d, f),
-        "wu": linear_spec(d, f),
-        "wd": linear_spec(f, d),
+        "wg": linear_spec(d, f, ("embed", "mlp")),
+        "wu": linear_spec(d, f, ("embed", "mlp")),
+        "wd": linear_spec(f, d, ("mlp", "embed")),
     }
 
 
-def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  Under rules that split the MLP's ``d_ff`` (its global
+    width, which sharded callers pass) over the model axis: column-parallel
+    ``wg``/``wu``, row-parallel ``wd``, one sum."""
+    group = split_group("mlp", d_ff) if d_ff else None
+    if group is None and d_ff is None and act.group("model") is not None:
+        raise ValueError("apply_mlp under sharding rules needs the MLP's global d_ff")
+    x = collectives.copy_to(x, group)
     g = dispatch.op("matmul", x, p["wg"], activation="silu")
     u = dispatch.op("matmul", x, p["wu"])
-    return dispatch.op("matmul", g * u, p["wd"])
+    return collectives.reduce_sum(dispatch.op("matmul", g * u, p["wd"]), group)

@@ -20,6 +20,9 @@ promotes it to an f32 product.  The port keeps a resident f32 copy of
 ``wo`` (``wo_f32``, made by :func:`repro_torch.models.params.init_params`
 and ``params_from_jax``, as the tied unembed keeps one), so the product is
 f32 by f32: the f32 kernel on the card, an f32 product on the CPU.
+
+Under sharding rules the head-split leaves are gathered whole and the
+layer runs as on one device.
 """
 
 from __future__ import annotations
@@ -45,14 +48,16 @@ def mla_specs(cfg: ArchConfig) -> Params:
     qk = m.qk_nope_dim + m.qk_rope_dim
     s = 1.0 / math.sqrt(d)
     return {
-        "wq_a": ParamSpec((d, m.q_lora_rank), scale=s),
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "q_lora"), scale=s),
         "q_norm": layers.norm_spec(m.q_lora_rank),
-        "wq_b": ParamSpec((m.q_lora_rank, H * qk), scale=1.0 / math.sqrt(m.q_lora_rank)),
-        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), scale=s),
+        "wq_b": ParamSpec((m.q_lora_rank, H * qk), ("q_lora", "heads"),
+                          scale=1.0 / math.sqrt(m.q_lora_rank)),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_dim), ("embed", None), scale=s),
         "kv_norm": layers.norm_spec(m.kv_lora_rank),
         "wkv_b": ParamSpec((m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim)),
-                           scale=1.0 / math.sqrt(m.kv_lora_rank)),
-        "wo": ParamSpec((H * m.v_head_dim, d), scale=1.0 / math.sqrt(H * m.v_head_dim)),
+                           ("q_lora", "heads"), scale=1.0 / math.sqrt(m.kv_lora_rank)),
+        "wo": ParamSpec((H * m.v_head_dim, d), ("heads", "embed"),
+                        scale=1.0 / math.sqrt(H * m.v_head_dim)),
     }
 
 
@@ -84,6 +89,7 @@ def mla_full(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     rotated) for the cache."""
     m, H = cfg.mla, cfg.num_heads
     B, S, _ = x.shape
+    p = layers.whole_tree(p, mla_specs(cfg))        # under rules: the heads whole
     q_nope, q_rope = _queries(p, x, cfg)
     c_kv, k_rope = _latents(p, x, cfg)
 
@@ -148,6 +154,7 @@ def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
     rope], which take this token's rows in place.  Returns y [B, 1, d]."""
     m, H = cfg.mla, cfg.num_heads
     B = x.shape[0]
+    p = layers.whole_tree(p, mla_specs(cfg))
     q_nope, q_rope = _queries(p, x, cfg)
     c_kv, k_rope = _latents(p, x, cfg)
 

@@ -41,6 +41,7 @@ from torch.utils import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dispatch
+from repro_torch.dist import act, collectives
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.params import ParamSpec, resolve_device
 
@@ -173,11 +174,12 @@ def _apply_attn_full(cfg: ArchConfig, p: Params, h: torch.Tensor, positions: tor
 
 
 def apply_layer_full(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
-                     positions: torch.Tensor,
-                     memory: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                     positions: torch.Tensor, memory: torch.Tensor | None = None,
+                     moe_info=None) -> tuple[torch.Tensor, dict]:
     """One layer over the whole sequence, no cache: (x, aux).  MoE layers
-    route with their capacity (``dropless=False``) and return their aux
-    metrics; every other kind returns zeros."""
+    route with their capacity (``dropless=False``; ``moe_info`` their
+    expert-parallel layout) and return their aux metrics; every other kind
+    returns zeros."""
     aux = _zero_aux(x.device)
     if kind == "ssm":
         return x + ssm.ssm_full(p["mamba"], layers.apply_norm(p["ln1"], x, cfg.norm_eps),
@@ -186,7 +188,8 @@ def apply_layer_full(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
     if kind == "hybrid":
         a = _apply_attn_full(cfg, p, h, positions)
         x = x + _merge_heads(cfg, p, a, ssm.ssm_full(p["mamba"], h, cfg))
-        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps)), aux
+        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, cfg.norm_eps),
+                                    cfg.d_ff), aux
     x = x + _apply_attn_full(cfg, p, h, positions, causal=kind != "enc")
     if kind == "dec":
         hx = layers.apply_norm(p["lnx"], x, cfg.norm_eps)
@@ -194,10 +197,10 @@ def apply_layer_full(cfg: ArchConfig, kind: str, p: Params, x: torch.Tensor,
         x = x + layers.cross_attention(p["xattn"], hx, mem_k, mem_v, cfg)
     h2 = layers.apply_norm(p["ln2"], x, cfg.norm_eps)
     if kind == "moe":
-        y, moe_aux = moe.apply_moe(p["moe"], h2, cfg)
+        y, moe_aux = moe.apply_moe(p["moe"], h2, cfg, mesh_info=moe_info)
         aux.update({k: v.float() for k, v in moe_aux.items()})
     else:
-        y = layers.apply_mlp(p["mlp"], h2)
+        y = layers.apply_mlp(p["mlp"], h2, cfg.d_ff)
     return x + y, aux
 
 
@@ -217,15 +220,18 @@ def _remat(fn: Callable, mode: str) -> Callable:
     ``"none"`` saves what autograd saves, ``"full"`` keeps only the
     function's inputs and recomputes the rest in the backward pass,
     ``"dots"`` keeps the outputs of its matmuls too.  The recomputation runs
-    under the dispatch context of the forward (the backward may run on
-    another thread, where the context variable is unset)."""
+    under the dispatch context and the sharding rules of the forward (the
+    backward may run on another thread, where the context variables are
+    unset)."""
     if mode == "none":
         return fn
     ctx = dispatch.current()
+    rules, step_layout = act.current(), act.layout()
 
     def run(*args):
         with dispatch.use(device_kind=ctx.device_kind, prefer=ctx.prefer,
-                          registry=ctx.registry, trace=ctx.trace):
+                          registry=ctx.registry, trace=ctx.trace), \
+                act.use_rules(rules), act.use_layout(step_layout):
             return fn(*args)
 
     kw = {}
@@ -238,13 +244,14 @@ def _remat(fn: Callable, mode: str) -> Callable:
 
 
 def chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor, *,
-               chunk: int = 1024) -> torch.Tensor:
+               chunk: int = 1024, vocab: int | None = None) -> torch.Tensor:
     """Next-token cross entropy without materialising [B, S, V] logits: the
     unembed product and the log-softmax run a ``chunk`` of rows at a time,
     each chunk recomputed in the backward pass, so the f32 logits of one
     chunk are all that is ever live.  The mean over the B·(S-1) predicted
     rows; ``S - 1`` rows are padded up to a multiple of the chunk and the
-    padded tail is masked, as JAX's."""
+    padded tail is masked, as JAX's.  ``vocab``: the global vocabulary,
+    which a sharded unembed needs (:func:`layers.unembed`)."""
     B, S, _ = h.shape
     h_in, tgt = h[:, :-1], labels[:, 1:].long()
     n = S - 1
@@ -255,7 +262,7 @@ def chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor, *,
         tgt = F.pad(tgt, (0, pad))
 
     def body(hc: torch.Tensor, tc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        lp = torch.log_softmax(layers.unembed(embed_params, hc).float(), dim=-1)
+        lp = torch.log_softmax(layers.unembed(embed_params, hc, vocab).float(), dim=-1)
         nll = -torch.gather(lp, -1, tc[..., None])[..., 0]
         return torch.sum(nll * valid[None, :])
 
@@ -269,13 +276,53 @@ def chunked_ce(embed_params: Params, h: torch.Tensor, labels: torch.Tensor, *,
 
 def _loss_metrics(cfg: ArchConfig, nll: torch.Tensor, aux: dict) -> tuple[torch.Tensor, dict]:
     """The loss (the MoE router's weighted aux terms added) and its
-    metrics, detached."""
+    metrics, detached.  A sharded step's ``nll`` is its batch rows' mean:
+    the mean over the ranks that split the batch makes it the global one
+    (the aux terms are already, :class:`repro_torch.models.moe.MoeMeshInfo`)."""
+    axes = act.batch_axes()
+    if axes:
+        nll = collectives.reduce_sum(nll, act.group(axes)) / act.size(axes)
     loss = nll
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux["load_balance"]
         loss = loss + cfg.moe.router_z_weight * aux["router_z"]
     metrics = {"nll": nll, **aux, "loss": loss}
     return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+class _WholeCache:
+    """A sharded decode step's per-layer cache views (the identity outside
+    one).  The cache leaves hold this rank's slice of the step's cache
+    layout (:func:`repro_torch.dist.act.cache_layout`); a leaf split along
+    the model axis is gathered whole for its layer (:meth:`layer`) and
+    this rank's slice of it written back after (:meth:`write_back`), but
+    for k/v split by heads (attention reads its own heads) or by time under
+    sequence-parallel decode (:func:`layers.sp_decode_applies`)."""
+
+    def __init__(self, cfg: ArchConfig, cache: dict, pos: torch.Tensor):
+        self.cache = cache
+        layout = act.cache_layout() or {}
+        self.group = act.group("model")
+        self.split: dict[str, int] = {}
+        sp = layers.sp_decode_applies(cfg, pos)
+        for key, entries in layout.items():
+            # the per-layer leaf's dimension split over the model axis
+            dim = next((i - 1 for i, e in enumerate(entries) if i > 1 and e == "model"), None)
+            if self.group is None or dim is None or key not in cache:
+                continue
+            if key in ("k", "v") and (dim == 1 or (dim == 2 and sp)):
+                continue
+            self.split[key] = dim
+
+    def layer(self, i: int) -> dict:
+        return {key: (collectives.gather(t[i], self.split[key], self.group)
+                      if key in self.split else t[i])
+                for key, t in self.cache.items() if key not in ("pos", "block_table")}
+
+    def write_back(self, i: int, c: dict) -> None:
+        for key, dim in self.split.items():
+            n = torch.distributed.get_world_size(self.group)
+            self.cache[key][i].copy_(c[key].chunk(n, dim)[torch.distributed.get_rank(self.group)])
 
 
 class DecoderLM:
@@ -324,14 +371,15 @@ class DecoderLM:
                              f"{self.kinds[0]!r} (mla={cfg.mla is not None}, "
                              f"window={cfg.attn_window})")
 
-    def _ffn(self, kind: str, p: Params, x: torch.Tensor, *, dropless: bool) -> torch.Tensor:
+    def _ffn(self, kind: str, p: Params, x: torch.Tensor, *, dropless: bool,
+             moe_info=None) -> torch.Tensor:
         """The layer's second half: x + MLP or MoE of its normed rows."""
         h2 = layers.apply_norm(p["ln2"], x, self.cfg.norm_eps)
         if kind == "moe":
             # decode routes only a handful of tokens: dropless is mandatory
-            y, _ = moe.apply_moe(p["moe"], h2, self.cfg, dropless=dropless)
+            y, _ = moe.apply_moe(p["moe"], h2, self.cfg, mesh_info=moe_info, dropless=dropless)
         else:
-            y = layers.apply_mlp(p["mlp"], h2)
+            y = layers.apply_mlp(p["mlp"], h2, self.cfg.d_ff)
         return x + y
 
     # -- the full forward (training) ------------------------------------------
@@ -339,13 +387,14 @@ class DecoderLM:
     def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
         """The token embeddings, a vlm config's ``patch_embeds`` [B, P, d]
         over the first P rows (out of place: the rows differentiate)."""
-        h = layers.embed_tokens(params["embed"], batch["tokens"])
+        h = layers.embed_tokens(params["embed"], batch["tokens"], self.cfg.vocab_size)
         if self.cfg.frontend == "vision_patches" and "patch_embeds" in batch:
             patches = batch["patch_embeds"].to(h.dtype)
             h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
         return h
 
-    def backbone(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def backbone(self, params: Params, batch: dict, *,
+                 moe_info=None) -> tuple[torch.Tensor, dict]:
         """``batch["tokens"]`` [B, S] -> (the final norm's rows [B, S, d],
         aux summed over the layers).  Each layer runs under the config's
         ``remat`` (:func:`_remat`) and is cast back to the residual stream's
@@ -355,29 +404,33 @@ class DecoderLM:
         positions = torch.arange(h.shape[1], device=h.device)
         aux = _zero_aux(h.device)
         for kind, p in zip(self.kinds, params["layers"]):
-            layer = _remat(functools.partial(apply_layer_full, cfg, kind), cfg.remat)
+            layer = _remat(functools.partial(apply_layer_full, cfg, kind, moe_info=moe_info),
+                           cfg.remat)
             x, aux_l = layer(p, h, positions)
             h = x.to(h.dtype)
             aux = _merge_aux(aux, aux_l)
         return layers.apply_norm(params["ln_f"], h, cfg.norm_eps), aux
 
-    def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def forward(self, params: Params, batch: dict, *,
+                moe_info=None) -> tuple[torch.Tensor, dict]:
         """(logits [B, S, V] f32, aux)."""
-        h, aux = self.backbone(params, batch)
-        return layers.unembed(params["embed"], h), aux
+        h, aux = self.backbone(params, batch, moe_info=moe_info)
+        return layers.unembed(params["embed"], h, self.cfg.vocab_size), aux
 
-    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: Params, batch: dict, *, moe_info=None) -> tuple[torch.Tensor, dict]:
         """(loss, metrics): the next-token cross entropy of
         ``batch["labels"]`` (the tokens where absent), with MoE configs'
         router terms added; the metrics hold ``nll``, ``loss`` and the aux
         sums, detached."""
-        h, aux = self.backbone(params, batch)
-        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]))
+        h, aux = self.backbone(params, batch, moe_info=moe_info)
+        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]),
+                         vocab=self.cfg.vocab_size)
         return _loss_metrics(self.cfg, nll, aux)
 
     # -- prefill ------------------------------------------------------------
 
-    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
+    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None,
+                moe_info=None):
         """``batch["tokens"]`` [B, S] -> (last-token logits [B, V] f32, cache).
         ``cache_len`` pre-allocates the KV or latent caches to the serving
         max length (a windowed config's ring to ``min(cache_len, window)``
@@ -385,8 +438,9 @@ class DecoderLM:
         config's ``batch["patch_embeds"]`` [B, P, d] replaces the first P
         rows' embeddings."""
         cfg = self.cfg
+        V = cfg.vocab_size
         tokens = batch["tokens"]
-        x = layers.embed_tokens(params["embed"], tokens)
+        x = layers.embed_tokens(params["embed"], tokens, V)
         if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
             patches = batch["patch_embeds"]
             x[:, :patches.shape[1]] = patches.to(x.dtype)
@@ -401,7 +455,7 @@ class DecoderLM:
                 states.append(state)
                 tails.append(tail)
             h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-            logits = layers.unembed(params["embed"], h[:, -1:])
+            logits = layers.unembed(params["embed"], h[:, -1:], V)
             return logits[:, 0], {"pos": pos, "ssm_state": torch.stack(states),
                                   "conv_tail": torch.stack(tails)}
         positions = torch.arange(S, device=x.device)
@@ -416,15 +470,15 @@ class DecoderLM:
             if kind == "hybrid":
                 y, state, tail = ssm.ssm_full(p["mamba"], h, cfg, return_state=True)
                 x = x + _merge_heads(cfg, p, a, y)
-                x = self._ffn(kind, p, x, dropless=False)
+                x = self._ffn(kind, p, x, dropless=False, moe_info=moe_info)
                 states.append(state)
                 tails.append(tail)
             else:
-                x = self._ffn(kind, p, x + a, dropless=False)
+                x = self._ffn(kind, p, x + a, dropless=False, moe_info=moe_info)
             first.append(c1)
             second.append(c2)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-        logits = layers.unembed(params["embed"], h[:, -1:])
+        logits = layers.unembed(params["embed"], h[:, -1:], V)
         keys = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
         cache = _window_clip(cfg, {keys[0]: torch.stack(first), keys[1]: torch.stack(second)})
         cache["pos"] = pos
@@ -483,7 +537,8 @@ class DecoderLM:
 
     # -- decode ---------------------------------------------------------------
 
-    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict):
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict, *,
+                    moe_info=None):
         """tokens [B, 1] -> (logits [B, V] f32, cache).  ``cache["pos"]`` is a
         scalar or [B] (per-slot positions); this token's k/v (or latents)
         are written into the cache in place, and the returned cache holds
@@ -498,23 +553,33 @@ class DecoderLM:
         An SSM model's ``ssm_state`` and ``conv_tail`` are updated in place
         the same way; its layers read no position.  A hybrid model updates
         both its ring KV cache (row ``pos`` at slot ``pos % window``) and its
-        SSM state."""
+        SSM state.
+
+        Under a sharded decode step (``repro_torch.serve.engine.make_decode_step``)
+        the cache leaves are this rank's slices: a layer's k/v heads stay
+        local where attention reads them so, as does a time-split k/v cache
+        under sequence-parallel decode; any other split leaf is gathered
+        whole for its layer and its slice written back after
+        (:class:`_WholeCache`)."""
         cfg = self.cfg
-        x = layers.embed_tokens(params["embed"], tokens)
+        V = cfg.vocab_size
+        x = layers.embed_tokens(params["embed"], tokens, V)
         pos = cache["pos"]
         table = cache.get("block_table")
         if table is not None:
             self._refuse_paged()
+        whole = _WholeCache(cfg, cache, pos)
         if cfg.family == "ssm":
             for i, p in enumerate(params["layers"]):
+                c = whole.layer(i)
                 h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
-                y, state, tail = ssm.ssm_decode(p["mamba"], h, cache["ssm_state"][i],
-                                                cache["conv_tail"][i], cfg)
-                cache["ssm_state"][i].copy_(state)
-                cache["conv_tail"][i].copy_(tail)
+                y, state, tail = ssm.ssm_decode(p["mamba"], h, c["ssm_state"], c["conv_tail"], cfg)
+                c["ssm_state"].copy_(state)
+                c["conv_tail"].copy_(tail)
+                whole.write_back(i, c)
                 x = x + y
             h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-            logits = layers.unembed(params["embed"], h)
+            logits = layers.unembed(params["embed"], h, V)
             return logits[:, 0], {"pos": pos + 1, "ssm_state": cache["ssm_state"],
                                   "conv_tail": cache["conv_tail"]}
         if table is not None:
@@ -523,24 +588,27 @@ class DecoderLM:
             page, offset = layers.page_address(table, posb, cache["k"].shape[3])
             lengths = posb + 1
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+            c = whole.layer(i)
             h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
             if cfg.mla is not None:
-                a = mla.mla_decode(p["mla"], h, cache["ckv"][i], cache["krope"][i], pos, cfg)
+                a = mla.mla_decode(p["mla"], h, c["ckv"], c["krope"], pos, cfg)
             elif table is None:
-                a = layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+                a = layers.attention_decode(p["attn"], h, c["k"], c["v"], pos, cfg)
             else:
-                a = layers.attention_decode_paged(p["attn"], h, cache["k"][i], cache["v"][i],
+                a = layers.attention_decode_paged(p["attn"], h, c["k"], c["v"],
                                                   table, posb, page, offset, lengths, cfg)
             if kind == "hybrid":
-                y, state, tail = ssm.ssm_decode(p["mamba"], h, cache["ssm_state"][i],
-                                                cache["conv_tail"][i], cfg)
-                cache["ssm_state"][i].copy_(state)
-                cache["conv_tail"][i].copy_(tail)
-                x = self._ffn(kind, p, x + _merge_heads(cfg, p, a, y), dropless=True)
+                y, state, tail = ssm.ssm_decode(p["mamba"], h, c["ssm_state"], c["conv_tail"],
+                                                cfg)
+                c["ssm_state"].copy_(state)
+                c["conv_tail"].copy_(tail)
+                x = self._ffn(kind, p, x + _merge_heads(cfg, p, a, y), dropless=True,
+                              moe_info=moe_info)
             else:
-                x = self._ffn(kind, p, x + a, dropless=True)
+                x = self._ffn(kind, p, x + a, dropless=True, moe_info=moe_info)
+            whole.write_back(i, c)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-        logits = layers.unembed(params["embed"], h)
+        logits = layers.unembed(params["embed"], h, V)
         return logits[:, 0], {"pos": pos + 1, **{key: cache[key] for key in cache
                                                  if key not in ("pos", "block_table")}}
 
@@ -588,7 +656,7 @@ class EncDecLM:
         cfg = self.cfg
         return {
             "embed": layers.embed_specs(cfg),
-            "enc_pos": ParamSpec((cfg.frontend_seq, cfg.d_model), scale=0.02),
+            "enc_pos": ParamSpec((cfg.frontend_seq, cfg.d_model), (None, "embed"), scale=0.02),
             "encoder": [layer_specs(cfg, "enc") for _ in range(cfg.encoder_layers)],
             "ln_enc": layers.norm_spec(cfg.d_model),
             "decoder": [layer_specs(cfg, "dec") for _ in range(cfg.num_layers)],
@@ -596,7 +664,8 @@ class EncDecLM:
         }
 
     def _mlp(self, p: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, self.cfg.norm_eps))
+        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x, self.cfg.norm_eps),
+                                    self.cfg.d_ff)
 
     def encode(self, params: Params, frames: torch.Tensor, *,
                remat: str = "none") -> torch.Tensor:
@@ -617,24 +686,26 @@ class EncDecLM:
         ``"full"`` mode), each layer under the config's ``remat``: its last
         layer's rows [B, S, d], before the final norm."""
         cfg = self.cfg
-        h = layers.embed_tokens(params["embed"], tokens)
+        h = layers.embed_tokens(params["embed"], tokens, cfg.vocab_size)
         positions = torch.arange(h.shape[1], device=h.device)
         layer = _remat(functools.partial(apply_layer_full, cfg, "dec"), cfg.remat)
         for p in params["decoder"]:
             h = layer(p, h, positions, memory)[0]
         return h
 
-    def loss(self, params: Params, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: Params, batch: dict, *, moe_info=None) -> tuple[torch.Tensor, dict]:
         """(loss, metrics) over ``batch["frames"]`` and ``batch["tokens"]``
         (``labels`` where given), as :meth:`DecoderLM.loss`; the aux metrics
         are zeros."""
         memory = self.encode(params, batch["frames"], remat=self.cfg.remat)
         h = self._decode_full(params, batch["tokens"], memory)
         h = layers.apply_norm(params["ln_f"], h, self.cfg.norm_eps)
-        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]))
+        nll = chunked_ce(params["embed"], h, batch.get("labels", batch["tokens"]),
+                         vocab=self.cfg.vocab_size)
         return _loss_metrics(self.cfg, nll, _zero_aux(h.device))
 
-    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None):
+    def prefill(self, params: Params, batch: dict, *, cache_len: int | None = None,
+                moe_info=None):
         """``batch["tokens"]`` [B, S] and ``batch["frames"]`` [B, T_enc, d]
         -> (last-token logits [B, V] f32, cache).  ``cache_len`` pads the
         self-attention caches to the decoder's serving length; the memory's
@@ -647,7 +718,7 @@ class EncDecLM:
         """:meth:`prefill`'s decoder half: ``tokens`` [B, S] over the
         encoder's output ``memory`` [B, T_enc, d] (:meth:`encode`)."""
         cfg = self.cfg
-        x = layers.embed_tokens(params["embed"], tokens)
+        x = layers.embed_tokens(params["embed"], tokens, cfg.vocab_size)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)
         caches: dict[str, list] = {"k": [], "v": [], "mem_k": [], "mem_v": []}
@@ -661,7 +732,7 @@ class EncDecLM:
             for key, t in zip(caches, (k, v, mem_k, mem_v)):
                 caches[key].append(t)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-        logits = layers.unembed(params["embed"], h[:, -1:])
+        logits = layers.unembed(params["embed"], h[:, -1:], cfg.vocab_size)
         cache = {key: torch.stack(ts) for key, ts in caches.items()}
         if cache_len is not None:
             # the memory's K/V are fixed-length: only self-attention pads
@@ -669,21 +740,26 @@ class EncDecLM:
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
         return logits[:, 0], cache
 
-    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict):
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: dict, *,
+                    moe_info=None):
         """tokens [B, 1] -> (logits [B, V] f32, cache): this token's k/v are
         written at row ``pos`` (a scalar) in place, and the returned cache
-        holds the same tensors with ``pos + 1``."""
+        holds the same tensors with ``pos + 1``.  Sharded, as
+        :meth:`DecoderLM.decode_step`."""
         cfg = self.cfg
-        x = layers.embed_tokens(params["embed"], tokens)
+        x = layers.embed_tokens(params["embed"], tokens, cfg.vocab_size)
         pos = cache["pos"]
+        whole = _WholeCache(cfg, cache, pos)
         for i, p in enumerate(params["decoder"]):
+            c = whole.layer(i)
             h = layers.apply_norm(p["ln1"], x, cfg.norm_eps)
-            x = x + layers.attention_decode(p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg)
+            x = x + layers.attention_decode(p["attn"], h, c["k"], c["v"], pos, cfg)
             hx = layers.apply_norm(p["lnx"], x, cfg.norm_eps)
-            x = self._mlp(p, x + layers.cross_attention(p["xattn"], hx, cache["mem_k"][i],
-                                                        cache["mem_v"][i], cfg))
+            x = self._mlp(p, x + layers.cross_attention(p["xattn"], hx, c["mem_k"], c["mem_v"],
+                                                        cfg))
+            whole.write_back(i, c)
         h = layers.apply_norm(params["ln_f"], x, cfg.norm_eps)
-        logits = layers.unembed(params["embed"], h)
+        logits = layers.unembed(params["embed"], h, cfg.vocab_size)
         return logits[:, 0], {**cache, "pos": pos + 1}
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:

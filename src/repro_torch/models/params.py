@@ -1,7 +1,11 @@
 """Parameter descriptors and their initialisation.
 
 Models declare their parameters as trees (nested dicts and lists) of
-:class:`ParamSpec` — shape, dtype and init law.  :func:`init_params` makes
+:class:`ParamSpec` — shape, *logical* axis names, dtype and init law.  The
+logical names are the JAX package's (``("embed", "heads")`` on ``wq``) less
+its leading ``"layers"`` entry, since the port keeps one leaf a layer where
+JAX stacks them; :class:`repro_torch.dist.sharding.ShardingRules` maps them
+to mesh axes.  :func:`init_params` makes
 concrete tensors from one seeded ``torch.Generator`` with the JAX package's
 laws (normal·scale drawn in f32 then cast, ones for norms); the draws differ
 from ``jax.random``'s, so parity tests carry the JAX package's parameters
@@ -21,9 +25,21 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    logical: tuple[str | None, ...] | None = None   # logical axis name per dim
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"                     # normal | zeros | ones | ssm_a
     scale: float = 0.02
+
+    def __post_init__(self) -> None:
+        # a cache spec names no axes (JAX's are ShapeDtypeStructs): all None
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} vs logical {self.logical}")
+
+
+def is_spec(x: Any) -> bool:
+    return isinstance(x, ParamSpec)
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -39,11 +55,17 @@ def resolve_device(device: "str | torch.device") -> torch.device:
     return device
 
 
+def _is_seq(x: Any) -> bool:
+    """A list or a plain tuple is a tree node; a tuple subclass (a
+    placement, ``repro_torch.dist.sharding.PartitionSpec``) is a leaf."""
+    return type(x) in (list, tuple)
+
+
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """Apply ``fn`` to every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
@@ -54,7 +76,7 @@ def tree_flatten_as(like: Any, tree: Any) -> list:
     theirs."""
     if isinstance(like, dict):
         return [x for k in like for x in tree_flatten_as(like[k], tree[k])]
-    if isinstance(like, (list, tuple)):
+    if _is_seq(like):
         if len(like) != len(tree):
             raise ValueError(f"a list of {len(tree)} where {len(like)} are expected")
         return [x for a, b in zip(like, tree) for x in tree_flatten_as(a, b)]
@@ -71,7 +93,7 @@ def tree_paths(tree: Any, prefix: str = "") -> list[str]:
     ``keystr`` writes it: ``['embed']['tok']``, ``['layers'][0]['ln1']``."""
     if isinstance(tree, dict):
         return [p for k, v in tree.items() for p in tree_paths(v, f"{prefix}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [p for i, v in enumerate(tree) for p in tree_paths(v, f"{prefix}[{i}]")]
     return [prefix]
 

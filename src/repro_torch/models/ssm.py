@@ -12,7 +12,9 @@ The projections, the norm and the prefill's SSD scan go through
 ``dispatch.op``; the causal conv, the gating and the decode step's
 single-token update are eager torch, as they are ``jnp`` in JAX.  Decode
 carries two state tensors: the SSD state [B, H, P, N] f32 and the conv tail
-[B, K-1, conv_channels] (pre-activation).
+[B, K-1, conv_channels] (pre-activation).  Under sharding rules the leaves
+the rules split (the inner widths, over the model axis) are gathered whole
+and the block runs as on one device.
 """
 
 from __future__ import annotations
@@ -46,14 +48,15 @@ def ssm_specs(cfg: ArchConfig) -> Params:
     d = cfg.d_model
     proj_out = 2 * d_in + 2 * s.num_groups * s.state_dim + H
     return {
-        "in_proj": ParamSpec((d, proj_out), scale=1.0 / math.sqrt(d)),
-        "conv_w": ParamSpec((s.conv_kernel, conv_ch), scale=1.0 / math.sqrt(s.conv_kernel)),
-        "conv_b": ParamSpec((conv_ch,), init="zeros"),
-        "a_log": ParamSpec((H,), dtype=torch.float32, init="ssm_a"),
-        "skip_d": ParamSpec((H,), dtype=torch.float32, init="ones"),
-        "dt_bias": ParamSpec((H,), dtype=torch.float32, init="zeros"),
+        "in_proj": ParamSpec((d, proj_out), ("embed", "ssm_inner"), scale=1.0 / math.sqrt(d)),
+        "conv_w": ParamSpec((s.conv_kernel, conv_ch), (None, "ssm_inner"),
+                            scale=1.0 / math.sqrt(s.conv_kernel)),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((H,), (None,), dtype=torch.float32, init="ssm_a"),
+        "skip_d": ParamSpec((H,), (None,), dtype=torch.float32, init="ones"),
+        "dt_bias": ParamSpec((H,), (None,), dtype=torch.float32, init="zeros"),
         "norm": layers.norm_spec(d_in),
-        "out_proj": ParamSpec((d_in, d), scale=1.0 / math.sqrt(d_in)),
+        "out_proj": ParamSpec((d_in, d), ("ssm_inner", "embed"), scale=1.0 / math.sqrt(d_in)),
     }
 
 
@@ -96,6 +99,7 @@ def ssm_full(p: Params, x: torch.Tensor, cfg: ArchConfig, *, return_state: bool 
     s, d_in, H, _ = _dims(cfg)
     B, S, _ = x.shape
     K = s.conv_kernel
+    p = layers.whole_tree(p, ssm_specs(cfg))        # under rules: the inner widths whole
     u = dispatch.op("matmul", x, p["in_proj"])
     z, xbc, dt = _split_proj(u, cfg)
     conv_tail = F.pad(xbc[:, -(K - 1):], (0, 0, max(0, K - 1 - S), 0))
@@ -123,6 +127,7 @@ def ssm_decode(p: Params, x: torch.Tensor, ssm_state: torch.Tensor, conv_tail: t
     [B, K-1, C] pre-activation -> (out [B, 1, d], new state, new tail)."""
     s, d_in, H, _ = _dims(cfg)
     B = x.shape[0]
+    p = layers.whole_tree(p, ssm_specs(cfg))
     u = dispatch.op("matmul", x[:, 0], p["in_proj"])             # [B, proj]
     z, xbc_t, dt = _split_proj(u, cfg)
     window = torch.cat([conv_tail, xbc_t[:, None, :]], dim=1)    # [B, K, C]

@@ -16,7 +16,15 @@ global norm stay 0-d tensors on the device: a step reads nothing back to
 the host.  The per-leaf update of a stacked leaf is JAX's: the port's
 per-layer leaves are the slices of JAX's stacked ones, and only
 Adafactor's update clip (an RMS over the whole leaf) sees the difference
-(ROADMAP §3).  ``opt_state_specs`` waits for the port's distribution.
+(ROADMAP §3).
+
+Sharded (``shardings=``, a tree of each parameter's
+:class:`~repro_torch.dist.sharding.Sharding`), each rank updates its
+slices: the global norm sums each split leaf's squares over its ranks and
+counts a whole leaf once; Adafactor's row and column means and its update
+clip's RMS over a split dimension are means over its ranks too, so every
+statistic is the whole leaf's.  ``opt_state_specs`` places the state as
+the parameters (factored statistics without the reduced dimension).
 """
 
 from __future__ import annotations
@@ -26,8 +34,16 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.params import tree_flatten_as, tree_leaves, tree_map, tree_unflatten
+from repro_torch.dist.sharding import P, entry_axes
+from repro_torch.models.params import (
+    is_spec,
+    tree_flatten_as,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 Params = Any
 
@@ -61,16 +77,42 @@ def lr_schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """The L2 norm over every leaf, in f32."""
+def _group(sharding, dims=None):
+    """The process group over which the leaf's ``dims`` (every dimension
+    where None) are split; None if none is."""
+    if sharding is None:
+        return None
+    entries = sharding.entries if dims is None else [sharding.entries[d] for d in dims]
+    return sharding.mesh.group(tuple(a for e in entries for a in entry_axes(e)))
+
+
+def _mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of equal-sized local means over ``group`` (the identity
+    outside one)."""
+    if group is None:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
+def global_norm(tree: Params, shardings: Params = None) -> torch.Tensor:
+    """The L2 norm over every leaf, in f32; with ``shardings`` each split
+    leaf's squares summed over its ranks (a whole leaf counts once)."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if shardings is not None:
+        for i, sh in enumerate(tree_flatten_as(tree, shardings)):
+            group = _group(sh)
+            if group is not None:
+                dist.all_reduce(sums[i], group=group)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(tree: Params, max_norm: float) -> tuple[Params, torch.Tensor]:
+def clip_by_global_norm(tree: Params, max_norm: float,
+                        shardings: Params = None) -> tuple[Params, torch.Tensor]:
     """Every leaf in f32, scaled so the global norm is at most
     ``max_norm``; and the norm before."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, shardings)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, tree), norm
 
@@ -97,8 +139,9 @@ def adamw_init(params: Params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def adamw_update(cfg: OptConfig, params: Params, grads: Params, state: dict):
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def adamw_update(cfg: OptConfig, params: Params, grads: Params, state: dict,
+                 shardings: Params = None):
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shardings)
     step, lr = _step_and_lr(cfg, state)
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
@@ -127,10 +170,16 @@ def _factored(shape: tuple[int, ...], min_dim: int) -> bool:
     return len(shape) >= 2 and shape[-1] >= min_dim and shape[-2] >= min_dim
 
 
-def adafactor_init(cfg: OptConfig, params: Params) -> dict:
+def adafactor_init(cfg: OptConfig, params: Params, shardings: Params = None) -> dict:
+    """Zero state; a leaf is factored by its global shape (``shardings``
+    give it for a rank's slice)."""
+    globals_ = iter([sh.global_shape(p.shape) for p, sh in
+                     zip(tree_leaves(params), tree_flatten_as(params, shardings))]
+                    if shardings is not None else [p.shape for p in tree_leaves(params)])
+
     def init_v(p):
         f32 = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape, cfg.factored_min_dim):
+        if _factored(next(globals_), cfg.factored_min_dim):
             return {"row": torch.zeros(p.shape[:-1], **f32),
                     "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
         return {"full": torch.zeros(p.shape, **f32)}
@@ -145,27 +194,32 @@ def adafactor_init(cfg: OptConfig, params: Params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def adafactor_update(cfg: OptConfig, params: Params, grads: Params, state: dict):
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def adafactor_update(cfg: OptConfig, params: Params, grads: Params, state: dict,
+                     shardings: Params = None):
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shardings)
     step, lr = _step_and_lr(cfg, state)
     beta = cfg.decay_adafactor
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, sh):
         g = g.float()
         if "full" in v:
             vf = beta * v["full"] + (1 - beta) * (g * g + 1e-30)
             precond = g * torch.rsqrt(vf + 1e-30)
             new_v = {"full": vf}
         else:
-            row = beta * v["row"] + (1 - beta) * torch.mean(g * g + 1e-30, dim=-1)
-            col = beta * v["col"] + (1 - beta) * torch.mean(g * g + 1e-30, dim=-2)
-            row_mean = torch.mean(row, dim=-1, keepdim=True)
+            n = g.dim()
+            last, second = _group(sh, [n - 1]), _group(sh, [n - 2])
+            row = beta * v["row"] + (1 - beta) * _mean_over(torch.mean(g * g + 1e-30, dim=-1),
+                                                            last)
+            col = beta * v["col"] + (1 - beta) * _mean_over(torch.mean(g * g + 1e-30, dim=-2),
+                                                            second)
+            row_mean = _mean_over(torch.mean(row, dim=-1, keepdim=True), second)
             r = (row / (row_mean + 1e-30))[..., None]
             c = col[..., None, :]
             precond = g * torch.rsqrt(r * c + 1e-30)
             new_v = {"row": row, "col": col}
-        # update clipping (Adafactor's RMS trick)
-        rms = torch.sqrt(torch.mean(precond * precond) + 1e-30)
+        # update clipping (Adafactor's RMS trick), over the whole leaf
+        rms = torch.sqrt(_mean_over(torch.mean(precond * precond), _group(sh)) + 1e-30)
         precond = precond / torch.clamp(rms, min=1.0)
         if cfg.b1 > 0:
             mf = cfg.b1 * m.float() + (1 - cfg.b1) * precond
@@ -176,9 +230,11 @@ def adafactor_update(cfg: OptConfig, params: Params, grads: Params, state: dict)
         return _apply(p, lr, delta), new_m, new_v
 
     flat_p = tree_leaves(params)
+    flat_sh = (tree_flatten_as(params, shardings) if shardings is not None
+               else [None] * len(flat_p))
     out = [upd(*leaves) for leaves in zip(flat_p, tree_flatten_as(params, grads),
                                           tree_flatten_as(params, state["m"]),
-                                          tree_flatten_as(params, state["v"]))]
+                                          tree_flatten_as(params, state["v"]), flat_sh)]
     new = [tree_unflatten(params, [o[i] for o in out]) for i in range(3)]
     return new[0], {"m": new[1], "v": new[2], "step": step}, {"grad_norm": gnorm, "lr": lr}
 
@@ -188,18 +244,45 @@ def adafactor_update(cfg: OptConfig, params: Params, grads: Params, state: dict)
 # ---------------------------------------------------------------------------
 
 
-def opt_init(cfg: OptConfig, params: Params) -> dict:
+def opt_init(cfg: OptConfig, params: Params, shardings: Params = None) -> dict:
     if cfg.kind == "adamw":
         return adamw_init(params)
     if cfg.kind == "adafactor":
-        return adafactor_init(cfg, params)
+        return adafactor_init(cfg, params, shardings)
     raise ValueError(cfg.kind)
 
 
 @torch.no_grad()
-def opt_update(cfg: OptConfig, params: Params, grads: Params, state: dict):
+def opt_update(cfg: OptConfig, params: Params, grads: Params, state: dict,
+               shardings: Params = None):
     """(new params, new state, {"grad_norm", "lr"}): the inputs are left as
-    they are."""
+    they are.  ``shardings``: each parameter's placement, where the trees
+    hold a rank's slices."""
     if cfg.kind == "adamw":
-        return adamw_update(cfg, params, grads, state)
-    return adafactor_update(cfg, params, grads, state)
+        return adamw_update(cfg, params, grads, state, shardings)
+    return adafactor_update(cfg, params, grads, state, shardings)
+
+
+def opt_state_specs(cfg: OptConfig, param_specs: Any, pspec_of) -> Any:
+    """The optimizer state's placements, mirroring the parameters':
+    ``pspec_of`` maps a ParamSpec to its placement (a tuple, one entry a
+    dimension); a factored statistic inherits it with the reduced
+    dimension dropped, momentum-free Adafactor's placeholder and the step
+    counter are whole (``P()``)."""
+    def for_leaf(s):
+        ps = P(*pspec_of(s))
+        if cfg.kind == "adamw":
+            return {"m": ps, "v": ps}
+        m_spec = ps if cfg.b1 > 0 else P()
+        if _factored(s.shape, cfg.factored_min_dim):
+            return {"m": m_spec, "v": {"row": ps[:-1], "col": ps[:-2] + ps[-1:]}}
+        return {"m": m_spec, "v": {"full": ps}}
+
+    def pick(tree, key):
+        if is_spec(tree):
+            return for_leaf(tree)[key]
+        if isinstance(tree, dict):
+            return {k: pick(v, key) for k, v in tree.items()}
+        return [pick(v, key) for v in tree]
+
+    return {"m": pick(param_specs, "m"), "v": pick(param_specs, "v"), "step": P()}

@@ -154,12 +154,137 @@ from repro_torch.core.policy import (
     SpillPolicy,
 )
 from repro_torch.core.reconfig import TransferEngine
+from repro_torch.dist import act, collectives
+from repro_torch.dist.sharding import P, Sharding, ShardingRules
 from repro_torch.kernels import sample as sample_k
 from repro_torch.models.model import TIME_KEYS
 from repro_torch.models.params import resolve_device
 from repro_torch.serve import graph as graph_mod
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
+from repro_torch.train.step import batch_shardings, moe_mesh_info
+
+
+# ---------------------------------------------------------------------------
+# cache sharding
+# ---------------------------------------------------------------------------
+
+#: the cache leaves ``cache_pspecs`` places; the rest are whole
+SHARDED_CACHE_KEYS = ("k", "v", "mem_k", "mem_v", "ssm_state", "ckv", "krope", "conv_tail")
+
+
+def cache_pspecs(cfg, rules: ShardingRules, cache_tree: dict, global_batch: int) -> dict:
+    """Each cache leaf's placement, by name and divisibility (JAX's rule).
+
+    Layout [L, B, H, T, hd] (kv), [L, B, T, r] (latent), [L, B, H, P, N]
+    (ssm), [L, B, K-1, C] (conv).  B splits over the data axes where it
+    divides.  On the model axis the **first** non-batch dimension it
+    divides is split: the heads where they divide, otherwise the cache's
+    time axis (sequence-parallel KV: a kv=8 GQA cache at TP=16 must split
+    over T or a 32k cache is held 16 times); the softmax statistics over a
+    time-split cache then reduce with small [B, H] collectives."""
+    model_size = rules.mesh.shape.get("model", 1)
+    dp = rules.batch_pspec(global_batch, 0)[0]
+
+    def spec_for(key, leaf):
+        shape = tuple(leaf.shape)
+        if key not in SHARDED_CACHE_KEYS:
+            return P(*([None] * len(shape)))
+        parts: list = [None, dp] + [None] * (len(shape) - 2)
+        if model_size > 1:
+            for i in range(2, len(shape)):
+                if shape[i] % model_size == 0 and shape[i] >= model_size:
+                    parts[i] = "model"
+                    break
+        return P(*parts)
+
+    return {key: spec_for(key, leaf) for key, leaf in cache_tree.items()}
+
+
+def cache_shardings(cfg, rules: ShardingRules, cache_tree: dict, global_batch: int) -> dict:
+    return {key: Sharding(rules.mesh, ps)
+            for key, ps in cache_pspecs(cfg, rules, cache_tree, global_batch).items()}
+
+
+# ---------------------------------------------------------------------------
+# sharded steps
+# ---------------------------------------------------------------------------
+
+
+def _global_cache_shapes(cfg, cache: dict, global_batch: int) -> dict:
+    """A sharded prefill's cache leaves' global shapes: the batch whole, and
+    the k/v heads all of them (attention may hold this rank's)."""
+    out = {}
+    for key, t in cache.items():
+        shape = list(t.shape)
+        if shape:
+            shape[1] = global_batch
+        if key in ("k", "v", "mem_k", "mem_v"):
+            shape[2] = cfg.num_kv_heads
+        out[key] = torch.empty(shape, device="meta")
+    return out
+
+
+def make_prefill_step(model, rules: ShardingRules, *, global_batch: int,
+                      cache_len: int | None = None):
+    """``(prefill, param shardings, batch shardings)``: ``prefill(params,
+    batch)`` takes this rank's slices of the parameters (the shardings'
+    leaves, then ``models.params.refresh_derived`` for the f32 copies
+    serving reads) and the global
+    batch of ``global_batch`` rows and returns the global last-token logits
+    [B, V] f32 and this rank's slice of the cache in
+    :func:`cache_pspecs`' layout (what :func:`make_decode_step`'s step
+    takes; JAX leaves the prefill's cache layout to propagation)."""
+    cfg = model.cfg
+    p_shard = rules.sharding_tree(model.param_specs())
+    b_shard = batch_shardings(cfg, rules, global_batch)
+    minfo = moe_mesh_info(cfg, rules)
+    layout = act.StepLayout(batch_axes=rules.batch_axes(global_batch))
+    batch_group = rules.mesh.group(layout.batch_axes)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        local = {k: b_shard[k].local(v) for k, v in batch.items()}
+        with act.use_rules(rules), act.use_layout(layout):
+            logits, cache = model.prefill(params, local, cache_len=cache_len, moe_info=minfo)
+        logits = collectives.gather(logits, 0, batch_group)
+        shapes = _global_cache_shapes(cfg, cache, global_batch)
+        for key, ps in cache_pspecs(cfg, rules, shapes, global_batch).items():
+            t = cache[key]
+            for dim, entry in enumerate(ps):
+                n = rules.mesh.size_of(entry) if dim >= 2 and entry is not None else 1
+                if n > 1 and t.shape[dim] == shapes[key].shape[dim]:
+                    t = t.chunk(n, dim)[rules.mesh.index(entry)].contiguous()
+            cache[key] = t
+        return logits, cache
+
+    return prefill, p_shard, b_shard
+
+
+def make_decode_step(model, rules: ShardingRules, *, global_batch: int, cache_len: int):
+    """``(decode, param shardings, cache shardings, cache specs)``:
+    ``decode(params, tokens, cache)`` takes this rank's slices of the
+    parameters and the cache (:func:`cache_shardings`) and the global
+    tokens [B, 1]; returns the global logits [B, V] f32 and the cache,
+    updated in place (JAX donates it)."""
+    cfg = model.cfg
+    p_shard = rules.sharding_tree(model.param_specs())
+    cache_tree = model.cache_specs(global_batch, cache_len)
+    c_shard = cache_shardings(cfg, rules, cache_tree, global_batch)
+    tok_shard = Sharding(rules.mesh, rules.batch_pspec(global_batch, 1))
+    minfo = moe_mesh_info(cfg, rules, for_decode=True)
+    layout = act.StepLayout(batch_axes=rules.batch_axes(global_batch),
+                            cache={key: sh.entries for key, sh in c_shard.items()})
+    batch_group = rules.mesh.group(layout.batch_axes)
+
+    @torch.no_grad()
+    def decode(params, tokens, cache):
+        with act.use_rules(rules), act.use_layout(layout):
+            logits, cache = model.decode_step(params, tok_shard.local(tokens), cache,
+                                              moe_info=minfo)
+        return collectives.gather(logits, 0, batch_group), cache
+
+    return decode, p_shard, c_shard, cache_tree
 
 
 @dataclasses.dataclass

@@ -51,11 +51,18 @@ class LoopReport:
 class TrainLoop:
     def __init__(self, step_fn: Callable[..., tuple[Any, Any, dict]],
                  batch_at: Callable[[int], dict], cfg: LoopConfig, *,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, shardings: Any = None,
+                 mesh_shape: tuple[int, ...] = ()):
+        """``shardings``: the (params, opt_state) placements of a sharded
+        step, whose checkpoints are then written whole by rank 0 and
+        restored into each rank's slices; ``mesh_shape`` goes in their
+        manifests."""
         self.step_fn = step_fn
         self.batch_at = batch_at
         self.cfg = cfg
         self.log = log
+        self.shardings = shardings
+        self.mesh_shape = tuple(mesh_shape)
         self._preempt = False
 
     def _install_handlers(self) -> dict:
@@ -81,7 +88,8 @@ class TrainLoop:
         if cfg.ckpt_dir:
             path = latest_checkpoint(cfg.ckpt_dir)
             if path is not None:
-                (params, opt_state), manifest = restore_checkpoint(path, (params, opt_state))
+                (params, opt_state), manifest = restore_checkpoint(path, (params, opt_state),
+                                                                   shardings=self.shardings)
                 start_step = int(manifest["step"])
                 report.resumed_from = start_step
                 self.log(f"[loop] resumed from {path} at step {start_step}")
@@ -119,7 +127,8 @@ class TrainLoop:
                 done = step + 1
                 if cfg.ckpt_dir and (done % cfg.ckpt_every == 0 or done == cfg.total_steps
                                      or self._preempt):
-                    save_checkpoint(cfg.ckpt_dir, done, (params, opt_state), keep=cfg.keep)
+                    save_checkpoint(cfg.ckpt_dir, done, (params, opt_state), keep=cfg.keep,
+                                    mesh_shape=self.mesh_shape, shardings=self.shardings)
                 if self._preempt:
                     report.preempted = True
                     self.log(f"[loop] preemption: checkpointed at step {done}")

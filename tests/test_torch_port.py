@@ -18,6 +18,8 @@ import torch
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import dispatch
 from repro_torch.core.registry import KernelImpl, KernelRegistry
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model, init_params
 from repro_torch.serve.engine import ServeEngine, ServeTruncated
 
@@ -42,6 +44,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.core.roles, repro_torch.core.reconfig\n"
         "import repro_torch.core.hsa.scheduler, repro_torch.core.hsa.runtime\n"
         "import repro_torch.kernels.conv2d, repro_torch.paper_roles\n"
+        "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.dist.act\n"
+        "import repro_torch.dist.collectives, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
@@ -65,6 +70,10 @@ def test_entry_points_raise_without_a_card(tiny):
         init_params(model.param_specs(), 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "llama3.2-1b", "--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1), ("data", "model"))
 
 
 def test_decoder_refuses_the_families_not_ported():

@@ -529,6 +529,8 @@ def test_launcher_trains_two_steps_then_resumes(tmp_path, capsys):
 
 
 def test_launcher_refuses_a_mesh():
+    """A 2x2 mesh needs four processes (``torchrun``); one process alone
+    is refused before anything is built."""
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
                            "--mesh", "2x2"])

@@ -114,3 +114,28 @@ def test_train_flops_count_six_n_and_the_causal_half_of_attention():
     n = 1_235_814_400
     attention = 3 * 16 * 2 * 8 * 32 * 1024 * 1024 * 64
     assert cs.train_flops(cfg, n, 8, 1024) == 6 * n * 8 * 1024 + attention
+
+
+def test_dist_phase_passes_its_checks_on_a_small_model():
+    """Phase 17 on the CPU over gloo at a small size: the sharded steps on a
+    1x1 mesh equal the model's calls bit for bit, two train steps under the
+    rules equal the one-device step's leaves bit for bit, the serving
+    launcher answers every request, compressed_psum's checks pass; the
+    process group is gone after."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import modules
+
+    small = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=256)
+    res = cs.dist_phase(torch, modules(), 0, "cpu", "no card", cfg=small, device="cpu",
+                        train_batch=(4, 64), check_launches=False,
+                        serve_argv=(*cs.DIST_SERVE_ARGV, "--reduced", "--max-new", "4"))
+    assert res["backend"] == "gloo" and not dist.is_initialized()
+    assert res["serve_steps"]["logits_differ_at"] == [] and res["serve_steps"]["tokens_equal"]
+    assert res["serve_launcher"]["last_line"] == "[serve] completed 6/6 requests"
+    train = res["train_steps"]
+    assert train["leaves_differing"] == {} and train["leaves"] == 2 + 9 * small.num_layers
+    assert train["loss"]["sharded"] == train["loss"]["one_device"]
+    cp = res["compressed_psum"]
+    assert cp["quantize_bitwise_cpu"] and cp["mean_is_payload"] and cp["residual_exact"]
+    assert set(res["launches"]) == set(cs.DIST_KERNELS)
