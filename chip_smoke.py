@@ -61,8 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA events beside its plain version and one PyTorch library call where
    there is one (for paged attention, which no one call computes, a gather
    and SDPA; for ssd and int16 conv2d none), the earlier kernel where it is
-   still built (the mma.sync edge kernel that M <= 16 used before the
-   streaming one), and its bound (the larger of bytes / 3.35 TB/s and
+   still built (beside the streaming edge kernel at M <= 16, the edge tile
+   kernel on the same operands), and its bound (the larger of bytes / 3.35 TB/s and
    operations / peak rate; the f32 kernels' (the f32 matmul's, ssd's)
    f32 products as three TF32 products at the TF32 rate, the f32 rate's
    beside it).  The
@@ -1418,7 +1418,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     # untied unembeds' shapes: granite-3-8b, hymba-1.5b, whisper large-v3, at
     # M = 1 (the first-token fixup), 8 and 16 (decode steps): the streaming
     # edge kernel, bf16 in and f32 out as the unembed runs it, timed beside
-    # the mma.sync edge kernel it replaced at these M (previous_ms); at M = 8
+    # the edge tile kernel on the same operands (previous_ms); at M = 8
     # also bf16 out under silu, and f32 in (the f32 kernel's 4-byte-load
     # instance); then x 2 bytes off a 16-byte boundary at an aligned shape.
     # Each beside the planted fault of the bf16 rows (the last 64 of K
@@ -1438,7 +1438,8 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                    lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
                    lambda a, b: torch.matmul(a, b),
                    2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
-                   previous=lambda a, b: mm_k.matmul_edge(a, b, kernel=0, out_dtype=f32),
+                   previous=lambda a, b: mm_k.matmul_edge(
+                       a, b, kernel=0, splits=mm_k.groups(N, K)[0], out_dtype=f32),
                    instance=mm_k.kernel_instance(x, w),
                    served_key=call_key("matmul", (x, w), {"out_dtype": f32}))
             if M == 8:
@@ -1471,6 +1472,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
            None, None, None, 0, 0, BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w))
     del x, w
     edge_instance_rows(torch, mm_k, gen, record)
+    print(f"  edge tile row invariance holds: {edge_tile_rows(torch, mm_k, gen, record)}")
     sample_rows(torch, gen, record)
     family_rows(torch, gen, record)
     width_rows(torch, gen, record)
@@ -1876,11 +1878,12 @@ def edge_instance_rows(torch, mm_k, gen, record) -> None:
     """The edge kernels' instances that the unembed rows do not reach, each
     held to the plain version beside a planted fault (the last K slice
     dropped), at the unembeds' shapes, bf16 in and f32 out as the unembed
-    runs it, and in f32: M = 17 and 64 (the bf16 ``mma.sync`` edge kernel;
-    the f32 tile kernel's edge instance at 128² tiles); M = 8 and 16 with w
-    2 bytes (f32: 4 bytes) off a 16-byte boundary (the instances that copy
-    w by ``cp.async``; bf16 timed beside the ``mma.sync`` edge kernel on the
-    same operands as previous_ms); f32 at M = 16 on the aligned w (the f32
+    runs it, and in f32: M = 17 and 64 (the bf16 edge tile kernel at its
+    :func:`edge_plan` tile; the f32 tile kernel's edge instance at 128²
+    tiles); M = 8 and 16 with w 2 bytes (f32: 4 bytes) off a 16-byte
+    boundary (the instances that copy w by ``cp.async``; bf16 timed beside
+    the edge tile kernel on the same operands as previous_ms); f32 at M =
+    16 on the aligned w (the f32
     streaming kernel's 16-row TMA instance); then K not a multiple of 8
     (cp.async, ragged K) and the f32 edge instance at 64² tiles."""
     dev, f32 = torch.device("cuda"), torch.float32
@@ -1898,7 +1901,8 @@ def edge_instance_rows(torch, mm_k, gen, record) -> None:
                lambda a, b: mm_k.plain_matmul(a, b, out_dtype=f32),
                lambda a, b: torch.matmul(a, b),
                2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, BF16_TC_FLOPS,
-               previous=((lambda a, b: mm_k.matmul_edge(a, b, kernel=0, out_dtype=f32))
+               previous=((lambda a, b: mm_k.matmul_edge(
+                   a, b, kernel=0, splits=mm_k.groups(N, K)[0], out_dtype=f32))
                          if M <= mm_k.STREAM_MAX_M else None),
                instance=mm_k.kernel_instance(x, w))
 
@@ -1934,15 +1938,74 @@ def edge_instance_rows(torch, mm_k, gen, record) -> None:
             "[255,257]x[257,255] act=None f32", timed=False)
 
 
+def edge_tile_rows(torch, mm_k, gen, record) -> dict:
+    """The edge tile kernel (M above 16) at hymba's in_proj shape [M, 1600]
+    x [1600, 6482] beyond the rows the families phase gives it, each held
+    to the plain version beside the planted fault (the last K slice
+    dropped) and timed beside ``torch.matmul`` and the bound: ragged M =
+    17, 127 and 129 (bf16 out; at 129 also silu and gelu), M = 200 with f32
+    out, and the copies by ``cp.async`` at M = 200: K = 1601, w 2 bytes off
+    a 16-byte boundary, x 2 bytes off; then a K of 4099 over N = 131 (13
+    groups: K split one group a block), held untimed.  Last, row
+    invariance: a row's bits in launches of 17, 200 and 1400 rows, and
+    under a permutation of 1400, at the in_proj shape.  Returns the
+    invariance check's record."""
+    dev, f32 = torch.device("cuda"), torch.float32
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def row(x, w, note="", act=None, out_dtype=None, timed=True):
+        M, K, N = x.shape[0], x.shape[1], w.shape[1]
+        out = out_dtype or torch.bfloat16
+        tol = TOL_F32 if out == f32 else TOL_BF16
+        check = matmul_err(torch, mm_k.matmul(x, w, activation=act, out_dtype=out),
+                           mm_k.plain_matmul(x, w, activation=act, out_dtype=out),
+                           mm_k.matmul(drop_last_k_tile(x), w, activation=act, out_dtype=out),
+                           tol)
+        check["plan"] = list(mm_k.edge_plan(M, N, K, w.data_ptr() % 16 == 0))
+        record("matmul_edge", f"[{M},{K}]x[{K},{N}] act={act} out={str(out)[6:]}{note}", check,
+               [(x, w)] if timed else None,
+               lambda a, b: mm_k.matmul(a, b, activation=act, out_dtype=out),
+               lambda a, b: mm_k.plain_matmul(a, b, activation=act, out_dtype=out),
+               lambda a, b: torch.matmul(a, b),
+               2 * (M * K + K * N) + (4 if out == f32 else 2) * M * N, 2 * M * N * K,
+               BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w))
+
+    K, N = 1600, 6482
+    w = randn((K, N), K ** -0.5)
+    for M in (17, 127, 129):
+        x = randn((M, K))
+        row(x, w)
+        if M == 129:
+            row(x, w, act="silu", timed=False)
+            row(x, w, act="gelu", timed=False)
+    x = randn((200, K))
+    row(x, w, out_dtype=f32)
+    row(offset_copy(torch, x), w, " x 2 bytes off 16-byte alignment")
+    row(x, offset_copy(torch, w), " w 2 bytes off 16-byte alignment")
+    row(randn((200, K + 1)), randn((K + 1, N), K ** -0.5))
+    row(randn((200, 4099)), randn((4099, 131), 4099 ** -0.5), timed=False)
+    x = randn((1400, K))
+    perm = torch.randperm(1400, generator=gen, device=dev)
+    res = row_invariance(torch, mm_k.matmul, x, w, perm, rows=(17, 200))
+    return {**res, "N": N, "groups": list(mm_k.groups(N, K)),
+            "instances": sorted({mm_k.kernel_instance(x[:m], w) for m in (17, 200, 1400)})}
+
+
+#: the edge tile kernel's instances (M above 16), which every run must hold
+EDGE_TILE_INSTANCES = ("mm_edge_tile_kernel<128>", "mm_edge_tile_kernel<64>")
+
+
 def check_instances(rows: list[dict], sass: dict) -> set[str]:
     """Raise unless every instance built of the matmul, decode attention
-    and ssd kernels (the ones ``cuobjdump`` lists, and the ``mma.sync`` edge
-    kernel) ran in some kernel-phase row, held against the plain version;
+    and ssd kernels (the ones ``cuobjdump`` lists, and the edge tile
+    kernel's) ran in some kernel-phase row, held against the plain version;
     the instances run."""
     ran = {r["instance"] for r in rows if "instance" in r}
     built = {fn for lib in ("matmul", "matmul_edge", "matmul_f32", "decode_attention", "ssd")
              for fn in sass.get(lib, {})}
-    missing = (built | {"mm_edge_kernel"}) - ran
+    missing = (built | set(EDGE_TILE_INSTANCES)) - ran
     if missing:
         raise AssertionError(f"kernel instances never held against their plain version: "
                              f"{sorted(missing)}")
@@ -5573,13 +5636,13 @@ def bf16_matmul_sass(native) -> dict[str, dict[str, int]]:
 
 
 def edge_sass(native) -> dict[str, dict[str, int]]:
-    """:func:`sass_counts` of the bf16 edge kernel for M <= 16 (mma.sync on
-    tiles its own threads realign, no wgmma; TMA copies in the instances
-    with TMA = 1)."""
+    """:func:`sass_counts` of the bf16 edge kernels: for M <= 16 mma.sync on
+    tiles its own threads realign, no wgmma, TMA copies in the instances
+    with TMA = 1; for larger M (the tile kernel) wgmma and TMA copies."""
     counts = sass_counts(native, "matmul", r"mm_edge_stream_kernel", need=("HMMA",))
     if not all(c["UTMALDG"] for fn, c in counts.items() if fn.endswith(",1>")):
         raise AssertionError(f"the edge kernel's TMA instances without TMA loads: {counts}")
-    return counts
+    return {**counts, **sass_counts(native, "matmul", r"mm_edge_tile_kernel")}
 
 
 def f32_matmul_sass(native) -> dict[str, dict[str, int]]:
@@ -6028,7 +6091,11 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                                 for M, note in ((8, ""), (16, ""), (64, ""), (8, f" {off4}"),
                                                 (16, f" {off4}"))]
                              + [f"[{M},1600]x[1600,6482] act=None out=bfloat16"
-                                for M in (8, 200, 500, 1000, 1400)],
+                                for M in (8, 17, 127, 129, 200, 500, 1000, 1400)]
+                             + ["[200,1600]x[1600,6482] act=None out=float32",
+                                "[200,1601]x[1601,6482] act=None out=bfloat16"]
+                             + [f"[200,1600]x[1600,6482] act=None out=bfloat16 {o} 2 bytes off "
+                                "16-byte alignment" for o in ("x", "w")],
               "matmul_f32": ["[2048,2048]x[2048,2048] act=None f32",
                              "[1,16384]x[16384,7168] act=None f32",
                              "[8,16384]x[16384,7168] act=None f32"],
@@ -6064,7 +6131,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                          "blocks, merged by the last to arrive)",
                "matmul_edge": "mm_edge_stream_kernel<8|16,TMA> (M <= 16; TMA = 1 where K "
                               "% 8 == 0 and w is aligned, else cp.async copies), "
-                              "mm_edge_kernel (M > 16); f32: mm_f32_stream_kernel<8|16,TMA> "
+                              "mm_edge_tile_kernel<128|64> (M > 16: 128-row tiles, two copy warps, "
+                              "six realigning warps writing the swizzled tiles, two wgmma "
+                              "warpgroups); f32: mm_f32_stream_kernel<8|16,TMA> "
                               "(M <= 16), mm_f32_kernel<0,B,B> (M > 16)"}
     library = {"matmul": "torch.matmul", "rmsnorm": "F.rms_norm",
                "flash_attention": "F.scaled_dot_product_attention",

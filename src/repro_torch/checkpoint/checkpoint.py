@@ -134,12 +134,18 @@ def restore_checkpoint(path: str, tree_like: Any, *, shardings: Any = None) -> t
     entries = manifest["entries"]
     if len(likes) != len(entries):
         raise ValueError(f"checkpoint has {len(entries)} leaves, model expects {len(likes)}")
+    # looked up by path, so two trees whose dicts list a layer's leaves in
+    # another order restore into each other
+    by_key, live = {e["key"]: e for e in entries}, set(keys)
+    unmatched = [e["key"] for e in entries if e["key"] not in live]
     shards = (tree_flatten_as(tree_like, shardings) if shardings is not None
               else [None] * len(likes))
     out = []
-    for entry, key, like, sh in zip(entries, keys, likes, shards):
-        if entry["key"] != key:
-            raise ValueError(f"checkpoint leaf {entry['key']} where {key} is expected")
+    for key, like, sh in zip(keys, likes, shards):
+        entry = by_key.get(key)
+        if entry is None:
+            raise ValueError(f"checkpoint leaf {', '.join(unmatched) or '(none)'} where {key} "
+                             "is expected")
         arr = np.load(os.path.join(path, entry["file"]))
         shape = tuple(arr.shape) if sh is None else sh.local_shape(arr.shape)
         if shape != tuple(like.shape):

@@ -51,8 +51,12 @@
 // 16-byte aligned; the caller sends any other shape or operand to the edge
 // kernels (repro_matmul_edge): for M <= 16 a weight-streaming kernel that
 // copies w's rows by TMA (w viewed as [K/8][8N] "superrows") or by cp.async
-// and realigns them in shared memory for mma.sync (mm_edge_stream_kernel),
-// for larger M guarded 2-byte loads and mma.sync (mm_edge_kernel).
+// and realigns them in shared memory for mma.sync (mm_edge_stream_kernel);
+// for larger M a tile kernel whose copy warpgroup fetches the same way (x
+// by TMA where it can), whose realign warpgroup writes the 128-byte swizzled
+// tiles wgmma reads, and whose two multiplying warpgroups run wgmma on them
+// as the tile kernel does (mm_edge_tile_kernel: 128 x 128 or 128 x 256
+// tiles, K summed in the same groups, split the same way).
 //
 // The f32 path (repro_matmul_f32: f32 x and w, f32 out) computes the f32
 // product on the tensor cores by error-compensated TF32 ("3xTF32"): each
@@ -976,112 +980,6 @@ __global__ void __launch_bounds__(128)
                                       gridDim.y, blockIdx.x, act, 1, tid);
 }
 
-// ---- bf16 edge kernel for M > 16: any K and N, any operand alignment ----------
-//
-// TMA needs 16-byte global strides and bases, so a [4096, 49155] weight (a
-// 98,310-byte row) cannot be its source as stored, and padding a copy each
-// call would move the whole weight again.  This kernel loads with plain
-// guarded 2-byte loads instead (a row of an odd width is 2-byte aligned
-// only) and multiplies on mma.sync m16n8k16, bf16 in, f32 accumulate.  A
-// block of four warps owns a 32 x 128 output tile and walks K in 32-deep
-// slices: thread t loads column n0 + t of w (32 rows; a warp's loads of one
-// row are 64 contiguous bytes) and 8 values of x into registers for the
-// next slice while the warps multiply the current one from shared memory,
-// where w is stored transposed ([n][k]) so that a B fragment is one 32-bit
-// read.  Warp w computes all 32 rows x columns 32w..32w+31.  Simple; M <= 16
-// (every decode-step unembed) takes mm_edge_stream_kernel below instead.
-
-constexpr int EBM = 32, EBN = 128, EBK = 32, ETHREADS = 128;
-constexpr int ELD = EBK + 8;  // smem row stride (bf16) of xs and wt: 80-byte rows
-
-__global__ void __launch_bounds__(ETHREADS)
-    mm_edge_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
-                   void* __restrict__ out, int M, int N, int K, int act, int out_f32) {
-  __shared__ __align__(16) unsigned short xs[EBM * ELD];
-  __shared__ __align__(16) unsigned short wt[EBN * ELD];
-  const int m0 = blockIdx.y * EBM, n0 = blockIdx.x * EBN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int gn = n0 + tid;
-
-  uint32_t wr[EBK / 2];   // the next slice's w column, rows in pairs
-  unsigned short xr[EBM * EBK / ETHREADS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < EBK; r += 2) {
-      unsigned short lo = 0, hi = 0;
-      if (gn < N) {
-        if (k0 + r < K) lo = w[(size_t)(k0 + r) * N + gn];
-        if (k0 + r + 1 < K) hi = w[(size_t)(k0 + r + 1) * N + gn];
-      }
-      wr[r / 2] = pack_raw(lo, hi);
-    }
-#pragma unroll
-    for (int i = 0; i < EBM * EBK / ETHREADS; ++i) {
-      const int e = tid + i * ETHREADS, gr = m0 + e / EBK, gc = k0 + e % EBK;
-      xr[i] = gr < M && gc < K ? x[(size_t)gr * K + gc] : 0;
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-
-  grid_dependency_wait();  // the previous kernel on the stream is done with x, w, out
-  launch_dependents();
-  const int nk = (K + EBK - 1) / EBK;
-  load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();  // the previous slice's products have read xs and wt
-    uint4* wdst = reinterpret_cast<uint4*>(wt + tid * ELD);
-#pragma unroll
-    for (int q = 0; q < EBK / 8; ++q)
-      wdst[q] = make_uint4(wr[4 * q], wr[4 * q + 1], wr[4 * q + 2], wr[4 * q + 3]);
-#pragma unroll
-    for (int i = 0; i < EBM * EBK / ETHREADS; ++i) {
-      const int e = tid + i * ETHREADS;
-      xs[(e / EBK) * ELD + e % EBK] = xr[i];
-    }
-    __syncthreads();
-    if (kt + 1 < nk) load((kt + 1) * EBK);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < EBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const unsigned short* r0 = xs + (mt * 16 + g) * ELD + kk * 16 + 2 * t;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ELD);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * ELD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const unsigned short* c0 = wt + (warp * 32 + nt * 8 + g) * ELD + kk * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(c0);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(c0 + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + mt * 16 + g + (e >> 1) * 8;
-        const int col = n0 + warp * 32 + nt * 8 + 2 * t + (e & 1);
-        if (row < M && col < N)
-          store_out(out, (size_t)row * N + col, epilogue(acc[mt][nt][e], act), out_f32);
-      }
-}
-
 // ---- bf16 edge kernel for M <= 16: streaming w from unaligned rows ----------
 //
 // The edge case lacks alignment, not bandwidth: row k of a [K, 49155] weight
@@ -1320,6 +1218,364 @@ __global__ void __launch_bounds__(128)
                                         gridDim.y, blockIdx.x, act, out_f32, tid);
 }
 
+// ---- bf16 edge kernel for M > 16: realigned tiles on wgmma --------------------
+//
+// At prefill sizes (hymba's in_proj [M,1600]x[1600,6482], an untied unembed
+// over a whole sequence) the edge case is bound by operations, as the
+// aligned tile kernel is, but TMA cannot read w as a [K, N] tensor (16N
+// bytes need not be a multiple of 16) and its rows start at every 2-byte
+// offset.  A block of 512 threads owns a 128 x BN output tile (BN = 128,
+// or 64 where 128-column tiles would fill no more than half the card) and
+// runs three roles over 64-deep K slices, in rings with mbarrier full /
+// empty pairs:
+//   - copy (warp 8: w; warp 9: x): w's rows land in a raw ring laid out as
+//     the streaming edge kernel's TMA boxes: with K a multiple of 8 and w
+//     16-byte aligned, one thread issues boxes over w viewed as [K/8][8N]
+//     superrows (8 superrows x BN + 8 values, one a residue r: its rows
+//     k = 8i + r share one offset); otherwise the warp copies each row's
+//     aligned superset by 16-byte cp.async to the same places.  x, with K a
+//     multiple of 8 and x 16-byte aligned, comes as one TMA box a slice
+//     straight into a ring of 128-byte swizzled A tiles (as mm_tile_kernel's);
+//     otherwise each row's aligned superset (9 words) by cp.async into the
+//     raw stage;
+//   - realign (warps 10-15): each row of w is shifted by its offset
+//     (shift16) and written, in K order, into a ring of B tiles wgmma reads:
+//     [64 k][BN n] MN-major in 64-column atoms, 128-byte swizzled, as TMA
+//     writes mm_tile_kernel's; raw rows of x likewise into the A tile.  A
+//     thread's outputs are the same places every slice, worked out once;
+//     neighbouring threads make neighbouring 16-byte outputs of a row, so
+//     shared memory is read and written without bank conflicts.  Rows past
+//     K or M and x values past K are written as zeros (what lies past N
+//     reaches only discarded outputs).  Then fence.proxy.async and an
+//     arrival;
+//   - multiply (warpgroups 0 and 1, rows 0-63 and 64-127): wgmma.mma_async
+//     m64nBNk16 from shared memory, B's transpose bit set, as mm_tile_kernel.
+// Why wgmma works here where the streaming edge kernel chose mma.sync: a
+// fence.proxy.async waits for the fencing thread's own cp.async copies in
+// flight, and the threads that fence here (the realigners) copy nothing.
+// 512 threads leave 128 registers a thread (ptxas compiles no region past
+// the launch bound, whatever setmaxnreg would grant): room for a 64 x 128
+// accumulator but not a running total beside it, so a block sums one of
+// groups(N, K)'s groups, and K with more than one is split one group a
+// block, the tile's last block adding them in order: a row's bits do not
+// depend on M.  (Every served edge shape has one group.)  Ring depths: four
+// A and four B tiles (with two B tiles the realigners waited on every
+// slice's products), the raw ring the rest (five w stages at BN = 128); where
+// x comes raw, three of each.  The tile leaves through mm_tile_kernel's f32
+// staging in the idle rings: 16-byte stores where the output's rows are
+// 16-byte aligned (finish_tile), else each row's own aligned 16-byte chunks
+// (finish_unaligned).  What bounds it: shared memory's traffic, about
+// 130 KB a 128 x 128 slice (w written raw, read and rewritten realigned, x
+// written, A and B read by both warpgroups: the realigning pass takes about
+// as long as the products and the copies' arrival), then the tile's
+// staging and stores, which overlap nothing (edge_tile_probe.py times each;
+// PERF.md).
+
+constexpr int ET_BM = 128;            // output rows a block
+constexpr int ET_XW = BK / 8 + 1;     // 16-byte words of an x row's aligned superset
+constexpr int ET_THREADS = 512;       // multiply 0-255, copy 256-319, realign 320-511
+constexpr int ET_REALIGNERS = 192;
+
+// BN: the tile's columns (128, or 64 where 128-column tiles leave SMs idle)
+template <int BN>
+struct EdgeTileCfg {
+  static constexpr int ROW_WORDS = BN / 8 + 1;          // a w row's aligned superset
+  static constexpr int ROW_BYTES = ROW_WORDS * 16;      // a TMA box row (BN + 8 values)
+  static constexpr int WO = BK * BN / 8;                // w's 16-byte outputs a stage
+  static constexpr int WPT = (WO + ET_REALIGNERS - 1) / ET_REALIGNERS;  // a realigner's
+  static constexpr int A_BYTES = ET_BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int RAW_W = BK * ROW_BYTES;          // 8 residues' boxes of 8 rows
+  static constexpr int RAW_X = ET_BM * ET_XW * 16;      // x's rows where x comes raw
+  // the A and B rings: 4 stages each where x comes by TMA (the realigners
+  // run up to three stages ahead of the products; with two B stages they
+  // waited on every stage's products), 3 where x comes raw (so that the raw
+  // ring, which then holds x's rows too, keeps three stages); the raw ring
+  // takes the rest
+  static constexpr int MAX_AB = 4, MAX_RS = 8;
+  static constexpr int BARS = 2 * (2 * MAX_AB + MAX_RS) * 8 + 16;  // and a flag
+  static constexpr int BODY = 232448 - 1024 - BARS;
+  static constexpr int SMEM = 1024 + BODY + BARS;
+  static constexpr int LDC = BN + 8;  // f32 staging stride: conflict-free float2 writes
+  static_assert(ET_BM * LDC * 4 <= 3 * (A_BYTES + B_BYTES), "the staged tile fits in the rings");
+  static_assert(RAW_W % 128 == 0 && RAW_X % 128 == 0, "TMA boxes land 128-byte aligned");
+  static_assert(BODY - 3 * (A_BYTES + B_BYTES) >= 3 * (RAW_W + RAW_X), "three raw stages");
+};
+
+// The end of an unsplit edge tile whose output rows are not 16-byte aligned:
+// `stg` holds the f32 tile [ROWS][COLS] (row stride LDC) at rows m0..,
+// columns n0...  Each row leaves in the 16-byte chunks of its own alignment
+// (a partial chunk at either end stored value by value), each value read at
+// its column: one wide store where finish_scalar makes 8 (bf16) or 4 (f32).
+template <int ROWS, int COLS, int LDC, int NT>
+__device__ __forceinline__ void finish_unaligned(const float* stg, void* out, int M, int N, int m0,
+                                                 int n0, int act, int out_f32, int tid) {
+  const int esz = out_f32 ? 4 : 2, vec = 16 / esz;
+  const int chunks = COLS / vec + 1;  // a row's chunks, the partial ones at its ends
+  for (int c = tid; c < ROWS * chunks; c += NT) {
+    const int r = c / chunks, q = c % chunks, gr = m0 + r;
+    if (gr >= M) continue;
+    const size_t row0 = (size_t)gr * N + n0;  // (gr, n0)'s index in out
+    const int a = static_cast<int>(((reinterpret_cast<uintptr_t>(out) + row0 * esz) & 15) / esz);
+    const int col0 = q * vec - a;  // the chunk's first column of the tile
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = col0 + e;
+      v[e] = e < vec && col >= 0 && col < COLS && n0 + col < N
+                 ? epilogue(stg[r * LDC + col], act) : 0.0f;
+    }
+    if (col0 >= 0 && col0 + vec <= COLS && n0 + col0 + vec <= N) {
+      if (out_f32)
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + row0 + col0) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      else
+        store8(out, row0 + col0, v, 0);
+    } else {
+      for (int e = 0; e < vec; ++e) {
+        const int col = col0 + e;
+        if (col >= 0 && col < COLS && n0 + col < N) store_out(out, row0 + col, v[e], out_f32);
+      }
+    }
+  }
+}
+
+// grid (N tiles, M tiles, splits); block (n, m, s) owns rows 128 m..,
+// columns BN n.. and K slices [s group, (s+1) group): one group a block
+// where K has more than one.  tma_x: x by TMA (tx in 128-row boxes, tx64
+// in 64-row ones, valid), else its rows by cp.async; tma_w: w by superrow
+// boxes (tw valid), else by cp.async.  A block whose rows past M leave 64
+// or fewer (a few rows of x) copies and multiplies only those: the second
+// warpgroup skips its products, and x comes in 64-row boxes (shared
+// memory's traffic, which bounds a stage, falls by a quarter).
+template <int BN>
+__global__ void __launch_bounds__(ET_THREADS, 1)
+    mm_edge_tile_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tx64,
+                        const __grid_constant__ CUtensorMap tw,
+                        const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
+                        void* __restrict__ out, float* __restrict__ ws,
+                        int* __restrict__ counters, int M, int N, int K, int act, int out_f32,
+                        int group, int tma_x, int tma_w, int vec_out) {
+  using C = EdgeTileCfg<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int AS = tma_x ? C::MAX_AB : 3, BS = AS;
+  const int raw_bytes = tma_x ? C::RAW_W : C::RAW_W + C::RAW_X;
+  const int RS = min(C::MAX_RS, (C::BODY - AS * C::A_BYTES - BS * C::B_BYTES) / raw_bytes);
+  unsigned char* b_ring = smem + AS * C::A_BYTES;
+  unsigned char* raw = b_ring + BS * C::B_BYTES;
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(smem + C::BODY);
+  uint64_t* a_empty = a_full + C::MAX_AB;
+  uint64_t* b_full = a_empty + C::MAX_AB;
+  uint64_t* b_empty = b_full + C::MAX_AB;
+  uint64_t* raw_full = b_empty + C::MAX_AB;
+  uint64_t* raw_empty = raw_full + C::MAX_RS;
+  volatile int* flag = reinterpret_cast<volatile int*>(raw_empty + C::MAX_RS);
+
+  const int m0 = blockIdx.y * ET_BM, n0 = blockIdx.x * BN, split = blockIdx.z;
+  const int kt = (K + BK - 1) / BK;
+  const int kt0 = split * group;
+  const int nk = min(kt, kt0 + group) - kt0;
+  const bool half = M - m0 <= 64;  // the block's rows fit the first warpgroup
+
+  if (threadIdx.x == 0) {
+    if (tma_x) prefetch_tensormap(half ? &tx64 : &tx);
+    if (tma_w) prefetch_tensormap(&tw);
+    for (int s = 0; s < AS; ++s) {
+      mbar_init(a_full + s, tma_x ? 1 : ET_REALIGNERS);  // x's TMA bytes, or its realigners
+      mbar_init(a_empty + s, 8);                          // lane 0 of each multiplying warp
+      mbar_init(b_full + s, ET_REALIGNERS);
+      mbar_init(b_empty + s, 8);
+    }
+    for (int s = 0; s < RS; ++s) {
+      // w's TMA bytes or the w warp's cp.async arrivals, and the x warp's
+      mbar_init(raw_full + s, (tma_w ? 1 : 32) + (tma_x ? 0 : 32));
+      mbar_init(raw_empty + s, ET_REALIGNERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  grid_dependency_wait();  // the previous kernel on the stream is done with x, w, out
+  launch_dependents();
+
+  if (threadIdx.x >= 256 && threadIdx.x < 288) {  // copy w (warp 8)
+    const int t = threadIdx.x - 256;
+    if (tma_w && t != 0) return;
+    const uintptr_t w_end = reinterpret_cast<uintptr_t>(w + (size_t)K * N);
+    for (int i = 0; i < nk; ++i) {
+      const int rs = i % RS, k0 = (kt0 + i) * BK;
+      if (i >= RS) mbar_wait(raw_empty + rs, (i / RS - 1) & 1);
+      unsigned char* rw = raw + rs * raw_bytes;
+      if (tma_w) {  // box r: rows k0 + 8i' + r
+        mbar_expect_tx(raw_full + rs, C::RAW_W);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          tma_load_2d(rw + r * 8 * C::ROW_BYTES, &tw, raw_full + rs, (r * N + n0) & ~7, k0 / 8);
+        continue;
+      }
+      // row k0 + kr's aligned superset, where its TMA box would put it
+      for (int c = t; c < BK * C::ROW_WORDS; c += 32) {
+        const int kr = c / C::ROW_WORDS, q = c % C::ROW_WORDS;
+        if (k0 + kr >= K) continue;
+        const uintptr_t a0 = align_down16(w + (size_t)(k0 + kr) * N + n0), a = a0 + 16 * q;
+        cp_async16(rw + ((kr % 8) * 8 + kr / 8) * C::ROW_BYTES + 16 * q,
+                   reinterpret_cast<const void*>(a < w_end ? a : a0), a < w_end);
+      }
+      cp_async_arrive(raw_full + rs);
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 288 && threadIdx.x < 320) {  // copy x (warp 9)
+    const int t = threadIdx.x - 288;
+    if (tma_x) {  // x's boxes into the A ring, as far ahead as the ring allows
+      if (t != 0) return;
+      for (int i = 0; i < nk; ++i) {
+        const int as = i % AS;
+        if (i >= AS) mbar_wait(a_empty + as, (i / AS - 1) & 1);
+        mbar_expect_tx(a_full + as, half ? C::A_BYTES / 2 : C::A_BYTES);
+        tma_load_2d(smem + as * C::A_BYTES, half ? &tx64 : &tx, a_full + as, (kt0 + i) * BK, m0);
+      }
+      return;
+    }
+    const uintptr_t x_end = reinterpret_cast<uintptr_t>(x + (size_t)M * K);
+    for (int i = 0; i < nk; ++i) {  // row m0 + r of x: its slice's aligned superset
+      const int rs = i % RS, k0 = (kt0 + i) * BK;
+      if (i >= RS) mbar_wait(raw_empty + rs, (i / RS - 1) & 1);
+      unsigned char* rx = raw + rs * raw_bytes + C::RAW_W;
+      for (int c = t; c < (half ? 64 : ET_BM) * ET_XW; c += 32) {
+        const int r = c / ET_XW, q = c % ET_XW;
+        if (m0 + r >= M) continue;
+        const uintptr_t a0 = align_down16(x + (size_t)(m0 + r) * K + k0), a = a0 + 16 * q;
+        cp_async16(rx + 16 * c, reinterpret_cast<const void*>(a < x_end ? a : a0), a < x_end);
+      }
+      cp_async_arrive(raw_full + rs);
+    }
+    return;
+  }
+
+  if (threadIdx.x >= 320) {  // realign
+    // a thread's outputs of w are at the same places every stage (a row's
+    // offset depends on k mod 8 alone, and a slice starts at a multiple of
+    // 64): their raw and tile offsets and shifts are worked out once
+    const int t = threadIdx.x - 320;
+    int src[C::WPT], dst[C::WPT], row_of[C::WPT];
+    unsigned sh[C::WPT];
+#pragma unroll
+    for (int u = 0; u < C::WPT; ++u) {
+      const int c = t + u * ET_REALIGNERS, row = c / (BN / 8), j = c % (BN / 8);
+      src[u] = ((row % 8) * 8 + row / 8) * C::ROW_BYTES + 16 * j;
+      dst[u] = (j / 8) * BOX_BYTES + row * 128 + (((j % 8) ^ (row % 8)) << 4);
+      row_of[u] = c < C::WO ? row : K;  // past the outputs: never inside K
+      sh[u] = static_cast<unsigned>(reinterpret_cast<uintptr_t>(w + (size_t)row * N + n0) & 15);
+    }
+    for (int i = 0; i < nk; ++i) {
+      const int rs = i % RS, as = i % AS, bs = i % BS, k0 = (kt0 + i) * BK;
+      mbar_wait(raw_full + rs, (i / RS) & 1);
+      if (i >= BS) mbar_wait(b_empty + bs, (i / BS - 1) & 1);
+      const unsigned char* rw = raw + rs * raw_bytes;
+      unsigned char* b_tile = b_ring + bs * C::B_BYTES;
+      uint4 lo[C::WPT], hi[C::WPT];
+#pragma unroll
+      for (int u = 0; u < C::WPT; ++u) {  // w: loads first, then shifts and stores
+        if (k0 + row_of[u] < K) {
+          const uint4* p = reinterpret_cast<const uint4*>(rw + src[u]);
+          lo[u] = p[0], hi[u] = p[1];
+        } else {
+          lo[u] = hi[u] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < C::WPT; ++u)
+        if (t + u * ET_REALIGNERS < C::WO)
+          *reinterpret_cast<uint4*>(b_tile + dst[u]) = shift16(lo[u], hi[u], sh[u]);
+      if (!tma_x) {  // x: tile row c / 8, chunk c % 8, into the A ring
+        if (i >= AS) mbar_wait(a_empty + as, (i / AS - 1) & 1);
+        unsigned char* a_tile = smem + as * C::A_BYTES;
+        for (int c = t; c < (half ? 64 : ET_BM) * 8; c += ET_REALIGNERS) {
+          const int r = c / 8, q = c % 8, kc = k0 + 8 * q;
+          uint4 o = make_uint4(0u, 0u, 0u, 0u);
+          if (m0 + r < M && kc < K) {
+            const uint4* p = reinterpret_cast<const uint4*>(rw + C::RAW_W) + r * ET_XW + q;
+            o = shift16(p[0], p[1], static_cast<unsigned>(
+                reinterpret_cast<uintptr_t>(x + (size_t)(m0 + r) * K + k0) & 15));
+            if (kc + 8 > K) {  // zero the values past K (two a 32-bit lane)
+              uint32_t h[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                if (kc + 2 * e >= K) h[e] = 0u;
+                else if (kc + 2 * e + 1 >= K) h[e] &= 0xffffu;
+              }
+              o = make_uint4(h[0], h[1], h[2], h[3]);
+            }
+          }
+          *reinterpret_cast<uint4*>(a_tile + r * 128 + ((q ^ (r % 8)) << 4)) = o;
+        }
+      }
+      fence_proxy_async();          // the tiles' writes, before the products read them
+      mbar_arrive(raw_empty + rs);  // this thread's reads of the raw stage are done
+      mbar_arrive(b_full + bs);
+      if (!tma_x) mbar_arrive(a_full + as);
+    }
+    return;
+  }
+
+  // multiply: warpgroup wg, rows 64 wg ..; a block sums one group
+  const int wg = threadIdx.x / 128;
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+  const bool idle = half && wg == 1;  // no rows of M: waits and releases alone
+  for (int i = 0; i < nk && idle; ++i) {
+    mbar_wait(a_full + i % AS, (i / AS) & 1);
+    mbar_wait(b_full + i % BS, (i / BS) & 1);
+    if (threadIdx.x % 32 == 0) {
+      mbar_arrive(a_empty + i % AS);
+      mbar_arrive(b_empty + i % BS);
+    }
+  }
+  for (int i = 0; i < nk && !idle; ++i) {
+    mbar_wait(a_full + i % AS, (i / AS) & 1);
+    mbar_wait(b_full + i % BS, (i / BS) & 1);
+    const uint64_t da = wgmma_desc(smem + (i % AS) * C::A_BYTES + wg * 64 * 128, 0, 1024);
+    const uint64_t db = wgmma_desc(b_ring + (i % BS) * C::B_BYTES, BOX_BYTES, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN, 0, 1>(acc, da + 2 * kk, db + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release its A and B
+    fence_regs(acc);
+    if (i > 0 && threadIdx.x % 32 == 0) {
+      mbar_arrive(a_empty + (i - 1) % AS);
+      mbar_arrive(b_empty + (i - 1) % BS);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  bar_sync_first<256>();  // every product has read the rings: stage the tile there
+
+  float* stg = reinterpret_cast<float*>(smem);
+  const int t = threadIdx.x % 128, row = wg * 64 + (t / 32) * 16 + (t % 32) / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {  // (an idle warpgroup's rows lie past M)
+    const int col = 8 * j + 2 * (t % 4);
+    *reinterpret_cast<float2*>(stg + row * C::LDC + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(stg + (row + 8) * C::LDC + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  bar_sync_first<256>();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (vec_out)
+    finish_tile<ET_BM, BN, C::LDC, 256, 2, 2>(stg, out, ws, counters, flag, M, N, m0, n0, split,
+                                             gridDim.z, tile, act, out_f32, threadIdx.x);
+  else if (gridDim.z == 1)
+    finish_unaligned<ET_BM, BN, C::LDC, 256>(stg, out, M, N, m0, n0, act, out_f32, threadIdx.x);
+  else
+    finish_scalar<ET_BM, BN, C::LDC, 256>(stg, out, ws, counters, flag, M, N, m0, n0, split,
+                                          gridDim.z, tile, act, out_f32, threadIdx.x);
+}
+
 // ---- host side of the bf16 path ----------------------------------------------
 
 template <typename Kernel>
@@ -1363,6 +1619,22 @@ cudaError_t launch_edge_stream(const CUtensorMap& tw, const void* x, const void*
                            static_cast<const unsigned short*>(x),
                            static_cast<const unsigned short*>(w), out, ws, counters, M, N, K, act,
                            out_f32, per);
+}
+
+template <int BN>
+cudaError_t launch_edge_tile(const CUtensorMap& tx, const CUtensorMap& tx64,
+                             const CUtensorMap& tw, const void* x, const void* w, void* out,
+                             float* ws, int* counters, int M, int N, int K, int act, int out_f32,
+                             int splits, int group, int tma_x, int tma_w, cudaStream_t st) {
+  using C = EdgeTileCfg<BN>;
+  static const cudaError_t set = allow_smem(mm_edge_tile_kernel<BN>, C::SMEM);
+  if (set != cudaSuccess) return set;
+  dim3 grid((N + BN - 1) / BN, (M + ET_BM - 1) / ET_BM, splits);
+  const int vec_out = N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return launch_overlapped(mm_edge_tile_kernel<BN>, grid, ET_THREADS, C::SMEM, st, tx, tx64, tw,
+                           static_cast<const unsigned short*>(x),
+                           static_cast<const unsigned short*>(w), out, ws, counters, M, N, K, act,
+                           out_f32, group, tma_x, tma_w, vec_out);
 }
 
 template <int VEC, int B>
@@ -1505,39 +1777,57 @@ extern "C" int repro_matmul_f32(const void* x, const void* w, void* out, void* w
 }
 
 // x [M,K] bf16, w [K,N] bf16, out [M,N] bf16 (out_f32 = 0) or f32: any K and
-// N, x and w 2-byte aligned (the edge kernels).  M <= 16 (padded to 8 or
-// 16), on 128-column strips with `splits` K splits of 64-row slices (as
-// repro_matmul's; ws and counters likewise, one counter a strip): kernel 2
-// the TMA edge kernel (K a multiple of 8, w 16-byte aligned), kernel 1 the
-// realigning one; kernel 0: the mma.sync edge kernel of 32 x 128 tiles, any
-// M, splits 1.
-// One launch.  Returns the cudaError_t (0 on success).
+// N, x and w 2-byte aligned (the edge kernels).  Kernels 0 and 3: the tile
+// kernel (any M) on 128 x 128 and 128 x 64 tiles, K summed in groups of
+// `group` 64-deep slices as repro_matmul's tile kernel sums them, one group
+// a block (splits == ceil(kt / group), kt = ceil(K / 64)), each of x and w
+// by TMA where K is a multiple of 8 and it is 16-byte aligned, else by
+// cp.async.  Kernels 1
+// and 2: M <= 16 (padded to 8 or 16), on 128-column strips with `splits` K
+// splits of 64-row slices (none empty; group unused): 2 the TMA streaming
+// kernel (K a multiple of 8, w 16-byte aligned), 1 the cp.async one.  With
+// splits > 1, ws holds splits * M * N floats and counters one zeroed int an
+// output tile (a strip), used by no other stream.  One launch.  Returns the
+// cudaError_t (0 on success).
 extern "C" int repro_matmul_edge(const void* x, const void* w, void* out, void* ws, void* counters,
-                                 int M, int N, int K, int act, int out_f32, int kernel, int splits,
-                                 void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || act < 0 || act > 2 || splits < 1 ||
-      (kernel != 0 && (kernel > 2 || M > 16)) ||
+                                 int M, int N, int K, int act, int out_f32, int kernel,
+                                 int group, int splits, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || act < 0 || act > 2 || splits < 1 || kernel < 0 ||
+      kernel > 3 || ((kernel == 1 || kernel == 2) && M > 16) ||
       (kernel == 2 && (K % 8 || reinterpret_cast<uintptr_t>(w) % 16)))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 2 ||
       reinterpret_cast<uintptr_t>(out) % (out_f32 ? 4 : 2))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kernel == 0) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    dim3 grid((N + EBN - 1) / EBN, (M + EBM - 1) / EBM);
-    return (int)launch_overlapped(mm_edge_kernel, grid, ETHREADS, 0, st,
-                                  static_cast<const unsigned short*>(x),
-                                  static_cast<const unsigned short*>(w), out, M, N, K, act,
-                                  out_f32);
-  }
-  const int kt = (K + BK - 1) / BK;
-  const int per = (kt + splits - 1) / splits;
-  if ((kt + per - 1) / per != splits || (splits > 1 && (ws == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
   float* wsf = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
-  CUtensorMap tw = {};
+  const int kt = (K + BK - 1) / BK;
+  if (splits > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx = {}, tw = {};
+  if (kernel == 0 || kernel == 3) {
+    if (group < 1) return (int)cudaErrorInvalidValue;
+    group = group < kt ? group : kt;
+    if (splits != (kt + group - 1) / group) return (int)cudaErrorInvalidValue;
+    const int tma_x = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int tma_w = K % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const int bn = kernel == 0 ? 128 : 64;
+    // x [M][K] in 128-row boxes of 64, swizzled; w as [K/8][8N] superrows in
+    // boxes of 8 superrows by bn + 8 values, unswizzled
+    CUtensorMap tx64 = {};
+    if ((tma_x && !tensor_map(&tx, 2, x, K, M, 1, BK, ET_BM, CU_TENSOR_MAP_L2_PROMOTION_L2_256B)) ||
+        (tma_x && !tensor_map(&tx64, 2, x, K, M, 1, BK, 64, CU_TENSOR_MAP_L2_PROMOTION_L2_256B)) ||
+        (tma_w && !tensor_map(&tw, 2, w, 8 * (uint64_t)N, K / 8, 1, bn + 8, 8,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_SWIZZLE_NONE)))
+      return (int)cudaErrorInvalidValue;
+    return (int)(kernel == 0
+                     ? launch_edge_tile<128>(tx, tx64, tw, x, w, out, wsf, cnt, M, N, K, act,
+                                             out_f32, splits, group, tma_x, tma_w, st)
+                     : launch_edge_tile<64>(tx, tx64, tw, x, w, out, wsf, cnt, M, N, K, act,
+                                            out_f32, splits, group, tma_x, tma_w, st));
+  }
+  const int per = (kt + splits - 1) / splits;
+  if ((kt + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   if (kernel == 2) {
     // w as [K/8][8N] superrows, in boxes of 8 superrows by a 128-column strip's
     // aligned superset (136 values)

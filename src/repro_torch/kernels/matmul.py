@@ -61,7 +61,13 @@ shared memory and multiplies on ``mma.sync``.  With K a multiple of 8 and w
 bytes apart: a legal TMA source), eight boxes a slice whose rows each share
 one offset, the slice's rows permuted and x's columns permuted to match;
 otherwise each row's aligned superset by 16-byte ``cp.async`` copies.  At
-larger M, guarded 2-byte loads and ``mma.sync``.  In f32 at M up to
+larger M the edge tile kernel: 128 x 128 output tiles (128 x 64 where
+those would fill no more than half the card), a copy warp fetching w the
+same ways and one fetching x (one TMA box a slice where K is a multiple of
+8 and x 16-byte aligned, else by ``cp.async``), six realigning warps
+writing the 128-byte swizzled tiles that two multiplying warpgroups read
+with ``wgmma`` as the tile kernel does, a row's K summed in :func:`groups`'
+order, one group a block (:func:`edge_plan`).  In f32 at M up to
 :data:`STREAM_MAX_M`, aligned or not, a streaming kernel (w as [K/4, 4N]
 superrows by TMA, or rows' aligned supersets by ``cp.async``; 3xTF32 on
 ``mma.sync`` with fragments read at each row's offset); at larger M the
@@ -106,9 +112,13 @@ F32_BLOCKS, F32_BK = (128, 64), 32
 EDGE_BN, F32_STREAM_BN = 128, 64
 #: blocks of the edge streaming kernel an SM holds (its shared memory)
 EDGE_BLOCKS_PER_SM = 2
+#: the edge tile kernel (M above STREAM_MAX_M): its output rows a block, and
+#: its columns by :func:`edge_plan`'s kernel number
+EDGE_TILE_BM = 128
+EDGE_TILE_BN = {0: 128, 3: 64}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_EDGE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_EDGE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 #: the kernel's function in plain PyTorch (f32 product, f32 epilogue, cast):
 #: the oracle itself
@@ -215,15 +225,19 @@ def _least_cost(M: int, N: int, K: int, plans) -> Plan:
 
 @functools.lru_cache(maxsize=1024)
 def groups(N: int, K: int) -> tuple[int, int]:
-    """The order in which every bf16 kernel sums a row's K for ``[*,K] x
+    """The order in which the bf16 tile kernels sum a row's K for ``[*,K] x
     [K,N]``, whatever M: (groups, 64-deep slices a group), every group
     non-empty.  Each group is summed from zero and the groups are added in
     order, so a row's result is a function of its own x row and w alone.
     The count is the K split the weight-streaming kernel takes at 8 rows
     (a decode step) by :func:`cost`, so decode keeps its split; a
-    prefill's tile kernel keeps a running total of the groups instead.
-    Raises ``ValueError`` as :func:`plan` does."""
-    _check(8, N, K)
+    prefill's tile kernel keeps a running total of the groups instead.  An
+    edge shape (K or N not a multiple of 8) takes the same rule on its own
+    (N, K), which the edge tile kernel sums by (M above
+    :data:`STREAM_MAX_M`; the streaming edge kernels split by
+    :func:`edge_splits`).  Raises ``ValueError`` for an empty shape."""
+    if N <= 0 or K <= 0:
+        raise ValueError(f"matmul: empty shape N={N} K={K}")
     kt, strips = math.ceil(K / BK), math.ceil(N / STREAM_BN)
     p = _least_cost(8, N, K, (Plan("stream", 8, STREAM_BN, s, math.ceil(kt / s), strips)
                               for s in range(1, kt + 1)
@@ -306,11 +320,18 @@ def edge_plan(M: int, N: int, K: int, w_aligned: bool) -> tuple[int, int]:
     to :data:`STREAM_MAX_M` the streaming edge kernel with
     :func:`edge_splits`' split, copying w by TMA as [K/8, 8N] superrows
     (kernel 2) where K is a multiple of 8 and w 16-byte aligned, by
-    ``cp.async`` otherwise (kernel 1); above it (0, 1), the ``mma.sync``
-    kernel."""
-    if M > STREAM_MAX_M:
-        return 0, 1
-    return (2 if K % 8 == 0 and w_aligned else 1), edge_splits(M, N, K)
+    ``cp.async`` otherwise (kernel 1).  Above it the edge tile kernel, K
+    split one :func:`groups` group a block (its blocks hold no running
+    total, so a row is summed in groups' order whatever M): on 128 x 64
+    tiles (kernel 3) where 128 x 128 tiles' blocks would fill no more than
+    half the card's SMs (hymba's in_proj at up to 128 rows: 51 tiles), else
+    on 128 x 128 (kernel 0).  Every served edge shape has one group.  Read
+    from the sweep's edge table (PERF.md)."""
+    if M <= STREAM_MAX_M:
+        return (2 if K % 8 == 0 and w_aligned else 1), edge_splits(M, N, K)
+    g = groups(N, K)[0]
+    tiles = math.ceil(M / EDGE_TILE_BM) * math.ceil(N / EDGE_TILE_BN[0]) * g
+    return (3 if 2 * tiles <= native.sm_count() else 0), g
 
 
 def edge_splits(M: int, N: int, K: int, strip: int = EDGE_BN) -> int:
@@ -358,8 +379,9 @@ def kernel_instance(x: torch.Tensor, w: torch.Tensor) -> str:
         return (f"mm_stream_kernel<{p.block_m}>" if p.kernel == "stream"
                 else f"mm_tile_kernel<{p.block_m},{p.block_n}>")
     kernel, _ = edge_plan(M, N, K, w_aligned)
-    return ("mm_edge_kernel" if kernel == 0
-            else f"mm_edge_stream_kernel<{8 if M <= 8 else 16},{int(kernel == 2)}>")
+    if kernel in EDGE_TILE_BN:
+        return f"mm_edge_tile_kernel<{EDGE_TILE_BN[kernel]}>"
+    return f"mm_edge_stream_kernel<{8 if M <= 8 else 16},{int(kernel == 2)}>"
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype: torch.dtype | None = None,
@@ -454,10 +476,15 @@ def matmul_f32_planned(x: torch.Tensor, w: torch.Tensor, plan_: tuple[int, int])
 def _launch_edge(x: torch.Tensor, w: torch.Tensor, kernel: int, splits: int,
                  out_dtype: torch.dtype, activation: str | None, M: int, N: int,
                  K: int) -> torch.Tensor:
-    """One launch of a bf16 edge kernel (:func:`edge_plan`'s numbering)."""
-    out = _launch_split(x, w, "repro_matmul_edge", _EDGE_ARGTYPES, splits,
-                        math.ceil(N / EDGE_BN), M, N, K, out_dtype, activation,
-                        (int(out_dtype == torch.float32), kernel))
+    """One launch of a bf16 edge kernel (:func:`edge_plan`'s numbering); the
+    tile kernel sums K in :func:`groups`' groups, one a split."""
+    if kernel in EDGE_TILE_BN:
+        tiles = math.ceil(M / EDGE_TILE_BM) * math.ceil(N / EDGE_TILE_BN[kernel])
+    else:
+        tiles = math.ceil(N / EDGE_BN)
+    out = _launch_split(x, w, "repro_matmul_edge", _EDGE_ARGTYPES, splits, tiles, M, N, K,
+                        out_dtype, activation,
+                        (int(out_dtype == torch.float32), kernel, groups(N, K)[1]))
     native.count_launch(__name__, "edge_launches")
     return out
 
@@ -467,8 +494,9 @@ def matmul_edge(x: torch.Tensor, w: torch.Tensor, *, kernel: int, splits: int = 
     """``x [M, K] @ w [K, N]`` in bf16 on the edge kernel ``kernel`` with
     ``splits`` K splits (:func:`edge_plan`'s numbering: 2 and 1 take M up to
     :data:`STREAM_MAX_M`, 2 also K a multiple of 8 and w 16-byte aligned; 0
-    takes one split), whatever :func:`edge_plan` would pick: for timing one
-    beside another."""
+    and 3, the tile kernel at 128 x 128 and 128 x 64 tiles, any M, split
+    one :func:`groups` group a block), whatever :func:`edge_plan` would
+    pick: for timing one beside another."""
     native.check("matmul", {"x": x, "w": w}, torch.bfloat16, aligned=False)
     (M, K), N = x.shape, w.shape[1]
     return _launch_edge(x, w, kernel, splits, out_dtype or torch.bfloat16, None, M, N, K)

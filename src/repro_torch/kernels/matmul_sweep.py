@@ -22,9 +22,14 @@ The ``edge`` table times the bf16 edge kernels at the untied unembeds'
 shapes (granite-3-8b, hymba-1.5b, whisper large-v3) at M = 1, 8 and 16,
 bf16 in and f32 out: the kernel :func:`matmul.edge_plan` picks at K splits
 1, 2, 3 and 4 beside its choice, the edge kernel's cp.async copy at
-:func:`matmul.edge_splits`'s split, the ``mma.sync`` edge kernel,
+:func:`matmul.edge_splits`'s split, the edge tile kernel (128 x 128),
 ``torch.matmul``, and the aligned streaming kernel on the same bytes (N
-rounded up to 8); the split rule is read from it.  The ``f32`` table times
+rounded up to 8); the split rule is read from it.  Above M = 16 it times
+the edge tile kernel (128 x 128 and 128 x 64 tiles, one
+:func:`matmul.groups` group a block) at hymba's in_proj ``[M,1600]x[1600,6482]`` (M = 17 .. 1400), the
+unembeds at M = 17 and 64, and a K of 4099 over N = 131 (13 groups),
+beside ``torch.matmul`` and the bound: :func:`matmul.edge_plan`'s rule
+above M = 16 is read from it.  The ``f32`` table times
 the f32 kernel at square shapes and the unembeds' in f32: each tile (64,
 128) at K splits 1, 2, 4 and 8, and at M <= 16 also the streaming kernel
 at splits 1-4, beside :func:`matmul.f32_plan`'s choice and ``torch.matmul``
@@ -50,6 +55,10 @@ LLAMA = [(M, K, N) for M in (1, 8, 16, 64, 128, 256, 512, 1024)
 MAMBA = [(M, K, N) for M in (3, 5, 8, 37, 45, 600) for K, N in ((1536, 6448), (3072, 1536))]
 UNEMBEDS = [(M, K, N) for K, N in ((4096, 49155), (1600, 32001), (1280, 51866))
             for M in (1, 8, 16)]
+EDGE_TILES = ([(M, 1600, 6482) for M in (17, 127, 129, 200, 500, 800, 1000, 1400)]
+              + [(M, K, N) for K, N in ((4096, 49155), (1600, 32001), (1280, 51866))
+                 for M in (17, 64)]
+              + [(M, 4099, 131) for M in (17, 200)])
 F32_SHAPES = [(S, S, S) for S in (256, 512, 1024, 2048)] + [
     (M, K, N) for K, N in ((4096, 49155), (1280, 51866)) for M in (8, 16)]
 
@@ -157,8 +166,8 @@ def sweep_edge(shapes, seed: int = 0) -> list[dict]:
                "chosen_us": time_us(lambda a, b: mm.matmul(a, b, out_dtype=f32), sets),
                "realigning_us": time_us(lambda a, b: mm.matmul_edge(
                    a, b, kernel=1, splits=realign_s, out_dtype=f32), sets),
-               "mma_sync_us": time_us(lambda a, b: mm.matmul_edge(a, b, kernel=0,
-                                                                  out_dtype=f32), sets),
+               "tile_us": time_us(lambda a, b: mm.matmul_edge(
+                   a, b, kernel=0, splits=mm.groups(N, K)[0], out_dtype=f32), sets),
                "torch_matmul_us": time_us(torch.matmul, sets),
                "bound_us": 2 * (M * K + K * N + 2 * M * N) / 3.35e12 * 1e6}
         del sets, x, w
@@ -170,10 +179,51 @@ def sweep_edge(shapes, seed: int = 0) -> list[dict]:
         rows.append(row)
         print(f"edge [{M},{K}]x[{K},{N}] kernel {kernel} s{splits} {row['chosen_us']:.2f} us | "
               + " ".join(f"s{s}:{us:.1f}" for s, us in timed.items())
-              + f" | cp.async copy s{realign_s} {row['realigning_us']:.1f} | mma.sync "
-              f"{row['mma_sync_us']:.1f} | torch.matmul {row['torch_matmul_us']:.1f} | aligned "
+              + f" | cp.async copy s{realign_s} {row['realigning_us']:.1f} | tile "
+              f"{row['tile_us']:.1f} | torch.matmul {row['torch_matmul_us']:.1f} | aligned "
               f"N {na} {row['aligned_stream_us']:.1f} | bound {row['bound_us']:.1f}", flush=True)
         del aligned
+    return rows
+
+
+def sweep_edge_tiles(shapes, seed: int = 0) -> list[dict]:
+    """The edge tile kernel at M above 16, bf16 out: each of its tiles (128 x
+    128, 128 x 64) at :func:`matmul.edge_plan`'s split (one group a block),
+    beside the plan's pick, ``torch.matmul`` and the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = []
+    for M, K, N in shapes:
+        n_sets = max(1, min(16, math.ceil(2 * L2_BYTES / (2 * (M * K + K * N)))))
+        sets = [((torch.randn((M, K), generator=gen, device=dev)).to(torch.bfloat16),
+                 (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16))
+                for _ in range(n_sets)]
+        x, w = sets[0]
+        want = mm.plain_matmul(x, w).float()
+        kernel, splits = mm.edge_plan(M, N, K, w.data_ptr() % 16 == 0)
+        timed = {}
+        for kern, bn in mm.EDGE_TILE_BN.items():
+            got = mm.matmul_edge(x, w, kernel=kern, splits=splits).float()
+            err = float((got - want).abs().max())
+            if err > 2e-2 * (1 + float(want.abs().max())):
+                raise AssertionError(f"edge tile kernel {kern} at {(M, K, N)}: max error {err}")
+            timed[bn] = time_us(lambda a, b, kern=kern: mm.matmul_edge(a, b, kernel=kern,
+                                                                      splits=splits), sets)
+        row = {"shape": [M, K, N], "groups": mm.groups(N, K), "kernel": kernel,
+               "block_n": mm.EDGE_TILE_BN[kernel], "splits": splits, "timed_us": timed,
+               "tiles": {bn: math.ceil(M / mm.EDGE_TILE_BM) * math.ceil(N / bn) for bn in timed},
+               "chosen_us": time_us(mm.matmul, sets),
+               "torch_matmul_us": time_us(torch.matmul, sets),
+               "bound_us": max(2 * (M * K + K * N + M * N) / 3.35e12, 2 * M * N * K / 989e12)
+               * 1e6}
+        rows.append(row)
+        print(f"edge tile [{M},{K}]x[{K},{N}] plan 128x{row['block_n']} s{splits} "
+              f"{row['chosen_us']:.2f} us | " + " ".join(
+                  f"128x{bn} ({row['tiles'][bn]} tiles) {us:.2f}" for bn, us in timed.items())
+              + f" | torch.matmul {row['torch_matmul_us']:.2f} | bound {row['bound_us']:.2f}",
+              flush=True)
+        del sets, x, w
     return rows
 
 
@@ -224,7 +274,7 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)} ({smi})")
     tables = args.tables.split(",")
     rows = sweep(LLAMA + MAMBA) if "bf16" in tables else []
-    edge = sweep_edge(UNEMBEDS) if "edge" in tables else []
+    edge = (sweep_edge(UNEMBEDS) + sweep_edge_tiles(EDGE_TILES)) if "edge" in tables else []
     f32 = sweep_f32(F32_SHAPES) if "f32" in tables else []
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

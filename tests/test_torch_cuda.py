@@ -1149,8 +1149,8 @@ def test_matmul_edge_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
     """An edge shape with few strips splits K: the last block of a strip sums
     the splits in split order, so two calls agree bit for bit, one launch
     each; and every edge kernel that takes the shape (the streaming one with
-    TMA or cp.async copies, split and unsplit, the mma.sync one) agrees with
-    the plain version."""
+    TMA or cp.async copies, split and unsplit, the tile one at its group
+    split) agrees with the plain version."""
     g = _gen(cuda, 21)
     x, w = _randn(g, (m, k), cuda), _randn(g, (k, n), cuda, scale=k ** -0.5)
     kernel, splits = mm_k.edge_plan(m, n, k, w.data_ptr() % 16 == 0)
@@ -1161,7 +1161,7 @@ def test_matmul_edge_split_is_one_launch_and_bitwise_repeatable(cuda, m, k, n):
     assert mm_k.edge_launches == before + 2 and torch.equal(first, second)
     want = mm_k.plain_matmul(x, w, out_dtype=torch.float32)
     _close(first, want, atol=1e-3, rtol=1e-3)
-    runs = [(1, 1), (1, splits), (0, 1)] + ([] if k % 8 else [(2, 1)])
+    runs = [(1, 1), (1, splits), (0, mm_k.groups(n, k)[0])] + ([] if k % 8 else [(2, 1)])
     for kern, s in runs:
         _close(mm_k.matmul_edge(x, w, kernel=kern, splits=s, out_dtype=torch.float32), want,
                atol=1e-3, rtol=1e-3)

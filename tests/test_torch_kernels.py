@@ -92,6 +92,19 @@ def test_matmul_plain_matches_pallas_at_any_k_and_n(dtype, out, activation, m, k
     _check(got, want, "bf16" if dtype == "bf16" and not out else "f32")
 
 
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("m", [17, 129, 200])
+def test_matmul_plain_matches_jax_at_the_edge_tile_shapes(m, activation):
+    """The edge tile kernel's shapes (M above 16: ragged against its 128-row
+    tiles, K = 1601 and N = 131 not multiples of 8): the plain version, bf16
+    in and out, against the JAX reference in both epilogues."""
+    k, n = 1601, 131
+    (xj, xt), (wj, wt) = _pair((m, k), "bf16"), _pair((k, n), "bf16", scale=k ** -0.5)
+    got = mm_k.matmul(xt, wt, activation=activation)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _check(got, jref.matmul(xj, wj, activation=activation), "bf16")
+
+
 @pytest.mark.parametrize("activation", [None, "silu"])
 def test_matmul_torch_source_matches_xla(activation):
     (xj, xt), (wj, wt) = _pair((8, 64), "bf16"), _pair((64, 32), "bf16", scale=0.125)

@@ -216,7 +216,7 @@ def test_superrow_view_gives_the_strip_with_rows_permuted(n):
 def test_edge_plan_picks_the_tma_kernel_for_the_unembeds():
     """K a multiple of 8 and w aligned: the edge kernel's TMA copy; K = 4099
     or w misaligned: its cp.async copy; both with edge_splits' split; M > 16:
-    the mma.sync kernel."""
+    the edge tile kernel at 128 x 128 tiles, unsplit where K is one group."""
     for k, n in ((4096, 49155), (1600, 32001), (1280, 51866)):
         assert mm_k.edge_plan(8, n, k, True) == (2, mm_k.edge_splits(8, n, k))
         assert mm_k.edge_plan(8, n, k, False) == (1, mm_k.edge_splits(8, n, k))
@@ -240,6 +240,52 @@ def test_edge_split_rule_at_the_unembeds():
     assert mm_k.edge_splits(8, 131, 4099) > 1
 
 
+# every M > 16 edge shape chip_smoke.py runs: hymba's in_proj at its prompt
+# lengths and the ragged rows, the three unembeds at 17 and 64, K = 1601 and
+# K = 4099 over N = 131 (13 groups); (groups, slices a group) and the tile's
+# columns beside each
+EDGE_TILE_SHAPES = ([(m, 1600, 6482, (1, 25), 64) for m in (17, 127)]
+                    + [(m, 1600, 6482, (1, 25), 128) for m in (129, 200, 500, 800, 1000,
+                                                               1100, 1250, 1400)]
+                    + [(m, 4096, 49155, (1, 64), 128) for m in (17, 64)]
+                    + [(m, 1600, 32001, (1, 25), 128) for m in (17, 64)]
+                    + [(m, 1280, 51866, (1, 20), 128) for m in (17, 64)]
+                    + [(200, 1601, 6482, (1, 26), 128), (17, 4099, 131, (13, 5), 64),
+                       (200, 4099, 131, (13, 5), 64)])
+
+
+@pytest.mark.parametrize("m,k,n,want,bn", EDGE_TILE_SHAPES)
+def test_edge_plan_above_16_rows_splits_by_whole_groups(m, k, n, want, bn):
+    """Above M = 16 the edge tile kernel, K split one ``groups(N, K)`` group
+    a block, whatever w's alignment: 128 x 64 tiles (kernel 3) where the
+    128 x 128 tiles' blocks would fill no more than half the card (hymba's
+    in_proj at one row tile, K = 4099 over N = 131), else 128 x 128 (kernel
+    0); the served shapes have one group (unsplit), K = 4099 over N = 131
+    thirteen of five slices; the split is one the C entry takes
+    (ceil(kt / group) blocks, none empty, covering K in order)."""
+    assert mm_k.groups(n, k) == want
+    g, per = want
+    kt = -(-k // mm_k.BK)
+    for aligned in (True, False):
+        assert mm_k.edge_plan(m, n, k, aligned) == ({128: 0, 64: 3}[bn], g)
+    assert -(-kt // per) == g and (g - 1) * per < kt <= g * per
+    buf = torch.empty(64, dtype=torch.bfloat16)
+    assert mm_k.kernel_instance(buf.as_strided((m, k), (0, 0)), buf.as_strided((k, n), (0, 0))
+                                ) == f"mm_edge_tile_kernel<{bn}>"
+
+
+def test_groups_takes_edge_shapes_and_refuses_empty_ones():
+    """``groups`` is the one sum order of the tile kernels, aligned or not:
+    an edge shape takes the rule of its own (N, K) (the streaming cost at 8
+    rows), so N one past a multiple of 8 groups as its neighbours do, and
+    an empty shape raises."""
+    assert mm_k.groups(6482, 1600) == mm_k.groups(6488, 1600) == (1, 25)
+    assert mm_k.groups(131, 4099) == (13, 5)
+    for n, k in ((0, 64), (64, 0)):
+        with pytest.raises(ValueError, match="empty"):
+            mm_k.groups(n, k)
+
+
 @pytest.mark.parametrize("dtype,m,k,n,x_off,w_off,instance", [
     (torch.bfloat16, 8, 2048, 8192, 0, 0, "mm_stream_kernel<8>"),
     (torch.bfloat16, 16, 2048, 8192, 0, 0, "mm_stream_kernel<16>"),
@@ -249,8 +295,12 @@ def test_edge_split_rule_at_the_unembeds():
     (torch.bfloat16, 8, 4096, 49155, 0, 1, "mm_edge_stream_kernel<8,0>"),
     (torch.bfloat16, 16, 1280, 51866, 0, 1, "mm_edge_stream_kernel<16,0>"),
     (torch.bfloat16, 5, 1599, 32001, 0, 0, "mm_edge_stream_kernel<8,0>"),
-    (torch.bfloat16, 17, 4096, 49155, 0, 0, "mm_edge_kernel"),
-    (torch.bfloat16, 64, 1280, 51866, 0, 0, "mm_edge_kernel"),
+    (torch.bfloat16, 17, 4096, 49155, 0, 0, "mm_edge_tile_kernel<128>"),
+    (torch.bfloat16, 64, 1280, 51866, 0, 0, "mm_edge_tile_kernel<128>"),
+    (torch.bfloat16, 1400, 1600, 6482, 0, 0, "mm_edge_tile_kernel<128>"),
+    (torch.bfloat16, 17, 1600, 6482, 0, 0, "mm_edge_tile_kernel<64>"),
+    (torch.bfloat16, 200, 1601, 6482, 0, 0, "mm_edge_tile_kernel<128>"),
+    (torch.bfloat16, 200, 1600, 6482, 1, 1, "mm_edge_tile_kernel<128>"),
     (torch.float32, 256, 256, 256, 0, 0, "mm_f32_kernel<1,64,64>"),
     (torch.float32, 2048, 2048, 2048, 0, 0, "mm_f32_kernel<1,128,128>"),
     (torch.float32, 8, 4096, 49155, 0, 0, "mm_f32_stream_kernel<8,1>"),
@@ -265,8 +315,9 @@ def test_kernel_instance_names_what_the_c_entries_launch(dtype, m, k, n, x_off, 
     and operands (offsets in elements past a 16-byte boundary), by the C
     entries' rules: bf16 TMA-ready operands take ``plan``'s kernel; the edge
     kernels' TMA instances need K a multiple of 8 (f32: 4) and w aligned,
-    x's alignment aside; M above 16 takes the mma.sync edge kernel, or in
-    f32 the tile kernel's edge instance at ``f32_plan``'s tile."""
+    x's alignment aside; M above 16 takes the edge tile kernel (any K and
+    alignment: it copies by TMA or cp.async within one instance), or in f32
+    the tile kernel's edge instance at ``f32_plan``'s tile."""
     buf = torch.empty(64, dtype=dtype)
     x = buf.as_strided((m, k), (0, 0), x_off)
     w = buf.as_strided((k, n), (0, 0), w_off)

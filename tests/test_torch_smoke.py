@@ -441,6 +441,37 @@ def test_sass_count_reads_each_bf16_kernel_and_refuses_one_without_wgmma(monkeyp
         cs.bf16_matmul_sass(Native())
 
 
+def test_edge_sass_names_the_edge_tile_kernel_and_refuses_it_without_wgmma(monkeypatch):
+    """The edge kernels' counts: the streaming instances by their template
+    arguments (mma.sync), the edge tile kernel by its name (wgmma and TMA);
+    an edge tile kernel without wgmma fails."""
+    sass = """
+        Function : _ZN41_GLOBAL__N__1_matmul_cu_2_21mm_edge_stream_kernelILi8ELb1EEEv14CUtensorMap_st
+        /*0100*/ UTMALDG.2D [UR8], [UR4] ;
+        /*0200*/ HMMA.16816.F32.BF16 R24, R4, R8, R24 ;
+        Function : _ZN41_GLOBAL__N__1_matmul_cu_2_19mm_edge_tile_kernelILi128EEEv14CUtensorMap_stS1_
+        /*0100*/ UTMALDG.2D [UR8], [UR4] ;
+        /*0110*/ UTMALDG.2D [UR12], [UR4] ;
+        /*0200*/ HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
+"""
+
+    class Native:
+        def build_all(self):
+            return {"matmul": Path("libmatmul.so")}
+
+        def _nvcc(self):
+            return "/cuda/bin/nvcc"
+
+    monkeypatch.setattr(cs.subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        cmd, 0, stdout=sass, stderr=""))
+    assert cs.edge_sass(Native()) == {
+        "mm_edge_stream_kernel<8,1>": {"HGMMA": 0, "UTMALDG": 1, "HMMA": 1},
+        "mm_edge_tile_kernel<128>": {"HGMMA": 1, "UTMALDG": 2}}
+    sass = sass.replace("HGMMA.64x128x16", "HMMA.16816")
+    with pytest.raises(AssertionError, match="without wgmma"):
+        cs.edge_sass(Native())
+
+
 def test_tenants_phase_shares_the_queue_with_the_paper_roles(monkeypatch):
     """The tenants phase on a small model on the CPU: the engine's streams
     through the tf-serving queue equal a direct run's, the opencl tenant's
@@ -511,19 +542,20 @@ def test_row_invariance_check_reads_launch_size_and_position():
 
 
 def test_instance_check_refuses_a_built_matmul_instance_no_row_ran():
-    """Every matmul instance ``cuobjdump`` lists, and the mma.sync edge
-    kernel, must have run in some kernel-phase row."""
+    """Every matmul instance ``cuobjdump`` lists, and the edge tile kernel,
+    must have run in some kernel-phase row."""
     sass = {"matmul": {"mm_stream_kernel<8>": {}},
             "matmul_edge": {"mm_edge_stream_kernel<8,0>": {}},
             "matmul_f32": {"mm_f32_kernel<0,64,64>": {}}}
+    tiles = [{"name": "matmul_edge", "instance": i} for i in cs.EDGE_TILE_INSTANCES]
     rows = [{"name": "matmul", "instance": "mm_stream_kernel<8>"},
             {"name": "matmul_edge", "instance": "mm_edge_stream_kernel<8,0>"},
-            {"name": "matmul_edge", "instance": "mm_edge_kernel"},
+            *tiles,
             {"name": "matmul_f32", "instance": "mm_f32_kernel<0,64,64>"},
             {"name": "rmsnorm"}]
     assert cs.check_instances(rows, sass) == {"mm_stream_kernel<8>", "mm_edge_stream_kernel<8,0>",
-                                              "mm_edge_kernel", "mm_f32_kernel<0,64,64>"}
-    for drop in range(4):
+                                              *cs.EDGE_TILE_INSTANCES, "mm_f32_kernel<0,64,64>"}
+    for drop in range(len(rows) - 1):
         with pytest.raises(AssertionError, match="never held against"):
             cs.check_instances(rows[:drop] + rows[drop + 1:], sass)
 
@@ -534,12 +566,13 @@ def test_instance_check_refuses_a_built_decode_or_ssd_instance_no_row_ran():
     sass = {"matmul": {}, "matmul_edge": {}, "matmul_f32": {},
             "decode_attention": {"dec_kernel<64,DenseRows>": {}, "dec_kernel<64,PagedRows>": {}},
             "ssd": {"ssd_kernel": {}}}
-    rows = [{"name": "matmul_edge", "instance": "mm_edge_kernel"},
+    tiles = [{"name": "matmul_edge", "instance": i} for i in cs.EDGE_TILE_INSTANCES]
+    rows = [*tiles,
             {"name": "decode_attention", "instance": "dec_kernel<64,DenseRows>"},
             {"name": "paged_decode_attention", "instance": "dec_kernel<64,PagedRows>"},
             {"name": "ssd", "instance": "ssd_kernel"}]
     cs.check_instances(rows, sass)
-    for drop in range(1, 4):
+    for drop in range(len(tiles), len(rows)):
         with pytest.raises(AssertionError, match="never held against"):
             cs.check_instances(rows[:drop] + rows[drop + 1:], sass)
 
