@@ -78,9 +78,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    [8, 50280]) and at granite's [8, 49155]: its random bits exactly the
    plain version's and a numpy Threefry's (a key word flipped moves them
    all), its tokens the plain version's wherever the two best scores lie
-   more than 4 ulps apart; its bound its integer operations.  After the
-   serve runs, every [B, V] a sampled run gave it, and every split count
-   its rule picks there, must have run in one of these rows.
+   more than 4 ulps apart, with and without the bits asked for; its bound
+   the operations an element's random bits take in the built kernel
+   (counted in the SASS of its probe, ``sample_bits_ops``).  Then
+   adversarial rows, in a batch of 8 at split counts 1, 7, the rule's and
+   1024, and each alone at the rule's: the winner the
+   element with the largest Gumbel draw, its l/T 15 below the row's
+   maximum, a runner-up just below it in the same 16 bytes; NaN; +inf
+   twice; all -inf; equal logits: each token the plain version's exactly,
+   each beside a planted fault it reads (the pre-test without its margin
+   must drop the winner; NaN ranked low, the last index on ties or no
+   Gumbel term must pick another token).  After the serve runs, every [B,
+   V] a sampled run gave it, and every split count its rule picks there,
+   must have run in one of these rows; the temperature phase times it on
+   the decode logits an untimed served run gave it too.
 3. model, llama3.2-1b: logits under ``cuda-strict`` against the ``torch``
    eager source on the same weights and prompts, for the calls the engine
    makes: bucketed prefill, the first-token fixup, a batched decode; and
@@ -295,23 +306,23 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 INT32_OPS = F32_FLOPS / 2
 # int32 adds, xors and shifts: one a lane a clock, half the multiply-add count
 INT32_LANE_OPS = INT32_OPS / 2
-# the sampler's integer operations an element: Threefry-2x32's 20 rounds of
-# an add, a rotate and a xor, its 2 + 5 x 2 key additions, and the uniform's
-# xor, shift and or (the two logs and the division not counted)
-SAMPLE_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
-# the sampler's shapes: every shape the sampled serve runs give it (a decode
-# step of 8 slots (dense, paged) and of 16 (chunked) over llama's
-# vocabulary, Mamba-2's step of 8, and the first token of each, one slot);
-# then yi's and granite's vocabularies (granite's not a multiple of the
-# block's) at the full-depth and overcommit phases' sampled runs: a first
-# token, decode steps of 8 and of 16 slots; llama4-maverick's and
-# deepseek-v3's, and hymba's (32001), a first token and a step of 8
-SAMPLE_SHAPES = ((8, 128256), (1, 128256), (16, 128256), (8, 50280), (1, 50280), (8, 49155),
-                 (1, 49155), (16, 49155), (1, 64000), (8, 64000), (16, 64000),
-                 (1, 202048), (8, 202048), (1, 129280), (8, 129280), (1, 32001), (8, 32001))
+# the sampler's bound: the operations one element's random bits and uniform
+# take (Threefry-2x32's 20 rounds, the key additions, the uniform's xor,
+# shift and or; the two logs and the division, which only a candidate
+# needs, not counted), read off the SASS of the probe the kernel's source
+# compiles beside it (csrc/sample.cu ``sample_bits_ops``, never launched):
+# shifts, logic and byte permutes run only on the ALU pipe, 64 lanes an SM
+# (INT32_LANE_OPS); every operation issues at 128 an SM a clock (INT32_OPS:
+# adds may go to the FMA pipe as IMAD).  Not counted: the probe's own
+# thread index, parameters, address, moves, store and exit.
+SAMPLE_ALU_ONLY = ("SHF", "SHL", "SHR", "LOP3", "LOP", "PRMT")
+SAMPLE_NOT_OPS = ("S2R", "S2UR", "CS2R", "LDC", "STG", "EXIT", "BRA", "NOP", "MOV", "IMAD.MOV",
+                  "IMAD.WIDE")
 # the sampler against its plain version: the random bits exactly (and a
 # numpy Threefry's), the token wherever the two best scores lie more than
-# this many ulps apart (the kernel's logf and PyTorch's may part by an ulp)
+# this many ulps apart (the kernel's logf and PyTorch's may part by an ulp;
+# kernels/sample.py's TIE_ULPS, which its sweep uses); its shapes are
+# kernels/sample.py's SHAPES, every shape the sampled serve runs give it
 SAMPLE_TIE_ULPS = 4
 L2_BYTES = 50 * 2**20
 SPIN_CYCLES = 100_000_000      # ~50 ms at the H100's 1.98 GHz boost clock
@@ -1798,6 +1809,8 @@ def sample_err(torch, tok, bits, want_scores, want_bits, np_want_bits, fault_bit
     one row must)."""
     import numpy as np
 
+    from repro_torch.kernels import sample as sample_k
+
     got = bits.long() & 0xFFFFFFFF
     if not torch.equal(got, want_bits):
         raise AssertionError(f"sample bits differ from the plain version's in "
@@ -1808,10 +1821,7 @@ def sample_err(torch, tok, bits, want_scores, want_bits, np_want_bits, fault_bit
     if differ < 0.99:
         raise AssertionError(f"the planted fault (a key word flipped) moves only {differ} of "
                              f"the bits: the check cannot see it")
-    top = want_scores.topk(2, dim=-1).values
-    best = top[:, 0].abs()
-    gap = (top[:, 0] - top[:, 1]) / (torch.nextafter(best, best + 1) - best)
-    clear = gap > SAMPLE_TIE_ULPS
+    clear = sample_k.scores_apart(want_scores, SAMPLE_TIE_ULPS)
     want = torch.argmax(want_scores, dim=-1).to(torch.int32)
     if not bool(clear.any()):
         raise AssertionError("no row's two best scores lie apart: nothing checked")
@@ -1824,18 +1834,158 @@ def sample_err(torch, tok, bits, want_scores, want_bits, np_want_bits, fault_bit
             "bits_equal_numpy_threefry": True, "planted_fault_bits_differ_share": differ}
 
 
+def sample_element_ops(sass: str) -> dict[str, int]:
+    """The operations one element takes in the SASS text of the sampler's
+    probe kernel (``cuobjdump --dump-sass -fun``): ``alu_only`` (shifts,
+    logic, byte permutes: :data:`SAMPLE_ALU_ONLY`) and ``issued`` (every
+    instruction but :data:`SAMPLE_NOT_OPS` and the uniform datapath's), and
+    ``slots``: the larger of twice the first (the ALU pipe has half the
+    issue rate) and the second, in issue slots at INT32_OPS."""
+    alu = issued = 0
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m is None:
+            continue
+        op = m.group(1)
+        if op.startswith("U") or any(op == n or op.startswith(n + ".") for n in SAMPLE_NOT_OPS):
+            continue
+        issued += 1
+        alu += op.split(".")[0] in SAMPLE_ALU_ONLY
+    if not alu:
+        raise AssertionError(f"no ALU operations in the sampler's probe: {sass[:2000]}")
+    return {"alu_only": alu, "issued": issued, "slots": max(2 * alu, issued)}
+
+
+def sample_sass(native) -> dict:
+    """:func:`sample_element_ops` of the built sampler's probe; raises
+    unless the library holds the four ``sample_kernel`` instances too."""
+    path = native.build_all()["sample"]
+    cuobjdump = Path(native._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(path)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    probe, fn, instances = [], None, 0
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = "probe" if "sample_bits_ops" in line else None
+            instances += "sample_kernel" in line
+        elif fn:
+            probe.append(line)
+    if not probe or instances != 4:
+        raise AssertionError(f"the sampler's library holds {instances} sample_kernel instances "
+                             f"(want 4) and {'a' if probe else 'no'} probe")
+    return {"sample_bits_ops": sample_element_ops("\n".join(probe))}
+
+
+def sample_winner_row(torch, sampling, sample_k, V: int, T: float, key, phase: int):
+    """A row whose draw the pre-test must keep at its edge: the winner w is
+    the element with the largest Gumbel draw, its l/T 15 below the row's
+    maximum (the element with the smallest draw); a runner-up r in w's 16
+    bytes (so the kernel tests w against r's lower bound) scores just below
+    w, by half of w's distance above its bucket's lower end; the rest lie 40
+    below.  Counts from 0 up until the draws allow that; ``phase``: floats
+    of the row's start past a 16-byte boundary.  (logits f32 [V], the count,
+    w)."""
+    upper, lower = (t.to(key.device) for t in sample_k.gumbel_bounds())
+    top = 10.0
+    for count in range(1000):
+        c = torch.tensor([count], dtype=torch.int32, device=key.device)
+        bits = sampling.random_bits_32(sampling.fold_in(key[None], c), V)[0]
+        g = -torch.log(-torch.log(sampling.uniform(bits)))
+        w, a = int(g.argmax()), int(g.argmin())
+        if float(g[w] - g[a]) < 15.5:
+            continue
+        rise = g - lower[sample_k.bucket_of(bits).long()]
+        quad = [j for j in range((phase + w) // 4 * 4 - phase, (phase + w) // 4 * 4 - phase + 4)
+                if 0 <= j < V and j not in (w, a)]
+        if not quad:
+            continue
+        r = min(quad, key=lambda j: float(rise[j]))
+        eps = float(rise[w] - rise[r]) / 2
+        if eps < 1e-3:
+            continue
+        logits = torch.full((V,), (top / T - 40) * T, dtype=torch.float32, device=key.device)
+        logits[a] = top
+        logits[w] = (top / T - 15) * T
+        logits[r] = (top / T - 15 + float(g[w]) - eps - float(g[r])) * T
+        scores = sampling.scores(key[None], c, logits[None], T)[0]
+        best = scores.topk(2).values
+        lb, ub = sample_k.score_bounds(logits, bits, T, margin=False)
+        if (int(scores.argmax()) == w and float(best[0] - best[1]) > 1e-4
+                and float(ub[w]) < float(lb[r]) and float(logits[r]) < top):
+            return logits, count, w
+    raise AssertionError(f"no count below 1000 gives a pre-test row at V = {V}")
+
+
+#: the adversarial rows of the sampler's check, in batch order
+SAMPLE_ADVERSARIAL = ("winner", "nan", "two_inf", "all_neg_inf", "equal")
+
+
+def sample_adversarial(torch, sampling, sample_k, V: int, T: float, gen, dev):
+    """A batch of 8 rows at [8, V]: :data:`SAMPLE_ADVERSARIAL` (the winner
+    row of :func:`sample_winner_row`; N(0, 2^2) logits with NaN at two
+    places; with +inf at two places; all -inf; all equal), then 3 rows of
+    N(0, 2^2).  (logits, keys, counts)."""
+    B = 8
+    logits = torch.randn((B, V), generator=gen, device=dev) * 2
+    keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=gen, device=dev,
+                         dtype=torch.int32)
+    counts = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+    j = sorted(torch.randperm(V, generator=gen, device=dev)[:2].tolist())
+    logits[0], counts[0], _ = sample_winner_row(torch, sampling, sample_k, V, T, keys[0], 0)
+    logits[1, j] = float("nan")
+    logits[2, j] = float("inf")
+    logits[3] = -float("inf")
+    logits[4] = 1.0
+    while int(sampling.scores(keys[4:5], counts[4:5], logits[4:5], T).argmax()) == 0:
+        counts[4] += 1               # so that the fault (no Gumbel term: index 0) shows
+    return logits, keys, counts
+
+
+def sample_faults(torch, scores, logits, kernel_fault_tok) -> list:
+    """The token a planted fault gives each adversarial row: the pre-test
+    without its margin (the kernel's, ``kernel_fault_tok``), NaN ranked
+    below numbers, the last index among equal maxima (twice), the logits
+    alone without the Gumbel term."""
+    last = scores.shape[-1] - 1 - torch.argmax(scores.flip(-1), dim=-1)
+    return [int(kernel_fault_tok[0]),
+            int(torch.argmax(torch.where(scores[1].isnan(), -float("inf"), scores[1]))),
+            int(last[2]), int(last[3]), int(torch.argmax(logits[4]))]
+
+
+def sample_adversarial_err(torch, tok, want, faults) -> dict:
+    """The adversarial rows' check: every token exactly the plain version's
+    (ties and NaN decide these rows, not the logs' last ulp), and each
+    planted fault's token another."""
+    n = len(SAMPLE_ADVERSARIAL)
+    got, exp = tok[:n].tolist(), want[:n].tolist()
+    if got != exp:
+        raise AssertionError(f"sample tokens {got} on the adversarial rows "
+                             f"{list(SAMPLE_ADVERSARIAL)}, the plain version's {exp}")
+    seen = [f != w for f, w in zip(faults, exp)]
+    if not all(seen):
+        raise AssertionError(f"planted faults the adversarial rows cannot see: "
+                             f"{[r for r, s in zip(SAMPLE_ADVERSARIAL, seen) if not s]}")
+    return {"max_abs_err": 0.0, "tolerance": "adversarial rows: tokens exact",
+            "rows": list(SAMPLE_ADVERSARIAL), "tokens": got, "planted_fault_tokens": faults}
+
+
 def sample_rows(torch, gen, record) -> None:
     """The sampler at its served shapes, against its plain version and a
     numpy Threefry, beside a planted fault (one key word flipped); timed
-    beside its plain version (no single PyTorch call draws JAX's stream)."""
+    beside its plain version (no single PyTorch call draws JAX's stream).
+    Then the adversarial rows (:func:`sample_adversarial`) at V = 128256 and
+    at hymba's 32001 (rows off 16 bytes), in a batch of 8 at split counts 1,
+    7, the rule's and 1024, and each alone at the rule's."""
     import numpy as np
 
+    from repro_torch.kernels import native
     from repro_torch.kernels import sample as sample_k
     from repro_torch.serve import sampling
 
     dev = torch.device("cuda")
     T = 0.7
-    for B, V in SAMPLE_SHAPES:
+    ops = sample_sass(native)["sample_bits_ops"]
+    for B, V in sample_k.SHAPES:
         def inputs():
             logits = torch.randn((B, V), generator=gen, device=dev) * 2
             keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=gen, device=dev,
@@ -1848,21 +1998,113 @@ def sample_rows(torch, gen, record) -> None:
         logits, keys, counts, live, tok = sets[0]
         bits = torch.zeros((B, V), dtype=torch.int32, device=dev)
         sample_k.sample(logits, keys, counts, live, tok, T, bits=bits)
+        bare = torch.zeros_like(tok)
+        sample_k.sample(logits, keys, counts, live, bare, T)
         flipped = keys.clone()
         flipped[:, 0] ^= 1 << 7
         fault_bits = torch.zeros_like(bits)
         sample_k.sample(logits, flipped, counts, live, tok.clone(), T, bits=fault_bits)
         torch.cuda.synchronize()
+        if not torch.equal(bare, tok):
+            raise AssertionError(f"sample [{B},{V}]: tokens {bare.tolist()} without the bits "
+                                 f"asked for, {tok.tolist()} with them")
         want_bits = sampling.random_bits_32(sampling.fold_in(keys, counts), V)
         np_want = np_bits(np, keys.cpu().numpy().view(np.uint32),
                           counts.cpu().numpy().astype(np.uint32), V)
         check = sample_err(torch, tok, bits, sampling.scores(keys, counts, logits, T), want_bits,
                            np_want, fault_bits)
         check["splits"] = sample_k.splits_for(B, V)
+        check["pretest_survivors"] = int(sample_k.pretest(logits, want_bits, T).sum())
+        check["element_ops"] = ops
         record("sample", f"[{B},{V}]", check, sets,
                lambda *a: sample_k.sample(*a, T), lambda *a: sampling.plain_sample(*a, T), None,
-               4 * B * V + 6 * 4 * B, SAMPLE_INT_OPS * B * V, INT32_LANE_OPS)
+               4 * B * V + 6 * 4 * B, ops["slots"] * B * V, INT32_OPS)
         del sets, logits, bits, fault_bits, want_bits
+    n = len(SAMPLE_ADVERSARIAL)
+    for V in (128256, 32001):
+        logits, keys, counts = sample_adversarial(torch, sampling, sample_k, V, T, gen, dev)
+        live = torch.ones(8, dtype=torch.int32, device=dev)
+        scores = sampling.scores(keys, counts, logits, T)
+        want = torch.argmax(scores, dim=-1).to(torch.int32)
+        want_bits = sampling.random_bits_32(sampling.fold_in(keys, counts), V)
+        fault = torch.full((8,), -1, dtype=torch.int32, device=dev)
+        sample_k.sample(logits, keys, counts, live, fault, T, margin=False)
+        faults = sample_faults(torch, scores, logits, fault)
+        split_counts = sorted({1, 7, sample_k.splits_for(8, V), sample_k.MAX_SPLITS})
+        for splits in split_counts:
+            for bits in (torch.zeros((8, V), dtype=torch.int32, device=dev), None):
+                tok = torch.full((8,), -1, dtype=torch.int32, device=dev)
+                sample_k.sample(logits, keys, counts, live, tok, T, bits=bits, splits=splits)
+                sample_adversarial_err(torch, tok, want, faults)
+                rest = sample_k.scores_apart(scores[n:], SAMPLE_TIE_ULPS)
+                if not torch.equal(tok[n:][rest], want[n:][rest]):
+                    raise AssertionError(f"sample: the N(0, 4) rows beside the adversarial ones "
+                                         f"differ at {splits} splits")
+                if bits is not None and not torch.equal(bits.long() & sampling.MASK, want_bits):
+                    raise AssertionError(f"sample bits differ on the adversarial rows, V {V}")
+        alone = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        for r in range(n):
+            sample_k.sample(logits[r:r + 1], keys[r:r + 1], counts[r:r + 1], live[:1],
+                            alone[r:r + 1], T)
+        check = sample_adversarial_err(torch, alone, want, faults)
+        check.update(split_counts=split_counts, alone_splits=sample_k.splits_for(1, V),
+                     pretest_survivors=sample_k.pretest(logits, want_bits, T)[:n].sum(-1).tolist())
+        record("sample", f"[8,{V}] adversarial rows", check, None, None, None, None, 0, 0,
+               INT32_OPS)
+        del logits, scores, want_bits
+
+
+def sample_served(torch, logits_sets: list, T: float) -> dict:
+    """The sampler on the decode logits a served run gave it (``[B, V]``
+    each): held to its plain version (tokens where the two best scores lie
+    more than SAMPLE_TIE_ULPS apart), timed beside it, with the pre-test's
+    survivors (the row-wide model) and the bound of the kernel-phase rows."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels import sample as sample_k
+    from repro_torch.serve import sampling
+
+    if not logits_sets:
+        raise AssertionError("the served run gave the sampler no decode logits to time")
+    B, V = logits_sets[0].shape
+    dev = logits_sets[0].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sets = []
+    for logits in logits_sets:
+        keys = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=gen, device=dev,
+                             dtype=torch.int32)
+        counts = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+        sets.append((logits, keys, counts, torch.ones(B, dtype=torch.int32, device=dev),
+                     torch.zeros(B, dtype=torch.int32, device=dev)))
+    agree = survivors = compared = 0
+    for logits, keys, counts, live, tok in sets:
+        sample_k.sample(logits, keys, counts, live, tok, T)
+        scores = sampling.scores(keys, counts, logits, T)
+        clear = sample_k.scores_apart(scores, SAMPLE_TIE_ULPS)
+        want = torch.argmax(scores, dim=-1).to(torch.int32)
+        if not torch.equal(tok[clear], want[clear]):
+            raise AssertionError(f"sample on served logits: tokens {tok.tolist()}, the plain "
+                                 f"version's {want.tolist()}")
+        agree += int(clear.sum())
+        compared += B
+        bits = sampling.random_bits_32(sampling.fold_in(keys, counts), V)
+        survivors += int(sample_k.pretest(logits, bits, T).sum())
+    ops = sample_sass(native)["sample_bits_ops"]
+    row = {"name": "sample", "shape": f"[{B},{V}] served logits", "max_abs_err": 0.0,
+           "tolerance": f"tokens exact where the best two scores lie > {SAMPLE_TIE_ULPS} ulps "
+                        f"apart", "rows_compared": agree, "rows": compared,
+           "splits": sample_k.splits_for(B, V), "steps": len(sets),
+           "pretest_survivors_a_step": survivors / len(sets),
+           "logits_std": float(torch.stack(logits_sets).std()),
+           "logits_max_minus_median": float(
+               (torch.stack(logits_sets).amax(-1) - torch.stack(logits_sets).median(-1).values)
+               .mean())}
+    row["ms"], row["host_ms"] = time_ms(torch, lambda *a: sample_k.sample(*a, T), sets)
+    row["plain_ms"] = time_ms(torch, lambda *a: sampling.plain_sample(*a, T), sets)[0]
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = bound(4 * B * V + 6 * 4 * B, ops["slots"] * B * V,
+                                             INT32_OPS)
+    print("  " + json.dumps(row))
+    return row
 
 
 def offset_copy(torch, t):
@@ -5538,6 +5780,24 @@ def temperature_phase(torch, model, params, kernels, seed: int, runs=TEMPERATURE
             "chunked_streams_equal_dense": True if chunked else None}
 
 
+def served_logits(torch, model, params, kernels, seed: int, steps: int = 16) -> list:
+    """The decode logits ``[8, V]`` the sampler is given over the first
+    ``steps`` decode steps of an untimed eager serve run of the first 8
+    serve prompts (8 slots, T = 0.7, seed 3), through the engine's
+    ``decode_logits_tap``."""
+    _, prompts = serve_prompts(torch, model.cfg.vocab_size, seed)
+    kept: list = []
+
+    def tap(logits):
+        if logits.shape[0] == 8 and len(kept) < steps:
+            kept.append(logits.detach().float().clone())
+
+    serve_run(torch, model, params, kernels, prompts[:8], graphed=False, temperature=0.7,
+              seed=3, batch_slots=8, new_tokens=2 * steps,
+              after_step=lambda eng: setattr(eng, "decode_logits_tap", tap))
+    return kept
+
+
 def prefill_busy(torch, model, params, seed: int) -> dict:
     """Where one prefill's time goes: a 600-token prompt (llama: the 1024
     bucket; Mamba-2: its own length) into an idle 1-slot engine, after one
@@ -5774,7 +6034,8 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                 print(f"  {name}: {line.strip()}")
     sass = {"matmul": bf16_matmul_sass(native), "flash_attention": flash_sass(native),
             "matmul_edge": edge_sass(native), "matmul_f32": f32_matmul_sass(native),
-            "decode_attention": decode_sass(native), "ssd": ssd_sass(native)}
+            "decode_attention": decode_sass(native), "ssd": ssd_sass(native),
+            "sample": sample_sass(native)}
     for lib, fns in sass.items():
         for fn, counts in fns.items():
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
@@ -5816,6 +6077,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print("  temperature 0.7, seed 3: dense and paged at K 1 and 4, graph and loop, a "
           "FusionPolicy(max_fusion=8), chunked K 4")
     temp_res = temperature_phase(torch, model, params, kernels, args.seed)
+    served_row = sample_served(torch, served_logits(torch, model, params, kernels, args.seed),
+                               0.7)
+    rows.append(served_row)
     phase_s["serve"] = lap()
 
     print("[5/18] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
@@ -6111,7 +6375,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
               "flash_attention_qk192": [
                   f"q[1,128,{S},192] k[1,128,{S},192] v[1,128,{S},128] causal=True"
                   for S in (512, 128)],
-              "sample": [f"[{B},{V}]" for B, V in SAMPLE_SHAPES[1:]]}
+              "sample": [f"[{B},{V}]" for B, V in sample_k.SHAPES[1:]]
+                        + [served_row["shape"]]
+                        + [f"[8,{V}] adversarial rows" for V in (128256, 32001)]}
     # the CUDA functions behind each entry
     cuda_fn = {"matmul": "mm_tile_kernel<BM,BN>, mm_stream_kernel<MP>",
                "rmsnorm": "rmsnorm_kernel<E,WARPS,NC,RESIDENT> (a block of 1-8 warps a "
@@ -6127,8 +6393,10 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                "matmul_fixed_weight": "the f32 kernels on a resident weight",
                "conv2d": "conv_kernel<Tin,Acc,KH,KW,FCH,ONE_CH> (persistent, a cp.async "
                          "ring, a strip of 4 pixels a thread, FCH filters a chunk)",
-               "sample": "sample_kernel (grid (splits, B): a slot's vocabulary over splits "
-                         "blocks, merged by the last to arrive)",
+               "sample": "sample_kernel<Q,NO_MARGIN> (grid (splits, B): 4 or 8 Threefry "
+                         "chains a thread, the logs and division only for the pre-test's "
+                         "candidates, blocks' bests merged by one 64-bit atomicMax each, the "
+                         "last to arrive writes the token; programmatic dependent launch)",
                "matmul_edge": "mm_edge_stream_kernel<8|16,TMA> (M <= 16; TMA = 1 where K "
                               "% 8 == 0 and w is aligned, else cp.async copies), "
                               "mm_edge_tile_kernel<128|64> (M > 16: 128-row tiles, two copy warps, "

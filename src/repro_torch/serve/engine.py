@@ -547,6 +547,9 @@ class ServeEngine:
         self.decode_calls = 0
         self.decode_tokens = 0         # tokens committed by decode launches
         self.sample_calls = 0          # sampler calls (first tokens, decode steps) at T > 0
+        # called with each eager decode step's logits [slots, V] before they are
+        # sampled (a graphed step calls it only while it is captured); None: no call
+        self.decode_logits_tap = None
         # -- paged KV cache state ---------------------------------------------
         self.paged = paged
         if paged and not self._paged_safe():
@@ -1970,6 +1973,8 @@ class ServeEngine:
         if self.paged:
             cache["block_table"] = b.table
         logits, _ = self.model.decode_step(self.params, b.tok[:, None], cache)
+        if self.decode_logits_tap is not None:
+            self.decode_logits_tap(logits)
         live = b.live != 0
         if self.temperature > 0:
             sample_k.sample(logits, b.keys, b.count, b.live, b.tok, self.temperature)

@@ -1368,21 +1368,25 @@ def test_sample_matches_plain_and_numpy_threefry(cuda, B, V):
 
 
 def test_sample_splits_agree_and_dead_slots_keep_their_token(cuda):
-    """Any split of the vocabulary gives the same tokens (the merge takes the
-    maximum and the smaller index on ties); a slot whose live flag is 0
-    keeps its token; one launch a call."""
+    """Any split of the vocabulary and either chain count gives the same
+    tokens (the merge takes the maximum and the smaller index on ties), with
+    and without the bits asked for; a slot whose live flag is 0 keeps its
+    token; one launch a call."""
     from repro_torch.kernels import sample as sample_k
 
     logits, keys, counts = _sample_inputs(cuda, 8, 128256, seed=1)
     logits[3, 100:200] = 50.0                      # a slot whose draw lies in one split
     live = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=cuda)
     outs = []
-    for splits in (1, 2, 7, 33, 64):
-        tok = torch.full((8,), -5, dtype=torch.int32, device=cuda)
-        before = sample_k.launches
-        sample_k.sample(logits, keys, counts, live, tok, 0.7, splits=splits)
-        assert sample_k.launches == before + 1
-        outs.append(tok)
+    for splits in (1, 2, 7, 33, 64, 264, 1024):
+        for chains in (4, 8):
+            for bits in (None, torch.zeros((8, 128256), dtype=torch.int32, device=cuda)):
+                tok = torch.full((8,), -5, dtype=torch.int32, device=cuda)
+                before = sample_k.launches
+                sample_k.sample(logits, keys, counts, live, tok, 0.7, splits=splits,
+                                chains=chains, bits=bits)
+                assert sample_k.launches == before + 1
+                outs.append(tok)
     assert all(torch.equal(o, outs[0]) for o in outs)
     assert outs[0][1] == -5 and outs[0][4] == -5
     with pytest.raises(ValueError):
@@ -1391,6 +1395,49 @@ def test_sample_splits_agree_and_dead_slots_keep_their_token(cuda):
         sample_k.sample(logits, keys[:4], counts, live, outs[0], 0.7)
     with pytest.raises(TypeError):
         sample_k.sample(logits, keys, counts.long(), live, outs[0], 0.7)
+    with pytest.raises(ValueError):
+        sample_k.sample(logits, keys, counts, live, outs[0], 0.7, splits=sample_k.MAX_SPLITS + 1)
+    with pytest.raises(ValueError):
+        sample_k.sample(logits, keys, counts, live, outs[0], 0.7, chains=6)
+
+
+@pytest.mark.parametrize("V", [128256, 32001])
+def test_sample_adversarial_rows_and_their_planted_faults(cuda, V):
+    """``chip_smoke.py``'s adversarial rows (the pre-test's winner at its
+    bucket's edge, NaN, +inf twice, all -inf, equal logits) give the plain
+    version's tokens exactly, in a batch at every split count and alone;
+    the kernel without its margin drops the winner, and each row's other
+    planted fault picks another token."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import sample as sample_k
+    from repro_torch.serve import sampling
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    logits, keys, counts = cs.sample_adversarial(torch, sampling, sample_k, V, 0.7,
+                                                 _gen(cuda, 2), cuda)
+    live = torch.ones(8, dtype=torch.int32, device=cuda)
+    scores = sampling.scores(keys, counts, logits, 0.7)
+    want = torch.argmax(scores, dim=-1).to(torch.int32)
+    fault = torch.full((8,), -1, dtype=torch.int32, device=cuda)
+    sample_k.sample(logits, keys, counts, live, fault, 0.7, margin=False)
+    faults = cs.sample_faults(torch, scores, logits, fault)
+    n = len(cs.SAMPLE_ADVERSARIAL)
+    for splits in (1, 3, sample_k.splits_for(8, V), sample_k.MAX_SPLITS):
+        for chains in (4, 8):
+            tok = torch.full((8,), -1, dtype=torch.int32, device=cuda)
+            sample_k.sample(logits, keys, counts, live, tok, 0.7, splits=splits, chains=chains)
+            cs.sample_adversarial_err(torch, tok, want, faults)
+            apart = sample_k.scores_apart(scores[n:], cs.SAMPLE_TIE_ULPS)
+            assert torch.equal(tok[n:][apart], want[n:][apart])
+    for r in range(n):
+        tok = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+        sample_k.sample(logits[r:r + 1], keys[r:r + 1], counts[r:r + 1], live[:1], tok, 0.7)
+        assert int(tok) == int(want[r])
 
 
 def _small(kind, cuda):

@@ -681,7 +681,24 @@ def test_sample_check_passes_the_plain_version_and_sees_a_flipped_key():
         cs.sample_err(torch, (tok + 1) % 500, bits, scores, want_bits, np_want, fault_bits)
     with pytest.raises(AssertionError, match="cannot see it"):
         cs.sample_err(torch, tok, bits, scores, want_bits, np_want, bits.clone())
-    assert cs.SAMPLE_INT_OPS == 75
+    # the bound's operations an element, read off the probe kernel's SASS:
+    # a rotate, a xor, an add (IADD3 or IMAD), the key's add, the prologue
+    sass = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   ULDC.64 UR4, c[0x0][0x218] ;
+        /*0050*/                   VIADD R2, R0, UR5 ;
+        /*0070*/                   SHF.L.W.U32.HI R2, R2, 0xd, R2 ;
+        /*0090*/                   LOP3.LUT R2, R2, R3, RZ, 0x3c, !PT ;
+        /*00a0*/                   IMAD.IADD R3, R3, 0x1, R2.reuse ;
+        /*0140*/                   IADD3 R3, R2.reuse, UR4, R3 ;
+        /*0150*/              @!P0 SHF.R.U32.HI R2, RZ, 0x9, R2 ;
+        /*0160*/                   IMAD.WIDE.U32 R4, R0, 0x4, R4 ;
+        /*0170*/                   STG.E desc[UR4][R4.64], R2 ;
+        /*0180*/                   EXIT ;
+        /*0190*/                   BRA 0x190;
+"""
+    assert cs.sample_element_ops(sass) == {"alu_only": 3, "issued": 6, "slots": 6}
 
 
 def test_sample_shape_check_needs_every_served_shape_and_split():
@@ -693,15 +710,16 @@ def test_sample_shape_check_needs_every_served_shape_and_split():
             {"sample_shapes": [(1, 128256), (16, 128256)]},
             {"sample_shapes": [(1, 50280), (8, 50280)]}]
     rows = [{"name": "sample", "shape": f"[{B},{V}]", "splits": sample_k.splits_for(B, V)}
-            for B, V in cs.SAMPLE_SHAPES] + [{"name": "rmsnorm", "shape": "[1,50280]"}]
+            for B, V in sample_k.SHAPES] + [{"name": "rmsnorm", "shape": "[1,50280]"}]
     res = cs.check_sample_shapes(rows, runs, sample_k)
     assert res["served_shapes"] == [(1, 50280), (1, 128256), (8, 50280), (8, 128256),
                                     (16, 128256)]
     assert res["splits"] == sorted({r["splits"] for r in rows if r["name"] == "sample"})
-    assert {sample_k.splits_for(*shape) for shape in res["served_shapes"]} == {17, 33, 50, 64}
+    assert {sample_k.splits_for(*shape) for shape in res["served_shapes"]} == {16, 33, 132}
     with pytest.raises(AssertionError, match=r"no row held .*\(16, 128256\)"):
         cs.check_sample_shapes([r for r in rows if r["shape"] != "[16,128256]"], runs, sample_k)
-    wrong = [{**r, "splits": 1} if r["shape"] == "[1,50280]" else r for r in rows]
+    one_slot = sample_k.splits_for(1, 50280)      # every first token's split count
+    wrong = [{**r, "splits": 1} if r.get("splits") == one_slot else r for r in rows]
     with pytest.raises(AssertionError, match="no row ran"):
         cs.check_sample_shapes(wrong, runs, sample_k)
     with pytest.raises(AssertionError, match="no row held"):
@@ -709,7 +727,7 @@ def test_sample_shape_check_needs_every_served_shape_and_split():
     vocab = {"llama3.2-1b": 128256, "mamba2-780m": 50280}
     slots = {kw["batch_slots"] for _, kw in cs.TEMPERATURE_RUNS} | {8}   # and busy_phase's
     served = {(B, vocab["llama3.2-1b"]) for B in slots | {1}} | {(1, 50280), (8, 50280)}
-    assert served <= set(cs.SAMPLE_SHAPES)
+    assert served <= set(sample_k.SHAPES)
     assert ARCHS["llama3.2-1b"].vocab_size == vocab["llama3.2-1b"]
     assert ARCHS["mamba2-780m"].vocab_size == vocab["mamba2-780m"]
 
@@ -745,6 +763,31 @@ def test_temperature_phase_streams_equal_across_k_graph_loop_and_policy(monkeypa
         assert run["sample_shapes"] == [(1, 128), (run["batch_slots"], 128)]
     assert runs["dense_k4"]["decode_calls"] == runs["dense_k1"]["decode_calls"]
     assert runs["dense_policy"]["decode_fusion"].startswith("FusionPolicy(max_fusion=8")
+
+
+def test_served_logits_are_the_ones_the_sampler_is_given(monkeypatch):
+    """The untimed run behind the sampler's served-logits row keeps, through
+    the engine's decode-logits tap, 16 decode steps' logits, each the very
+    tensor the sampler then draws from."""
+    cfg = reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128)
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    given = []
+    plain = sample_k.sample
+
+    def seen(logits, *args, **kwargs):
+        sample_k.launches += 1
+        if logits.shape[0] == 8:
+            given.append(logits.clone())
+        return plain(logits, *args, **kwargs)
+
+    monkeypatch.setattr(sample_k, "sample", seen)
+    with dispatch.use(registry=_counting_registry()):
+        kept = cs.served_logits(torch, model, params, kernels, 0)
+    assert len(kept) == 16 and all(k.shape == (8, 128) and k.dtype == torch.float32
+                                   for k in kept)
+    assert any(all(torch.equal(k, g) for k, g in zip(kept, given[i:])) for i in range(len(given)))
 
 
 def test_loop_runs_give_the_graphed_runs_streams_on_a_small_model():
