@@ -273,6 +273,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``compressed_psum`` through NCCL, ``quantize_int8`` bitwise the CPU's;
    matmul, rmsnorm, flash attention and decode attention each launched in
    the phase; its seconds.
+18. internvl2: internvl2-76b at full width (d_model 8192, d_ff 28672,
+   64/8 heads of 128, vocab 128256, untied), its depth cut 80 -> 8 layers,
+   weights from ``--seed``: the vlm path (256 patch rows drawn on the card
+   over the first rows of 320, 32 greedy decode steps) under cuda-strict
+   against the torch source (logits within MODEL_REL_L2_TOL) and with
+   every kernel held against its plain version, launches counted; 8 text
+   prompts of 5 to 600 tokens at 8 slots as a graph and as the loop,
+   streams equal; every shape it gave a kernel has a kernel-phase row
+   (``internvl2_rows``); decode tokens/s against the weights' bound, TTFT,
+   peak memory, a traced decode step.
+19. examples and the dry run: ``repro_torch.examples.quickstart`` and
+   ``serve_lm`` on the card with their own checks; hw.py's constants
+   against ``torch.cuda.get_device_properties``; five steps the card ran
+   above (llama3.2-1b's graphed decode at 8 slots, its 1024-bucket
+   prefill, its train step at 8 x 1024; yi-9b's and internvl2's decode),
+   counted on meta tensors at a 1x1 mesh by ``python3 chip_smoke.py
+   --dryrun`` on the CPU while the card works: each measured device time
+   at least the roofline's ``step_bound_s`` and each count's parameter
+   (and optimizer-state) bytes equal to the live tensors'; the bound's
+   share and the predicted peak beside ``max_memory_allocated`` printed.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -297,13 +317,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_S = 3.35e12          # H100 SXM device memory
-BF16_TC_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
-TF32_TC_FLOPS = 495e12         # H100 SXM dense tf32 tensor cores
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+from repro_torch.hw import DEFAULT_CHIP as CHIP  # noqa: E402  (the card's constants)
+
+HBM_BYTES_S = CHIP.hbm_bw               # H100 SXM device memory
+BF16_TC_FLOPS = CHIP.peak_bf16_flops    # H100 SXM dense bf16 tensor cores
+TF32_TC_FLOPS = CHIP.peak_tf32_flops    # H100 SXM dense tf32 tensor cores
+F32_FLOPS = CHIP.peak_f32_flops         # H100 SXM f32 outside the tensor cores
 # int32 multiply-adds on the CUDA cores: an SM has 64 INT32 lanes against 128
 # FP32 lanes (NVIDIA's Hopper architecture white paper), so half the f32 rate
-INT32_OPS = F32_FLOPS / 2
+INT32_OPS = CHIP.peak_int32_ops
 # int32 adds, xors and shifts: one a lane a clock, half the multiply-add count
 INT32_LANE_OPS = INT32_OPS / 2
 # the sampler's bound: the operations one element's random bits and uniform
@@ -831,6 +853,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
                                                   BF16_TC_FLOPS)[0]
         rows.append(row)
         print("  " + json.dumps(row))
+
 
     # the bf16 matmul's row invariance first: a row of x gives the same bits
     # in a launch of 1, 3, 8, 16 or 17 rows (the streaming kernel, the tile
@@ -1486,6 +1509,7 @@ def kernel_phase(torch, seed: int) -> tuple[list[dict], dict[str, dict]]:
     print(f"  edge tile row invariance holds: {edge_tile_rows(torch, mm_k, gen, record)}")
     sample_rows(torch, gen, record)
     family_rows(torch, gen, record)
+    internvl2_rows(torch, gen, record)
     width_rows(torch, gen, record)
     return rows, errs
 
@@ -4250,6 +4274,407 @@ def families_phase(torch, kernels, seed: int, card: str, smi: str, *, hymba=None
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: internvl2-76b at full width, its depth cut to fit one card
+# ---------------------------------------------------------------------------
+
+INTERNVL_ARCH = "internvl2-76b"
+#: 8 of its 80 layers: 13.7 GB of layers and 4.2 GB of embedding and
+#: unembedding, where the whole model's 152 GB do not fit one card
+INTERNVL_LAYERS = 8
+#: the vlm path: 256 patch rows drawn on the card in front of 64 text
+#: tokens, prefilled into a cache of the rows and the greedy steps
+INTERNVL_PATCHES, INTERNVL_TEXT, INTERNVL_VLM_STEPS = 256, 64, 32
+#: the engine's 8 text prompts (5 to 600 tokens; buckets 8, 64, 128, 256,
+#: 512 and 1024, first-token fixups at 5, 200, 400 and 600) into 8 slots of
+#: 1024 rows, 32 new tokens each, as a graph and as the eager loop
+INTERNVL_LENGTHS = (5, 64, 128, 200, 256, 400, 512, 600)
+INTERNVL_MAX_LEN, INTERNVL_NEW_TOKENS = 1024, 32
+INTERNVL_RUNS = (("dense", {"batch_slots": 8}),
+                 ("dense_loop", {"batch_slots": 8, "graphed": False}))
+
+
+def dense_launches(cfg, *, prefills: int, decodes: int) -> dict[str, int]:
+    """Each kernel's launches in a dense GQA model's direct calls: 7
+    matmuls and 2 norms a layer, the final norm and an untied unembed a
+    call; flash attention in every layer of a prefill, decode attention in
+    every layer of a decode step."""
+    L, calls = cfg.num_layers, prefills + decodes
+    bf16_unembed, edge_unembed = unembed_launches(cfg)
+    return {"matmul": (7 * L + bf16_unembed) * calls, "rmsnorm": (2 * L + 1) * calls,
+            "flash_attention": L * prefills, "decode_attention": L * decodes,
+            "paged_decode_attention": 0, "ssd": 0, "sample": 0,
+            "matmul_edge": edge_unembed * calls}
+
+
+def vlm_shapes(cfg, rows: int, steps: int) -> set[tuple]:
+    """:func:`served_shapes`' keys of the vlm path: a prefill of ``rows``
+    rows (patches and text) of one sequence, then ``steps`` decode steps of
+    it over a cache of ``rows + steps`` rows."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    keys = {("matmul", M, K, N) for M in (rows, 1) for K, N in weight_kn(cfg)}
+    if not cfg.tie_embeddings:
+        keys.add(("matmul", 1, cfg.d_model, cfg.vocab_size))
+    keys |= {("rmsnorm", R, cfg.d_model) for R in (rows, 1)}
+    keys.add(("flash_attention", rows, rows, hkv, hd))
+    keys.add(("decode_attention", 1, hkv, rows + steps, hd))
+    return keys
+
+
+def internvl2_rows(torch, gen, record, cfg=None) -> None:
+    """The kernels at every shape the internvl2 phase gives them, each
+    against its plain version beside its planted fault, timed beside the
+    library call (``torch.matmul``, SDPA, ``F.rms_norm``) and the bound,
+    keyed by the call's shape (``served_key``): the engine's (prefills at
+    the prompts' buckets, fixups, decode steps of 8 slots over 1024 rows)
+    and the vlm path's (a 320-row prefill, decode steps of one sequence
+    over 352 rows); the SwiGLU gate's silu epilogue beside the plain
+    product at the vlm path's rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import matmul as mm_k
+    from repro_torch.kernels import rmsnorm as rms_k
+
+    cfg = cfg or get_arch(INTERNVL_ARCH)
+    dev = torch.device("cuda")
+    rows_vlm = INTERNVL_PATCHES + INTERNVL_TEXT
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    keys = served_shapes(cfg, INTERNVL_LENGTHS, slots=8, max_len=INTERNVL_MAX_LEN)
+    keys |= vlm_shapes(cfg, rows_vlm, INTERNVL_VLM_STEPS)
+    hq, D = cfg.num_heads, cfg.head_dim
+    for key in sorted(keys, key=str):
+        op = key[0]
+        if op == "matmul":
+            _, M, K, N = key
+            unembed = N == cfg.vocab_size
+            out = torch.float32 if unembed else None
+            sets = [(randn((M, K)), randn((K, N), K ** -0.5))
+                    for _ in range(n_sets(2 * (M * K + K * N)))]
+            x, w = sets[0]
+            acts = (None, "silu") if N == cfg.d_ff and M in (1, rows_vlm) else (None,)
+            for act in acts:
+                kw = {"activation": act, **({"out_dtype": out} if out else {})}
+                check = matmul_err(torch, mm_k.matmul(x, w, **kw), mm_k.plain_matmul(x, w, **kw),
+                                   mm_k.matmul(drop_last_k_tile(x), w, **kw),
+                                   TOL_F32 if out else TOL_BF16)
+                record("matmul", f"[{M},{K}]x[{K},{N}] act={act} out="
+                       f"{'float32' if out else 'bfloat16'}", check, sets if act is None else None,
+                       lambda a, b, kw=kw: mm_k.matmul(a, b, **kw),
+                       lambda a, b, kw=kw: mm_k.plain_matmul(a, b, **kw),
+                       lambda a, b: torch.matmul(a, b),
+                       2 * (M * K + K * N) + (4 if out else 2) * M * N, 2 * M * N * K,
+                       BF16_TC_FLOPS, instance=mm_k.kernel_instance(x, w),
+                       served_key=call_key("matmul", (x, w), kw))
+            del sets, x, w
+        elif op == "rmsnorm":
+            _, R, Dm = key
+            sets = [(randn((R, Dm)), randn((Dm,))) for _ in range(n_sets(4 * R * Dm))]
+            check = max_err(torch, rms_k.rmsnorm(*sets[0]), rms_k.plain_rmsnorm(*sets[0]),
+                            TOL_BF16)
+            record("rmsnorm", f"[{R},{Dm}]", check, sets, rms_k.rmsnorm, rms_k.plain_rmsnorm,
+                   lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
+                   2 * (2 * R * Dm + Dm), 4 * R * Dm, F32_FLOPS,
+                   served_key=call_key("rmsnorm", sets[0], {}))
+            del sets
+        elif op == "flash_attention":
+            _, S, T, hkv, _ = key
+            per_set = 2 * (2 * hq * S * D + 2 * hkv * T * D)
+            sound, dropped = flash_masks(torch, S, T, True, dev)
+            sets = []
+            for _ in range(n_sets(per_set)):
+                q, k, v = randn((1, hq, S, D)), randn((1, hkv, T, D)), randn((1, hkv, T, D))
+                sets.append((q, k, v, k.repeat_interleave(hq // hkv, 1),
+                             v.repeat_interleave(hq // hkv, 1)))
+            q, k, v = sets[0][:3]
+            check = attention_err(torch, fa_k.flash_attention(q, k, v, causal=True),
+                                  fa_k.plain_flash_attention(q, k, v, causal=True),
+                                  masked_attention(torch, q, k, v, sound & ~dropped),
+                                  dropped.sum(dim=-1) == 64)
+            check["splits"] = fa_k.split_kv(1, hq, S, T, True, None, D)
+            record("flash_attention", f"q[1,{hq},{S},{D}] kv[1,{hkv},{T},{D}] causal=True",
+                   check, sets,
+                   lambda q, k, v, ke, ve: fa_k.flash_attention(q, k, v, causal=True),
+                   lambda q, k, v, ke, ve: fa_k.plain_flash_attention(q, k, v, causal=True),
+                   lambda q, k, v, ke, ve: F.scaled_dot_product_attention(q, ke, ve,
+                                                                          is_causal=True),
+                   per_set, 4 * hq * D * int(sound.sum()), BF16_TC_FLOPS,
+                   instance=f"fa_kernel<{fa_k.instance(D)},{fa_k.instance(D)}>",
+                   served_key=call_key("flash_attention", (q, k, v), {"causal": True}))
+            del sets, q, k, v
+        else:                                           # decode attention
+            _, B, hkv, T, _ = key
+            # the engine's step: its prompts a few tokens in; a fixup or the
+            # vlm path: the cache's every row
+            lengths = torch.tensor([min(n + INTERNVL_NEW_TOKENS // 2, T) for n in
+                                    INTERNVL_LENGTHS] if B == 8 else [T] * B,
+                                   dtype=torch.int32, device=dev)
+            valid, dropped = decode_masks(torch, lengths, T)
+            sets = []
+            for _ in range(n_sets(2 * 2 * B * hkv * T * D)):
+                q, kc, vc = randn((B, hq, D)), randn((B, hkv, T, D)), randn((B, hkv, T, D))
+                sets.append((q, kc, vc, q[:, :, None], kc.repeat_interleave(hq // hkv, 1),
+                             vc.repeat_interleave(hq // hkv, 1)))
+            q, kc, vc = sets[0][:3]
+            fault = masked_attention(torch, q[:, :, None], kc, vc,
+                                     (valid & ~dropped)[:, None, None])
+            check = attention_err(torch, dec_k.decode_attention(q, kc, vc, lengths),
+                                  dec_k.plain_decode_attention(q, kc, vc, lengths),
+                                  fault[:, :, 0], dropped.any(dim=-1)[:, None])
+            check["splits"] = dec_k.last_splits
+            n_keys = int(lengths.sum())
+            record("decode_attention", f"q[{B},{hq},{D}] cache[{B},{hkv},{T},{D}] lengths "
+                   f"{int(lengths.min())}..{int(lengths.max())}", check, sets,
+                   lambda q, kc, vc, q4, ke, ve, n=lengths: dec_k.decode_attention(q, kc, vc, n),
+                   lambda q, kc, vc, q4, ke, ve, n=lengths:
+                       dec_k.plain_decode_attention(q, kc, vc, n),
+                   lambda q, kc, vc, q4, ke, ve, m=valid: F.scaled_dot_product_attention(
+                       q4, ke, ve, attn_mask=m[:, None, None, :]),
+                   2 * (2 * B * hq * D + 2 * hkv * n_keys * D), 4 * hq * D * n_keys,
+                   BF16_TC_FLOPS, instance=f"dec_kernel<{D},DenseRows>",
+                   served_key=call_key("decode_attention", (q, kc), {}))
+            del sets, q, kc, vc, fault
+
+
+def vlm_calls(torch, model, params, tokens, patches, greedy):
+    """The vlm path's calls, as a function of no arguments: the prefill of
+    ``tokens`` [1, S] with ``patches`` [1, P, d] over their first rows into
+    a cache of S + len(greedy) rows, then a decode step for each of
+    ``greedy``'s tokens (the cuda-strict run's greedy stream, fed to every
+    source alike); the logits by kind."""
+    S = tokens.shape[1]
+
+    def run():
+        logits, cache = model.prefill(params, {"tokens": tokens, "patch_embeds": patches},
+                                      cache_len=S + len(greedy))
+        out = {"prefill": [logits[0]], "decode": []}
+        for tok in greedy:
+            logits, cache = model.decode_step(params, tok.reshape(1, 1), cache)
+            out["decode"].append(logits[0])
+        return out
+    return run
+
+
+def internvl2_phase(torch, model, params, kernels, seed: int, card: str, smi: str, *,
+                    shape_log: ShapeLog, full_layers: int, lengths=INTERNVL_LENGTHS,
+                    max_len: int = INTERNVL_MAX_LEN, new_tokens: int = INTERNVL_NEW_TOKENS,
+                    patches: int = INTERNVL_PATCHES, text: int = INTERNVL_TEXT,
+                    vlm_steps: int = INTERNVL_VLM_STEPS) -> dict:
+    """internvl2-76b at full width, its depth cut to the model's layers,
+    weights from ``seed``.  The vlm path: ``patches`` patch rows drawn on
+    the device in front of ``text`` tokens, prefilled, then ``vlm_steps``
+    greedy decode steps under cuda-strict; the same calls under the torch
+    source and with every kernel held against its plain version
+    (:func:`family_calls`: logits within MODEL_REL_L2_TOL, launches
+    counted).  The engine (which takes no patches, in either package):
+    the text prompts through INTERNVL_RUNS, streams equal graph and loop.
+    Reports the weights' bytes, peak memory, TTFT and the graph run's
+    decode tokens/s beside the weights' bound (every weight but the
+    embedding table, read once a step, over hw.py's HBM rate)."""
+    from repro_torch.core import dispatch
+
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    S = patches + text
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
+    pe = (torch.randn((1, patches, cfg.d_model), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    print(f"  {cfg.name}: full width (d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"untied); depth cut {full_layers} -> {cfg.num_layers} layers; weights "
+          f"{weight_bytes(params) / 1e9:.2f} GB from --seed")
+    # the vlm path's greedy stream under cuda-strict, then its calls on it
+    with dispatch.use(prefer=dispatch.policy_from_flag("cuda-strict")), torch.no_grad():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens, "patch_embeds": pe},
+                                      cache_len=S + vlm_steps)
+        greedy = [logits.argmax(-1).int()]
+        for _ in range(vlm_steps - 1):
+            logits, cache = model.decode_step(params, greedy[-1].reshape(1, 1), cache)
+            greedy.append(logits.argmax(-1).int())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        vlm_s = time.perf_counter() - t0
+        del cache
+    greedy = torch.cat(greedy)
+    with torch.no_grad():
+        calls = family_calls(torch, model, params, kernels,
+                             vlm_calls(torch, model, params, tokens, pe, greedy),
+                             dense_launches(cfg, prefills=1, decodes=len(greedy)),
+                             shape_log=shape_log)
+    calls["vlm_rows"] = {"patches": patches, "text": text, "greedy_steps": vlm_steps,
+                         "wall_s": vlm_s, "kernel_shapes": sorted(vlm_shapes(cfg, S,
+                                                                             len(greedy)))}
+    prompts = family_prompts(torch, cfg.vocab_size, seed, lengths)
+    runs, streams = {}, {}
+    for name, kw in INTERNVL_RUNS:
+        runs[name], streams[name] = serve_run(torch, model, params, kernels, prompts,
+                                              new_tokens=new_tokens, max_len=max_len, **kw)
+        print("  " + json.dumps({"arch": cfg.name, "run": name, **runs[name]}))
+    differ = [i for i, (a, b) in enumerate(zip(streams["dense_loop"], streams["dense"]))
+              if a != b]
+    if differ:
+        raise AssertionError(f"{cfg.name}: the loop's streams differ from the graph's in "
+                             f"requests {differ}")
+    wbytes = weight_bytes(params)
+    table = params["embed"]["tok"]
+    bound_s = (wbytes - table.numel() * table.element_size()) / HBM_BYTES_S
+    dense = runs["dense"]
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "full_layers": full_layers,
+        "reduced": {"num_layers": [full_layers, cfg.num_layers]},
+        "prompt_lengths": list(lengths), "weights_bytes": wbytes, "weights_gb": wbytes / 1e9,
+        "step_bound_ms": bound_s * 1e3, "decode_tokens_per_s_bound_8_slots": 8 / bound_s,
+        "decode_tokens_per_s": dense["decode_tokens_per_s"],
+        "decode_step_ms": (dense["decode_step_s"] or 0) * 1e3,
+        "bound_share": (dense["decode_tokens_per_s"] or 0) * bound_s / 8,
+        "ttft_mean_s": dense["ttft_mean_s"], "ttft_p99_s": dense["ttft_p99_s"],
+        "peak_memory_bytes": max(r["max_memory_allocated_bytes"] or 0 for r in runs.values()),
+        "streams_equal": f"{len(prompts)} of {len(prompts)} loop equal graph",
+        "vlm_logits_worst_rel_l2": max(max(calls[k]["rel_l2"]) for k in ("prefill", "decode")),
+        "card": card, "nvidia_smi": smi}
+    print(f"  {cfg.name} at {cfg.num_layers} of {full_layers} layers on {card} ({smi}): "
+          f"weights {summary['weights_gb']:.2f} GB; peak device memory "
+          f"{summary['peak_memory_bytes']} bytes; vlm path ({patches} patch rows + {text} "
+          f"tokens, {vlm_steps} greedy steps) logits within {summary['vlm_logits_worst_rel_l2']} "
+          f"of the torch source's; dense graph run: TTFT mean {dense['ttft_mean_s']} s, p99 "
+          f"{dense['ttft_p99_s']} s, decode {dense['decode_tokens_per_s']} tokens/s against "
+          f"the weights' bound of {summary['decode_tokens_per_s_bound_8_slots']} tokens/s at 8 "
+          f"slots ({summary['step_bound_ms']} ms a step); streams {summary['streams_equal']}")
+    busy = None
+    if dev.type == "cuda":
+        print(f"  where a {cfg.name} decode step's time goes (torch.profiler, CUDA activity):")
+        busy = busy_phase(torch, model, params, seed)
+    return {"calls": calls, "runs": runs, "summary": summary, "busy": busy}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the examples and the dry run against the card
+# ---------------------------------------------------------------------------
+
+
+def examples_phase(torch) -> dict:
+    """``repro_torch.examples.quickstart`` and ``serve_lm`` on the card: each
+    holds its own checks (every policy within its tolerance of the oracle,
+    the queued roles' product; fused equals unfused, paged, overcommitted
+    and tiered equal dense, every conv frame equal to the plain conv2d) and
+    raises where one fails."""
+    from repro_torch.examples import quickstart, serve_lm
+
+    t = time.perf_counter()
+    q = quickstart.run("cuda", verbose=False)
+    s = serve_lm.run("cuda", verbose=False)
+    res = {"quickstart": {"max_err": q["max_err"], "tolerance": quickstart.TOL,
+                          "residency": q["residency"]},
+           "serve_lm": {"checks": s["checks"], "frames": s["frames"], "waves": s["waves"],
+                        "preemptions": s["preemptions"], "spills": s["spills"]},
+           "seconds": time.perf_counter() - t}
+    print("  " + json.dumps(res))
+    return res
+
+
+#: the steps the dry-run phase counts on meta tensors at a 1x1 mesh, each
+#: one the card runs in an earlier phase: (arch, depth or None, shape,
+#: microbatches or None for the train phase's)
+DRYRUN_CELLS = {
+    "llama_decode": ("llama3.2-1b", None, ("decode_8x1024", 1024, 8, "decode")),
+    "llama_prefill": ("llama3.2-1b", None, ("prefill_1x1024", 1024, 1, "prefill")),
+    "llama_train": ("llama3.2-1b", None, ("train_8x1024", 1024, 8, "train")),
+    "yi9b_decode": ("yi-9b", None, ("decode_8x1024", 1024, 8, "decode")),
+    "internvl2_decode": (INTERNVL_ARCH, INTERNVL_LAYERS, ("decode_8x1024", 1024, 8, "decode")),
+}
+
+
+def dryrun_records(cells=None) -> dict:
+    """Each of DRYRUN_CELLS counted on meta tensors at a 1x1 mesh under a
+    fake process group of one (``launch.dryrun.count_on_one_rank``): its
+    dry-run record.  The train cell takes the train phase's microbatches
+    (``auto_microbatches``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import count_on_one_rank
+    from repro_torch.train.step import auto_microbatches
+
+    out = {}
+    for name, (arch, layers, shape) in (cells or DRYRUN_CELLS).items():
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        shape = ShapeConfig(*shape)
+        mb = (auto_microbatches(shape.global_batch, shape.seq_len, cfg=cfg)
+              if shape.kind == "train" else 1)
+        out[name] = count_on_one_rank(cfg, shape, microbatches=mb)
+    return out
+
+
+def check_chip_constants(torch) -> dict:
+    """hw.py's constants that the card reports, against
+    ``torch.cuda.get_device_properties(0)``: raises where one differs."""
+    props = torch.cuda.get_device_properties(0)
+    got = {"name": props.name, "hbm_bytes": props.total_memory,
+           "sm_count": props.multi_processor_count,
+           "vmem_bytes": props.shared_memory_per_block_optin,
+           "smem_per_sm_bytes": props.shared_memory_per_multiprocessor}
+    want = {k: getattr(CHIP, k) for k in got}
+    if got != want:
+        raise AssertionError(f"hw.py's constants differ from the card's: hw.py {want}, card {got}")
+    return got
+
+
+def dryrun_phase(torch, records: dict, measured: dict, live: dict, card: str, smi: str) -> dict:
+    """Each counted step against the card: the roofline's ``step_bound_s``
+    (hw.py's H100 constants) must not exceed the measured device time of
+    the same step (a bound above a measured time means the count or a
+    constant is wrong), and the record's parameter (and optimizer-state)
+    bytes must equal the live tensors' the phase built.  Printed, not
+    gated: the bound's share of the measured time, and the predicted peak
+    (arguments and temporaries) beside ``torch.cuda.max_memory_allocated``."""
+    out = {}
+    for name, rec in records.items():
+        m, mem = measured[name], rec["memory"]
+        bound_s = rec["roofline"]["step_bound_s"]
+        counted = mem["param_bytes"] + mem["opt_state_bytes"]
+        row = {"step": name, "bound_s": bound_s, "bottleneck": rec["roofline"]["bottleneck"],
+               "flops": rec["flops_per_device"], "bytes": rec["bytes_per_device"],
+               "measured_s": m["s"], "measured_from": m["from"],
+               "bound_share": bound_s / m["s"], "argument_bytes": mem["argument_bytes"],
+               "param_and_state_bytes": counted, "live_bytes": live[name],
+               "predicted_peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
+               "max_memory_allocated_bytes": m.get("peak"), "meta_run_s": rec["compile_s"]}
+        print("  " + json.dumps(row))
+        if m["s"] < bound_s:
+            raise AssertionError(f"{name}: the roofline's bound {bound_s} s is above the "
+                                 f"measured {m['s']} s on {card} ({smi})")
+        if counted != live[name]:
+            raise AssertionError(f"{name}: the dry run counts {counted} bytes of parameters "
+                                 f"and state, the card holds {live[name]}")
+        out[name] = row
+    return out
+
+
+def busy_measured(res: dict, steps: int, wall_key: str = "untraced_wall_us") -> dict:
+    """A traced step's device time over ``steps``: the span in which some
+    kernel ran (``device_union_us``; kernels overlap under programmatic
+    dependent launch, so their sum counts the overlap twice), else the
+    kernels' sum, or the untraced wall time where the trace held no device
+    events."""
+    peak = res.get("max_memory_allocated_bytes")
+    for key, source in (("device_union_us", "torch.profiler device time, union of kernels"),
+                        ("device_busy_us", "torch.profiler device time, sum of kernels"),
+                        (wall_key, "wall time (no device events traced)")):
+        if res.get(key) is not None:
+            return {"s": res[key] / steps * 1e-6, "from": source, "peak": peak}
+    raise KeyError(f"no device or wall time in {sorted(res)}")
+
+
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 #: steps after the warm-up step
@@ -4420,7 +4845,8 @@ def train_phase(torch, seed: int, card: str, smi: str) -> dict:
         "peak_memory_bytes": peak, "model_flops_per_step": flops,
         "flop_share_of_989_tflops": flops / mean_s / BF16_TC_FLOPS,
         "loss": losses, "grad_norm": [float(m["grad_norm"]) for m in per_step],
-        "lr": [float(m["lr"]) for m in per_step], "kernel_launches": launched}
+        "lr": [float(m["lr"]) for m in per_step], "kernel_launches": launched,
+        "param_bytes": weight_bytes(params), "opt_state_bytes": weight_bytes(state)}
     print("  " + json.dumps(res["train"]))
     print(f"  {cfg.name} training on {card} ({smi}): {mean_s * 1e3:.1f} ms a step, "
           f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB, "
@@ -5621,6 +6047,7 @@ def busy_phase(torch, model, params, seed: int, graphed: bool = True,
         torch.cuda.synchronize()
         untraced_us = (time.perf_counter() - t0) * 1e6
         before = launch_counters()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(TRACE_OPENING_MARKERS):
                 torch.cuda._sleep(0)
@@ -5667,6 +6094,7 @@ def busy_phase(torch, model, params, seed: int, graphed: bool = True,
            "sample_device_us_a_step": smp_us / 4 if events else None,
            "kernel_launches_traced": traced if events else None, "launches_counted": moved,
            "launches_a_step": per_step,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
     print("  " + json.dumps(res))
     return res
@@ -5821,6 +6249,7 @@ def prefill_busy(torch, model, params, seed: int) -> dict:
                 while eng.step() == []:
                     pass
                 continue
+            torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 eng.step()
@@ -5835,10 +6264,12 @@ def prefill_busy(torch, model, params, seed: int) -> dict:
     res = {"prompt": 600, "bucket": None if model.cfg.family == "ssm" else 1024,
            "wall_us": wall_us,
            "device_busy_us": busy_us if events else None,
+           "device_union_us": union_us(device_kernels(prof)) if events else None,
            "bf16_matmul_device_us": mm_us if events else None,
            "ssd_device_us": ssd_us if events else None,
            "ssd_share": ssd_us / busy_us if events else None,
            "device_busy_share": busy_us / wall_us if events else None,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "top_device_us": {e.key[:60]: e.self_device_time_total for e in top}}
     print("  " + json.dumps(res))
     return res
@@ -5963,6 +6394,9 @@ def main() -> int:
     ap.add_argument("--twin", action="store_true",
                     help="print the fault, integrity and prefix phases' schedule counts from "
                          "a run on the CPU with a tiny model (what the card's must equal)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="print the dry-run records of the steps the dryrun phase holds "
+                         "against the card, counted on meta tensors on the CPU")
     args = ap.parse_args()
 
     import torch
@@ -5970,6 +6404,10 @@ def main() -> int:
     if args.twin:
         torch.set_num_threads(2)
         print(json.dumps(schedule_twin(torch, TWIN_PHASES, args.seed)))
+        return 0
+    if args.dryrun:
+        torch.set_num_threads(2)
+        print(json.dumps(dryrun_records()))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU", file=sys.stderr)
@@ -5996,16 +6434,24 @@ def main() -> int:
                              "--seed", str(args.seed)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    # the dry run's counts of the steps the dryrun phase times, on meta
+    # tensors on the CPU, while the card works
+    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     try:
-        return run_phases(args, torch, twin, kernels, t_start, phase_s, lap)
+        return run_phases(args, torch, (twin, dry), kernels, t_start, phase_s, lap)
     finally:
-        if twin.poll() is None:
-            twin.kill()
-            twin.communicate()
+        for proc in (twin, dry):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
-def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
-    """Every phase after the check for a card (see the module docstring)."""
+def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
+    """Every phase after the check for a card (see the module docstring);
+    ``helpers``: the CPU twin's process and the dry run's."""
+    twin, dry = helpers
     from repro_torch.bench import table12_integrity, table13_prefix
     from repro_torch.configs import get_arch
     from repro_torch.kernels import conv2d as conv_k
@@ -6018,7 +6464,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/18] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/20] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6041,7 +6487,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/18] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/20] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -6051,14 +6497,16 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/18] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/20] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
+    # the live bytes of each step the dryrun phase holds its count against
+    live = {"llama_decode": weight_bytes(params), "llama_prefill": weight_bytes(params)}
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/18] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/20] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -6082,7 +6530,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     rows.append(served_row)
     phase_s["serve"] = lap()
 
-    print("[5/18] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/20] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -6090,19 +6538,19 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/18] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/20] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/18] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/20] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/18] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/20] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -6130,7 +6578,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["twin_and_tables"] = lap()
 
-    print(f"[9/18] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[9/20] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -6145,9 +6593,10 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             torch.cuda.empty_cache()
     print(f"  where a {model.cfg.name} decode step's time goes (torch.profiler, CUDA activity):")
     full_res[model.cfg.name]["busy"] = busy_phase(torch, model, params, args.seed)
+    live["yi9b_decode"] = weight_bytes(params)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/18] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[10/20] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -6157,14 +6606,14 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/18] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[11/20] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/18] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[12/20] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -6184,7 +6633,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/18] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[13/20] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -6196,7 +6645,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print(f"[14/18] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+    print(f"[14/20] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
           f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
           f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
           f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
@@ -6218,7 +6667,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
         torch.cuda.empty_cache()
     phase_s["moe"] = lap()
 
-    print(f"[15/18] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
+    print(f"[15/20] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
           f"{HYMBA_MAX_LEN}-row slot on a 1024-row ring) and whisper-large-v3 (32 + 32 layers), "
           f"full width and depth, weights from --seed, one after the other: model calls against "
           f"the torch source, every kernel held against its plain version on the calls' data; "
@@ -6229,7 +6678,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     families_res = families_phase(torch, kernels, args.seed, card, smi)
     phase_s["families"] = lap()
 
-    print(f"[16/18] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
+    print(f"[16/20] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
           f"hand-written kernel has a backward pass), AdamW from pick_opt, remat full, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the first step against f32, a warm-up step and "
           f"{TRAIN_STEPS} timed, greedy streams on the refreshed weights under cuda-strict, "
@@ -6237,7 +6686,7 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     train_res = train_phase(torch, args.seed, card, smi)
     phase_s["train"] = lap()
 
-    print(f"[17/18] dist: {DIST_ARCH} at full width and depth on a one-rank 1x1 (data, model) "
+    print(f"[17/20] dist: {DIST_ARCH} at full width and depth on a one-rank 1x1 (data, model) "
           f"mesh over NCCL, weights from --seed: make_prefill_step and {DIST_DECODE_STEPS} "
           f"make_decode_step steps at {DIST_SLOTS} slots under cuda-strict against the model's "
           f"prefill and decode_step, bit for bit; {DIST_TRAIN_STEPS} make_train_step steps at "
@@ -6246,7 +6695,57 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
     dist_res = dist_phase(torch, kernels, args.seed, card, smi)
     phase_s["dist"] = lap()
 
-    print("[18/18] the kernels' summary")
+    print(f"[18/20] internvl2: {INTERNVL_ARCH} at full width, its depth cut "
+          f"{get_arch(INTERNVL_ARCH).num_layers} -> {INTERNVL_LAYERS} layers, weights from "
+          f"--seed: {INTERNVL_PATCHES} patch rows drawn on the card and {INTERNVL_TEXT} text "
+          f"tokens prefilled, {INTERNVL_VLM_STEPS} greedy decode steps, against the torch "
+          f"source and every kernel against its plain version; then 8 text prompts of "
+          f"{INTERNVL_LENGTHS[0]} to {INTERNVL_LENGTHS[-1]} tokens, {INTERNVL_NEW_TOKENS} new "
+          f"each, 8 slots, as a graph and as the loop, on {card} ({smi})")
+    full = get_arch(INTERNVL_ARCH)
+    t = time.perf_counter()
+    model = build_model(dataclasses.replace(full, num_layers=INTERNVL_LAYERS))
+    params = init_params(model.param_specs(), args.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t
+    intern_shapes = ShapeLog()
+    intern_res = internvl2_phase(torch, model, params, kernels, args.seed, card, smi,
+                                 shape_log=intern_shapes, full_layers=full.num_layers)
+    intern_res["summary"]["init_s"] = init_s
+    intern_res["shape_keys"] = sorted(intern_shapes.keys, key=str)
+    live["internvl2_decode"] = weight_bytes(params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["internvl2"] = lap()
+
+    print(f"[19/20] examples and the dry run, on {card} ({smi}): quickstart and serve_lm on the "
+          f"card with their own checks; hw.py's constants against the card's properties; five "
+          f"steps of the phases above counted on meta tensors at a 1x1 mesh (the dry run's "
+          f"roofline on hw.py's H100 constants) against their measured device time and live "
+          f"bytes")
+    examples_res = examples_phase(torch)
+    constants = check_chip_constants(torch)
+    print(f"  hw.py's constants equal the card's properties: {json.dumps(constants)}")
+    out, err = dry.communicate(timeout=900)
+    if dry.returncode != 0:
+        raise AssertionError(f"the dry run's counts failed: {err[-4000:]}")
+    records = json.loads(out.strip().splitlines()[-1])
+    trace = train_res["train"]["trace"]
+    measured = {
+        "llama_decode": busy_measured(busy_res, busy_res["decode_steps"]),
+        "llama_prefill": busy_measured(prefill_res, 1, "wall_us"),
+        "llama_train": {**busy_measured(trace, trace["calls"], "wall_us"),
+                        "peak": train_res["train"]["peak_memory_bytes"]},
+        "yi9b_decode": busy_measured(full_res["yi-9b"]["busy"], 4),
+        "internvl2_decode": busy_measured(intern_res["busy"], 4)}
+    live["llama_train"] = (train_res["train"]["param_bytes"]
+                           + train_res["train"]["opt_state_bytes"])
+    dryrun_res = dryrun_phase(torch, records, measured, live, card, smi)
+    phase_s["examples_and_dryrun"] = lap()
+
+    print("[20/20] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -6258,11 +6757,13 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
                                                       ("prefix", prefix_res))
                  for n, r in res["runs"].items()},
               **{f"{arch}_{n}": r for arch, res in moe_res.items() for n, r in res["runs"].items()},
-              **{f"hymba_{n}": r for n, r in families_res["hymba-1.5b"]["runs"].items()}}
+              **{f"hymba_{n}": r for n, r in families_res["hymba-1.5b"]["runs"].items()},
+              **{f"internvl2_{n}": r for n, r in intern_res["runs"].items()}}
     runs = {**served, "traffic": {"launches": traffic_res["launches"]},
             **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
                for arch, res in {**full_res, **moe_res}.items()},
             "hymba_calls": {"launches": families_res["hymba-1.5b"]["calls"]["launches"]},
+            "internvl2_calls": {"launches": intern_res["calls"]["launches"]},
             "whisper_calls": {"launches": families_res["whisper-large-v3"]["calls"]["launches"]}}
     # MLA's runs: the <192,128> flash instance and the f32 matmul (decode's wo)
     mla_runs = {run for run in runs if run.startswith("deepseek")}
@@ -6280,6 +6781,13 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
           f"after a 512-row prefix included) was held against the plain version (shapes by "
           f"kernel): {recovery_shapes}")
     family_shapes = check_family_shapes(rows, families_res["shape_keys"])
+    intern_checked = {
+        "engine_and_vlm": check_served_shapes(
+            rows, [*(r for n, r in served.items() if n.startswith("internvl2")),
+                   {"kernel_shapes": intern_res["calls"]["vlm_rows"]["kernel_shapes"]}]),
+        "calls": check_family_shapes(rows, intern_res["shape_keys"])}
+    print(f"  every shape the internvl2 phase's runs and vlm calls gave a kernel was held "
+          f"against the plain version (shapes by kernel): {intern_checked}")
     print(f"  every shape the families phase's calls and runs gave a kernel (hymba's and "
           f"whisper's) was held against the plain version (shapes by kernel): {family_shapes}")
     headline = {"matmul": "[8,2048]x[2048,8192] act=None out=bfloat16",
@@ -6475,6 +6983,9 @@ def run_phases(args, torch, twin, kernels, t_start, phase_s, lap) -> int:
             "graph_against_loop": graph_res, "temperature": temp_res, "traffic": traffic_res,
             "ssm_temperature": ssm_temp_res, "moe": moe_res, "families": families_res,
             "family_shapes": family_shapes, "train": train_res, "dist": dist_res,
+            "internvl2": intern_res, "internvl2_shapes": intern_checked,
+            "examples": examples_res, "chip_constants": constants, "dryrun": dryrun_res,
+            "dryrun_records": records,
             "launch_floor_ms": next(r["ms"] for r in rows if r["name"] == "launch_floor"),
             "summary": summary,
             "total_s": time.perf_counter() - t_start}, indent=1))

@@ -22,4 +22,22 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "get_arch", "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def cell_supported(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is (arch x shape) runnable?  long_500k needs sub-quadratic attention
+    (JAX's rule, and its reason word for word)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{arch.name} is pure full-attention (skip noted in DESIGN.md)"
+        )
+    return True, ""
+
+
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "cell_supported", "get_arch",
+           "get_shape", "reduced"]

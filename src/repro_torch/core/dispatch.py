@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Iterator, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
@@ -117,6 +117,35 @@ def _requires_grad(args: tuple, kwargs: dict) -> bool:
                for a in (*args, *kwargs.values()))
 
 
+#: each op's cost on the card, registered beside the op: ``cost(out,
+#: *args, **kwargs) -> (flops, bytes)``, the work of the hand-written
+#: kernel the op runs under ``cuda-strict`` (its operands' and result's
+#: bytes, its products' FLOPs), which the roofline's counter
+#: (:mod:`repro_torch.roofline.analysis`) reads in place of the source's
+COSTS: dict[str, Callable[..., tuple[float, float]]] = {}
+
+#: the counter watching the ops (``CostCounter.dispatched``), or None
+_observer: Callable[..., Any] | None = None
+
+
+def register_cost(name: str, fn: Callable[..., tuple[float, float]]) -> None:
+    COSTS[name] = fn
+
+
+@contextlib.contextmanager
+def observe(fn: Callable[..., Any]) -> Iterator[None]:
+    """Route every :func:`op` through ``fn(name, impl, args, kwargs)``,
+    which must call ``impl.fn``, for the scope; one observer at a time."""
+    global _observer
+    if _observer is not None:
+        raise RuntimeError("an observer is already watching dispatch.op")
+    _observer = fn
+    try:
+        yield
+    finally:
+        _observer = None
+
+
 def op(name: str, *args: Any, specialization: str | None = None, **kwargs: Any) -> Any:
     """Dispatch a logical op through the active context.  Raises
     ``RuntimeError`` where the resolved source has no backward pass and a
@@ -130,6 +159,8 @@ def op(name: str, *args: Any, specialization: str | None = None, **kwargs: Any) 
             f"argument requires grad; differentiate under the 'torch' policy")
     if ctx.trace is not None:
         ctx.trace.record(name, impl)
+    if _observer is not None:
+        return _observer(name, impl, args, kwargs)
     return impl.fn(*args, **kwargs)
 
 

@@ -33,30 +33,48 @@ import torch
 import torch.distributed as dist
 
 
+#: the roofline's counter (``repro_torch.roofline.analysis.CostCounter``):
+#: ``fn(kind, out, group)`` for every collective issued, None when none runs
+_counter = None
+
+
+def _note(kind: str, out: torch.Tensor, group) -> None:
+    if _counter is not None:
+        _counter(kind, out, group)
+
+
 def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def raw_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` (no autograd): the one
+    all-gather of the port (:func:`gather`, ``Sharding.gather``)."""
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim)
+    out = torch.cat(parts, dim)
+    _note("all-gather", out, group)
+    return out
 
 
 def _mine(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.chunk(dist.get_world_size(group), dim)[dist.get_rank(group)].contiguous()
 
 
-def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def raw_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A copy of ``x`` reduced over ``group`` (no autograd): the one
+    all-reduce of the port (these functions', the gradient sum over the
+    batch, the optimizer's norms and statistics)."""
     x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, op=op, group=group)
+    _note("all-reduce", x, group)
     return x
 
 
 class _ReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group)
+        return raw_reduce(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -71,14 +89,14 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return raw_reduce(g, ctx.group), None
 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        return _all_gather(x, dim, group)
+        return raw_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -93,12 +111,13 @@ class _Split(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.group), None, None
+        return raw_gather(g, ctx.dim, ctx.group), None, None
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
+    _note("all-to-all", out, group)
     return out
 
 
@@ -120,7 +139,7 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over ``group`` (``pmax``; no gradient)."""
-    return x if _size(group) == 1 else _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
+    return x if _size(group) == 1 else raw_reduce(x.detach(), group, dist.ReduceOp.MAX)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -192,7 +211,6 @@ def compressed_psum(x: torch.Tensor, group, *, block: int = 64):
     the group's size."""
     q, scale, shape = quantize_int8(x, block)
     sent = dequantize_int8(q, scale, shape)
-    total = sent.clone()
-    dist.all_reduce(total, group=group)
+    total = raw_reduce(sent, group)
     mean = total / total.new_full((), dist.get_world_size(group))
     return mean.to(x.dtype), (x.float() - sent).to(x.dtype)

@@ -28,7 +28,8 @@ import math
 from typing import Any, Mapping, Sequence
 
 import torch
-import torch.distributed as dist
+
+from repro_torch.dist.collectives import raw_gather
 
 Entry = Any          # None | str | tuple[str, ...]
 
@@ -204,7 +205,5 @@ class Sharding:
         for dim, e in enumerate(self.entries):
             group = self.mesh.group(entry_axes(e)) if e is not None else None
             if group is not None:
-                parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-                dist.all_gather(parts, x.contiguous(), group=group)
-                x = torch.cat(parts, dim)
+                x = raw_gather(x, dim, group)
         return x

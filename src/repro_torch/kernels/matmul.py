@@ -86,6 +86,7 @@ import math
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import native, ref
 
 from repro_torch.core.registry import ResourceFootprint
@@ -160,11 +161,11 @@ STREAM_MAX_M = 16
 
 # plan()'s cost model, fitted to matmul_sweep's timings on an H100 (PERF.md):
 # what one SM takes in from L2 or HBM, one SM's wgmma rate at these blocks,
-# device memory; a split's workspace traffic, its fixed cost, and what the
-# last block of a tile takes in of the other splits' tiles
+# device memory (hw.py's planning rate); a split's workspace traffic, its
+# fixed cost, and what the last block of a tile takes in of the other
+# splits' tiles
 _SM_BYTES_S = 60e9
 _SM_FLOPS_S = 3e12
-_HBM_BYTES_S = 3.0e12
 _SPLIT_BYTES_S = 1e12
 _SPLIT_S = 0.5e-6
 _SM_REDUCE_BYTES_S = 40e9
@@ -199,7 +200,7 @@ def cost(M: int, N: int, K: int, p: Plan) -> float:
     rows, cols = p.block_m, p.block_n
     step = max(2 * BK * (rows + cols) / _SM_BYTES_S, 2 * BK * rows * cols / _SM_FLOPS_S)
     t = max(math.ceil(p.blocks / native.sm_count()) * p.per_split * step,
-            2 * (M * K + K * N + M * N) / _HBM_BYTES_S)
+            2 * (M * K + K * N + M * N) / hw.MATMUL_PLAN_BYTES_S)
     if p.splits > 1:
         t += ((2 * p.splits - 1) * 4 * M * N / _SPLIT_BYTES_S + _SPLIT_S
               + (p.splits - 1) * 4 * rows * cols / _SM_REDUCE_BYTES_S)

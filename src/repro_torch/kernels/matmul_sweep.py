@@ -47,6 +47,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.hw import DEFAULT_CHIP as CHIP
 from repro_torch.kernels import matmul as mm
 
 L2_BYTES = 50 * 2**20
@@ -169,7 +170,7 @@ def sweep_edge(shapes, seed: int = 0) -> list[dict]:
                "tile_us": time_us(lambda a, b: mm.matmul_edge(
                    a, b, kernel=0, splits=mm.groups(N, K)[0], out_dtype=f32), sets),
                "torch_matmul_us": time_us(torch.matmul, sets),
-               "bound_us": 2 * (M * K + K * N + 2 * M * N) / 3.35e12 * 1e6}
+               "bound_us": 2 * (M * K + K * N + 2 * M * N) / CHIP.hbm_bw * 1e6}
         del sets, x, w
         na = -(-N // 8) * 8
         aligned = [((torch.randn((M, K), generator=gen, device=dev)).to(torch.bfloat16),
@@ -215,7 +216,8 @@ def sweep_edge_tiles(shapes, seed: int = 0) -> list[dict]:
                "tiles": {bn: math.ceil(M / mm.EDGE_TILE_BM) * math.ceil(N / bn) for bn in timed},
                "chosen_us": time_us(mm.matmul, sets),
                "torch_matmul_us": time_us(torch.matmul, sets),
-               "bound_us": max(2 * (M * K + K * N + M * N) / 3.35e12, 2 * M * N * K / 989e12)
+               "bound_us": max(2 * (M * K + K * N + M * N) / CHIP.hbm_bw,
+                               2 * M * N * K / CHIP.peak_bf16_flops)
                * 1e6}
         rows.append(row)
         print(f"edge tile [{M},{K}]x[{K},{N}] plan 128x{row['block_n']} s{splits} "

@@ -8,14 +8,23 @@ Importing this module populates ``GLOBAL_REGISTRY`` with three sources per op:
   - ``cuda``: the kernel written by hand for Hopper (the presynthesized role).
 
 Model code never imports these directly; it calls ``dispatch.op(name, ...)``.
+
+Beside each op's sources stands its cost (``register_cost``): the work of
+the hand-written kernel the op runs under ``cuda-strict``, each operand
+read once and the result written once, and the FLOPs of its products, by
+the formula ``chip_smoke.py``'s kernel rows take for their bound.  The
+roofline's counter (:mod:`repro_torch.roofline.analysis`) reads it in place
+of whatever the op's source computes.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from repro_torch.core.dispatch import register_cost
 from repro_torch.core.registry import GLOBAL_REGISTRY as REG
 from repro_torch.core.registry import KernelImpl
 from repro_torch.kernels import conv2d as conv2d_k
@@ -55,6 +64,20 @@ REG.register(KernelImpl(op="matmul", device_kind="any", source="torch", fn=torch
 REG.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda", fn=matmul_k.matmul,
                         footprint=matmul_k.footprint()))
 
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def matmul_cost(out, x, w, **_):
+    """[M,K] x [K,N]: 2MNK FLOPs; x, w and the output's bytes."""
+    K, N = w.shape
+    M = x.numel() // K
+    return 2 * M * N * K, nbytes(x) + nbytes(w) + nbytes(out)
+
+
+register_cost("matmul", matmul_cost)
+
 # --------------------------------------------------------------------------
 # rmsnorm
 # --------------------------------------------------------------------------
@@ -62,6 +85,14 @@ REG.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda", fn=matmu
 REG.register(KernelImpl(op="rmsnorm", device_kind="any", source="reference", fn=ref.rmsnorm))
 REG.register(KernelImpl(op="rmsnorm", device_kind="any", source="torch", fn=ref.rmsnorm))
 REG.register(KernelImpl(op="rmsnorm", device_kind="cuda", source="cuda", fn=rmsnorm_k.rmsnorm))
+
+
+def rmsnorm_cost(out, x, weight, **_):
+    """4 FLOPs an element (square, sum, scale, weight); x, w, out."""
+    return 4 * x.numel(), nbytes(x) + nbytes(weight) + nbytes(out)
+
+
+register_cost("rmsnorm", rmsnorm_cost)
 
 # --------------------------------------------------------------------------
 # flash attention
@@ -107,6 +138,28 @@ REG.register(KernelImpl(op="flash_attention", device_kind="any", source="torch",
 REG.register(KernelImpl(op="flash_attention", device_kind="cuda", source="cuda",
                         fn=fa_k.flash_attention))
 
+
+def attended_pairs(S: int, T: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs the mask keeps: query i sits at position
+    i + T - S (a chunk's queries are the last S of T), causal keeps keys at
+    or before it, a window the last ``window`` of those."""
+    pos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(pos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(out, q, k, v, *, causal: bool = True, window: int | None = None, **_):
+    """2·(Dqk + Dv) FLOPs a query head a kept pair (q·k and p·v); q, k, v
+    and the output's bytes, never the S x T scores."""
+    B, Hq, S, Dqk = q.shape
+    T, Dv = k.shape[2], v.shape[3]
+    flops = 2 * B * Hq * (Dqk + Dv) * attended_pairs(S, T, causal, window)
+    return flops, nbytes(q) + nbytes(k) + nbytes(v) + nbytes(out)
+
+
+register_cost("flash_attention", flash_attention_cost)
+
 # --------------------------------------------------------------------------
 # decode attention (single-token query over a padded KV cache)
 # --------------------------------------------------------------------------
@@ -139,6 +192,31 @@ REG.register(KernelImpl(op="decode_attention", device_kind="any", source="torch"
 REG.register(KernelImpl(op="decode_attention", device_kind="cuda", source="cuda",
                         fn=dec_k.decode_attention))
 
+
+def attended_keys(length, batch: int, T: int) -> int:
+    """Keys a decode step reads over the batch: each sequence's length
+    (clipped to the cache's T) where the lengths are data, all T on meta
+    tensors (the dry run's, whose lengths no one knows)."""
+    if isinstance(length, torch.Tensor):
+        if length.device.type == "meta":
+            return batch * T
+        return int(torch.clamp(length.expand(batch) if length.dim() == 0 else length,
+                               max=T).sum())
+    return batch * min(int(length), T)
+
+
+def decode_attention_cost(out, q, k_cache, v_cache, length, **_):
+    """4·D FLOPs a query head a key read; q, the output, and the k and v
+    rows each sequence attends over."""
+    B, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    n = attended_keys(length, B, T)
+    return (4 * Hq * D * n, nbytes(q) + nbytes(out)
+            + n * Hkv * (k_cache.shape[3] + v_cache.shape[3]) * k_cache.element_size())
+
+
+register_cost("decode_attention", decode_attention_cost)
+
 # --------------------------------------------------------------------------
 # paged decode attention (block-table KV gather)
 # --------------------------------------------------------------------------
@@ -161,6 +239,19 @@ REG.register(KernelImpl(op="paged_decode_attention", device_kind="any", source="
                         fn=torch_paged_decode_attention))
 REG.register(KernelImpl(op="paged_decode_attention", device_kind="cuda", source="cuda",
                         fn=paged_k.paged_decode_attention))
+
+
+def paged_decode_attention_cost(out, q, k_pages, v_pages, block_table, length, **_):
+    """The dense kernel's work over the rows the table maps, and the table
+    and the lengths (int32)."""
+    B, Hq, D = q.shape
+    Hkv, ps = k_pages.shape[1], k_pages.shape[2]
+    n = attended_keys(length, B, block_table.shape[1] * ps)
+    return (4 * Hq * D * n, nbytes(q) + nbytes(out) + nbytes(block_table) + 4 * B
+            + n * Hkv * (k_pages.shape[3] + v_pages.shape[3]) * k_pages.element_size())
+
+
+register_cost("paged_decode_attention", paged_decode_attention_cost)
 
 # --------------------------------------------------------------------------
 # ssd (Mamba-2 state-space duality)
@@ -200,6 +291,21 @@ REG.register(KernelImpl(op="ssd", device_kind="any", source="reference", fn=ref.
 REG.register(KernelImpl(op="ssd", device_kind="any", source="torch", fn=torch_ssd))
 REG.register(KernelImpl(op="ssd", device_kind="cuda", source="cuda", fn=ssd_k.ssd))
 
+
+def ssd_cost(out, x, a_log, b, c, dt, **_):
+    """x, b, c, dt and a_log read once, y and the f32 state [B,H,P,N]
+    written once; 2q²N (C·Bᵀ) + 2q²P (its product with dt·x) + 4qNP (C·hᵀ
+    and the carry) a head a chunk of q = 16 rows."""
+    B, S, H, P = x.shape
+    N, q = b.shape[-1], 16
+    y = out[0] if isinstance(out, tuple) else out
+    flops = B * H * -(-S // q) * (2 * q * q * N + 2 * q * q * P + 4 * q * N * P)
+    return flops, (nbytes(x) + nbytes(b) + nbytes(c) + nbytes(dt) + nbytes(a_log) + nbytes(y)
+                   + B * H * P * N * 4)
+
+
+register_cost("ssd", ssd_cost)
+
 # --------------------------------------------------------------------------
 # conv2d (paper Table I roles 3 and 4)
 # --------------------------------------------------------------------------
@@ -208,3 +314,13 @@ REG.register(KernelImpl(op="conv2d", device_kind="any", source="reference", fn=r
 REG.register(KernelImpl(op="conv2d", device_kind="any", source="torch", fn=ref.conv2d))
 REG.register(KernelImpl(op="conv2d", device_kind="cuda", source="cuda", fn=conv2d_k.conv2d,
                         footprint=conv2d_k.footprint()))
+
+
+def conv2d_cost(out, x, w, **_):
+    """A multiply and an add a tap, channel and filter of every output
+    pixel; x, w and the output."""
+    kh, kw, cin, F = w.shape
+    return 2 * out.numel() * kh * kw * cin, nbytes(x) + nbytes(w) + nbytes(out)
+
+
+register_cost("conv2d", conv2d_cost)

@@ -140,10 +140,12 @@ def write_latent(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> N
     """Write one token's latent rows [B, r] into cache [B, T, r] at ``pos``
     (scalar, or [B] per-sequence positions) in place, where JAX rebuilt the
     cache; at ``pos % T``, as the dense cache's write, so a slot frozen past
-    the end writes its own rows."""
+    the end writes its own rows.  A scalar slot is an index on the device
+    (indexing with a 0-d tensor would read it back to the host, a sync a
+    layer), as :func:`repro_torch.models.layers.write_kv`'s."""
     slot = (pos % cache.shape[1]).long()
     if slot.dim() == 0:
-        cache[:, slot] = new.to(cache.dtype)
+        cache.index_copy_(1, slot.reshape(1), new[:, None].to(cache.dtype))
     else:
         cache[torch.arange(cache.shape[0], device=cache.device), slot] = new.to(cache.dtype)
 
@@ -172,6 +174,20 @@ def mla_decode(p: Params, x: torch.Tensor, cache_ckv: torch.Tensor,
     return y[:, None, :].to(x.dtype)
 
 
+def mla_decode_attention_cost(out, q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, length, **_):
+    """The absorbed decode's products (W_UK into the query, the latent and
+    rotary logits, the context, W_UV out) over every cached row, and each
+    operand read once and the output written once: no kernel runs it on
+    the card (the ``torch`` source does, under ``cuda``), so this is the
+    least work the function takes."""
+    B, H, nope = q_nope.shape
+    T, r = c_kv.shape[1], c_kv.shape[2]
+    rope, v = k_rope.shape[2], w_uv.shape[2]
+    flops = 2 * B * H * (nope * r + T * (r + rope) + T * r + r * v)
+    operands = (q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, out)
+    return flops, sum(t.numel() * t.element_size() for t in operands)
+
+
 # the absorbed decode as a dispatchable op: the torch eager source and the
 # oracle are the same function (JAX registers it as reference and xla)
 for _src in ("reference", "torch"):
@@ -180,3 +196,4 @@ for _src in ("reference", "torch"):
                    fn=mla_decode_attention),
         allow_override=True,
     )
+dispatch.register_cost("mla_decode_attention", mla_decode_attention_cost)

@@ -175,6 +175,28 @@ def trainable(params: Any) -> Any:
     return params
 
 
+def count_params(tree: Any) -> int:
+    """The elements of every spec in ``tree``."""
+    return sum(math.prod(s.shape) for s in tree_leaves(tree) if is_spec(s))
+
+
+def bytes_params(tree: Any) -> int:
+    """The bytes of every spec in ``tree`` at its dtype."""
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in tree_leaves(tree) if is_spec(s))
+
+
+def abstract_params(tree: Any, shardings: Any = None) -> Any:
+    """``meta`` tensors of each spec's shape and dtype: the dry run's
+    parameters, which allocate nothing.  With ``shardings`` (a tree of each
+    leaf's :class:`~repro_torch.dist.sharding.Sharding`), each is the
+    rank's slice (``Sharding.local_shape``)."""
+    if shardings is None:
+        return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+    locals_ = [torch.empty(sh.local_shape(s.shape), dtype=s.dtype, device="meta")
+               for s, sh in zip(tree_leaves(tree), tree_flatten_as(tree, shardings))]
+    return tree_unflatten(tree, locals_)
+
+
 def init_params(specs: Any, seed: int = 0, *, device: "str | torch.device" = "cuda") -> Any:
     """Concrete parameters for a spec tree, drawn in leaf order from one
     generator seeded with ``seed`` on ``device``."""

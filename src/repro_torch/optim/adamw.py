@@ -36,6 +36,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.collectives import raw_reduce
 from repro_torch.dist.sharding import P, entry_axes
 from repro_torch.models.params import (
     is_spec,
@@ -91,9 +92,7 @@ def _mean_over(x: torch.Tensor, group) -> torch.Tensor:
     outside one)."""
     if group is None:
         return x
-    x = x.clone()
-    dist.all_reduce(x, group=group)
-    return x / dist.get_world_size(group)
+    return raw_reduce(x, group) / dist.get_world_size(group)
 
 
 def global_norm(tree: Params, shardings: Params = None) -> torch.Tensor:
@@ -104,7 +103,7 @@ def global_norm(tree: Params, shardings: Params = None) -> torch.Tensor:
         for i, sh in enumerate(tree_flatten_as(tree, shardings)):
             group = _group(sh)
             if group is not None:
-                dist.all_reduce(sums[i], group=group)
+                sums[i] = raw_reduce(sums[i], group)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 

@@ -158,7 +158,7 @@ from repro_torch.dist import act, collectives
 from repro_torch.dist.sharding import P, Sharding, ShardingRules
 from repro_torch.kernels import sample as sample_k
 from repro_torch.models.model import TIME_KEYS
-from repro_torch.models.params import resolve_device
+from repro_torch.models.params import ParamSpec, resolve_device
 from repro_torch.serve import graph as graph_mod
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
@@ -212,8 +212,9 @@ def cache_shardings(cfg, rules: ShardingRules, cache_tree: dict, global_batch: i
 
 
 def _global_cache_shapes(cfg, cache: dict, global_batch: int) -> dict:
-    """A sharded prefill's cache leaves' global shapes: the batch whole, and
-    the k/v heads all of them (attention may hold this rank's)."""
+    """A sharded prefill's cache leaves' global shapes, as specs (no tensor
+    is made): the batch whole, and the k/v heads all of them (attention may
+    hold this rank's)."""
     out = {}
     for key, t in cache.items():
         shape = list(t.shape)
@@ -221,7 +222,7 @@ def _global_cache_shapes(cfg, cache: dict, global_batch: int) -> dict:
             shape[1] = global_batch
         if key in ("k", "v", "mem_k", "mem_v"):
             shape[2] = cfg.num_kv_heads
-        out[key] = torch.empty(shape, device="meta")
+        out[key] = ParamSpec(tuple(shape), dtype=t.dtype)
     return out
 
 

@@ -27,11 +27,10 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dispatch
-from repro_torch.dist import act
+from repro_torch.dist import act, collectives
 from repro_torch.dist.sharding import P, Sharding, ShardingRules, entry_axes
 from repro_torch.models.moe import MoeMeshInfo
 from repro_torch.models.params import (
@@ -150,8 +149,7 @@ def _sum_over_batch(grads: Params, shardings: Params, mesh: Any,
         used = {a for e in sh.entries for a in entry_axes(e)}
         group = mesh.group(tuple(a for a in batch_axes if a not in used))
         if group is not None:
-            g = g.clone()
-            dist.all_reduce(g, group=group)
+            g = collectives.raw_reduce(g, group)
         out.append(g)
     return tree_unflatten(grads, out)
 

@@ -47,6 +47,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.dist.act\n"
         "import repro_torch.dist.collectives, repro_torch.launch.mesh\n"
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.hw, repro_torch.roofline, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.extrapolate, repro_torch.roofline.report\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.multi_tenant\n"
+        "import repro_torch.examples.reconfig_demo, repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )

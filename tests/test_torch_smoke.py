@@ -1244,3 +1244,98 @@ def test_families_phase_serves_hymba_and_runs_whisper_on_small_models(monkeypatc
     with pytest.raises(AssertionError, match="no row held"):
         cs.check_family_shapes(rows[1:], res["shape_keys"])
     assert cs.hybrid_launches(ARCHS["hymba-1.5b"], prefills=1, decodes=0)["matmul_edge"] == 33
+
+
+def _served_key(key: tuple) -> tuple:
+    """A logged call's key (``call_key``) as ``served_shapes`` writes it."""
+    op = key[0]
+    if op == "matmul":
+        return key[:4]
+    if op == "rmsnorm":
+        return key[:3]
+    if op == "flash_attention":          # B, Hq, S, D, Hkv, T, Dv, causal, window
+        return (op, key[3], key[6], key[5], key[4])
+    return (op, key[1], key[4], key[5], key[3])          # decode: B, Hkv, T, D
+
+
+def test_internvl2_phase_serves_and_runs_the_vlm_path_on_a_small_model(monkeypatch):
+    """The internvl2 phase on reduced internvl2-76b (2 layers, untied): the
+    vlm path's 8 patch rows over the first of 16, 5 greedy steps, against
+    the torch source with its launch counts and every kernel held against
+    its plain version; the text prompts as graph and loop arms, streams
+    equal; the shapes it gives the kernels are ``vlm_shapes``' and
+    ``served_shapes``' (what ``internvl2_rows`` holds on the card)."""
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    _counted_sample(monkeypatch)
+    cfg = reduced(ARCHS["internvl2-76b"], layers=2, d_model=64, vocab=136)
+    assert not cfg.tie_embeddings and cfg.frontend == "vision_patches"
+    model = build_model(cfg, device="cpu")
+    params = init_params(model.param_specs(), 0, device="cpu")
+    log = cs.ShapeLog()
+    lengths = (3, 8, 10, 16, 20, 30, 33, 40)
+    with dispatch.use(registry=_counting_registry(with_others=True)):
+        res = cs.internvl2_phase(torch, model, params, kernels, 0, "cpu", "no card",
+                                 shape_log=log, full_layers=80, lengths=lengths, max_len=64,
+                                 new_tokens=6, patches=8, text=8, vlm_steps=5)
+    calls, summary = res["calls"], res["summary"]
+    assert calls["launches"] == cs.dense_launches(cfg, prefills=1, decodes=5)
+    assert calls["kernels_held_against_plain"]["flash_attention"] > 0
+    assert max(calls["prefill"]["rel_l2"] + calls["decode"]["rel_l2"]) <= cs.MODEL_REL_L2_TOL
+    assert {_served_key(k) for k in log.keys} == cs.vlm_shapes(cfg, 16, 5)
+    assert {tuple(k) for k in calls["vlm_rows"]["kernel_shapes"]} == cs.vlm_shapes(cfg, 16, 5)
+    assert list(res["runs"]) == ["dense", "dense_loop"]
+    for run in res["runs"].values():
+        assert run["requests"] == 8 and run["new_tokens_each"] == 6
+        assert {tuple(k) for k in run["kernel_shapes"]} == cs.served_shapes(
+            cfg, lengths, slots=8, max_len=64)
+    assert summary["streams_equal"] == "8 of 8 loop equal graph"
+    assert summary["reduced"] == {"num_layers": [80, 2]}
+
+
+def test_internvl2_rows_cover_every_served_shape_at_full_width():
+    """The keys ``internvl2_rows`` makes rows for, at internvl2-76b's full
+    width: the engine's and the vlm path's, with the matmul rows the issue
+    names (d_model 8192 against 8192, 1024, 28672; 28672 against 8192; the
+    unembed against 128256), attention at D = 128 in groups of 8, rmsnorm
+    at 8192."""
+    cfg = ARCHS["internvl2-76b"]
+    keys = cs.served_shapes(cfg, cs.INTERNVL_LENGTHS, slots=8, max_len=cs.INTERNVL_MAX_LEN)
+    keys |= cs.vlm_shapes(cfg, cs.INTERNVL_PATCHES + cs.INTERNVL_TEXT, cs.INTERNVL_VLM_STEPS)
+    kn = {(k[2], k[3]) for k in keys if k[0] == "matmul"}
+    assert kn == {(8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192), (8192, 128256)}
+    assert {k[1] for k in keys if k[0] == "matmul"} == {1, 8, 64, 128, 256, 320, 512, 1024}
+    assert {(k[3], k[4]) for k in keys if k[0] == "flash_attention"} == {(8, 128)}
+    assert {k[4] for k in keys if k[0] == "decode_attention"} == {128}
+    assert {k[2] for k in keys if k[0] == "rmsnorm"} == {8192}
+    assert ("decode_attention", 8, 8, 1024, 128) in keys
+    assert ("decode_attention", 1, 8, 352, 128) in keys
+
+
+def test_dryrun_phase_holds_the_bound_and_the_live_bytes():
+    """The dryrun phase's gates on one step counted here (llama3.2-1b at
+    full width, one layer, a decode step of 2 slots over 64 rows): a
+    measured time at the bound and the live bytes equal pass; a time below
+    the bound, or other live bytes, raise."""
+    recs = cs.dryrun_records({"step": ("llama3.2-1b", 1, ("d", 64, 2, "decode"))})
+    rec = recs["step"]
+    assert rec["status"] == "ok" and rec["memory"]["opt_state_bytes"] == 0
+    model = build_model(__import__("dataclasses").replace(ARCHS["llama3.2-1b"], num_layers=1),
+                        device="cpu")
+    live = cs.weight_bytes(init_params(model.param_specs(), 0, device="cpu"))
+    assert rec["memory"]["param_bytes"] == live
+    bound = rec["roofline"]["step_bound_s"]
+    ok = cs.dryrun_phase(torch, recs, {"step": {"s": bound, "from": "test"}}, {"step": live},
+                         "cpu", "no card")
+    assert ok["step"]["bound_share"] == 1.0
+    with pytest.raises(AssertionError, match="above the measured"):
+        cs.dryrun_phase(torch, recs, {"step": {"s": bound * 0.99, "from": "test"}},
+                        {"step": live}, "cpu", "no card")
+    with pytest.raises(AssertionError, match="the card holds"):
+        cs.dryrun_phase(torch, recs, {"step": {"s": bound, "from": "test"}},
+                        {"step": live + 2}, "cpu", "no card")
+    assert cs.busy_measured({"device_busy_us": 4000.0, "device_union_us": 3600.0,
+                             "untraced_wall_us": 9000.0}, 4)["s"] == pytest.approx(0.9e-3)
+    assert cs.busy_measured({"device_busy_us": 4000.0, "untraced_wall_us": 9000.0}, 4)["s"] \
+        == pytest.approx(1e-3)
+    assert cs.busy_measured({"device_busy_us": None, "untraced_wall_us": 8000.0}, 4)["s"] \
+        == pytest.approx(2e-3)
