@@ -158,9 +158,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    The counts of phases 6-8 (model calls, faults, corruptions, detections,
    prefix hits, CoW copies) must equal a run of the same phases on the
    card's host CPU with a tiny llama at the same lengths (``--twin``,
-   started beside the card's phases).  Then Table XII's region arm and
-   Table XIII's trace arm on the host, against the JAX package's rows.
-9. full depth: yi-6b (32 layers), granite-3-8b (40) and yi-9b (48) in
+   started beside the card's phases).
+9. bench: the paper's tables (``repro_torch.bench``) on the card, but
+   Table IX (phase 14 runs it), through the harness's calls at its
+   ``--fast`` n: Tables I-V's paper roles on their hand-written kernels
+   (Table II's setup, reconfiguration and dispatch rows, Table III's exec
+   against ``h100_target_us``, Tables IV-V's schedules on the costs
+   measured here), and the serve arms of Tables VI-VIII and X-XIII on the
+   llama3.2-1b above at the JAX scripts' slots, pages and lengths (those
+   of VII, VIII, XI and XIII with every kernel call held against its plain
+   version on the call's data; the other tables, which time themselves or
+   run long, with the first call at each shape not yet held kept and held
+   after the table).  Every ``EXPECTED`` row must equal the
+   JAX package's to the digit and every row the JAX trajectory guard
+   asserts must read 1; the kernels' counts from 0, each of the path's
+   launched.
+10. full depth: yi-6b (32 layers), granite-3-8b (40) and yi-9b (48) in
    turn, each from ``--seed`` and freed before the next: 8 prompts'
    bucketed prefills (8 .. 512), their first-token fixups, a batched
    decode over the dense cache and over a page pool (bitwise equal), and a
@@ -173,7 +186,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    dense and chunked at K = 4, streams equal 16 of 16; the weights' bytes,
    peak memory, TTFT and the dense graph run's decode tokens/s beside the
    weights' bound, and the card's name and power limit.
-10. overcommit, yi-9b at 48 layers: the 16 requests at 128 new tokens
+11. overcommit, yi-9b at 48 layers: the 16 requests at 128 new tokens
    through a paged engine of 8 slots over 97 pages: full reserve;
    overcommitted (``growth_reserve`` 0.5), preempting and resuming both by
    snapshot and by re-prefill; a host budget of one snapshot with two
@@ -185,28 +198,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    (refills copied up on a side stream ahead of need, and how long the
    serving stream waited on them).  Then Table VIII's and XI's trace
    arms (``repro_torch.bench``), whose rows must equal the JAX package's.
-11. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
+12. model, mamba2-780m: prefill logits and SSD state under ``cuda-strict``
    against the ``torch`` source for prompts of 5, 37 and 600 tokens (at
    their own length: an SSM prompt is not bucketed), then three decode
    steps of the three as a batch.
-12. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
+13. serve, mamba2-780m (the ``ssm`` run): the 16 prompt lengths, 8 slots,
    32 new tokens each, launches checked as in 4 (48 ssd a prefill, none a
    decode step, no fixups); then its busy share over four decode steps,
    and one 600-token prompt's prefill into an idle engine by kernel (the
    ssd kernel's part); graph against loop as for llama; and T = 0.7 at K 4,
    graph equal to loop.
-13. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
+14. traffic, llama3.2-1b again, from ``--seed`` (Table IX's trace arm,
    ``repro_torch.bench.table9_traffic``): the poisson, bursty and
    longtail traces through a 6-slot engine at K 4, chunked (16-row
    chunks) and whole, on a virtual
    clock: every row (TTFT and TPOT p50/p99, makespan, throughput,
-   requests) must equal the JAX package's, and every chunked stream its
-   whole stream; a tapered ``ChunkPolicy`` (16 to 64 rows) on the bursty
-   trace, streams equal to whole; then the bursty trace on the wall clock,
+   requests) must equal the JAX package's, every chunked stream its
+   whole stream, and ``chunked_wins`` (the bursty trace's p99 TTFT at least
+   halved at 0.9 of the throughput or better) must read 1; a tapered
+   ``ChunkPolicy`` (16 to 64 rows) on the bursty trace, streams equal to
+   whole; then the bursty trace on the wall clock,
    chunked and whole in turns, its TTFT, TPOT and tokens/s printed,
    and where its wall time went (steps that prefilled, steps that only
    decoded).
-14. moe: llama4-maverick (d_model 5120, 40/8 heads of 128, 128 experts
+15. moe: llama4-maverick (d_model 5120, 40/8 heads of 128, 128 experts
    top-1 of d_ff 8192 and a shared one, vocab 202048) at 2 of 48 layers
    (one (moe, dense) unit, 37 GB) under ``cuda-strict``, then deepseek-v3
    (d_model 7168, 128 MLA heads, ranks 1536/512, 3 dense layers of d_ff
@@ -223,7 +238,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    K 1 and 4: streams equal 8 of 8, launches checked against the calls; the
    depth cut, weights' bytes, peak memory, TTFT and decode tokens/s beside
    the weights' bound.
-15. families: hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64 under
+16. families: hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64 under
    a 1024-token window beside 50 Mamba-2 heads of 64 with state 16, vocab
    32001) and whisper-large-v3 (32 encoder and 32 decoder layers, d_model
    1280, 20 heads of 64, vocab 51866) at full width and depth, each from
@@ -245,7 +260,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes beside planted faults, and the inputs only the wrappers route
    (widths off a multiple of 16, values past 128, queries and keys to 256,
    query groups past 16, rmsnorm in fp8, conv2d's input in slabs).
-16. train: llama3.2-1b (16 layers, d_model 2048, vocab 128256, tied) at full
+17. train: llama3.2-1b (16 layers, d_model 2048, vocab 128256, tied) at full
    width and depth, weights from ``--seed``, under the ``torch`` policy (no
    hand-written kernel has a backward pass; ``dispatch.op`` refuses one
    where a gradient flows), AdamW from ``pick_opt`` with a 2-step warm-up,
@@ -262,7 +277,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tok_f32`` caught; then 2 of 16 layers trained 4 steps unbroken and 2 +
    2 across a checkpoint and a resume, parameters and optimizer state bit
    for bit.
-17. dist: llama3.2-1b at full width and depth on a one-rank 1x1 ("data",
+18. dist: llama3.2-1b at full width and depth on a one-rank 1x1 ("data",
    "model") mesh over NCCL: ``make_prefill_step`` (8 prompts of 128 tokens)
    and 16 ``make_decode_step`` steps under cuda-strict, every logit bit for
    bit ``DecoderLM.prefill``'s and ``decode_step``'s and the greedy tokens
@@ -273,7 +288,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``compressed_psum`` through NCCL, ``quantize_int8`` bitwise the CPU's;
    matmul, rmsnorm, flash attention and decode attention each launched in
    the phase; its seconds.
-18. internvl2: internvl2-76b at full width (d_model 8192, d_ff 28672,
+19. internvl2: internvl2-76b at full width (d_model 8192, d_ff 28672,
    64/8 heads of 128, vocab 128256, untied), its depth cut 80 -> 8 layers,
    weights from ``--seed``: the vlm path (256 patch rows drawn on the card
    over the first rows of 320, 32 greedy decode steps) under cuda-strict
@@ -283,7 +298,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    streams equal; every shape it gave a kernel has a kernel-phase row
    (``internvl2_rows``); decode tokens/s against the weights' bound, TTFT,
    peak memory, a traced decode step.
-19. examples and the dry run: ``repro_torch.examples.quickstart`` and
+20. examples and the dry run: ``repro_torch.examples.quickstart`` and
    ``serve_lm`` on the card with their own checks; hw.py's constants
    against ``torch.cuda.get_device_properties``; five steps the card ran
    above (llama3.2-1b's graphed decode at 8 slots, its 1024-bucket
@@ -3364,11 +3379,11 @@ def overcommit_phase(torch, model, params, kernels, seed: int, card: str, smi: s
 
 #: every stream gate's two samplings: greedy (K = 1), and T = 0.7 (seed 3) at K = 4
 GATE_SAMPLINGS = (("greedy", {}), ("t0.7", {"temperature": 0.7, "seed": 3, "decode_fusion": 4}))
-#: the faults phase's scheduler: benchmarks/table10_faults.py's virtual cost
-#: model (a launch 1 ms, a region load 5 ms) and its plan at the rate 0.05
-#: (80 % exec faults, 20 % wedges, seed 7), with its "engine" policy
-FAULT_EXEC_S, FAULT_RECONFIG_S = 1e-3, 5e-3
-TABLE10_PLAN = {"seed": 7, "exec_rate": 0.04, "wedge_rate": 0.01}
+#: the faults phase's scheduler runs Table X's virtual cost model (a launch
+#: 1 ms, a region load 5 ms) and, in its "table10" arm, Table X's plan at
+#: this rate (80 % exec faults, 20 % wedges, seed 7) with the "engine"
+#: policy (``repro_torch.bench.table10_faults``)
+TABLE10_RATE = 0.05
 #: the faults phase's arms: (name, forced exec fault's packet name or None,
 #: permanent, the engine's RetryPolicy keywords, the scheduler's, chunked)
 FAULT_ARMS = (
@@ -3465,8 +3480,17 @@ class KernelChecks:
     within the kernel phase's tolerances (the bf16 matmul 2e-2, f32 out
     1e-3, f32 in 2e-4; rmsnorm 2e-2; attention rows 1e-2 relative L2; ssd
     rows 1e-2 and its state 1e-3 relative L2): a model call under it holds
-    every kernel at every shape, on the data, the call gives it.  The worst
-    error at each (op, shape) is kept."""
+    every kernel at every shape, on the data, the call gives it.  A call
+    inside a CUDA graph's capture is not checked (it cannot synchronise);
+    the engine runs each captured step eagerly first, and that call is.
+    The worst error at each (op, shape) is kept.
+
+    A ``deferred`` registry checks nothing while it runs, so that an arm
+    that times itself is timed as it runs without the checks: the first
+    call at each (op, shape) not yet held keeps a copy of its inputs and
+    output, and :meth:`settle` holds those against the plain version
+    afterwards.  Every shape such an arm gives a kernel is held so, on
+    the arm's own data, or was held already."""
 
     PLAIN = {"matmul": ("matmul", "plain_matmul"), "rmsnorm": ("rmsnorm", "plain_rmsnorm"),
              "flash_attention": ("flash_attention", "plain_flash_attention"),
@@ -3478,31 +3502,75 @@ class KernelChecks:
     def __init__(self, torch) -> None:
         self.torch = torch
         self.worst: dict[str, dict[str, float]] = {}
+        self.held: set[tuple] = set()
+        self.pending: dict[tuple, tuple] = {}
+        self.deferred: dict[str, int] = {}
 
-    def registry(self):
+    def registry(self, base=None, *, deferred: bool = False):
+        """A registry of ``base``'s sources (the global registry's unless
+        given) whose hand-written kernels are checked (``deferred``: their
+        calls kept for :meth:`settle`)."""
         import importlib
 
         from repro_torch.core.registry import GLOBAL_REGISTRY, KernelRegistry
 
         reg = KernelRegistry()
-        reg.restore(GLOBAL_REGISTRY.snapshot())
+        reg.restore((base or GLOBAL_REGISTRY).snapshot())
         for op, (mod, fn_name) in self.PLAIN.items():
             plain = getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn_name)
             impl = reg.resolve(op, "cuda", ("cuda",))
 
             def checked(*args, _kernel=impl.fn, _plain=plain, _op=op, **kwargs):
                 got = _kernel(*args, **kwargs)
+                if (self.torch.cuda.is_available()
+                        and self.torch.cuda.is_current_stream_capturing()):
+                    # a graph's capture: the engine ran this step eagerly
+                    # just before (checked there); its replays run no Python
+                    return got
                 # ssd's chunk is the Pallas kernel's, which the kernel ignores:
                 # the plain version runs at the kernel's own chunk
                 plain_kw = {k: v for k, v in kwargs.items() if k != "chunk"}
-                self.check(_op, args, got, _plain(*args, **plain_kw))
+                if deferred:
+                    self.keep(_op, _plain, args, plain_kw, got)
+                else:
+                    self.check(_op, args, got, _plain(*args, **plain_kw))
                 return got
             reg.register(dataclasses.replace(impl, fn=checked), allow_override=True)
         return reg
 
+    def key(self, op: str, args, got) -> tuple:
+        """The (op, shape) a call is held at: its tensors' shapes, and for
+        the matmul and rmsnorm their input and output types (a tuple: cheap
+        enough to take at every call of a timed arm)."""
+        shapes = tuple(tuple(a.shape) for a in args if isinstance(a, self.torch.Tensor))
+        if op in ("matmul", "rmsnorm"):
+            return (op, shapes, args[0].dtype, got.dtype)
+        return (op, shapes)
+
+    def keep(self, op: str, plain, args, kwargs, got) -> None:
+        """Copy the first call at a shape not yet held, for :meth:`settle`."""
+        key = self.key(op, args, got)
+        if key in self.held or key in self.pending:
+            return
+
+        def copy(x):
+            if isinstance(x, self.torch.Tensor):
+                return x.clone()
+            return type(x)(copy(v) for v in x) if isinstance(x, (tuple, list)) else x
+        self.pending[key] = (plain, copy(args), {k: copy(v) for k, v in kwargs.items()},
+                             copy(got))
+
+    def settle(self) -> None:
+        """Hold every call :meth:`keep` kept against its plain version."""
+        pending, self.pending = self.pending, {}
+        for (op, *_), (plain, args, kwargs, got) in pending.items():
+            self.check(op, args, got, plain(*args, **kwargs))
+            self.deferred[op] = self.deferred.get(op, 0) + 1
+
     def check(self, op: str, args, got, want) -> None:
         torch = self.torch
         shapes = "x".join(str(list(a.shape)) for a in args if isinstance(a, torch.Tensor))
+        self.held.add(self.key(op, args, got))
         if op in ("matmul", "rmsnorm"):
             tol = (TOL_ROLE_F32 if args[0].dtype == torch.float32
                    else TOL_F32 if got.dtype == torch.float32 else TOL_BF16)
@@ -5222,6 +5290,7 @@ def faults_phase(torch, model, params, kernels, seed: int, *, prompts=None,
     equals the fault-free run's, 16 of 16 (the permanent arm's survivors);
     the split shows the faults, recoveries and recompute.  ``twin``: the
     CPU run of :func:`schedule_twin` (quiet, no launch or stream gates)."""
+    from repro_torch.bench import table10_faults as table10
     from repro_torch.core import hsa
     from repro_torch.core.ledger import OverheadLedger
     from repro_torch.core.policy import RetryPolicy
@@ -5240,14 +5309,13 @@ def faults_phase(torch, model, params, kernels, seed: int, *, prompts=None,
                 plan = hsa.FaultPlan()
                 plan.force("exec", force, permanent=permanent)
             elif name == "table10":
-                plan = hsa.FaultPlan(**TABLE10_PLAN)
+                plan = table10.make_plan(TABLE10_RATE)
             led, clock = OverheadLedger(), hsa.VirtualClock()
             sched = hsa.Scheduler(
                 RegionManager(4, ledger=led), RoleLibrary(ledger=led), ledger=led, clock=clock,
-                cost_model=lambda kind, what, measured: (FAULT_RECONFIG_S if kind == "reconfig"
-                                                         else FAULT_EXEC_S),
+                cost_model=table10.cost,
                 retry=None if sched_retry is None else RetryPolicy(**sched_retry), faults=plan,
-                expected_exec_s=FAULT_EXEC_S)
+                expected_exec_s=table10.EXEC_S)
             q = sched.add_queue(hsa.Queue(None, 512, name="serve"))
             kw = ({"batch_slots": 16, "prefill_chunk": 128, "pool_pages": 8 * max_len // 16 + 1}
                   if chunked else {"batch_slots": 8})
@@ -5584,6 +5652,9 @@ def traffic_phase(torch, model, params, kernels, n: int = 64) -> dict:
         res["virtual_s"] = time.perf_counter() - t
         for row in rows:
             print(f"  {row}")
+        res["rows"] = rows
+        if rows[-1].split(",")[:3] != ["table9", "chunked_wins", "1"]:
+            raise AssertionError(f"Table IX's chunked_wins does not read 1: {rows[-1]}")
         res["virtual"] = {f"{name}_{mode}": t9.table_row(r) for (name, mode), r in results.items()}
         res["virtual_rows_equal_jax"] = n == 64
         res["chunked_streams_equal_whole"] = True
@@ -5616,32 +5687,105 @@ def traffic_phase(torch, model, params, kernels, n: int = 64) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the paper's tables on the card (repro_torch.bench)
+# ---------------------------------------------------------------------------
+
+#: the tables whose serve arms run with every kernel call held against its
+#: plain version on the call's data (KernelChecks); the others time
+#: themselves (host or device times, which the checks would inflate) or run
+#: long (Table X's nine runs), and run under deferred checks: the first call
+#: at each shape not yet held is kept and held after the table
+BENCH_CHECKED = ("table7", "table8", "table11", "table13")
+#: the kernels the bench phase's path must launch: the serve arms' and the
+#: paper roles' (the f32 matmul and conv2d)
+BENCH_KERNELS = ("matmul", "rmsnorm", "flash_attention", "decode_attention",
+                 "paged_decode_attention", "matmul_f32", "conv2d")
+
+
+def bench_phase(torch, model, params, kernels, card: str, smi: str) -> dict:
+    """Every paper table of ``repro_torch.bench`` but Table IX (the traffic
+    phase runs it) on the card, through the harness's own calls
+    (``bench.run.table_rows``, ``failures``) at its ``--fast`` n: the paper
+    roles of Tables I-V on their hand-written kernels, and every serve arm
+    on the llama3.2-1b served above, under cuda-strict, at the JAX scripts'
+    slots, pages and lengths.  Each table must hold every row of its
+    ``EXPECTED`` (the JAX package's, to the digit) and every row the JAX
+    trajectory guard asserts must read 1.  Every kernel call is held against
+    its plain version on the call's data (KernelChecks): each call of the
+    serve arms of BENCH_CHECKED as it runs (a captured graph's first step
+    among them), and in the other tables the first call at each shape not
+    held yet, after the table (deferred), so every shape the phase gives a
+    kernel is held.  The kernels' counts are set to 0 before the phase and
+    read after it; each of BENCH_KERNELS must have launched."""
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import common
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import conv2d as conv_k
+    from repro_torch.kernels import matmul as mm_k
+
+    checks = KernelChecks(torch)
+    checked = checks.registry(dispatch.current().registry)
+    deferred = checks.registry(dispatch.current().registry, deferred=True)
+    for mod in kernels:
+        mod.launches = 0
+    conv_k.launches = mm_k.f32_launches = mm_k.fixed_launches = mm_k.edge_launches = 0
+    tables, seconds, bad = {}, {}, []
+    print(f"  on {card} ({smi}), llama3.2-1b at full width and depth, --fast n")
+    for table, module, n in bench_run.suites(100):
+        if table == "table9":
+            continue
+        t = time.perf_counter()
+        with dispatch.use(registry=checked if table in BENCH_CHECKED else deferred):
+            got = bench_run.table_rows(table, module, n, model, params)
+        common.sync(model.device)
+        seconds[table] = time.perf_counter() - t
+        checks.settle()
+        tables[table] = got
+        for metric, (value, derived) in got.items():
+            print(f"  {table},{metric},{value},{derived}")
+        bad += bench_run.failures(table, module, got, fast=True)
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in kernels}
+    launches.update(matmul_f32=mm_k.f32_launches, conv2d=conv_k.launches,
+                    matmul_edge=mm_k.edge_launches, matmul_fixed_weight=mm_k.fixed_launches)
+    print("  " + json.dumps({"bench_seconds": seconds, "launches": launches,
+                             "held_against_plain": {op: len(v) for op, v in
+                                                    checks.worst.items()},
+                             "held_deferred": checks.deferred}))
+    if bad:
+        raise AssertionError("the tables on the card part from the JAX package's: "
+                             + "; ".join(bad))
+    if any(launches[name] == 0 for name in BENCH_KERNELS):
+        raise AssertionError(f"a kernel of the bench path never launched: {launches}")
+    held = {op: sorted(v) for op, v in checks.worst.items()}
+    if not all(held.get(op) for op in ("matmul", "rmsnorm", "flash_attention",
+                                      "decode_attention", "paged_decode_attention")):
+        raise AssertionError(f"a kernel of the serve arms was never held against its plain "
+                             f"version: {held}")
+    print(f"  every EXPECTED row equals the JAX package's and every asserted row reads 1; "
+          f"every kernel call's shape held against its plain version "
+          f"({sum(seconds.values()):.1f} s)")
+    return {"rows": tables, "seconds": seconds, "launches": launches,
+            "held_against_plain": {op: dict(v) for op, v in checks.worst.items()},
+            "held_deferred": dict(checks.deferred)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: two tenants on one card through the HSA runtime
 # ---------------------------------------------------------------------------
 
 
 def calibrate_fc(torch, sched, q, roles: dict, reps: int = 20) -> dict:
-    """The role planner's costs, measured on the card (the counterpart of the
-    JAX package's ``benchmarks/common.py`` ``calibrate_costs``): each FC
-    role's load (weight upload and warm-up launch) and exec (one launch to
-    completion, the median of ``reps``), and the dispatch overhead of a queue
-    round trip of the resident generic role less its exec.  ``roles`` maps
-    "generic" and "fixed" to (role, args).  The worker thread must be
-    running; every role is unloaded again."""
-    out = {}
-    for kind, (role, args) in roles.items():
-        role.unload()
-        t0 = time.perf_counter()
-        role.load()
-        load_s = time.perf_counter() - t0
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            role(*args)
-            if role.device.type == "cuda":
-                torch.cuda.synchronize(role.device)
-            times.append(time.perf_counter() - t0)
-        out[kind] = {"load_s": load_s, "exec_s": sorted(times)[reps // 2]}
+    """The role planner's costs, measured on the card: each FC role's load
+    (weight upload and warm-up launch) and exec (one launch to completion,
+    the median of ``reps``) by ``paper_roles.calibrate_costs``, and the
+    dispatch overhead of a queue round trip of the resident generic role
+    less its exec.  ``roles`` maps "generic" and "fixed" to (role, args).
+    The worker thread must be running; every role is unloaded again."""
+    from repro_torch import paper_roles
+
+    costs = paper_roles.calibrate_costs(roles, reps=reps)
+    out = {kind: {"load_s": costs[("reconfig", role.name)], "exec_s": costs[("exec", role.name)]}
+           for kind, (role, _) in roles.items()}
     role, args = roles["generic"]
     sched.regions.ensure_resident(role)
     trips = []
@@ -6452,7 +6596,6 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     """Every phase after the check for a card (see the module docstring);
     ``helpers``: the CPU twin's process and the dry run's."""
     twin, dry = helpers
-    from repro_torch.bench import table12_integrity, table13_prefix
     from repro_torch.configs import get_arch
     from repro_torch.kernels import conv2d as conv_k
     from repro_torch.kernels import decode_attention as dec_k
@@ -6464,7 +6607,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
 
     smi = nvidia_smi()
     card = torch.cuda.get_device_name(0)
-    print(f"[1/20] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
+    print(f"[1/21] device: {smi} | torch.cuda.get_device_name(0) = {card} | "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6487,7 +6630,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
             print(f"  {lib} SASS {fn}: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     phase_s["device"] = lap()
 
-    print(f"[2/20] kernels against their plain versions, on {card} ({smi})")
+    print(f"[2/21] kernels against their plain versions, on {card} ({smi})")
     rows, errs = kernel_phase(torch, args.seed)
     print(f"  every matmul, decode attention and ssd instance built was held against the "
           f"plain version: {sorted(check_instances(rows, sass))}")
@@ -6497,7 +6640,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     print(f"  every split count the decode rule picks at the served shapes ran: {decode_splits}")
     phase_s["kernels"] = lap()
 
-    print("[3/20] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
+    print("[3/21] model: llama3.2-1b prefill, fixup and decode, cuda-strict vs the torch "
           "source; chunked vs whole-prompt prefill")
     model = build_model(get_arch("llama3.2-1b"))
     params = init_params(model.param_specs(), args.seed)
@@ -6506,7 +6649,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     model_res = model_phase(torch, model, params, args.seed)
     phase_s["model"] = lap()
 
-    print("[4/20] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
+    print("[4/21] serve: 16 greedy requests, max_len 1024, cuda-strict: dense 8 slots; "
           "paged 8 slots; paged + chunked prefill 16 slots in the same KV memory")
     serve_res = serve_phase(torch, model, params, kernels, args.seed)
     print_runs(serve_res["runs"], card, smi)
@@ -6530,7 +6673,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     rows.append(served_row)
     phase_s["serve"] = lap()
 
-    print("[5/20] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
+    print("[5/21] tenants: hsa_init(num_regions=2) on the card, the async scheduler's worker "
           "thread; tf-serving: the 16 requests through a dense 8-slot engine; opencl: the "
           "paper's four roles through two regions")
     tenants_res = tenants_phase(torch, model, params, kernels, args.seed,
@@ -6538,19 +6681,19 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     print_runs({"tenants_routed": tenants_res["run"]}, card, smi)
     phase_s["tenants"] = lap()
 
-    print(f"[6/20] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
+    print(f"[6/21] faults: llama3.2-1b, the 16 requests paged 8 slots through an HSA queue on "
           f"a virtual-clock scheduler, cuda-strict, greedy and T = 0.7 (K = 4): forced exec "
           f"faults on decode, prefill and a chunk, the scheduler's retry, a permanent fault, "
           f"Table X's plan at 0.05, on {card} ({smi})")
     faults_res = faults_phase(torch, model, params, kernels, args.seed)
     phase_s["faults"] = lap()
-    print(f"[7/20] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
+    print(f"[7/21] integrity: llama3.2-1b, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new tokens, "
           f"8 slots over {INTEGRITY_POOL_PAGES} pages, growth_reserve 0.5, snapshots from "
           f"{OVERCOMMIT_SNAPSHOT_TOKENS} rows; seeded corruption, verification on (scrub "
           f"{INTEGRITY_SCRUB} a step) and off, on {card} ({smi})")
     integrity_res = integrity_phase(torch, model, params, kernels, args.seed)
     phase_s["integrity"] = lap()
-    print(f"[8/20] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
+    print(f"[8/21] prefix: llama3.2-1b, 16 users of two personas' {PREFIX_ROWS}-token system "
           f"prompts, 16 slots, sharing on and off, whole and chunked; shared pages' digests; a "
           f"flipped shared page, on {card} ({smi})")
     prefix_res = prefix_phase(torch, model, params, kernels, args.seed)
@@ -6567,18 +6710,18 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
           f"{sum(len(c) for c in twin_counts.values())} arms; seconds: faults "
           f"{faults_res['wall_s']:.1f}, integrity {integrity_res['wall_s']:.1f}, prefix "
           f"{prefix_res['wall_s']:.1f}")
-    for table, mod in (("table13", table13_prefix), ("table12", table12_integrity)):
-        table_rows = mod.rows()
-        mod.check(table_rows)
-        for metric, (value, derived) in table_rows.items():
-            print(f"  {table},{metric},{value},{derived}")
-    print("  Table XIII's trace rows and Table XII's region row equal the JAX package's "
-          "(BENCH_results.json)")
+    phase_s["twin"] = lap()
+
+    print(f"[9/21] bench: the paper's tables (repro_torch.bench) on the card but Table IX "
+          f"(phase 14): Tables I-V's roles on their kernels, every serve arm on this "
+          f"llama3.2-1b, cuda-strict; every EXPECTED row against the JAX package's, every "
+          f"asserted row 1, on {card} ({smi})")
+    bench_res = bench_phase(torch, model, params, kernels, card, smi)
     del model, params
     torch.cuda.empty_cache()
-    phase_s["twin_and_tables"] = lap()
+    phase_s["bench"] = lap()
 
-    print(f"[9/20] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
+    print(f"[10/21] full depth: {', '.join(FULL_DEPTH_ARCHS)} (heads of 128, untied unembeds), "
           f"weights from --seed: prefill, fixup, decode dense and paged, chunked staging and "
           f"paged, cuda-strict vs the torch source; then the 16 requests dense 8 slots, paged 8 "
           f"slots, paged chunked 16 slots, and T = 0.7 at K = 4 dense and chunked")
@@ -6596,7 +6739,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     live["yi9b_decode"] = weight_bytes(params)
     phase_s["full_depth"] = lap()
 
-    print(f"[10/20] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
+    print(f"[11/21] overcommit: {model.cfg.name} at {model.cfg.num_layers} layers, paged, 8 slots "
           f"over {OVERCOMMIT_POOL_PAGES} pages, the 16 requests at {OVERCOMMIT_NEW_TOKENS} new "
           f"tokens: full reserve, overcommitted, a tight host budget, churn at T = 0.7; Table "
           f"VIII's and XI's trace arms")
@@ -6606,14 +6749,14 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["overcommit"] = lap()
 
-    print("[11/20] model: mamba2-780m prefill at the prompt's length and batched decode, "
+    print("[12/21] model: mamba2-780m prefill at the prompt's length and batched decode, "
           "cuda-strict vs the torch source")
     model = build_model(get_arch("mamba2-780m"))
     params = init_params(model.param_specs(), args.seed)
     ssm_model_res = ssm_model_phase(torch, model, params, args.seed)
     phase_s["ssm_model"] = lap()
 
-    print("[12/20] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
+    print("[13/21] serve: mamba2-780m, the same 16 prompt lengths, 8 slots, cuda-strict")
     ssm_res = ssm_serve_phase(torch, model, params, kernels, args.seed)
     print_runs(ssm_res["runs"], card, smi)
     print(f"  decode steps as replayed CUDA graphs against the eager loop, in turns, on {card} "
@@ -6633,7 +6776,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["ssm_serve"] = lap()
 
-    print(f"[13/20] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
+    print(f"[14/21] traffic: llama3.2-1b, Table IX's three traces through the engine, cuda-strict, "
           f"on {card} ({smi}): virtual clock, chunked and whole (rows must equal the JAX "
           f"package's, streams equal); a tapered ChunkPolicy; the bursty trace on the wall "
           f"clock, in turns")
@@ -6645,7 +6788,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["traffic"] = lap()
 
-    print(f"[14/20] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
+    print(f"[15/21] moe: {', '.join(f'{a} at {n} layers ({p})' for a, n, p in MOE_ARCHS)}, full "
           f"width, weights from --seed, one after the other: the 8 prompts' prefills, fixups "
           f"and {MOE_DECODE_STEPS} batched decode steps against the torch source, every kernel "
           f"held against its plain version on the calls' data, a dispatch trace; then the 8 "
@@ -6667,7 +6810,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
         torch.cuda.empty_cache()
     phase_s["moe"] = lap()
 
-    print(f"[15/20] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
+    print(f"[16/21] families: hymba-1.5b (32 layers, attention and Mamba-2 heads, a "
           f"{HYMBA_MAX_LEN}-row slot on a 1024-row ring) and whisper-large-v3 (32 + 32 layers), "
           f"full width and depth, weights from --seed, one after the other: model calls against "
           f"the torch source, every kernel held against its plain version on the calls' data; "
@@ -6678,7 +6821,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     families_res = families_phase(torch, kernels, args.seed, card, smi)
     phase_s["families"] = lap()
 
-    print(f"[16/20] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
+    print(f"[17/21] train: {TRAIN_ARCH} at full width and depth, the torch policy (no "
           f"hand-written kernel has a backward pass), AdamW from pick_opt, remat full, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the first step against f32, a warm-up step and "
           f"{TRAIN_STEPS} timed, greedy streams on the refreshed weights under cuda-strict, "
@@ -6686,7 +6829,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     train_res = train_phase(torch, args.seed, card, smi)
     phase_s["train"] = lap()
 
-    print(f"[17/20] dist: {DIST_ARCH} at full width and depth on a one-rank 1x1 (data, model) "
+    print(f"[18/21] dist: {DIST_ARCH} at full width and depth on a one-rank 1x1 (data, model) "
           f"mesh over NCCL, weights from --seed: make_prefill_step and {DIST_DECODE_STEPS} "
           f"make_decode_step steps at {DIST_SLOTS} slots under cuda-strict against the model's "
           f"prefill and decode_step, bit for bit; {DIST_TRAIN_STEPS} make_train_step steps at "
@@ -6695,7 +6838,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     dist_res = dist_phase(torch, kernels, args.seed, card, smi)
     phase_s["dist"] = lap()
 
-    print(f"[18/20] internvl2: {INTERNVL_ARCH} at full width, its depth cut "
+    print(f"[19/21] internvl2: {INTERNVL_ARCH} at full width, its depth cut "
           f"{get_arch(INTERNVL_ARCH).num_layers} -> {INTERNVL_LAYERS} layers, weights from "
           f"--seed: {INTERNVL_PATCHES} patch rows drawn on the card and {INTERNVL_TEXT} text "
           f"tokens prefilled, {INTERNVL_VLM_STEPS} greedy decode steps, against the torch "
@@ -6720,7 +6863,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     torch.cuda.empty_cache()
     phase_s["internvl2"] = lap()
 
-    print(f"[19/20] examples and the dry run, on {card} ({smi}): quickstart and serve_lm on the "
+    print(f"[20/21] examples and the dry run, on {card} ({smi}): quickstart and serve_lm on the "
           f"card with their own checks; hw.py's constants against the card's properties; five "
           f"steps of the phases above counted on meta tensors at a 1x1 mesh (the dry run's "
           f"roofline on hw.py's H100 constants) against their measured device time and live "
@@ -6745,7 +6888,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
     dryrun_res = dryrun_phase(torch, records, measured, live, card, smi)
     phase_s["examples_and_dryrun"] = lap()
 
-    print("[20/20] the kernels' summary")
+    print("[21/21] the kernels' summary")
     served = {**serve_res["runs"], "tenants": tenants_res["run"], **ssm_res["runs"],
               **{f"t0.7_{n}": r for n, r in temp_res["runs"].items()},
               **{f"t0.7_{n}": r for n, r in ssm_temp_res["runs"].items()},
@@ -6760,6 +6903,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
               **{f"hymba_{n}": r for n, r in families_res["hymba-1.5b"]["runs"].items()},
               **{f"internvl2_{n}": r for n, r in intern_res["runs"].items()}}
     runs = {**served, "traffic": {"launches": traffic_res["launches"]},
+            "bench": {"launches": bench_res["launches"]},
             **{f"{arch}_calls": {"launches": res["calls"]["launches"]}
                for arch, res in {**full_res, **moe_res}.items()},
             "hymba_calls": {"launches": families_res["hymba-1.5b"]["calls"]["launches"]},
@@ -6923,15 +7067,16 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
                "conv2d": "none for int16 (F.conv2d, f32 and TF32 off, at the f32 shapes)",
                "matmul_edge": "torch.matmul (bf16 out; f32 with TF32 off at the f32 row)",
                "sample": "no single PyTorch call draws JAX's Threefry stream"}
-    # the paper-role kernels run on the tenants phase's main path only, the
-    # edge kernel on the granite phase's
+    # the paper-role kernels run on the tenants and bench phases' paths
+    # only, the edge kernel on the granite phase's
     entries = [(mod.__name__.rsplit(".", 1)[1], mod, mod.REPLACES,
                 {run: r["launches"][mod.__name__.rsplit(".", 1)[1]] for run, r in runs.items()
                  if not (mod is fa_k and run in mla_runs)})
                for mod in kernels]
     entries += [("flash_attention_qk192", fa_k, fa_k.REPLACES,
                  {run: runs[run]["launches"]["flash_attention"] for run in sorted(mla_runs)})]
-    entries += [(name, mod, replaces, {"tenants": tenants_res["launches"][name]})
+    entries += [(name, mod, replaces, {"tenants": tenants_res["launches"][name],
+                                       "bench": bench_res["launches"][name]})
                 for name, mod, replaces in (("matmul_f32", mm_k, mm_k.REPLACES),
                                             ("matmul_fixed_weight", mm_k, mm_k.REPLACES_FIXED),
                                             ("conv2d", conv_k, conv_k.REPLACES))]
@@ -6975,6 +7120,7 @@ def run_phases(args, torch, helpers, kernels, t_start, phase_s, lap) -> int:
             "busy": busy_res, "prefill_busy": prefill_res,
             "tenants": tenants_res, "full_depth": full_res, "overcommit": overcommit_res,
             "faults": faults_res, "integrity": integrity_res, "prefix": prefix_res,
+            "bench": bench_res,
             "recovery_shapes": recovery_shapes,
             "phase_s": phase_s,
             "ssm_model": ssm_model_res, "ssm_serve": ssm_res, "ssm_busy": ssm_busy_res,

@@ -1,3 +1,4 @@
-"""Scripts that measure or check the port end to end: the chunking
-localiser, the port's copies of the trace arms of Tables VIII, IX, XI and
-XIII, and Table XII's region arm."""
+"""Scripts that measure or check the port end to end: the paper's tables
+(one module a JAX ``benchmarks/`` script, ``table1_utilization`` ...
+``table13_prefix``), their harness (``run``, ``trajectory``) and what they
+share (``common``), the chunking localiser and the prefill timer."""

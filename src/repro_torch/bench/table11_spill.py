@@ -1,10 +1,10 @@
 """Table XI (extension) on the port: the tiered KV page pool under host-memory
-oversubscription, the calibrated trace.
+oversubscription.
 
-    PYTHONPATH=src python -m repro_torch.bench.table11_spill [--n 64]
+    PYTHONPATH=src python -m repro_torch.bench.table11_spill [--device cpu] [--n 64]
 
-The port's copy of the trace arm of the JAX package's
-``benchmarks/table11_spill.py``: Table VIII's overcommit trace
+The port's copy of the JAX package's ``benchmarks/table11_spill.py``.  The
+trace arm: Table VIII's overcommit trace
 (:mod:`repro_torch.bench.table8_overcommit`) with the host tier made
 explicit, on the port's :class:`PageAllocator`, :class:`HostArena`,
 :class:`SpillPolicy` and :class:`TransferEngine` over a ``VirtualClock``.
@@ -15,16 +15,23 @@ Swept over ``growth_reserve`` and host budget (unbounded, then a half and a
 quarter of the unbounded run's peak); a lookahead-0 arm shows demand
 refills fully exposed.  No model and no device: each row must equal the
 JAX package's (:data:`EXPECTED`, the ``table11`` trace rows of
-``BENCH_results.json``) to the digit.  Exits non-zero if one parts.
+``BENCH_results.json``) to the digit.
+
+The serve arm (:func:`run_serving`): 8 requests through the paged engine
+with the host tier unbounded, capped at half its peak, and capped under
+seeded transfer faults, each stream held to an unconstrained dense run's.
+On the card (the default) it serves the full ``llama3.2-1b`` under
+``cuda-strict``; ``--device cpu`` the JAX script's tiny llama.  Exits
+non-zero if a row of :data:`EXPECTED` parts or an asserted row is not 1.
 Imports no JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 
-from repro_torch.bench.table8_overcommit import request_mix
+from repro_torch.bench import common
+from repro_torch.bench.table7_paged import request_mix
 from repro_torch.core.hsa.clock import VirtualClock
 from repro_torch.core.ledger import OverheadLedger
 from repro_torch.core.policy import (
@@ -63,6 +70,8 @@ EXPECTED = {
                 "host_peak_bytes=49152;hidden_frac=0.58"),
     "spill_refill_hidden_frac": ("0.67", "lookahead4=0.67;lookahead0=0.00"),
 }
+#: the rows that must read 1 (the JAX package's trajectory guard's)
+ASSERTED = ("spill_wins", "serve_spill_identical", "serve_spill_faulted")
 
 
 def simulate_tiered(reqs, pool_tokens, page_size, admission, preemption, spill, *,
@@ -231,13 +240,15 @@ def simulate_tiered(reqs, pool_tokens, page_size, admission, preemption, spill, 
     }
 
 
-def rows(n: int = 64) -> dict[str, tuple[str, str]]:
-    """The trace arm's rows, metric -> (value, derived), formatted as the
-    JAX script formats them."""
+def trace(n: int = 64) -> tuple[dict[str, tuple[str, str]], bool, bool]:
+    """The trace arm: (its rows, whether every cell completed every request
+    without an escape, whether the budgeted pool kept what overcommit
+    bought and lookahead hid most refills), as the JAX script derives them."""
     reqs = request_mix(max(32, n))
     preemption, spill = PreemptionPolicy(), SpillPolicy()
     out_rows: dict[str, tuple[str, str]] = {}
     hidden_la4 = hidden_la0 = 0.0
+    clean = wins = True
     for reserve in RESERVE_SWEEP:
         admission = AdmissionPolicy(growth_reserve=reserve)
         base = simulate_tiered(reqs, POOL_TOKENS, PAGE_SIZE, admission, preemption, spill)
@@ -249,6 +260,7 @@ def rows(n: int = 64) -> dict[str, tuple[str, str]]:
                                              preemption, spill,
                                              budget_bytes=max(PAGE_BYTES, peak // frac))
         for tag, out in cells.items():
+            clean &= out["completed"] == len(reqs) and out["exhaustion_escapes"] == 0
             out_rows[f"spill_trace_r{int(reserve * 100)}_{tag}"] = (
                 f"{out['sustained']:.2f}",
                 f"completed={out['completed']};spills={out['spills']};"
@@ -257,36 +269,127 @@ def rows(n: int = 64) -> dict[str, tuple[str, str]]:
                 f"host_peak_bytes={out['host_peak_bytes']};"
                 f"hidden_frac={out['refill_hidden_frac']:.2f}")
         if reserve < 1.0 and peak:
+            # the budgeted pool must not give back what overcommit bought
+            wins &= cells["half"]["sustained"] >= 0.98 * base["sustained"]
             hidden_la4 = cells["half"]["refill_hidden_frac"]
             hidden_la0 = simulate_tiered(reqs, POOL_TOKENS, PAGE_SIZE, admission, preemption,
                                          SpillPolicy(refill_lookahead=0),
                                          budget_bytes=max(PAGE_BYTES, peak // 2)
                                          )["refill_hidden_frac"]
+            wins &= hidden_la4 > 0.5 and hidden_la4 > hidden_la0
     out_rows["spill_refill_hidden_frac"] = (
         f"{hidden_la4:.2f}", f"lookahead4={hidden_la4:.2f};lookahead0={hidden_la0:.2f}")
-    return out_rows
+    return out_rows, clean, wins
 
 
-def check(got: dict[str, tuple[str, str]]) -> None:
-    """Raise unless every row equals :data:`EXPECTED`, value and derived."""
-    for metric, want in EXPECTED.items():
-        if got.get(metric) != want:
-            raise AssertionError(f"table11 {metric}: {got.get(metric)} != the JAX package's "
-                                 f"{want}")
+def trace_rows(n: int = 64) -> dict[str, tuple[str, str]]:
+    """The trace arm's rows, metric -> (value, derived), formatted as the
+    JAX script formats them."""
+    return trace(n)[0]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=64)
-    args = ap.parse_args()
-    got = rows(args.n)
-    for metric, (value, derived) in got.items():
-        print(f"table11,{metric},{value},{derived}")
-    if args.n == 64:
-        check(got)
-        print("every row equals the JAX package's")
-    return 0
+SERVING_REQUESTS = [([3 + i, 14, 15], 40 if i % 4 == 0 else 24) for i in range(8)]
+SERVE_BW = 64e6        # B/s at the tiny llama's width: a snapshot in 0.5-1 ms
+
+
+def run_serving(model, params, requests, *, dense=False, budget=None, lookahead=4,
+                faults=None):
+    """The serve arm: the paged engine (8 slots, 11 pages of 16 rows,
+    ``growth_reserve`` 0.5, snapshots from 16 rows) on a ``VirtualClock``
+    (a step 1 ms) with the host tier budgeted at ``budget`` bytes, stepped
+    by hand so the budget and the arena's invariants are checked every
+    step; or, with ``dense``, an unconstrained dense engine.  The transfer
+    rate is :data:`SERVE_BW` times :func:`common.kv_scale`: one step of
+    lookahead hides a snapshot at any width.  (engine, streams)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    if dense:
+        eng = ServeEngine(model, params, batch_slots=len(requests), max_len=64, decode_fusion=2,
+                          device=model.device)
+        for prompt, max_new in requests:
+            eng.submit(prompt, max_new_tokens=max_new)
+        done = sorted(eng.run_to_completion(max_steps=100_000), key=lambda r: r.uid)
+        return eng, [r.generated for r in done]
+    eng = ServeEngine(
+        model, params, batch_slots=8, max_len=64, decode_fusion=2, paged=True, page_size=16,
+        pool_pages=11, admission=AdmissionPolicy(growth_reserve=0.5),
+        preemption=PreemptionPolicy(snapshot_threshold_tokens=16), ledger=OverheadLedger(),
+        clock=VirtualClock(), step_time_model=lambda prefill, decode: STEP_S,
+        host_budget_bytes=budget, spill=SpillPolicy(refill_lookahead=lookahead), faults=faults,
+        transfer_bandwidth_bytes_s=SERVE_BW * common.kv_scale(model), device=model.device)
+    for prompt, max_new in requests:
+        eng.submit(prompt, max_new_tokens=max_new)
+    done, steps = [], 0
+    while len(done) < len(requests):
+        steps += 1
+        assert steps <= 100_000, "serving arm failed to converge"
+        done.extend(eng.step())
+        eng.arena.check_invariants()
+        if budget is not None:
+            assert eng.arena.used_bytes <= budget, "host budget exceeded"
+    done = sorted(done, key=lambda r: r.uid)
+    eng.allocator.check_invariants()
+    assert eng.allocator.free_pages == eng.allocator.total_pages
+    assert not eng.arena.entries(), "arena leaked snapshots"
+    return eng, [r.generated for r in done]
+
+
+def serve_rows(model, params, trace_clean: bool = True,
+               trace_wins: bool = True) -> dict[str, tuple[str, str]]:
+    """The serve arm's rows: unbounded, capped at half the unbounded peak,
+    and capped under seeded transfer faults (both directions forced once),
+    each against an unconstrained dense run; ``spill_wins`` also takes the
+    trace arm's verdicts."""
+    from repro_torch.core.hsa.faults import FaultPlan
+
+    reqs = SERVING_REQUESTS
+    _, dense_streams = run_serving(model, params, reqs, dense=True)
+    unbounded, unb_streams = run_serving(model, params, reqs)
+    peak = unbounded.arena.peak_bytes
+    budget = max(unbounded.arena.block_bytes or 1, peak // 2)
+    capped, cap_streams = run_serving(model, params, reqs, budget=budget)
+    plan = FaultPlan(seed=3, transfer_rate=0.05)
+    plan.force("d2h")                    # both directions fault
+    plan.force("h2d")
+    faulted, fault_streams = run_serving(model, params, reqs, budget=budget, faults=plan)
+    identical = int(unb_streams == dense_streams and cap_streams == dense_streams
+                    and fault_streams == dense_streams)
+    hidden = capped.ledger.spill_split()["refill_hidden_frac"]
+    wins = int(trace_clean and trace_wins and identical == 1 and capped.arena.peak_bytes <= budget
+               and capped.spills > 0 and capped.refills > 0 and hidden > 0.5
+               and faulted.transfer_faults > 0)
+    return {
+        "serve_spill_identical": (
+            f"{identical}",
+            f"unbounded_peak_bytes={peak};budget_bytes={budget};"
+            f"capped_host_peak={capped.arena.peak_bytes};spills={capped.spills};"
+            f"refills={capped.refills};demotions={capped.demotions};"
+            f"replay_fallback_tokens={capped.replay_fallback_tokens};hidden_frac={hidden:.2f}"),
+        "serve_spill_faulted": (
+            f"{int(fault_streams == dense_streams)}",
+            f"transfer_faults={faulted.transfer_faults};injected={len(plan.trace)};"
+            f"demotions={faulted.demotions};spills={faulted.spills};refills={faulted.refills}"),
+        "spill_wins": (
+            f"{wins}", f"trace_clean={int(trace_clean)};trace_wins={int(trace_wins)};"
+                       f"identical={identical};serve_hidden_frac={hidden:.2f};"
+                       f"faults_absorbed={faulted.transfer_faults}"),
+    }
+
+
+def rows(n: int = 64, *, device=None, model=None, params=None) -> dict[str, tuple[str, str]]:
+    """The rows, metric -> (value, derived), formatted as the JAX script
+    formats them: the trace arm's, and the serve arm's where a ``model`` or
+    a ``device`` is given (:func:`common.serve_arm`)."""
+    out, clean, wins = trace(n)
+    return {**out, **common.serve_arm(device, model, params,
+                                      lambda m, p: serve_rows(m, p, clean, wins))}
+
+
+def check(got: dict[str, tuple[str, str]], *, complete: bool = False) -> None:
+    """Raise unless every row of :data:`EXPECTED` in ``got`` is equal and
+    every asserted row reads 1 (``complete``: and ``got`` holds them all)."""
+    common.check("table11", got, EXPECTED, ASSERTED, complete=complete)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(common.main("table11", __doc__, rows, check, ASSERTED))

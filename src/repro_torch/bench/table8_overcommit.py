@@ -1,10 +1,10 @@
 """Table VIII (extension) on the port: graceful preemption under overcommitted
-admission, the calibrated allocator trace.
+admission.
 
-    PYTHONPATH=src python -m repro_torch.bench.table8_overcommit [--n 64]
+    PYTHONPATH=src python -m repro_torch.bench.table8_overcommit [--device cpu] [--n 64]
 
-The port's copy of the trace arm of the JAX package's
-``benchmarks/table8_overcommit.py``: the port's :class:`PageAllocator`,
+The port's copy of the JAX package's ``benchmarks/table8_overcommit.py``.
+The trace arm: the port's :class:`PageAllocator`,
 :class:`AdmissionPolicy` and :class:`PreemptionPolicy` driven token by token
 by Table VII's long-tail request mix, swept over ``growth_reserve`` in {1.0,
 0.75, 0.5}.  A row reports the sustained admitted concurrency in the
@@ -13,17 +13,25 @@ reclaimed and completions (every submission must complete).  No model and
 no device: every number is a property of the schedule, so each row must
 equal the JAX package's (:data:`EXPECTED`, the ``table8`` rows of
 ``BENCH_results.json``, which a CPU run of ``python -m
-benchmarks.table8_overcommit`` prints) to the digit.  Exits non-zero if one
-parts.  Imports no JAX.
+benchmarks.table8_overcommit`` prints) to the digit.
+
+The serve arm: 8 requests (3-token prompts, 40 or 24 new tokens) through
+the paged engine (8 slots, 16-row pages, 11 pages, K = 2) at
+``growth_reserve`` 0.5 and 1.0, and through an unconstrained dense engine:
+overcommit must sustain more concurrency than the full reserve, preempt,
+and give the dense run's streams.  The concurrency row is a property of
+the schedule (in :data:`EXPECTED`).  On the card (the default) it serves the
+full ``llama3.2-1b`` under ``cuda-strict``; ``--device cpu`` the JAX
+script's tiny llama.  Exits non-zero if a row of :data:`EXPECTED` parts or an
+asserted row is not 1.  Imports no JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import sys
 
-import numpy as np
-
+from repro_torch.bench import common
+from repro_torch.bench.table7_paged import request_mix
 from repro_torch.core.policy import (
     RESUME_SNAPSHOT,
     AdmissionPolicy,
@@ -47,24 +55,11 @@ EXPECTED = {
     "overcommit_trace_r50": ("6.14", "preemptions=19;resumes=19;recompute_tokens=48;"
                                      "pages_reclaimed=60;completed=64/64;escapes=0;steps=485"),
     "overcommit_wins": ("1", "gain_x=1.46;sustained_r50=6.14;sustained_r100=4.21;zero_drops=1"),
+    "serve_overcommit_concurrency": ("1.58", "over_sustained=5.55;full_sustained=3.50;"
+                                             "preemptions=4;resumes=4;recompute_tokens=0"),
 }
-
-
-def request_mix(n: int, seed: int = 0) -> list[tuple[int, int]]:
-    """(prompt_len, new_tokens) pairs with a long-tailed length mix (Table
-    VII's, ``benchmarks/table7_paged.py``): mostly short chat-style turns,
-    about 8 % generations of 96 to 160 tokens, drawn with the same numpy
-    calls in the same order."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        p = int(rng.integers(8, 40))
-        if rng.random() < 0.08:
-            t = int(rng.integers(96, 160))              # tail request
-        else:
-            t = int(rng.integers(8, 48))                # typical turn
-        out.append((p, t))
-    return out
+#: the rows that must read 1 (the JAX package's trajectory guard's)
+ASSERTED = ("overcommit_wins", "serve_overcommit_identical", "serve_overcommit_wins")
 
 
 def simulate_overcommit(reqs, pool_tokens: int, page_size: int, policy: AdmissionPolicy,
@@ -164,7 +159,7 @@ def simulate_overcommit(reqs, pool_tokens: int, page_size: int, policy: Admissio
     }
 
 
-def rows(n: int = 64) -> dict[str, tuple[str, str]]:
+def trace_rows(n: int = 64) -> dict[str, tuple[str, str]]:
     """The trace arm's rows, metric -> (value, derived), formatted as the
     JAX script formats them."""
     reqs = request_mix(max(32, n))
@@ -193,25 +188,70 @@ def rows(n: int = 64) -> dict[str, tuple[str, str]]:
     return out_rows
 
 
-def check(got: dict[str, tuple[str, str]]) -> None:
-    """Raise unless every row equals :data:`EXPECTED`, value and derived."""
-    for metric, want in EXPECTED.items():
-        if got.get(metric) != want:
-            raise AssertionError(f"table8 {metric}: {got.get(metric)} != the JAX package's {want}")
+def run_serving(model, params, growth_reserve: float, requests, *, dense: bool = False):
+    """The serve arm: the paged engine (8 slots over 10 usable pages of 16
+    rows: at ``growth_reserve`` 0.5 the pool runs dry mid-decode and the
+    engine preempts through it) or, with ``dense``, an unconstrained dense
+    engine.  (engine, streams)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    if dense:
+        eng = ServeEngine(model, params, batch_slots=len(requests), max_len=64, decode_fusion=2,
+                          device=model.device)
+    else:
+        eng = ServeEngine(model, params, batch_slots=8, max_len=64, decode_fusion=2, paged=True,
+                          page_size=16, pool_pages=11,
+                          admission=AdmissionPolicy(growth_reserve=growth_reserve),
+                          preemption=PreemptionPolicy(snapshot_threshold_tokens=16),
+                          device=model.device)
+    for prompt, max_new in requests:
+        eng.submit(prompt, max_new_tokens=max_new)
+    done = sorted(eng.run_to_completion(max_steps=100_000), key=lambda r: r.uid)
+    if not dense:
+        eng.allocator.check_invariants()
+        assert eng.allocator.free_pages == eng.allocator.total_pages
+    return eng, [r.generated for r in done]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=64)
-    args = ap.parse_args()
-    got = rows(args.n)
-    for metric, (value, derived) in got.items():
-        print(f"table8,{metric},{value},{derived}")
-    if args.n == 64:
-        check(got)
-        print("every row equals the JAX package's")
-    return 0
+SERVING_REQUESTS = [([3 + i, 14, 15], 40 if i % 4 == 0 else 24) for i in range(8)]
+
+
+def serve_rows(model, params) -> dict[str, tuple[str, str]]:
+    """The serve arm's rows: overcommit against the full reserve against an
+    unconstrained dense run."""
+    reqs = SERVING_REQUESTS
+    _, dense_streams = run_serving(model, params, 1.0, reqs, dense=True)
+    full, full_streams = run_serving(model, params, 1.0, reqs)
+    over, over_streams = run_serving(model, params, 0.5, reqs)
+    identical = int(over_streams == dense_streams and full_streams == dense_streams)
+    over_s = over.concurrency_stats()["sustained"]
+    full_s = full.concurrency_stats()["sustained"]
+    ratio = over_s / max(1e-9, full_s)
+    return {
+        "serve_overcommit_concurrency": (
+            f"{ratio:.2f}", f"over_sustained={over_s:.2f};full_sustained={full_s:.2f};"
+                            f"preemptions={over.preemptions};resumes={over.resumes};"
+                            f"recompute_tokens={over.recompute_tokens}"),
+        "serve_overcommit_identical": (f"{identical}",
+                                       f"requests={len(reqs)};vs=unconstrained dense"),
+        "serve_overcommit_wins": (
+            f"{int(ratio > 1.0 and identical == 1 and over.preemptions > 0)}",
+            f"ratio_x={ratio:.2f};identical={identical};preemptions={over.preemptions}"),
+    }
+
+
+def rows(n: int = 64, *, device=None, model=None, params=None) -> dict[str, tuple[str, str]]:
+    """The rows, metric -> (value, derived), formatted as the JAX script
+    formats them: the trace arm's, and the serve arm's where a ``model`` or
+    a ``device`` is given (:func:`common.serve_arm`)."""
+    return {**trace_rows(n), **common.serve_arm(device, model, params, serve_rows)}
+
+
+def check(got: dict[str, tuple[str, str]], *, complete: bool = False) -> None:
+    """Raise unless every row of :data:`EXPECTED` in ``got`` is equal and
+    every asserted row reads 1 (``complete``: and ``got`` holds them all)."""
+    common.check("table8", got, EXPECTED, ASSERTED, complete=complete)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(common.main("table8", __doc__, rows, check, ASSERTED))

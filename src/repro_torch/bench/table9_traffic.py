@@ -245,7 +245,7 @@ def check_rows(results: dict) -> None:
 
 def run(model, params, n: int = 64) -> tuple[list[str], dict]:
     """The six virtual-clock replays, checked (:func:`check_rows`); the
-    JAX script's CSV rows and the results."""
+    JAX script's CSV rows (``chunked_wins`` last) and the results."""
     traces = make_traces(max(16, min(n, 64)))
     results = {(name, mode): replay(model, params, trace, chunk=chunk)
                for name, trace in traces.items()
@@ -268,7 +268,27 @@ def run(model, params, n: int = 64) -> tuple[list[str], dict]:
         for name in traces:
             if results[(name, "chunked")]["streams"] != results[(name, "whole")]["streams"]:
                 raise AssertionError(f"chunked streams diverged from whole-prompt on {name}")
+    # chunking's claim: the bursty trace's p99 TTFT at least halved at 0.9 of
+    # the throughput or better, the streams equal (checked above)
+    cb, wb = results[("bursty", "chunked")], results[("bursty", "whole")]
+    ratio = wb["ttft_p99"] / cb["ttft_p99"] if cb["ttft_p99"] > 0 else 0.0
+    thr_ratio = cb["throughput"] / wb["throughput"] if wb["throughput"] > 0 else 0.0
+    rows.append(f"table9,chunked_wins,{int(ratio >= 2.0 and thr_ratio >= 0.9)},"
+                f"ttft_p99_ratio={ratio:.2f};throughput_ratio={thr_ratio:.3f};"
+                f"bitwise_identical=1")
     return rows, results
+
+
+def rows(n: int = 64, *, device="cuda", model=None, params=None) -> dict[str, tuple[str, str]]:
+    """:func:`run`'s rows as metric -> (value, derived), on ``model``
+    (:func:`common.serve_model` on ``device`` when none is given) under
+    :func:`common.policy`."""
+    from repro_torch.bench import common
+
+    def serve(model, params):
+        return {r.split(",", 3)[1]: tuple(r.split(",", 3)[2:]) for r in run(model, params, n)[0]}
+
+    return common.serve_arm(device, model, params, serve)
 
 
 def main() -> int:

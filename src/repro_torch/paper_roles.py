@@ -11,15 +11,19 @@ Inputs and weights are drawn from ``numpy.random.default_rng(seed)`` in the
 order the JAX package's ``benchmarks/common.py`` draws them, so at the same
 seed both packages' roles get the same numbers and the same keys, names and
 region-image digests.  :func:`fc_fixed_role` adds the weight-specialised FC
-role of §IV (the role planner's alternative to role 1).
+role of §IV (the role planner's alternative to role 1);
+:func:`calibrate_costs` measures a role's load and exec for the scheduling
+tables, and :func:`hopper_footprints` gives each role's block on the card.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from repro_torch.core.registry import FIXED_WEIGHT, GLOBAL_REGISTRY, KernelImpl
+from repro_torch.core.registry import FIXED_WEIGHT, GLOBAL_REGISTRY, KernelImpl, ResourceFootprint
 from repro_torch.core.roles import ArgSpec, Role, RoleLibrary
 from repro_torch.kernels import conv2d as conv2d_k
 from repro_torch.kernels import matmul as matmul_k
@@ -78,3 +82,45 @@ def fc_fixed_role(lib: RoleLibrary, w: torch.Tensor, *,
                       footprint=matmul_k.footprint(f32=True))
     return lib.make_role(impl, (ArgSpec((FC_DIM, w.shape[0]), w.dtype),), name="role1_fc_fixed",
                          device=device)
+
+
+def calibrate_costs(roles: dict[str, tuple[Role, tuple]], *,
+                    reps: int = 1) -> dict[tuple[str, str], float]:
+    """One real load and exec a role (the JAX package's
+    ``benchmarks/common.py`` ``calibrate_costs``): ``("reconfig", name)``
+    the seconds of its load (a fixed weight's upload, the warm-up launch and
+    its wait), ``("exec", name)`` of one call to completion, the median of
+    ``reps``.  On the card each exec is followed by a synchronise before the
+    clock is read, or the time would be the launch's alone.  The measured
+    seconds drive the virtual timelines of Tables IV-VI.  Every role is
+    unloaded before its load and after."""
+    costs: dict[tuple[str, str], float] = {}
+    for role, args in roles.values():
+        role.synthesize()
+        role.unload()
+        t0 = time.perf_counter()
+        exe = role.load()
+        costs[("reconfig", role.name)] = time.perf_counter() - t0
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            exe(*args)
+            if role.device.type == "cuda":
+                torch.cuda.synchronize(role.device)
+            times.append(time.perf_counter() - t0)
+        costs[("exec", role.name)] = sorted(times)[reps // 2]
+        role.unload()
+    return costs
+
+
+def hopper_footprints() -> dict[str, ResourceFootprint]:
+    """Each role's block on the card (the counterpart of the JAX package's
+    ``pallas_footprints``): roles 1 and 2 the f32 matmul's largest tile
+    (``kernels/matmul.py`` ``footprint(f32=True)``), roles 3 and 4 the
+    conv2d kernel's ring and filter slab at their filters
+    (``kernels/conv2d.py`` ``footprint``).  Shared memory is read against
+    the 227 KiB a block may take (``hw.H100_SXM.vmem_bytes``)."""
+    fc = matmul_k.footprint(f32=True)
+    return {"role1_fc": fc, "role2_fc_barrier": fc,
+            "role3_conv5x5": conv2d_k.footprint(1, 5, 5, 1, 2),
+            "role4_conv3x3": conv2d_k.footprint(1, 3, 3, 2, 2)}

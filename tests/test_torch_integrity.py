@@ -13,7 +13,8 @@ counters, ``integrity_split()``, ``availability_split()``,
 allocator's stats and the fault plan's trace exactly, and streams equal to
 each package's own clean dense run; across the packages the streams are
 compared where those dense runs agree (a few part at near-ties of the bf16
-residual rounding, ROADMAP §3, with no corruption in play).  Then the digest
+residual rounding, ROADMAP §3, with no corruption in play).  Table XII's
+region arm and serving sweep against the JAX script's.  Then the digest
 primitives on the same bytes in both packages: ``page_digest``,
 ``page_digests``, ``tree_digest``, ``flip_page`` (in place in the port),
 ``flip_tree`` and the arena's stamps, and ``IntegrityPolicy``.
@@ -536,3 +537,93 @@ def test_table12_region_arm_equals_the_jax_benchmark():
     bench = json.loads((Path(__file__).resolve().parents[1] / "BENCH_results.json").read_text())
     row = next(r for r in bench["rows"] if r["metric"] == "integrity_regions")
     assert rows["integrity_regions"] == (f"{row['value']:.0f}", row["derived"])
+
+
+# ---------------------------------------------------------------------------
+# Table XII's serving sweep
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def table12_cells():
+    """Table XII's sweep at n = 16 in each package, on the JAX script's tiny
+    llama (``_model()``: ``jax.random.key(0)``, copied into the port), under
+    the ``reference`` pair: the dense reference runs and the cells at the
+    5 % rate, scrub 0 and 4."""
+    from benchmarks import table12_integrity as jtable12
+    from repro.core import dispatch as jdispatch
+    from repro_torch.bench import table12_integrity as table12
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.core import dispatch
+    from repro_torch.models import build_model, params_from_jax
+
+    jmodel, jparams = jtable12._model()
+    model = build_model(reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128),
+                        device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    reqs = table12.requests(16)
+    assert reqs == jtable12._requests(16)
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with dispatch.use(prefer=("reference",)):
+            got_ref = table12.dense_streams(model, params, reqs)
+            for scrub in table12.SCRUBS:
+                out[scrub] = [table12.serving_run(model, params, reqs, corrupt_rate=0.05,
+                                                  scrub=scrub)]
+        with jdispatch.use(prefer=("reference",)):
+            want_ref = jtable12._dense(jmodel, jparams, reqs)
+            for scrub in table12.SCRUBS:
+                out[scrub].append(jtable12._serving_run(jmodel, jparams, reqs, corrupt_rate=0.05,
+                                                        scrub=scrub))
+    finally:
+        torch.set_num_threads(threads)
+    return got_ref, want_ref, out
+
+
+@pytest.mark.parametrize("scrub", [0, 4])
+def test_table12_sweep_cell_equals_the_jax_benchmark(table12_cells, scrub):
+    """One cell of the sweep: the integrity split (corruptions, detections
+    by tier, quarantines, recoveries, escapes, scrub coverage), the steps
+    and the scrubbed targets exactly; each package's streams its own dense
+    run's, and the two packages' equal where those agree."""
+    got_ref, want_ref, cells = table12_cells
+    (eng, streams, _, steps), (jeng, jstreams, _, jsteps) = cells[scrub]
+    assert untimed(eng.ledger.integrity_split()) == {
+        k: float(v) for k, v in untimed(jeng.ledger.integrity_split()).items()}
+    assert eng.ledger.integrity_split()["scrub_coverage"] == pytest.approx(
+        jeng.ledger.integrity_split()["scrub_coverage"], abs=0)
+    assert (steps, eng.scrubbed_targets) == (jsteps, jeng.scrubbed_targets)
+    assert eng.ledger.integrity_split()["corruptions"] > 0
+    assert eng.ledger.integrity_split()["escaped"] == 0
+    assert streams == got_ref and jstreams == want_ref
+    agree = [i for i in range(len(got_ref)) if got_ref[i] == want_ref[i]]
+    assert len(agree) >= 0.8 * len(got_ref)
+    assert [streams[i] for i in agree] == [jstreams[i] for i in agree]
+
+
+def test_table12_rows_equal_bench_results():
+    """The whole sweep (n = 48) on the port's tiny llama: every row of
+    ``EXPECTED`` (the six cells' counts, the overhead fraction,
+    ``integrity_wins``) is the JAX package's, and ``EXPECTED`` is
+    ``BENCH_results.json``'s."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.bench import common
+    from repro_torch.bench import table12_integrity as table12
+
+    model, params = common.serve_model("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = table12.rows(48, model=model, params=params)
+    finally:
+        torch.set_num_threads(threads)
+    table12.check(got, complete=True)
+    bench = json.loads((Path(__file__).resolve().parents[1] / "BENCH_results.json").read_text())
+    rows = {r["metric"]: r for r in bench["rows"] if r["table"] == "table12"}
+    for metric, (value, derived) in table12.EXPECTED.items():
+        assert float(value) == rows[metric]["value"], metric
+        assert derived is None or derived == rows[metric]["derived"], metric

@@ -16,7 +16,8 @@ packages where those agree: a few part at near-ties of the bf16 residual
 rounding, ROADMAP §3).  The port's suffix prefill reads the shared rows
 through the block table where the JAX engine copies them into a staging
 cache; the streams show the two agree.  Then ``prefix_page_keys``,
-``PrefixIndex``, ``PrefixPolicy`` and the refcounted allocator on both.
+``PrefixIndex``, ``PrefixPolicy`` and the refcounted allocator on both, and
+Table XIII's trace and serve arms against the JAX script's.
 
 The two packages come from ``tests/torch_pair.py``.
 """
@@ -580,3 +581,58 @@ def test_table13_rows_equal_bench_results():
     want = {r["metric"]: (float(r["value"]), r["derived"]) for r in bench["rows"]
             if r["table"] == "table13" and r["metric"].startswith("prefix_trace")}
     assert {m: (float(v), d) for m, (v, d) in got.items()} == want
+
+
+@pytest.mark.parametrize("prefix", [False, True], ids=["noshare", "share"])
+def test_table13_serve_arm_equals_the_jax_benchmark(prefix):
+    """``table13.run_serving`` against the JAX script's ``_run_serving`` on the
+    JAX script's tiny llama (``jax.random.key(0)``, copied into the port)
+    and its ten users of one persona, each package under its default policy
+    (the JAX script's): concurrency, ``prefix_split()`` (wall timings
+    aside) and the streams.  (Under the ``reference`` pair the first user's
+    second token parts at a near-tie of JAX's reference decode, where both
+    packages' default sources agree.)"""
+    import jax
+    import numpy as np
+
+    from benchmarks import table13_prefix as jtable13
+    from repro.configs import ARCHS as JARCHS
+    from repro.configs import reduced as jreduced
+    from repro.models import build_model as jbuild_model
+    from repro.models.params import init_params as jinit_params
+    from repro_torch.bench import table13_prefix as table13
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model, params_from_jax
+
+    jmodel = jbuild_model(jreduced(JARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128))
+    jparams = jinit_params(jmodel.param_specs(), jax.random.key(0))
+    model = build_model(reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128),
+                        device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    reqs = table13.serve_requests(10)
+    assert reqs == jtable13._serve_requests(10)
+    eng, streams = table13.run_serving(model, params, reqs, prefix)
+    jeng, jstreams = jtable13._run_serving(jmodel, jparams, reqs, prefix)
+    assert eng.concurrency_stats() == jeng.concurrency_stats()
+    assert untimed(eng.ledger.prefix_split()) == {
+        k: float(v) for k, v in untimed(jeng.ledger.prefix_split()).items()}
+    assert streams == jstreams
+
+
+def test_table13_serve_rows_equal_bench_results():
+    """The serve arm's rows on the port's tiny llama: the concurrency, the
+    pages saved, the hits and ``prefix_wins`` are ``EXPECTED``'s, which are
+    ``BENCH_results.json``'s."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.bench import common
+    from repro_torch.bench import table13_prefix as table13
+
+    model, params = common.serve_model("cpu")
+    got = table13.rows(64, model=model, params=params)
+    table13.check(got, complete=True)
+    bench = json.loads((Path(__file__).resolve().parents[1] / "BENCH_results.json").read_text())
+    want = {r["metric"]: (r["value"], r["derived"]) for r in bench["rows"]
+            if r["table"] == "table13"}
+    assert {m: (float(v), d) for m, (v, d) in table13.EXPECTED.items()} == want

@@ -1339,3 +1339,90 @@ def test_dryrun_phase_holds_the_bound_and_the_live_bytes():
         == pytest.approx(1e-3)
     assert cs.busy_measured({"device_busy_us": None, "untraced_wall_us": 8000.0}, 4)["s"] \
         == pytest.approx(2e-3)
+
+
+def test_deferred_checks_hold_each_new_shape_after_the_arm():
+    """A deferred KernelChecks registry checks nothing while an arm runs: it
+    keeps one copy of the first call at each shape not yet held (a shape
+    held already is not kept), and ``settle`` holds those against the plain
+    version on the calls' own data, so a kernel that parts at a shape only
+    a timed arm gives it fails the phase there."""
+    gen = torch.Generator().manual_seed(0)
+    x4, x6, w = (torch.randn(4, 8, generator=gen), torch.randn(6, 8, generator=gen),
+                 torch.rand(8, generator=gen) + 0.5)
+    strict = dispatch.policy_from_flag("cuda-strict")
+    checks = cs.KernelChecks(torch)
+    with dispatch.use(registry=checks.registry(_counting_registry()), prefer=strict):
+        dispatch.op("rmsnorm", x4, w)
+    with dispatch.use(registry=checks.registry(_counting_registry(), deferred=True),
+                      prefer=strict):
+        for x in (x4, x6, x6):
+            dispatch.op("rmsnorm", x, w)
+    assert [key[1] for key in checks.pending] == [((6, 8), (8,))]
+    checks.settle()
+    assert checks.deferred == {"rmsnorm": 1} and not checks.pending
+    assert sorted(checks.worst["rmsnorm"]) == ["[4, 8]x[8] float32 out=float32",
+                                               "[6, 8]x[8] float32 out=float32"]
+
+    off = _counting_registry()
+    off.register(KernelImpl(op="rmsnorm", device_kind="cuda", source="cuda",
+                            fn=lambda x, w, **kw: rms_k.plain_rmsnorm(x, w, **kw)
+                            + (x.shape[0] == 6)), allow_override=True)
+    checks = cs.KernelChecks(torch)
+    with dispatch.use(registry=checks.registry(off, deferred=True), prefer=strict):
+        for x in (x4, x6):
+            dispatch.op("rmsnorm", x, w)
+    with pytest.raises(AssertionError, match="disagrees with its plain version"):
+        checks.settle()
+
+
+def test_bench_phase_holds_every_table_on_a_small_model(monkeypatch):
+    """The bench phase on the JAX scripts' tiny llama on the CPU (plain
+    versions counted as launches, as for the tenants phase): every table but
+    IX through the harness's calls, every ``EXPECTED`` row and every asserted
+    row held, the checked serve arms' kernels held against their plain
+    versions and the other tables' new shapes after each table, each kernel
+    of the path launched; a table whose row parts fails the phase."""
+    from repro_torch.bench import common, table13_prefix
+    from repro_torch.bench import run as bench_run
+    from repro_torch.core.registry import GLOBAL_REGISTRY
+
+    model, params = common.serve_model("cpu")
+    kernels = (mm_k, rms_k, fa_k, dec_k, paged_k, ssd_k, sample_k)
+    plain_conv = conv_k.conv2d
+
+    def counted_conv(x, w):
+        conv_k.launches += 1
+        return plain_conv(x, w)
+
+    def counted_f32(x, w, **kw):
+        mm_k.f32_launches += 1
+        return mm_k.plain_matmul(x, w, **kw)
+
+    monkeypatch.setattr(conv_k, "conv2d", counted_conv)
+    snap = GLOBAL_REGISTRY.snapshot()
+    GLOBAL_REGISTRY.register(KernelImpl(op="matmul", device_kind="cuda", source="cuda",
+                                        fn=counted_f32), allow_override=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        with dispatch.use(registry=_counting_registry(with_others=True),
+                          prefer=dispatch.policy_from_flag("cuda-strict")):
+            res = cs.bench_phase(torch, model, params, kernels, "cpu", "no card")
+            monkeypatch.setitem(table13_prefix.EXPECTED, "prefix_wins", ("1", "parted"))
+            monkeypatch.setattr(bench_run, "suites",
+                                lambda n: [("table13", "table13_prefix", 64)])
+            with pytest.raises(AssertionError, match="prefix_wins"):
+                cs.bench_phase(torch, model, params, kernels, "cpu", "no card")
+    finally:
+        GLOBAL_REGISTRY.restore(snap)
+        torch.set_num_threads(threads)
+    assert sorted(res["rows"]) == sorted(f"table{i}" for i in range(1, 14) if i != 9)
+    assert all(res["launches"][name] > 0 for name in cs.BENCH_KERNELS)
+    assert set(res["held_against_plain"]) >= {"matmul", "rmsnorm", "flash_attention",
+                                              "decode_attention", "paged_decode_attention"}
+    assert res["rows"]["table10"]["fault_recovery_wins"][0] == "1"
+    # the deferred tables' shapes no checked arm gave: XII's dense reference
+    # at 48 slots, its paged sweep's 8-row pages
+    assert res["held_deferred"].get("decode_attention", 0) > 0
+    assert res["held_deferred"].get("paged_decode_attention", 0) > 0

@@ -500,3 +500,83 @@ def test_table11_rows_equal_bench_results():
     table11.check(table11.rows(64))
     assert (table11.PAGE_BYTES, table11.STEP_S, table11.TRACE_BW) == (
         jtable11.PAGE_BYTES, jtable11.STEP_S, jtable11.TRACE_BW)
+
+
+# ---------------------------------------------------------------------------
+# Table XI's serve arm
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def table11_arms():
+    """Table XI's four serve runs (dense, unbounded, capped at half the
+    unbounded peak, capped under the seeded transfer faults) in each
+    package, on the JAX script's tiny llama (``jax.random.key(0)``), under
+    the ``reference`` pair: {arm: (port's (engine, streams), JAX's)}."""
+    from repro.core.hsa.faults import FaultPlan as JFaultPlan
+    from repro_torch.core.hsa.faults import FaultPlan
+
+    jmodel = jbuild_model(jreduced(JARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128))
+    jparams = jinit_params(jmodel.param_specs(), jax.random.key(0))
+    model = build_model(reduced(ARCHS["llama3.2-1b"], layers=2, d_model=64, vocab=128),
+                        device="cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    reqs = table11.SERVING_REQUESTS
+
+    def plan(cls):
+        p = cls(seed=3, transfer_rate=0.05)
+        p.force("d2h")
+        p.force("h2d")
+        return p
+
+    out = {}
+    for arm, kw in (("dense", {"dense": True}), ("unbounded", {}), ("capped", {"budget": 3072}),
+                    ("faulted", {"budget": 3072, "faults": "plan"})):
+        with dispatch.use(prefer=("reference",)):
+            got = table11.run_serving(model, params, reqs, **{
+                **kw, **({"faults": plan(FaultPlan)} if "faults" in kw else {})})
+        with jdispatch.use(prefer=("reference",)):
+            want = jtable11._run_serving(reqs, **{
+                **kw, **({"faults": plan(JFaultPlan)} if "faults" in kw else {})})
+        out[arm] = got, want
+    return out
+
+
+@pytest.mark.parametrize("arm", ["unbounded", "capped", "faulted"])
+def test_table11_serve_arm_equals_the_jax_benchmark(table11_arms, arm):
+    """``table11.run_serving`` against the JAX script's ``_run_serving`` at the
+    tiny llama's width (the transfer rate unscaled): spills, refills,
+    demotions, replay fallbacks, transfer faults, the arena's peak and the
+    spill split exactly; each package's streams its own dense run's, and
+    the two packages' equal where their dense runs agree."""
+    (eng, streams), (jeng, jstreams) = table11_arms[arm]
+    names = ("spills", "refills", "demotions", "replay_fallback_tokens", "transfer_faults",
+             "preemptions", "resumes")
+    assert {n: getattr(eng, n) for n in names} == {n: getattr(jeng, n) for n in names}
+    assert eng.arena.peak_bytes == jeng.arena.peak_bytes
+    assert eng.ledger.spill_split() == {k: float(v) for k, v in jeng.ledger.spill_split().items()}
+    dense, jdense = table11_arms["dense"][0][1], table11_arms["dense"][1][1]
+    assert streams == dense and jstreams == jdense
+    agree = [i for i in range(len(dense)) if dense[i] == jdense[i]]
+    assert len(agree) >= 6
+    assert [streams[i] for i in agree] == [jstreams[i] for i in agree]
+
+
+def test_table11_serve_rows_read_1(table11_arms):
+    """The unbounded run's peak is 6144 bytes, so the capped arms' budget is
+    3072, the JAX script's (``BENCH_results.json``); the rows' asserted
+    values read 1 and their counts are the JAX package's."""
+    assert table11_arms["unbounded"][0][0].arena.peak_bytes == 6144
+    (_, _), (jeng, _) = table11_arms["capped"]
+    assert jeng.arena.peak_bytes == 2048
+    model = table11_arms["dense"][0][0].model
+    params = table11_arms["dense"][0][0].params
+    with dispatch.use(prefer=("reference",)):
+        got = table11.serve_rows(model, params)
+    assert got["serve_spill_identical"][1] == (
+        "unbounded_peak_bytes=6144;budget_bytes=3072;capped_host_peak=2048;spills=3;refills=1;"
+        "demotions=2;replay_fallback_tokens=32;hidden_frac=1.00")
+    assert got["serve_spill_faulted"] == ("1", "transfer_faults=2;injected=2;demotions=3;"
+                                               "spills=3;refills=1")
+    table11.check(got)
+    assert got["spill_wins"][0] == "1"

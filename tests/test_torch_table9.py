@@ -79,3 +79,22 @@ def test_table9_constants_and_step_time_equal_the_jax_benchmark():
     for p, d in ((0, 0), (16, 24), (256, 0), (7, 13)):
         assert table9.step_time(p, d) == jtable9.step_time(p, d)
     assert table9.make_traces(64) == jtable9.make_traces(64)
+
+
+def test_table9_rows_are_run_rows_for_the_harness(models, monkeypatch):
+    """``rows`` gives :func:`run`'s CSV rows as metric -> (value, derived),
+    the form every other table gives the harness, at the ``n`` asked for;
+    the derived field keeps its commas."""
+    _, _, model, params = models
+    asked = []
+
+    def fake_run(m, p, n):
+        asked.append(n)
+        return ["table9,ttft_p99_us_bursty_chunked,8400,ttft_p50_us=1;a,b",
+                "table9,chunked_wins,1,ttft_p99_ratio=2.50"], {}
+
+    monkeypatch.setattr(table9, "run", fake_run)
+    got = table9.rows(16, model=model, params=params)
+    assert asked == [16]
+    assert got == {"ttft_p99_us_bursty_chunked": ("8400", "ttft_p50_us=1;a,b"),
+                   "chunked_wins": ("1", "ttft_p99_ratio=2.50")}
